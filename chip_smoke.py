@@ -7,18 +7,36 @@ Run from the repository root on a machine with one CUDA GPU (H100):
 
 Phases, one line each (any failure raises and the script exits non-zero):
   1 header      the card's name and power limit (nvidia-smi), versions
-  2 build       the CUDA kernels, from the sources in the checkout
+  2 build       the CUDA kernels, from the sources in the checkout (one nvcc
+                per source, all at once)
   3 kernels     each kernel against its plain PyTorch version on the card
                 (f64 <= 1e-12, f32 <= 1e-6, bf16s <= 4e-3 max relative
-                error vs the plain version in f64, on the same inputs)
+                error vs the plain version in f64, on the same inputs):
+                K1/K2 on random banded and Laplace operators, K4 (T = 1, 3,
+                4 terms) and K3 (T = 1, 2, 3) on random non-symmetric
+                banded matrices, each at p = 1, 2, 4, 7, 8; then every
+                kernel at its main-path shapes (K4: the coefficient
+                operator and the shell's terms; K3: 2D Q4 refine 10 and 8)
   4 main path   solve_poisson 3D Q4 refine 5 f32 through K2 (2,146,689
                 DoFs), then the 16,974,593-DoF resident Jacobi-CG through
                 K1, twice (bitwise-equal x); the kernel launch counts of
                 these runs are the ones reported.  Then the resident solve
                 once more with pallas_mode="bf16s", its K1 count apart
-  4b parity     f64 solves (3D Q4 refine 3; 2D Q4 refine 5, rough RHS),
-                kernel vs plain: equal iterations, L2 equal to 1e-10
-  6 throughput  GDoF/s over a chain of 30 applies (CUDA events), 17M DoFs
+  4c main path  of the terms tier: solve_poisson on the 3D Q4 refine 5
+                hyper_shell f32 through K4; the 16,974,593-DoF separable-
+                coefficient operator's resident Jacobi-CG through K4, twice
+                (bitwise-equal x); the 2D Q4 refine 8 resident Jacobi-CG
+                through K3.  K3/K4 counts are read here; then the 2D
+                solve again with the plain f32 apply and through K3 in
+                f64 (its true residual is f32 CG drift, not K3), and the
+                coefficient solve once more in bf16s, its K4 count apart
+  4b parity     f64 solves, kernel vs plain: equal iterations, L2 equal to
+                1e-10 (cube: 3D Q4 refine 3; 2D Q4 refine 5, rough RHS;
+                shell: 3D Q4 refine 3; 2D Q4 refine 5, rough RHS)
+  6 throughput  ms per apply over chains of 30 applies (CUDA events),
+                kernel and plain in turns: K1 at 17M DoFs, K2 at 2.1M, K4
+                on the 17M coefficient operator and the 2.1M shell, K3 at
+                2D Q4 refine 10 (16,785,409 DoFs), against K2 there too
 Then one JSON line with each kernel's record, and as the last line
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 before printing any result.
@@ -26,12 +44,14 @@ before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -41,6 +61,17 @@ STORAGE = {"f64": torch.float64, "f32": torch.float32,
            "bf16s": torch.bfloat16}
 N_CHAIN = 30
 SOLVE_RTOL = 1e-5
+# the shell solve's tolerance: its RHS norm is dominated by the O(1)
+# inhomogeneous Dirichlet rows, while interior rows are O(h^3), so the f32
+# default rtol 1e-6 stops at an L2 error of ~1e-5 in f64 as in f32 (PERF.md)
+SHELL_RTOL = 1e-9
+# how far the 2D f32 resident solve's true residual through K3 may exceed
+# the same solve's with the plain f32 apply (both drift from rtol in f32)
+DRIFT_RATIO = 3.0
+# the separable coefficient of tests/test_pallas.py:708-712
+COEF_AXES = [lambda x: 1.0 + 0.5 * np.sin(2.1 * np.pi * x),
+             lambda y: 1.3 + y * y,
+             lambda z: np.exp(0.5 * z)]
 
 
 def say(phase: str, msg: str) -> None:
@@ -130,17 +161,77 @@ def check_kernel(kind, dim, p, npts, mode, dirichlet, Ks, Ms, rng):
     return tag, rel, abs_err
 
 
-def true_rel_residual(mf, b, x):
+def plain_terms_f64(terms, x):
+    """The plain PyTorch terms apply in f64 on the card (x flat or a
+    grid; terms f64 numpy)."""
+    from tpufem_torch.ops.separable import laplace_apply_separable_terms
+
+    dim, npts = len(terms[0]), terms[0][0].shape[0]
+    T = [[torch.tensor(X, dtype=torch.float64, device=x.device) for X in t]
+         for t in terms]
+    return laplace_apply_separable_terms(x.reshape(-1).to(torch.float64),
+                                         dim, npts, T)
+
+
+def check_terms(terms, p, mode, rng):
+    """Launch the K4 (3D) or K3 (2D) wrapper on a seeded input; return
+    (tag, max relative error, max abs error) against the plain f64 terms
+    apply of the same (storage-rounded) input.  Raises when out of
+    tolerance or when the launch counter did not rise."""
+    from tpufem_torch.ops.kernel_terms import ResidentTerms, ResidentTerms2D
+
+    dim, npts = len(terms[0]), terms[0][0].shape[0]
+    cls = ResidentTerms if dim == 3 else ResidentTerms2D
+    k = cls(npts, p, terms,
+            torch.float64 if mode == "f64" else torch.float32,
+            mode="bf16s" if mode == "bf16s" else "f32", device="cuda")
+    x = k.pad(torch.tensor(rng.standard_normal(npts**dim), device="cuda"))
+    before = cls.launches
+    y = k.raw(x)
+    rose = cls.launches == before + 1
+    torch.cuda.synchronize()
+    ref = plain_terms_f64(terms, x)
+    abs_err = float((y.reshape(-1).to(torch.float64) - ref).abs().max())
+    rel = abs_err / float(ref.abs().max())
+    tag = (f"{'K4' if dim == 3 else 'K3'} T={len(terms)} p={p} npts={npts} "
+           f"{mode} tile={k.tile}")
+    if not rose:
+        raise RuntimeError(f"{tag}: launch counter did not rise")
+    if not rel <= TOL[mode]:
+        raise RuntimeError(f"{tag}: max rel err {rel:.3e} > {TOL[mode]}")
+    return tag, rel, abs_err
+
+
+class PlainResident:
+    """A resident kernel's contract with ``raw`` its plain PyTorch
+    version: the plain masked apply on the card, launch counts untouched."""
+
+    def __init__(self, rk):
+        self._rk = rk
+
+    def __getattr__(self, name):
+        return getattr(self._rk, name)
+
+    def raw(self, gp):
+        return self._rk.plain(gp)
+
+
+def true_rel_residual(mf, b, x, terms64=None):
     """||b - A x|| / ||b|| with the constrained operator applied by the
-    plain version in f64 on the card."""
+    plain version in f64 on the card: the Laplace factorisation of
+    ``mf``, or the f64 ``terms64`` of a terms operator."""
     from tpufem_torch.ops.separable import laplace_apply_separable
 
-    K = [k.to(torch.float64) for k in mf.Ks]
-    M = [m.to(torch.float64) for m in mf.Ms]
     m = mf.interior_mask.to(torch.float64)
     x64, b64 = x.to(torch.float64), b.to(torch.float64)
-    Ax = m * laplace_apply_separable(m * x64, 3, mf.npts, K, M) \
-        + (1.0 - m) * x64
+    if terms64 is not None:
+        A = lambda v: plain_terms_f64(terms64, v)
+    else:
+        K = [k.to(torch.float64) for k in mf.Ks]
+        M = [mk.to(torch.float64) for mk in mf.Ms]
+        A = lambda v: laplace_apply_separable(v, mf.config.dim, mf.npts, K,
+                                              M)
+    Ax = m * A(m * x64) + (1.0 - m) * x64
     return float((b64 - Ax).norm() / b64.norm())
 
 
@@ -151,7 +242,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import tpufem_torch  # noqa: F401  (fails outside a checkout)
-    from tpufem_torch.apps.poisson import solve_poisson
+    from tpufem_torch.apps.poisson import poisson_operator, solve_poisson
     from tpufem_torch.ops.kernel_separable import (
         KernelSeparable,
         ResidentSeparable,
@@ -173,17 +264,22 @@ def main() -> int:
         f"device {kind} count {torch.cuda.device_count()}")
 
     # ---- 2 build ------------------------------------------------------
-    lib = load_kernels()
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers",
-                                       lib.compiler_log)]
-    spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores",
-                                         lib.compiler_log)]
+    t0 = time.perf_counter()
+    libs = load_kernels()
+    t_build = time.perf_counter() - t0
+    log = "".join(f"==== {name}\n{lib.compiler_log}"
+                  for name, lib in libs.items())
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", log)]
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke_ptxas.log").write_text(lib.compiler_log)
-    say("2 build", f"{lib.path.name} built in {lib.build_seconds:.1f} s; "
-        f"{len(regs)} kernels, registers max {max(regs, default=0)}, "
-        f"spill stores max {max(spills, default=0)} bytes")
+    (out_dir / "chip_smoke_ptxas.log").write_text(log)
+    say("2 build", ", ".join(f"{lib.path.name} built in "
+                             f"{lib.build_seconds:.1f} s"
+                             for lib in libs.values())
+        + f" (side by side, {t_build:.1f} s in all); {len(regs)} kernels, "
+        f"registers max {max(regs, default=0)}, spill stores max "
+        f"{max(spills, default=0)} bytes")
 
     # ---- 3 kernel vs plain on the card --------------------------------
     rng = np.random.default_rng(2024)
@@ -211,7 +307,25 @@ def main() -> int:
                                            dirichlet, *mats, rng)
                 worst[mode] = max(worst.get(mode, 0.0), rel)
                 say("3 kernels", f"{tag} max rel err {rel:.3e}")
-    # the main path's shapes: K2 at 3D Q4 refine 5, K1 at refine 6
+    # K4 (3D) and K3 (2D): T terms of random non-symmetric banded
+    # matrices, distinct per term and axis
+    for p in (1, 2, 4, 7, 8):
+        n = max(2, 24 // p)
+        npts = n * p + 1
+        for dim, counts in ((3, (1, 3, 4)), (2, (1, 2, 3))):
+            for T in counts:
+                terms = [[random_banded(rng, npts, p) for _ in range(dim)]
+                         for _ in range(T)]
+                rels = []
+                for mode in ("f64", "f32", "bf16s"):
+                    _, rel, _ = check_terms(terms, p, mode, rng)
+                    worst[mode] = max(worst.get(mode, 0.0), rel)
+                    rels.append(f"{mode} {rel:.3e}")
+                say("3 kernels", f"{'K4' if dim == 3 else 'K3'} T={T} p={p} "
+                    f"npts={npts}: max rel err " + ", ".join(rels))
+    # the main path's shapes: K2 at 3D Q4 refine 5, K1 at refine 6, K4 on
+    # the refine-6 coefficient operator and the refine-5 shell, K3 at 2D
+    # Q4 refine 10 and refine 8
     abs_err = {}
     for name, kind_k, n, modes in (("K2", "K2", 32, ("f32", "f64")),
                                    ("K1", "K1", 64, ("f32", "bf16s"))):
@@ -223,6 +337,33 @@ def main() -> int:
             worst[mode] = max(worst.get(mode, 0.0), rel)
             if mode == "f32":
                 abs_err[name] = aerr
+            say("3 kernels", f"{tag} max rel err {rel:.3e} "
+                f"max abs err {aerr:.3e}")
+    from tpufem_torch.ops.separable import (
+        cartesian_coef_terms,
+        global_1d_matrices,
+    )
+
+    coef64 = cartesian_coef_terms(4, 3, 5, 64, [0.0] * 3, [1.0] * 3,
+                                  COEF_AXES, np.float64)
+    K1u, M1u = global_1d_matrices(4, 1024, 5)
+    lap2d = [[K1u * 1024, M1u / 1024], [M1u / 1024, K1u * 1024]]
+    # phase 4c's other inputs, from the operators the entry point builds
+    # (f64, no kernel): the refine-5 shell's r^2- and sin(theta)-weighted
+    # terms (K4) and the 2D Q4 refine 8 Laplace factorisation (K3)
+    to_np = lambda mats: [X.cpu().numpy() for X in mats]
+    shell_terms = [to_np(t) for t in poisson_operator(
+        3, 4, 5, "float64", False, dev, mesh_kind="shell").mf.terms]
+    mf2 = poisson_operator(2, 4, 8, "float64", False, dev).mf
+    (K0, K1), (M0, M1) = to_np(mf2.Ks), to_np(mf2.Ms)
+    lap2d_r8 = [[K0, M1], [M0, K1]]
+    for name, terms in (("K4", coef64), ("K4", shell_terms), ("K3", lap2d),
+                        ("K3", lap2d_r8)):
+        for mode in ("f32", "bf16s"):
+            tag, rel, aerr = check_terms(terms, 4, mode, rng)
+            worst[mode] = max(worst.get(mode, 0.0), rel)
+            if mode == "f32":
+                abs_err[name] = max(abs_err.get(name, 0.0), aerr)
             say("3 kernels", f"{tag} max rel err {rel:.3e} "
                 f"max abs err {aerr:.3e}")
     say("3 kernels", "all within tolerance; worst max rel err "
@@ -242,13 +383,13 @@ def main() -> int:
             and k2_solve >= r5.iterations):
         raise RuntimeError("refine-5 f32 solve_poisson failed its checks")
 
-    from tpufem_torch.apps.poisson import hyper_cube_operator
+    from tpufem_torch.apps.poisson import poisson_operator
     from tpufem_torch.solvers.resident import resident_jacobi_cg
 
     def flagship_operator(pallas_mode):
         t0 = time.perf_counter()
-        op = hyper_cube_operator(3, 4, 6, "float32", True, dev,
-                                 pallas_mode=pallas_mode)
+        op = poisson_operator(3, 4, 6, "float32", True, dev,
+                              pallas_mode=pallas_mode)
         diag = op.diagonal()
         torch.cuda.synchronize()
         say("4 main path", f"refine-6 {pallas_mode} host setup "
@@ -311,24 +452,161 @@ def main() -> int:
         raise RuntimeError("bf16s resident solve: non-finite x or the bf16s "
                            "kernel did not run")
 
-    # ---- 4b f64 kernel-vs-plain solve parity (3D, and 2D for K2).  L2 must
-    # sit well above the solver tolerance's floor for "equal to 1e-10" to
-    # mean anything: the 3D case's sine RHS gives L2 ~1e-7; in 2D Q4 the
-    # sine solve reaches L2 ~1e-10, at that floor, so the 2D case takes a
-    # rough RHS (hundreds of iterations, L2 of order 1 against the sine)
+    # ---- 4c main path of the terms tier: K3/K4 counts reset here, read
+    # after the 2D resident solve ----------------------------------------
+    from tpufem_torch.operators.laplace import LaplaceOperator
+    from tpufem_torch.ops.kernel_terms import ResidentTerms, ResidentTerms2D
+    from tpufem_torch.ops.matrix_free import MatrixFree
+
+    ResidentTerms.launches = 0
+    ResidentTerms2D.launches = 0
+    rs = solve_poisson(dim=3, degree=4, refine=5, mesh_kind="shell",
+                       scatter="separable", use_pallas=True,
+                       dtype="float32", rtol=SHELL_RTOL, device="cuda")
+    k4_shell = ResidentTerms.launches
+    say("4c main path", f"solve_poisson 3D Q4 refine 5 shell f32 K4 (rtol "
+        f"{SHELL_RTOL}): dofs {rs.n_dofs} iterations {rs.iterations} "
+        f"converged {rs.converged} L2 {rs.l2_error:.4e} setup "
+        f"{rs.setup_time:.2f} s solve {rs.solve_time:.3f} s K4 launches "
+        f"{k4_shell}")
+    if not (rs.converged and rs.l2_error <= 1e-6
+            and k4_shell >= rs.iterations):
+        raise RuntimeError("refine-5 f32 shell solve_poisson failed its "
+                           "checks")
+
+    t0 = time.perf_counter()
+    opc = poisson_operator(3, 4, 6, "float32", True, dev,
+                           coefficient_axes=COEF_AXES)
+    mfc = opc.mf
+    t1 = time.perf_counter()
+    diagc = opc.diagonal()
+    torch.cuda.synchronize()
+    say("4c main path", f"refine-6 coefficient_axes operator, {mfc.n_dofs} "
+        f"DoFs: host setup {t1 - t0:.1f} s (mesh, DoFs, metric with points, "
+        f"coef_q, terms, K4 tables), diagonal {time.perf_counter() - t1:.1f}"
+        f" s; K4 tile {mfc.resident.tile}")
+    maskc = mfc.interior_mask.cpu().numpy().astype(np.float64)
+    bc = torch.tensor(maskc * np.random.default_rng(17).standard_normal(
+        mfc.n_dofs), dtype=torch.float32, device=dev)
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = resident_jacobi_cg(opc, bc, diag=diagc, rtol=SOLVE_RTOL,
+                                 track_best=False)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0, res))
+    (t1, rca), (t2, rcb) = runs
+    rel_c = true_rel_residual(mfc, bc, rca.x, coef64)
+    say("4c main path", f"3d_q4_variable_coef resident f32 K4: {t1:.3f} s / "
+        f"{t2:.3f} s, iterations {rca.iterations} / {rcb.iterations}, "
+        f"converged {rca.converged}, true rel residual (f64 terms) "
+        f"{rel_c:.3e}")
+    if not (rca.converged and rcb.converged
+            and rca.iterations == rcb.iterations
+            and torch.equal(rca.x, rcb.x)):
+        raise RuntimeError("coefficient resident f32 solve: not converged "
+                           "or not bitwise reproducible")
+    say("4c main path", "two coefficient resident solves: equal iterations, "
+        "bitwise-equal x")
+
+    op2 = poisson_operator(2, 4, 8, "float32", True, dev)
+    diag2 = op2.diagonal()
+    mask2 = op2.mf.interior_mask.cpu().numpy().astype(np.float64)
+    b2 = torch.tensor(mask2 * np.random.default_rng(19).standard_normal(
+        op2.mf.n_dofs), dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r2 = resident_jacobi_cg(op2, b2, diag=diag2, rtol=SOLVE_RTOL,
+                            track_best=False)
+    torch.cuda.synchronize()
+    t2d = time.perf_counter() - t0
+    rel2 = true_rel_residual(op2.mf, b2, r2.x)
+    say("4c main path", f"2D Q4 refine 8 resident f32 K3: {op2.mf.n_dofs} "
+        f"DoFs, {t2d:.3f} s, iterations {r2.iterations}, converged "
+        f"{r2.converged}, true rel residual {rel2:.3e}, K3 tile "
+        f"{op2.mf.resident.tile}")
+    if not r2.converged:
+        raise RuntimeError("2D resident f32 solve did not converge")
+    # the counts the kernels line reports for K3/K4: the shell
+    # solve_poisson and the two coefficient solves (K4), the 2D solve (K3)
+    launches["K4"] = ResidentTerms.launches
+    launches["K3"] = ResidentTerms2D.launches
+    say("4c main path", f"kernel launches of the terms-tier main path: "
+        f"K4 {launches['K4']}, K3 {launches['K3']}")
+    if not (launches["K4"] >= rs.iterations + rca.iterations + rcb.iterations
+            and launches["K3"] >= r2.iterations):
+        raise RuntimeError(f"a kernel of the terms-tier main path did not "
+                           f"run: {launches}")
+
+    # the 2D solve's true residual sits above its rtol.  The same solve
+    # (same b, diag, rtol) with the plain f32 apply on the card, and
+    # through K3 in f64, tell f32 CG drift from a kernel fault: the f64
+    # kernel solve must meet its rtol, and K3's f32 drift must not exceed
+    # the plain version's by more than DRIFT_RATIO
+    plain2 = SimpleNamespace(mf=op2.mf,
+                             resident=PlainResident(op2.mf.resident))
+    r2p = resident_jacobi_cg(plain2, b2, diag=diag2, rtol=SOLVE_RTOL,
+                             track_best=False)
+    rel2p = true_rel_residual(op2.mf, b2, r2p.x)
+    op2d = poisson_operator(2, 4, 8, "float64", True, dev)
+    b2d = b2.to(torch.float64)
+    r2d = resident_jacobi_cg(op2d, b2d, diag=op2d.diagonal(), rtol=SOLVE_RTOL,
+                             track_best=False)
+    rel2d = true_rel_residual(op2d.mf, b2d, r2d.x)
+    say("4c main path", f"2D Q4 refine 8 true rel residual at rtol "
+        f"{SOLVE_RTOL}: K3 f32 {rel2:.3e} ({r2.iterations} it), plain f32 "
+        f"{rel2p:.3e} ({r2p.iterations} it), K3 f64 {rel2d:.3e} "
+        f"({r2d.iterations} it)")
+    if not (r2p.converged and r2d.converged
+            and rel2d <= 1.5 * SOLVE_RTOL and rel2 <= DRIFT_RATIO * rel2p):
+        raise RuntimeError("2D resident solve: K3's true residual is not "
+                           "explained by f32 CG drift")
+
+    # bf16s: the coefficient operator's terms with pallas_mode="bf16s"
+    # (host arrays reused), counted on its own
+    mf16 = MatrixFree.from_terms(
+        dataclasses.replace(mfc.config, pallas_mode="bf16s"), mfc.mesh,
+        mfc.dofs, dev, coef64, interior=maskc, quad=mfc.quad,
+        host_metric=mfc.host_metric, coef_q=mfc.coef_q)
+    ResidentTerms.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc16 = resident_jacobi_cg(LaplaceOperator(mf16), bc, diag=diagc,
+                              rtol=SOLVE_RTOL, track_best=False)
+    torch.cuda.synchronize()
+    tc16 = time.perf_counter() - t0
+    k4_bf16s = ResidentTerms.launches
+    relc16 = true_rel_residual(mfc, bc, rc16.x, coef64)
+    say("4c main path", f"3d_q4_variable_coef resident bf16s K4: "
+        f"{tc16:.3f} s, iterations {rc16.iterations}, true rel residual "
+        f"(f64 terms) {relc16:.3e}, K4 bf16s launches {k4_bf16s}")
+    if not (np.isfinite(relc16) and k4_bf16s >= rc16.iterations):
+        raise RuntimeError("bf16s coefficient solve: non-finite x or the "
+                           "bf16s kernel did not run")
+
+    # ---- 4b f64 kernel-vs-plain solve parity (3D, and 2D for K2/K3).  L2
+    # must sit well above the solver tolerance's floor for "equal to
+    # 1e-10" to mean anything: the 3D cases' sine RHS gives L2 ~1e-7
+    # (cube) and ~1e-6 (shell); in 2D Q4 the cube's sine solve reaches L2
+    # ~1e-10, at that floor, so the 2D cases take a rough RHS (hundreds of
+    # iterations, L2 of order 1 against the sine)
     def rough2d(x):
         return (np.cos(7 * x[:, 0]) + x[:, 1] ** 3
                 + np.sin(13 * x[:, 0] * x[:, 1]))
 
-    for dim, degree, refine, rhs in ((3, 4, 3, None), (2, 4, 5, rough2d)):
+    for mesh_kind, dim, degree, refine, rhs in (
+            ("cube", 3, 4, 3, None), ("cube", 2, 4, 5, rough2d),
+            ("shell", 3, 4, 3, None), ("shell", 2, 4, 5, rough2d)):
         rk, rp = (solve_poisson(dim=dim, degree=degree, refine=refine,
-                                scatter="separable", use_pallas=pallas,
-                                dtype="float64", rhs=rhs, device="cuda")
+                                mesh_kind=mesh_kind, scatter="separable",
+                                use_pallas=pallas, dtype="float64", rhs=rhs,
+                                device="cuda")
                   for pallas in (True, False))
         rel_l2 = abs(rk.l2_error - rp.l2_error) / rp.l2_error
         rel_x = (np.linalg.norm(rk.solution - rp.solution)
                  / np.linalg.norm(rp.solution))
-        say("4b parity", f"f64 {dim}D Q{degree} refine {refine} "
+        say("4b parity", f"f64 {mesh_kind} {dim}D Q{degree} refine {refine} "
             f"{'rough' if rhs else 'sine'} RHS: kernel {rk.iterations} it L2 "
             f"{rk.l2_error:.6e}, plain {rp.iterations} it L2 "
             f"{rp.l2_error:.6e}, L2 rel diff {rel_l2:.2e}, x rel diff "
@@ -378,6 +656,53 @@ def main() -> int:
         "plain_ms_per_apply": plain_ms["K2"], "device": kind,
         "nvidia_smi": smi}), flush=True)
 
+    # K4 on the 17M coefficient operator and the 2.1M shell, K3 at 2D Q4
+    # refine 10: the JAX bench's apply metrics of the terms tier
+    def apply_line(metric, n_dofs, t, tier, **extra):
+        print(json.dumps({
+            "metric": metric, "value": n_dofs / (t * 1e-3) / 1e9,
+            "unit": "GDoF/s", "tier": tier, "n_dofs": n_dofs,
+            "ms_per_apply": t, "n_chain": N_CHAIN, **extra, "device": kind,
+            "nvidia_smi": smi}), flush=True)
+
+    rkc = mfc.resident
+    xc = rkc.pad(torch.tensor(np.random.default_rng(13).standard_normal(
+        mfc.n_dofs), dtype=torch.float32, device=dev))
+    ms["K4"], plain_ms["K4"] = turns(rkc.raw, rkc.plain, xc)
+    ms["K4_bf16s"] = chain_ms(mf16.resident.raw, xc.to(torch.bfloat16))
+    for tier, t in (("resident-terms-f32+cuda (K4)", ms["K4"]),
+                    ("resident-terms-bf16s+cuda (K4)", ms["K4_bf16s"]),
+                    ("plain-torch-f32", plain_ms["K4"])):
+        apply_line("3d_q4_variable_coef_apply", mfc.n_dofs, t, tier)
+    ks = ResidentTerms(129, 4, shell_terms, torch.float32, device=dev)
+    xs = ks.pad(torch.tensor(np.random.default_rng(14).standard_normal(
+        129**3), dtype=torch.float32, device=dev))
+    ms["K4_shell"], plain_ms["K4_shell"] = turns(ks.raw, ks.plain, xs)
+    apply_line("3d_shell_curved_apply", 129**3, ms["K4_shell"],
+               "resident-terms-f32+cuda (K4)",
+               plain_ms_per_apply=plain_ms["K4_shell"])
+    k3 = ResidentTerms2D(4097, 4, lap2d, torch.float32, device=dev)
+    k3s = ResidentTerms2D(4097, 4, lap2d, torch.float32, mode="bf16s",
+                          device=dev)
+    x10 = k3.pad(torch.tensor(np.random.default_rng(15).standard_normal(
+        4097**2), dtype=torch.float32, device=dev))
+    ms["K3"], plain_ms["K3"] = turns(k3.raw, k3.plain, x10)
+    ms["K3_bf16s"] = chain_ms(k3s.raw, x10.to(torch.bfloat16))
+    for tier, t in (("resident-f32+cuda (K3, 2D)", ms["K3"]),
+                    ("resident-bf16s+cuda (K3, 2D)", ms["K3_bf16s"]),
+                    ("plain-torch-f32", plain_ms["K3"])):
+        apply_line("apply_2d_resident", 4097**2, t, tier, degree=4,
+                   refine=10)
+    # K2 applies the same 2D operator on the same layout: which of the two
+    # should a 2D uniform MatrixFree keep (ROADMAP queue 2)
+    k2_2d = KernelSeparable(2, 4097, 4, *flagship_axes(4, 1024, 2),
+                            torch.float32, dev)
+    x10f = x10.reshape(-1)
+    k2_k3 = [chain_ms(k2_2d, x10f), chain_ms(k3.raw, x10),
+             chain_ms(k3.raw, x10), chain_ms(k2_2d, x10f)]
+    say("6 throughput", "2D Q4 refine 10 ms per apply in turns: K2 "
+        "{:.4f}, K3 {:.4f}, K3 {:.4f}, K2 {:.4f}".format(*k2_k3))
+
     say("done", f"{time.perf_counter() - t_start:.1f} s; {smi}")
     print(json.dumps({"kernels": [
         {"name": "K2 separable_apply (flat vmult)", "route": "cuda",
@@ -390,6 +715,16 @@ def main() -> int:
          "replaces": "tpufem/ops/pallas_separable.py:217",
          "launches": launches["K1"], "max_abs_err": abs_err["K1"],
          "ms": ms["K1"], "plain_ms": plain_ms["K1"]},
+        {"name": "K4 terms_apply (3D resident terms)", "route": "cuda",
+         "source": "tpufem_torch/csrc/terms_apply.cuh",
+         "replaces": "tpufem/ops/pallas_separable.py:729",
+         "launches": launches["K4"], "max_abs_err": abs_err["K4"],
+         "ms": ms["K4"], "plain_ms": plain_ms["K4"]},
+        {"name": "K3 terms_apply (2D resident terms)", "route": "cuda",
+         "source": "tpufem_torch/csrc/terms_apply.cuh",
+         "replaces": "tpufem/ops/pallas_separable.py:1057",
+         "launches": launches["K3"], "max_abs_err": abs_err["K3"],
+         "ms": ms["K3"], "plain_ms": plain_ms["K3"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

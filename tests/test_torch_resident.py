@@ -98,11 +98,11 @@ def test_resident_cg_bf16s_through_matrix_free():
     MatrixFree.build (as the on-card smoke drives it); the solve returns the
     residual recomputed with its own operator, not the recurrence's, and x
     stays within the bf16-storage operator class of the f32 solution."""
-    from tpufem_torch.apps.poisson import hyper_cube_operator
+    from tpufem_torch.apps.poisson import poisson_operator
 
-    op16 = hyper_cube_operator(3, 2, 3, "float32", True, "cpu",
-                               pallas_mode="bf16s")
-    op32 = hyper_cube_operator(3, 2, 3, "float32", True, "cpu")
+    op16 = poisson_operator(3, 2, 3, "float32", True, "cpu",
+                            pallas_mode="bf16s")
+    op32 = poisson_operator(3, 2, 3, "float32", True, "cpu")
     assert op16.mf.resident.mode == "bf16s"
     assert op16.mf.resident.dt == torch.bfloat16
     mask = op32.mf.interior_mask.numpy().astype(np.float64)
@@ -121,11 +121,20 @@ def test_resident_cg_bf16s_through_matrix_free():
 
 
 def test_resident_2d_not_ported():
+    """A 2D operator without use_pallas carries no resident kernel, and the
+    resident solver refuses it rather than run something else; with
+    use_pallas, K3 (ResidentTerms2D) attaches as in tpufem (its solve is
+    held to tpufem's in tests/test_torch_terms.py)."""
+    from tpufem_torch.ops.kernel_terms import ResidentTerms2D
+
     mesh = Mesh.hyper_cube(2, 2)
     dofs = DoFHandler(mesh, 2)
+    b = torch.zeros(dofs.n_dofs, dtype=torch.float64)
+    mf = MatrixFree.build(mesh, dofs, FemConfig(2, 2, scatter="separable"),
+                          "cpu")
+    assert mf.resident is None and mf.kernel is None
+    with pytest.raises(ValueError, match="no resident kernel"):
+        resident_jacobi_cg(LaplaceOperator(mf), b)
     mf = MatrixFree.build(mesh, dofs, FemConfig(2, 2, scatter="separable",
                                                 use_pallas=True), "cpu")
-    assert mf.resident is None and mf.kernel is not None
-    b = torch.zeros(dofs.n_dofs, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="K3"):
-        resident_jacobi_cg(LaplaceOperator(mf), b)
+    assert isinstance(mf.resident, ResidentTerms2D) and mf.kernel is not None

@@ -9,8 +9,11 @@ for ``sm_90a`` (``tpufem_torch/csrc``), built with ``nvcc`` at first use
 plain PyTorch version instead.
 
 Ported so far: the 2D/3D Q_p Poisson Jacobi-CG on the separable tier
-(``apps.poisson.solve_poisson`` with ``scatter="separable"``), with the
-flat (K2) and solver-resident (K1) Laplace kernels.
+(``apps.poisson.solve_poisson`` with ``scatter="separable"``) on the
+hyper_cube and the curved hyper_shell, with separable or CP-expanded
+variable coefficients, with the flat (K2) and solver-resident (K1)
+Laplace kernels and the solver-resident sum-of-tensor-products kernels
+(K4 in 3D, K3 in 2D).
 """
 
 from tpufem_torch.utils.precision import configure_precision

@@ -1,12 +1,14 @@
 """End-to-end Poisson solver application (the reference's ``poisson.cu``).
 
-Port of ``tpufem/apps/poisson.py`` for the uniform hyper_cube on the
-separable tier: mesh -> Q_p DoFs -> MatrixFree -> host RHS -> Jacobi-CG on
-the device -> L2 error against the manufactured solution.  With
-``--pallas`` every operator apply runs the hand-written CUDA kernel K2.
+Port of ``tpufem/apps/poisson.py`` for the uniform hyper_cube and the
+curved hyper_shell (``--mesh shell``) on the separable tier: mesh -> Q_p
+DoFs -> MatrixFree -> host RHS -> Jacobi-CG on the device -> L2 error
+against the manufactured solution.  With ``--pallas`` every operator apply
+runs a hand-written CUDA kernel: K2 on the cube, K4 (3D) or K3 (2D) on
+the shell.
 
 Run:  tpufem-torch-poisson --dim 3 --degree 4 --refine 5 --pallas \
-          --dtype float32
+          --dtype float32 [--mesh shell]
       (python -m tpufem_torch.apps.poisson ...; --device cpu runs the
       plain PyTorch version on the CPU)
 """
@@ -91,20 +93,39 @@ def resolve_device(device: torch.device | str) -> torch.device:
     return device
 
 
-def hyper_cube_operator(dim: int, degree: int, refine: int, dtype: str,
-                        use_pallas: bool, device: torch.device | str,
-                        scatter: str = "separable",
-                        coefficient: Optional[Callable] = None,
-                        pallas_mode: str = "f32") -> LaplaceOperator:
-    """The Laplace operator of ``solve_poisson``: Q_degree on the uniform
-    hyper_cube refined ``refine`` times, with the kernels attached under
-    ``use_pallas`` (the resident kernel in ``pallas_mode``)."""
-    mesh = Mesh.hyper_cube(dim, refine)
+def poisson_mesh(dim: int, refine: int, mesh_kind: str = "cube") -> Mesh:
+    """The domain of ``solve_poisson``: the unit hyper_cube, or the
+    hyper_shell wedge (``Mesh.hyper_shell_2d/3d``, the reference's
+    GridGenerator::hyper_shell analogue), refined ``refine`` times."""
+    if mesh_kind == "shell":
+        return (Mesh.hyper_shell_2d(refine) if dim == 2
+                else Mesh.hyper_shell_3d(refine))
+    if mesh_kind == "cube":
+        return Mesh.hyper_cube(dim, refine)
+    raise ValueError(f"mesh_kind must be 'cube' or 'shell', got "
+                     f"{mesh_kind!r}")
+
+
+def poisson_operator(dim: int, degree: int, refine: int, dtype: str,
+                     use_pallas: bool, device: torch.device | str,
+                     scatter: str = "separable",
+                     coefficient: Optional[Callable] = None,
+                     pallas_mode: str = "f32",
+                     mesh_kind: str = "cube",
+                     coefficient_axes: Optional[list] = None
+                     ) -> LaplaceOperator:
+    """The Laplace operator of ``solve_poisson``: Q_degree on
+    ``poisson_mesh(dim, refine, mesh_kind)``, with the kernels attached
+    under ``use_pallas`` (the resident kernel in ``pallas_mode``).
+    ``coefficient_axes`` is forwarded to ``MatrixFree.build`` (a separable
+    variable coefficient, the operator of the K4 terms tier)."""
+    mesh = poisson_mesh(dim, refine, mesh_kind)
     dofs = DoFHandler(mesh, degree)
     cfg = FemConfig(dim=dim, degree=degree, scatter=scatter, dtype=dtype,
                     use_pallas=use_pallas, pallas_mode=pallas_mode)
-    return LaplaceOperator(MatrixFree.build(mesh, dofs, cfg, device,
-                                            coefficient=coefficient))
+    return LaplaceOperator(MatrixFree.build(
+        mesh, dofs, cfg, device, coefficient=coefficient,
+        coefficient_axes=coefficient_axes))
 
 
 def solve_poisson(
@@ -126,7 +147,9 @@ def solve_poisson(
     mesh_kind: str = "cube",
     device: torch.device | str = "cuda",
 ) -> PoissonResult:
-    """Jacobi-CG Poisson solve on the uniform hyper_cube, separable tier.
+    """Jacobi-CG Poisson solve on the uniform hyper_cube or hyper_shell
+    (``mesh_kind``), separable tier.  On the shell the default
+    manufactured solution gives inhomogeneous Dirichlet data.
 
     Arguments keep the JAX package's names; the ones this slice has not
     ported raise NotImplementedError naming their ROADMAP.md item.
@@ -139,9 +162,6 @@ def solve_poisson(
     if adaptive_steps:
         raise not_ported("--adaptive-steps",
                          "incidence, colored and dense with hanging nodes")
-    if mesh_kind != "cube":
-        raise not_ported(f"--mesh {mesh_kind}",
-                         "tensor-product terms with the K4 kernel")
     if h1 and exact is not None:
         raise ValueError("--h1 supports the default manufactured "
                          "solution only (no gradient for a custom exact)")
@@ -150,8 +170,9 @@ def solve_poisson(
         rtol = 1e-10 if dtype == "float64" else 1e-6
     timer = Timer(device)
     with timer.section("setup"):
-        op = hyper_cube_operator(dim, degree, refine, dtype, use_pallas,
-                                 device, scatter, coefficient)
+        op = poisson_operator(dim, degree, refine, dtype, use_pallas,
+                              device, scatter, coefficient,
+                              mesh_kind=mesh_kind)
         mesh, dofs = op.mf.mesh, op.mf.dofs
         diag = op.diagonal()
         u_exact, f = default_solution(dim)
@@ -201,7 +222,8 @@ def main(argv=None):
     ap.add_argument("--degree", type=int, default=1)
     ap.add_argument("--refine", type=int, default=3)
     ap.add_argument("--mesh", default="cube", choices=["cube", "shell"],
-                    help="domain (only the unit hyper_cube is ported)")
+                    help="domain: the unit hyper_cube or the curved "
+                         "hyper_shell wedge")
     ap.add_argument("--scatter", default="separable",
                     choices=["auto", "incidence", "colored", "structured",
                              "dense", "separable", "boxes"],

@@ -23,7 +23,7 @@ import time
 import numpy as np
 import torch
 
-from tpufem_torch.apps.poisson import hyper_cube_operator
+from tpufem_torch.apps.poisson import poisson_operator
 from tpufem_torch.ops.kernel_separable import ResidentSeparable
 from tpufem_torch.solvers.resident import resident_jacobi_cg
 from tpufem_torch.utils.timer import time_fn
@@ -54,7 +54,7 @@ def main(argv=None) -> None:
         check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
 
-    op = hyper_cube_operator(3, 4, args.refine, "float32", True, dev)
+    op = poisson_operator(3, 4, args.refine, "float32", True, dev)
     mf = op.mf
     Ks = [k.cpu().numpy() for k in mf.Ks]
     Ms = [m.cpu().numpy() for m in mf.Ms]

@@ -1,9 +1,11 @@
 """Carry operator state from the JAX package into the port.
 
 ``matrix_free_from_arrays`` builds the port's MatrixFree from plain numpy
-arrays: the per-axis 1D operators, the interior mask and the Jacobi
-diagonal.  A caller holding a ``tpufem`` MatrixFree converts its arrays
-with ``np.asarray`` and hands them over; both packages then apply the same
+arrays: the per-axis 1D operators (or the per-term, per-axis 1D matrices
+of a sum-of-tensor-products operator: a curved shell, a separable or
+CP-expanded coefficient), the interior mask and the Jacobi diagonal.  A
+caller holding a ``tpufem`` MatrixFree converts its arrays with
+``np.asarray`` and hands them over; both packages then apply the same
 operator and run the same solve.  This module imports no JAX.
 """
 
@@ -24,13 +26,22 @@ def matrix_free_from_arrays(config: FemConfig, mesh: Mesh, dofs: DoFHandler,
     """MatrixFree from host arrays.
 
     arrays: ``"Ks"`` and ``"Ms"`` (per-axis (npts, npts) 1D operators, x
-    first), ``"interior_mask"`` ((n_dofs,), 1 on unconstrained DoFs) and
+    first) or ``"terms"`` (``terms[a][b]``, b = 0 is x: ``np.asarray`` of
+    a tpufem ``MatrixFree.sep_ops[1]`` whose ``sep_ops[0] == "terms"``),
+    ``"interior_mask"`` ((n_dofs,), 1 on unconstrained DoFs) and
     ``"diagonal"`` ((n_dofs,) Jacobi diagonal, 1 on constrained DoFs).
     Kernels attach under ``config.use_pallas`` exactly as in
     ``MatrixFree.build``.
     """
     if config.scatter != "separable":
         raise ValueError("the bridge carries the separable scheme only")
+    if "terms" in arrays:
+        return MatrixFree.from_terms(
+            config, mesh, dofs, device,
+            [[np.asarray(X, np.float64) for X in term]
+             for term in arrays["terms"]],
+            interior=np.asarray(arrays["interior_mask"], np.float64),
+            jacobi_diag=np.asarray(arrays["diagonal"], np.float64))
     return MatrixFree.from_operators(
         config, mesh, dofs, device,
         [np.asarray(K, np.float64) for K in arrays["Ks"]],

@@ -65,7 +65,7 @@ def band_tables(mats, p: int) -> np.ndarray:
     """(len(mats), npts, 2p+2) f64 kernel tables, one per 1D operator:
     ``exact_bands`` with a single tile spanning the axis (rows by global
     index, 2p+1 taps), then the row's tap sum, which the kernel's
-    difference form takes (separable_apply.cuh, ``band``)."""
+    difference form takes (``band`` in csrc/common.cuh)."""
     npts = mats[0].shape[0]
     tabs = []
     for M in mats:
@@ -86,6 +86,41 @@ def choose_tile(dim: int, p: int, itemsize: int, smem_elems):
                      f"at dim={dim}, p={p}, itemsize={itemsize}")
 
 
+def check_instance(dim, p, storage, compute, device, library: str):
+    """Validate a kernel instance's dim, degree and dtype pair; return its
+    dtype code, its device ("cuda" resolved to the current card, as the
+    tensors it will get report it) and, on a CUDA device, the loaded
+    kernel library ``library`` (None on the CPU).  The library is built
+    when the first CUDA instance is made, so a kernel that cannot be
+    built raises here."""
+    if dim not in (2, 3):
+        raise ValueError(f"dim must be 2 or 3, got {dim}")
+    if not 1 <= p <= MAX_DEGREE:
+        raise ValueError(f"the CUDA routine is instantiated for p = "
+                         f"1..{MAX_DEGREE}, got p = {p}")
+    if (storage, compute) not in _DTYPE_CODES:
+        raise ValueError(f"no kernel instance stores {storage} and "
+                         f"computes in {compute}")
+    device, lib = torch.device(device), None
+    if device.type == "cuda":
+        lib = load_kernels()[library]
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return _DTYPE_CODES[(storage, compute)], device, lib
+
+
+def check_grid(u: torch.Tensor, device, storage, npts: int, dim: int):
+    """Raise unless u is what a kernel on ``device`` takes: a contiguous
+    CUDA grid of npts**dim points in the storage dtype."""
+    if u.device != device or not u.is_cuda:
+        raise ValueError(f"kernel on {device} got a tensor on {u.device}")
+    if u.dtype != storage:
+        raise ValueError(f"kernel stores {storage}, got {u.dtype}")
+    if u.numel() != npts**dim or not u.is_contiguous():
+        raise ValueError(f"kernel takes a contiguous grid of {npts}**{dim} "
+                         f"points, got shape {tuple(u.shape)}")
+
+
 class _BandApply:
     """Tables, tile and launch of the CUDA routine for one operator.
 
@@ -98,28 +133,13 @@ class _BandApply:
 
     def __init__(self, dim, npts, p, Ks, Ms, storage, compute, dirichlet,
                  device, tile=None):
-        if dim not in (2, 3):
-            raise ValueError(f"dim must be 2 or 3, got {dim}")
-        if not 1 <= p <= MAX_DEGREE:
-            raise ValueError(f"the CUDA routine is instantiated for p = "
-                             f"1..{MAX_DEGREE}, got p = {p}")
-        if (storage, compute) not in _DTYPE_CODES:
-            raise ValueError(f"no kernel instance stores {storage} and "
-                             f"computes in {compute}")
+        self.code, self.device, self.lib = check_instance(
+            dim, p, storage, compute, device, "separable_apply")
         self.dim, self.npts, self.p = dim, npts, p
         self.storage, self.compute = storage, compute
-        self.code = _DTYPE_CODES[(storage, compute)]
         self.dirichlet = bool(dirichlet)
-        self.device = torch.device(device)
-        self.lib = self.tile = None
-        if self.device.type == "cuda":
-            # the library is built when the first CUDA instance is made, so
-            # a kernel that cannot be built raises at construction
-            self.lib = load_kernels()
-            if self.device.index is None:
-                # "cuda" means the current card; tensors report "cuda:<i>"
-                self.device = torch.device("cuda",
-                                           torch.cuda.current_device())
+        self.tile = None
+        if self.lib is not None:
             itemsize = torch.empty((), dtype=compute).element_size()
             self.tile = tuple(tile) if tile is not None else choose_tile(
                 dim, p, itemsize, self.lib.lib.tpufem_smem_elems)
@@ -131,15 +151,7 @@ class _BandApply:
 
     def launch(self, u: torch.Tensor) -> torch.Tensor:
         """y = A u (with the fused mask if ``dirichlet``) on the card."""
-        if u.device != self.device or not u.is_cuda:
-            raise ValueError(f"kernel on {self.device} got a tensor on "
-                             f"{u.device}")
-        if u.dtype != self.storage:
-            raise ValueError(f"kernel stores {self.storage}, got {u.dtype}")
-        if u.numel() != self.npts**self.dim or not u.is_contiguous():
-            raise ValueError(f"kernel takes a contiguous grid of "
-                             f"{self.npts}**{self.dim} points, got shape "
-                             f"{tuple(u.shape)}")
+        check_grid(u, self.device, self.storage, self.npts, self.dim)
         y = torch.empty_like(u)
         tz, ty, tx = self.tile
         with torch.cuda.device(self.device):

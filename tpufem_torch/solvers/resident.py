@@ -1,11 +1,13 @@
-"""Solver-resident Jacobi-CG: every solver vector lives in the K1 kernel's
-resident layout, so each apply is one kernel launch.
+"""Solver-resident Jacobi-CG: every solver vector lives in the resident
+kernel's layout, so each apply is one kernel launch.
 
 Port of ``tpufem/solvers/resident.py::resident_jacobi_cg``.  The port's
-resident layout is the plain ``(npts,)*3`` grid (``ResidentSeparable``),
-so the padding of the JAX version reduces to reshapes; the constraint
-mask algebra y = m·A(m·x) + (1-m)·x is either fused into the kernel
-(``dirichlet=True``) or applied around it.
+resident kernels are K1 (``ResidentSeparable``, the 3D Laplace), K4
+(``ResidentTerms``, 3D terms) and K3 (``ResidentTerms2D``, 2D); their
+resident layout is the plain ``(npts,)*dim`` grid, so the padding of the
+JAX version reduces to reshapes.  The constraint mask algebra
+y = m·A(m·x) + (1-m)·x is either fused into the kernel (K1 with
+``dirichlet=True``) or applied around it.
 """
 
 from __future__ import annotations
@@ -27,8 +29,8 @@ def resident_jacobi_cg(op, b: torch.Tensor, diag: torch.Tensor | None = None,
     """Jacobi-preconditioned CG with solver-resident vectors.
 
     op: a ``LaplaceOperator`` whose MatrixFree carries a resident kernel
-    (3D separable with ``use_pallas``), or an operator carrying its own
-    ``.resident``.  b/diag/x0 are flat (n_dofs,) vectors on the kernel's
+    (separable scheme with ``use_pallas``), or an operator carrying its
+    own ``.resident``.  b/diag/x0 are flat (n_dofs,) vectors on the kernel's
     device; the returned x is flat.  ``track_best`` is forwarded to
     :func:`cg_solve`.
     """
@@ -36,10 +38,7 @@ def resident_jacobi_cg(op, b: torch.Tensor, diag: torch.Tensor | None = None,
     if rk is None:
         rk = op.mf.resident
     if rk is None:
-        if op.mf.config.dim == 2:
-            raise NotImplementedError(
-                "ResidentTerms2D (K3) not ported yet (ROADMAP.md, queue 2)")
-        raise ValueError("operator has no resident kernel (needs the 3D "
+        raise ValueError("operator has no resident kernel (needs the "
                          "separable scheme with use_pallas=True)")
     cdt, sdt = rk.compute_dt, rk.dt
     m = rk.pad_any(op.mf.interior_mask.to(cdt))

@@ -1,16 +1,19 @@
 """Builds the port's CUDA kernels with ``nvcc`` and loads them via ctypes.
 
 The sources under ``tpufem_torch/csrc`` have a plain C interface, so they
-compile in seconds without PyTorch's headers:
+compile in seconds without PyTorch's headers, one library per ``.cu``, all
+at the same time:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/tpufem_torch/<name>_<hash>.so csrc/*.cu
+         -Xcompiler -fPIC -o build/tpufem_torch/tpufem_torch_<name>_<hash>.so \
+         csrc/<name>.cu
 
 The build runs at first use, into ``build/tpufem_torch/`` beside the
-package, keyed on a hash of the sources and flags, so an unchanged
-checkout reuses its library and an edited source rebuilds.  ``nvcc`` is
-found through ``CUDA_HOME`` (PyTorch's lookup).  A build or load that
-fails raises.
+package, each library keyed on a hash of its source, the headers it
+includes and the flags, so an unchanged checkout reuses its libraries and
+an edited source rebuilds only the libraries that include it.  ``nvcc`` is
+found through ``CUDA_HOME`` (PyTorch's lookup).  A build or load that fails
+raises.
 """
 
 from __future__ import annotations
@@ -28,9 +31,26 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpufem_torch"
-SOURCES = ("separable_apply.cu", "separable_apply.cuh")
+# one shared library per source, built side by side: name -> (source,
+# the csrc/ headers it includes, which enter its hash)
+SOURCES = {
+    "separable_apply": ("separable_apply.cu",  # K1, K2
+                        ("common.cuh", "separable_apply.cuh")),
+    "terms_apply": ("terms_apply.cu",  # K3, K4
+                    ("common.cuh", "terms_apply.cuh")),
+}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# ctypes signatures of each library's C entries: name -> (argtypes, restype)
+_I, _P, _LL = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
+_ENTRIES = {
+    "separable_apply": {
+        "tpufem_separable_apply": ([_I] * 8 + [_P] * 4, _I),
+        "tpufem_smem_elems": ([_I] * 5, _LL)},
+    "terms_apply": {
+        "tpufem_terms_apply": ([_I] * 8 + [_P] * 4, _I),
+        "tpufem_terms_smem_elems": ([_I] * 6, _LL)},
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,40 +78,58 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def _digest() -> str:
+def _digest(source: str, headers: tuple[str, ...]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in (source, *headers):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
 @functools.cache
-def load_kernels() -> KernelLibrary:
-    """Build (if needed) and load ``libtpufem_torch_kernels``; cached for
-    the life of the process."""
+def load_kernels() -> dict[str, KernelLibrary]:
+    """Build (if needed) and load every kernel library, by name of
+    ``SOURCES``; the missing ones compile at the same time, one ``nvcc``
+    each.  Cached for the life of the process."""
     if not torch.cuda.is_available():
         raise RuntimeError("the tpufem_torch kernels need a CUDA device")
-    out = BUILD_DIR / f"tpufem_torch_kernels_{_digest()}.so"
-    seconds, log = 0.0, ""
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / "separable_apply.cu")]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
+    outs = {name: BUILD_DIR / f"tpufem_torch_{name}_{_digest(*src)}.so"
+            for name, src in SOURCES.items()}
+    todo = [name for name, out in outs.items() if not out.exists()]
+    nvcc = _nvcc() if todo else None
+    builds, logs, seconds = {}, {}, {}
+    t0 = time.perf_counter()
+    try:
+        for name in todo:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = outs[name].with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / SOURCES[name][0])]
+            builds[name] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        for name, (tmp, proc) in builds.items():
+            logs[name] = proc.communicate()[0]
+            seconds[name] = time.perf_counter() - t0
+    finally:  # leave no compiler running when a build or a wait fails
+        for _, proc in builds.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, (tmp, proc) in builds.items():
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, out)  # atomic: concurrent builders never see half
-    lib = ctypes.CDLL(str(out))
-    fn = lib.tpufem_separable_apply
-    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
-    lib.tpufem_smem_elems.argtypes = [ctypes.c_int] * 5
-    lib.tpufem_smem_elems.restype = ctypes.c_longlong
-    lib.tpufem_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.tpufem_cuda_error_string.restype = ctypes.c_char_p
-    return KernelLibrary(lib, out, seconds, log)
+            raise RuntimeError(f"nvcc {SOURCES[name][0]} failed "
+                               f"({proc.returncode}):\n{logs[name]}")
+        # atomic: concurrent builders never see half a library
+        os.replace(tmp, outs[name])
+    libs = {}
+    for name, out in outs.items():
+        lib = ctypes.CDLL(str(out))
+        for entry, (argtypes, restype) in _ENTRIES[name].items():
+            fn = getattr(lib, entry)
+            fn.argtypes, fn.restype = argtypes, restype
+        lib.tpufem_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.tpufem_cuda_error_string.restype = ctypes.c_char_p
+        libs[name] = KernelLibrary(lib, out, seconds.get(name, 0.0),
+                                   logs.get(name, ""))
+    return libs
