@@ -33,11 +33,26 @@ Phases, one line each (any failure raises and the script exits non-zero):
   4b parity     f64 solves, kernel vs plain: equal iterations, L2 equal to
                 1e-10 (cube: 3D Q4 refine 3; 2D Q4 refine 5, rough RHS;
                 shell: 3D Q4 refine 3; 2D Q4 refine 5, rough RHS)
+  5 lab         the K1 kernel lab (L1: v17-v20, tpufem_torch/lab): each
+                kernel in each mode (f64, f32 = 3xTF32, f32h = 1xTF32,
+                bf16 = bf16x3, and the copy/bands/mm ablations) against its
+                plain version in f64 (``LAB_TOL``) and, for f32, f32h and
+                bf16, against the emulation of its x stage's arithmetic
+                (``EMU_TOL``; f32h within its class), halo zeros and two
+                chained applies, at p = 1, 2, 4, 7, 8 on small grids and at
+                the 16,974,593-DoF flagship; then the lab's entry point
+                ``kernel_lab.main`` at the flagship, whose L1 launch counts
+                are the ones reported and whose raw applies, each timed in
+                turns with its plain version (K1's copy ablation too), are
+                the L1 times
   6 throughput  ms per apply over chains of 30 applies (CUDA events),
                 kernel and plain in turns: K1 at 17M DoFs, K2 at 2.1M, K4
                 on the 17M coefficient operator and the 2.1M shell, K3 at
-                2D Q4 refine 10 (16,785,409 DoFs), against K2 there too
-Then one JSON line with each kernel's record, and as the last line
+                2D Q4 refine 10 (16,785,409 DoFs), against K2 there too;
+                phase 5's L1 times beside one torch.matmul of the x-stage
+                shape (the L1 kernels' library_ms)
+Then one JSON line with each kernel's record (time, plain time, bound on
+an H100 and library time), and as the last line
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 before printing any result.
 """
@@ -57,6 +72,29 @@ import numpy as np
 import torch
 
 TOL = {"f64": 1e-12, "f32": 1e-6, "bf16s": 4e-3}
+# the L1 kernels' x-stage classes (max abs error / max |y| against the
+# plain version in f64; the ablations compute their own functions).
+# bf16x3's class is 2e-5, not 1e-5: its arithmetic alone, emulated in
+# plain PyTorch (V17Kernel.emulate), passes 1e-5 on the CPU at p = 7 and 8
+# (tests/test_torch_lab.py::test_emulated_x_stage_classes), and phase 5
+# holds each kernel to the emulation on its own input too
+LAB_TOL = {"f64": 1e-12, "f32": 1e-6, "f32h": 4e-3, "bf16": 2e-5,
+           "copy": 0.0, "bands": 1e-6, "mm": 1e-6}
+# an f32-storage kernel against the emulation of its x stage's arithmetic
+# on the same layout.  The emulation's band stages run in f64, the
+# kernel's in f32, so a split's last part can round the other way at a
+# point: by up to 2^-22 of an operand in 3xTF32, 2^-17 in bf16x3 (f32h,
+# one TF32 rounding, is held to its class)
+EMU_TOL = {"f32": 1e-6, "bf16": 1e-5}
+LAB_KERNELS = {"v17": ("dense x stage", "scripts/kernel_lab.py:581"),
+               "v18": ("fused bands", "scripts/kernel_lab.py:1090"),
+               "v19": ("pipelined", "scripts/kernel_lab.py:922"),
+               "v20": ("block-banded x stage", "scripts/kernel_lab.py:747")}
+# the lab's main path: its entry point at the flagship, every L1 kernel
+LAB_ARGS = ["--refine", "6", "--p", "4", "--reps", "20", "--variants",
+            "v0", "v5", "v5-copy", "v4", "v17", "v17-h", "v17-bf",
+            "v17-f64", "v18", "v19", "v19-bf", "v20", "v20-bf", "v20-h",
+            "v17-copy", "v17-bands", "v17-mm"]
 STORAGE = {"f64": torch.float64, "f32": torch.float32,
            "bf16s": torch.bfloat16}
 N_CHAIN = 30
@@ -202,6 +240,76 @@ def check_terms(terms, p, mode, rng):
     return tag, rel, abs_err
 
 
+def lab_kernel(kern, mode, npts, p, n, h, dtype=None):
+    """An L1 kernel on the card; ``mode`` is a LAB_TOL key (f64: the exact
+    x stage in float64)."""
+    from tpufem_torch.lab.resident_lab import V17Kernel
+    from tpufem_torch.ops.separable import global_1d_matrices
+
+    K1, M1 = global_1d_matrices(p, n, p + 1)
+    if dtype is None:
+        dtype = torch.float64 if mode == "f64" else torch.float32
+    return V17Kernel(npts, p, K1, M1, h,
+                     mode={"f64": "f32", "f32h": "f32"}.get(mode, mode),
+                     prec="high" if mode == "f32h" else "highest",
+                     kern_name=kern, dtype=dtype, device="cuda")
+
+
+def check_lab(kern, mode, p, n, h, u):
+    """Launch one L1 kernel on the f64 input ``u`` ((n p + 1)**3 points on
+    the card); return (tag, max relative error, max abs error, emulation)
+    against the plain version of its mode in f64 on the same
+    (storage-rounded) layout; f32, f32h and bf16 are also held to the
+    emulation of their x stage's arithmetic (``V17Kernel.emulate``), and
+    emulation is (its own max relative error, the kernel's max distance
+    from it over max |y|), else None.  Raises when out of tolerance, when
+    a halo or padding point is not zero, when two chained applies are off
+    (f64, f32) or when the launch counter did not rise."""
+    from tpufem_torch.lab.resident_lab import V17Kernel
+
+    npts = n * p + 1
+    k = lab_kernel(kern, mode, npts, p, n, h)
+    ref_k = lab_kernel(kern, "f64" if mode in ("f32", "f32h", "bf16")
+                       else mode, npts, p, n, h, torch.float64)
+    gp = k.pad(u)
+    before = V17Kernel.launches[kern]
+    y = k.raw(gp)
+    rose = V17Kernel.launches[kern] == before + 1
+    torch.cuda.synchronize()
+    tag = (f"{kern} {mode} p={p} npts={npts} tile={k.tile} grid={k.grid} "
+           f"smem={k.smem}")
+    halo = torch.ones_like(y, dtype=torch.bool)
+    halo[p:p + npts, p:p + npts, :npts] = False
+    if not rose:
+        raise RuntimeError(f"{tag}: launch counter did not rise")
+    if y[halo].any() or not torch.isfinite(y).all():
+        raise RuntimeError(f"{tag}: halo/padding not zero or non-finite")
+    errs = []
+    for x in (gp, y) if mode in ("f64", "f32") else (gp,):
+        yk = y if x is gp else k.raw(x)
+        ref = ref_k.plain(x.to(torch.float64))
+        abs_err = float((yk.to(torch.float64) - ref).abs().max())
+        errs.append((abs_err / float(ref.abs().max()), abs_err))
+    rel, abs_err = max(errs)
+    if not rel <= LAB_TOL[mode]:
+        raise RuntimeError(f"{tag}: max rel err {rel:.3e} (chained "
+                           f"{errs[-1][0]:.3e}) > {LAB_TOL[mode]}")
+    emu = None
+    if mode in ("f32", "f32h", "bf16"):
+        ref = ref_k.plain(gp.to(torch.float64))
+        ye = k.emulate(gp).to(torch.float64)
+        emu_rel = float((ye - ref).abs().max() / ref.abs().max())
+        diff = float((y.to(torch.float64) - ye).abs().max()
+                     / ref.abs().max())
+        tol = EMU_TOL.get(mode, LAB_TOL[mode])
+        if not diff <= tol:
+            raise RuntimeError(f"{tag}: off the emulation of its arithmetic "
+                               f"by {diff:.3e} > {tol} (emulation's own "
+                               f"max rel err {emu_rel:.3e})")
+        emu = (emu_rel, diff)
+    return tag, rel, errs[0][1], emu
+
+
 class PlainResident:
     """A resident kernel's contract with ``raw`` its plain PyTorch
     version: the plain masked apply on the card, launch counts untouched."""
@@ -248,7 +356,7 @@ def main() -> int:
         ResidentSeparable,
     )
     from tpufem_torch.utils.build import load_kernels
-    from tpufem_torch.utils.timer import time_fn
+    from tpufem_torch.utils.timer import roofline_ms, time_fn
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -615,6 +723,67 @@ def main() -> int:
                 and rel_l2 <= 1e-10):
             raise RuntimeError("f64 kernel and plain solves differ")
 
+    # ---- 5 the K1 kernel lab (L1): every kernel and mode vs plain, then
+    # the lab's entry point with the L1 counts reset before and read after
+    from tpufem_torch.lab import kernel_lab
+    from tpufem_torch.lab.resident_lab import KERNELS, V17Kernel
+
+    lab_worst, emu_worst, emu_apart = {}, {}, {}
+
+    def lab_case(kern, mode, p, n, h, u):
+        tag, rel, aerr, emu = check_lab(kern, mode, p, n, h, u)
+        lab_worst[mode] = max(lab_worst.get(mode, 0.0), rel)
+        if emu is not None:
+            emu_worst[mode] = max(emu_worst.get(mode, 0.0), emu[0])
+            emu_apart[mode] = max(emu_apart.get(mode, 0.0), emu[1])
+        return tag, aerr, f"{mode} {rel:.3e}" + (
+            f" (emulated {emu[0]:.3e}, apart {emu[1]:.3e})"
+            if emu is not None else "")
+
+    for p in (1, 2, 4, 7, 8):
+        n = max(2, 24 // p)
+        for kern in KERNELS:
+            rels = []
+            for mode in LAB_TOL:
+                u = torch.tensor(rng.standard_normal((n * p + 1)**3),
+                                 device=dev)
+                rels.append(lab_case(kern, mode, p, n,
+                                     [1.0 / n, 1.3 / n, 0.7 / n], u)[2])
+            say("5 lab", f"{kern} p={p} npts={n * p + 1}: max rel err "
+                + ", ".join(rels))
+    lab_abs = {}
+    u257 = torch.tensor(rng.standard_normal(257**3), device=dev)
+    for kern in KERNELS:
+        rels = []
+        for mode in LAB_TOL:
+            tag, aerr, line = lab_case(kern, mode, 4, 64, [1.0 / 64] * 3,
+                                       u257)
+            if mode == "f32":
+                lab_abs[kern] = aerr
+            rels.append(line)
+        say("5 lab", f"flagship {tag.split(' ', 2)[2]}: {kern} max rel err "
+            + ", ".join(rels) + f"; f32 max abs err {lab_abs[kern]:.3e}")
+    say("5 lab", "all within tolerance, halo zeros kept, chains agree, "
+        f"f32/f32h/bf16 within {EMU_TOL} of their emulation; worst max rel "
+        "err " + ", ".join(
+            f"{m} {lab_worst[m]:.3e} (tol {LAB_TOL[m]}"
+            + (f", emulated {emu_worst[m]:.3e}, apart {emu_apart[m]:.3e}"
+               if m in emu_worst else "")
+            + ")" for m in LAB_TOL))
+    for kern in KERNELS:
+        V17Kernel.launches[kern] = 0
+    lab_results = kernel_lab.main(LAB_ARGS)
+    launches.update(V17Kernel.launches)
+    say("5 lab", f"kernel_lab.main {' '.join(LAB_ARGS)}: L1 launches "
+        f"{dict(V17Kernel.launches)}")
+    if not all(launches[kern] > 0 for kern in KERNELS):
+        raise RuntimeError(f"an L1 kernel of the lab's main path did not "
+                           f"run: {dict(V17Kernel.launches)}")
+    lab_best = max((r["gdofs"], name) for name, r in lab_results.items()
+                   if r["rel_err"] == r["rel_err"])
+    say("5 lab", f"kernel_lab best (held against the plain version): "
+        f"{lab_best[1]} {lab_best[0]:.2f} GDoF/s")
+
     # ---- 6 apply throughput: flagship K1 (17M), main-path K2 (2.1M) -----
     # kernel and plain timed in turns (plain, kernel, kernel, plain)
     def chain_ms(fn, x):
@@ -703,29 +872,70 @@ def main() -> int:
     say("6 throughput", "2D Q4 refine 10 ms per apply in turns: K2 "
         "{:.4f}, K3 {:.4f}, K3 {:.4f}, K2 {:.4f}".format(*k2_k3))
 
+    # the L1 kernels (f32: 3xTF32) at the flagship: kernel_lab.main timed
+    # each raw apply in turns with its plain version (phase 5); one
+    # torch.matmul of the x-stage shape is their library call
+    from tpufem_torch.lab.resident_lab import X_ALIGN
+
+    lab = {name[:-len("-auto-raw")]: r for name, r in lab_results.items()
+           if name.endswith("-auto-raw")}
+    bound, design = {}, {}
+    for name, r in lab.items():
+        if name in KERNELS:
+            ms[name], plain_ms[name] = r["ms"], r["plain_ms"]
+        bound[name] = (r["bound_ms"], r["bound_by"])
+        design[name] = r.get("design_ms")
+    X = X_ALIGN * -(-257 // X_ALIGN)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    A = torch.randn((257**2, 2 * X), generator=gen, device=dev)
+    B = torch.randn((2 * X, X), generator=gen, device=dev)
+    library_ms = 1e3 * time_fn(lambda _: torch.matmul(A, B), A, reps=N_CHAIN)
+    say("6 throughput", "L1 and K1 at 16,974,593 DoFs (kernel_lab.main), ms "
+        "per raw apply (plain ms; bound ms; design bound ms): " + ", ".join(
+            f"{name} {r['ms']:.4f} ({r['plain_ms']:.4f}; "
+            f"{bound[name][0]:.4f} {bound[name][1]}"
+            + (f"; {design[name]:.4f}" if design[name] is not None else "")
+            + ")" for name, r in lab.items())
+        + f"; torch.matmul ({257**2}, {2 * X}) x ({2 * X}, {X}) f32 "
+        f"{library_ms:.4f}")
+
+    # the bound of K1-K4: each point read and written once in f32, and 2p+1
+    # multiply-adds per band output (K1/K2 7 bands a point, K4 3 terms x 3,
+    # K3 2 terms x 2), at the card's peaks
+    def band_bound(n_dofs, bands, p=4):
+        return roofline_ms(2 * 4 * n_dofs,
+                           {"fp32": bands * 2 * (2 * p + 1) * n_dofs})
+
+    bound.update(K2=band_bound(129**3, 7), K1=band_bound(mf.n_dofs, 7),
+                 K4=band_bound(mfc.n_dofs, 9), K4_shell=band_bound(129**3, 9),
+                 K3=band_bound(4097**2, 4))
+    say("6 throughput", "bound ms on an H100: " + ", ".join(
+        f"{name} {bound[name][0]:.5f} ({bound[name][1]})"
+        for name in ("K2", "K1", "K4", "K4_shell", "K3")))
+
     say("done", f"{time.perf_counter() - t_start:.1f} s; {smi}")
+    records = [
+        ("K2", "K2 separable_apply (flat vmult)",
+         "tpufem_torch/csrc/separable_apply.cuh",
+         "tpufem/ops/pallas_separable.py:116", abs_err["K2"], None),
+        ("K1", "K1 separable_apply (resident, fused mask)",
+         "tpufem_torch/csrc/separable_apply.cuh",
+         "tpufem/ops/pallas_separable.py:217", abs_err["K1"], None),
+        ("K4", "K4 terms_apply (3D resident terms)",
+         "tpufem_torch/csrc/terms_apply.cuh",
+         "tpufem/ops/pallas_separable.py:729", abs_err["K4"], None),
+        ("K3", "K3 terms_apply (2D resident terms)",
+         "tpufem_torch/csrc/terms_apply.cuh",
+         "tpufem/ops/pallas_separable.py:1057", abs_err["K3"], None),
+    ] + [(kern, f"{kern} lab_resident ({LAB_KERNELS[kern][0]}, 3xTF32)",
+          "tpufem_torch/csrc/lab_resident.cuh", LAB_KERNELS[kern][1],
+          lab_abs[kern], library_ms) for kern in KERNELS]
     print(json.dumps({"kernels": [
-        {"name": "K2 separable_apply (flat vmult)", "route": "cuda",
-         "source": "tpufem_torch/csrc/separable_apply.cuh",
-         "replaces": "tpufem/ops/pallas_separable.py:116",
-         "launches": launches["K2"], "max_abs_err": abs_err["K2"],
-         "ms": ms["K2"], "plain_ms": plain_ms["K2"]},
-        {"name": "K1 separable_apply (resident, fused mask)",
-         "route": "cuda", "source": "tpufem_torch/csrc/separable_apply.cuh",
-         "replaces": "tpufem/ops/pallas_separable.py:217",
-         "launches": launches["K1"], "max_abs_err": abs_err["K1"],
-         "ms": ms["K1"], "plain_ms": plain_ms["K1"]},
-        {"name": "K4 terms_apply (3D resident terms)", "route": "cuda",
-         "source": "tpufem_torch/csrc/terms_apply.cuh",
-         "replaces": "tpufem/ops/pallas_separable.py:729",
-         "launches": launches["K4"], "max_abs_err": abs_err["K4"],
-         "ms": ms["K4"], "plain_ms": plain_ms["K4"]},
-        {"name": "K3 terms_apply (2D resident terms)", "route": "cuda",
-         "source": "tpufem_torch/csrc/terms_apply.cuh",
-         "replaces": "tpufem/ops/pallas_separable.py:1057",
-         "launches": launches["K3"], "max_abs_err": abs_err["K3"],
-         "ms": ms["K3"], "plain_ms": plain_ms["K3"]},
-    ]}), flush=True)
+        {"name": name, "route": "cuda", "source": source, "replaces": rep,
+         "launches": launches[key], "max_abs_err": aerr, "ms": ms[key],
+         "plain_ms": plain_ms[key], "bound_ms": bound[key][0],
+         "bound_by": bound[key][1], "library_ms": lib}
+        for key, name, source, rep, aerr, lib in records]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,10 +1,12 @@
-"""tpufem_torch imports no JAX, and never moves to the CPU on its own."""
+"""tpufem_torch imports neither JAX nor the JAX package, and never moves
+to the CPU on its own."""
 
 import re
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -25,19 +27,20 @@ def test_import_and_cpu_solve_leave_jax_out():
         "assert r.converged and r.l2_error < 1e-2, r\n"
         "print(sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'jaxlib'))))\n"
+        "print(sorted(m for m in sys.modules if m == 'tpufem' "
+        "or m.startswith('tpufem.')))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip().splitlines()[-1] == "[]"
+    assert out.stdout.strip().splitlines()[-2:] == ["[]", "[]"]
 
 
-def test_sources_do_not_import_jax():
+def test_sources_do_not_import_jax_or_tpufem():
     pat = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.M)
-    banned = re.compile(r"^\s*(import|from)\s+tpufem\.(ops|operators|solvers)",
-                        re.M)
-    files = sorted(PKG.rglob("*.py"))
-    assert len(files) >= 10
+    banned = re.compile(r"^\s*(from|import)\s+tpufem(\.|\s|$)", re.M)
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) >= 20
     for f in files:
         text = f.read_text()
         assert not pat.search(text), f
@@ -57,3 +60,38 @@ def test_cuda_default_raises_without_cuda(monkeypatch):
         tpoisson.solve_poisson(dim=2, degree=1, refine=2)
     with pytest.raises(RuntimeError, match="cuda"):
         tpoisson.main(["--dim", "2", "--refine", "2"])
+
+
+def test_kernels_default_to_the_card(monkeypatch):
+    """Named no device, the resident kernels and the bridge go to the card,
+    and raise without one; only device="cpu" runs the plain version."""
+    from tpufem_torch.bridge import matrix_free_from_arrays
+    from tpufem_torch.fem.dof_handler import DoFHandler
+    from tpufem_torch.fem.mesh import Mesh
+    from tpufem_torch.ops.kernel_separable import ResidentSeparable
+    from tpufem_torch.ops.kernel_terms import ResidentTerms, ResidentTerms2D
+    from tpufem_torch.ops.separable import global_1d_matrices
+    from tpufem_torch.utils.config import FemConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    p, n = 2, 2
+    npts = n * p + 1
+    K, M = global_1d_matrices(p, n, p + 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ResidentSeparable(npts, p, [K] * 3, [M] * 3, torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ResidentTerms(npts, p, [[K, M, M]], torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ResidentTerms2D(npts, p, [[K, M]], torch.float32)
+    mesh = Mesh.hyper_cube(2, 1)
+    dofs = DoFHandler(mesh, p)
+    arrays = {"Ks": [K, K], "Ms": [M, M],
+              "interior_mask": np.ones(dofs.n_dofs),
+              "diagonal": np.ones(dofs.n_dofs)}
+    cfg = FemConfig(dim=2, degree=p, scatter="separable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        matrix_free_from_arrays(cfg, mesh, dofs, arrays)
+    assert matrix_free_from_arrays(cfg, mesh, dofs, arrays,
+                                   "cpu").device.type == "cpu"
+    assert ResidentSeparable(npts, p, [K] * 3, [M] * 3, torch.float32,
+                             device="cpu").device.type == "cpu"

@@ -62,7 +62,7 @@ namespace tpufem { unsigned char smem_raw[1 << 22]; }
 HOST_SHIM = STUBS + r"""
 #include "separable_apply.cuh"
 
-template <int P, int DIM, typename S, typename C>
+template <int P, int DIM, typename S, typename C, bool COPY = false>
 static int run(int npts, int dirichlet, int tz, int ty, int tx,
                const void* u, void* y, const void* tables) {
   const long long bytes = tpufem::smem_elems(DIM, P, tz, ty, tx) * sizeof(C);
@@ -73,7 +73,7 @@ static int run(int npts, int dirichlet, int tz, int ty, int tx,
       for (int bx = 0; bx < gx; ++bx) {
         std::memset(tpufem::smem_raw, 0xAB, sizeof(tpufem::smem_raw));
         blockIdx = Dim3{bx, by, bz};
-        tpufem::separable_apply_kernel<P, DIM, S, C>(
+        tpufem::separable_apply_kernel<P, DIM, S, C, COPY>(
             (const S*)u, (S*)y, (const C*)tables, npts, dirichlet, tz, ty, tx);
         for (long long i = bytes; i < bytes + 4096; ++i)
           if (tpufem::smem_raw[i] != 0xAB) return 1;  // beyond its smem
@@ -108,6 +108,17 @@ extern "C" int host_apply(int code, int dim, int p, int npts, int d, int tz,
                           const void* t) {
   return dim == 3 ? by_dtype<3>(code, p, npts, d, tz, ty, tx, u, y, t)
                   : by_dtype<2>(code, p, npts, d, 1, ty, tx, u, y, t);
+}
+
+// the copy ablation of the 3D f32 resident apply
+extern "C" int host_copy(int p, int npts, int tz, int ty, int tx,
+                         const void* u, void* y, const void* t) {
+  switch (p) {
+    case 1: return run<1, 3, float, float, true>(npts, 0, tz, ty, tx, u, y, t);
+    case 4: return run<4, 3, float, float, true>(npts, 0, tz, ty, tx, u, y, t);
+    case 8: return run<8, 3, float, float, true>(npts, 0, tz, ty, tx, u, y, t);
+  }
+  return 2;
 }
 
 extern "C" long long host_smem_elems(int dim, int p, int tz, int ty, int tx) {
@@ -201,6 +212,8 @@ def host_lib(tmp_path_factory):
     lib.host_apply.restype = ctypes.c_int
     lib.host_smem_elems.argtypes = [ctypes.c_int] * 5
     lib.host_smem_elems.restype = ctypes.c_longlong
+    lib.host_copy.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+    lib.host_copy.restype = ctypes.c_int
     return lib
 
 
@@ -262,6 +275,25 @@ def test_kernel_host_build_matches_plain(host_lib, dim, p, npts, mode,
     ref = _plain(dim, npts, Ks, Ms, u.to(torch.float64), dirichlet)
     err = (y.to(torch.float64) - ref).abs().max() / ref.abs().max()
     assert err <= TOL[mode], err
+
+
+@pytest.mark.parametrize("p,npts,tile", [
+    (1, 9, None), (4, 17, (3, 5, 7)), (8, 33, None)])
+def test_kernel_host_copy_ablation_returns_its_input(host_lib, p, npts,
+                                                     tile):
+    """K1's copy ablation (the kernel lab's ``v5-copy``) stores each point
+    it loaded: y = u bit for bit, every point written, ragged tiles too."""
+    rng = np.random.default_rng(p)
+    mats = [_nonsym(rng, npts, p) for _ in range(6)]
+    tables = torch.as_tensor(tks.band_tables(mats, p), dtype=torch.float32)
+    if tile is None:
+        tile = tks.choose_tile(3, p, 4, host_lib.host_smem_elems)
+    u = torch.as_tensor(rng.standard_normal(npts**3), dtype=torch.float32)
+    y = torch.full_like(u, float("nan"))
+    rc = host_lib.host_copy(p, npts, *tile, u.data_ptr(), y.data_ptr(),
+                            tables.data_ptr())
+    assert rc == 0, "kernel wrote beyond its shared memory"
+    assert torch.equal(y, u)
 
 
 def test_kernel_host_build_f32_keeps_zero_row_sums(host_lib):

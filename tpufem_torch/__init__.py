@@ -1,9 +1,11 @@
 """tpufem_torch — the PyTorch/CUDA port of tpufem for NVIDIA Hopper (H100).
 
 The JAX package ``tpufem`` stays the reference.  This package mirrors its
-layout (``ops``, ``operators``, ``solvers``, ``apps``) and shares its host
-substrate (``tpufem.fem``, ``tpufem.utils.config``), which imports no JAX.
-Every Pallas kernel on the ported path is a hand-written CUDA C++ kernel
+layout (``fem``, ``ops``, ``operators``, ``solvers``, ``apps``) and imports
+nothing of it: the numpy host setup it needs (mesh, DoFs, quadrature,
+shapes, mapping, assembly, ``FemConfig``, VTU output) is its own copy in
+``tpufem_torch.fem`` and ``tpufem_torch.utils``, pinned equal to the
+reference by ``tests/test_torch_fem.py``.  Every Pallas kernel on the ported path is a hand-written CUDA C++ kernel
 for ``sm_90a`` (``tpufem_torch/csrc``), built with ``nvcc`` at first use
 (``tpufem_torch.utils.build``); on CPU tensors each kernel wrapper runs its
 plain PyTorch version instead.

@@ -23,13 +23,17 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from tpufem.fem.assemble import assemble_rhs, integrate_difference, integrate_errors
-from tpufem.fem.dof_handler import DoFHandler
-from tpufem.fem.mesh import Mesh
-from tpufem.utils.config import FemConfig
+from tpufem_torch.fem.assemble import (
+    assemble_rhs,
+    integrate_difference,
+    integrate_errors,
+)
+from tpufem_torch.fem.dof_handler import DoFHandler
+from tpufem_torch.fem.mesh import Mesh
 from tpufem_torch.operators.laplace import LaplaceOperator
-from tpufem_torch.ops.matrix_free import MatrixFree, not_ported
+from tpufem_torch.ops.matrix_free import MatrixFree, not_ported, resolve_device
 from tpufem_torch.solvers.cg import cg_solve
+from tpufem_torch.utils.config import FemConfig
 from tpufem_torch.utils.timer import Timer
 
 
@@ -80,17 +84,6 @@ class PoissonResult:
     converged: bool
     dofs: object = None  # DoFHandler (for output writers)
     h1_error: float | None = None  # H1 seminorm, with --h1
-
-
-def resolve_device(device: torch.device | str) -> torch.device:
-    """The requested device; a CUDA device that is absent raises (the port
-    never moves to the CPU on its own)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but torch.cuda is not "
-                           "available; pass device='cpu' to run the plain "
-                           "PyTorch version on the CPU")
-    return device
 
 
 def poisson_mesh(dim: int, refine: int, mesh_kind: str = "cube") -> Mesh:
@@ -266,7 +259,7 @@ def main(argv=None):
         device="cpu" if args.cpu else args.device,
     )
     if args.vtu:
-        from tpufem.utils.output import write_vtu
+        from tpufem_torch.utils.output import write_vtu
 
         write_vtu(args.vtu, r.dofs, {"u": r.solution})
     if args.json:

@@ -14,14 +14,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpufem.fem.dof_handler import DoFHandler
-from tpufem.fem.mesh import Mesh
-from tpufem.utils.config import FemConfig
+from tpufem_torch.fem.dof_handler import DoFHandler
+from tpufem_torch.fem.mesh import Mesh
 from tpufem_torch.ops.matrix_free import MatrixFree
+from tpufem_torch.utils.config import FemConfig
 
 
 def matrix_free_from_arrays(config: FemConfig, mesh: Mesh, dofs: DoFHandler,
-                            arrays: dict, device: torch.device | str = "cpu"
+                            arrays: dict, device: torch.device | str = "cuda"
                             ) -> MatrixFree:
     """MatrixFree from host arrays.
 
@@ -31,7 +31,8 @@ def matrix_free_from_arrays(config: FemConfig, mesh: Mesh, dofs: DoFHandler,
     ``"interior_mask"`` ((n_dofs,), 1 on unconstrained DoFs) and
     ``"diagonal"`` ((n_dofs,) Jacobi diagonal, 1 on constrained DoFs).
     Kernels attach under ``config.use_pallas`` exactly as in
-    ``MatrixFree.build``.
+    ``MatrixFree.build``.  The device defaults to the card, and a card
+    that is absent raises; ``device="cpu"`` runs the plain version.
     """
     if config.scatter != "separable":
         raise ValueError("the bridge carries the separable scheme only")

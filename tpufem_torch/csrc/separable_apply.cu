@@ -14,13 +14,14 @@ namespace {
 
 constexpr int kMaxDevices = 64;
 
-template <int P, int DIM, typename S, typename C>
+template <int P, int DIM, typename S, typename C, bool COPY = false>
 cudaError_t launch(int npts, int dirichlet, int tz, int ty, int tx,
                    const void* u, void* y, const void* tables,
                    cudaStream_t stream) {
+  // COPY takes the full apply's shared memory, so both run at one occupancy
   const int smem =
       (int)(tpufem::smem_elems(DIM, P, tz, ty, tx) * (long long)sizeof(C));
-  auto kern = tpufem::separable_apply_kernel<P, DIM, S, C>;
+  auto kern = tpufem::separable_apply_kernel<P, DIM, S, C, COPY>;
   // above 48 KB dynamic shared memory must be opted into per kernel and
   // device; the opt-in is made once per instantiation and device (and again
   // only for a larger block).  A refused launch shows only in
@@ -103,6 +104,31 @@ int tpufem_separable_apply(int dtype_code, int dim, int p, int npts,
   if (dim == 2)
     return (int)dispatch_dtype<2>(dtype_code, p, npts, dirichlet, 1, ty, tx,
                                   u, y, tables, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The copy ablation of the 3D f32 resident apply (separable_apply.cuh,
+// COPY): y = u through the routine's tile loads and stores.  tables as for
+// tpufem_separable_apply (its rows are loaded, as by the apply).
+int tpufem_separable_copy(int p, int npts, int tz, int ty, int tx,
+                          const void* u, void* y, const void* tables,
+                          void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define TPUFEM_CASE(PP)                                                  \
+  case PP:                                                               \
+    return (int)launch<PP, 3, float, float, true>(npts, 0, tz, ty, tx, u,  \
+                                                  y, tables, s);
+  switch (p) {
+    TPUFEM_CASE(1)
+    TPUFEM_CASE(2)
+    TPUFEM_CASE(3)
+    TPUFEM_CASE(4)
+    TPUFEM_CASE(5)
+    TPUFEM_CASE(6)
+    TPUFEM_CASE(7)
+    TPUFEM_CASE(8)
+  }
+#undef TPUFEM_CASE
   return (int)cudaErrorInvalidValue;
 }
 

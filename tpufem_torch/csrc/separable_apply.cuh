@@ -35,7 +35,8 @@
 // 80GB HBM3 at 700 W; PERF.md): the halo re-read (a (T+2P)/T factor per
 // axis), the shared-memory traffic and the occupancy of 80 KB blocks are
 // what later tuning (register blocking along z, TMA tiles, persistent
-// blocks) has to cut.
+// blocks) has to cut.  The loads and stores alone (COPY below) take 0.43
+// of those 1.11 ms, the band stages 0.41, the fused mask 0.27.
 #pragma once
 
 #include "common.cuh"
@@ -60,7 +61,10 @@ __host__ __device__ inline long long smem_elems(int dim, int p, int tz,
   return 2LL * (ty + tx) * nw + ly * lx + 2LL * ty * lx;
 }
 
-template <int P, int DIM, typename S, typename C>
+// COPY: the timing ablation of the K1 kernel lab (the "copy" of
+// kernel_lab.py:649-660 on this routine's own tiles and shared memory): the
+// loads, then each output point stores its loaded u, no band stage.
+template <int P, int DIM, typename S, typename C, bool COPY = false>
 __global__ void __launch_bounds__(kThreads)
 separable_apply_kernel(const S* __restrict__ u, S* __restrict__ y,
                        const C* __restrict__ tables, int npts, int dirichlet,
@@ -119,6 +123,18 @@ separable_apply_kernel(const S* __restrict__ u, S* __restrict__ y,
     bufA[i] = v;
   }
   __syncthreads();
+
+  if constexpr (COPY) {
+    for (int i = tid; i < nz * ty * tx; i += nthr) {
+      const int ix = i % tx, r = i / tx, iy = r % ty, iz = r / ty;
+      const int gx = x0 + ix, gy = y0 + iy, gz = z0 + iz;
+      if (gx >= npts || gy >= npts || gz >= npts) continue;
+      const int cz = (DIM == 3) ? iz + P : 0;
+      const C v = bufA[((long long)cz * ly + iy + P) * lx + ix + P];
+      y[gz * plane + (long long)gy * npts + gx] = Conv<S, C>::store(v);
+    }
+    return;
+  }
 
   C* q1;
   C* q2;

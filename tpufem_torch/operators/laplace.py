@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpufem.fem.assemble import cell_basis_gradients
+from tpufem_torch.fem.assemble import cell_basis_gradients
 from tpufem_torch.ops.matrix_free import MatrixFree
 from tpufem_torch.ops.separable import (
     laplace_apply_separable,

@@ -149,17 +149,23 @@ class _BandApply:
         self.tables = torch.as_tensor(band_tables(mats, p), dtype=compute,
                                       device=self.device)
 
-    def launch(self, u: torch.Tensor) -> torch.Tensor:
-        """y = A u (with the fused mask if ``dirichlet``) on the card."""
+    def launch(self, u: torch.Tensor, copy: bool = False) -> torch.Tensor:
+        """y = A u (with the fused mask if ``dirichlet``) on the card; with
+        ``copy``, y = u through the same tiles (3D f32, no mask)."""
         check_grid(u, self.device, self.storage, self.npts, self.dim)
         y = torch.empty_like(u)
         tz, ty, tx = self.tile
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream().cuda_stream
-            rc = self.lib.lib.tpufem_separable_apply(
-                self.code, self.dim, self.p, self.npts, int(self.dirichlet),
-                tz, ty, tx, u.data_ptr(), y.data_ptr(),
-                self.tables.data_ptr(), stream)
+            if copy:
+                rc = self.lib.lib.tpufem_separable_copy(
+                    self.p, self.npts, tz, ty, tx, u.data_ptr(),
+                    y.data_ptr(), self.tables.data_ptr(), stream)
+            else:
+                rc = self.lib.lib.tpufem_separable_apply(
+                    self.code, self.dim, self.p, self.npts,
+                    int(self.dirichlet), tz, ty, tx, u.data_ptr(),
+                    y.data_ptr(), self.tables.data_ptr(), stream)
         self.lib.check(rc, "tpufem_separable_apply launch")
         return y
 
@@ -218,6 +224,8 @@ class ResidentSeparable:
       meets that accuracy class.
     - "bf16s": vectors stored bf16, arithmetic in f32 (dtype float32);
       ~4e-3 rel, the class of the TPU kernel (input/output quantisation).
+    - "copy": the kernel lab's timing ablation, y = u through the kernel's
+      own tile loads and stores, no band stage (float32, no mask).
 
     ``tile`` overrides the kernel's output tile (the tile sweep of
     ``tpufem_torch.apps.resident_probe``).
@@ -226,13 +234,15 @@ class ResidentSeparable:
     launches = 0  # kernel launches by all instances (plain calls excluded)
 
     def __init__(self, npts, p, Ks, Ms, dtype, mode="f32", dirichlet=False,
-                 device="cpu", tile=None):
-        if mode not in ("f32", "bf16", "bf16s"):
-            raise ValueError(f"mode must be 'f32', 'bf16' or 'bf16s', got "
-                             f"{mode!r}")
+                 device="cuda", tile=None):
+        if mode not in ("f32", "bf16", "bf16s", "copy"):
+            raise ValueError(f"mode must be 'f32', 'bf16', 'bf16s' or "
+                             f"'copy', got {mode!r}")
         cdt = torch_dtype(dtype)
-        if mode == "bf16s" and cdt != torch.float32:
-            raise ValueError("mode 'bf16s' computes in float32")
+        if mode in ("bf16s", "copy") and cdt != torch.float32:
+            raise ValueError(f"mode {mode!r} computes in float32")
+        if mode == "copy" and dirichlet:
+            raise ValueError("mode 'copy' has no Dirichlet mask")
         self.npts, self.p, self.mode = npts, p, mode
         self.compute_dt = cdt
         self.dt = torch.bfloat16 if mode == "bf16s" else cdt  # storage
@@ -265,6 +275,8 @@ class ResidentSeparable:
     def plain(self, gp: torch.Tensor) -> torch.Tensor:
         """The plain PyTorch version of ``raw`` (compute dtype inside,
         storage dtype out)."""
+        if self.mode == "copy":
+            return gp.clone()
         x = gp.to(self.compute_dt).reshape(-1)
         A = lambda v: laplace_apply_separable(v, 3, self.npts, self.Ks,
                                               self.Ms)
@@ -278,7 +290,7 @@ class ResidentSeparable:
     def raw(self, gp: torch.Tensor) -> torch.Tensor:
         if gp.device.type == "cpu" and self.device.type == "cpu":
             return self.plain(gp)
-        y = self._band.launch(gp)
+        y = self._band.launch(gp, copy=self.mode == "copy")
         ResidentSeparable.launches += 1
         return y
 

@@ -59,7 +59,7 @@ class _ResidentTermsBase:
 
     dim = 0  # set by the subclasses, each with its own ``launches``
 
-    def __init__(self, npts, p, terms, dtype, mode="f32", device="cpu"):
+    def __init__(self, npts, p, terms, dtype, mode="f32", device="cuda"):
         if mode not in ("f32", "bf16", "bf16s"):
             raise ValueError(f"mode must be 'f32', 'bf16' or 'bf16s', got "
                              f"{mode!r}")

@@ -27,11 +27,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpufem.fem.dof_handler import DoFHandler
-from tpufem.fem.mapping import Metric, compute_metric
-from tpufem.fem.mesh import Mesh
-from tpufem.fem.quadrature import Quadrature
-from tpufem.utils.config import FemConfig
+from tpufem_torch.fem.dof_handler import DoFHandler
+from tpufem_torch.fem.mapping import Metric, compute_metric
+from tpufem_torch.fem.mesh import Mesh
+from tpufem_torch.fem.quadrature import Quadrature
 from tpufem_torch.ops.kernel_separable import KernelSeparable, ResidentSeparable
 from tpufem_torch.ops.kernel_terms import ResidentTerms, ResidentTerms2D
 from tpufem_torch.ops.separable import (
@@ -40,6 +39,7 @@ from tpufem_torch.ops.separable import (
     cartesian_coef_terms,
     cp_coef_terms,
 )
+from tpufem_torch.utils.config import FemConfig
 from tpufem_torch.utils.precision import torch_dtype
 
 _NOT_PORTED = {
@@ -55,6 +55,17 @@ _NOT_PORTED = {
 def not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP.md, queue 1: {item})")
+
+
+def resolve_device(device: torch.device | str) -> torch.device:
+    """The requested device; a CUDA device that is absent raises (the port
+    never moves to the CPU on its own)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch.cuda is not "
+                           "available; pass device='cpu' to run the plain "
+                           "PyTorch version on the CPU")
+    return device
 
 
 def _terms_with_kernel(terms, npts, p, d, config, device):
@@ -198,7 +209,7 @@ class MatrixFree:
         """MatrixFree from host arrays: per-axis f64 1D operators and the
         interior mask; attaches the kernels under ``config.use_pallas``."""
         p, d = config.degree, config.dim
-        device = torch.device(device)
+        device = resolve_device(device)
         dt = torch_dtype(config.dtype)
         npts = int(mesh.U // mesh.sizes[0]) * p + 1
         Ks = [np.asarray(K, np.float64) for K in Ks]
@@ -249,7 +260,7 @@ class MatrixFree:
         arrays: ``terms[a][b]`` f64 1D matrices (b = 0 is x) and the
         interior mask; K4/K3 attaches under ``config.use_pallas``."""
         p, d = config.degree, config.dim
-        device = torch.device(device)
+        device = resolve_device(device)
         dt = torch_dtype(config.dtype)
         npts = int(mesh.U // mesh.sizes[0]) * p + 1
         terms = [[np.asarray(X, np.float64) for X in term] for term in terms]

@@ -29,8 +29,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from tpufem.fem.quadrature import Quadrature
-from tpufem.fem.shapes import ShapeInfo
+from tpufem_torch.fem.quadrature import Quadrature
+from tpufem_torch.fem.shapes import ShapeInfo
 
 
 @lru_cache(maxsize=None)

@@ -5,8 +5,8 @@ compile in seconds without PyTorch's headers, one library per ``.cu``, all
 at the same time:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/tpufem_torch/tpufem_torch_<name>_<hash>.so \
-         csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v --split-compile=0 \
+         -o build/tpufem_torch/tpufem_torch_<name>_<hash>.so csrc/<name>.cu
 
 The build runs at first use, into ``build/tpufem_torch/`` beside the
 package, each library keyed on a hash of its source, the headers it
@@ -38,18 +38,27 @@ SOURCES = {
                         ("common.cuh", "separable_apply.cuh")),
     "terms_apply": ("terms_apply.cu",  # K3, K4
                     ("common.cuh", "terms_apply.cuh")),
+    "lab_resident": ("lab_resident.cu",  # the K1 kernel lab (L1: v17-v20)
+                     ("common.cuh", "lab_resident.cuh")),
 }
+# --split-compile=0 spreads nvcc's optimisation passes over every core of
+# the host (the lab library's 64 instances are the longest build)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0")
 # ctypes signatures of each library's C entries: name -> (argtypes, restype)
 _I, _P, _LL = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
 _ENTRIES = {
     "separable_apply": {
         "tpufem_separable_apply": ([_I] * 8 + [_P] * 4, _I),
+        "tpufem_separable_copy": ([_I] * 5 + [_P] * 4, _I),
         "tpufem_smem_elems": ([_I] * 5, _LL)},
     "terms_apply": {
         "tpufem_terms_apply": ([_I] * 8 + [_P] * 4, _I),
         "tpufem_terms_smem_elems": ([_I] * 6, _LL)},
+    "lab_resident": {
+        "tpufem_lab_apply": ([_I] * 11 + [_P] * 7, _I),
+        "tpufem_lab_smem_bytes": ([_I] * 6, _LL)},
 }
 
 

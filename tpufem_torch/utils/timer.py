@@ -65,3 +65,29 @@ def time_fn(fn, x: torch.Tensor, reps: int = 30, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / 1e3 / reps
+
+
+# Published dense peaks of one NVIDIA H100 SXM at its 700 W limit (NVIDIA's
+# data sheet): device memory bytes/s, and operations/s by type (tensor
+# cores: tf32, bf16, fp64_tensor; CUDA cores: fp32, fp64)
+H100_PEAKS = {"bytes": 3.35e12, "tf32": 495e12, "bf16": 989e12,
+              "fp64_tensor": 67e12, "fp32": 67e12, "fp64": 34e12}
+# the unit that runs each type; units run at the same time
+H100_UNITS = {"tf32": "tensor", "bf16": "tensor", "fp64_tensor": "tensor",
+              "fp32": "fp32", "fp64": "fp64"}
+
+
+def roofline_ms(nbytes: float, ops: dict) -> tuple[float, str]:
+    """The least time (ms) an H100 could take for work that moves
+    ``nbytes`` and does ``ops[type]`` operations of each type: the largest
+    of the bytes term and each unit's operations term (a unit's types
+    summed, each at its peak), and which of the two ("bytes" or
+    "operations") it is."""
+    t_bytes = nbytes / H100_PEAKS["bytes"]
+    per_unit = {}
+    for kind, n in ops.items():
+        unit = H100_UNITS[kind]
+        per_unit[unit] = per_unit.get(unit, 0.0) + n / H100_PEAKS[kind]
+    t_ops = max(per_unit.values(), default=0.0)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
