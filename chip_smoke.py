@@ -44,13 +44,21 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 ``kernel_lab.main`` at the flagship, whose L1 launch counts
                 are the ones reported and whose raw applies, each timed in
                 turns with its plain version (K1's copy ablation too), are
-                the L1 times
+                the L1 times.  The L2a kernels (K2's lab, x first: v2, v3,
+                v6, v8, v9, v12, vx, vxy, tpufem_torch/lab/separable_lab.py)
+                likewise: each in each precision (f64, f32 = 3xTF32, f32h =
+                1xTF32, bf16 = bf16x3, bf16d = one bf16 product; v9 is v2
+                in bf16x3) against its plain version in f64 (``separable_
+                lab.TOL``) and, split precisions, its emulation
+                (``EMU_TOL``), every output point written, at p = 1, 2, 4,
+                7, 8 and at the flagship; their counts and times come from
+                the same ``kernel_lab.main`` run
   6 throughput  ms per apply over chains of 30 applies (CUDA events),
                 kernel and plain in turns: K1 at 17M DoFs, K2 at 2.1M, K4
                 on the 17M coefficient operator and the 2.1M shell, K3 at
                 2D Q4 refine 10 (16,785,409 DoFs), against K2 there too;
-                phase 5's L1 times beside one torch.matmul of the x-stage
-                shape (the L1 kernels' library_ms)
+                phase 5's L1 and L2a times beside one torch.matmul of each
+                lab's x-stage shape (their library_ms)
 Then one JSON line with each kernel's record (time, plain time, bound on
 an H100 and library time), and as the last line
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
@@ -90,11 +98,31 @@ LAB_KERNELS = {"v17": ("dense x stage", "scripts/kernel_lab.py:581"),
                "v18": ("fused bands", "scripts/kernel_lab.py:1090"),
                "v19": ("pipelined", "scripts/kernel_lab.py:922"),
                "v20": ("block-banded x stage", "scripts/kernel_lab.py:747")}
-# the lab's main path: its entry point at the flagship, every L1 kernel
+# the L2a kernels: (what the variant is, the Pallas kernel it replaces)
+L2_KERNELS = {"v2": ("dense x, y, z", "scripts/kernel_lab.py:47"),
+              "v3": ("band x, dense y/z", "scripts/kernel_lab.py:78"),
+              "v6": ("v2's kernel", "scripts/kernel_lab.py:106"),
+              "v8": ("transposed staging", "scripts/kernel_lab.py:132"),
+              "v9": ("bf16x3", "scripts/kernel_lab.py:212"),
+              "v12": ("dense x, band y/z", "scripts/kernel_lab.py:237"),
+              "vx": ("x stage alone", "scripts/kernel_lab.py:164"),
+              "vxy": ("x and y stages", "scripts/kernel_lab.py:177")}
+# storage and precision of each L2a mode
+L2_MODES = {"f64": (torch.float64, "highest"),
+            "f32": (torch.float32, "highest"),
+            "f32h": (torch.float32, "high"),
+            "bf16": (torch.float32, "bf16x3"),
+            "bf16d": (torch.float32, "default")}
+# the lab run whose raw apply is each L2a row's time: 3xTF32 (v9: bf16x3)
+L2_TIMED = {"v2": "v2-highest", "v3": "v3-highest"}
+# the lab's main path: its entry point at the flagship, every L1 and L2a
+# kernel
 LAB_ARGS = ["--refine", "6", "--p", "4", "--reps", "20", "--variants",
             "v0", "v5", "v5-copy", "v4", "v17", "v17-h", "v17-bf",
             "v17-f64", "v18", "v19", "v19-bf", "v20", "v20-bf", "v20-h",
-            "v17-copy", "v17-bands", "v17-mm"]
+            "v17-copy", "v17-bands", "v17-mm", "v2-highest", "v2-high",
+            "v2-default", "v3-highest", "v3-high", "v6", "v8", "v9", "v12",
+            "vx", "vxy"]
 STORAGE = {"f64": torch.float64, "f32": torch.float32,
            "bf16s": torch.bfloat16}
 N_CHAIN = 30
@@ -310,6 +338,55 @@ def check_lab(kern, mode, p, n, h, u):
     return tag, rel, errs[0][1], emu
 
 
+def check_l2(v, mode, p, n, h, u):
+    """Launch one L2a kernel on the f64 input ``u`` ((n p + 1)**3 points on
+    the card); return (tag, max relative error, max abs error, emulation)
+    against the plain version of its function in f64 on the same
+    (storage-rounded) layout, every output point checked; a split
+    precision also against ``LabKernel.emulate`` (emulation: its own max
+    relative error and the kernel's max distance from it over max |y|),
+    else None.  Raises when out of its class, when an output point is not
+    finite or when the launch counter did not rise."""
+    from tpufem_torch.lab import separable_lab
+    from tpufem_torch.lab.separable_lab import LabKernel
+    from tpufem_torch.ops.separable import global_1d_matrices
+
+    npts = n * p + 1
+    K1, M1 = global_1d_matrices(p, n, p + 1)
+    dtype, prec = L2_MODES[mode]
+    k = LabKernel(v, npts, p, K1, M1, h, prec=prec, dtype=dtype,
+                  device="cuda")
+    gp = k.pad(u)
+    before = LabKernel.launches[v]
+    y = k.raw(gp)
+    rose = LabKernel.launches[v] == before + 1
+    torch.cuda.synchronize()
+    tag = f"{v} {mode} p={p} npts={npts} b={k.b} smem={k.smem}"
+    if not rose:
+        raise RuntimeError(f"{tag}: launch counter did not rise")
+    if not torch.isfinite(y).all():
+        raise RuntimeError(f"{tag}: an output point is not finite")
+    ref = k.plain(gp.to(torch.float64))
+    abs_err = float((y.to(torch.float64) - ref).abs().max())
+    rel = abs_err / float(ref.abs().max())
+    if not rel <= separable_lab.TOL[k.xp]:
+        raise RuntimeError(f"{tag}: max rel err {rel:.3e} > "
+                           f"{separable_lab.TOL[k.xp]}")
+    emu = None
+    if mode != "f64":
+        ye = k.emulate(gp).to(torch.float64)
+        emu_rel = float((ye - ref).abs().max() / ref.abs().max())
+        diff = float((y.to(torch.float64) - ye).abs().max()
+                     / ref.abs().max())
+        if not diff <= separable_lab.EMU_TOL[k.xp]:
+            raise RuntimeError(f"{tag}: off the emulation of its arithmetic "
+                               f"by {diff:.3e} > "
+                               f"{separable_lab.EMU_TOL[k.xp]} (emulation's "
+                               f"own max rel err {emu_rel:.3e})")
+        emu = (emu_rel, diff)
+    return tag, rel, abs_err, emu
+
+
 class PlainResident:
     """A resident kernel's contract with ``raw`` its plain PyTorch
     version: the plain masked apply on the card, launch counts untouched."""
@@ -377,17 +454,23 @@ def main() -> int:
     t_build = time.perf_counter() - t0
     log = "".join(f"==== {name}\n{lib.compiler_log}"
                   for name, lib in libs.items())
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
-    spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", log)]
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_ptxas.log").write_text(log)
-    say("2 build", ", ".join(f"{lib.path.name} built in "
-                             f"{lib.build_seconds:.1f} s"
+
+    def ptxas(lib):
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers",
+                                           lib.compiler_log)]
+        spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores",
+                                             lib.compiler_log)]
+        return (f"{len(regs)} kernels, registers max {max(regs, default=0)},"
+                f" {sum(s > 0 for s in spills)} spilling (max "
+                f"{max(spills, default=0)} bytes)")
+
+    say("2 build", "; ".join(f"{lib.path.name} built in "
+                             f"{lib.build_seconds:.1f} s, {ptxas(lib)}"
                              for lib in libs.values())
-        + f" (side by side, {t_build:.1f} s in all); {len(regs)} kernels, "
-        f"registers max {max(regs, default=0)}, spill stores max "
-        f"{max(spills, default=0)} bytes")
+        + f" (side by side, {t_build:.1f} s in all)")
 
     # ---- 3 kernel vs plain on the card --------------------------------
     rng = np.random.default_rng(2024)
@@ -770,15 +853,62 @@ def main() -> int:
             + (f", emulated {emu_worst[m]:.3e}, apart {emu_apart[m]:.3e}"
                if m in emu_worst else "")
             + ")" for m in LAB_TOL))
+    # the L2a kernels, each variant in each precision (v9: bf16x3 only)
+    from tpufem_torch.lab.separable_lab import VARIANTS as L2A, LabKernel
+
+    l2_worst, l2_emu, l2_apart, l2_abs = {}, {}, {}, {}
+
+    def l2_case(v, mode, p, n, h, u):
+        tag, rel, aerr, emu = check_l2(v, mode, p, n, h, u)
+        l2_worst[mode] = max(l2_worst.get(mode, 0.0), rel)
+        if emu is not None:
+            l2_emu[mode] = max(l2_emu.get(mode, 0.0), emu[0])
+            l2_apart[mode] = max(l2_apart.get(mode, 0.0), emu[1])
+        return tag, aerr, f"{mode} {rel:.3e}" + (
+            f" (emulated {emu[0]:.3e}, apart {emu[1]:.3e})"
+            if emu is not None else "")
+
+    def l2_modes(v):
+        return ["bf16"] if v == "v9" else list(L2_MODES)
+
+    for p in (1, 2, 4, 7, 8):
+        n = max(2, 24 // p)
+        u = torch.tensor(rng.standard_normal((n * p + 1)**3), device=dev)
+        for v in L2A:
+            rels = [l2_case(v, mode, p, n, [1.0 / n, 1.3 / n, 0.7 / n],
+                            u)[2] for mode in l2_modes(v)]
+            say("5 lab", f"{v} p={p} npts={n * p + 1}: max rel err "
+                + ", ".join(rels))
+    for v in L2A:
+        rels = []
+        for mode in l2_modes(v):
+            tag, aerr, line = l2_case(v, mode, 4, 64, [1.0 / 64] * 3, u257)
+            if mode == ("bf16" if v == "v9" else "f32"):
+                l2_abs[v] = aerr
+            rels.append(f"{line} ({tag.split(' ', 3)[3]})")
+        say("5 lab", f"flagship npts=257: {v} max rel err " + ", ".join(rels)
+            + f"; max abs err {l2_abs[v]:.3e}")
+    say("5 lab", "L2a all within their classes, every point finite; worst "
+        "max rel err " + ", ".join(
+            f"{m} {l2_worst[m]:.3e}"
+            + (f" (emulated {l2_emu[m]:.3e}, apart {l2_apart[m]:.3e})"
+               if m in l2_emu else "") for m in L2_MODES))
     for kern in KERNELS:
         V17Kernel.launches[kern] = 0
+    for v in L2A:
+        LabKernel.launches[v] = 0
     lab_results = kernel_lab.main(LAB_ARGS)
     launches.update(V17Kernel.launches)
+    launches.update({f"L2 {v}": n for v, n in LabKernel.launches.items()})
     say("5 lab", f"kernel_lab.main {' '.join(LAB_ARGS)}: L1 launches "
-        f"{dict(V17Kernel.launches)}")
+        f"{dict(V17Kernel.launches)}, L2a launches "
+        f"{dict(LabKernel.launches)}")
     if not all(launches[kern] > 0 for kern in KERNELS):
         raise RuntimeError(f"an L1 kernel of the lab's main path did not "
                            f"run: {dict(V17Kernel.launches)}")
+    if not all(n > 0 for n in LabKernel.launches.values()):
+        raise RuntimeError(f"an L2a kernel of the lab's main path did not "
+                           f"run: {dict(LabKernel.launches)}")
     lab_best = max((r["gdofs"], name) for name, r in lab_results.items()
                    if r["rel_err"] == r["rel_err"])
     say("5 lab", f"kernel_lab best (held against the plain version): "
@@ -885,19 +1015,36 @@ def main() -> int:
             ms[name], plain_ms[name] = r["ms"], r["plain_ms"]
         bound[name] = (r["bound_ms"], r["bound_by"])
         design[name] = r.get("design_ms")
+    for v in L2A:
+        r = lab[L2_TIMED.get(v, v)]
+        ms[f"L2 {v}"], plain_ms[f"L2 {v}"] = r["ms"], r["plain_ms"]
+        bound[f"L2 {v}"] = (r["bound_ms"], r["bound_by"])
     X = X_ALIGN * -(-257 // X_ALIGN)
     gen = torch.Generator(device=dev).manual_seed(5)
     A = torch.randn((257**2, 2 * X), generator=gen, device=dev)
     B = torch.randn((2 * X, X), generator=gen, device=dev)
     library_ms = 1e3 * time_fn(lambda _: torch.matmul(A, B), A, reps=N_CHAIN)
-    say("6 throughput", "L1 and K1 at 16,974,593 DoFs (kernel_lab.main), ms "
-        "per raw apply (plain ms; bound ms; design bound ms): " + ", ".join(
+    del A, B
+    # L2a's x stage, as v2 runs it at the flagship: every tile's halo'd
+    # (L, L) rows, nt = 11 tiles a side at b = 24, L = 32, times [Mx^T |
+    # Kx^T]
+    b2 = lab["v2-highest"]["b"]
+    rows2 = (-(-257 // b2))**2 * (b2 + 8)**2
+    A = torch.randn((rows2, X), generator=gen, device=dev)
+    B = torch.randn((X, 2 * X), generator=gen, device=dev)
+    l2_library_ms = 1e3 * time_fn(lambda _: torch.matmul(A, B), A,
+                                  reps=N_CHAIN)
+    del A, B
+    say("6 throughput", "L1, L2a and K1 at 16,974,593 DoFs (kernel_lab.main)"
+        ", ms per raw apply (plain ms; bound ms; design bound ms): "
+        + ", ".join(
             f"{name} {r['ms']:.4f} ({r['plain_ms']:.4f}; "
             f"{bound[name][0]:.4f} {bound[name][1]}"
             + (f"; {design[name]:.4f}" if design[name] is not None else "")
             + ")" for name, r in lab.items())
         + f"; torch.matmul ({257**2}, {2 * X}) x ({2 * X}, {X}) f32 "
-        f"{library_ms:.4f}")
+        f"{library_ms:.4f} (L1); ({rows2}, {X}) x ({X}, {2 * X}) f32 "
+        f"{l2_library_ms:.4f} (L2a)")
 
     # the bound of K1-K4: each point read and written once in f32, and 2p+1
     # multiply-adds per band output (K1/K2 7 bands a point, K4 3 terms x 3,
@@ -929,7 +1076,11 @@ def main() -> int:
          "tpufem/ops/pallas_separable.py:1057", abs_err["K3"], None),
     ] + [(kern, f"{kern} lab_resident ({LAB_KERNELS[kern][0]}, 3xTF32)",
           "tpufem_torch/csrc/lab_resident.cuh", LAB_KERNELS[kern][1],
-          lab_abs[kern], library_ms) for kern in KERNELS]
+          lab_abs[kern], library_ms) for kern in KERNELS] + [
+        (f"L2 {v}", f"{v} lab_separable ({L2_KERNELS[v][0]}, "
+         f"{'bf16x3' if v == 'v9' else '3xTF32'})",
+         "tpufem_torch/csrc/lab_separable.cuh", L2_KERNELS[v][1], l2_abs[v],
+         l2_library_ms) for v in L2A]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": rep,
          "launches": launches[key], "max_abs_err": aerr, "ms": ms[key],

@@ -1,0 +1,326 @@
+"""The K2 kernel lab's x-first half (L2a: v2, v3, v6, v8, v9, v12, vx, vxy)
+on the CPU: the port's plain version against the Pallas kernels of
+``scripts/kernel_lab.py`` in interpret mode, the copied tile slices, the
+entry point's refusal without a card, the routine's shared-memory count,
+and a g++ build of the CUDA routine (tpufem_torch/csrc/lab_separable.cuh)
+against the plain version.
+
+``scripts/kernel_lab.py`` is imported by path and its module's
+``pl.pallas_call`` replaced by ``partial(pl.pallas_call, interpret=True)``;
+nothing in ``scripts/`` changes.  The host build runs one thread per block
+with the WMMA stub of test_torch_lab.py (one host thread stands for a
+warp).
+"""
+
+import ctypes
+import functools
+import importlib.util
+import os
+import types
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_kernel_host import STUBS, _build
+from test_torch_lab import WMMA_STUBS
+
+from tpufem_torch.lab import kernel_lab, separable_lab
+from tpufem_torch.lab.separable_lab import LabKernel
+from tpufem_torch.ops.separable import global_1d_matrices
+
+L2_SHIM = STUBS + WMMA_STUBS + r"""
+#include "lab_separable.cuh"
+
+template <int P, int XP>
+static int run(int flags, tpufem::L2Geo g, const void* u, void* y,
+               const void* xk, long long xk_lo, const void* sl,
+               long long sl_lo, const void* tab) {
+  using C = typename tpufem::LabMma<XP>::C;
+  using E = typename tpufem::LabMma<XP>::E;
+  const long long bytes = tpufem::l2_smem(P, XP, g.b).total;
+  for (int bz = 0; bz < g.nt; ++bz)
+    for (int by = 0; by < g.nt; ++by)
+      for (int bx = 0; bx < g.X / tpufem::kL2XC; ++bx) {
+        std::memset(tpufem::smem_raw, 0xAB, bytes + 4096);
+        blockIdx = Dim3{bx, by, bz};
+        tpufem::l2_kernel<P, XP>((const C*)u, (C*)y, (const E*)xk, xk_lo,
+                                 (const E*)sl, sl_lo, (const C*)tab, g,
+                                 flags);
+        for (long long i = bytes; i < bytes + 4096; ++i)
+          if (tpufem::smem_raw[i] != 0xAB) return 1;  // beyond its smem
+      }
+  return 0;
+}
+
+template <int XP>
+static int by_p(int p, int flags, tpufem::L2Geo g, const void* u, void* y,
+                const void* xk, long long xl, const void* sl, long long sll,
+                const void* t) {
+  switch (p) {
+    case 1: return run<1, XP>(flags, g, u, y, xk, xl, sl, sll, t);
+    case 2: return run<2, XP>(flags, g, u, y, xk, xl, sl, sll, t);
+    case 4: return run<4, XP>(flags, g, u, y, xk, xl, sl, sll, t);
+    case 7: return run<7, XP>(flags, g, u, y, xk, xl, sl, sll, t);
+  }
+  return 2;
+}
+
+extern "C" int host_l2_apply(int flags, int xp, int p, int npts, int b,
+                             int nt, int size, int X, const void* u, void* y,
+                             const void* xk, long long xk_lo, const void* sl,
+                             long long sl_lo, const void* t) {
+  const int L = b + 2 * p;
+  const tpufem::L2Geo g{npts, b, nt, size, X, L, tpufem::l2_round16(L),
+                        tpufem::l2_round16(b)};
+  switch (xp) {
+    case 0: return by_p<0>(p, flags, g, u, y, xk, xk_lo, sl, sl_lo, t);
+    case 1: return by_p<1>(p, flags, g, u, y, xk, xk_lo, sl, sl_lo, t);
+    case 2: return by_p<2>(p, flags, g, u, y, xk, xk_lo, sl, sl_lo, t);
+    case 3: return by_p<3>(p, flags, g, u, y, xk, xk_lo, sl, sl_lo, t);
+    case 4: return by_p<4>(p, flags, g, u, y, xk, xk_lo, sl, sl_lo, t);
+  }
+  return 2;
+}
+
+extern "C" long long host_l2_smem_bytes(int p, int xp, int b) {
+  return tpufem::l2_smem(p, xp, b).total;
+}
+"""
+
+# storage dtype and precision of each mode; the classes are
+# separable_lab.TOL and EMU_TOL, by precision code
+MODES = {"f64": (torch.float64, "highest"), "f32": (torch.float32, "highest"),
+         "f32h": (torch.float32, "high"), "bf16": (torch.float32, "bf16x3"),
+         "bf16d": (torch.float32, "default")}
+TOL, EMU_TOL = separable_lab.TOL, separable_lab.EMU_TOL
+# the variants of each mode: v9 is v2 in bf16x3
+MODE_VARIANTS = {m: [v for v in separable_lab.VARIANTS
+                     if m == "bf16" or v != "v9"] for m in MODES}
+
+
+def _kernel(v, p, n, mode, b=None, h=(1.0, 1.3, 0.7)):
+    K1, M1 = global_1d_matrices(p, n, p + 1)
+    dtype, prec = MODES[mode]
+    return LabKernel(v, n * p + 1, p, K1, M1, [x / n for x in h], b=b,
+                     prec=prec, dtype=dtype, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def klab():
+    """``scripts/kernel_lab.py`` with its ``pallas_call`` in interpret mode;
+    the process's JAX cache setting and environment are put back after."""
+    env = dict(os.environ)
+    cache = jax.config.jax_compilation_cache_dir
+    min_s = jax.config.jax_persistent_cache_min_compile_time_secs
+    path = Path(__file__).resolve().parents[1] / "scripts" / "kernel_lab.py"
+    spec = importlib.util.spec_from_file_location("_pallas_kernel_lab", path)
+    mod = importlib.util.module_from_spec(spec)
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        jax.config.update("jax_compilation_cache_dir", cache)
+        jax.config.update("jax_persistent_cache_min_compile_time_secs", min_s)
+        os.environ.clear()
+        os.environ.update(env)
+    # the script's own view of pallas, so the process's pl.pallas_call stays
+    mod.pl = types.SimpleNamespace(**vars(mod.pl))
+    mod.pl.pallas_call = functools.partial(mod.pl.pallas_call, interpret=True)
+    return mod
+
+
+@pytest.mark.parametrize("b", [4, 8])
+@pytest.mark.parametrize("p", [1, 2, 4])
+@pytest.mark.parametrize("v", separable_lab.VARIANTS)
+def test_plain_matches_pallas(klab, v, p, b):
+    """The port's plain version of each variant against the Pallas
+    LabKernel in interpret mode (f32, n = 8), same numpy-seeded input:
+    1e-6 relative, v9 the bf16x3 class (its arithmetic on the TPU side)."""
+    n = 8
+    npts = n * p + 1
+    K1, M1 = global_1d_matrices(p, n, p + 1)
+    h = np.array([1.0 / n, 1.3 / n, 0.7 / n])
+    u = np.random.default_rng(10 * p + b).standard_normal(npts**3).astype(
+        np.float32)
+    y_j = np.asarray(klab.LabKernel(v, npts, p, K1, M1, h, b=b)(
+        jnp.asarray(u)), np.float64)
+    k = LabKernel(v, npts, p, K1, M1, h, b=b, device="cpu")
+    y_t = k(torch.as_tensor(u)).numpy().astype(np.float64)
+    assert np.linalg.norm(y_j) > 0
+    tol = 2e-5 if v == "v9" else 1e-6
+    assert np.linalg.norm(y_t - y_j) <= tol * np.linalg.norm(y_j)
+
+
+def test_tile_slices_pinned(klab):
+    rng = np.random.default_rng(4)
+    for npts, b, p in ((17, 4, 2), (33, 8, 4), (9, 24, 1), (29, 8, 7)):
+        M = rng.standard_normal((npts, npts))
+        nt = -(-npts // b)
+        assert np.array_equal(separable_lab.tile_slices(M, b, nt, p),
+                              klab._tile_slices(M, b, nt, p))
+
+
+def test_layout_and_shifts():
+    """pad/unpad round trip; vx and vxy place their functions shifted."""
+    p, n = 2, 3
+    npts = n * p + 1
+    u = torch.as_tensor(np.random.default_rng(0).standard_normal(npts**3))
+    k = _kernel("v2", p, n, "f64", b=4)
+    gp = k.pad(u)
+    assert gp.shape == (k.nt * 4 + 2 * p,) * 2 + (16,)
+    assert torch.equal(gp[p:p + npts, p:p + npts, :npts].reshape(-1), u)
+    y = k.plain(gp)
+    assert y.shape == (k.nt * 4, k.nt * 4, 16)
+    assert not y[npts:].any() and not y[:, npts:].any() \
+        and not y[..., npts:].any()
+    for v, (sz, sy) in (("vx", (p, p)), ("vxy", (p, 0))):
+        kv = _kernel(v, p, n, "f64", b=4)
+        yv = kv.plain(gp)
+        f = yv[sz:sz + npts, sy:sy + npts, :npts]
+        assert yv.abs().sum() == f.abs().sum() > 0
+
+
+def test_lab_refuses_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    K1, M1 = global_1d_matrices(2, 4, 3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LabKernel("v2", 9, 2, K1, M1, [0.25] * 3)  # the card is the default
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LabKernel("v12", 9, 2, K1, M1, [0.25] * 3, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kernel_lab.main(["--refine", "1", "--p", "1", "--variants",
+                         "v2-highest"])
+    with pytest.raises(ValueError, match="exact dense stages"):
+        LabKernel("v2", 9, 2, K1, M1, [0.25] * 3, prec="high",
+                  dtype=torch.float64, device="cpu")
+    with pytest.raises(ValueError, match="variant"):
+        LabKernel("v13", 9, 2, K1, M1, [0.25] * 3, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def l2_lib(tmp_path_factory):
+    lib = _build(tmp_path_factory, "l2_host", L2_SHIM)
+    lib.host_l2_apply.argtypes = ([ctypes.c_int] * 8 + [ctypes.c_void_p] * 3
+                                  + [ctypes.c_longlong, ctypes.c_void_p,
+                                     ctypes.c_longlong, ctypes.c_void_p])
+    lib.host_l2_apply.restype = ctypes.c_int
+    lib.host_l2_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.host_l2_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def _host(lib, k, gp):
+    NT = k.nt * k.b
+    y = torch.full((NT, NT, k.X), float("nan"), dtype=k.dt)  # all written
+    rc = lib.host_l2_apply(k.flags, k.xp, k.p, k.npts, k.b, k.nt, k.size,
+                           k.X, gp.data_ptr(), y.data_ptr(),
+                           k.xk.data_ptr(), k.xk_lo, k.slices.data_ptr(),
+                           k.sl_lo, k.tables.data_ptr())
+    assert rc == 0, "kernel wrote beyond its shared memory"
+    return y
+
+
+def _max_rel(y, ref):
+    return float((y.to(torch.float64) - ref).abs().max() / ref.abs().max())
+
+
+HOST_CASES = (
+    [(v, p, "f64", None) for v in separable_lab.VARIANTS if v != "v9"
+     for p in (1, 2, 4, 7)]
+    + [(v, 4, m, None) for m in ("f32", "f32h", "bf16", "bf16d")
+       for v in MODE_VARIANTS[m]]
+    # several tiles, ragged, b not a multiple of the MMA tile
+    + [(v, 2, m, 4) for v in ("v2", "v8", "v12", "vxy") for m in ("f64",
+                                                                  "f32")]
+    + [("v3", 1, "f64", 5), ("v2", 7, "f64", 8), ("vx", 2, "f32", 6)])
+
+
+@pytest.mark.parametrize("v,p,mode,b", HOST_CASES)
+def test_host_build_matches_plain(l2_lib, v, p, mode, b):
+    """Each L2a kernel in each precision against the plain version in f64
+    on the same (storage-rounded) input, every output point written; the
+    split precisions also against ``emulate``."""
+    n = 2 if p > 2 else 9 // p
+    k = _kernel(v, p, n, mode, b)
+    u = torch.as_tensor(np.random.default_rng(n * p + 3).standard_normal(
+        (n * p + 1)**3))
+    gp = k.pad(u)
+    y = _host(l2_lib, k, gp)
+    assert torch.isfinite(y).all()
+    ref = k.plain(gp.to(torch.float64))
+    err = _max_rel(y, ref)
+    assert err <= TOL[k.xp], err
+    if mode != "f64":
+        ye = k.emulate(gp).to(torch.float64)
+        emu, apart = _max_rel(ye, ref), float(
+            (y.to(torch.float64) - ye).abs().max() / ref.abs().max())
+        print(f"{v} {mode} p={p} b={k.b}: host stub {err:.3e}, emulation "
+              f"{emu:.3e}, apart {apart:.3e}")
+        assert apart <= EMU_TOL[k.xp], (apart, err, emu)
+
+
+@pytest.mark.parametrize("v", separable_lab.VARIANTS)
+def test_host_build_matches_pallas(klab, l2_lib, v):
+    """The g++ build of each kernel in f32 (v9: bf16x3) directly against
+    the Pallas kernel in interpret mode on the same input (p = 2, n = 8,
+    b = 8)."""
+    p, n, b = 2, 8, 8
+    npts = n * p + 1
+    K1, M1 = global_1d_matrices(p, n, p + 1)
+    h = np.array([1.0 / n, 1.3 / n, 0.7 / n])
+    u = np.random.default_rng(7).standard_normal(npts**3).astype(np.float32)
+    y_j = np.asarray(klab.LabKernel(v, npts, p, K1, M1, h, b=b)(
+        jnp.asarray(u)), np.float64)
+    k = LabKernel(v, npts, p, K1, M1, h, b=b, device="cpu")
+    y_h = k.unpad(_host(l2_lib, k, k.pad(torch.as_tensor(u)))).numpy()
+    tol = 5e-5 if v == "v9" else 2e-6
+    assert np.linalg.norm(y_h - y_j) <= tol * np.linalg.norm(y_j)
+
+
+def test_smem_fits(l2_lib):
+    """The default tile of every degree and precision fits a block's
+    shared memory by the routine's own count."""
+    for p in range(1, separable_lab.MAX_DEGREE + 1):
+        for xp in separable_lab.TOL:
+            b = separable_lab.choose_b(p, xp, l2_lib.host_l2_smem_bytes)
+            assert l2_lib.host_l2_smem_bytes(p, xp, b) <= \
+                separable_lab.SMEM_BUDGET < 227 * 1024
+            if p <= 4 and xp != separable_lab.XF64:
+                assert b == 24  # the JAX lab's tile
+
+
+def test_emulated_classes():
+    """Each split precision's arithmetic, emulated in plain PyTorch on the
+    grids of chip_smoke's phase 5 (p = 1, 2, 4, 7, 8; npts ~ 25), stays in
+    its class for every variant; ``-s`` prints the worst per mode."""
+    worst = {}
+    rng = np.random.default_rng(5)
+    for p in (1, 2, 4, 7, 8):
+        n = max(2, 24 // p)
+        u = torch.as_tensor(rng.standard_normal((n * p + 1)**3),
+                            dtype=torch.float32)
+        for mode in ("f32", "f32h", "bf16", "bf16d"):
+            for v in MODE_VARIANTS[mode]:
+                k = _kernel(v, p, n, mode)
+                gp = k.pad(u)
+                err = _max_rel(k.emulate(gp), k.plain(gp.to(torch.float64)))
+                worst[k.xp] = max(worst.get(k.xp, 0.0), err)
+    print("emulated L2a worst max rel err by precision code: "
+          + ", ".join(f"{m} {e:.3e}" for m, e in worst.items()))
+    assert all(worst[m] <= TOL[m] for m in worst), worst
+
+
+def test_bounds():
+    """K2's function bound for the operator variants (0.0405 ms, bytes, at
+    the flagship in f32); the design bound is never below it."""
+    from tpufem_torch.lab.resident_lab import operator_bound
+
+    ms, by = operator_bound(257, 4, 7)
+    assert by == "bytes" and abs(ms - 2 * 4 * 257**3 / 3.35e9) < 1e-12
+    for v in separable_lab.VARIANTS:
+        k = _kernel(v, 2, 3, "f32", b=4)
+        bands = {"vx": 1, "vxy": 4}.get(v, 7)
+        assert k.bound() == operator_bound(7, 2, bands)
+        assert k.design_bound()[0] >= k.bound()[0]

@@ -6,30 +6,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <atomic>
-
 #include "lab_resident.cuh"
 
 namespace {
-
-constexpr int kMaxDevices = 64;
-
-// Opt a kernel into `smem` bytes of dynamic shared memory on the current
-// device, once per kernel and device (again only for a larger block).
-template <typename K>
-cudaError_t opt_in(K kern, int smem, std::atomic<int>* granted) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (smem > granted[dev].load()) {
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-    if (e != cudaSuccess) return e;
-    granted[dev].store(smem);
-  }
-  return cudaSuccess;
-}
 
 template <int P, int XP>
 cudaError_t launch(int variant, int mode, const tpufem::LabGeo& g, int grid,
@@ -43,8 +22,8 @@ cudaError_t launch(int variant, int mode, const tpufem::LabGeo& g, int grid,
     const int smem =
         (int)tpufem::lab_smem(P, XP, 2, g.tz, g.ty, g.X).total;
     auto kern = tpufem::lab_pipe_kernel<P, XP>;
-    static std::atomic<int> granted[kMaxDevices];
-    cudaError_t e = opt_in(kern, smem, granted);
+    static std::atomic<int> granted[tpufem::kLabMaxDevices];
+    cudaError_t e = tpufem::lab_opt_in(kern, smem, granted);
     if (e != cudaSuccess) return e;
     kern<<<grid, tpufem::kLabThreads, smem, stream>>>(uc, yc, tc, xk, xk_lo,
                                                       g, mode);
@@ -52,8 +31,8 @@ cudaError_t launch(int variant, int mode, const tpufem::LabGeo& g, int grid,
   }
   const int smem = (int)tpufem::lab_smem(P, XP, 1, g.tz, g.ty, g.X).total;
   auto kern = tpufem::lab_tile_kernel<P, XP>;
-  static std::atomic<int> granted[kMaxDevices];
-  cudaError_t e = opt_in(kern, smem, granted);
+  static std::atomic<int> granted[tpufem::kLabMaxDevices];
+  cudaError_t e = tpufem::lab_opt_in(kern, smem, granted);
   if (e != cudaSuccess) return e;
   kern<<<dim3(g.nty, g.ntz), tpufem::kLabThreads, smem, stream>>>(
       uc, yc, tc, xk, xk_lo, variant == 20 ? static_cast<const int*>(win)

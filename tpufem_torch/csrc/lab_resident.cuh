@@ -61,43 +61,15 @@
 // the measured split.
 #pragma once
 
-#include <type_traits>
-
 #include "common.cuh"
-
-#ifdef __CUDACC__
-#include <mma.h>
-#endif
+#include "lab_mma.cuh"
 
 namespace tpufem {
-
-namespace wmma = nvcuda::wmma;
 
 constexpr int kLabThreads = 256;
 constexpr int kXC = 32;  // x columns per band-stage chunk
 
-enum LabXPrec { kX3TF32 = 0, kX1TF32 = 1, kXBF16x3 = 2, kXF64 = 3 };
 enum LabMode { kFull = 0, kCopy = 1, kBands = 2, kMM = 3 };
-
-// Fragment shapes and types of each x-stage precision.
-template <int XP>
-struct LabMma {  // kX3TF32, kX1TF32
-  static constexpr int M = 16, N = 16, K = 8;
-  using C = float;  // storage, bands, accumulator
-  using AT = wmma::precision::tf32;
-};
-template <>
-struct LabMma<kXBF16x3> {
-  static constexpr int M = 16, N = 16, K = 16;
-  using C = float;
-  using AT = __nv_bfloat16;
-};
-template <>
-struct LabMma<kXF64> {
-  static constexpr int M = 8, N = 8, K = 4;
-  using C = double;
-  using AT = double;
-};
 
 // Geometry of one launch.
 struct LabGeo {
@@ -112,10 +84,6 @@ struct LabGeo {
 struct LabSmem {
   long long tab, u, st, qq, qq_bytes, scr, total;
 };
-
-__host__ __device__ inline long long lab_align(long long b) {
-  return (b + 127) / 128 * 128;
-}
 
 __host__ __device__ inline LabSmem lab_smem(int p, int xp, int nbuf, int tz,
                                             int ty, int X) {
@@ -144,39 +112,6 @@ __device__ __forceinline__ void lab_sync(int id, int count) {
 #else
   __syncthreads();
 #endif
-}
-
-template <typename C>
-__device__ __forceinline__ void lab_put(unsigned char* qq, long long M2X,
-                                        long long i, C v) {
-  reinterpret_cast<C*>(qq)[i] = v;
-}
-// bf16x3: v = hi + lo in a bf16 pair (exact to ~2^-16 relative)
-template <>
-__device__ __forceinline__ void lab_put<float>(unsigned char* qq,
-                                               long long M2X, long long i,
-                                               float v) {
-  if (M2X < 0) {  // f32 qq
-    reinterpret_cast<float*>(qq)[i] = v;
-    return;
-  }
-  __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(qq);
-  const __nv_bfloat16 hi = __float2bfloat16(v);
-  h[i] = hi;
-  h[M2X + i] = __float2bfloat16(v - __bfloat162float(hi));
-}
-
-template <typename C>
-__device__ __forceinline__ C lab_get(const unsigned char* qq, long long M2X,
-                                     long long i) {
-  return reinterpret_cast<const C*>(qq)[i];
-}
-template <>
-__device__ __forceinline__ float lab_get<float>(const unsigned char* qq,
-                                                long long M2X, long long i) {
-  if (M2X < 0) return reinterpret_cast<const float*>(qq)[i];
-  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(qq);
-  return __bfloat162float(h[i]) + __bfloat162float(h[M2X + i]);
 }
 
 // Both accumulators of two band outputs sharing their input reads (v18):
@@ -349,27 +284,9 @@ __device__ void lab_store_rows(const unsigned char* qq, const LabGeo& g,
 template <int XP>
 struct LabStep {
   using T = LabMma<XP>;
-  using FA = wmma::fragment<wmma::matrix_a, T::M, T::N, T::K, typename T::AT,
-                            wmma::row_major>;
-  using FB = wmma::fragment<wmma::matrix_b, T::M, T::N, T::K, typename T::AT,
-                            wmma::row_major>;
-  using FC = wmma::fragment<wmma::accumulator, T::M, T::N, T::K,
-                            typename T::C>;
-
-  template <typename F>
-  static __device__ __forceinline__ void tf32_split(F& big, F& small) {
-    for (int e = 0; e < big.num_elements; ++e) {
-      const float v = big.x[e];
-      const float b = wmma::__float_to_tf32(v);
-      small.x[e] = wmma::__float_to_tf32(v - b);
-      big.x[e] = b;
-    }
-  }
-  template <typename F>
-  static __device__ __forceinline__ void tf32_round(F& f) {
-    for (int e = 0; e < f.num_elements; ++e)
-      f.x[e] = wmma::__float_to_tf32(f.x[e]);
-  }
+  using FA = typename LabFrag<XP>::FA;
+  using FB = typename LabFrag<XP>::FB;
+  using FC = typename LabFrag<XP>::FC;
 
   // A rows: qq (ld 2X), k0 a column of qq; B: xk (ld X) at row k0, column n0
   static __device__ __forceinline__ void run(FC* acc, int nm,
@@ -404,8 +321,8 @@ struct LabStep {
       const E* b_p = static_cast<const E*>(xk) + (long long)k0 * X + n0;
       FB b, bs;
       wmma::load_matrix_sync(b, b_p, X);
-      if constexpr (XP == kX3TF32) tf32_split(b, bs);
-      if constexpr (XP == kX1TF32) tf32_round(b);
+      if constexpr (XP == kX3TF32) lab_tf32_split(b, bs);
+      if constexpr (XP == kX1TF32) lab_tf32_round(b);
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
         if (mi >= nm) break;
@@ -414,11 +331,11 @@ struct LabStep {
                                lda);
         if constexpr (XP == kX3TF32) {
           FA as;
-          tf32_split(a, as);
+          lab_tf32_split(a, as);
           wmma::mma_sync(acc[mi], as, b, acc[mi]);
           wmma::mma_sync(acc[mi], a, bs, acc[mi]);
         }
-        if constexpr (XP == kX1TF32) tf32_round(a);
+        if constexpr (XP == kX1TF32) lab_tf32_round(a);
         wmma::mma_sync(acc[mi], a, b, acc[mi]);
       }
     }

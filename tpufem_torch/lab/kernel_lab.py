@@ -1,4 +1,4 @@
-"""Kernel lab: time the K1 kernel variants on the card.
+"""Kernel lab: time the K1 and K2 kernel variants on the card.
 
 Counterpart of ``scripts/kernel_lab.py::main``.  Every variant computes the
 3D Laplace apply y = (Kz(x)My(x)Mx + Mz(x)Ky(x)Mx + Mz(x)My(x)Kx) u on the
@@ -14,20 +14,31 @@ against the plain version in f64 before it is timed.  Variants:
                           suffix picks the x stage or an ablation:
                           -bf (bf16x3), -h (1xTF32), -f64 (f64 storage),
                           -copy, -bands, -mm (timing only)
+    v2 v3 v6 v8 v9 v12    the L2a kernels, x first (``separable_lab.
+    vx vxy                LabKernel``): v2/v6 dense x, y, z; v8 the same
+                          with transposed staging; v9 v2 in bf16x3; v3
+                          band x; v12 band y/z; vx, vxy the x and x+y
+                          ablations (their own functions).  A suffix
+                          picks every dense stage's arithmetic, as JAX's:
+                          -highest (3xTF32, the default), -high (1xTF32),
+                          -default (one bf16 product)
 
 Per variant it prints the time per apply (CUDA events), GDoF/s, the
 relative error against the f64 plain version on the lab's random input
 and on a smooth one (a sine product), each as the variant stores it,
-then for the resident variants the raw resident rate, timed in turns
-with its plain version, its bound and the error of two chained applies
-(an ablation: its error against its own plain version); the last line
+then for the layout variants the raw apply's rate, timed in turns with
+its plain version, with its bound (and an L1/L2a kernel's design bound),
+then for a K1/L1 variant the error of two chained applies (an ablation:
+its error against its own plain version), for an L2a variant its max
+relative error (out of its precision's class: it raises); the last line
 is ``best:``, the fastest variant that was held against the plain
-version.
-It runs on a CUDA device and raises without one; a failing variant
-raises.
+version.  An L2a kernel's output layout is not its input's, so it has no
+chain check.  It runs on a CUDA device and raises without one; a failing
+variant raises.
 
     python -m tpufem_torch.lab.kernel_lab [--refine 6] [--p 4]
-        [--reps 50] [--variants v0 v5 v17 ...] [--tiles auto 2x16 ...]
+        [--reps 50] [--variants v0 v5 v17 v2-high ...]
+        [--tiles auto 2x16 24 ...]
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ import argparse
 import numpy as np
 import torch
 
+from tpufem_torch.lab import separable_lab
 from tpufem_torch.lab.resident_lab import V17Kernel, operator_bound
 from tpufem_torch.ops.kernel_separable import (
     KernelSeparable,
@@ -49,7 +61,8 @@ from tpufem_torch.ops.separable import (
 from tpufem_torch.utils.timer import time_fn
 
 DEFAULT_VARIANTS = ("v0", "v5", "v5-copy", "v4", "v17", "v17-h", "v17-bf",
-                    "v18", "v19", "v20", "v17-copy", "v17-bands", "v17-mm")
+                    "v18", "v19", "v20", "v17-copy", "v17-bands", "v17-mm",
+                    "v2-highest", "v2-high", "v3-highest", "v3-high")
 TIMING_ONLY = ("copy", "bands", "mm")
 
 
@@ -104,6 +117,48 @@ def lab_variant(v, npts, p, K1, M1, h, tile):
                      device="cuda", tile=tile)
 
 
+def l2a_variant(v):
+    """(variant, prec) of an L2a lab name (``v2``, ``v3-high``, ...), split
+    on '-' as ``kernel_lab.py:1734``; None for another name."""
+    var, prec = (v.split("-") + ["highest"])[:2]
+    return (var, prec) if var in separable_lab.VARIANTS else None
+
+
+def run_l2a(v, npts, p, K1, M1, h, b, inputs, reps):
+    """Hold an L2a kernel against its plain version in f64 on each of
+    ``inputs`` ({"random", "smooth"}: flat f64 vectors on the card), then
+    time it: the flat apply, and the raw apply in turns with its plain
+    version.  Returns (flat record, raw record); raises when the max
+    relative error on the random input is out of the precision's class."""
+    var, prec = l2a_variant(v)
+    dev = next(iter(inputs.values())).device
+    k = separable_lab.LabKernel(var, npts, p, K1, M1, h, b=b, prec=prec,
+                                device=dev)
+    errs = {}
+    for which, u in inputs.items():
+        gp = k.pad(u.to(torch.float32))
+        y = k.raw(gp).to(torch.float64)
+        r = k.plain(gp.to(torch.float64))
+        errs[which] = (float((k.unpad(y) - k.unpad(r)).norm()
+                             / k.unpad(r).norm()),
+                       float((y - r).abs().max() / r.abs().max()))
+    tol = separable_lab.TOL[k.xp]
+    if not errs["random"][1] <= tol:
+        raise RuntimeError(f"{v}: max rel err {errs['random'][1]:.3e} > "
+                           f"{tol} against its plain version")
+    x = inputs["random"].to(torch.float32)
+    dt = _per_apply(k, x, reps)
+    dtr, dtp = _turns(k.raw, k.plain, k.pad(x), reps)
+    bound, by = k.bound()
+    flat = {"ms": dt * 1e3, "gdofs": npts**3 / dt / 1e9,
+            "rel_err": errs["random"][0], "rel_err_smooth": errs["smooth"][0]}
+    raw = {"ms": dtr * 1e3, "plain_ms": dtp * 1e3, "gdofs": npts**3 / dtr
+           / 1e9, "rel_err": errs["random"][0],
+           "max_rel_err": errs["random"][1], "bound_ms": bound,
+           "bound_by": by, "design_ms": k.design_bound()[0], "b": k.b}
+    return flat, raw
+
+
 def _per_apply(fn, x, reps):
     """Seconds per call of fn on the same x (CUDA events)."""
     return time_fn(lambda _: fn(x), x, reps=reps)
@@ -129,7 +184,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--variants", nargs="+", default=list(DEFAULT_VARIANTS))
     ap.add_argument("--tiles", nargs="+", default=["auto"],
-                    help="L1 output tiles TZxTY (auto: the tile chooser's)")
+                    help="L1 output tiles TZxTY, L2a tiles b (an integer); "
+                    "auto: each tile chooser's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("the kernel lab runs on a CUDA device; "
@@ -165,10 +221,32 @@ def main(argv=None) -> dict:
 
     results = {}
     for tile_arg in args.tiles:
+        l1_tile = "x" in tile_arg  # TZxTY: L1 only; an integer: L2a only
         tile = None if tile_arg == "auto" else tuple(
             int(s) for s in tile_arg.split("x"))
         for v in args.variants:
             name = f"{v}-{tile_arg}"
+            if l2a_variant(v):
+                if l1_tile:
+                    continue
+                flat, raw = run_l2a(
+                    v, npts, p, K1, M1, h, tile and tile[0],
+                    {"random": x.to(torch.float64), "smooth": xs}, args.reps)
+                results[name], results[name + "-raw"] = flat, raw
+                print(f"{name:18s}  {flat['ms']:8.4f} ms  "
+                      f"{flat['gdofs']:7.2f} GDoF/s  rel_err "
+                      f"{flat['rel_err']:.2e}  smooth "
+                      f"{flat['rel_err_smooth']:.2e}", flush=True)
+                print(f"{name:18s}  {raw['ms']:8.4f} ms  {raw['gdofs']:7.2f} "
+                      f"GDoF/s  [raw, b={raw['b']}; plain "
+                      f"{raw['plain_ms']:.4f} ms; bound {raw['bound_ms']:.4f}"
+                      f" ms ({raw['bound_by']}), design "
+                      f"{raw['design_ms']:.4f} ms; max rel err "
+                      f"{raw['max_rel_err']:.2e}]", flush=True)
+                continue
+            if tile_arg != "auto" and not l1_tile and v[:3] in (
+                    "v17", "v18", "v19", "v20"):
+                continue
             k = layout = None
             if v == "v0":
                 k = KernelSeparable(3, npts, p, Ks, Ms, torch.float32, dev)

@@ -284,8 +284,8 @@ class V17Kernel:
             out = al @ bh + ah @ bl + ah @ bh
         else:
             b = self.xk.to(gp.device)
-            a, b_b = _tf32(qq), _tf32(b)
-            a_s, b_s = _tf32(qq - a), _tf32(b - b_b)
+            a, b_b = tf32(qq), tf32(b)
+            a_s, b_s = tf32(qq - a), tf32(b - b_b)
             out = (a @ b_b if self.xp == X1TF32
                    else a_s @ b_b + a @ b_s + a @ b_b)
         return self.pad(out[:, :n].reshape(-1))
@@ -328,7 +328,7 @@ class V17Kernel:
             mma: passes * 2.0 * n * n * k_rows * X})
 
 
-def _tf32(a: torch.Tensor) -> torch.Tensor:
+def tf32(a: torch.Tensor) -> torch.Tensor:
     """f32 -> the nearest TF32 value (10-bit mantissa, ties away from zero),
     as ``wmma::__float_to_tf32``."""
     bits = a.contiguous().view(torch.int32)

@@ -1,0 +1,388 @@
+"""The K2 kernel lab's x-first half (L2a): host side and wrappers.
+
+Port of ``scripts/kernel_lab.py::LabKernel`` (:1461) for its x-first Pallas
+kernels ``_kernel_v2`` (:47), ``_kernel_v3`` (:78), ``_kernel_v6`` (:106),
+``_kernel_v8`` (:132), ``_kernel_vx`` (:164), ``_kernel_vxy`` (:177),
+``_kernel_v9`` (:212) and ``_kernel_v12`` (:237): K2's 3D Laplace operator
+(vx and vxy: the ablations' own functions) on the lab's padded layout,
+contracting x first, then y, then z; each axis stage dense (a tensor-core
+product) or band (CUDA cores).  The CUDA routine and its design note:
+``tpufem_torch/csrc/lab_separable.cuh``.
+
+Layout in: ``(size, size, X)``, ``size = nt b + 2p``, data at ``[p:p+npts,
+p:p+npts, :npts]``, zeros elsewhere, ``X`` = npts rounded up to 16 (the
+MMA tile; the TPU's 128-lane padding and v3's 128-lane halo are Mosaic
+machinery and are not ported).  Layout out: ``(nt b, nt b, X)``, data at
+``[:npts, :npts, :npts]``; ``__call__`` = unpad(raw(pad(u))).  The band
+stages take K2's exact per-row tables in difference form
+(``kernel_separable.band_tables``), so v12's periodic tables and deficit
+corrections (``_periodic_band``, ``corr_y``/``corr_z``) are not ported and
+v12 takes any b.
+
+``LabKernel.raw`` on a CUDA tensor launches the kernel (or raises); on a
+CPU tensor it runs ``plain``.  Launches are counted per variant in the
+class attribute ``launches``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpufem_torch.lab.resident_lab import X_ALIGN, operator_bound, tf32
+from tpufem_torch.ops.kernel_separable import band_tables
+from tpufem_torch.ops.separable import laplace_apply_separable
+from tpufem_torch.utils.build import load_kernels
+from tpufem_torch.utils.timer import roofline_ms
+
+VARIANTS = ("v2", "v3", "v6", "v8", "v9", "v12", "vx", "vxy")
+# stage flags of the CUDA routine (L2Flags; cut << 3)
+XBAND, YZBAND, TRANS = 1, 2, 4
+FLAGS = {"v2": 0, "v6": 0, "v9": 0, "v3": XBAND, "v12": YZBAND, "v8": TRANS,
+         "vx": 1 << 3, "vxy": 2 << 3}
+# dense-stage precision codes (LabXPrec): 3xTF32, 1xTF32, bf16x3, f64
+# (DMMA), one bf16 product
+X3TF32, X1TF32, XBF16X3, XF64, XBF16 = 0, 1, 2, 3, 4
+PRECS = {"highest": X3TF32, "high": X1TF32, "bf16x3": XBF16X3,
+         "default": XBF16}
+# each precision's class against the f64 plain version (max |error| /
+# max |y| on a random input): the emulation of its arithmetic stays inside
+# it on the CPU (tests/test_torch_lab_separable.py::test_emulated_classes:
+# worst 2.9e-7, 1.1e-3, 1.5e-5, 7.4e-3), and a kernel stays within EMU_TOL
+# of the emulation on its own input: the tensor cores' f32 sums and the
+# emulation's f64 ones differ by up to ~1.0e-6 of max |y| in 3xTF32 and
+# ~1.0e-5 in bf16x3 (an H100, p = 1..8 and 17M DoFs), so 3xTF32 is held to
+# its class, bf16x3 to 2e-5, 1xTF32 and one bf16 product to their classes
+TOL = {XF64: 1e-12, X3TF32: 2e-6, X1TF32: 4e-3, XBF16X3: 5e-5, XBF16: 3e-2}
+EMU_TOL = {X3TF32: 2e-6, X1TF32: 4e-3, XBF16X3: 2e-5, XBF16: 3e-2}
+ZC = 8  # halo'd z rows per x/y pass (kL2ZC)
+TILES = (24, 16, 8)  # tile sizes b tried in order; 24 is the JAX lab's
+SMEM_BUDGET = 220 * 1024  # of the 227 KB a block may use on an H100
+MAX_DEGREE = 8
+
+
+def tile_slices(M1: np.ndarray, b: int, n_tiles: int, p: int) -> np.ndarray:
+    """(n_tiles b, b + 2p) rows of M1 seen from each tile's halo'd window:
+    ``out[t b + i, j] = M1[t b + i, t b + j - p]`` (0 outside).  Copy of
+    ``scripts/kernel_lab.py::_tile_slices``."""
+    npts = M1.shape[0]
+    size = n_tiles * b + 2 * p
+    Mp = np.zeros((size, size))
+    Mp[p:p + npts, p:p + npts] = M1
+    out = np.empty((n_tiles * b, b + 2 * p))
+    for t in range(n_tiles):
+        out[t * b:(t + 1) * b] = Mp[
+            t * b + p:(t + 1) * b + p, t * b:(t + 1) * b + 2 * p]
+    return out
+
+
+def round16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def dense_slices(mats, b: int, nt: int, p: int, trans: bool) -> np.ndarray:
+    """(len(mats), nt, MB, LP) f64 tile slices, rows zero-padded to MB = b
+    and columns to LP = b + 2p rounded up to 16 (trans: (.., LP, MB), each
+    slice transposed), as the CUDA routine reads them."""
+    MB, LP = round16(b), round16(b + 2 * p)
+    out = np.zeros((len(mats), nt, MB, LP))
+    for a, M in enumerate(mats):
+        out[a, :, :b, :b + 2 * p] = tile_slices(M, b, nt, p).reshape(
+            nt, b, b + 2 * p)
+    return np.ascontiguousarray(out.transpose(0, 1, 3, 2) if trans else out)
+
+
+def choose_b(p: int, xp: int, smem_bytes) -> int:
+    """The first of ``TILES`` whose block fits SMEM_BUDGET by the routine's
+    own count ``smem_bytes(p, xp, b)`` (``tpufem_l2_smem_bytes``)."""
+    for b in TILES:
+        if smem_bytes(p, xp, b) <= SMEM_BUDGET:
+            return b
+    raise ValueError(f"no lab tile fits {SMEM_BUDGET} bytes of shared memory "
+                     f"at p={p}")
+
+
+def _split_bf16(a: torch.Tensor):
+    """f32 -> (hi, lo) bf16 parts, hi + lo ~ a to 2^-16, as lab_put."""
+    hi = a.to(torch.bfloat16)
+    return hi, (a - hi.to(a.dtype)).to(torch.bfloat16)
+
+
+def _parts(a: torch.Tensor, xp: int):
+    """The parts of an f32 operand a split-product multiplies, in f64: the
+    TF32 big/small split (3xTF32), one TF32 rounding (1xTF32), bf16 hi/lo
+    (bf16x3) or hi alone (bf16)."""
+    f64 = lambda t: t.to(torch.float64)
+    if xp in (XBF16X3, XBF16):
+        hi, lo = _split_bf16(a)
+        return (f64(hi), f64(lo)) if xp == XBF16X3 else (f64(hi),)
+    big = tf32(a)
+    return (f64(big), f64(tf32(a - big))) if xp == X3TF32 else (f64(big),)
+
+
+def _split_product(a: torch.Tensor, b: torch.Tensor, xp: int, expr: str):
+    """einsum(expr, a, b) in the kernel's arithmetic: both f32 operands
+    split as the kernel splits them, the part products that it sums
+    (3xTF32: small*big + big*small + big*big; bf16x3: lo*hi + hi*lo +
+    hi*hi; one pass otherwise) each in f64."""
+    pa, pb = _parts(a, xp), _parts(b, xp)
+    out = torch.einsum(expr, pa[0], pb[0])
+    if len(pa) == 2:
+        out = out + torch.einsum(expr, pa[1], pb[0]) \
+            + torch.einsum(expr, pa[0], pb[1])
+    return out
+
+
+class LabKernel:
+    """An L2a kernel (``variant`` one of VARIANTS) on the lab's padded
+    layout: ``pad``/``unpad`` between flat vectors and the layouts, ``raw``
+    on the layout, ``__call__`` = unpad(raw(pad(u))).
+
+    K1, M1: (npts, npts) unscaled 1D matrices (``global_1d_matrices``); h:
+    the cell size per axis (x first), so the axis operators are K1/h[a]
+    and M1*h[a].  ``prec`` (the JAX lab's names) sets every dense stage's
+    arithmetic: "highest" 3xTF32 (float32) or DMMA (float64), "high" one
+    TF32 product, "default" one bf16 product (the hi*hi term of bf16x3);
+    "bf16x3" names v9's arithmetic, which v9 takes whatever ``prec``
+    says, as in JAX.  v6 runs v2's kernel (the two differ only in Mosaic's
+    layout of the same contractions); v8 stages the y/z intermediates
+    transposed.  b: the tile (None: the first of TILES that fits).
+    """
+
+    launches = {v: 0 for v in VARIANTS}  # per variant; plain excluded
+
+    def __init__(self, variant, npts, p, K1, M1, h, b=None, prec="highest",
+                 dtype=torch.float32, device="cuda"):
+        if variant not in VARIANTS:
+            raise ValueError(f"variant must be one of {VARIANTS}, got "
+                             f"{variant!r}")
+        if prec not in PRECS:
+            raise ValueError(f"prec must be one of {tuple(PRECS)}, got "
+                             f"{prec!r}")
+        if not 1 <= p <= MAX_DEGREE:
+            raise ValueError(f"the CUDA routine is instantiated for p = "
+                             f"1..{MAX_DEGREE}, got p = {p}")
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"dtype must be float32 or float64, got {dtype}")
+        if variant == "v9":
+            prec = "bf16x3"
+        if dtype == torch.float64 and prec != "highest":
+            raise ValueError("float64 runs the exact dense stages only (prec "
+                             "'highest', not v9)")
+        self.variant, self.npts, self.p, self.prec, self.dt = (
+            variant, npts, p, prec, dtype)
+        self.xp = XF64 if dtype == torch.float64 else PRECS[prec]
+        self.flags = FLAGS[variant]
+        h = np.broadcast_to(np.asarray(h, np.float64), (3,))
+        K1, M1 = np.asarray(K1, np.float64), np.asarray(M1, np.float64)
+        self.Ks = [K1 / h[a] for a in range(3)]
+        self.Ms = [M1 * h[a] for a in range(3)]
+
+        device = torch.device(device)
+        self.lib = None
+        if device.type == "cuda":
+            self.lib = load_kernels()["lab_separable"]
+            if device.index is None:
+                device = torch.device("cuda", torch.cuda.current_device())
+        self.device = device
+        self.smem = None
+        if b is None:
+            b = (TILES[0] if self.lib is None else choose_b(
+                p, self.xp, self.lib.lib.tpufem_l2_smem_bytes))
+        if self.lib is not None:
+            self.smem = self.lib.lib.tpufem_l2_smem_bytes(p, self.xp, b)
+            if not 0 < self.smem <= 227 * 1024:
+                raise ValueError(f"lab tile b={b} needs {self.smem} bytes of "
+                                 f"shared memory")
+        self.b, self.nt = b, -(-npts // b)
+        self.size, self.L = self.nt * b + 2 * p, b + 2 * p
+        self.X = X_ALIGN * -(-npts // X_ALIGN)
+
+        def put(a):  # kernel operand: C, or bf16 hi then lo (lo offset)
+            t = torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                device=device)
+            if self.xp not in (XBF16X3, XBF16):
+                return t, 0
+            hi, lo = _split_bf16(t)
+            return torch.stack([hi, lo]).contiguous(), t.numel()
+
+        xk = np.zeros((self.X, 2 * self.X))
+        xk[:npts, :npts] = self.Ms[0].T
+        xk[:npts, self.X:self.X + npts] = self.Ks[0].T
+        self.xk, self.xk_lo = put(xk)
+        self.slices, self.sl_lo = put(dense_slices(
+            [self.Ms[1], self.Ks[1], self.Ms[2], self.Ks[2]], b, self.nt, p,
+            bool(self.flags & TRANS)))
+        self.tables = torch.as_tensor(band_tables(
+            [self.Ms[0], self.Ks[0], self.Ms[1], self.Ks[1], self.Ms[2],
+             self.Ks[2]], p), dtype=dtype, device=device)
+        pk, pm = self._operators()
+        self._plain_K = [torch.tensor(K, device=device) for K in pk]  # f64
+        self._plain_M = [torch.tensor(M, device=device) for M in pm]
+
+    def _operators(self):
+        """Per-axis (Ks, Ms) whose ``laplace_apply_separable`` is this
+        variant's function before its shift: the operator; vx (Mx + Kx)
+        along x; vxy (My + Ky)(x)Mx + My(x)Kx."""
+        n = self.npts
+        eye, zero = np.eye(n), np.zeros((n, n))
+        Ks, Ms = self.Ks, self.Ms
+        if self.variant == "vx":
+            return [Ks[0] + Ms[0], zero, zero], [eye, eye, eye]
+        if self.variant == "vxy":
+            return [Ks[0], Ks[1], eye], [Ms[0], Ms[1], eye]
+        return Ks, Ms
+
+    def _place(self, f: torch.Tensor) -> torch.Tensor:
+        """(npts,)*3 grid -> the output layout: vx shifted by p rows in z
+        and y, vxy by p in z, as the ablations crop the halo'd tile's first
+        b rows; rows past nt b are dropped."""
+        n, p, NT = self.npts, self.p, self.nt * self.b
+        sz = p if self.variant in ("vx", "vxy") else 0
+        sy = p if self.variant == "vx" else 0
+        y = torch.zeros((NT, NT, self.X), dtype=f.dtype, device=f.device)
+        y[sz:sz + n, sy:sy + n, :n] = f[:NT - sz, :NT - sy]
+        return y
+
+    def pad(self, u: torch.Tensor) -> torch.Tensor:
+        """Flat (npts**3,) vector -> the input layout in the storage dtype."""
+        n, p = self.npts, self.p
+        gp = torch.zeros((self.size, self.size, self.X), dtype=self.dt,
+                         device=u.device)
+        gp[p:p + n, p:p + n, :n] = u.reshape(n, n, n)
+        return gp
+
+    def unpad(self, y: torch.Tensor) -> torch.Tensor:
+        """The output layout -> flat (npts**3,): ``y[:npts, :npts, :npts]``
+        (``kernel_lab.py:1607``)."""
+        n = self.npts
+        return y[:n, :n, :n].reshape(-1)
+
+    def plain(self, gp: torch.Tensor) -> torch.Tensor:
+        """The plain PyTorch version of ``raw``: the variant's function by
+        the dense separable contraction on the unpadded grid, placed in the
+        output layout; in the storage dtype, or in float64 when given a
+        float64 layout (the reference the kernels are held to)."""
+        n, p = self.npts, self.p
+        dt = torch.float64 if gp.dtype == torch.float64 else self.dt
+        u = gp[p:p + n, p:p + n, :n].reshape(-1).to(dt)
+        f = laplace_apply_separable(u, 3, n,
+                                    [K.to(dt) for K in self._plain_K],
+                                    [M.to(dt) for M in self._plain_M])
+        return self._place(f.reshape(n, n, n))
+
+    def raw(self, gp: torch.Tensor) -> torch.Tensor:
+        """The variant's function on the layouts (input -> output)."""
+        if gp.device.type == "cpu" and self.device.type == "cpu":
+            return self.plain(gp)
+        if gp.device != self.device or not gp.is_cuda:
+            raise ValueError(f"kernel on {self.device} got a tensor on "
+                             f"{gp.device}")
+        if gp.dtype != self.dt or not gp.is_contiguous() or \
+                tuple(gp.shape) != (self.size, self.size, self.X):
+            raise ValueError(f"kernel takes a contiguous {self.dt} layout "
+                             f"{(self.size, self.size, self.X)}, got "
+                             f"{gp.dtype} {tuple(gp.shape)}")
+        NT = self.nt * self.b
+        y = torch.empty((NT, NT, self.X), dtype=self.dt, device=self.device)
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = self.lib.lib.tpufem_l2_apply(
+                self.flags, self.xp, self.p, self.npts, self.b, self.nt,
+                self.size, self.X, gp.data_ptr(), y.data_ptr(),
+                self.xk.data_ptr(), self.xk_lo, self.slices.data_ptr(),
+                self.sl_lo, self.tables.data_ptr(), stream)
+        self.lib.check(rc, f"tpufem_l2_apply {self.variant} launch")
+        LabKernel.launches[self.variant] += 1
+        return y
+
+    def __call__(self, u: torch.Tensor) -> torch.Tensor:
+        return self.unpad(self.raw(self.pad(u)))
+
+    def emulate(self, gp: torch.Tensor) -> torch.Tensor:
+        """``raw`` in the kernel's arithmetic, in plain PyTorch (f32
+        storage): each dense stage a split product of f32 operands, the
+        part products in f64 (``_split_product``), rounded to f32 at the
+        stage's end as the kernel's shared-memory intermediates; each band
+        stage exact in f64, rounded to f32.  It differs from the kernel in
+        the order and precision of the sums, which can turn a split's
+        rounding."""
+        if self.dt != torch.float32:
+            raise ValueError("emulate: f32 storage")
+        n, p, dev = self.npts, self.p, gp.device
+        f32 = lambda t: t.to(torch.float32)
+        f64 = lambda M: torch.as_tensor(M, dtype=torch.float64, device=dev)
+        m32 = lambda M: f32(f64(M))  # the f32 operand the kernel reads
+        u = gp[p:p + n, p:p + n, :n].to(torch.float32)  # (z, y, x)
+        Mx, Kx, My, Ky, Mz, Kz = (self.Ms[0], self.Ks[0], self.Ms[1],
+                                  self.Ks[1], self.Ms[2], self.Ks[2])
+        if self.flags & XBAND:
+            ax = f32(torch.einsum("zyx,ox->zyo", u.double(), f64(Mx)))
+            gx = f32(torch.einsum("zyx,ox->zyo", u.double(), f64(Kx)))
+        else:
+            ax = f32(_split_product(u, m32(Mx), self.xp, "zyx,ox->zyo"))
+            gx = f32(_split_product(u, m32(Kx), self.xp, "zyx,ox->zyo"))
+        if self.variant == "vx":
+            return self._place(f32(ax.double() + gx.double()))
+        if self.flags & YZBAND:
+            by = lambda M, t: torch.einsum("by,zyx->zbx", f64(M), t.double())
+            t1, t2 = f32(by(My, ax)), f32(by(Ky, ax) + by(My, gx))
+        else:
+            sp = lambda M, t: _split_product(m32(M), t, self.xp,
+                                             "by,zyx->zbx")
+            t1, t2 = f32(sp(My, ax)), f32(sp(Ky, ax) + sp(My, gx))
+        if self.variant == "vxy":
+            return self._place(f32(t1.double() + t2.double()))
+        if self.flags & YZBAND:
+            bz = lambda M, t: torch.einsum("az,zyx->ayx", f64(M), t.double())
+            y = bz(Kz, t1) + bz(Mz, t2)
+        else:
+            sp = lambda M, t: _split_product(m32(M), t, self.xp,
+                                             "az,zyx->ayx")
+            y = sp(Kz, t1) + sp(Mz, t2)
+        return self._place(f32(y))
+
+    def bound(self) -> tuple[float, str]:
+        """(ms, "bytes" or "operations"): the least time an H100 could take
+        for the function ``raw`` computes, whatever its design: each DoF
+        read and written once, 2p+1 multiply-adds per band output: 7 band
+        outputs per DoF for the operator (K2's), 1 for vx ((Mx + Kx) u), 4
+        for vxy (Mx u, Kx u, (My + Ky) Mx u, My Kx u)."""
+        bands = {"vx": 1, "vxy": 4}.get(self.variant, 7)
+        return operator_bound(self.npts, self.p, bands, self.dt)
+
+    def design_bound(self) -> tuple[float, str]:
+        """(ms, "bytes" or "operations"): the least time an H100 could take
+        for what this design does: the input layout read and the output
+        layout written once; every dense stage's products over its padded
+        rows (LP, MB), every pass of its split, on tensor cores; band stages
+        on CUDA cores."""
+        nt, b, X, p = self.nt, self.b, self.X, self.p
+        L, LP, MB = self.L, round16(self.L), round16(b)
+        item = torch.empty((), dtype=self.dt).element_size()
+        nbytes = (self.size**2 + (nt * b)**2) * X * item
+        zrows = L if self.variant not in ("vx", "vxy") else \
+            min(L, -(-b // ZC) * ZC)
+        tiles = nt * nt
+        dense = band = 0.0
+        nb = 2 * (2 * p + 1)  # flops of one band output
+        if self.flags & XBAND:
+            band += 2 * tiles * zrows * LP * X * nb
+        else:
+            dense += 2 * tiles * zrows * LP * X * X * 2
+        if self.variant != "vx":
+            if self.flags & YZBAND:
+                band += 3 * tiles * zrows * b * X * nb
+            else:
+                dense += 3 * tiles * zrows * MB * LP * X * 2
+        if self.variant not in ("vx", "vxy"):
+            if self.flags & YZBAND:
+                band += 2 * tiles * b * b * X * nb
+            else:
+                dense += 2 * tiles * MB * LP * MB * X * 2
+        passes = 3 if self.xp in (X3TF32, XBF16X3) else 1
+        mma = {X3TF32: "tf32", X1TF32: "tf32", XBF16X3: "bf16",
+               XBF16: "bf16", XF64: "fp64_tensor"}[self.xp]
+        return roofline_ms(nbytes, {
+            "fp64" if self.xp == XF64 else "fp32": band,
+            mma: passes * dense})

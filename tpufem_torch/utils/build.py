@@ -39,10 +39,14 @@ SOURCES = {
     "terms_apply": ("terms_apply.cu",  # K3, K4
                     ("common.cuh", "terms_apply.cuh")),
     "lab_resident": ("lab_resident.cu",  # the K1 kernel lab (L1: v17-v20)
-                     ("common.cuh", "lab_resident.cuh")),
+                     ("common.cuh", "lab_mma.cuh", "lab_resident.cuh")),
+    # the K2 kernel lab's x-first half (L2a: v2, v3, v6, v8, v9, v12, vx,
+    # vxy)
+    "lab_separable": ("lab_separable.cu",
+                      ("common.cuh", "lab_mma.cuh", "lab_separable.cuh")),
 }
 # --split-compile=0 spreads nvcc's optimisation passes over every core of
-# the host (the lab library's 64 instances are the longest build)
+# the host (the lab libraries' instances are the longest builds)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "--split-compile=0")
@@ -59,6 +63,9 @@ _ENTRIES = {
     "lab_resident": {
         "tpufem_lab_apply": ([_I] * 11 + [_P] * 7, _I),
         "tpufem_lab_smem_bytes": ([_I] * 6, _LL)},
+    "lab_separable": {
+        "tpufem_l2_apply": ([_I] * 8 + [_P] * 3 + [_LL, _P, _LL, _P, _P], _I),
+        "tpufem_l2_smem_bytes": ([_I] * 3, _LL)},
 }
 
 
