@@ -52,13 +52,35 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 lab.TOL``) and, split precisions, its emulation
                 (``EMU_TOL``), every output point written, at p = 1, 2, 4,
                 7, 8 and at the flagship; their counts and times come from
-                the same ``kernel_lab.main`` run
+                the same ``kernel_lab.main`` run.  The L2b kernels (K2's
+                lab, z/y first: v13, v14, v15, v16, vcopy, vband,
+                tpufem_torch/csrc/lab_zyfirst.cuh) in the same way: v13-v15
+                in every precision against plain and emulation, v16, vcopy
+                and vband (no tensor-core stage) in f64 and f32 against
+                their plain versions (vcopy exactly, vband 1e-6)
   6 throughput  ms per apply over chains of 30 applies (CUDA events),
                 kernel and plain in turns: K1 at 17M DoFs, K2 at 2.1M, K4
                 on the 17M coefficient operator and the 2.1M shell, K3 at
                 2D Q4 refine 10 (16,785,409 DoFs), against K2 there too;
-                phase 5's L1 and L2a times beside one torch.matmul of each
-                lab's x-stage shape (their library_ms)
+                phase 5's L1 and L2 times, and as a note one torch.matmul
+                of each lab's x-stage shape (no single PyTorch call
+                computes K1's or K2's operator, so their library_ms is
+                null); the one call that computes vcopy's function (a
+                slice made contiguous) and vx's (one torch.matmul), each
+                held to the kernel and timed in turns with it: their
+                library_ms; torch.matmul of (256, 256) f32, P1's
+  7 probes      the toolchain probes (tpufem_torch/lab/toolchain_probe.py):
+                P1's product kernel in each arithmetic against the f64
+                product on a seeded (256, 256) pair (``P1_TOL``) and on
+                ones (exactly 256); P2's three kernels at (n_iter, m) =
+                (256, 512) on the probe's inputs against their plain
+                versions in the same arithmetic (``P2_TOL``), and its
+                product chain alone and beside the multiply-adds on a
+                seeded dense input at 8 and 256 products against the plain
+                version in the same arithmetic and the f64 chain
+                (``P2_DENSE_TOL``); then
+                the probes' entry point ``toolchain_probe.main``, whose
+                launch counts are the ones reported
 Then one JSON line with each kernel's record (time, plain time, bound on
 an H100 and library time), and as the last line
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
@@ -107,22 +129,53 @@ L2_KERNELS = {"v2": ("dense x, y, z", "scripts/kernel_lab.py:47"),
               "v12": ("dense x, band y/z", "scripts/kernel_lab.py:237"),
               "vx": ("x stage alone", "scripts/kernel_lab.py:164"),
               "vxy": ("x and y stages", "scripts/kernel_lab.py:177")}
-# storage and precision of each L2a mode
+# the L2b kernels
+L2_KERNELS.update({
+    "v13": ("z/y bands, two x products", "scripts/kernel_lab.py:302"),
+    "v14": ("v13, next load in flight", "scripts/kernel_lab.py:359"),
+    "v15": ("v14, one K-stacked product", "scripts/kernel_lab.py:431"),
+    "v16": ("all bands", "scripts/kernel_lab.py:1347"),
+    "vcopy": ("loads and stores alone", "scripts/kernel_lab.py:500"),
+    "vband": ("band stages alone", "scripts/kernel_lab.py:525")})
+# storage and precision of each L2 mode
 L2_MODES = {"f64": (torch.float64, "highest"),
             "f32": (torch.float32, "highest"),
             "f32h": (torch.float32, "high"),
             "bf16": (torch.float32, "bf16x3"),
             "bf16d": (torch.float32, "default")}
 # the lab run whose raw apply is each L2a row's time: 3xTF32 (v9: bf16x3)
-L2_TIMED = {"v2": "v2-highest", "v3": "v3-highest"}
-# the lab's main path: its entry point at the flagship, every L1 and L2a
+L2_TIMED = {"v2": "v2-highest", "v3": "v3-highest", "v13": "v13-highest"}
+# the lab's main path: its entry point at the flagship, every L1 and L2
 # kernel
 LAB_ARGS = ["--refine", "6", "--p", "4", "--reps", "20", "--variants",
             "v0", "v5", "v5-copy", "v4", "v17", "v17-h", "v17-bf",
             "v17-f64", "v18", "v19", "v19-bf", "v20", "v20-bf", "v20-h",
             "v17-copy", "v17-bands", "v17-mm", "v2-highest", "v2-high",
             "v2-default", "v3-highest", "v3-high", "v6", "v8", "v9", "v12",
-            "vx", "vxy"]
+            "vx", "vxy", "v13-highest", "v13-high", "v14", "v15", "v15-high",
+            "v15-default", "v16", "vcopy", "vband"]
+# P2's kernels against their plain versions in the same arithmetic, max
+# |error| / max |o|, on the probe's inputs at (n_iter, m) = (256, 512): one
+# TF32 or bf16 pass of a diagonal w is exact in f32, so those chains are
+# reproduced to the bit; the split arithmetics sum three parts in the tensor
+# cores' truncating f32 accumulators, 256 times over.  The multiply-add
+# chain against f64: 1024 f32 roundings with a steady bias (2.8e-5 measured)
+P2_TOL = {"highest": 1e-4, "high": 1e-6, "bf16x3": 1e-5, "default": 1e-6}
+P2_FMA_TOL = 1e-4
+# P2's product chain on a seeded dense (512, 512) input with an orthogonal w,
+# after 8 and after 256 products: max |error| / max |o| against the plain
+# version in the same arithmetic and against the f64 chain, about three times
+# what an H100 reads (3xTF32 5.4e-5 / 1.6e-3, 1xTF32 9.7e-4 / 4.2e-3, bf16x3
+# 1.9e-5 / 3.5e-4, one bf16 pass 6.6e-3 / 3.7e-2: the tensor cores' f32
+# accumulators truncate, a steady loss of ~6e-6 a product that the split
+# arithmetics show; a chain without its products reads 1.3-1.6)
+P2_DENSE_ITERS = (8, 256)
+P2_DENSE_TOL = {"highest": (2e-4, 5e-3), "high": (3e-3, 1.2e-2),
+                "bf16x3": (6e-5, 1e-3), "default": (2e-2, 1e-1)}
+# its multiply-add chain on the seeded normal v against f64 (2.8e-6 / 9.1e-5
+# read: the f32 constant 1.000001 is 4.6e-8 off, 4 n_iter times over)
+P2_DENSE_FMA_TOL = (1e-5, 3e-4)
+PROBE_N_ITER, PROBE_M = 256, 512
 STORAGE = {"f64": torch.float64, "f32": torch.float32,
            "bf16s": torch.bfloat16}
 N_CHAIN = 30
@@ -339,7 +392,7 @@ def check_lab(kern, mode, p, n, h, u):
 
 
 def check_l2(v, mode, p, n, h, u):
-    """Launch one L2a kernel on the f64 input ``u`` ((n p + 1)**3 points on
+    """Launch one L2 kernel on the f64 input ``u`` ((n p + 1)**3 points on
     the card); return (tag, max relative error, max abs error, emulation)
     against the plain version of its function in f64 on the same
     (storage-rounded) layout, every output point checked; a split
@@ -347,13 +400,15 @@ def check_l2(v, mode, p, n, h, u):
     relative error and the kernel's max distance from it over max |y|),
     else None.  Raises when out of its class, when an output point is not
     finite or when the launch counter did not rise."""
-    from tpufem_torch.lab import separable_lab
-    from tpufem_torch.lab.separable_lab import LabKernel
+    from tpufem_torch.lab import kernel_lab, separable_lab
+    from tpufem_torch.lab.separable_lab import NO_MMA, LabKernel
     from tpufem_torch.ops.separable import global_1d_matrices
 
     npts = n * p + 1
     K1, M1 = global_1d_matrices(p, n, p + 1)
     dtype, prec = L2_MODES[mode]
+    tol = kernel_lab.L2_OWN_TOL.get(v, separable_lab.TOL[
+        separable_lab.XF64 if mode == "f64" else separable_lab.PRECS[prec]])
     k = LabKernel(v, npts, p, K1, M1, h, prec=prec, dtype=dtype,
                   device="cuda")
     gp = k.pad(u)
@@ -361,7 +416,8 @@ def check_l2(v, mode, p, n, h, u):
     y = k.raw(gp)
     rose = LabKernel.launches[v] == before + 1
     torch.cuda.synchronize()
-    tag = f"{v} {mode} p={p} npts={npts} b={k.b} smem={k.smem}"
+    tag = (f"{v} {mode} p={p} npts={npts} b={k.b}"
+           + (f" sub-tile={k.tile}" if k.tile else "") + f" smem={k.smem}")
     if not rose:
         raise RuntimeError(f"{tag}: launch counter did not rise")
     if not torch.isfinite(y).all():
@@ -369,11 +425,10 @@ def check_l2(v, mode, p, n, h, u):
     ref = k.plain(gp.to(torch.float64))
     abs_err = float((y.to(torch.float64) - ref).abs().max())
     rel = abs_err / float(ref.abs().max())
-    if not rel <= separable_lab.TOL[k.xp]:
-        raise RuntimeError(f"{tag}: max rel err {rel:.3e} > "
-                           f"{separable_lab.TOL[k.xp]}")
+    if not rel <= tol:
+        raise RuntimeError(f"{tag}: max rel err {rel:.3e} > {tol}")
     emu = None
-    if mode != "f64":
+    if mode != "f64" and v not in NO_MMA:
         ye = k.emulate(gp).to(torch.float64)
         emu_rel = float((ye - ref).abs().max() / ref.abs().max())
         diff = float((y.to(torch.float64) - ye).abs().max()
@@ -853,8 +908,14 @@ def main() -> int:
             + (f", emulated {emu_worst[m]:.3e}, apart {emu_apart[m]:.3e}"
                if m in emu_worst else "")
             + ")" for m in LAB_TOL))
-    # the L2a kernels, each variant in each precision (v9: bf16x3 only)
-    from tpufem_torch.lab.separable_lab import VARIANTS as L2A, LabKernel
+    # the L2 kernels, x-first and z/y-first, each variant in each precision
+    # (v9: bf16x3 only; v16, vcopy, vband: no tensor-core stage, f64 and f32)
+    from tpufem_torch.lab.separable_lab import (
+        NO_MMA,
+        VARIANTS as L2V,
+        ZYFIRST,
+        LabKernel,
+    )
 
     l2_worst, l2_emu, l2_apart, l2_abs = {}, {}, {}, {}
 
@@ -869,17 +930,18 @@ def main() -> int:
             if emu is not None else "")
 
     def l2_modes(v):
-        return ["bf16"] if v == "v9" else list(L2_MODES)
+        return (["bf16"] if v == "v9" else ["f64", "f32"] if v in NO_MMA
+                else list(L2_MODES))
 
     for p in (1, 2, 4, 7, 8):
         n = max(2, 24 // p)
         u = torch.tensor(rng.standard_normal((n * p + 1)**3), device=dev)
-        for v in L2A:
+        for v in L2V:
             rels = [l2_case(v, mode, p, n, [1.0 / n, 1.3 / n, 0.7 / n],
                             u)[2] for mode in l2_modes(v)]
             say("5 lab", f"{v} p={p} npts={n * p + 1}: max rel err "
                 + ", ".join(rels))
-    for v in L2A:
+    for v in L2V:
         rels = []
         for mode in l2_modes(v):
             tag, aerr, line = l2_case(v, mode, 4, 64, [1.0 / 64] * 3, u257)
@@ -888,26 +950,27 @@ def main() -> int:
             rels.append(f"{line} ({tag.split(' ', 3)[3]})")
         say("5 lab", f"flagship npts=257: {v} max rel err " + ", ".join(rels)
             + f"; max abs err {l2_abs[v]:.3e}")
-    say("5 lab", "L2a all within their classes, every point finite; worst "
+    say("5 lab", "L2a and L2b all within their classes, every point finite; "
+        "worst "
         "max rel err " + ", ".join(
             f"{m} {l2_worst[m]:.3e}"
             + (f" (emulated {l2_emu[m]:.3e}, apart {l2_apart[m]:.3e})"
                if m in l2_emu else "") for m in L2_MODES))
     for kern in KERNELS:
         V17Kernel.launches[kern] = 0
-    for v in L2A:
+    for v in L2V:
         LabKernel.launches[v] = 0
     lab_results = kernel_lab.main(LAB_ARGS)
     launches.update(V17Kernel.launches)
     launches.update({f"L2 {v}": n for v, n in LabKernel.launches.items()})
     say("5 lab", f"kernel_lab.main {' '.join(LAB_ARGS)}: L1 launches "
-        f"{dict(V17Kernel.launches)}, L2a launches "
+        f"{dict(V17Kernel.launches)}, L2 launches "
         f"{dict(LabKernel.launches)}")
     if not all(launches[kern] > 0 for kern in KERNELS):
         raise RuntimeError(f"an L1 kernel of the lab's main path did not "
                            f"run: {dict(V17Kernel.launches)}")
     if not all(n > 0 for n in LabKernel.launches.values()):
-        raise RuntimeError(f"an L2a kernel of the lab's main path did not "
+        raise RuntimeError(f"an L2 kernel of the lab's main path did not "
                            f"run: {dict(LabKernel.launches)}")
     lab_best = max((r["gdofs"], name) for name, r in lab_results.items()
                    if r["rel_err"] == r["rel_err"])
@@ -1015,7 +1078,7 @@ def main() -> int:
             ms[name], plain_ms[name] = r["ms"], r["plain_ms"]
         bound[name] = (r["bound_ms"], r["bound_by"])
         design[name] = r.get("design_ms")
-    for v in L2A:
+    for v in L2V:
         r = lab[L2_TIMED.get(v, v)]
         ms[f"L2 {v}"], plain_ms[f"L2 {v}"] = r["ms"], r["plain_ms"]
         bound[f"L2 {v}"] = (r["bound_ms"], r["bound_by"])
@@ -1023,7 +1086,8 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(5)
     A = torch.randn((257**2, 2 * X), generator=gen, device=dev)
     B = torch.randn((2 * X, X), generator=gen, device=dev)
-    library_ms = 1e3 * time_fn(lambda _: torch.matmul(A, B), A, reps=N_CHAIN)
+    l1_xstage_ms = 1e3 * time_fn(lambda _: torch.matmul(A, B), A,
+                                  reps=N_CHAIN)
     del A, B
     # L2a's x stage, as v2 runs it at the flagship: every tile's halo'd
     # (L, L) rows, nt = 11 tiles a side at b = 24, L = 32, times [Mx^T |
@@ -1032,19 +1096,63 @@ def main() -> int:
     rows2 = (-(-257 // b2))**2 * (b2 + 8)**2
     A = torch.randn((rows2, X), generator=gen, device=dev)
     B = torch.randn((X, 2 * X), generator=gen, device=dev)
-    l2_library_ms = 1e3 * time_fn(lambda _: torch.matmul(A, B), A,
+    l2_xstage_ms = 1e3 * time_fn(lambda _: torch.matmul(A, B), A,
                                   reps=N_CHAIN)
     del A, B
-    say("6 throughput", "L1, L2a and K1 at 16,974,593 DoFs (kernel_lab.main)"
+    # L2b's x stage: the (nt b)^2 rows of the output layout times [Kx^T;
+    # Mx^T]
+    rows3 = ((-(-257 // lab["v15"]["b"])) * lab["v15"]["b"])**2
+    A = torch.randn((rows3, 2 * X), generator=gen, device=dev)
+    B = torch.randn((2 * X, X), generator=gen, device=dev)
+    zy_xstage_ms = 1e3 * time_fn(lambda _: torch.matmul(A, B), A,
+                                  reps=N_CHAIN)
+    del A, B
+    say("6 throughput", "L1, L2 and K1 at 16,974,593 DoFs (kernel_lab.main)"
         ", ms per raw apply (plain ms; bound ms; design bound ms): "
         + ", ".join(
             f"{name} {r['ms']:.4f} ({r['plain_ms']:.4f}; "
             f"{bound[name][0]:.4f} {bound[name][1]}"
             + (f"; {design[name]:.4f}" if design[name] is not None else "")
             + ")" for name, r in lab.items())
-        + f"; torch.matmul ({257**2}, {2 * X}) x ({2 * X}, {X}) f32 "
-        f"{library_ms:.4f} (L1); ({rows2}, {X}) x ({X}, {2 * X}) f32 "
-        f"{l2_library_ms:.4f} (L2a)")
+        + f"; note, the x stages alone as one torch.matmul in f32 (not the "
+        f"kernels' function): ({257**2}, {2 * X}) x ({2 * X}, {X}) "
+        f"{l1_xstage_ms:.4f} (L1); ({rows2}, {X}) x ({X}, {2 * X}) "
+        f"{l2_xstage_ms:.4f} (L2a); ({rows3}, {2 * X}) x ({2 * X}, {X}) "
+        f"{zy_xstage_ms:.4f} (L2b)")
+
+    # vcopy's function (the input layout's inner (nt b)^2 rows, made
+    # contiguous) and vx's ((Mx + Kx) along x of its first (nt b)^2 rows: one
+    # product) are each one PyTorch call: their library_ms, each call held
+    # to the kernel first.  The port calls neither.  Every other L1 and L2
+    # row sums several Kronecker applies, which no single call computes
+    K1f, M1f = global_1d_matrices(4, 64, 5)
+    l2_library_ms = {}
+    kc = LabKernel("vcopy", 257, 4, K1f, M1f, [1.0 / 64] * 3,
+                   b=lab["vcopy"]["b"], device="cuda")
+    kx = LabKernel("vx", 257, 4, K1f, M1f, [1.0 / 64] * 3,
+                   b=lab["vx"]["b"], device="cuda")
+    wx = torch.zeros((kx.X, kx.X), device=dev)
+    wx[:257, :257] = torch.tensor((kx.Ms[0] + kx.Ks[0]).T, device=dev)
+    ntc, ntx = kc.nt * kc.b, kx.nt * kx.b
+    library = {
+        "vcopy": (kc, lambda g: g[4:4 + ntc, 4:4 + ntc].contiguous(), 0.0),
+        "vx": (kx, lambda g: torch.matmul(g[:ntx, :ntx], wx), 2e-6)}
+    for v, (k, call, tol) in library.items():
+        gp = k.pad(u257.to(torch.float32))
+        y, yl = k.raw(gp), call(gp)
+        off = float((y - yl).abs().max() / y.abs().max())
+        if not (yl.shape == y.shape and yl.is_contiguous() and off <= tol):
+            raise RuntimeError(f"{v}: the one-call equivalent is off the "
+                               f"kernel by {off:.3e} > {tol}")
+        t = [chain_ms(fn, gp) for fn in (
+            lambda _: call(gp), lambda _: k.raw(gp), lambda _: k.raw(gp),
+            lambda _: call(gp))]
+        l2_library_ms[v] = (t[0] + t[3]) / 2
+        say("6 throughput", f"{v} at the flagship, one PyTorch call of the "
+            f"same function (off the kernel by {off:.3e}, tol {tol}) and the "
+            f"kernel in turns, ms: call {t[0]:.4f}, kernel {t[1]:.4f}, kernel "
+            f"{t[2]:.4f}, call {t[3]:.4f}")
+        del gp, y, yl
 
     # the bound of K1-K4: each point read and written once in f32, and 2p+1
     # multiply-adds per band output (K1/K2 7 bands a point, K4 3 terms x 3,
@@ -1059,6 +1167,154 @@ def main() -> int:
     say("6 throughput", "bound ms on an H100: " + ", ".join(
         f"{name} {bound[name][0]:.5f} ({bound[name][1]})"
         for name in ("K2", "K1", "K4", "K4_shell", "K3")))
+
+    # ---- 7 the toolchain probes: each kernel against its plain version,
+    # then the probes' entry point with the counts reset before and read
+    # after
+    from tpufem_torch.lab import toolchain_probe as tprobe
+
+    def rel_max(y, ref):
+        return float((y.to(torch.float64) - ref.to(torch.float64)).abs().max()
+                     / ref.abs().max())
+
+    gen_c = torch.Generator().manual_seed(21)
+    pa, pb = (torch.randn((256, 256), generator=gen_c).to(dev)
+              for _ in range(2))
+    p_ref = pa.double() @ pb.double()
+    ones = torch.ones((256, 256), device=dev)
+    p1 = {}
+    for arithmetic in tprobe.ARITHMETICS:
+        before = tprobe.launches["P1"]
+        c = tprobe.matmul(pa, pb, arithmetic)
+        rose = tprobe.launches["P1"] == before + 1
+        torch.cuda.synchronize()
+        p1[arithmetic] = rel_max(c, p_ref)
+        apart = float((c - tprobe.matmul_plain(pa, pb, arithmetic)).abs()
+                      .max() / p_ref.abs().max())
+        if arithmetic == "bf16x3":
+            abs_err["P1"] = float((c.double() - p_ref).abs().max())
+        exact = torch.equal(tprobe.matmul(ones, ones, arithmetic),
+                            torch.full_like(ones, 256.0))
+        say("7 probes", f"P1 {arithmetic}: max rel err {p1[arithmetic]:.3e} "
+            f"(class {tprobe.P1_TOL[arithmetic]}), off its arithmetic in "
+            f"plain PyTorch by {apart:.3e}, ones @ ones == 256: {exact}")
+        if not (rose and exact
+                and p1[arithmetic] <= tprobe.P1_TOL[arithmetic]):
+            raise RuntimeError(f"P1 {arithmetic} failed its checks")
+    ca = torch.full((PROBE_M, PROBE_M), 1e-3, device=dev)
+    cw = torch.eye(PROBE_M, device=dev) * 0.999
+    cv = torch.ones((PROBE_M, PROBE_M), device=dev)
+    # a seeded dense input; w orthogonal (Q of a seeded normal matrix), so a
+    # chain of any depth keeps its norm and amplifies no rounding
+    gen_c.manual_seed(22)
+    ra, rw, rv = (torch.randn((PROBE_M, PROBE_M), generator=gen_c)
+                  for _ in range(3))
+    rw = torch.linalg.qr(rw.double())[0].float().contiguous()
+    ra, rw, rv = ra.to(dev), rw.to(dev), rv.to(dev)
+    dense64 = {n_it: tprobe.chain_plain("both", ra.double(), rw.double(),
+                                        rv.double(), n_it)
+               for n_it in P2_DENSE_ITERS}
+    for arithmetic in tprobe.ARITHMETICS:
+        o_ref, _ = tprobe.chain_plain("mma", ca, cw, cv, PROBE_N_ITER,
+                                      arithmetic=arithmetic)
+        _, vo_ref = tprobe.chain_plain("fma", ca.double(), cw.double(),
+                                       cv.double(), PROBE_N_ITER)
+        o_exact = 1e-3 * 0.999**PROBE_N_ITER
+        for mode in tprobe.MODES:
+            before = tprobe.launches[f"P2 {mode}"]
+            o, vo = tprobe.chain(mode, ca, cw, cv, PROBE_N_ITER,
+                                 arithmetic=arithmetic)
+            rose = tprobe.launches[f"P2 {mode}"] == before + 1
+            torch.cuda.synchronize()
+            o_err = 0.0 if mode == "fma" else rel_max(o, o_ref)
+            vo_err = 0.0 if mode == "mma" else rel_max(vo, vo_ref)
+            through = (torch.equal(o, ca) if mode == "fma" else
+                       torch.equal(vo, cv) if mode == "mma" else True)
+            if arithmetic == "default" and mode == "both":
+                abs_err["P2"] = max(float((o - o_ref).abs().max()), float(
+                    (vo.double() - vo_ref).abs().max()))
+            say("7 probes", f"P2 {mode} {arithmetic} ({PROBE_N_ITER}, "
+                f"{PROBE_M}): o off its plain version by {o_err:.3e} (tol "
+                f"{P2_TOL[arithmetic]})"
+                + ("" if mode == "fma" else f", o[0, 0] / (1e-3 0.999^n_iter)"
+                   f" = {float(o[0, 0]) / o_exact:.6f}")
+                + f", vo off the f64 chain by "
+                f"{vo_err:.3e} (tol {P2_FMA_TOL}), other stream copied "
+                f"through: {through}")
+            if not (rose and through and o_err <= P2_TOL[arithmetic]
+                    and vo_err <= P2_FMA_TOL):
+                raise RuntimeError(f"P2 {mode} {arithmetic} failed its "
+                                   f"checks")
+        # the seeded dense input, the product chain alone and beside the
+        # multiply-adds, at 8 products and at the probe's 256: against the
+        # plain version in the same arithmetic and against the exact f64
+        # chain (a kernel that skipped its products would read above 1)
+        for n_it, tol, fma_tol in zip(P2_DENSE_ITERS,
+                                      P2_DENSE_TOL[arithmetic],
+                                      P2_DENSE_FMA_TOL):
+            o64, vo64 = dense64[n_it]
+            oe, _ = tprobe.chain_plain("mma", ra, rw, rv, n_it,
+                                       arithmetic=arithmetic)
+            for mode in ("mma", "both"):
+                o, vo = tprobe.chain(mode, ra, rw, rv, n_it,
+                                     arithmetic=arithmetic)
+                torch.cuda.synchronize()
+                apart, o_err = rel_max(o, oe), rel_max(o, o64)
+                vo_err = (rel_max(vo, vo64) if mode == "both"
+                          else 0.0 if torch.equal(vo, rv) else float("inf"))
+                say("7 probes", f"P2 {mode} {arithmetic} ({n_it}, {PROBE_M}) "
+                    f"on a seeded dense input: o off its plain version in "
+                    f"the same arithmetic by {apart:.3e}, off the f64 chain "
+                    f"by {o_err:.3e} (tol {tol:.1e} each; the plain version "
+                    f"itself {rel_max(oe, o64):.3e}), vo {vo_err:.3e} (tol "
+                    f"{fma_tol})")
+                if not (apart <= tol and o_err <= tol
+                        and vo_err <= fma_tol):
+                    raise RuntimeError(f"P2 {mode} {arithmetic} on the "
+                                       f"seeded dense input at {n_it} "
+                                       f"products failed its checks")
+    for key in tprobe.launches:
+        tprobe.launches[key] = 0
+    probe_out = tprobe.main()
+    launches["P1"] = tprobe.launches["P1"]
+    launches["P2"] = tprobe.launches["P2 both"]
+    say("7 probes", f"toolchain_probe.main: launches {tprobe.launches}")
+    if not all(n > 0 for n in tprobe.launches.values()):
+        raise RuntimeError(f"a probe kernel of the probes' main path did "
+                           f"not run: {tprobe.launches}")
+    co = {r["probe"]: r for r in probe_out}["vpu_mxu_co_scheduling"]
+    bal = co["balanced"]
+    ms["P2"] = co["t_both_ms"]
+    say("7 probes", f"P2 at ({co['n_iter']}, {co['m']}), {co['arithmetic']}, "
+        f"{co['fma_per_product']} FMAs a product: mma {co['t_mxu_ms']:.4f} "
+        f"ms, fma {co['t_vpu_ms']:.4f} ms, both {co['t_both_ms']:.4f} ms, "
+        f"overlap {co['overlap_fraction']:.3f}; balanced at "
+        f"{bal['fma_per_product']} FMAs a product: mma "
+        f"{bal['t_mxu_ms']:.4f}, fma {bal['t_vpu_ms']:.4f},"
+        f" both {bal['t_both_ms']:.4f} ms, overlap "
+        f"{bal['overlap_fraction']:.3f} ({co['blocks']} blocks of "
+        f"one 16-row stripe: a per-SM probe)")
+    plain_ms["P2"] = 1e3 * time_fn(
+        lambda _: tprobe.chain_plain("both", ca, cw, cv, PROBE_N_ITER)[0], ca,
+        reps=3, warmup=1)
+    ms["P1"] = 1e3 * time_fn(lambda _: tprobe.matmul(pa, pb), pa,
+                             reps=N_CHAIN)
+    plain_ms["P1"] = 1e3 * time_fn(lambda _: tprobe.matmul_plain(pa, pb), pa,
+                                   reps=N_CHAIN)
+    p1_library_ms = 1e3 * time_fn(lambda _: torch.matmul(pa, pb), pa,
+                                  reps=N_CHAIN)
+    # P1: two (256, 256) f32 operands read, one written; three bf16 passes.
+    # P2 (both): a, w, v read, o and vo written; n_iter products in one
+    # bf16 pass and 4 n_iter multiply-adds a value
+    bound["P1"] = roofline_ms(3 * 4 * 256**2, {"bf16": 3 * 2.0 * 256**3})
+    bound["P2"] = roofline_ms(5 * 4 * PROBE_M**2, {
+        "bf16": 2.0 * PROBE_N_ITER * PROBE_M**3,
+        "fp32": 2.0 * 4 * PROBE_N_ITER * PROBE_M**2})
+    say("7 probes", f"P1 (256, 256) bf16x3 {ms['P1']:.4f} ms, plain "
+        f"{plain_ms['P1']:.4f}, torch.matmul {p1_library_ms:.4f}, bound "
+        f"{bound['P1'][0]:.6f} ({bound['P1'][1]}); P2 both {ms['P2']:.4f} ms, "
+        f"plain {plain_ms['P2']:.4f}, bound {bound['P2'][0]:.4f} "
+        f"({bound['P2'][1]})")
 
     say("done", f"{time.perf_counter() - t_start:.1f} s; {smi}")
     records = [
@@ -1076,11 +1332,19 @@ def main() -> int:
          "tpufem/ops/pallas_separable.py:1057", abs_err["K3"], None),
     ] + [(kern, f"{kern} lab_resident ({LAB_KERNELS[kern][0]}, 3xTF32)",
           "tpufem_torch/csrc/lab_resident.cuh", LAB_KERNELS[kern][1],
-          lab_abs[kern], library_ms) for kern in KERNELS] + [
-        (f"L2 {v}", f"{v} lab_separable ({L2_KERNELS[v][0]}, "
-         f"{'bf16x3' if v == 'v9' else '3xTF32'})",
-         "tpufem_torch/csrc/lab_separable.cuh", L2_KERNELS[v][1], l2_abs[v],
-         l2_library_ms) for v in L2A]
+          lab_abs[kern], None) for kern in KERNELS] + [
+        (f"L2 {v}", f"{v} {'lab_zyfirst' if v in ZYFIRST else 'lab_separable'}"
+         f" ({L2_KERNELS[v][0]}, "
+         f"{'bf16x3' if v == 'v9' else 'f32' if v in NO_MMA else '3xTF32'})",
+         "tpufem_torch/csrc/lab_zyfirst.cuh" if v in ZYFIRST
+         else "tpufem_torch/csrc/lab_separable.cuh", L2_KERNELS[v][1],
+         l2_abs[v], l2_library_ms.get(v)) for v in L2V] + [
+        ("P1", "P1 toolchain_probe (bf16x3 product)",
+         "tpufem_torch/csrc/toolchain_probe.cuh",
+         "scripts/toolchain_probe.py:36", abs_err["P1"], p1_library_ms),
+        ("P2", "P2 toolchain_probe (products and multiply-adds in one "
+         "kernel, one bf16 pass)", "tpufem_torch/csrc/toolchain_probe.cuh",
+         "scripts/toolchain_probe.py:88", abs_err["P2"], None)]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": rep,
          "launches": launches[key], "max_abs_err": aerr, "ms": ms[key],

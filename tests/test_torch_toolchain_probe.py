@@ -1,0 +1,360 @@
+"""The two toolchain probes (P1, P2) on the CPU: the port's plain versions
+against the Pallas kernels of ``scripts/toolchain_probe.py`` in interpret
+mode, a g++ build of the CUDA kernels (tpufem_torch/csrc/toolchain_probe.cuh)
+against the plain versions, the closed form of the probe's own inputs, and
+the entry points' refusal without a card.
+
+``scripts/toolchain_probe.py`` is imported by path (nothing in ``scripts/``
+changes) and given its own ``pl`` whose ``pallas_call`` records ``(kernel,
+kwargs)`` and returns the interpret-mode call.  P2's three kernels declare
+their refs as ``(a_ref, w_ref, o_ref, v_ref, vo_ref)`` while the call has
+three inputs and two outputs, so through ``pallas_call`` ``o_ref`` binds to
+the input ``v`` and ``v_ref`` to the first output
+(``test_co_scheduling_refs_bind_out_of_order`` pins it); the port computes
+what the probe's docstring says, and the kernel bodies are held to it with
+stand-in refs bound in the order of their signatures.
+"""
+
+import ctypes
+import importlib.util
+import os
+import types
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_kernel_host import STUBS, _build
+from test_torch_lab import WMMA_STUBS
+
+from tpufem_torch.lab import toolchain_probe as tp
+from tpufem_torch.lab.separable_lab import EMU_TOL, PRECS, TOL
+
+PROBE_SHIM = STUBS + WMMA_STUBS + r"""
+#include "toolchain_probe.cuh"
+
+template <int XP>
+static int mm(int n, const float* a, const float* b, float* c) {
+  const int tiles = (n / tpufem::kPT) * (n / tpufem::kPT);
+  for (int blk = 0; blk * tpufem::kP1Warps < tiles; ++blk) {
+    blockIdx = Dim3{blk, 0, 0};
+    tpufem::probe_matmul_kernel<XP>(a, b, c, n);
+  }
+  return 0;
+}
+
+template <int XP, int MODE>
+static int ch(int m, int n_iter, int fpp, float c1, float c2, const float* a,
+              const void* w, long long w_lo, const float* v, float* o,
+              float* vo) {
+  using E = typename tpufem::LabMma<XP>::E;
+  const long long bytes = tpufem::probe_chain_smem(m);
+  for (int blk = 0; blk < m / tpufem::kP2Rows; ++blk) {
+    std::memset(tpufem::smem_raw, 0xAB, bytes + 4096);
+    blockIdx = Dim3{blk, 0, 0};
+    tpufem::probe_chain_kernel<XP, MODE>(a, (const E*)w, w_lo, v, o, vo, m,
+                                         n_iter, fpp, c1, c2);
+    for (long long i = bytes; i < bytes + 4096; ++i)
+      if (tpufem::smem_raw[i] != 0xAB) return 1;  // beyond its smem
+  }
+  return 0;
+}
+
+template <int XP>
+static int ch_mode(int mode, int m, int n_iter, int fpp, float c1, float c2,
+                   const float* a, const void* w, long long w_lo,
+                   const float* v, float* o, float* vo) {
+  switch (mode) {
+    case 0: return ch<XP, 0>(m, n_iter, fpp, c1, c2, a, w, w_lo, v, o, vo);
+    case 1: return ch<XP, 1>(m, n_iter, fpp, c1, c2, a, w, w_lo, v, o, vo);
+    case 2: return ch<XP, 2>(m, n_iter, fpp, c1, c2, a, w, w_lo, v, o, vo);
+  }
+  return 2;
+}
+
+extern "C" int host_probe_matmul(int xp, int n, const float* a,
+                                 const float* b, float* c) {
+  switch (xp) {
+    case 0: return mm<0>(n, a, b, c);
+    case 1: return mm<1>(n, a, b, c);
+    case 2: return mm<2>(n, a, b, c);
+    case 4: return mm<4>(n, a, b, c);
+  }
+  return 2;
+}
+
+extern "C" int host_probe_chain(int mode, int xp, int m, int n_iter, int fpp,
+                                float c1, float c2, const float* a,
+                                const void* w, long long w_lo, const float* v,
+                                float* o, float* vo) {
+  switch (xp) {
+    case 0: return ch_mode<0>(mode, m, n_iter, fpp, c1, c2, a, w, w_lo, v, o, vo);
+    case 1: return ch_mode<1>(mode, m, n_iter, fpp, c1, c2, a, w, w_lo, v, o, vo);
+    case 2: return ch_mode<2>(mode, m, n_iter, fpp, c1, c2, a, w, w_lo, v, o, vo);
+    case 4: return ch_mode<4>(mode, m, n_iter, fpp, c1, c2, a, w, w_lo, v, o, vo);
+  }
+  return 2;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def jprobe():
+    """``scripts/toolchain_probe.py`` with a recording, interpret-mode
+    ``pallas_call`` (``mod.calls``: the (kernel, kwargs) of each call;
+    ``mod.interpret``: the real call in interpret mode); the process's JAX
+    cache setting and environment are put back after its import, which
+    calls ``enable_persistent_cache()``."""
+    env = dict(os.environ)
+    cache = jax.config.jax_compilation_cache_dir
+    min_s = jax.config.jax_persistent_cache_min_compile_time_secs
+    path = (Path(__file__).resolve().parents[1] / "scripts"
+            / "toolchain_probe.py")
+    spec = importlib.util.spec_from_file_location("_pallas_toolchain_probe",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        jax.config.update("jax_compilation_cache_dir", cache)
+        jax.config.update("jax_persistent_cache_min_compile_time_secs", min_s)
+        os.environ.clear()
+        os.environ.update(env)
+    real = mod.pl.pallas_call
+    mod.calls = []
+    mod.interpret = lambda kernel, **kw: real(kernel, interpret=True, **kw)
+
+    def recording(kernel, **kw):
+        mod.calls.append((kernel, kw))
+        return mod.interpret(kernel, **kw)
+
+    # the script's own view of pallas, so the process's pl.pallas_call stays
+    mod.pl = types.SimpleNamespace(**vars(mod.pl))
+    mod.pl.pallas_call = recording
+    return mod
+
+
+class Ref:
+    """A stand-in for a Pallas ref: ``ref[...]`` gets and sets an array."""
+
+    def __init__(self, value=None):
+        self.value = value
+
+    def __getitem__(self, idx):
+        assert idx is Ellipsis
+        return self.value
+
+    def __setitem__(self, idx, value):
+        assert idx is Ellipsis
+        self.value = value
+
+
+def _rel(y, ref):
+    y, ref = np.asarray(y, np.float64), np.asarray(ref, np.float64)
+    return float(np.abs(y - ref).max() / np.abs(ref).max())
+
+
+def _seeded(m, seed):
+    """a, w, v: (m, m) f32 from numpy; w scaled so a chain neither grows
+    nor dies."""
+    rng = np.random.default_rng(seed)
+    a, w, v = (rng.standard_normal((m, m)).astype(np.float32)
+               for _ in range(3))
+    return a, (w / np.sqrt(m)).astype(np.float32), v
+
+
+def test_high_precision_kernel_matches_plain(jprobe):
+    """P1: the JAX probe lowers in interpret mode and reports support; its
+    recorded kernel on a seeded (256, 256) pair against the port's plain
+    version, f32 on both sides, 1e-5 relative."""
+    jprobe.calls.clear()
+    out = jprobe.probe_high_precision()
+    assert out["supported"] is True, out
+    (kernel, kw), = jprobe.calls
+    rng = np.random.default_rng(0)
+    a, b = (rng.standard_normal((256, 256)).astype(np.float32)
+            for _ in range(2))
+    c_j = np.asarray(jprobe.interpret(kernel, **kw)(jnp.asarray(a),
+                                                   jnp.asarray(b)))
+    before = dict(tp.launches)
+    c_t = tp.matmul(torch.as_tensor(a), torch.as_tensor(b))
+    assert tp.launches == before  # CPU tensors: the plain version
+    assert c_j.dtype == np.float32 and c_t.dtype == torch.float32
+    assert _rel(c_t.numpy(), c_j) <= 1e-5
+    ours = tp.probe_high_precision(device="cpu")
+    assert ours["supported"] is True and ours["probe"] == "mma_precision_high"
+    assert set(ours["max_rel_err"]) == set(tp.ARITHMETICS)
+
+
+@pytest.fixture(scope="module")
+def co_kernels(jprobe):
+    """The JAX co-scheduling probe run once in interpret mode at (n_iter,
+    m) = (3, 128); its three recorded (kernel, kwargs), in the order
+    k_mxu, k_vpu, k_both."""
+    jprobe.calls.clear()
+    out = jprobe.probe_co_scheduling(n_iter=3, m=128)
+    assert {"t_mxu_ms", "t_vpu_ms", "t_both_ms", "overlap_fraction",
+            "co_scheduled"} <= set(out)
+    calls = list(jprobe.calls)
+    assert [k.__name__ for k, _ in calls] == ["k_mxu", "k_vpu", "k_both"]
+    return calls
+
+
+@pytest.mark.parametrize("i,mode", [(0, "mma"), (1, "fma"), (2, "both")])
+def test_co_scheduling_bodies_match_plain(co_kernels, i, mode):
+    """P2: each JAX kernel body, its refs bound in the order of its
+    signature (the binding the probe's docstring means), against the
+    port's plain version on the same seeded a, w, v: 1e-5 relative."""
+    kernel, _ = co_kernels[i]
+    a, w, v = _seeded(128, 3)
+    o, vo = Ref(), Ref()
+    kernel(Ref(jnp.asarray(a)), Ref(jnp.asarray(w)), o, Ref(jnp.asarray(v)),
+           vo)
+    before = dict(tp.launches)
+    o_t, vo_t = tp.chain(mode, *(torch.as_tensor(t) for t in (a, w, v)), 3)
+    assert tp.launches == before
+    assert _rel(o_t.numpy(), o.value) <= 1e-5
+    assert _rel(vo_t.numpy(), vo.value) <= 1e-5
+    if mode == "mma":
+        assert np.array_equal(vo_t.numpy(), v)
+    if mode == "fma":
+        assert np.array_equal(o_t.numpy(), a)
+
+
+def test_co_scheduling_refs_bind_out_of_order(jprobe, co_kernels):
+    """An observation about the reference: called as the script calls it
+    (three inputs, two outputs), ``o_ref`` is the input ``v`` and ``v_ref``
+    the first output, so neither output is ever finite.  The probe only
+    times, so it does not notice."""
+    a, w, v = (jnp.asarray(t) for t in _seeded(128, 3))
+    for kernel, kw in co_kernels:
+        o, vo = jprobe.interpret(kernel, **kw)(a, w, v)
+        assert not np.isfinite(np.asarray(o)).all()
+        assert not np.isfinite(np.asarray(vo)).all()
+
+
+def test_closed_form_of_the_probe_inputs():
+    """w = 0.999 I, a = 1e-3, v = 1: o = 1e-3 0.999^n_iter; vo follows the
+    linear recurrence's closed form.  In one bf16 product 0.999 rounds to
+    1, so that chain stands still at bf16(1e-3)."""
+    m, n_iter = 32, 256
+    a = torch.full((m, m), 1e-3, dtype=torch.float64)
+    w = torch.eye(m, dtype=torch.float64) * 0.999
+    v = torch.ones((m, m), dtype=torch.float64)
+    o, vo = tp.chain_plain("both", a, w, v, n_iter)
+    assert abs(float(o[0, 0]) / (1e-3 * 0.999**n_iter) - 1) < 1e-12
+    steps = 4 * n_iter
+    exact = tp.C1**steps + tp.C2 * (tp.C1**steps - 1) / (tp.C1 - 1)
+    assert abs(float(vo[3, 5]) / exact - 1) < 1e-12
+    o32, vo32 = tp.chain("both", a.float(), w.float(), v.float(), n_iter)
+    assert _rel(o32.numpy(), o.numpy()) <= 1e-5
+    assert _rel(vo32.numpy(), vo.numpy()) <= 1e-4  # 1024 f32 roundings
+    for arithmetic, tol in (("highest", 1e-4), ("bf16x3", 1e-3)):
+        oe, _ = tp.chain_plain("mma", a.float(), w.float(), v.float(),
+                               n_iter, arithmetic=arithmetic)
+        assert _rel(oe.numpy(), o.numpy()) <= tol
+    od, _ = tp.chain_plain("mma", a.float(), w.float(), v.float(), n_iter,
+                           arithmetic="default")
+    assert torch.equal(od, a.float().bfloat16().float())
+
+
+def test_probes_refuse_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tp.probe_high_precision()  # the card is the default
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tp.probe_co_scheduling(n_iter=2, m=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tp.main()
+    a = torch.zeros((16, 16))
+    with pytest.raises(ValueError, match="arithmetic"):
+        tp.matmul(a, a, "fp8")
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tp.matmul(torch.zeros((8, 8)), torch.zeros((8, 8)))
+    with pytest.raises(ValueError, match="float32"):
+        tp.chain("mma", a.double(), a, a, 1)
+    with pytest.raises(ValueError, match="mode"):
+        tp.chain("vpu", a, a, a, 1)
+
+
+@pytest.fixture(scope="module")
+def probe_lib(tmp_path_factory):
+    lib = _build(tmp_path_factory, "probe_host", PROBE_SHIM)
+    lib.host_probe_matmul.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+    lib.host_probe_matmul.restype = ctypes.c_int
+    lib.host_probe_chain.argtypes = (
+        [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2
+        + [ctypes.c_longlong] + [ctypes.c_void_p] * 3)
+    lib.host_probe_chain.restype = ctypes.c_int
+    return lib
+
+
+@pytest.mark.parametrize("arithmetic", tp.ARITHMETICS)
+def test_host_build_of_the_product_matches_plain(probe_lib, arithmetic):
+    """P1's kernel (g++ build, WMMA stub) in each arithmetic against the
+    f64 product (its class) and the plain version in that arithmetic; ones
+    give n exactly."""
+    n, xp = 48, PRECS[arithmetic]
+    a, b, _ = (torch.as_tensor(t) for t in _seeded(n, 11))
+    c = torch.full((n, n), float("nan"))
+    assert probe_lib.host_probe_matmul(xp, n, a.data_ptr(), b.data_ptr(),
+                                       c.data_ptr()) == 0
+    ref = a.double() @ b.double()
+    assert _rel(c.numpy(), ref.numpy()) <= TOL[xp]
+    emu = tp.matmul_plain(a, b, arithmetic)
+    assert float((c - emu).abs().max() / ref.abs().max()) <= EMU_TOL[xp]
+    ones = torch.ones((n, n))
+    assert probe_lib.host_probe_matmul(xp, n, ones.data_ptr(),
+                                       ones.data_ptr(), c.data_ptr()) == 0
+    assert torch.equal(c, torch.full((n, n), float(n)))
+
+
+@pytest.mark.parametrize("arithmetic", tp.ARITHMETICS)
+@pytest.mark.parametrize("mode", list(tp.MODES))
+def test_host_build_of_the_chains_matches_plain(probe_lib, mode, arithmetic):
+    """P2's three kernels (g++ build: one host thread plays both warp
+    teams) in each arithmetic at (n_iter, m, fpp) = (3, 32, 5): the product
+    chain against the f64 chain (n_iter times its class) and against the
+    plain version in that arithmetic; the multiply-add chain against f64;
+    the stream a kernel does not run is copied through exactly."""
+    m, n_iter, fpp, xp = 32, 3, 5, PRECS[arithmetic]
+    a, w, v = (torch.as_tensor(t) for t in _seeded(m, 5))
+    w_op, w_lo = tp.w_operand(w, arithmetic)
+    o, vo = (torch.full((m, m), float("nan")) for _ in range(2))
+    rc = probe_lib.host_probe_chain(
+        tp.MODES[mode], xp, m, n_iter, fpp, tp.C1, tp.C2, a.data_ptr(),
+        w_op.data_ptr(), w_lo, v.data_ptr(), o.data_ptr(), vo.data_ptr())
+    assert rc == 0, "kernel wrote beyond its shared memory"
+    o64, vo64 = tp.chain_plain(mode, a.double(), w.double(), v.double(),
+                               n_iter, fpp)
+    if mode == "fma":
+        assert torch.equal(o, a)
+    else:
+        assert _rel(o.numpy(), o64.numpy()) <= n_iter * TOL[xp]
+        oe, _ = tp.chain_plain("mma", a, w, v, n_iter, arithmetic=arithmetic)
+        assert float((o - oe).abs().max() / o64.abs().max()) <= \
+            n_iter * EMU_TOL[xp]
+    if mode == "mma":
+        assert torch.equal(vo, v)
+    else:
+        # each step: one f32 rounding, and the constants rounded to f32
+        assert _rel(vo.numpy(), vo64.numpy()) <= n_iter * fpp * 2.0**-23
+
+
+def test_host_build_closed_form(probe_lib):
+    """The probe's own inputs through the g++ build of ``both`` in 3xTF32:
+    o = 1e-3 0.999^n_iter to 1e-4 over 64 products."""
+    m, n_iter = 16, 64
+    a = torch.full((m, m), 1e-3)
+    w = torch.eye(m) * 0.999
+    v = torch.ones((m, m))
+    o, vo = torch.empty((m, m)), torch.empty((m, m))
+    assert probe_lib.host_probe_chain(
+        2, PRECS["highest"], m, n_iter, 4, tp.C1, tp.C2, a.data_ptr(),
+        w.data_ptr(), 0, v.data_ptr(), o.data_ptr(), vo.data_ptr()) == 0
+    assert _rel(o.numpy(), np.full((m, m), 1e-3 * 0.999**n_iter)) <= 1e-4
+    steps = 4 * n_iter
+    exact = tp.C1**steps + tp.C2 * (tp.C1**steps - 1) / (tp.C1 - 1)
+    assert _rel(vo.numpy(), np.full((m, m), exact)) <= 1e-4

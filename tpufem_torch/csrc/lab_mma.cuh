@@ -1,8 +1,10 @@
-// Tensor-core pieces shared by the two kernel-lab routines (lab_resident.cuh:
-// L1, the K1 lab; lab_separable.cuh: L2a, the K2 lab's x-first half): the
-// precision codes, their WMMA fragment shapes, the TF32 and bf16 splits of
-// an operand, one MMA k step in each precision, and the shared-memory
-// helpers that store a value in a dense stage's operand format.
+// Tensor-core pieces shared by the kernel-lab routines (lab_resident.cuh:
+// L1, the K1 lab; lab_separable.cuh: L2a, the K2 lab's x-first half;
+// lab_zyfirst.cuh: L2b, its z/y-first half) and the toolchain probes
+// (toolchain_probe.cuh): the precision codes, their WMMA fragment shapes,
+// the TF32 and bf16 splits of an operand, one MMA k step in each precision,
+// the shared-memory helpers that store a value in a dense stage's operand
+// format, a named barrier and the cp.async copies.
 //
 // Precisions (XP) of a tensor-core product, all with an f32 (f64) sum:
 //   kX3TF32   a = big + small in TF32, three products (small*big, big*small,
@@ -13,6 +15,7 @@
 //   kXBF16    one bf16 product (hi*hi): the hi part of bf16x3
 #pragma once
 
+#include <cstring>
 #include <type_traits>
 
 #ifdef __CUDACC__
@@ -78,6 +81,43 @@ struct LabFrag {
 
 __host__ __device__ inline long long lab_align(long long b) {
   return (b + 127) / 128 * 128;
+}
+
+// A barrier of `count` threads: 0 is the whole block.
+__device__ __forceinline__ void lab_sync(int id, int count) {
+#ifdef __CUDA_ARCH__
+  if (id == 0)
+    __syncthreads();
+  else
+    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+#else
+  __syncthreads();
+#endif
+}
+
+// cp.async: 16 bytes from device memory to shared memory without passing
+// through registers (both 16-byte aligned); a thread's copies so far form a
+// group at lab_cp_commit, and lab_cp_wait returns once all its groups have
+// landed.  Other threads see them after the next barrier.  A host build
+// copies at once.
+__device__ __forceinline__ void lab_cp16(void* smem, const void* gmem) {
+#ifdef __CUDA_ARCH__
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem)
+               : "memory");
+#else
+  std::memcpy(smem, gmem, 16);
+#endif
+}
+__device__ __forceinline__ void lab_cp_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;" ::: "memory");
+#endif
+}
+__device__ __forceinline__ void lab_cp_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+#endif
 }
 
 // f32 fragment -> big + small TF32 parts (3xTF32)

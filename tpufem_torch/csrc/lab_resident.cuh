@@ -78,15 +78,19 @@ struct LabGeo {
 
 // Byte offsets of a block's shared-memory regions, each 128-byte aligned:
 //   tab  z/y table rows of the tile [Ky, My (TY rows), Kz, Mz (TZ rows)]
-//   u    the u chunk (TZ+2P, TY+2P, kXC); st: s and t (2, TZ, TY+2P, kXC)
-//   qq   nbuf buffers of (M, 2X) (bf16x3: a hi then a lo array)
+//   u    nu slots of the u chunk (TZ+2P, TY+2P, xc); st: s and t (2, TZ,
+//        TY+2P, xc)
+//   qq   nbuf buffers of (M, 2X) (bf16: a hi then a lo array)
 //   scr  one (MMA M, MMA N) accumulator tile per warp
 struct LabSmem {
-  long long tab, u, st, qq, qq_bytes, scr, total;
+  long long tab, u, u_bytes, st, qq, qq_bytes, scr, total;
 };
 
+// nu: u slots (2: the next chunk's load runs during this chunk's bands,
+// L2b's prefetch); xc: x columns per band-stage chunk.
 __host__ __device__ inline LabSmem lab_smem(int p, int xp, int nbuf, int tz,
-                                            int ty, int X) {
+                                            int ty, int X, int nu = 1,
+                                            int xc = kXC) {
   const long long c = xp == kXF64 ? 8 : 4;  // band and storage element
   const long long q = xp == kXF64 ? 8 : 4;  // qq bytes per (row, column)
   const long long mm = xp == kXF64 ? 8 : 16;
@@ -94,24 +98,13 @@ __host__ __device__ inline LabSmem lab_smem(int p, int xp, int nbuf, int tz,
   LabSmem s;
   s.tab = 0;
   s.u = lab_align(2LL * (tz + ty) * nw * c);
-  s.st = s.u + lab_align(lz * ly * kXC * c);
-  s.qq = s.st + lab_align(2LL * tz * ly * kXC * c);
+  s.u_bytes = lab_align(lz * ly * xc * c);
+  s.st = s.u + nu * s.u_bytes;
+  s.qq = s.st + lab_align(2LL * tz * ly * xc * c);
   s.qq_bytes = lab_align((long long)tz * ty * 2 * X * q);
   s.scr = s.qq + nbuf * s.qq_bytes;
   s.total = s.scr + lab_align((kLabThreads / 32) * mm * mm * c);
   return s;
-}
-
-// A barrier of `count` threads: 0 is the whole block.
-__device__ __forceinline__ void lab_sync(int id, int count) {
-#ifdef __CUDA_ARCH__
-  if (id == 0)
-    __syncthreads();
-  else
-    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
-#else
-  __syncthreads();
-#endif
 }
 
 // Both accumulators of two band outputs sharing their input reads (v18):
@@ -133,31 +126,73 @@ __device__ __forceinline__ void band2(const C* __restrict__ wa,
   b = sb + wb[NB] * vc;
 }
 
+// The u chunk of x columns [cx0, cx0 + XC) for the tile at (z0, y0): layout
+// rows z0.., y0.. (data row g sits at layout row g + P), zeros beyond the
+// layout.  async: by cp.async, 16 bytes a copy, committed as one group (the
+// layout's rows are 16-byte aligned: X is a multiple of 16).
+template <typename C, int XC>
+__device__ __forceinline__ void lab_load_chunk(const C* __restrict__ u,
+                                               const LabGeo& g, int z0, int y0,
+                                               int lz, int ly, int cx0, C* U,
+                                               bool async, int tid, int nthr) {
+  if (!async) {
+    for (int i = tid; i < lz * ly * XC; i += nthr) {
+      const int ix = i % XC, r = i / XC, iy = r % ly, iz = r / ly;
+      const int lzz = z0 + iz, lyy = y0 + iy, x = cx0 + ix;
+      U[i] = (lzz < g.sz && lyy < g.sy && x < g.X)
+                 ? u[((long long)lzz * g.sy + lyy) * g.X + x]
+                 : C(0);
+    }
+    return;
+  }
+  constexpr int V = 16 / (int)sizeof(C), NV = XC / V;
+  for (int i = tid; i < lz * ly * NV; i += nthr) {
+    const int iv = i % NV, r = i / NV, iy = r % ly, iz = r / ly;
+    const int lzz = z0 + iz, lyy = y0 + iy, x = cx0 + iv * V;
+    C* dst = U + (long long)r * XC + iv * V;
+    if (lzz < g.sz && lyy < g.sy && x < g.X) {
+      lab_cp16(dst, u + ((long long)lzz * g.sy + lyy) * g.X + x);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) dst[e] = C(0);
+    }
+  }
+  lab_cp_commit();
+}
+
 // z and y band stages of the tile at (z0, y0) into qq, by `nthr` threads
 // (tid within the team) synchronised by barrier `bar`.  qq column x holds
 // q1 (bands: q1 + q23), column X + x q23; copy and mm write the centre u.
-template <int P, int XP>
+// nu = 2: two u slots, the load of chunk c + 1 (cp.async) in flight during
+// the bands of chunk c.
+template <int P, int XP, int XC = kXC>
 __device__ void lab_bands(const typename LabMma<XP>::C* __restrict__ u,
                           const typename LabMma<XP>::C* __restrict__ tables,
                           const LabGeo& g, int z0, int y0, int fused,
                           int mode, unsigned char* smem, const LabSmem& pl,
-                          unsigned char* qq, int tid, int nthr, int bar) {
+                          unsigned char* qq, int tid, int nthr, int bar,
+                          int nu = 1) {
   using C = typename LabMma<XP>::C;
   constexpr int NW = 2 * P + 2;
   const int tz = g.tz, ty = g.ty, lz = tz + 2 * P, ly = ty + 2 * P;
   const int X = g.X, npts = g.npts;
   const long long M2X = (long long)tz * ty * 2 * X;
-  const long long split = XP == kXBF16x3 ? M2X : -1;
+  const long long split = LabMma<XP>::kBF16 ? M2X : -1;
   const long long tsz = (long long)npts * NW;
   C* wky = reinterpret_cast<C*>(smem + pl.tab);
   C* wmy = wky + ty * NW;
   C* wkz = wmy + ty * NW;
   C* wmz = wkz + tz * NW;
-  C* U = reinterpret_cast<C*>(smem + pl.u);
   C* s = reinterpret_cast<C*>(smem + pl.st);
-  C* t = s + (long long)tz * ly * kXC;
+  C* t = s + (long long)tz * ly * XC;
+  auto slot = [&](int ch) {
+    return reinterpret_cast<C*>(smem + pl.u + (nu == 2 ? (ch & 1) : 0) *
+                                                  pl.u_bytes);
+  };
 
   lab_sync(bar, nthr);  // the previous tile's readers of tab/U/st are done
+  if (nu == 2)
+    lab_load_chunk<C, XC>(u, g, z0, y0, lz, ly, 0, slot(0), true, tid, nthr);
   for (int i = tid; i < 2 * ty * NW; i += nthr) {
     const int k = i / (ty * NW), j = i - k * ty * NW, r = j / NW;
     const int gg = y0 + r;
@@ -171,33 +206,37 @@ __device__ void lab_bands(const typename LabMma<XP>::C* __restrict__ u,
                  ? tables[(2 + k) * tsz + (long long)gg * NW + (j - r * NW)]
                  : C(0);
   }
-  const long long zs = (long long)ly * kXC;
-  for (int cx0 = 0; cx0 < X; cx0 += kXC) {
-    lab_sync(bar, nthr);  // readers of the previous chunk are done
-    // u chunk: layout rows z0.., y0.. (data row g sits at layout row g + P)
-    for (int i = tid; i < lz * ly * kXC; i += nthr) {
-      const int ix = i % kXC, r = i / kXC, iy = r % ly, iz = r / ly;
-      const int lzz = z0 + iz, lyy = y0 + iy, x = cx0 + ix;
-      U[i] = (lzz < g.sz && lyy < g.sy && x < X)
-                 ? u[((long long)lzz * g.sy + lyy) * X + x]
-                 : C(0);
+  const long long zs = (long long)ly * XC;
+  const int nchunk = (X + XC - 1) / XC;
+  for (int ch = 0; ch < nchunk; ++ch) {
+    const int cx0 = ch * XC;
+    C* U = slot(ch);
+    if (nu == 2) {
+      lab_cp_wait();        // this thread's copies of chunk ch
+      lab_sync(bar, nthr);  // everyone's; readers of chunk ch - 1 are done
+      if (ch + 1 < nchunk)
+        lab_load_chunk<C, XC>(u, g, z0, y0, lz, ly, cx0 + XC, slot(ch + 1),
+                              true, tid, nthr);
+    } else {
+      lab_sync(bar, nthr);  // readers of the previous chunk are done
+      lab_load_chunk<C, XC>(u, g, z0, y0, lz, ly, cx0, U, false, tid, nthr);
+      lab_sync(bar, nthr);
     }
-    lab_sync(bar, nthr);
     if (mode == kCopy || mode == kMM) {
-      for (int i = tid; i < tz * ty * kXC; i += nthr) {
-        const int ix = i % kXC, r = i / kXC, iy = r % ty, iz = r / ty;
+      for (int i = tid; i < tz * ty * XC; i += nthr) {
+        const int ix = i % XC, r = i / XC, iy = r % ty, iz = r / ty;
         const int x = cx0 + ix;
         if (x >= X) continue;
-        const C v = U[((long long)(iz + P) * ly + iy + P) * kXC + ix];
+        const C v = U[((long long)(iz + P) * ly + iy + P) * XC + ix];
         const long long row = (long long)(iz * ty + iy) * 2 * X;
         lab_put<C>(qq, split, row + x, v);
         if (mode == kMM) lab_put<C>(qq, split, row + X + x, v);
       }
       continue;
     }
-    // z stage: (LZ, LY, kXC) -> s, t (TZ, LY, kXC)
-    for (int i = tid; i < tz * ly * kXC; i += nthr) {
-      const int iz = i / (ly * kXC);
+    // z stage: (LZ, LY, XC) -> s, t (TZ, LY, XC)
+    for (int i = tid; i < tz * ly * XC; i += nthr) {
+      const int iz = i / (ly * XC);
       if (fused) {
         band2<P>(wmz + iz * NW, wkz + iz * NW, U + i, zs, s[i], t[i]);
       } else {
@@ -206,20 +245,20 @@ __device__ void lab_bands(const typename LabMma<XP>::C* __restrict__ u,
       }
     }
     lab_sync(bar, nthr);
-    // y stage: s, t -> q1, q23 (TZ, TY, kXC) -> qq
-    for (int i = tid; i < tz * ty * kXC; i += nthr) {
-      const int ix = i % kXC, r = i / kXC, iy = r % ty, iz = r / ty;
+    // y stage: s, t -> q1, q23 (TZ, TY, XC) -> qq
+    for (int i = tid; i < tz * ty * XC; i += nthr) {
+      const int ix = i % XC, r = i / XC, iy = r % ty, iz = r / ty;
       const int x = cx0 + ix;
       if (x >= X) continue;
-      const long long base = ((long long)iz * ly + iy) * kXC + ix;
+      const long long base = ((long long)iz * ly + iy) * XC + ix;
       C q1, q2;
       if (fused) {
-        band2<P>(wmy + iy * NW, wky + iy * NW, s + base, kXC, q1, q2);
+        band2<P>(wmy + iy * NW, wky + iy * NW, s + base, XC, q1, q2);
       } else {
-        q1 = band<P>(wmy + iy * NW, s + base, kXC);
-        q2 = band<P>(wky + iy * NW, s + base, kXC);
+        q1 = band<P>(wmy + iy * NW, s + base, XC);
+        q2 = band<P>(wky + iy * NW, s + base, XC);
       }
-      const C q23 = q2 + band<P>(wmy + iy * NW, t + base, kXC);
+      const C q23 = q2 + band<P>(wmy + iy * NW, t + base, XC);
       const long long row = (long long)(iz * ty + iy) * 2 * X;
       if (mode == kBands) {
         lab_put<C>(qq, split, row + x, q1 + q23);
@@ -262,25 +301,35 @@ __device__ __forceinline__ long long lab_out_row(const LabGeo& g, int z0,
   return ((long long)(gz + P) * g.sy + gy + P) * g.X;
 }
 
+// Where a tile's row m goes in the output: rows(m) is its offset, or -1 for
+// a row the tile does not store.  L1's: the resident layout.
+struct LabRows {
+  LabGeo g;
+  int z0, y0, P;
+  __device__ __forceinline__ long long operator()(int m) const {
+    return lab_out_row(g, z0, y0, m, P);
+  }
+};
+
 // copy / bands: qq's first half is the output
-template <int P, int XP>
+template <int XP, typename Rows>
 __device__ void lab_store_rows(const unsigned char* qq, const LabGeo& g,
-                               int z0, int y0,
+                               const Rows& rows,
                                typename LabMma<XP>::C* __restrict__ out,
                                int tid, int nthr) {
   using C = typename LabMma<XP>::C;
   const int X = g.X;
   const long long M2X = (long long)g.tz * g.ty * 2 * X;
-  const long long split = XP == kXBF16x3 ? M2X : -1;
+  const long long split = LabMma<XP>::kBF16 ? M2X : -1;
   for (long long i = tid; i < (long long)g.tz * g.ty * X; i += nthr) {
     const int m = (int)(i / X), x = (int)(i % X);
-    const long long o = lab_out_row(g, z0, y0, m, P);
+    const long long o = rows(m);
     if (o >= 0) out[o + x] = lab_get<C>(qq, split, (long long)m * 2 * X + x);
   }
 }
 
 // One k step of the x product for up to two M-row tiles sharing the B
-// fragment: TF32 (3x or 1x), bf16x3 or f64.
+// fragment: TF32 (3x or 1x), bf16 (x3, or the hi parts alone) or f64.
 template <int XP>
 struct LabStep {
   using T = LabMma<XP>;
@@ -295,24 +344,29 @@ struct LabStep {
                                              int n0, const void* xk,
                                              const void* xk_lo, int X) {
     const int lda = 2 * X;
-    if constexpr (XP == kXBF16x3) {
+    if constexpr (T::kBF16) {
       const __nv_bfloat16* qh = reinterpret_cast<const __nv_bfloat16*>(qq);
       const __nv_bfloat16* bh_p =
           static_cast<const __nv_bfloat16*>(xk) + (long long)k0 * X + n0;
-      const __nv_bfloat16* bl_p =
-          static_cast<const __nv_bfloat16*>(xk_lo) + (long long)k0 * X + n0;
       FB bh, bl;
       wmma::load_matrix_sync(bh, bh_p, X);
-      wmma::load_matrix_sync(bl, bl_p, X);
+      if constexpr (XP == kXBF16x3)
+        wmma::load_matrix_sync(
+            bl, static_cast<const __nv_bfloat16*>(xk_lo) + (long long)k0 * X +
+                    n0,
+            X);
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
         if (mi >= nm) break;
         const long long off = (long long)(m0 + mi * T::M) * lda + k0;
-        FA ah, al;
+        FA ah;
         wmma::load_matrix_sync(ah, qh + off, lda);
-        wmma::load_matrix_sync(al, qh + M2X + off, lda);
-        wmma::mma_sync(acc[mi], al, bh, acc[mi]);
-        wmma::mma_sync(acc[mi], ah, bl, acc[mi]);
+        if constexpr (XP == kXBF16x3) {
+          FA al;
+          wmma::load_matrix_sync(al, qh + M2X + off, lda);
+          wmma::mma_sync(acc[mi], al, bh, acc[mi]);
+          wmma::mma_sync(acc[mi], ah, bl, acc[mi]);
+        }
         wmma::mma_sync(acc[mi], ah, bh, acc[mi]);
       }
     } else {
@@ -342,15 +396,18 @@ struct LabStep {
   }
 };
 
-// x stage of the tile at (z0, y0): out rows = qq @ [Kx^T; Mx^T] over the
-// whole K = 2X (win == nullptr) or, per column block j, over the rows
-// [win[2j], win[2j+1]) of each half (v20).  Jobs (column block, pair of
-// M-row tiles) go round the `nwarps` warps of the team; warp-wide code,
-// where one host thread (nlanes 1) stands for the whole warp.
-template <int P, int XP>
+// x stage of a tile: out rows = qq @ [Kx^T; Mx^T] over the whole K = 2X
+// (win == nullptr) or, per column block j, over the rows [win[2j],
+// win[2j+1]) of each half (v20).  two: as two products into the same
+// accumulators, a k step of q1 @ Kx^T then one of q23 @ Mx^T in turn, the
+// halves read as two (X, X) operands (L2b's v13, v14).  rows(m): where row
+// m goes (LabRows).  Jobs (column block, pair of M-row tiles) go round the
+// `nwarps` warps of the team; warp-wide code, where one host thread
+// (nlanes 1) stands for the whole warp.
+template <int XP, typename Rows>
 __device__ void lab_xstage(const unsigned char* qq, const void* xk,
                            const void* xk_lo, const int* __restrict__ win,
-                           const LabGeo& g, int z0, int y0,
+                           bool two, const LabGeo& g, const Rows& rows,
                            typename LabMma<XP>::C* __restrict__ scr,
                            typename LabMma<XP>::C* __restrict__ out, int warp,
                            int nwarps, int lane, int nlanes) {
@@ -368,9 +425,11 @@ __device__ void lab_xstage(const unsigned char* qq, const void* xk,
     wmma::fill_fragment(acc[0], typename T::C(0));
     wmma::fill_fragment(acc[1], typename T::C(0));
     const int lo = win ? win[2 * jn] : 0;
-    const int hi = win ? win[2 * jn + 1] : 2 * X;
-    for (int k0 = lo; k0 < hi; k0 += T::K)
+    const int hi = win ? win[2 * jn + 1] : two ? X : 2 * X;
+    for (int k0 = lo; k0 < hi; k0 += T::K) {
       S::run(acc, nm, qq, M2X, m0, k0, n0, xk, xk_lo, X);
+      if (two) S::run(acc, nm, qq, M2X, m0, X + k0, n0, xk, xk_lo, X);
+    }
     if (win)  // the Mx^T half
       for (int k0 = X + lo; k0 < X + hi; k0 += T::K)
         S::run(acc, nm, qq, M2X, m0, k0, n0, xk, xk_lo, X);
@@ -379,8 +438,7 @@ __device__ void lab_xstage(const unsigned char* qq, const void* xk,
       __syncwarp();
       for (int e = lane; e < T::M * T::N; e += nlanes) {
         const int r = e / T::N, c = e - r * T::N;
-        const long long o =
-            lab_out_row(g, z0, y0, m0 + mi * T::M + r, P);
+        const long long o = rows(m0 + mi * T::M + r);
         if (o >= 0) out[o + n0 + c] = sw[e];
       }
       __syncwarp();
@@ -406,14 +464,15 @@ lab_tile_kernel(const typename LabMma<XP>::C* __restrict__ u,
   lab_bands<P, XP>(u, tables, g, z0, y0, fused, mode, smem_raw, pl, qq, tid,
                    nthr, 0);
   lab_zero_halo(g, bz, by, P, out, tid, nthr);
+  const LabRows rows{g, z0, y0, P};
   if (mode == kCopy || mode == kBands) {
-    lab_store_rows<P, XP>(qq, g, z0, y0, out, tid, nthr);
+    lab_store_rows<XP>(qq, g, rows, out, tid, nthr);
     return;
   }
   const int nlanes = nthr < 32 ? nthr : 32;
-  lab_xstage<P, XP>(qq, xk, xk_lo, win, g, z0, y0,
-                    reinterpret_cast<typename LabMma<XP>::C*>(smem_raw + pl.scr),
-                    out, tid / 32, (nthr + 31) / 32, tid % 32, nlanes);
+  lab_xstage<XP>(qq, xk, xk_lo, win, false, g, rows,
+                 reinterpret_cast<typename LabMma<XP>::C*>(smem_raw + pl.scr),
+                 out, tid / 32, (nthr + 31) / 32, tid % 32, nlanes);
 }
 
 // v19: persistent blocks (grid <= tiles) walk tiles b, b + G, ...; step s
@@ -450,11 +509,12 @@ lab_pipe_kernel(const typename LabMma<XP>::C* __restrict__ u,
       const int t = b + (step - 1) * G, bz = t / g.nty, by = t % g.nty;
       const unsigned char* qq =
           smem_raw + pl.qq + ((step - 1) & 1) * pl.qq_bytes;
+      const LabRows rows{g, bz * g.tz, by * g.ty, P};
       if (mode == kCopy || mode == kBands) {
-        lab_store_rows<P, XP>(qq, g, bz * g.tz, by * g.ty, out, mtid, half);
+        lab_store_rows<XP>(qq, g, rows, out, mtid, half);
       } else {
-        lab_xstage<P, XP>(
-            qq, xk, xk_lo, nullptr, g, bz * g.tz, by * g.ty,
+        lab_xstage<XP>(
+            qq, xk, xk_lo, nullptr, false, g, rows,
             reinterpret_cast<typename LabMma<XP>::C*>(smem_raw + pl.scr), out,
             mtid / 32, (half + 31) / 32, mtid % 32, half < 32 ? half : 32);
       }

@@ -22,23 +22,30 @@ against the plain version in f64 before it is timed.  Variants:
                           picks every dense stage's arithmetic, as JAX's:
                           -highest (3xTF32, the default), -high (1xTF32),
                           -default (one bf16 product)
+    v13 v14 v15 v16       the L2b kernels, z/y first (the same ``LabKernel``):
+    vcopy vband           band z, band y, then x as two tensor-core products
+                          (v13; v14 with the next load in flight), one
+                          K-stacked product (v15, same suffixes) or a band
+                          (v16); vcopy, vband v15's loads and stores, and its
+                          band stages, alone (their own functions)
 
 Per variant it prints the time per apply (CUDA events), GDoF/s, the
 relative error against the f64 plain version on the lab's random input
 and on a smooth one (a sine product), each as the variant stores it,
 then for the layout variants the raw apply's rate, timed in turns with
-its plain version, with its bound (and an L1/L2a kernel's design bound),
+its plain version, with its bound (and an L1/L2 kernel's design bound),
 then for a K1/L1 variant the error of two chained applies (an ablation:
-its error against its own plain version), for an L2a variant its max
-relative error (out of its precision's class: it raises); the last line
-is ``best:``, the fastest variant that was held against the plain
-version.  An L2a kernel's output layout is not its input's, so it has no
-chain check.  It runs on a CUDA device and raises without one; a failing
-variant raises.
+its error against its own plain version), for an L2 variant its max
+relative error (out of its precision's class, vcopy off its input at all,
+vband beyond 1e-6: it raises); the last line is ``best:``, the fastest
+variant that was held against the operator's plain version.  An L2
+kernel's output layout is not its input's, so it has no chain check.  It
+runs on a CUDA device and raises without one; a failing variant raises.
 
     python -m tpufem_torch.lab.kernel_lab [--refine 6] [--p 4]
         [--reps 50] [--variants v0 v5 v17 v2-high ...]
-        [--tiles auto 2x16 24 ...]
+        [--tiles auto 2x16 24 ...]   (TZxTY: an L1 tile or an L2b
+                                      sub-tile; an integer: the L2 tile b)
 """
 
 from __future__ import annotations
@@ -62,7 +69,8 @@ from tpufem_torch.utils.timer import time_fn
 
 DEFAULT_VARIANTS = ("v0", "v5", "v5-copy", "v4", "v17", "v17-h", "v17-bf",
                     "v18", "v19", "v20", "v17-copy", "v17-bands", "v17-mm",
-                    "v2-highest", "v2-high", "v3-highest", "v3-high")
+                    "v2-highest", "v2-high", "v3-highest", "v3-high", "v15",
+                    "v16")
 TIMING_ONLY = ("copy", "bands", "mm")
 
 
@@ -117,23 +125,30 @@ def lab_variant(v, npts, p, K1, M1, h, tile):
                      device="cuda", tile=tile)
 
 
-def l2a_variant(v):
-    """(variant, prec) of an L2a lab name (``v2``, ``v3-high``, ...), split
-    on '-' as ``kernel_lab.py:1734``; None for another name."""
+def l2_variant(v):
+    """(variant, prec) of an L2 lab name (``v2``, ``v3-high``, ``v15``,
+    ...), split on '-' as ``kernel_lab.py:1734``; None for another name."""
     var, prec = (v.split("-") + ["highest"])[:2]
     return (var, prec) if var in separable_lab.VARIANTS else None
 
 
-def run_l2a(v, npts, p, K1, M1, h, b, inputs, reps):
-    """Hold an L2a kernel against its plain version in f64 on each of
+# L2 variants that compute their own function, not the operator (timing
+# only in the JAX lab): the class each is held to against its own plain
+# version; the others are held to their precision's class
+L2_OWN_TOL = {"vcopy": 0.0, "vband": 1e-6}
+
+
+def run_l2(v, npts, p, K1, M1, h, b, tile, inputs, reps):
+    """Hold an L2 kernel against its plain version in f64 on each of
     ``inputs`` ({"random", "smooth"}: flat f64 vectors on the card), then
     time it: the flat apply, and the raw apply in turns with its plain
     version.  Returns (flat record, raw record); raises when the max
-    relative error on the random input is out of the precision's class."""
-    var, prec = l2a_variant(v)
+    relative error on the random input is out of the precision's class
+    (vcopy: not 0; vband: beyond 1e-6)."""
+    var, prec = l2_variant(v)
     dev = next(iter(inputs.values())).device
     k = separable_lab.LabKernel(var, npts, p, K1, M1, h, b=b, prec=prec,
-                                device=dev)
+                                device=dev, tile=tile)
     errs = {}
     for which, u in inputs.items():
         gp = k.pad(u.to(torch.float32))
@@ -142,7 +157,7 @@ def run_l2a(v, npts, p, K1, M1, h, b, inputs, reps):
         errs[which] = (float((k.unpad(y) - k.unpad(r)).norm()
                              / k.unpad(r).norm()),
                        float((y - r).abs().max() / r.abs().max()))
-    tol = separable_lab.TOL[k.xp]
+    tol = L2_OWN_TOL.get(var, separable_lab.TOL[k.xp])
     if not errs["random"][1] <= tol:
         raise RuntimeError(f"{v}: max rel err {errs['random'][1]:.3e} > "
                            f"{tol} against its plain version")
@@ -150,12 +165,17 @@ def run_l2a(v, npts, p, K1, M1, h, b, inputs, reps):
     dt = _per_apply(k, x, reps)
     dtr, dtp = _turns(k.raw, k.plain, k.pad(x), reps)
     bound, by = k.bound()
+    # vcopy and vband are not the operator: no part in ``best:``
+    nan = float("nan")
+    err, errs_ = ((nan, nan) if var in L2_OWN_TOL
+                  else (errs["random"][0], errs["smooth"][0]))
     flat = {"ms": dt * 1e3, "gdofs": npts**3 / dt / 1e9,
-            "rel_err": errs["random"][0], "rel_err_smooth": errs["smooth"][0]}
+            "rel_err": err, "rel_err_smooth": errs_}
     raw = {"ms": dtr * 1e3, "plain_ms": dtp * 1e3, "gdofs": npts**3 / dtr
-           / 1e9, "rel_err": errs["random"][0],
+           / 1e9, "rel_err": err,
            "max_rel_err": errs["random"][1], "bound_ms": bound,
-           "bound_by": by, "design_ms": k.design_bound()[0], "b": k.b}
+           "bound_by": by, "design_ms": k.design_bound()[0], "b": k.b,
+           "tile": k.tile}
     return flat, raw
 
 
@@ -184,8 +204,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--variants", nargs="+", default=list(DEFAULT_VARIANTS))
     ap.add_argument("--tiles", nargs="+", default=["auto"],
-                    help="L1 output tiles TZxTY, L2a tiles b (an integer); "
-                    "auto: each tile chooser's")
+                    help="L1 output tiles and L2b sub-tiles TZxTY, L2 tiles "
+                    "b (an integer); auto: each tile chooser's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("the kernel lab runs on a CUDA device; "
@@ -221,16 +241,20 @@ def main(argv=None) -> dict:
 
     results = {}
     for tile_arg in args.tiles:
-        l1_tile = "x" in tile_arg  # TZxTY: L1 only; an integer: L2a only
+        # TZxTY: L1 and L2b (its sub-tile); an integer: L2 only (b)
+        l1_tile = "x" in tile_arg
         tile = None if tile_arg == "auto" else tuple(
             int(s) for s in tile_arg.split("x"))
         for v in args.variants:
             name = f"{v}-{tile_arg}"
-            if l2a_variant(v):
-                if l1_tile:
+            if l2_variant(v):
+                zy = l2_variant(v)[0] in separable_lab.ZYFIRST
+                if l1_tile and not zy:
                     continue
-                flat, raw = run_l2a(
-                    v, npts, p, K1, M1, h, tile and tile[0],
+                flat, raw = run_l2(
+                    v, npts, p, K1, M1, h,
+                    None if l1_tile else tile and tile[0],
+                    tile if l1_tile else None,
                     {"random": x.to(torch.float64), "smooth": xs}, args.reps)
                 results[name], results[name + "-raw"] = flat, raw
                 print(f"{name:18s}  {flat['ms']:8.4f} ms  "
@@ -238,7 +262,9 @@ def main(argv=None) -> dict:
                       f"{flat['rel_err']:.2e}  smooth "
                       f"{flat['rel_err_smooth']:.2e}", flush=True)
                 print(f"{name:18s}  {raw['ms']:8.4f} ms  {raw['gdofs']:7.2f} "
-                      f"GDoF/s  [raw, b={raw['b']}; plain "
+                      f"GDoF/s  [raw, b={raw['b']}"
+                      + (f", sub-tile {raw['tile']}" if raw["tile"] else "")
+                      + f"; plain "
                       f"{raw['plain_ms']:.4f} ms; bound {raw['bound_ms']:.4f}"
                       f" ms ({raw['bound_by']}), design "
                       f"{raw['design_ms']:.4f} ms; max rel err "

@@ -1,13 +1,22 @@
-"""The K2 kernel lab's x-first half (L2a): host side and wrappers.
+"""The K2 kernel lab (L2): host side and wrappers of its fourteen kernels.
 
-Port of ``scripts/kernel_lab.py::LabKernel`` (:1461) for its x-first Pallas
-kernels ``_kernel_v2`` (:47), ``_kernel_v3`` (:78), ``_kernel_v6`` (:106),
-``_kernel_v8`` (:132), ``_kernel_vx`` (:164), ``_kernel_vxy`` (:177),
-``_kernel_v9`` (:212) and ``_kernel_v12`` (:237): K2's 3D Laplace operator
-(vx and vxy: the ablations' own functions) on the lab's padded layout,
-contracting x first, then y, then z; each axis stage dense (a tensor-core
-product) or band (CUDA cores).  The CUDA routine and its design note:
-``tpufem_torch/csrc/lab_separable.cuh``.
+Port of ``scripts/kernel_lab.py::LabKernel`` (:1461), K2's 3D Laplace
+operator (the ablations: their own functions) on the lab's padded layout,
+in two CUDA routines:
+
+- the x-first half (L2a), ``_kernel_v2`` (:47), ``_kernel_v3`` (:78),
+  ``_kernel_v6`` (:106), ``_kernel_v8`` (:132), ``_kernel_vx`` (:164),
+  ``_kernel_vxy`` (:177), ``_kernel_v9`` (:212) and ``_kernel_v12`` (:237):
+  x first, then y, then z; each axis stage dense (a tensor-core product) or
+  band (CUDA cores).  ``tpufem_torch/csrc/lab_separable.cuh``.
+- the z/y-first half (L2b), ``_kernel_v13`` (:302), ``_kernel_v14`` (:359),
+  ``_kernel_v15`` (:431), ``_kernel_vcopy`` (:500), ``_kernel_vband`` (:525)
+  and ``_kernel_v16`` (:1347): band z, band y on the halo'd tile, then the x
+  axis last, as two tensor-core products (v13; v14 with the next load in
+  flight), one K-stacked product (v15) or a band (v16); vcopy and vband are
+  v15's loads and stores, and its band stages, alone.  A block owns a (TZ,
+  TY) sub-tile of the output rows (``tile``; b sets the layouts only).
+  ``tpufem_torch/csrc/lab_zyfirst.cuh``.
 
 Layout in: ``(size, size, X)``, ``size = nt b + 2p``, data at ``[p:p+npts,
 p:p+npts, :npts]``, zeros elsewhere, ``X`` = npts rounded up to 16 (the
@@ -15,9 +24,9 @@ MMA tile; the TPU's 128-lane padding and v3's 128-lane halo are Mosaic
 machinery and are not ported).  Layout out: ``(nt b, nt b, X)``, data at
 ``[:npts, :npts, :npts]``; ``__call__`` = unpad(raw(pad(u))).  The band
 stages take K2's exact per-row tables in difference form
-(``kernel_separable.band_tables``), so v12's periodic tables and deficit
-corrections (``_periodic_band``, ``corr_y``/``corr_z``) are not ported and
-v12 takes any b.
+(``kernel_separable.band_tables``), so the periodic tables and deficit
+corrections of v12-v16 (``_periodic_band``, ``corr_y``/``corr_z``) are not
+ported and those variants take any b.
 
 ``LabKernel.raw`` on a CUDA tensor launches the kernel (or raises); on a
 CPU tensor it runs ``plain``.  Launches are counted per variant in the
@@ -29,17 +38,32 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpufem_torch.lab.resident_lab import X_ALIGN, operator_bound, tf32
+from tpufem_torch.lab.resident_lab import (
+    MMA,
+    X_ALIGN,
+    operator_bound,
+    tf32,
+    x_operator,
+)
 from tpufem_torch.ops.kernel_separable import band_tables
 from tpufem_torch.ops.separable import laplace_apply_separable
 from tpufem_torch.utils.build import load_kernels
 from tpufem_torch.utils.timer import roofline_ms
 
-VARIANTS = ("v2", "v3", "v6", "v8", "v9", "v12", "vx", "vxy")
+XFIRST = ("v2", "v3", "v6", "v8", "v9", "v12", "vx", "vxy")  # L2a
+ZYFIRST = ("v13", "v14", "v15", "v16", "vcopy", "vband")  # L2b
+VARIANTS = XFIRST + ZYFIRST
 # stage flags of the CUDA routine (L2Flags; cut << 3)
 XBAND, YZBAND, TRANS = 1, 2, 4
 FLAGS = {"v2": 0, "v6": 0, "v9": 0, "v3": XBAND, "v12": YZBAND, "v8": TRANS,
          "vx": 1 << 3, "vxy": 2 << 3}
+# the L2b routine's arguments per variant: (mode, two, nu): mode full (0),
+# copy (1), bands (2) or x by bands (4, kZyXBand); two: the x stage as two
+# products into one accumulator; nu: u slots (2: the next chunk's load in
+# flight)
+ZY_ARGS = {"v13": (0, 1, 1), "v14": (0, 1, 2), "v15": (0, 0, 2),
+           "vcopy": (1, 0, 2), "vband": (2, 0, 2), "v16": (4, 0, 2)}
+NO_MMA = ("v16", "vcopy", "vband")  # no tensor-core stage: prec is moot
 # dense-stage precision codes (LabXPrec): 3xTF32, 1xTF32, bf16x3, f64
 # (DMMA), one bf16 product
 X3TF32, X1TF32, XBF16X3, XF64, XBF16 = 0, 1, 2, 3, 4
@@ -58,6 +82,11 @@ EMU_TOL = {X3TF32: 2e-6, X1TF32: 4e-3, XBF16X3: 2e-5, XBF16: 3e-2}
 ZC = 8  # halo'd z rows per x/y pass (kL2ZC)
 TILES = (24, 16, 8)  # tile sizes b tried in order; 24 is the JAX lab's
 SMEM_BUDGET = 220 * 1024  # of the 227 KB a block may use on an H100
+# L2b's (TZ, TY) sub-tiles, tried in order: first under the budget of two
+# blocks an SM (L1's sweeps: occupancy decides before halo traffic), then
+# under SMEM_BUDGET; M = TZ*TY must be a multiple of the MMA tile's M
+ZY_TILES = ((2, 8), (1, 16), (1, 8))
+ZY_TWO_BLOCKS = 113 * 1024  # (228 KB - 2 x 1 KB reserved) / 2
 MAX_DEGREE = 8
 
 
@@ -102,6 +131,20 @@ def choose_b(p: int, xp: int, smem_bytes) -> int:
                      f"at p={p}")
 
 
+def choose_zy_tile(p: int, xp: int, nu: int, X: int, smem_bytes):
+    """The first of ``ZY_TILES`` whose M fits the MMA tile and whose block
+    fits ZY_TWO_BLOCKS, else SMEM_BUDGET, by the routine's own count
+    ``smem_bytes(p, xp, nu, tz, ty, X)`` (``tpufem_zy_smem_bytes``)."""
+    m_mma = MMA[XBF16X3 if xp == XBF16 else xp][0]
+    for budget in (ZY_TWO_BLOCKS, SMEM_BUDGET):
+        for tz, ty in ZY_TILES:
+            if (tz * ty) % m_mma == 0 and \
+                    smem_bytes(p, xp, nu, tz, ty, X) <= budget:
+                return tz, ty
+    raise ValueError(f"no L2b sub-tile fits {SMEM_BUDGET} bytes of shared "
+                     f"memory at p={p}, X={X}")
+
+
 def _split_bf16(a: torch.Tensor):
     """f32 -> (hi, lo) bf16 parts, hi + lo ~ a to 2^-16, as lab_put."""
     hi = a.to(torch.bfloat16)
@@ -134,7 +177,7 @@ def _split_product(a: torch.Tensor, b: torch.Tensor, xp: int, expr: str):
 
 
 class LabKernel:
-    """An L2a kernel (``variant`` one of VARIANTS) on the lab's padded
+    """An L2 kernel (``variant`` one of VARIANTS) on the lab's padded
     layout: ``pad``/``unpad`` between flat vectors and the layouts, ``raw``
     on the layout, ``__call__`` = unpad(raw(pad(u))).
 
@@ -146,13 +189,17 @@ class LabKernel:
     "bf16x3" names v9's arithmetic, which v9 takes whatever ``prec``
     says, as in JAX.  v6 runs v2's kernel (the two differ only in Mosaic's
     layout of the same contractions); v8 stages the y/z intermediates
-    transposed.  b: the tile (None: the first of TILES that fits).
+    transposed.  b: the tile (None: the first of TILES that fits; for an
+    L2b variant TILES[0], as b only sets its layouts).  tile: an L2b
+    variant's (TZ, TY) sub-tile (None: ``choose_zy_tile``).  v16, vcopy and
+    vband have no tensor-core stage and take "highest" whatever ``prec``
+    says.
     """
 
     launches = {v: 0 for v in VARIANTS}  # per variant; plain excluded
 
     def __init__(self, variant, npts, p, K1, M1, h, b=None, prec="highest",
-                 dtype=torch.float32, device="cuda"):
+                 dtype=torch.float32, device="cuda", tile=None):
         if variant not in VARIANTS:
             raise ValueError(f"variant must be one of {VARIANTS}, got "
                              f"{variant!r}")
@@ -166,13 +213,16 @@ class LabKernel:
             raise ValueError(f"dtype must be float32 or float64, got {dtype}")
         if variant == "v9":
             prec = "bf16x3"
+        if variant in NO_MMA:
+            prec = "highest"
         if dtype == torch.float64 and prec != "highest":
             raise ValueError("float64 runs the exact dense stages only (prec "
                              "'highest', not v9)")
         self.variant, self.npts, self.p, self.prec, self.dt = (
             variant, npts, p, prec, dtype)
         self.xp = XF64 if dtype == torch.float64 else PRECS[prec]
-        self.flags = FLAGS[variant]
+        self.zy = variant in ZYFIRST
+        self.flags = None if self.zy else FLAGS[variant]
         h = np.broadcast_to(np.asarray(h, np.float64), (3,))
         K1, M1 = np.asarray(K1, np.float64), np.asarray(M1, np.float64)
         self.Ks = [K1 / h[a] for a in range(3)]
@@ -181,22 +231,31 @@ class LabKernel:
         device = torch.device(device)
         self.lib = None
         if device.type == "cuda":
-            self.lib = load_kernels()["lab_separable"]
+            self.lib = load_kernels()["lab_zyfirst" if self.zy
+                                      else "lab_separable"]
             if device.index is None:
                 device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
-        self.smem = None
+        self.smem = self.tile = None
+        self.X = X_ALIGN * -(-npts // X_ALIGN)
         if b is None:
-            b = (TILES[0] if self.lib is None else choose_b(
+            b = (TILES[0] if self.lib is None or self.zy else choose_b(
                 p, self.xp, self.lib.lib.tpufem_l2_smem_bytes))
-        if self.lib is not None:
+        if self.zy:
+            self.tile = None if tile is None else tuple(tile)
+            if self.lib is not None:
+                count = self.lib.lib.tpufem_zy_smem_bytes
+                nu = ZY_ARGS[variant][2]
+                if self.tile is None:
+                    self.tile = choose_zy_tile(p, self.xp, nu, self.X, count)
+                self.smem = count(p, self.xp, nu, *self.tile, self.X)
+        elif self.lib is not None:
             self.smem = self.lib.lib.tpufem_l2_smem_bytes(p, self.xp, b)
-            if not 0 < self.smem <= 227 * 1024:
-                raise ValueError(f"lab tile b={b} needs {self.smem} bytes of "
-                                 f"shared memory")
+        if self.smem is not None and not 0 < self.smem <= 227 * 1024:
+            raise ValueError(f"lab tile b={b}, sub-tile {self.tile} needs "
+                             f"{self.smem} bytes of shared memory")
         self.b, self.nt = b, -(-npts // b)
         self.size, self.L = self.nt * b + 2 * p, b + 2 * p
-        self.X = X_ALIGN * -(-npts // X_ALIGN)
 
         def put(a):  # kernel operand: C, or bf16 hi then lo (lo offset)
             t = torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
@@ -206,16 +265,23 @@ class LabKernel:
             hi, lo = _split_bf16(t)
             return torch.stack([hi, lo]).contiguous(), t.numel()
 
-        xk = np.zeros((self.X, 2 * self.X))
-        xk[:npts, :npts] = self.Ms[0].T
-        xk[:npts, self.X:self.X + npts] = self.Ks[0].T
-        self.xk, self.xk_lo = put(xk)
-        self.slices, self.sl_lo = put(dense_slices(
-            [self.Ms[1], self.Ks[1], self.Ms[2], self.Ks[2]], b, self.nt, p,
-            bool(self.flags & TRANS)))
-        self.tables = torch.as_tensor(band_tables(
-            [self.Ms[0], self.Ks[0], self.Ms[1], self.Ks[1], self.Ms[2],
-             self.Ks[2]], p), dtype=dtype, device=device)
+        if self.zy:  # [Kx^T; Mx^T] (2X, X); tables Ky, My, Kz, Mz, Kx, Mx
+            self.xk, self.xk_lo = put(x_operator(self.Ks[0], self.Ms[0],
+                                                 self.X))
+            order = [self.Ks[1], self.Ms[1], self.Ks[2], self.Ms[2],
+                     self.Ks[0], self.Ms[0]]
+        else:
+            xk = np.zeros((self.X, 2 * self.X))
+            xk[:npts, :npts] = self.Ms[0].T
+            xk[:npts, self.X:self.X + npts] = self.Ks[0].T
+            self.xk, self.xk_lo = put(xk)
+            self.slices, self.sl_lo = put(dense_slices(
+                [self.Ms[1], self.Ks[1], self.Ms[2], self.Ks[2]], b, self.nt,
+                p, bool(self.flags & TRANS)))
+            order = [self.Ms[0], self.Ks[0], self.Ms[1], self.Ks[1],
+                     self.Ms[2], self.Ks[2]]
+        self.tables = torch.as_tensor(band_tables(order, p), dtype=dtype,
+                                      device=device)
         pk, pm = self._operators()
         self._plain_K = [torch.tensor(K, device=device) for K in pk]  # f64
         self._plain_M = [torch.tensor(M, device=device) for M in pm]
@@ -223,7 +289,9 @@ class LabKernel:
     def _operators(self):
         """Per-axis (Ks, Ms) whose ``laplace_apply_separable`` is this
         variant's function before its shift: the operator; vx (Mx + Kx)
-        along x; vxy (My + Ky)(x)Mx + My(x)Kx."""
+        along x; vxy (My + Ky)(x)Mx + My(x)Kx; vcopy the identity; vband
+        the band stages alone, q1 + q2 + q3 = Mz(x)My + Mz(x)Ky + Kz(x)My
+        per x column (the x operators the identity)."""
         n = self.npts
         eye, zero = np.eye(n), np.zeros((n, n))
         Ks, Ms = self.Ks, self.Ms
@@ -231,6 +299,10 @@ class LabKernel:
             return [Ks[0] + Ms[0], zero, zero], [eye, eye, eye]
         if self.variant == "vxy":
             return [Ks[0], Ks[1], eye], [Ms[0], Ms[1], eye]
+        if self.variant == "vcopy":
+            return [eye, zero, zero], [eye, eye, eye]
+        if self.variant == "vband":
+            return [eye, Ks[1], Ks[2]], [eye, Ms[1], Ms[2]]
         return Ks, Ms
 
     def _place(self, f: torch.Tensor) -> torch.Tensor:
@@ -287,12 +359,20 @@ class LabKernel:
         y = torch.empty((NT, NT, self.X), dtype=self.dt, device=self.device)
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream().cuda_stream
-            rc = self.lib.lib.tpufem_l2_apply(
-                self.flags, self.xp, self.p, self.npts, self.b, self.nt,
-                self.size, self.X, gp.data_ptr(), y.data_ptr(),
-                self.xk.data_ptr(), self.xk_lo, self.slices.data_ptr(),
-                self.sl_lo, self.tables.data_ptr(), stream)
-        self.lib.check(rc, f"tpufem_l2_apply {self.variant} launch")
+            if self.zy:
+                lo = self.xk.data_ptr() + self.xk_lo * self.xk.element_size()
+                rc = self.lib.lib.tpufem_zy_apply(
+                    *ZY_ARGS[self.variant], self.xp, self.p, self.npts,
+                    self.size, self.X, *self.tile, gp.data_ptr(),
+                    y.data_ptr(), self.tables.data_ptr(), self.xk.data_ptr(),
+                    lo, stream)
+            else:
+                rc = self.lib.lib.tpufem_l2_apply(
+                    self.flags, self.xp, self.p, self.npts, self.b, self.nt,
+                    self.size, self.X, gp.data_ptr(), y.data_ptr(),
+                    self.xk.data_ptr(), self.xk_lo, self.slices.data_ptr(),
+                    self.sl_lo, self.tables.data_ptr(), stream)
+        self.lib.check(rc, f"{self.variant} launch")
         LabKernel.launches[self.variant] += 1
         return y
 
@@ -307,8 +387,9 @@ class LabKernel:
         stage exact in f64, rounded to f32.  It differs from the kernel in
         the order and precision of the sums, which can turn a split's
         rounding."""
-        if self.dt != torch.float32:
-            raise ValueError("emulate: f32 storage")
+        if self.dt != torch.float32 or self.variant in NO_MMA:
+            raise ValueError("emulate: f32 storage, a variant with a "
+                             "tensor-core stage")
         n, p, dev = self.npts, self.p, gp.device
         f32 = lambda t: t.to(torch.float32)
         f64 = lambda M: torch.as_tensor(M, dtype=torch.float64, device=dev)
@@ -316,6 +397,14 @@ class LabKernel:
         u = gp[p:p + n, p:p + n, :n].to(torch.float32)  # (z, y, x)
         Mx, Kx, My, Ky, Mz, Kz = (self.Ms[0], self.Ks[0], self.Ms[1],
                                   self.Ks[1], self.Ms[2], self.Ks[2])
+        if self.zy:  # bands z, y exact; then the x products
+            bz = lambda M, t: torch.einsum("az,zyx->ayx", f64(M), t.double())
+            by = lambda M, t: torch.einsum("by,zyx->zbx", f64(M), t)
+            s, t = bz(Mz, u), bz(Kz, u)
+            q1, q23 = f32(by(My, s)), f32(by(Ky, s) + by(My, t))
+            return self._place(f32(
+                _split_product(q1, m32(Kx), self.xp, "zyx,ox->zyo")
+                + _split_product(q23, m32(Mx), self.xp, "zyx,ox->zyo")))
         if self.flags & XBAND:
             ax = f32(torch.einsum("zyx,ox->zyo", u.double(), f64(Mx)))
             gx = f32(torch.einsum("zyx,ox->zyo", u.double(), f64(Kx)))
@@ -347,8 +436,10 @@ class LabKernel:
         for the function ``raw`` computes, whatever its design: each DoF
         read and written once, 2p+1 multiply-adds per band output: 7 band
         outputs per DoF for the operator (K2's), 1 for vx ((Mx + Kx) u), 4
-        for vxy (Mx u, Kx u, (My + Ky) Mx u, My Kx u)."""
-        bands = {"vx": 1, "vxy": 4}.get(self.variant, 7)
+        for vxy (Mx u, Kx u, (My + Ky) Mx u, My Kx u), 4 for vband (Mz u,
+        Kz u, (My + Ky) Mz u, My Kz u), none for vcopy (bytes only)."""
+        bands = {"vx": 1, "vxy": 4, "vband": 4, "vcopy": 0}.get(
+            self.variant, 7)
         return operator_bound(self.npts, self.p, bands, self.dt)
 
     def design_bound(self) -> tuple[float, str]:
@@ -361,6 +452,19 @@ class LabKernel:
         L, LP, MB = self.L, round16(self.L), round16(b)
         item = torch.empty((), dtype=self.dt).element_size()
         nbytes = (self.size**2 + (nt * b)**2) * X * item
+        passes = 3 if self.xp in (X3TF32, XBF16X3) else 1
+        mma = {X3TF32: "tf32", X1TF32: "tf32", XBF16X3: "bf16",
+               XBF16: "bf16", XF64: "fp64_tensor"}[self.xp]
+        cuda_cores = "fp64" if self.xp == XF64 else "fp32"
+        if self.zy:
+            # 5 z/y band stages (v16: 2 x bands more) and the x product over
+            # the (nt b)^2 rows of the output layout, K = 2X
+            rows = (nt * b)**2
+            mode = ZY_ARGS[self.variant][0]
+            nbands = {0: 5, 1: 0, 2: 5, 4: 7}[mode]
+            return roofline_ms(nbytes, {
+                cuda_cores: nbands * 2 * (2 * p + 1) * rows * X,
+                mma: passes * 2.0 * rows * 2 * X * X if mode == 0 else 0.0})
         zrows = L if self.variant not in ("vx", "vxy") else \
             min(L, -(-b // ZC) * ZC)
         tiles = nt * nt
@@ -380,9 +484,4 @@ class LabKernel:
                 band += 2 * tiles * b * b * X * nb
             else:
                 dense += 2 * tiles * MB * LP * MB * X * 2
-        passes = 3 if self.xp in (X3TF32, XBF16X3) else 1
-        mma = {X3TF32: "tf32", X1TF32: "tf32", XBF16X3: "bf16",
-               XBF16: "bf16", XF64: "fp64_tensor"}[self.xp]
-        return roofline_ms(nbytes, {
-            "fp64" if self.xp == XF64 else "fp32": band,
-            mma: passes * dense})
+        return roofline_ms(nbytes, {cuda_cores: band, mma: passes * dense})

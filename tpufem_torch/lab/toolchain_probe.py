@@ -1,0 +1,268 @@
+"""The two toolchain probes on the card: host side and wrappers.
+
+Counterpart of ``scripts/toolchain_probe.py``, which asks two questions of
+the toolchain under a kernel author's hands; the CUDA kernels and their
+design note are in ``tpufem_torch/csrc/toolchain_probe.cuh``.
+
+1. ``probe_high_precision`` (P1): does a three-pass bf16 product (JAX's
+   ``Precision.HIGH``) exist inside a kernel, and how exact is it?  Here:
+   a hand-written WMMA product of (n, n) f32 in bf16x3, and beside it the
+   other arithmetics the labs use (3xTF32, 1xTF32, one bf16 product), each
+   against the f64 product.
+2. ``probe_co_scheduling`` (P2): do the matrix unit and the vector unit run
+   at the same time in one kernel?  A chain of ``n_iter`` products ``acc <-
+   acc @ w`` (tensor cores), a chain of ``fpp * n_iter`` multiply-adds ``v
+   <- v * c1 + c2`` on an independent buffer (CUDA cores), and both in one
+   kernel, in separate warps of a block; ``overlap = (t_mxu + t_vpu -
+   t_both) / min(t_mxu, t_vpu)``.  A block owns a 16-row stripe, so m / 16
+   blocks run (32 of an H100's 132 SMs at m = 512): a per-SM probe.
+
+``matmul`` and ``chain`` launch the kernels on a CUDA tensor (or raise) and
+run their plain PyTorch versions on a CPU tensor; launches are counted in
+``launches``.
+
+    python -m tpufem_torch.lab.toolchain_probe
+
+prints a header line (date, the card's name and power limit, versions) and
+one JSON line per probe; it runs on a CUDA device and raises without one.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import time
+
+import torch
+
+from tpufem_torch.lab.separable_lab import (
+    PRECS,
+    XBF16,
+    XBF16X3,
+    _split_bf16,
+    _split_product,
+)
+from tpufem_torch.utils.build import load_kernels
+from tpufem_torch.utils.timer import time_fn
+
+# the f32 arithmetics of a probe product, by the labs' names
+ARITHMETICS = tuple(PRECS)  # highest, high, bf16x3, default
+MODES = {"mma": 0, "fma": 1, "both": 2}
+# the multiply-add stream's constants (scripts/toolchain_probe.py:84)
+C1, C2 = 1.000001, 1e-7
+# P1's classes: max |error| / max |c| against the f64 product on a random
+# (256, 256) pair.  3xTF32 and bf16x3 sit above the labs' classes
+# (``separable_lab.TOL``): a dense product sums 256 terms of one sign mix
+# in the tensor cores' f32 accumulators, which truncate
+P1_TOL = {"highest": 1e-5, "high": 4e-3, "bf16x3": 5e-5, "default": 3e-2}
+launches = {"P1": 0, "P2 mma": 0, "P2 fma": 0, "P2 both": 0}
+
+
+def _check(t: torch.Tensor, m: int, what: str) -> None:
+    if t.dtype != torch.float32 or tuple(t.shape) != (m, m) or \
+            not t.is_contiguous():
+        raise ValueError(f"{what}: a contiguous float32 ({m}, {m}) tensor, "
+                         f"got {t.dtype} {tuple(t.shape)}")
+
+
+def _cuda_inputs(tensors, what):
+    dev = tensors[0].device
+    if not all(t.is_cuda and t.device == dev for t in tensors):
+        raise ValueError(f"{what}: every tensor on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    return dev
+
+
+def matmul_plain(a: torch.Tensor, b: torch.Tensor,
+                 arithmetic: str | None = None) -> torch.Tensor:
+    """The plain PyTorch version of ``matmul``: ``a @ b`` in the operands'
+    dtype, or (``arithmetic`` named) in that arithmetic, the operands split
+    as the kernel splits them and the part products summed in f64
+    (``separable_lab._split_product``), rounded to f32."""
+    if arithmetic is None:
+        return a @ b
+    return _split_product(a, b, PRECS[arithmetic], "ik,kj->ij").to(
+        torch.float32)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor,
+           arithmetic: str = "bf16x3") -> torch.Tensor:
+    """P1: ``a @ b`` for (n, n) f32, n a multiple of 16, by the WMMA kernel
+    in ``arithmetic``; on CPU tensors the plain version (exact f32)."""
+    if arithmetic not in PRECS:
+        raise ValueError(f"arithmetic must be one of {ARITHMETICS}, got "
+                         f"{arithmetic!r}")
+    n = a.shape[0]
+    _check(a, n, "a")
+    _check(b, n, "b")
+    if n < 16 or n % 16:
+        raise ValueError(f"n must be a multiple of 16, got {n}")
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return matmul_plain(a, b)
+    dev = _cuda_inputs((a, b), "matmul")
+    lib = load_kernels()["toolchain_probe"]
+    c = torch.empty_like(a)
+    with torch.cuda.device(dev):
+        rc = lib.lib.tpufem_probe_matmul(
+            PRECS[arithmetic], n, a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    lib.check(rc, f"tpufem_probe_matmul {arithmetic} launch")
+    launches["P1"] += 1
+    return c
+
+
+def chain_plain(mode: str, a, w, v, n_iter: int, fpp: int = 4,
+                arithmetic: str | None = None):
+    """The plain PyTorch version of ``chain``: (o, vo) by a loop of
+    ``torch.matmul`` and a loop of multiply-adds in the tensors' dtype
+    (f64 tensors: the exact reference).  ``arithmetic`` named (f32
+    tensors): each product in that arithmetic, operands split as the
+    kernel splits them, part products summed in f64, rounded to f32."""
+    o, vo = a, v
+    if mode in ("mma", "both"):
+        for _ in range(n_iter):
+            o = (o @ w if arithmetic is None else
+                 _split_product(o, w, PRECS[arithmetic], "ik,kj->ij").to(
+                     a.dtype))
+    if mode in ("fma", "both"):
+        for _ in range(n_iter * fpp):
+            vo = vo * C1 + C2
+    return o.clone() if o is a else o, vo.clone() if vo is v else vo
+
+
+def w_operand(w: torch.Tensor, arithmetic: str):
+    """(tensor, lo offset): w as the chain kernel reads it: f32, or in the
+    bf16 arithmetics its bf16 hi part stacked on its lo part."""
+    if PRECS[arithmetic] in (XBF16X3, XBF16):
+        return torch.stack(_split_bf16(w)).contiguous(), w.numel()
+    return w, 0
+
+
+def chain(mode: str, a, w, v, n_iter: int, fpp: int = 4,
+          arithmetic: str = "default", w_op=None):
+    """P2: (o, vo) of one kernel.  ``mode`` "mma": o = a @ w^n_iter, vo =
+    v; "fma": vo = v after fpp * n_iter steps v <- v * C1 + C2, o = a;
+    "both": both streams.  a, w, v: (m, m) f32, m a multiple of 16; w_op:
+    ``w_operand(w, arithmetic)`` made ahead (a timing loop's).  On CPU
+    tensors the plain version (exact f32)."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
+    if arithmetic not in PRECS:
+        raise ValueError(f"arithmetic must be one of {ARITHMETICS}, got "
+                         f"{arithmetic!r}")
+    m = a.shape[0]
+    for t, what in ((a, "a"), (w, "w"), (v, "v")):
+        _check(t, m, what)
+    if m < 16 or m % 16 or n_iter < 1 or fpp < 0:
+        raise ValueError(f"m a multiple of 16, n_iter >= 1, fpp >= 0; got "
+                         f"m={m}, n_iter={n_iter}, fpp={fpp}")
+    if all(t.device.type == "cpu" for t in (a, w, v)):
+        return chain_plain(mode, a, w, v, n_iter, fpp)
+    dev = _cuda_inputs((a, w, v), "chain")
+    lib = load_kernels()["toolchain_probe"]
+    w_op, w_lo = w_operand(w, arithmetic) if w_op is None else w_op
+    o, vo = torch.empty_like(a), torch.empty_like(v)
+    with torch.cuda.device(dev):
+        rc = lib.lib.tpufem_probe_chain(
+            MODES[mode], PRECS[arithmetic], m, n_iter, fpp, C1, C2,
+            a.data_ptr(),
+            w_op.data_ptr(), w_lo, v.data_ptr(), o.data_ptr(), vo.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    lib.check(rc, f"tpufem_probe_chain {mode} {arithmetic} launch")
+    launches[f"P2 {mode}"] += 1
+    return o, vo
+
+
+def _device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the toolchain probes run on a CUDA device; "
+                           "torch.cuda is not available")
+    return device
+
+
+def probe_high_precision(n: int = 256, device="cuda") -> dict:
+    """P1: the WMMA product in bf16x3 (the counterpart of Precision.HIGH)
+    and in the labs' other arithmetics, on a seeded random (n, n) pair
+    against the f64 product (max |error| / max |c|, each within its class
+    ``P1_TOL``, else it raises) and on the JAX probe's all-ones input, which
+    must give n exactly."""
+    device = _device(device)
+    gen = torch.Generator().manual_seed(0)
+    a, b = (torch.randn((n, n), generator=gen).to(device) for _ in range(2))
+    ref = a.double() @ b.double()
+    ones = torch.ones((n, n), device=device)
+    errs = {}
+    for arithmetic in ARITHMETICS:
+        c = matmul(a, b, arithmetic)
+        errs[arithmetic] = float((c.double() - ref).abs().max()
+                                 / ref.abs().max())
+        if not torch.equal(matmul(ones, ones, arithmetic),
+                           torch.full_like(ones, float(n))):
+            raise RuntimeError(f"{arithmetic}: ones @ ones is not {n}")
+        if not errs[arithmetic] <= P1_TOL[arithmetic]:
+            raise RuntimeError(f"{arithmetic}: max rel err "
+                               f"{errs[arithmetic]:.3e} out of its class "
+                               f"{P1_TOL[arithmetic]}")
+    return {"probe": "mma_precision_high", "supported": True, "n": n,
+            "max_rel_err": errs,
+            "note": "bf16x3 (Precision.HIGH's arithmetic) by hand-written "
+                    "WMMA; errors against the f64 product"}
+
+
+def probe_co_scheduling(n_iter: int = 256, m: int = 512, fpp: int = 4,
+                        arithmetic: str = "default", reps: int = 10,
+                        device="cuda") -> dict:
+    """P2: times (CUDA events) of the product chain alone, the multiply-add
+    chain alone and both in one kernel, on the JAX probe's inputs (a =
+    1e-3, w = 0.999 I, v = 1); JAX's keys."""
+    device = _device(device)
+    a = torch.full((m, m), 1e-3, device=device)
+    w = torch.eye(m, device=device) * 0.999
+    v = torch.ones((m, m), device=device)
+    w_op = w_operand(w, arithmetic)
+    t = {mode: time_fn(lambda _, mode=mode: chain(mode, a, w, v, n_iter, fpp,
+                                                  arithmetic, w_op)[0], a,
+                       reps=reps)
+         for mode in ("mma", "fma", "both")}
+    overlap = (t["mma"] + t["fma"] - t["both"]) / max(
+        min(t["mma"], t["fma"]), 1e-9)
+    return {"probe": "vpu_mxu_co_scheduling", "n_iter": n_iter, "m": m,
+            "fma_per_product": fpp, "arithmetic": arithmetic,
+            "t_mxu_ms": t["mma"] * 1e3, "t_vpu_ms": t["fma"] * 1e3,
+            "t_both_ms": t["both"] * 1e3, "overlap_fraction": overlap,
+            "co_scheduled": bool(overlap > 0.5), "blocks": m // 16,
+            "note": "overlap ~1 = full co-schedule; ~0 = serial units; "
+                    "per SM: one block per 16-row stripe"}
+
+
+def main() -> list[dict]:
+    """Both probes on the card, one JSON line each after the header.  P2's
+    record carries a second point under "balanced": the probe once more
+    with the multiply-adds per product raised until the two streams alone
+    take about the same time (JAX's ratio, 4, leaves the multiply-add
+    stream a small fraction of the products on this card)."""
+    device = _device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(json.dumps({"date": time.strftime("%Y-%m-%d"), "platform": "gpu",
+                      "device": torch.cuda.get_device_name(0),
+                      "nvidia_smi": smi, "torch": torch.__version__,
+                      "cuda": torch.version.cuda}), flush=True)
+    high = probe_high_precision(device=device)
+    print(json.dumps(high), flush=True)
+    co = probe_co_scheduling(device=device)
+    ratio = co["t_mxu_ms"] / max(co["t_vpu_ms"], 1e-9)
+    balanced = probe_co_scheduling(fpp=max(4, int(round(4 * ratio))),
+                                   device=device)
+    co["balanced"] = {key: balanced[key] for key in (
+        "fma_per_product", "t_mxu_ms", "t_vpu_ms", "t_both_ms",
+        "overlap_fraction", "co_scheduled")}
+    print(json.dumps(co), flush=True)
+    return [high, co]
+
+
+if __name__ == "__main__":
+    main()

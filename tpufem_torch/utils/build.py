@@ -44,6 +44,14 @@ SOURCES = {
     # vxy)
     "lab_separable": ("lab_separable.cu",
                       ("common.cuh", "lab_mma.cuh", "lab_separable.cuh")),
+    # its z/y-first half (L2b: v13, v14, v15, v16, vcopy, vband), on L1's
+    # device functions
+    "lab_zyfirst": ("lab_zyfirst.cu",
+                    ("common.cuh", "lab_mma.cuh", "lab_resident.cuh",
+                     "lab_zyfirst.cuh")),
+    # the toolchain probes (P1, P2)
+    "toolchain_probe": ("toolchain_probe.cu",
+                        ("lab_mma.cuh", "toolchain_probe.cuh")),
 }
 # --split-compile=0 spreads nvcc's optimisation passes over every core of
 # the host (the lab libraries' instances are the longest builds)
@@ -51,7 +59,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "--split-compile=0")
 # ctypes signatures of each library's C entries: name -> (argtypes, restype)
-_I, _P, _LL = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
+_I, _P, _LL, _F = (ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_float)
 _ENTRIES = {
     "separable_apply": {
         "tpufem_separable_apply": ([_I] * 8 + [_P] * 4, _I),
@@ -66,6 +75,13 @@ _ENTRIES = {
     "lab_separable": {
         "tpufem_l2_apply": ([_I] * 8 + [_P] * 3 + [_LL, _P, _LL, _P, _P], _I),
         "tpufem_l2_smem_bytes": ([_I] * 3, _LL)},
+    "lab_zyfirst": {
+        "tpufem_zy_apply": ([_I] * 10 + [_P] * 6, _I),
+        "tpufem_zy_smem_bytes": ([_I] * 6, _LL)},
+    "toolchain_probe": {
+        "tpufem_probe_matmul": ([_I] * 2 + [_P] * 4, _I),
+        "tpufem_probe_chain": ([_I] * 5 + [_F] * 2 + [_P] * 2 + [_LL]
+                               + [_P] * 4, _I)},
 }
 
 
