@@ -57,7 +57,10 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 tpufem_torch/csrc/lab_zyfirst.cuh) in the same way: v13-v15
                 in every precision against plain and emulation, v16, vcopy
                 and vband (no tensor-core stage) in f64 and f32 against
-                their plain versions (vcopy exactly, vband 1e-6)
+                their plain versions (vcopy exactly, vband 1e-6), and again
+                at every sub-tile their routine's chooser can pick and two
+                larger ones, on a ragged output layout and at the flagship.
+                Every L2 output starts filled with NaN
   6 throughput  ms per apply over chains of 30 applies (CUDA events),
                 kernel and plain in turns: K1 at 17M DoFs, K2 at 2.1M, K4
                 on the 17M coefficient operator and the 2.1M shell, K3 at
@@ -68,7 +71,11 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 null); the one call that computes vcopy's function (a
                 slice made contiguous) and vx's (one torch.matmul), each
                 held to the kernel and timed in turns with it: their
-                library_ms; torch.matmul of (256, 256) f32, P1's
+                library_ms, with the kernel's factor over the call and the
+                bytes its design moves from L2 into shared memory an apply;
+                vx's x stage as the first version ran it (per-warp jobs, B
+                from device memory) with shared memory sized by its flags,
+                in turns with the ring; torch.matmul of (256, 256) f32, P1's
   7 probes      the toolchain probes (tpufem_torch/lab/toolchain_probe.py):
                 P1's product kernel in each arithmetic against the f64
                 product on a seeded (256, 256) pair (``P1_TOL``) and on
@@ -391,9 +398,10 @@ def check_lab(kern, mode, p, n, h, u):
     return tag, rel, errs[0][1], emu
 
 
-def check_l2(v, mode, p, n, h, u):
-    """Launch one L2 kernel on the f64 input ``u`` ((n p + 1)**3 points on
-    the card); return (tag, max relative error, max abs error, emulation)
+def check_l2(v, mode, p, n, h, u, b=None, tile=None):
+    """Launch one L2 kernel (tile b, sub-tile ``tile``: None, the chooser's)
+    on the f64 input ``u`` ((n p + 1)**3 points on the card) into an output
+    filled with NaN; return (tag, max relative error, max abs error, emulation)
     against the plain version of its function in f64 on the same
     (storage-rounded) layout, every output point checked; a split
     precision also against ``LabKernel.emulate`` (emulation: its own max
@@ -409,11 +417,13 @@ def check_l2(v, mode, p, n, h, u):
     dtype, prec = L2_MODES[mode]
     tol = kernel_lab.L2_OWN_TOL.get(v, separable_lab.TOL[
         separable_lab.XF64 if mode == "f64" else separable_lab.PRECS[prec]])
-    k = LabKernel(v, npts, p, K1, M1, h, prec=prec, dtype=dtype,
-                  device="cuda")
+    k = LabKernel(v, npts, p, K1, M1, h, b=b, prec=prec, dtype=dtype,
+                  device="cuda", tile=tile)
     gp = k.pad(u)
     before = LabKernel.launches[v]
-    y = k.raw(gp)
+    NT = k.nt * k.b
+    y = k.raw(gp, out=torch.full((NT, NT, k.X), float("nan"), dtype=dtype,
+                                 device="cuda"))
     rose = LabKernel.launches[v] == before + 1
     torch.cuda.synchronize()
     tag = (f"{v} {mode} p={p} npts={npts} b={k.b}"
@@ -919,8 +929,8 @@ def main() -> int:
 
     l2_worst, l2_emu, l2_apart, l2_abs = {}, {}, {}, {}
 
-    def l2_case(v, mode, p, n, h, u):
-        tag, rel, aerr, emu = check_l2(v, mode, p, n, h, u)
+    def l2_case(v, mode, p, n, h, u, **tiles):
+        tag, rel, aerr, emu = check_l2(v, mode, p, n, h, u, **tiles)
         l2_worst[mode] = max(l2_worst.get(mode, 0.0), rel)
         if emu is not None:
             l2_emu[mode] = max(l2_emu.get(mode, 0.0), emu[0])
@@ -950,6 +960,22 @@ def main() -> int:
             rels.append(f"{line} ({tag.split(' ', 3)[3]})")
         say("5 lab", f"flagship npts=257: {v} max rel err " + ", ".join(rels)
             + f"; max abs err {l2_abs[v]:.3e}")
+    # the all-band routine (vcopy, vband, v16) at every sub-tile its chooser
+    # can pick and at larger ones, on an output layout of 40 rows (b = 20)
+    # that 16 and 8 do not divide, and at the flagship (264 rows, ragged
+    # against 16); vcopy exactly, as everywhere
+    from tpufem_torch.lab.separable_lab import ZY_RING_TILES
+
+    u39 = torch.tensor(rng.standard_normal(39**3), device=dev)
+    for tile in ZY_RING_TILES + ((8, 16), (16, 8)):
+        rels = [f"{v} " + l2_case(v, mode, 2, 19, [1 / 19, 1.3 / 19, 0.7 / 19],
+                                  u39, b=20, tile=tile)[2]
+                for v in NO_MMA for mode in ("f64", "f32")]
+        rels += [f"{v} flagship " + l2_case(v, "f32", 4, 64, [1.0 / 64] * 3,
+                                            u257, tile=tile)[2]
+                 for v in NO_MMA]
+        say("5 lab", f"sub-tile {tile}, ragged rows: max rel err "
+            + ", ".join(rels))
     say("5 lab", "L2a and L2b all within their classes, every point finite; "
         "worst "
         "max rel err " + ", ".join(
@@ -1151,8 +1177,30 @@ def main() -> int:
         say("6 throughput", f"{v} at the flagship, one PyTorch call of the "
             f"same function (off the kernel by {off:.3e}, tol {tol}) and the "
             f"kernel in turns, ms: call {t[0]:.4f}, kernel {t[1]:.4f}, kernel "
-            f"{t[2]:.4f}, call {t[3]:.4f}")
+            f"{t[2]:.4f}, call {t[3]:.4f}; kernel / call "
+            f"{(t[1] + t[2]) / (t[0] + t[3]):.2f}; the design moves "
+            f"{k.l2_bytes() / 1e9:.3f} GB from L2 into shared memory an apply "
+            f"(b={k.b}" + (f", sub-tile {k.tile}" if k.tile else "")
+            + f", {k.smem} B a block)")
         del gp, y, yl
+    # vx with shared memory sized by its flags and nothing else changed: the
+    # first version's x stage (per-warp jobs, B from device memory) at the
+    # ring's occupancy, in turns with the ring
+    kj = LabKernel("vx", 257, 4, K1f, M1f, [1.0 / 64] * 3, b=kx.b,
+                   device="cuda", x_jobs=True)
+    gp = kx.pad(u257.to(torch.float32))
+    off = float((kj.raw(gp) - kx.raw(gp)).abs().max() / kx.raw(gp).abs().max())
+    if not off <= 2e-6:
+        raise RuntimeError(f"vx by per-warp jobs is off the ring by {off:.3e}")
+    t = [chain_ms(fn, gp) for fn in (
+        lambda _: kj.raw(gp), lambda _: kx.raw(gp), lambda _: kx.raw(gp),
+        lambda _: kj.raw(gp))]
+    say("6 throughput", f"vx at the flagship, step 1 alone (the first "
+        f"version's x stage, shared memory by flags: {kj.smem} B a block "
+        f"against its 184,320) and the ring ({kx.smem} B) in turns, ms: jobs "
+        f"{t[0]:.4f}, ring {t[1]:.4f}, ring {t[2]:.4f}, jobs {t[3]:.4f} (off "
+        f"each other by {off:.3e})")
+    del gp
 
     # the bound of K1-K4: each point read and written once in f32, and 2p+1
     # multiply-adds per band output (K1/K2 7 bands a point, K4 3 terms x 3,

@@ -42,7 +42,7 @@ static Dim3 threadIdx{0, 0, 0}, blockIdx{0, 0, 0}, blockDim{1, 1, 1};
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(n)
+#define __launch_bounds__(...)
 #define __align__(n)
 #define __shared__
 static inline void __syncthreads() {}

@@ -45,6 +45,7 @@ template <typename U, int M, int N, int K, typename T, typename L = void>
 struct fragment {
   enum { rows = shape<U, M, N, K>::R, cols = shape<U, M, N, K>::C,
          num_elements = rows * cols };
+  using layout = L;
   typename storage<T>::type x[num_elements];
 };
 inline float __float_to_tf32(float f) {
@@ -62,7 +63,9 @@ template <typename F, typename P>
 void load_matrix_sync(F& f, const P* p, unsigned ld) {
   for (int r = 0; r < F::rows; ++r)
     for (int c = 0; c < F::cols; ++c)
-      f.x[r * F::cols + c] = p[(long long)r * ld + c];
+      f.x[r * F::cols + c] =
+          std::is_same<typename F::layout, col_major>::value
+              ? p[(long long)c * ld + r] : p[(long long)r * ld + c];
 }
 template <typename P, typename F>
 void store_matrix_sync(P* p, const F& f, unsigned ld, layout_t) {

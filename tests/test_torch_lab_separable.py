@@ -36,19 +36,26 @@ L2_SHIM = STUBS + WMMA_STUBS + r"""
 
 template <int P, int XP>
 static int run(int flags, tpufem::L2Geo g, const void* u, void* y,
-               const void* xk, long long xk_lo, const void* sl,
-               long long sl_lo, const void* tab) {
+               const void* xk, long long xk_lo, const void* xb,
+               long long xb_part, const void* sl, long long sl_lo,
+               const void* tab) {
   using C = typename tpufem::LabMma<XP>::C;
   using E = typename tpufem::LabMma<XP>::E;
-  const long long bytes = tpufem::l2_smem(P, XP, g.b).total;
+  const long long bytes = tpufem::l2_smem(P, XP, g.b, flags).total;
+  const int nxb = tpufem::l2_nxb(flags);  // 2: vx on the ring
+  const bool vx = ((flags >> 3) & 3) == 1 && !(flags & tpufem::kL2XBand);
   for (int bz = 0; bz < g.nt; ++bz)
     for (int by = 0; by < g.nt; ++by)
-      for (int bx = 0; bx < g.X / tpufem::kL2XC; ++bx) {
+      for (int bx = 0; bx < (g.X / tpufem::kL2XC + nxb - 1) / nxb; ++bx) {
         std::memset(tpufem::smem_raw, 0xAB, bytes + 4096);
         blockIdx = Dim3{bx, by, bz};
-        tpufem::l2_kernel<P, XP>((const C*)u, (C*)y, (const E*)xk, xk_lo,
-                                 (const E*)sl, sl_lo, (const C*)tab, g,
-                                 flags);
+        if (vx)  // its own kernel, as the launcher
+          tpufem::l2_x_kernel<XP>((const C*)u, (C*)y, (const E*)xk, xk_lo,
+                                  (const E*)xb, xb_part, g, flags);
+        else
+          tpufem::l2_kernel<P, XP>((const C*)u, (C*)y, (const E*)xk, xk_lo,
+                                   (const E*)xb, xb_part, (const E*)sl, sl_lo,
+                                   (const C*)tab, g, flags);
         for (long long i = bytes; i < bytes + 4096; ++i)
           if (tpufem::smem_raw[i] != 0xAB) return 1;  // beyond its smem
       }
@@ -57,36 +64,49 @@ static int run(int flags, tpufem::L2Geo g, const void* u, void* y,
 
 template <int XP>
 static int by_p(int p, int flags, tpufem::L2Geo g, const void* u, void* y,
-                const void* xk, long long xl, const void* sl, long long sll,
-                const void* t) {
+                const void* xk, long long xl, const void* xb, long long xbp,
+                const void* sl, long long sll, const void* t) {
   switch (p) {
-    case 1: return run<1, XP>(flags, g, u, y, xk, xl, sl, sll, t);
-    case 2: return run<2, XP>(flags, g, u, y, xk, xl, sl, sll, t);
-    case 4: return run<4, XP>(flags, g, u, y, xk, xl, sl, sll, t);
-    case 7: return run<7, XP>(flags, g, u, y, xk, xl, sl, sll, t);
+    case 1: return run<1, XP>(flags, g, u, y, xk, xl, xb, xbp, sl, sll,
+                              t);
+    case 2: return run<2, XP>(flags, g, u, y, xk, xl, xb, xbp, sl, sll,
+                              t);
+    case 4: return run<4, XP>(flags, g, u, y, xk, xl, xb, xbp, sl, sll,
+                              t);
+    case 7: return run<7, XP>(flags, g, u, y, xk, xl, xb, xbp, sl, sll,
+                              t);
   }
   return 2;
 }
 
 extern "C" int host_l2_apply(int flags, int xp, int p, int npts, int b,
                              int nt, int size, int X, const void* u, void* y,
-                             const void* xk, long long xk_lo, const void* sl,
+                             const void* xk, long long xk_lo, const void* xb,
+                             long long xb_part, const void* sl,
                              long long sl_lo, const void* t) {
   const int L = b + 2 * p;
   const tpufem::L2Geo g{npts, b, nt, size, X, L, tpufem::l2_round16(L),
                         tpufem::l2_round16(b)};
+  if (!(flags & (tpufem::kL2XBand | tpufem::kL2XJobs)) &&
+      g.LP > tpufem::kL2MaxLP)
+    return 4;  // as the launcher: the ring's accumulators cover kL2MaxLP rows
   switch (xp) {
-    case 0: return by_p<0>(p, flags, g, u, y, xk, xk_lo, sl, sl_lo, t);
-    case 1: return by_p<1>(p, flags, g, u, y, xk, xk_lo, sl, sl_lo, t);
-    case 2: return by_p<2>(p, flags, g, u, y, xk, xk_lo, sl, sl_lo, t);
-    case 3: return by_p<3>(p, flags, g, u, y, xk, xk_lo, sl, sl_lo, t);
-    case 4: return by_p<4>(p, flags, g, u, y, xk, xk_lo, sl, sl_lo, t);
+    case 0: return by_p<0>(p, flags, g, u, y, xk, xk_lo, xb, xb_part, sl,
+                            sl_lo, t);
+    case 1: return by_p<1>(p, flags, g, u, y, xk, xk_lo, xb, xb_part, sl,
+                            sl_lo, t);
+    case 2: return by_p<2>(p, flags, g, u, y, xk, xk_lo, xb, xb_part, sl,
+                            sl_lo, t);
+    case 3: return by_p<3>(p, flags, g, u, y, xk, xk_lo, xb, xb_part, sl,
+                            sl_lo, t);
+    case 4: return by_p<4>(p, flags, g, u, y, xk, xk_lo, xb, xb_part, sl,
+                            sl_lo, t);
   }
   return 2;
 }
 
-extern "C" long long host_l2_smem_bytes(int p, int xp, int b) {
-  return tpufem::l2_smem(p, xp, b).total;
+extern "C" long long host_l2_smem_bytes(int p, int xp, int b, int flags) {
+  return tpufem::l2_smem(p, xp, b, flags).total;
 }
 """
 
@@ -203,10 +223,9 @@ def test_lab_refuses_without_a_card(monkeypatch):
 def l2_lib(tmp_path_factory):
     lib = _build(tmp_path_factory, "l2_host", L2_SHIM)
     lib.host_l2_apply.argtypes = ([ctypes.c_int] * 8 + [ctypes.c_void_p] * 3
-                                  + [ctypes.c_longlong, ctypes.c_void_p,
-                                     ctypes.c_longlong, ctypes.c_void_p])
+                                  + [ctypes.c_longlong, ctypes.c_void_p] * 3)
     lib.host_l2_apply.restype = ctypes.c_int
-    lib.host_l2_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.host_l2_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.host_l2_smem_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -216,8 +235,9 @@ def _host(lib, k, gp):
     y = torch.full((NT, NT, k.X), float("nan"), dtype=k.dt)  # all written
     rc = lib.host_l2_apply(k.flags, k.xp, k.p, k.npts, k.b, k.nt, k.size,
                            k.X, gp.data_ptr(), y.data_ptr(),
-                           k.xk.data_ptr(), k.xk_lo, k.slices.data_ptr(),
-                           k.sl_lo, k.tables.data_ptr())
+                           k.xk.data_ptr(), k.xk_lo, k.xb.data_ptr(),
+                           k.xb_part, k.slices.data_ptr(), k.sl_lo,
+                           k.tables.data_ptr())
     assert rc == 0, "kernel wrote beyond its shared memory"
     return y
 
@@ -261,6 +281,75 @@ def test_host_build_matches_plain(l2_lib, v, p, mode, b):
         assert apart <= EMU_TOL[k.xp], (apart, err, emu)
 
 
+@pytest.mark.parametrize("v,p,mode,b", [
+    ("vx", 4, "f32", None), ("vx", 2, "f64", 6), ("vx", 4, "bf16", None),
+    ("v2", 4, "f32", None), ("v12", 2, "f32h", 4), ("vxy", 1, "bf16d", 5)])
+def test_host_build_x_stage_by_jobs(l2_lib, v, p, mode, b):
+    """The dense x stage of the first version (flag XJOBS: per-warp jobs, B
+    from device memory), kept as an ablation of the ring: in its class
+    against the f64 plain version, and within 2x that class of the ring's
+    output on the same input (same products, other order of the sums)."""
+    n = 2 if p > 2 else 9 // p
+    K1, M1 = global_1d_matrices(p, n, p + 1)
+    dtype, prec = MODES[mode]
+    mk = lambda jobs: LabKernel(v, n * p + 1, p, K1, M1, [1.0 / n, 1.3 / n,
+                                                          0.7 / n], b=b,
+                                prec=prec, dtype=dtype, device="cpu",
+                                x_jobs=jobs)
+    kj, kr = mk(True), mk(False)
+    assert kj.flags == kr.flags | separable_lab.XJOBS
+    gp = kj.pad(torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (n * p + 1)**3)))
+    yj, yr = _host(l2_lib, kj, gp), _host(l2_lib, kr, gp)
+    ref = kj.plain(gp.to(torch.float64))
+    assert _max_rel(yj, ref) <= TOL[kj.xp]
+    assert _max_rel(yj, yr.to(torch.float64)) <= 2 * TOL[kj.xp]
+    # band x (v3) has no dense x stage: the flag is not set
+    assert LabKernel("v3", n * p + 1, p, K1, M1, [1.0 / n] * 3, device="cpu",
+                     x_jobs=True).flags == separable_lab.XBAND
+
+
+def test_host_split_b_operand():
+    """The dense x stage's B operand, made on the host: per block of 16 x
+    columns the rows of Mx, then of Kx (the columns x0 .. x0 + 15 of [Mx^T |
+    Kx^T]), K-major.  3xTF32: a big and a small part, each a TF32 value (13
+    low mantissa bits zero) made with the kernel's rounding (to nearest, ties
+    away: ``(bits + 0x1000) & ~0x1fff``), big + small = B to 2^-21 relative
+    (two 11-bit significands); 1xTF32 the big part alone; bf16: hi and lo,
+    hi + lo = B to 2^-16; f64 exact."""
+    p, n = 4, 5
+    npts = n * p + 1
+    k = {m: _kernel("vx", p, n, m) for m in MODES}
+    X = k["f32"].X
+    B = separable_lab.x_blocks(k["f32"].Ms[0], k["f32"].Ks[0], X)
+    assert B.shape == (X // 16, 32, X)
+    xk = k["f64"].xk.numpy()  # (X, 2X) [Mx^T | Kx^T], the jobs ablation's
+    for j in range(X // 16):
+        assert np.array_equal(B[j, :16].T, xk[:, 16 * j:16 * j + 16])
+        assert np.array_equal(B[j, 16:].T, xk[:, X + 16 * j:X + 16 * j + 16])
+    assert not B[:, :, npts:].any() and np.abs(B).sum() > 0
+    assert torch.equal(k["f64"].xb, torch.as_tensor(B)) and \
+        k["f64"].xb_part == 0
+    B32 = torch.as_tensor(B, dtype=torch.float32)
+    big, small = k["f32"].xb
+    assert k["f32"].xb_part == B32.numel()
+    for part in (big, small):
+        assert part.dtype == torch.float32
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    assert torch.equal(big.view(torch.int32),
+                       (B32.view(torch.int32) + 0x1000) & -0x2000)
+    err = (big.double() + small.double() - B32.double()).abs()
+    assert bool((err <= 2.0**-21 * B32.double().abs()).all())
+    assert bool((small.abs() <= 2.0**-11 * big.abs()).all())
+    assert torch.equal(k["f32h"].xb, big) and k["f32h"].xb_part == 0
+    for m in ("bf16", "bf16d"):
+        hi, lo = k[m].xb
+        assert hi.dtype == torch.bfloat16 and k[m].xb_part == B32.numel()
+        assert torch.equal(hi, B32.to(torch.bfloat16))
+        err = (hi.double() + lo.double() - B32.double()).abs()
+        assert bool((err <= 2.0**-16 * B32.double().abs()).all())
+
+
 @pytest.mark.parametrize("v", separable_lab.XFIRST)
 def test_host_build_matches_pallas(klab, l2_lib, v):
     """The g++ build of each kernel in f32 (v9: bf16x3) directly against
@@ -281,14 +370,93 @@ def test_host_build_matches_pallas(klab, l2_lib, v):
 
 def test_smem_fits(l2_lib):
     """The default tile of every degree and precision fits a block's
-    shared memory by the routine's own count."""
+    shared memory by the routine's own count, whatever the variant's
+    flags."""
+    count = l2_lib.host_l2_smem_bytes
     for p in range(1, separable_lab.MAX_DEGREE + 1):
         for xp in separable_lab.TOL:
-            b = separable_lab.choose_b(p, xp, l2_lib.host_l2_smem_bytes)
-            assert l2_lib.host_l2_smem_bytes(p, xp, b) <= \
-                separable_lab.SMEM_BUDGET < 227 * 1024
-            if p <= 4 and xp != separable_lab.XF64:
-                assert b == 24  # the JAX lab's tile
+            for flags in set(separable_lab.FLAGS.values()):
+                b = separable_lab.choose_b(p, xp, count, flags)
+                assert count(p, xp, b, flags) <= \
+                    separable_lab.SMEM_BUDGET < 227 * 1024
+                if p <= 4 and xp != separable_lab.XF64:
+                    assert b == 24  # the JAX lab's tile
+
+
+def test_smem_sized_by_the_flags(l2_lib):
+    """At the flagship (p = 4, b = 24, f32, 3xTF32) shared memory is sized
+    by what the variant runs.  The full variants hold the ring (4 stages of
+    16 KB of u rows and 2 x 2 KB of B, lying over ax and gx), t (131,072
+    bytes of (LP, MB, 16) f32 pairs) and the WMMA scratch: one block an SM.
+    vx holds no t and owns two x blocks (a stage: 16 KB + 2 x 2 x 2 KB), so
+    two of its blocks share an SM.  Band x (v3) has no ring; the x stage by
+    per-warp jobs (the first version, an ablation) holds its per-warp
+    staging instead: vx then needs 49,152 bytes where it held 184,320."""
+    count = l2_lib.host_l2_smem_bytes
+    X3, F = separable_lab.X3TF32, separable_lab.FLAGS
+    a, bp = 8 * 32 * 16 * 4, 32 * 16 * 4
+    ring, ring_vx = 4 * (a + 2 * bp), 4 * (a + 2 * 2 * bp)
+    t, scr, ax = 2 * 32 * 32 * 16 * 4, 8 * 256 * 4, 2 * 8 * 32 * 16 * 4
+    assert (ring, ring_vx, t) == (81920, 98304, 131072)
+    assert count(4, X3, 24, F["vx"]) == ring_vx >= 2 * ax
+    assert 2 * (count(4, X3, 24, F["vx"]) + 1024) <= 228 * 1024
+    assert count(4, X3, 24, F["v2"]) == ring + t + scr
+    assert count(4, X3, 24, F["vxy"]) == ring + t + scr
+    assert count(4, X3, 24, F["v3"]) == ax + t + scr  # band x: no ring
+    jobs = separable_lab.XJOBS
+    assert count(4, X3, 24, F["vx"] | jobs) == ax + 2 * scr == 49152
+    assert count(4, X3, 24, F["v2"] | jobs) == ax + t + 2 * scr == 180224
+
+
+def test_l2_bytes_from_the_tile():
+    """The bytes a redesigned routine moves from L2 into shared memory an
+    apply, at the flagship: vcopy's halo'd boxes at (8, 8) are 4x the input
+    rows it needs (0.30 GB; 10x at (2, 8)); vx on the ring reads its
+    tile's rows once per pair of x blocks, 9 times over in place of 17."""
+    K1, M1 = global_1d_matrices(4, 64, 5)
+    kc = LabKernel("vcopy", 257, 4, K1, M1, [1 / 64] * 3, device="cpu")
+    kc.tile = (8, 8)
+    assert kc.l2_bytes() == 33 * 33 * 16 * 16 * 272 * 4
+    kc.tile = (2, 8)
+    assert kc.l2_bytes() == 132 * 33 * 10 * 16 * 272 * 4
+    kx = LabKernel("vx", 257, 4, K1, M1, [1 / 64] * 3, device="cpu")
+    per_pass = 8 * 32 * 272 * 4 + 2 * 2 * 32 * 272 * 4
+    assert kx.l2_bytes() == 9 * 11 * 11 * 3 * per_pass
+    assert abs(kx.l2_bytes() / 1e9 - 1.365) < 1e-3
+    k2 = LabKernel("v2", 257, 4, K1, M1, [1 / 64] * 3, device="cpu")
+    assert k2.l2_bytes() == 17 * 11 * 11 * 4 * (8 * 32 * 272 * 4
+                                                + 2 * 32 * 272 * 4)
+    with pytest.raises(ValueError, match="ring"):
+        LabKernel("v3", 257, 4, K1, M1, [1 / 64] * 3,
+                  device="cpu").l2_bytes()
+
+
+def test_ring_sweep_edits_apply(monkeypatch):
+    """``python -m tpufem_torch.lab.ring_sweep`` builds copies of the two
+    lab libraries with one constant changed each: every edit's text occurs
+    once in today's sources, the copies keep p = 4 only, the committed copy
+    is the sources themselves, and the entry point raises without a card."""
+    from tpufem_torch.lab import ring_sweep
+    from tpufem_torch.utils.build import CSRC
+
+    for name, (lib, edits, _) in ring_sweep.VARIANTS.items():
+        src = ring_sweep.edited_sources(name)
+        for cu in ("lab_zyfirst.cu", "lab_separable.cu"):
+            assert "    TPUFEM_CASE(4)\n" in src[cu]
+            assert "    TPUFEM_CASE(5)\n" not in src[cu]
+            assert "#define TPUFEM_CASE(PP)" in src[cu]
+        for fname, text in src.items():
+            same = text == (CSRC / fname).read_text()
+            assert same == (fname not in edits and not fname.endswith(
+                ("lab_zyfirst.cu", "lab_separable.cu")))
+        assert (lib is None) == (name == "committed")
+    with pytest.raises(RuntimeError, match="once"):
+        monkeypatch.setitem(ring_sweep.VARIANTS, "gone", (
+            "lab_zyfirst", {"lab_zyfirst.cuh": [("no such text", "")]}, False))
+        ring_sweep.edited_sources("gone")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ring_sweep.main(["--only", "committed"])
 
 
 def test_emulated_classes():

@@ -28,19 +28,33 @@ from tpufem_torch.lab.separable_lab import NO_MMA, ZY_ARGS, ZYFIRST, LabKernel
 from tpufem_torch.ops.separable import global_1d_matrices
 
 ZY_SHIM = STUBS + WMMA_STUBS + r"""
+#define __grid_constant__
 #include "lab_zyfirst.cuh"
 
 template <int P, int XP>
 static int run(int mode, int two, int nu, tpufem::LabGeo g, const void* u,
                void* y, const void* tab, const void* xk, const void* xkl) {
   using C = typename tpufem::LabMma<XP>::C;
-  const long long bytes = tpufem::zy_smem(P, XP, nu, g.tz, g.ty, g.X).total;
+  const long long bytes =
+      tpufem::zy_smem_bytes(mode, P, XP, nu, g.tz, g.ty, g.X);
+  const int NT = g.sz - 2 * P, xc = tpufem::zy_ring_xc(sizeof(C));
+  const tpufem::ZyPieces pc = tpufem::zy_pieces(g.tz, g.ty);
+  tpufem::HopMap in_map, out_map;  // the launcher's two maps
+  const long long in_dim[3] = {g.X, g.sy, g.sz}, out_dim[3] = {g.X, NT, NT};
+  const int in_box[3] = {xc, g.ty + 2 * P, g.tz + 2 * P};
+  const int out_box[3] = {xc, pc.by, pc.bz};
+  tpufem::hop_map_3d(&in_map, (void*)u, sizeof(C), in_dim, in_box);
+  tpufem::hop_map_3d(&out_map, y, sizeof(C), out_dim, out_box);
+  if (mode != tpufem::kFull && !tpufem::zy_ring_takes(P, g.tz, g.ty)) return 3;
   for (int bz = 0; bz < g.ntz; ++bz)
     for (int by = 0; by < g.nty; ++by) {
       std::memset(tpufem::smem_raw, 0xAB, bytes + 4096);
       blockIdx = Dim3{by, bz, 0};
-      tpufem::zy_kernel<P, XP>((const C*)u, (C*)y, (const C*)tab, xk, xkl, g,
-                               mode, two, nu);
+      if (mode == tpufem::kFull)
+        tpufem::zy_kernel<P, XP>((const C*)u, (C*)y, (const C*)tab, xk, xkl,
+                                 g, two, nu);
+      else if constexpr (XP == tpufem::kX3TF32 || XP == tpufem::kXF64)
+        tpufem::zy_ring_kernel<P, C>(in_map, out_map, (const C*)tab, g, mode);
       for (long long i = bytes; i < bytes + 4096; ++i)
         if (tpufem::smem_raw[i] != 0xAB) return 1;  // beyond its smem
     }
@@ -77,9 +91,9 @@ extern "C" int host_zy_apply(int mode, int two, int nu, int xp, int p,
   return 2;
 }
 
-extern "C" long long host_zy_smem_bytes(int p, int xp, int nu, int tz, int ty,
-                                        int X) {
-  return tpufem::zy_smem(p, xp, nu, tz, ty, X).total;
+extern "C" long long host_zy_smem_bytes(int mode, int p, int xp, int nu,
+                                        int tz, int ty, int X) {
+  return tpufem::zy_smem_bytes(mode, p, xp, nu, tz, ty, X);
 }
 """
 
@@ -235,15 +249,15 @@ def zy_lib(tmp_path_factory):
     lib = _build(tmp_path_factory, "zy_host", ZY_SHIM)
     lib.host_zy_apply.argtypes = [ctypes.c_int] * 10 + [ctypes.c_void_p] * 5
     lib.host_zy_apply.restype = ctypes.c_int
-    lib.host_zy_smem_bytes.argtypes = [ctypes.c_int] * 6
+    lib.host_zy_smem_bytes.argtypes = [ctypes.c_int] * 7
     lib.host_zy_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
 def _host(lib, k, gp, tile=None):
-    nu = ZY_ARGS[k.variant][2]
+    mode, _, nu = ZY_ARGS[k.variant]
     tile = tile or separable_lab.choose_zy_tile(k.p, k.xp, nu, k.X,
-                                                lib.host_zy_smem_bytes)
+                                                lib.host_zy_smem_bytes, mode)
     NT = k.nt * k.b
     y = torch.full((NT, NT, k.X), float("nan"), dtype=k.dt)  # all written
     lo = k.xk.data_ptr() + k.xk_lo * k.xk.element_size()
@@ -292,6 +306,63 @@ def test_host_build_matches_plain(zy_lib, v, p, mode, b, tile):
         assert apart <= EMU_TOL[k.xp], (apart, err, emu)
 
 
+RING_VARIANTS = ("vcopy", "vband", "v16")
+
+
+@pytest.mark.parametrize("mode", ["f32", "f64"])
+@pytest.mark.parametrize("tile", separable_lab.ZY_RING_TILES
+                         + ((8, 16), (16, 8), (16, 16)))
+@pytest.mark.parametrize("v", RING_VARIANTS)
+def test_ring_tiles_and_ragged_edges(zy_lib, v, tile, mode):
+    """The all-band routine (TMA boxes as loop copies with zero fill and
+    clipping, one host thread running the producer, then each of the eight
+    warps' pieces, in turn) at every sub-tile the chooser can pick and at
+    larger ones, on an output layout of 12 rows that no sub-tile but (4, .)
+    and (2, .), (1, .) divides: every point of the NaN-filled output is
+    written; vcopy equals the slice of the input layout bit for bit (0),
+    vband and v16 stay in their classes against the f64 plain version
+    (1e-6 for vband's f32 sums, the storage's class for v16)."""
+    p, n, b = 2, 5, 6
+    k = _kernel(v, p, n, mode, b)
+    NT = k.nt * b
+    assert NT == 12 and (NT % tile[0] or NT % tile[1] or tile[0] <= 4)
+    gp = k.pad(torch.as_tensor(np.random.default_rng(2).standard_normal(
+        (n * p + 1)**3)))
+    y = _host(zy_lib, k, gp, tile)
+    assert torch.isfinite(y).all()
+    if v == "vcopy":
+        assert torch.equal(y, gp[p:p + NT, p:p + NT].contiguous())
+        return
+    ref = k.plain(gp.to(torch.float64))
+    tol = kernel_lab.L2_OWN_TOL.get(v, TOL[k.xp]) if mode == "f32" else 1e-12
+    assert _max_rel(y, ref) <= tol
+
+
+def test_ring_takes_and_window(zy_lib):
+    """The sub-tiles the all-band routine takes: eight warps share (TZ, TY)
+    in pieces of an even number of rows, so (1, 8) and (3, 8) are refused
+    (the host build returns 3 before it runs), every ZY_RING_TILES entry is
+    taken at every degree, and its count of shared memory does not depend
+    on X (a window of q1/q23, not all of x)."""
+    k = _kernel("vcopy", 2, 3, "f32", b=4)
+    gp = k.pad(torch.zeros(7**3))
+    for tile in ((1, 8), (3, 8), (8, 3)):
+        y = torch.zeros((k.nt * 4,) * 2 + (k.X,))
+        rc = zy_lib.host_zy_apply(*ZY_ARGS["vcopy"], k.xp, 2, k.npts, k.size,
+                                  k.X, *tile, gp.data_ptr(), y.data_ptr(),
+                                  k.tables.data_ptr(), 0, 0)
+        assert rc == 3
+    count = zy_lib.host_zy_smem_bytes
+    for tz, ty in separable_lab.ZY_RING_TILES:
+        for p in range(1, separable_lab.MAX_DEGREE + 1):
+            assert count(1, p, 0, 2, tz, ty, 272) == \
+                count(4, p, 0, 1, tz, ty, 4112)
+    # (8, 8), p = 4, f32: 3 u slots of (16, 16, 16), s and t (2, 8, 16, 16),
+    # two windows (64, 48), two output slots (64, 16), tables, barriers
+    assert count(1, 4, 0, 2, 8, 8, 272) == (
+        128 + 1280 + 3 * 16384 + 16384 + 24576 + 2 * 4096)
+
+
 def test_two_products_and_one_stacked_sum_in_other_orders(zy_lib):
     """v13/v14 (a k step of q1 @ Kx^T, then one of q23 @ Mx^T, in turn) and
     v15 (K = 2X in one sweep) agree to their class, not bitwise; v13 and
@@ -330,10 +401,12 @@ def test_host_build_matches_pallas(klab, zy_lib, v):  # noqa: F811
 
 
 def test_smem_fits(zy_lib):
-    """The chosen sub-tile of every degree, arithmetic and u-slot count
-    fits a block's shared memory by the routine's own count, at the
-    flagship's X and at p = 8, refine 6 (X = 528); at the flagship (p = 4,
-    f32) it is (2, 8) with both u slots in two blocks an SM."""
+    """The chosen sub-tile of every degree, arithmetic, u-slot count and
+    routine fits a block's shared memory by the routine's own count, at the
+    flagship's X and at p = 8, refine 6 (X = 528).  At the flagship (p = 4,
+    f32) v13-v15 keep (2, 8) with both u slots in two blocks an SM; the
+    all-band routine (vcopy, vband, v16), whose shared memory does not grow
+    with X, takes (8, 8), a 4x halo re-read, in two blocks an SM."""
     count = zy_lib.host_zy_smem_bytes
     for X in (272, 528):
         for p in range(1, separable_lab.MAX_DEGREE + 1):
@@ -342,12 +415,27 @@ def test_smem_fits(zy_lib):
                     tz, ty = separable_lab.choose_zy_tile(p, xp, nu, X, count)
                     assert (tz * ty) % (8 if xp == separable_lab.XF64
                                         else 16) == 0
-                    assert count(p, xp, nu, tz, ty, X) <= \
+                    assert count(0, p, xp, nu, tz, ty, X) <= \
                         separable_lab.SMEM_BUDGET < 227 * 1024
+            for xp in (separable_lab.X3TF32, separable_lab.XF64):
+                for mode in (1, 2, 4):
+                    tz, ty = separable_lab.choose_zy_tile(p, xp, 2, X, count,
+                                                          mode)
+                    assert (tz, ty) in separable_lab.ZY_RING_TILES
+                    assert count(mode, p, xp, 2, tz, ty, X) <= \
+                        separable_lab.ZY_TWO_BLOCKS
     assert separable_lab.choose_zy_tile(4, separable_lab.X3TF32, 2, 272,
                                         count) == (2, 8)
-    assert count(4, separable_lab.X3TF32, 2, 2, 8, 272) == 93056 <= \
+    assert count(0, 4, separable_lab.X3TF32, 2, 2, 8, 272) == 93056 <= \
         separable_lab.ZY_TWO_BLOCKS
+    for mode in (1, 2, 4):  # one count for the three modes, whatever X
+        assert separable_lab.choose_zy_tile(4, separable_lab.X3TF32, 2, 272,
+                                            count, mode) == (8, 8)
+        assert count(mode, 4, separable_lab.X3TF32, 2, 8, 8, 272) == \
+            count(1, 4, separable_lab.X3TF32, 1, 8, 8, 528) <= \
+            separable_lab.ZY_TWO_BLOCKS
+    halo = lambda tz, ty, p=4: (tz + 2 * p) * (ty + 2 * p) / (tz * ty)
+    assert halo(8, 8) == 4.0 and halo(2, 8) == 10.0 and halo(4, 16) == 4.5
 
 
 def test_emulated_classes():

@@ -120,6 +120,14 @@ __device__ __forceinline__ void lab_cp_wait() {
 #endif
 }
 
+// ... once all but its N newest groups have landed (a ring of N + 1 stages)
+template <int N>
+__device__ __forceinline__ void lab_cp_wait_but() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+#endif
+}
+
 // f32 fragment -> big + small TF32 parts (3xTF32)
 template <typename F>
 __device__ __forceinline__ void lab_tf32_split(F& big, F& small) {

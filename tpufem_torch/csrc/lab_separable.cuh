@@ -26,22 +26,52 @@
 //
 // One block per output box (b, b, kL2XC) of tile (iz, iy) and x chunk:
 //   x   ax, gx = u Mx^T, u Kx^T over the tile's halo'd (L, L) rows, L = b +
-//       2P, in passes of kL2ZC z rows.  Dense: a warp job is 16 (z, y) rows
-//       by one MMA N of columns; it stages u 16 x 16 at a time from device
-//       memory into shared memory in the operand format (bf16: hi/lo) and
-//       reads [Mx^T | Kx^T] from device memory (L2-resident).  Band (v3):
-//       K2's difference form on CUDA cores.
+//       2P, in passes of kL2ZC z rows (l2_xring, below).  Band (v3): K2's
+//       difference form on CUDA cores.
 //   y   t1 = My ax, t2 = Ky ax + My gx per z row.  Dense: the tile's slice
 //       (b, L) of My/Ky (a host table, rows and columns zero-padded to MB =
-//       b rounded up to 16 and LP = L rounded up to 16) times ax.  Band
-//       (v12): K2's difference form.
+//       b rounded up to 16 and LP = L rounded up to 16) times ax, WMMA from
+//       shared memory.  Band (v12): K2's difference form.
 //   z   out = Kz t1 + Mz t2 over all L rows of t, after the last pass.
 // The TPU kernel kept the whole halo'd slab (L, L, X), 1.1 MB at b = 24, P
 // = 4, in VMEM; a block has 227 KB, so a block owns kL2XC x columns of its
 // tile's output and reads the tile's L^2 rows over all of X for them: a
-// read amplification of X / kL2XC over the slab, from L2.  l2_smem is the
-// one count of a block's shared memory (the tile chooser in
-// tpufem_torch/lab/separable_lab.py calls it through the library).
+// read amplification of X / kL2XC over the slab, from L2.
+//
+// The dense x stage (vx; the x stage of v2, v6, v8, v9, v12, vxy).  What
+// bounded the first version (vx 6.08 ms against 0.34 ms of one torch.matmul
+// of its shape): every warp job re-read its B fragments from L2 at every k
+// step and split them again, staged its own 16 x 16 piece of u by scalar
+// loads with two warp barriers a step and nothing in flight, and the block
+// held 131 KB of t it never touched, so one 8-warp block ran on an SM.  What
+// l2_xring does about each:
+//   smem   l2_smem counts what the variant's flags run: no t for vx, no
+//          per-warp staging.  vx has its own kernel (l2_x_kernel: no band
+//          table, so no P; 128 registers), two blocks an SM, and with no t
+//          to hold it owns two x blocks: a u row it loads serves 64 columns
+//          of [Mx | Kx], which halves the re-read of u (17x to 9x).
+//   ring   a pass's A operand (its kL2ZC LP halo'd rows of u, K columns k0 ..
+//          k0 + KC) and the block's B operand (rows x0 .. x0 + 15 of Mx and
+//          of Kx, the same K columns: K-major as the matrices are stored, no
+//          transposition) travel together through a ring of kL2Stages
+//          stages, cp.async 16 bytes a thread, block-wide, one block barrier
+//          a chunk: B is read from shared memory in the k loop, once per
+//          block and pass, and the loads of two chunks are in flight while
+//          one is multiplied and the one before it finishes.  Rows beyond L
+//          are zeros.
+//   split  B is split on the host (3xTF32: big and small made with the
+//          kernel's own rounding; bf16: hi and lo), A in registers, once, for
+//          both the Mx and the Kx half: the 32 columns of [Mx | Kx] are one N.
+//   wgmma  each of the block's two warpgroups multiplies 64-row tiles of the
+//          pass, m64n32k8 in TF32 and m64n32k16 in bf16, A from registers, B
+//          through a descriptor (hopper.cuh); the three 3xTF32 products keep
+//          their order (small*big, big*small, big*big).  f64 has no wgmma:
+//          DMMA m8n8k4 (WMMA) on the same ring.
+// The ring shares its shared memory with ax and gx, which are written once
+// the pass's last chunk has been multiplied.  The first version's x stage
+// stays as an ablation (flag kL2XJobs: per-warp jobs, B from L2) so the share
+// of the gain that shared memory sized by the flags alone brings can be
+// measured beside the ring.
 //
 // Precision (lab_mma.cuh): every dense stage in XP (3xTF32, 1xTF32, bf16x3,
 // f64 DMMA, or one bf16 product), f32 (f64) sums; band stages in C.  A
@@ -54,11 +84,13 @@
 // 272, L = LP = 32, MB = 32) the x stage is 2 nt^2 L LP X X 2 = 36.7 GFLOP
 // a pass, y 3 nt^2 L MB LP X 2 = 6.4, z 2 nt^2 MB LP MB X 2 = 4.3 (with the
 // padding), so 3xTF32 needs at least 0.29 ms of tensor-core time: 7x the
-// function's bound before any traffic.  This first version is WMMA (not
-// wgmma) with every operand re-read from L2 or shared memory per job.
+// function's bound before any traffic; and u is read X / kL2XC = 17 times
+// through L2 (1.7 GB an apply for vx, 2.3 GB for v2), B once per pass (a
+// quarter of that again).
 #pragma once
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "lab_mma.cuh"
 
 namespace tpufem {
@@ -68,9 +100,13 @@ constexpr int kL2XC = 16;  // x columns of a block's output box
 constexpr int kL2ZC = 8;   // halo'd z rows per x/y pass
 constexpr int kL2Job = 16;  // rows of one warp job; its u staging is 16 x 16
 
+constexpr int kL2Stages = 4;  // stages of the x stage's ring
+constexpr int kL2MaxLP = 32;  // the ring's accumulators cover LP / 16 <= 2 tiles
+
 // flags: the stage kinds of a variant; (flags >> 3) & 3 cuts the schedule
-// after x (1: vx) or after y (2: vxy)
-enum L2Flags { kL2XBand = 1, kL2YZBand = 2, kL2Trans = 4 };
+// after x (1: vx) or after y (2: vxy); kL2XJobs: the dense x stage by
+// per-warp jobs with B from device memory (the first version, an ablation)
+enum L2Flags { kL2XBand = 1, kL2YZBand = 2, kL2Trans = 4, kL2XJobs = 32 };
 
 struct L2Geo {
   int npts, b, nt, size, X, L, LP, MB;
@@ -78,26 +114,63 @@ struct L2Geo {
 
 __host__ __device__ inline int l2_round16(int v) { return (v + 15) / 16 * 16; }
 
-// Byte offsets of a block's shared-memory regions, each 128-byte aligned:
-//   ax     ax then gx, (kL2ZC, LP, kL2XC) each (v8: (kL2ZC, kL2XC, LP))
-//   t      t1 then t2, (LP, MB, kL2XC) each (v8: (kL2XC, MB, LP))
-//   stage  one 16 x 16 u tile per warp, in the operand format
-//   scr    one accumulator tile per warp
+// The ring of the dense x stage: K columns a stage (64 bytes of a u row),
+// the parts of the B operand (big and small, or hi and lo, where the
+// product is split), and a stage's bytes: the A operand (kL2ZC LP rows),
+// then, for each of the block's x blocks, each part of B (2 kL2XC columns).
+__host__ __device__ constexpr int l2_kc(int xp) { return xp == kXF64 ? 8 : 16; }
+__host__ __device__ constexpr int l2_parts(int xp) {
+  return xp == kX3TF32 || xp == kXBF16x3 ? 2 : 1;
+}
+struct L2Ring {
+  long long a, b_part, stage;
+};
+// x blocks of kL2XC columns a block of the variant owns: vx, which holds no
+// t, takes two, so each u row it loads serves 64 columns of [Mx | Kx]
+__host__ __device__ constexpr int l2_nxb(int flags) {
+  return ((flags >> 3) & 3) == 1 && !(flags & (kL2XBand | kL2XJobs)) ? 2 : 1;
+}
+__host__ __device__ inline L2Ring l2_ring(int xp, int LP, int nxb) {
+  const long long c = xp == kXF64 ? 8 : 4;
+  const long long e = xp == kXBF16x3 || xp == kXBF16 ? 2 : c;
+  L2Ring r;
+  r.a = lab_align(kL2ZC * LP * l2_kc(xp) * c);
+  r.b_part = lab_align(2 * kL2XC * l2_kc(xp) * e);
+  r.stage = r.a + nxb * l2_parts(xp) * r.b_part;
+  return r;
+}
+
+// Byte offsets of a block's shared-memory regions, each 128-byte aligned,
+// sized by what the variant's flags run:
+//   ax     ax then gx, (kL2ZC, LP, kL2XC) each (v8: (kL2ZC, kL2XC, LP)), for
+//          each of the block's x blocks; the dense x stage's ring lies over it
+//   t      t1 then t2, (LP, MB, kL2XC) each (v8: (kL2XC, MB, LP)); none for
+//          vx
+//   stage  kL2XJobs: one 16 x 16 u tile per warp, in the operand format
+//   scr    one WMMA accumulator tile per warp (none for vx on wgmma)
 struct L2Smem {
   long long ax, t, stage, scr, total;
 };
 
-__host__ __device__ inline L2Smem l2_smem(int p, int xp, int b) {
+__host__ __device__ inline L2Smem l2_smem(int p, int xp, int b, int flags) {
   const long long c = xp == kXF64 ? 8 : 4;  // bytes per value, any format
   const long long mn = xp == kXF64 ? 8 * 8 : 16 * 16;  // accumulator tile
   const long long LP = l2_round16(b + 2 * p), MB = l2_round16(b);
   const long long nw = kL2Threads / 32;
+  const int cut = (flags >> 3) & 3;
+  const bool jobs = !(flags & kL2XBand) && (flags & kL2XJobs);
+  const bool ring = !(flags & kL2XBand) && !jobs;
+  const int nxb = l2_nxb(flags);
+  long long first = nxb * 2 * kL2ZC * LP * kL2XC * c;
+  if (ring && kL2Stages * l2_ring(xp, (int)LP, nxb).stage > first)
+    first = kL2Stages * l2_ring(xp, (int)LP, nxb).stage;
   L2Smem s;
   s.ax = 0;
-  s.t = lab_align(2 * kL2ZC * LP * kL2XC * c);
-  s.stage = s.t + lab_align(2 * LP * MB * kL2XC * c);
-  s.scr = s.stage + lab_align(nw * kL2Job * kL2Job * c);
-  s.total = s.scr + lab_align(nw * mn * c);
+  s.t = lab_align(first);
+  s.stage = s.t + (cut == 1 ? 0 : lab_align(2 * LP * MB * kL2XC * c));
+  s.scr = s.stage + (jobs ? lab_align(nw * kL2Job * kL2Job * c) : 0);
+  s.total = s.scr + (ring && cut == 1 && xp != kXF64 ? 0
+                                                     : lab_align(nw * mn * c));
   return s;
 }
 
@@ -113,11 +186,333 @@ __device__ __forceinline__ void l2_store(const FC& acc, C* sw, int ldn,
   __syncwarp();
 }
 
+// The dense x stage of one pass: ax, gx of the halo'd z rows [zc, zc + kL2ZC)
+// of tile (iz, iy) for the block's NXB x blocks bx NXB, ... (kL2XC columns
+// each; one past the last is the last again, and not stored), by the whole
+// block (256 threads: two warpgroups).  xb: the B operand, (parts, X / kL2XC,
+// 2 kL2XC, X): for each x block the rows x0 .. x0 + 15 of Mx, then of Kx, over
+// all K (K-major), part q (big, small / hi, lo) xb_part elements on.  ring:
+// kL2Stages stages of l2_ring.  put(j, half, zr, yl, xo, v) takes the results
+// of x block bx NXB + j (half 0: ax, 1: gx) after the last chunk, when the
+// ring is free.  One host thread stands for both warpgroups (f64: for the
+// eight warps).
+template <int XP, int NXB, typename Put>
+__device__ void l2_xring(const typename LabMma<XP>::C* __restrict__ u,
+                         const typename LabMma<XP>::E* __restrict__ xb,
+                         long long xb_part, const L2Geo& g, int iz, int iy,
+                         int bx, int zc, int zend, unsigned char* ring,
+                         typename LabMma<XP>::C* sw, Put put, int tid,
+                         int nthr) {
+  using T = LabMma<XP>;
+  using C = typename T::C;
+  using E = typename T::E;
+  static_assert(2 * kL2XC == kHopN, "the block's [Mx | Kx] columns are one N");
+  constexpr int KC = l2_kc(XP), NP = l2_parts(XP), S = kL2Stages;
+  constexpr int CV = 16 / (int)sizeof(C), EV = 16 / (int)sizeof(E);
+  constexpr int ACH = KC / CV, BCH = KC / EV;  // 16-byte pieces of a row
+  constexpr int kbytes = KC * (int)sizeof(E);
+  const int LP = g.LP, rows = kL2ZC * LP, nkc = g.X / KC;
+  const L2Ring rg = l2_ring(XP, LP, NXB);
+  const int nxblk = g.X / kL2XC;
+  const bool solo = nthr < 64;
+  const int warp = tid / 32, lane = tid % 32, nlanes = solo ? 1 : 32;
+  // word offset of column k of row `row` of a stage's A operand: f32 rows of
+  // 64 bytes with their 16-byte pieces permuted by the row, so the lanes of a
+  // fragment load (8 rows x 4 columns) fall in 32 banks
+  auto a_at = [](int row, int k) -> int {
+    if constexpr (XP == kXF64) return row * KC + k;
+    else return row * KC + ((((k >> 2) ^ (row >> 1)) & 3) << 2) + (k & 3);
+  };
+  auto load = [&](int kc) {
+    if (kc < nkc) {
+      unsigned char* st = ring + (kc % S) * rg.stage;
+      C* A = reinterpret_cast<C*>(st);
+      const C* src = u + ((long long)iz * g.b * g.size + (long long)iy * g.b) *
+                             g.X + kc * KC;
+      for (int zr = 0; zr < kL2ZC; ++zr)  // a z row: LP rows of ACH pieces
+        for (int i = tid; i < LP * ACH; i += nthr) {
+          const int yl = i / ACH, ch = i % ACH, zl = zc + zr;
+          C* dst = A + a_at(zr * LP + yl, ch * CV);
+          if (yl < g.L && zl < zend) {
+            lab_cp16(dst, src + ((long long)zl * g.size + yl) * g.X + ch * CV);
+          } else {
+#pragma unroll
+            for (int e = 0; e < CV; ++e) dst[e] = C(0);
+          }
+        }
+      for (int i = tid; i < NXB * NP * kHopN * BCH; i += nthr) {
+        const int ch = i % BCH, n = i / BCH % kHopN;
+        const int jq = i / (BCH * kHopN), q = jq % NP;
+        const int xblk = bx * NXB + jq / NP < nxblk ? bx * NXB + jq / NP
+                                                    : nxblk - 1;
+        const int off = XP == kXF64 ? (n * KC + ch * EV) * (int)sizeof(E)
+                                    : hop_b_offset(n, ch * 16, kbytes);
+        lab_cp16(st + rg.a + jq * rg.b_part + off,
+                 xb + q * xb_part + ((long long)xblk * kHopN + n) * g.X +
+                     kc * KC + ch * EV);
+      }
+    }
+    lab_cp_commit();  // an empty group past the end keeps the count
+  };
+  if constexpr (XP == kXF64) {
+    // DMMA: a warp job is one 8-row tile by one 8-column tile of [ax | gx]
+    using FA = typename LabFrag<XP>::FA;
+    using FC = typename LabFrag<XP>::FC;
+    using FB = wmma::fragment<wmma::matrix_b, T::M, T::N, T::K, double,
+                              wmma::col_major>;
+    constexpr int NJ =
+        NXB * (kHopHost ? kL2ZC * kL2MaxLP / 2 : kL2ZC * kL2MaxLP / 16);
+    constexpr int NB = kHopN / T::N;  // column tiles of an x block
+    const int nwarps = (nthr + 31) / 32, nn = NXB * NB;
+    const int njobs = rows / T::M * nn;
+    FC acc[NJ];
+#pragma unroll
+    for (int i = 0; i < NJ; ++i) wmma::fill_fragment(acc[i], C(0));
+    for (int kc = 0; kc < S - 1; ++kc) load(kc);
+    for (int kc = 0; kc < nkc; ++kc) {
+      lab_cp_wait_but<S - 2>();
+      __syncthreads();
+      load(kc + S - 1);
+      const unsigned char* st = ring + (kc % S) * rg.stage;
+      const C* A = reinterpret_cast<const C*>(st);
+#pragma unroll
+      for (int i = 0; i < NJ; ++i) {
+        const int job = warp + i * nwarps, mt = job / nn, jn = job % nn;
+        if (job >= njobs || zc + mt * T::M / LP >= zend) continue;
+#pragma unroll
+        for (int kk = 0; kk < KC; kk += T::K) {
+          FA fa;
+          FB fb;
+          wmma::load_matrix_sync(fa, A + mt * T::M * KC + kk, KC);
+          wmma::load_matrix_sync(
+              fb,
+              reinterpret_cast<const C*>(st + rg.a + jn / NB * rg.b_part) +
+                  jn % NB * T::N * KC + kk,
+              KC);
+          wmma::mma_sync(acc[i], fa, fb, acc[i]);
+        }
+      }
+    }
+    __syncthreads();  // the ring is free: ax, gx lie over it
+#pragma unroll
+    for (int i = 0; i < NJ; ++i) {
+      const int job = warp + i * nwarps, mt = job / nn, jn = job % nn;
+      if (job >= njobs || zc + mt * T::M / LP >= zend) continue;
+      l2_store(acc[i], sw, T::N, lane, nlanes, T::M, [&](int r, int c, C v) {
+        const int m = mt * T::M + r, n = jn % NB * T::N + c;
+        put(jn / NB, n / kL2XC, m / LP, m % LP, n % kL2XC, v);
+      });
+    }
+  } else {
+    // wgmma: warpgroup wg multiplies the 64-row tiles wg, wg + 2, ... of the
+    // pass.  Nothing in the k loop depends on a run-time condition, so the
+    // compiler keeps the wgmmas asynchronous: a tile the pass does not have
+    // multiplies the last one again and is not stored.  The products of
+    // chunk kc run while the block waits for chunk kc + 1 and starts the
+    // loads of chunk kc + S - 2, into the slot of chunk kc - 2, whose
+    // products every warp waited for before it came to the barrier.
+    static_assert(S >= 4, "a slot is loaded two chunks after it is read");
+    constexpr bool BF = T::kBF16;
+    constexpr bool split = NP == 2;
+    constexpr int KS = KC / (BF ? 16 : 8);  // k steps a chunk
+    constexpr int MAXT = kL2MaxLP / 16, NWG = kL2Threads / 128;
+    const int w = warp % 4, nmt = rows / kHopM;
+    constexpr int NA = NXB * MAXT;  // accumulators of a warpgroup
+    HopAcc acc[kHopHost ? NWG * NA : NA];
+#pragma unroll
+    for (int i = 0; i < (kHopHost ? NWG * NA : NA); ++i) hop_acc_zero(acc[i]);
+    HopA big[MAXT][KS], small[MAXT][KS];
+    auto mma = [&](int wg, const unsigned char* st, HopAcc* d) {
+      const float* A = reinterpret_cast<const float*>(st);
+      const unsigned char* B = st + rg.a;
+#pragma unroll
+      for (int i = 0; i < MAXT; ++i) {
+        const int mt = wg + i * NWG < nmt ? wg + i * NWG : nmt - 1;
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks)
+          hop_load_a<BF>(big[i][ks], small[i][ks], split, A + mt * kHopM * KC,
+                         a_at, ks, w, lane);
+      }
+      hop_wgmma_fence();
+      // the tiles' and x blocks' products in turn (small*big, big*small,
+      // big*big each), so that a wgmma follows one it does not depend on
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+        for (int part = split ? 0 : 2; part < 3; ++part)
+#pragma unroll
+          for (int j = 0; j < NXB; ++j)
+#pragma unroll
+            for (int i = 0; i < MAXT; ++i)
+              hop_wgmma<BF>(d[j * MAXT + i],
+                            part == 0 ? small[i][ks] : big[i][ks],
+                            B + (j * NP + (part == 1)) * rg.b_part, ks,
+                            kbytes);
+      hop_wgmma_commit();
+    };
+    for (int kc = 0; kc < S - 2; ++kc) load(kc);
+    for (int kc = 0; kc < nkc; ++kc) {
+      lab_cp_wait_but<S - 3>();
+      hop_fence_async();  // the copies are read by wgmma's asynchronous proxy
+      __syncthreads();
+      load(kc + S - 2);     // the slot chunk kc - 2 was multiplied from
+      hop_wgmma_wait<0>();  // chunk kc - 1: its operand registers are free
+#pragma unroll
+      for (int i = 0; i < MAXT; ++i)
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          hop_keep(big[i][ks]);
+          if constexpr (split) hop_keep(small[i][ks]);
+        }
+      const unsigned char* st = ring + (kc % S) * rg.stage;
+      if constexpr (kHopHost) {
+        for (int wg = 0; wg < NWG; ++wg) mma(wg, st, acc + wg * NA);
+      } else {
+        mma(tid / 128, st, acc);
+      }
+    }
+    hop_wgmma_wait<0>();
+    __syncthreads();  // the ring is free: ax, gx lie over it
+    for (int wg = kHopHost ? 0 : tid / 128; wg < NWG;
+         wg += kHopHost ? 1 : NWG)
+#pragma unroll
+      for (int ji = 0; ji < NA; ++ji) {
+        const int mt = wg + ji % MAXT * NWG;
+        if (mt >= nmt || zc + mt * kHopM / LP >= zend) continue;
+        hop_acc_each(acc[kHopHost ? wg * NA + ji : ji], w, lane,
+                     [&](int r, int c, float v) {
+                       const int m = mt * kHopM + r;
+                       put(ji / MAXT, c / kL2XC, m / LP, m % LP, c % kL2XC, v);
+                     });
+      }
+  }
+}
+
+// The dense x stage of one pass as the first version ran it, an ablation of
+// l2_xring: a warp job is 16 (z, y) rows by one MMA N of the block's columns
+// [x0, x0 + kL2XC); it stages u 16 x 16 at a time from device memory into
+// its `stage` (operand format: bf16 hi/lo) and reads [Mx^T | Kx^T] (xk, (X,
+// 2X); bf16: lo part xk_lo elements on) from device memory at every k step.
+// put(half, zr, yl, xo, v) takes the results; sw: the warp's scratch tile.
+template <int XP, typename Put>
+__device__ void l2_xjobs(const typename LabMma<XP>::C* __restrict__ u,
+                         const typename LabMma<XP>::E* __restrict__ xk,
+                         long long xk_lo, const L2Geo& g, int iz, int iy,
+                         int x0, int zc, int zend, unsigned char* stage,
+                         typename LabMma<XP>::C* sw, Put put, int warp,
+                         int nwarps, int lane, int nlanes) {
+  using T = LabMma<XP>;
+  using C = typename T::C;
+  using E = typename T::E;
+  using FC = typename LabFrag<XP>::FC;
+  constexpr int MT = kL2Job / T::M;  // MMA row tiles per warp job
+  const int X = g.X, LP = g.LP;
+  const long long st_split = T::kBF16 ? kL2Job * kL2Job : -1;
+  const int nyj = LP / kL2Job, nn = kL2XC / T::N;
+  for (int job = warp; job < kL2ZC * nyj * nn; job += nwarps) {
+    const int jn = job % nn, yj = (job / nn) % nyj, zr = job / (nn * nyj);
+    const int zl = zc + zr, yl0 = yj * kL2Job;
+    if (zl >= zend) continue;
+    FC acc[2][MT];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) wmma::fill_fragment(acc[h][mi], C(0));
+    const C* rows = u + (((long long)iz * g.b + zl) * g.size +
+                         (long long)iy * g.b + yl0) * X;
+    for (int k0 = 0; k0 < X; k0 += kL2Job) {
+      for (int e = lane; e < kL2Job * kL2Job; e += nlanes) {
+        const int r = e / kL2Job, c = e % kL2Job;
+        lab_put<C>(stage, st_split, e,
+                   yl0 + r < g.L ? rows[(long long)r * X + k0 + c] : C(0));
+      }
+      __syncwarp();
+#pragma unroll
+      for (int kk = 0; kk < kL2Job; kk += T::K)
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi) {
+          const E* a =
+              reinterpret_cast<const E*>(stage) + mi * T::M * kL2Job + kk;
+          const E* bm = xk + (long long)(k0 + kk) * 2 * X + x0 + jn * T::N;
+          lab_mma<XP>(acc[0][mi], a, st_split, kL2Job, bm, xk_lo, 2 * X);
+          lab_mma<XP>(acc[1][mi], a, st_split, kL2Job, bm + X, xk_lo, 2 * X);
+        }
+      __syncwarp();
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+        l2_store(acc[h][mi], sw, T::N, lane, nlanes, T::M,
+                 [&](int r, int c, C v) {
+                   put(h, zr, yl0 + mi * T::M + r, jn * T::N + c, v);
+                 });
+  }
+}
+
+// vx: the x stage alone, ax + gx of the tile's first b halo'd z and y rows.
+// No t and no band table, so the kernel does not depend on P, and two of its
+// blocks share an SM (128 registers a thread; f64's DMMA fragments need
+// more).  On the ring a block owns two x blocks (grid ((X / kL2XC + 1) / 2,
+// nt, nt)); with kL2XJobs, the first version's x stage, one (grid (X /
+// kL2XC, nt, nt)).
+template <int XP>
+__global__ void __launch_bounds__(kL2Threads, XP == kXF64 ? 1 : 2)
+l2_x_kernel(const typename LabMma<XP>::C* __restrict__ u,
+            typename LabMma<XP>::C* __restrict__ out,
+            const typename LabMma<XP>::E* __restrict__ xk, long long xk_lo,
+            const typename LabMma<XP>::E* __restrict__ xb, long long xb_part,
+            L2Geo g, int flags) {
+  using C = typename LabMma<XP>::C;
+  constexpr int XC = kL2XC, ZC = kL2ZC;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid / 32, nwarps = (nthr + 31) / 32, lane = tid % 32;
+  const int iy = blockIdx.y, iz = blockIdx.z, b = g.b, LP = g.LP;
+  const int nxb = l2_nxb(flags);
+  const long long NT = (long long)g.nt * b;
+  const L2Smem sm = l2_smem((g.L - b) / 2, XP, b, flags);
+  const long long nax = (long long)ZC * LP * XC;
+  C* AX = reinterpret_cast<C*>(smem_raw + sm.ax);  // (nxb, 2, ZC, LP, XC)
+  C* sw = reinterpret_cast<C*>(smem_raw + sm.scr) +
+          warp * LabMma<XP>::M * LabMma<XP>::N;
+  auto put = [&](int j, int h, int zr, int yl, int xo, C v) {
+    AX[(j * 2 + h) * nax + ((long long)zr * LP + yl) * XC + xo] = v;
+  };
+  for (int zc = 0; zc < b; zc += ZC) {
+    if (flags & kL2XJobs) {
+      l2_xjobs<XP>(u, xk, xk_lo, g, iz, iy, blockIdx.x * XC, zc, b,
+                   smem_raw + sm.stage +
+                       warp * kL2Job * kL2Job * (long long)sizeof(C),
+                   sw,
+                   [&](int h, int zr, int yl, int xo, C v) {
+                     put(0, h, zr, yl, xo, v);
+                   },
+                   warp, nwarps, lane, nthr < 32 ? nthr : 32);
+    } else {
+      l2_xring<XP, l2_nxb(1 << 3)>(u, xb, xb_part, g, iz, iy, blockIdx.x, zc,
+                                   b, smem_raw, sw, put, tid, nthr);
+    }
+    __syncthreads();
+    for (long long i = tid; i < (long long)nxb * ZC * b * XC; i += nthr) {
+      const int xo = (int)(i % XC), r = (int)(i / XC), yl = r % b;
+      const int zr = r / b % ZC, j = r / (b * ZC), zl = zc + zr;
+      const int x0 = (blockIdx.x * nxb + j) * XC;
+      if (zl >= b || x0 >= g.X) continue;
+      const long long a = j * 2 * nax + ((long long)zr * LP + yl) * XC + xo;
+      out[(((long long)iz * b + zl) * NT + (long long)iy * b + yl) * g.X + x0 +
+          xo] = AX[a] + AX[a + nax];
+    }
+    __syncthreads();
+  }
+}
+
 template <int P, int XP>
 __global__ void __launch_bounds__(kL2Threads)
 l2_kernel(const typename LabMma<XP>::C* __restrict__ u,
           typename LabMma<XP>::C* __restrict__ out,
           const typename LabMma<XP>::E* __restrict__ xk, long long xk_lo,
+          const typename LabMma<XP>::E* __restrict__ xb, long long xb_part,
           const typename LabMma<XP>::E* __restrict__ sl, long long sl_lo,
           const typename LabMma<XP>::C* __restrict__ tab, L2Geo g, int flags) {
   using T = LabMma<XP>;
@@ -138,7 +533,7 @@ l2_kernel(const typename LabMma<XP>::C* __restrict__ u,
   const bool xband = flags & kL2XBand, yzband = flags & kL2YZBand;
   const bool trans = flags & kL2Trans;
   const int cut = (flags >> 3) & 3;
-  const L2Smem sm = l2_smem(P, XP, b);
+  const L2Smem sm = l2_smem(P, XP, b, flags);
   // operand format (bf16 hi/lo) where a dense stage reads the buffer
   const long long nax = (long long)ZC * LP * XC, ntt = (long long)LP * MB * XC;
   const long long ax_split = T::kBF16 && !yzband && cut != 1 ? nax : -1;
@@ -150,7 +545,6 @@ l2_kernel(const typename LabMma<XP>::C* __restrict__ u,
   unsigned char* T2 = T1 + ntt * cb;
   unsigned char* stage = smem_raw + sm.stage + warp * kL2Job * kL2Job * cb;
   C* sw = reinterpret_cast<C*>(smem_raw + sm.scr) + warp * T::M * T::N;
-  const long long st_split = T::kBF16 ? kL2Job * kL2Job : -1;
   const C* tMx = tab;
   const C* tKx = tab + (long long)npts * NW;
   const C* tMy = tab + 2LL * npts * NW;
@@ -208,50 +602,18 @@ l2_kernel(const typename LabMma<XP>::C* __restrict__ u,
         lab_put<C>(AX, ax_split, ax_at(zr, yl, xo), am);
         lab_put<C>(GX, ax_split, ax_at(zr, yl, xo), ak);
       }
-    } else {
-      const int nyj = LP / kL2Job, nn = XC / T::N;
-      for (int job = warp; job < ZC * nyj * nn; job += nwarps) {
-        const int jn = job % nn, yj = (job / nn) % nyj, zr = job / (nn * nyj);
-        const int zl = zc + zr, yl0 = yj * kL2Job;
-        if (zl >= zend) continue;
-        FC acc[2][MT];
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int mi = 0; mi < MT; ++mi) wmma::fill_fragment(acc[h][mi], C(0));
-        const C* rows = u + (((long long)iz * b + zl) * g.size +
-                             (long long)iy * b + yl0) * X;
-        for (int k0 = 0; k0 < X; k0 += kL2Job) {
-          for (int e = lane; e < kL2Job * kL2Job; e += nlanes) {
-            const int r = e / kL2Job, c = e % kL2Job;
-            lab_put<C>(stage, st_split, e,
-                       yl0 + r < L ? rows[(long long)r * X + k0 + c] : C(0));
-          }
-          __syncwarp();
-#pragma unroll
-          for (int kk = 0; kk < kL2Job; kk += T::K)
-#pragma unroll
-            for (int mi = 0; mi < MT; ++mi) {
-              const E* a = reinterpret_cast<const E*>(stage) +
-                           mi * T::M * kL2Job + kk;
-              const E* bm = xk + (long long)(k0 + kk) * 2 * X + x0 + jn * T::N;
-              lab_mma<XP>(acc[0][mi], a, st_split, kL2Job, bm, xk_lo, 2 * X);
-              lab_mma<XP>(acc[1][mi], a, st_split, kL2Job, bm + X, xk_lo,
-                          2 * X);
-            }
-          __syncwarp();
-        }
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int mi = 0; mi < MT; ++mi)
-            l2_store(acc[h][mi], sw, T::N, lane, nlanes, T::M,
-                     [&](int r, int c, C v) {
-                       lab_put<C>(h ? GX : AX, ax_split,
-                                  ax_at(zr, yl0 + mi * T::M + r, jn * T::N + c),
-                                  v);
-                     });
-      }
+    } else if (!(flags & kL2XJobs)) {
+      l2_xring<XP, 1>(u, xb, xb_part, g, iz, iy, blockIdx.x, zc, zend, AX, sw,
+                      [&](int, int h, int zr, int yl, int xo, C v) {
+                        lab_put<C>(h ? GX : AX, ax_split, ax_at(zr, yl, xo), v);
+                      },
+                      tid, nthr);
+    } else {  // the first version: per-warp jobs, B from device memory
+      l2_xjobs<XP>(u, xk, xk_lo, g, iz, iy, x0, zc, zend, stage, sw,
+                   [&](int h, int zr, int yl, int xo, C v) {
+                     lab_put<C>(h ? GX : AX, ax_split, ax_at(zr, yl, xo), v);
+                   },
+                   warp, nwarps, lane, nlanes);
     }
     __syncthreads();
     if (cut == 1) {  // vx: (ax + gx) of the tile's first b halo'd rows

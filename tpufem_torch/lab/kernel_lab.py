@@ -26,8 +26,10 @@ against the plain version in f64 before it is timed.  Variants:
     vcopy vband           band z, band y, then x as two tensor-core products
                           (v13; v14 with the next load in flight), one
                           K-stacked product (v15, same suffixes) or a band
-                          (v16); vcopy, vband v15's loads and stores, and its
-                          band stages, alone (their own functions)
+                          (v16); vcopy, vband the all-band schedule's loads
+                          and stores, and its band stages, alone (their own
+                          functions; v16's routine: TMA boxes, an mbarrier
+                          ring, sub-tile (8, 8))
 
 Per variant it prints the time per apply (CUDA events), GDoF/s, the
 relative error against the f64 plain version on the lab's random input

@@ -14,9 +14,13 @@ in two CUDA routines:
   and ``_kernel_v16`` (:1347): band z, band y on the halo'd tile, then the x
   axis last, as two tensor-core products (v13; v14 with the next load in
   flight), one K-stacked product (v15) or a band (v16); vcopy and vband are
-  v15's loads and stores, and its band stages, alone.  A block owns a (TZ,
-  TY) sub-tile of the output rows (``tile``; b sets the layouts only).
-  ``tpufem_torch/csrc/lab_zyfirst.cuh``.
+  the all-band schedule's loads and stores, and its band stages, alone.  A
+  block owns a (TZ, TY) sub-tile of the output rows (``tile``; b sets the
+  layouts only).  ``tpufem_torch/csrc/lab_zyfirst.cuh``: v13-v15 keep qq =
+  [q1 | q23] over all of x in shared memory for the tensor-core product;
+  v16, vcopy and vband run one routine (a mode argument) that moves its
+  halo'd boxes by TMA through an ``mbarrier`` ring and keeps only a window
+  of q1 and q23, so its sub-tile is (8, 8) where v15's is (2, 8).
 
 Layout in: ``(size, size, X)``, ``size = nt b + 2p``, data at ``[p:p+npts,
 p:p+npts, :npts]``, zeros elsewhere, ``X`` = npts rounded up to 16 (the
@@ -53,8 +57,12 @@ from tpufem_torch.utils.timer import roofline_ms
 XFIRST = ("v2", "v3", "v6", "v8", "v9", "v12", "vx", "vxy")  # L2a
 ZYFIRST = ("v13", "v14", "v15", "v16", "vcopy", "vband")  # L2b
 VARIANTS = XFIRST + ZYFIRST
-# stage flags of the CUDA routine (L2Flags; cut << 3)
-XBAND, YZBAND, TRANS = 1, 2, 4
+# stage flags of the CUDA routine (L2Flags; cut << 3); XJOBS: the dense x
+# stage of the first version (per-warp jobs, B from device memory), kept as
+# an ablation beside the ring (``LabKernel(..., x_jobs=True)``)
+XBAND, YZBAND, TRANS, XJOBS = 1, 2, 4, 32
+XC = 16  # x columns of a block's output box (kL2XC)
+MAX_LP = 32  # halo'd rows b + 2p, rounded up to 16, the x ring takes (kL2MaxLP)
 FLAGS = {"v2": 0, "v6": 0, "v9": 0, "v3": XBAND, "v12": YZBAND, "v8": TRANS,
          "vx": 1 << 3, "vxy": 2 << 3}
 # the L2b routine's arguments per variant: (mode, two, nu): mode full (0),
@@ -84,8 +92,13 @@ TILES = (24, 16, 8)  # tile sizes b tried in order; 24 is the JAX lab's
 SMEM_BUDGET = 220 * 1024  # of the 227 KB a block may use on an H100
 # L2b's (TZ, TY) sub-tiles, tried in order: first under the budget of two
 # blocks an SM (L1's sweeps: occupancy decides before halo traffic), then
-# under SMEM_BUDGET; M = TZ*TY must be a multiple of the MMA tile's M
+# under SMEM_BUDGET.  v13-v15 (qq over all of x): M = TZ*TY must be a
+# multiple of the MMA tile's M.  v16, vcopy, vband (a window of qq): eight
+# warps share the sub-tile in pieces of an even number of rows
+# (``zy_ring_takes``); (8, 8) re-reads its halo 4x at p = 4, (4, 16) 4.5x,
+# (4, 8) 6x, (2, 8) 10x
 ZY_TILES = ((2, 8), (1, 16), (1, 8))
+ZY_RING_TILES = ((8, 8), (4, 16), (4, 8), (2, 8), (1, 16))
 ZY_TWO_BLOCKS = 113 * 1024  # (228 KB - 2 x 1 KB reserved) / 2
 MAX_DEGREE = 8
 
@@ -121,25 +134,45 @@ def dense_slices(mats, b: int, nt: int, p: int, trans: bool) -> np.ndarray:
     return np.ascontiguousarray(out.transpose(0, 1, 3, 2) if trans else out)
 
 
-def choose_b(p: int, xp: int, smem_bytes) -> int:
+def x_blocks(Mx: np.ndarray, Kx: np.ndarray, X: int) -> np.ndarray:
+    """(X / XC, 2 XC, X) f64: per block of XC x columns the rows of Mx, then
+    of Kx, zero-padded to X: the dense x stage's B operand, K-major (a row
+    of the matrix is a column of the product's B)."""
+    n = Mx.shape[0]
+    out = np.zeros((2, X, X))
+    out[0, :n, :n], out[1, :n, :n] = Mx, Kx
+    return np.ascontiguousarray(
+        out.reshape(2, X // XC, XC, X).transpose(1, 0, 2, 3)).reshape(
+            X // XC, 2 * XC, X)
+
+
+def choose_b(p: int, xp: int, smem_bytes=None, flags: int = 0) -> int:
     """The first of ``TILES`` whose block fits SMEM_BUDGET by the routine's
-    own count ``smem_bytes(p, xp, b)`` (``tpufem_l2_smem_bytes``)."""
+    own count ``smem_bytes(p, xp, b, flags)`` (``tpufem_l2_smem_bytes``)
+    and, for a variant on the dense x stage's ring, whose halo'd rows fit
+    its accumulators (``MAX_LP``); without a count (a CPU instance, which
+    runs the plain version) the second condition alone."""
+    ring = not flags & (XBAND | XJOBS)
     for b in TILES:
-        if smem_bytes(p, xp, b) <= SMEM_BUDGET:
+        if ring and round16(b + 2 * p) > MAX_LP:
+            continue
+        if smem_bytes is None or smem_bytes(p, xp, b, flags) <= SMEM_BUDGET:
             return b
     raise ValueError(f"no lab tile fits {SMEM_BUDGET} bytes of shared memory "
                      f"at p={p}")
 
 
-def choose_zy_tile(p: int, xp: int, nu: int, X: int, smem_bytes):
-    """The first of ``ZY_TILES`` whose M fits the MMA tile and whose block
-    fits ZY_TWO_BLOCKS, else SMEM_BUDGET, by the routine's own count
-    ``smem_bytes(p, xp, nu, tz, ty, X)`` (``tpufem_zy_smem_bytes``)."""
-    m_mma = MMA[XBF16X3 if xp == XBF16 else xp][0]
+def choose_zy_tile(p: int, xp: int, nu: int, X: int, smem_bytes, mode=0):
+    """The first sub-tile whose block fits ZY_TWO_BLOCKS, else SMEM_BUDGET,
+    by the routine's own count ``smem_bytes(mode, p, xp, nu, tz, ty, X)``
+    (``tpufem_zy_smem_bytes``): of ``ZY_TILES`` (M a multiple of the MMA
+    tile's) for mode 0 (v13-v15), of ``ZY_RING_TILES`` for the all-band
+    modes (vcopy, vband, v16)."""
+    m_mma = MMA[XBF16X3 if xp == XBF16 else xp][0] if mode == 0 else 1
     for budget in (ZY_TWO_BLOCKS, SMEM_BUDGET):
-        for tz, ty in ZY_TILES:
+        for tz, ty in (ZY_TILES if mode == 0 else ZY_RING_TILES):
             if (tz * ty) % m_mma == 0 and \
-                    smem_bytes(p, xp, nu, tz, ty, X) <= budget:
+                    smem_bytes(mode, p, xp, nu, tz, ty, X) <= budget:
                 return tz, ty
     raise ValueError(f"no L2b sub-tile fits {SMEM_BUDGET} bytes of shared "
                      f"memory at p={p}, X={X}")
@@ -193,13 +226,15 @@ class LabKernel:
     L2b variant TILES[0], as b only sets its layouts).  tile: an L2b
     variant's (TZ, TY) sub-tile (None: ``choose_zy_tile``).  v16, vcopy and
     vband have no tensor-core stage and take "highest" whatever ``prec``
-    says.
+    says.  x_jobs: run the dense x stage of an L2a variant as the first
+    version did (an ablation, timed beside the ring).
     """
 
     launches = {v: 0 for v in VARIANTS}  # per variant; plain excluded
 
     def __init__(self, variant, npts, p, K1, M1, h, b=None, prec="highest",
-                 dtype=torch.float32, device="cuda", tile=None):
+                 dtype=torch.float32, device="cuda", tile=None,
+                 x_jobs=False):
         if variant not in VARIANTS:
             raise ValueError(f"variant must be one of {VARIANTS}, got "
                              f"{variant!r}")
@@ -222,7 +257,8 @@ class LabKernel:
             variant, npts, p, prec, dtype)
         self.xp = XF64 if dtype == torch.float64 else PRECS[prec]
         self.zy = variant in ZYFIRST
-        self.flags = None if self.zy else FLAGS[variant]
+        self.flags = None if self.zy else FLAGS[variant] | (
+            XJOBS if x_jobs and not FLAGS[variant] & XBAND else 0)
         h = np.broadcast_to(np.asarray(h, np.float64), (3,))
         K1, M1 = np.asarray(K1, np.float64), np.asarray(M1, np.float64)
         self.Ks = [K1 / h[a] for a in range(3)]
@@ -239,18 +275,31 @@ class LabKernel:
         self.smem = self.tile = None
         self.X = X_ALIGN * -(-npts // X_ALIGN)
         if b is None:
-            b = (TILES[0] if self.lib is None or self.zy else choose_b(
-                p, self.xp, self.lib.lib.tpufem_l2_smem_bytes))
+            b = TILES[0] if self.zy else choose_b(
+                p, self.xp, self.lib and self.lib.lib.tpufem_l2_smem_bytes,
+                self.flags)
         if self.zy:
             self.tile = None if tile is None else tuple(tile)
             if self.lib is not None:
                 count = self.lib.lib.tpufem_zy_smem_bytes
-                nu = ZY_ARGS[variant][2]
+                mode, _, nu = ZY_ARGS[variant]
                 if self.tile is None:
-                    self.tile = choose_zy_tile(p, self.xp, nu, self.X, count)
-                self.smem = count(p, self.xp, nu, *self.tile, self.X)
+                    self.tile = choose_zy_tile(p, self.xp, nu, self.X, count,
+                                               mode)
+                if mode and not self.lib.lib.tpufem_zy_ring_takes(
+                        p, *self.tile):
+                    raise ValueError(f"{variant} takes no sub-tile "
+                                     f"{self.tile} at p={p}: its eight warps "
+                                     f"share it in pieces of an even number "
+                                     f"of rows")
+                self.smem = count(mode, p, self.xp, nu, *self.tile, self.X)
         elif self.lib is not None:
-            self.smem = self.lib.lib.tpufem_l2_smem_bytes(p, self.xp, b)
+            if not self.flags & (XBAND | XJOBS) and \
+                    round16(b + 2 * p) > MAX_LP:
+                raise ValueError(f"the dense x stage takes b + 2p <= "
+                                 f"{MAX_LP}, got b={b}, p={p}")
+            self.smem = self.lib.lib.tpufem_l2_smem_bytes(p, self.xp, b,
+                                                          self.flags)
         if self.smem is not None and not 0 < self.smem <= 227 * 1024:
             raise ValueError(f"lab tile b={b}, sub-tile {self.tile} needs "
                              f"{self.smem} bytes of shared memory")
@@ -275,6 +324,17 @@ class LabKernel:
             xk[:npts, :npts] = self.Ms[0].T
             xk[:npts, self.X:self.X + npts] = self.Ks[0].T
             self.xk, self.xk_lo = put(xk)
+            # the ring's B operand, split here with the kernel's roundings
+            xb = torch.as_tensor(x_blocks(self.Ms[0], self.Ks[0], self.X),
+                                 dtype=dtype, device=device)
+            if self.xp in (XBF16X3, XBF16):
+                xb = torch.stack(_split_bf16(xb))
+            elif self.xp == X3TF32:
+                xb = torch.stack([tf32(xb), tf32(xb - tf32(xb))])
+            elif self.xp == X1TF32:
+                xb = tf32(xb)
+            self.xb = xb.contiguous()
+            self.xb_part = xb[0].numel() if xb.dim() == 4 else 0
             self.slices, self.sl_lo = put(dense_slices(
                 [self.Ms[1], self.Ks[1], self.Ms[2], self.Ks[2]], b, self.nt,
                 p, bool(self.flags & TRANS)))
@@ -343,10 +403,13 @@ class LabKernel:
                                     [M.to(dt) for M in self._plain_M])
         return self._place(f.reshape(n, n, n))
 
-    def raw(self, gp: torch.Tensor) -> torch.Tensor:
-        """The variant's function on the layouts (input -> output)."""
+    def raw(self, gp: torch.Tensor, out=None) -> torch.Tensor:
+        """The variant's function on the layouts (input -> output); out: a
+        contiguous output layout to write into (a check fills it with NaN
+        first: every point is written)."""
         if gp.device.type == "cpu" and self.device.type == "cpu":
-            return self.plain(gp)
+            return self.plain(gp) if out is None else out.copy_(
+                self.plain(gp))
         if gp.device != self.device or not gp.is_cuda:
             raise ValueError(f"kernel on {self.device} got a tensor on "
                              f"{gp.device}")
@@ -356,7 +419,14 @@ class LabKernel:
                              f"{(self.size, self.size, self.X)}, got "
                              f"{gp.dtype} {tuple(gp.shape)}")
         NT = self.nt * self.b
-        y = torch.empty((NT, NT, self.X), dtype=self.dt, device=self.device)
+        y = out
+        if y is None:
+            y = torch.empty((NT, NT, self.X), dtype=self.dt,
+                            device=self.device)
+        elif y.device != self.device or y.dtype != self.dt or \
+                not y.is_contiguous() or tuple(y.shape) != (NT, NT, self.X):
+            raise ValueError(f"out must be a contiguous {self.dt} layout "
+                             f"{(NT, NT, self.X)} on {self.device}")
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream().cuda_stream
             if self.zy:
@@ -370,7 +440,8 @@ class LabKernel:
                 rc = self.lib.lib.tpufem_l2_apply(
                     self.flags, self.xp, self.p, self.npts, self.b, self.nt,
                     self.size, self.X, gp.data_ptr(), y.data_ptr(),
-                    self.xk.data_ptr(), self.xk_lo, self.slices.data_ptr(),
+                    self.xk.data_ptr(), self.xk_lo, self.xb.data_ptr(),
+                    self.xb_part, self.slices.data_ptr(),
                     self.sl_lo, self.tables.data_ptr(), stream)
         self.lib.check(rc, f"{self.variant} launch")
         LabKernel.launches[self.variant] += 1
@@ -441,6 +512,31 @@ class LabKernel:
         bands = {"vx": 1, "vxy": 4, "vband": 4, "vcopy": 0}.get(
             self.variant, 7)
         return operator_bound(self.npts, self.p, bands, self.dt)
+
+    def l2_bytes(self) -> int:
+        """Bytes one apply of a redesigned routine moves from L2 into shared
+        memory, from its tile: the all-band routine's halo'd boxes ((TZ +
+        2p)(TY + 2p) rows over X columns per sub-tile); the dense x stage's
+        ring (per block and pass of ZC z rows: the tile's L halo'd rows over
+        X columns and, for each of the block's x blocks of XC columns (vx:
+        two; else one), the B operand's 2 XC rows over X, every part)."""
+        item = torch.empty((), dtype=self.dt).element_size()
+        p, X, NT = self.p, self.X, self.nt * self.b
+        if self.zy:
+            if self.variant not in NO_MMA or self.tile is None:
+                raise ValueError("l2_bytes: vcopy, vband, v16 with a sub-tile")
+            tz, ty = self.tile
+            return (-(-NT // tz) * -(-NT // ty) * (tz + 2 * p) * (ty + 2 * p)
+                    * X * item)
+        if self.flags & (XBAND | XJOBS):
+            raise ValueError("l2_bytes: a variant on the x stage's ring")
+        zend = self.b if self.flags >> 3 & 3 else self.L
+        nxb = 2 if self.flags >> 3 & 3 == 1 else 1
+        parts = 2 if self.xp in (X3TF32, XBF16X3) else 1
+        e = 2 if self.xp in (XBF16X3, XBF16) else item
+        per_pass = ZC * self.L * X * item + nxb * parts * 2 * XC * X * e
+        return (-(-(X // XC) // nxb) * self.nt**2 * -(-zend // ZC)
+                * per_pass)
 
     def design_bound(self) -> tuple[float, str]:
         """(ms, "bytes" or "operations"): the least time an H100 could take

@@ -5,7 +5,7 @@ compile in seconds without PyTorch's headers, one library per ``.cu``, all
 at the same time:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v --split-compile=0 \
+         -Xcompiler -fPIC -Xptxas -v --split-compile=0 -ldl \
          -o build/tpufem_torch/tpufem_torch_<name>_<hash>.so csrc/<name>.cu
 
 The build runs at first use, into ``build/tpufem_torch/`` beside the
@@ -43,12 +43,13 @@ SOURCES = {
     # the K2 kernel lab's x-first half (L2a: v2, v3, v6, v8, v9, v12, vx,
     # vxy)
     "lab_separable": ("lab_separable.cu",
-                      ("common.cuh", "lab_mma.cuh", "lab_separable.cuh")),
+                      ("common.cuh", "hopper.cuh", "lab_mma.cuh",
+                       "lab_separable.cuh")),
     # its z/y-first half (L2b: v13, v14, v15, v16, vcopy, vband), on L1's
     # device functions
     "lab_zyfirst": ("lab_zyfirst.cu",
-                    ("common.cuh", "lab_mma.cuh", "lab_resident.cuh",
-                     "lab_zyfirst.cuh")),
+                    ("common.cuh", "hopper.cuh", "lab_mma.cuh",
+                     "lab_resident.cuh", "lab_zyfirst.cuh")),
     # the toolchain probes (P1, P2)
     "toolchain_probe": ("toolchain_probe.cu",
                         ("lab_mma.cuh", "toolchain_probe.cuh")),
@@ -57,7 +58,7 @@ SOURCES = {
 # the host (the lab libraries' instances are the longest builds)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              "--split-compile=0")
+              "--split-compile=0", "-ldl")
 # ctypes signatures of each library's C entries: name -> (argtypes, restype)
 _I, _P, _LL, _F = (ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_float)
@@ -73,11 +74,13 @@ _ENTRIES = {
         "tpufem_lab_apply": ([_I] * 11 + [_P] * 7, _I),
         "tpufem_lab_smem_bytes": ([_I] * 6, _LL)},
     "lab_separable": {
-        "tpufem_l2_apply": ([_I] * 8 + [_P] * 3 + [_LL, _P, _LL, _P, _P], _I),
-        "tpufem_l2_smem_bytes": ([_I] * 3, _LL)},
+        "tpufem_l2_apply": ([_I] * 8 + [_P] * 3 + [_LL, _P, _LL, _P, _LL, _P,
+                                                   _P], _I),
+        "tpufem_l2_smem_bytes": ([_I] * 4, _LL)},
     "lab_zyfirst": {
         "tpufem_zy_apply": ([_I] * 10 + [_P] * 6, _I),
-        "tpufem_zy_smem_bytes": ([_I] * 6, _LL)},
+        "tpufem_zy_smem_bytes": ([_I] * 7, _LL),
+        "tpufem_zy_ring_takes": ([_I] * 3, _I)},
     "toolchain_probe": {
         "tpufem_probe_matmul": ([_I] * 2 + [_P] * 4, _I),
         "tpufem_probe_chain": ([_I] * 5 + [_F] * 2 + [_P] * 2 + [_LL]
