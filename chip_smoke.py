@@ -13,10 +13,15 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 (f64 <= 1e-12, f32 <= 1e-6, bf16s <= 4e-3 max relative
                 error vs the plain version in f64, on the same inputs):
                 K1/K2 on random banded and Laplace operators, K4 (T = 1, 3,
-                4 terms) and K3 (T = 1, 2, 3) on random non-symmetric
-                banded matrices, each at p = 1, 2, 4, 7, 8; then every
-                kernel at its main-path shapes (K4: the coefficient
-                operator and the shell's terms; K3: 2D Q4 refine 10 and 8)
+                4, 7 terms; at p = 8 also PASS_T = 22, more windows than a
+                block holds: passes over x) and K3 (T = 1, 2, 3) on random
+                non-symmetric banded
+                matrices, each at p = 1, 2, 4, 7, 8, K1 and K4 (the TMA
+                ring, csrc/resident_ring.cuh) with and without the fused
+                mask into a NaN-filled resident layout (every point
+                written, the pad columns zero); then every kernel at its
+                main-path shapes (K4: the coefficient operator and the
+                shell's terms; K3: 2D Q4 refine 10 and 8)
   4 main path   solve_poisson 3D Q4 refine 5 f32 through K2 (2,146,689
                 DoFs), then the 16,974,593-DoF resident Jacobi-CG through
                 K1, twice (bitwise-equal x); the kernel launch counts of
@@ -24,9 +29,9 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 once more with pallas_mode="bf16s", its K1 count apart
   4c main path  of the terms tier: solve_poisson on the 3D Q4 refine 5
                 hyper_shell f32 through K4; the 16,974,593-DoF separable-
-                coefficient operator's resident Jacobi-CG through K4, twice
-                (bitwise-equal x); the 2D Q4 refine 8 resident Jacobi-CG
-                through K3.  K3/K4 counts are read here; then the 2D
+                coefficient operator's resident Jacobi-CG through K4 with
+                the fused mask, twice (bitwise-equal x); the 2D Q4 refine
+                8 resident Jacobi-CG through K3.  K3/K4 counts are read here; then the 2D
                 solve again with the plain f32 apply and through K3 in
                 f64 (its true residual is f32 CG drift, not K3), and the
                 coefficient solve once more in bf16s, its K4 count apart
@@ -65,6 +70,12 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 kernel and plain in turns: K1 at 17M DoFs, K2 at 2.1M, K4
                 on the 17M coefficient operator and the 2.1M shell, K3 at
                 2D Q4 refine 10 (16,785,409 DoFs), against K2 there too;
+                K1, K4 and the shell's K4 in turns with the ring's copy
+                and bands ablations (each held to its plain version
+                first): the split into tile mover, z/y bands and x band;
+                the shell's K4 at the sub-tiles (8, 8), (4, 8) and (4, 16)
+                in turns (its blocks in waves over the card's SMs); the
+                design bound of K1's and K4's padded resident layout;
                 phase 5's L1 and L2 times, and as a note one torch.matmul
                 of each lab's x-stage shape (no single PyTorch call
                 computes K1's or K2's operator, so their library_ms is
@@ -186,6 +197,16 @@ PROBE_N_ITER, PROBE_M = 256, 512
 STORAGE = {"f64": torch.float64, "f32": torch.float32,
            "bf16s": torch.bfloat16}
 N_CHAIN = 30
+# K1's and K4's ms per apply on the tile routines they ran before the TMA
+# ring (3D paths of separable_apply.cuh and terms_apply.cuh, K4 with its mask
+# outside; this script's phase 6 on an NVIDIA H100 80GB HBM3 at 700 W),
+# printed beside this run's times and kept out of the kernels line, which
+# holds only what this run measured
+EARLIER_MS = {"K1": 1.1109, "K1_bf16s": 1.1485, "K4": 1.2770,
+              "K4_bf16s": 1.4755, "K4_shell": 0.1913}
+# K4's term count at p = 8 in phase 3 whose windows no sub-tile holds, so
+# the chooser takes passes over x (in f64, f32 and bf16s)
+PASS_T = 22
 SOLVE_RTOL = 1e-5
 # the shell solve's tolerance: its RHS norm is dominated by the O(1)
 # inhomogeneous Dirichlet rows, while interior rows are O(h^3), so the f32
@@ -228,17 +249,9 @@ def flagship_axes(p, n, dim):
     return [K1u * n] * dim, [M1u / n] * dim
 
 
-def plain_f64(dim, npts, Ks, Ms, u64, dirichlet):
-    """The plain PyTorch version in f64 on the card."""
-    from tpufem_torch.ops.separable import laplace_apply_separable
-
-    dev = u64.device
-    K = [torch.tensor(k, dtype=torch.float64, device=dev) for k in Ks]
-    M = [torch.tensor(m, dtype=torch.float64, device=dev) for m in Ms]
-    A = lambda v: laplace_apply_separable(v, dim, npts, K, M)
-    if not dirichlet:
-        return A(u64)
-    m1 = torch.ones(npts, dtype=torch.float64, device=dev)
+def masked_f64(A, u64, npts, dim):
+    """m·A(m·u) + (1-m)·u with the full-box boundary mask m, in f64."""
+    m1 = torch.ones(npts, dtype=torch.float64, device=u64.device)
     m1[0] = m1[-1] = 0.0
     m = m1
     for _ in range(dim - 1):
@@ -247,10 +260,35 @@ def plain_f64(dim, npts, Ks, Ms, u64, dirichlet):
     return m * A(m * u64) + (1.0 - m) * u64
 
 
+def plain_f64(dim, npts, Ks, Ms, u64, dirichlet):
+    """The plain PyTorch version in f64 on the card."""
+    from tpufem_torch.ops.separable import laplace_apply_separable
+
+    dev = u64.device
+    K = [torch.tensor(k, dtype=torch.float64, device=dev) for k in Ks]
+    M = [torch.tensor(m, dtype=torch.float64, device=dev) for m in Ms]
+    A = lambda v: laplace_apply_separable(v, dim, npts, K, M)
+    return masked_f64(A, u64, npts, dim) if dirichlet else A(u64)
+
+
+def resident_out(k, x):
+    """A resident kernel's output into a NaN-filled layout; raises unless
+    every point is written (finite) and the pad columns are zero."""
+    y = k.raw(x, out=torch.full_like(x, float("nan")))
+    torch.cuda.synchronize()
+    if not torch.isfinite(y).all():
+        raise RuntimeError(f"{type(k).__name__}: an output point is not "
+                           f"written or not finite")
+    if y[..., k.npts:].any():
+        raise RuntimeError(f"{type(k).__name__}: a pad column is not zero")
+    return y
+
+
 def check_kernel(kind, dim, p, npts, mode, dirichlet, Ks, Ms, rng):
-    """Launch one kernel instance on a seeded input; return (max relative
-    error, max abs error) against the plain f64 version on the same
-    (storage-rounded) input.  Raises when out of tolerance."""
+    """Launch one kernel instance on a seeded input (K1: into a NaN-filled
+    resident layout, every point and the zero pad checked); return (tag,
+    max relative error, max abs error) against the plain f64 version on the
+    same (storage-rounded) input.  Raises when out of tolerance."""
     from tpufem_torch.ops.kernel_separable import (
         KernelSeparable,
         ResidentSeparable,
@@ -264,16 +302,17 @@ def check_kernel(kind, dim, p, npts, mode, dirichlet, Ks, Ms, rng):
         x = u.to(STORAGE[mode])
         y = k(x)
         rose = KernelSeparable.launches == before + 1
+        torch.cuda.synchronize()
     else:
         k = ResidentSeparable(npts, p, Ks, Ms,
                               torch.float64 if mode == "f64" else
                               torch.float32, mode=mode if mode == "bf16s"
                               else "f32", dirichlet=dirichlet, device=dev)
         before = ResidentSeparable.launches
-        x = k.pad(u)
-        y = k.unpad(k.raw(x))
+        xp = k.pad(u)
+        y = k.unpad(resident_out(k, xp))
         rose = ResidentSeparable.launches == before + 1
-    torch.cuda.synchronize()
+        x = k.unpad(xp)
     ref = plain_f64(dim, npts, Ks, Ms, x.reshape(-1).to(torch.float64),
                     dirichlet)
     abs_err = float((y.to(torch.float64) - ref).abs().max())
@@ -299,30 +338,47 @@ def plain_terms_f64(terms, x):
                                          dim, npts, T)
 
 
-def check_terms(terms, p, mode, rng):
-    """Launch the K4 (3D) or K3 (2D) wrapper on a seeded input; return
-    (tag, max relative error, max abs error) against the plain f64 terms
-    apply of the same (storage-rounded) input.  Raises when out of
-    tolerance or when the launch counter did not rise."""
+def check_terms(terms, p, mode, rng, dirichlet=False, passes=False):
+    """Launch the K4 (3D, into a NaN-filled resident layout, every point
+    and the zero pad checked; the fused mask with ``dirichlet``) or K3 (2D)
+    wrapper on a seeded input; return (tag, max relative error, max abs
+    error) against the plain f64 terms apply of the same (storage-rounded)
+    input.  Raises when out of tolerance, when the launch counter did not
+    rise, or with ``passes`` where K4's chooser kept every term's window
+    (one pass over x)."""
     from tpufem_torch.ops.kernel_terms import ResidentTerms, ResidentTerms2D
 
     dim, npts = len(terms[0]), terms[0][0].shape[0]
-    cls = ResidentTerms if dim == 3 else ResidentTerms2D
-    k = cls(npts, p, terms,
-            torch.float64 if mode == "f64" else torch.float32,
-            mode="bf16s" if mode == "bf16s" else "f32", device="cuda")
-    x = k.pad(torch.tensor(rng.standard_normal(npts**dim), device="cuda"))
-    before = cls.launches
-    y = k.raw(x)
+    dt = torch.float64 if mode == "f64" else torch.float32
+    kmode = "bf16s" if mode == "bf16s" else "f32"
+    u = torch.tensor(rng.standard_normal(npts**dim), device="cuda")
+    if dim == 3:
+        cls = ResidentTerms
+        k = cls(npts, p, terms, dt, mode=kmode, dirichlet=dirichlet,
+                device="cuda")
+        before = cls.launches
+        xp = k.pad(u)
+        y = resident_out(k, xp)
+    else:
+        cls = ResidentTerms2D
+        k = cls(npts, p, terms, dt, mode=kmode, device="cuda")
+        before = cls.launches
+        xp = k.pad(u)
+        y = k.raw(xp)
+        torch.cuda.synchronize()
     rose = cls.launches == before + 1
-    torch.cuda.synchronize()
-    ref = plain_terms_f64(terms, x)
-    abs_err = float((y.reshape(-1).to(torch.float64) - ref).abs().max())
+    x = k.unpad(xp).to(torch.float64)
+    A = lambda v: plain_terms_f64(terms, v)
+    ref = masked_f64(A, x, npts, dim) if dirichlet else A(x)
+    abs_err = float((k.unpad(y).to(torch.float64) - ref).abs().max())
     rel = abs_err / float(ref.abs().max())
     tag = (f"{'K4' if dim == 3 else 'K3'} T={len(terms)} p={p} npts={npts} "
-           f"{mode} tile={k.tile}")
+           f"{mode} dirichlet={int(dirichlet)} tile={k.tile}"
+           + (f" group={k.group}" if dim == 3 else ""))
     if not rose:
         raise RuntimeError(f"{tag}: launch counter did not rise")
+    if passes and not k.group < len(terms):
+        raise RuntimeError(f"{tag}: one pass over x, where passes were asked")
     if not rel <= TOL[mode]:
         raise RuntimeError(f"{tag}: max rel err {rel:.3e} > {TOL[mode]}")
     return tag, rel, abs_err
@@ -563,22 +619,30 @@ def main() -> int:
                                            dirichlet, *mats, rng)
                 worst[mode] = max(worst.get(mode, 0.0), rel)
                 say("3 kernels", f"{tag} max rel err {rel:.3e}")
-    # K4 (3D) and K3 (2D): T terms of random non-symmetric banded
+    # K4 (3D, with and without the fused mask; at p = 8 also PASS_T terms:
+    # passes over x) and K3 (2D): T terms of random non-symmetric banded
     # matrices, distinct per term and axis
     for p in (1, 2, 4, 7, 8):
         n = max(2, 24 // p)
         npts = n * p + 1
-        for dim, counts in ((3, (1, 3, 4)), (2, (1, 2, 3))):
+        for dim, counts in ((3, (1, 3, 4, 7) + (PASS_T,) * (p == 8)),
+                            (2, (1, 2, 3))):
             for T in counts:
                 terms = [[random_banded(rng, npts, p) for _ in range(dim)]
                          for _ in range(T)]
                 rels = []
                 for mode in ("f64", "f32", "bf16s"):
-                    _, rel, _ = check_terms(terms, p, mode, rng)
-                    worst[mode] = max(worst.get(mode, 0.0), rel)
-                    rels.append(f"{mode} {rel:.3e}")
+                    for dirichlet in (False, True)[:1 + (dim == 3)]:
+                        tag, rel, _ = check_terms(terms, p, mode, rng,
+                                                  dirichlet, T == PASS_T)
+                        worst[mode] = max(worst.get(mode, 0.0), rel)
+                        group = tag.split("group=")[-1]
+                        rels.append(f"{mode}{' masked' * dirichlet}"
+                                    f"{f' group {group}' * (T == PASS_T)} "
+                                    f"{rel:.3e}")
                 say("3 kernels", f"{'K4' if dim == 3 else 'K3'} T={T} p={p} "
-                    f"npts={npts}: max rel err " + ", ".join(rels))
+                    f"npts={npts} tile={tag.split('tile=')[1]}: max rel err "
+                    + ", ".join(rels))
     # the main path's shapes: K2 at 3D Q4 refine 5, K1 at refine 6, K4 on
     # the refine-6 coefficient operator and the refine-5 shell, K3 at 2D
     # Q4 refine 10 and refine 8
@@ -616,12 +680,13 @@ def main() -> int:
     for name, terms in (("K4", coef64), ("K4", shell_terms), ("K3", lap2d),
                         ("K3", lap2d_r8)):
         for mode in ("f32", "bf16s"):
-            tag, rel, aerr = check_terms(terms, 4, mode, rng)
-            worst[mode] = max(worst.get(mode, 0.0), rel)
-            if mode == "f32":
-                abs_err[name] = max(abs_err.get(name, 0.0), aerr)
-            say("3 kernels", f"{tag} max rel err {rel:.3e} "
-                f"max abs err {aerr:.3e}")
+            for dirichlet in (True, False) if name == "K4" else (False,):
+                tag, rel, aerr = check_terms(terms, 4, mode, rng, dirichlet)
+                worst[mode] = max(worst.get(mode, 0.0), rel)
+                if mode == "f32":
+                    abs_err[name] = max(abs_err.get(name, 0.0), aerr)
+                say("3 kernels", f"{tag} max rel err {rel:.3e} "
+                    f"max abs err {aerr:.3e}")
     say("3 kernels", "all within tolerance; worst max rel err "
         + ", ".join(f"{m} {worst[m]:.3e} (tol {TOL[m]})" for m in TOL))
 
@@ -740,7 +805,8 @@ def main() -> int:
     say("4c main path", f"refine-6 coefficient_axes operator, {mfc.n_dofs} "
         f"DoFs: host setup {t1 - t0:.1f} s (mesh, DoFs, metric with points, "
         f"coef_q, terms, K4 tables), diagonal {time.perf_counter() - t1:.1f}"
-        f" s; K4 tile {mfc.resident.tile}")
+        f" s; K4 tile {mfc.resident.tile} group {mfc.resident.group} fused "
+        f"mask {mfc.resident.dirichlet}")
     maskc = mfc.interior_mask.cpu().numpy().astype(np.float64)
     bc = torch.tensor(maskc * np.random.default_rng(17).standard_normal(
         mfc.n_dofs), dtype=torch.float32, device=dev)
@@ -1022,7 +1088,7 @@ def main() -> int:
         mf.n_dofs), dtype=torch.float32, device=dev))
     ms, plain_ms = {}, {}
     ms["K1"], plain_ms["K1"] = turns(rk1.raw, rk1.plain, x17)
-    ms["K1_bf16s"] = chain_ms(rk16.raw, x17.to(torch.bfloat16))
+    ms["K1_bf16s"] = chain_ms(rk16.raw, rk16.pad(rk1.unpad(x17)))
     for tier, t in (("resident-f32+cuda", ms["K1"]),
                     ("resident-bf16s+cuda", ms["K1_bf16s"]),
                     ("plain-torch-f32", plain_ms["K1"])):
@@ -1057,7 +1123,8 @@ def main() -> int:
     xc = rkc.pad(torch.tensor(np.random.default_rng(13).standard_normal(
         mfc.n_dofs), dtype=torch.float32, device=dev))
     ms["K4"], plain_ms["K4"] = turns(rkc.raw, rkc.plain, xc)
-    ms["K4_bf16s"] = chain_ms(mf16.resident.raw, xc.to(torch.bfloat16))
+    ms["K4_bf16s"] = chain_ms(mf16.resident.raw,
+                               mf16.resident.pad(rkc.unpad(xc)))
     for tier, t in (("resident-terms-f32+cuda (K4)", ms["K4"]),
                     ("resident-terms-bf16s+cuda (K4)", ms["K4_bf16s"]),
                     ("plain-torch-f32", plain_ms["K4"])):
@@ -1069,6 +1136,80 @@ def main() -> int:
     apply_line("3d_shell_curved_apply", 129**3, ms["K4_shell"],
                "resident-terms-f32+cuda (K4)",
                plain_ms_per_apply=plain_ms["K4_shell"])
+    # the ring's split (resident_ring.cuh): K1, K4 and the shell's K4 beside
+    # their copy and bands ablations at the same sub-tile and shared memory,
+    # each held to its plain version first (copy exactly), timed in turns:
+    # the tile mover (copy), the z/y bands (bands - copy) and the x band
+    # (apply - bands)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, rk, x, ablation in (
+            ("K1", rk1, x17, lambda mode: ResidentSeparable(
+                mf.npts, 4, *flagship_axes(4, 64, 3), torch.float32,
+                mode=mode, device=dev, tile=rk1.tile)),
+            ("K4", rkc, xc, lambda mode: ResidentTerms(
+                mfc.npts, 4, coef64, torch.float32, mode=mode, device=dev,
+                tile=rkc.tile)),
+            ("K4 shell", ks, xs, lambda mode: ResidentTerms(
+                129, 4, shell_terms, torch.float32, mode=mode, device=dev,
+                tile=ks.tile))):
+        abl = {mode: ablation(mode) for mode in ("copy", "bands")}
+        for mode, k in abl.items():
+            y, yp = k.raw(x), k.plain(x)
+            off = float((y - yp).abs().max() / yp.abs().max())
+            if not (off <= (0.0 if mode == "copy" else 1e-5)
+                    and torch.isfinite(y).all()):
+                raise RuntimeError(f"{name} {mode} ablation is off its plain "
+                                   f"version by {off:.3e}")
+        t = [chain_ms(fn, x) for fn in (
+            abl["copy"].raw, abl["bands"].raw, rk.raw, rk.raw,
+            abl["bands"].raw, abl["copy"].raw)]
+        c, b, a = (t[0] + t[5]) / 2, (t[1] + t[4]) / 2, (t[2] + t[3]) / 2
+        tz, ty = rk.tile
+        say("6 throughput", f"{name} at {rk.npts**3} DoFs, sub-tile "
+            f"{rk.tile} ({-(-rk.npts // tz) * -(-rk.npts // ty)} blocks on "
+            f"{n_sm} SMs), in turns (copy, bands, apply, apply, bands, "
+            f"copy): " + ", ".join(f"{v:.4f}" for v in t) + f" ms; split: "
+            f"tile mover {c:.4f}, z/y bands {b - c:.4f}, x band {a - b:.4f} "
+            f"ms")
+    # the shell's K4 runs 289 blocks at (8, 8): at two an SM, a second wave
+    # of 289 - 2 x SMs.  Held to its plain version and timed in turns at
+    # (8, 8), (4, 8) and (4, 16); then T = 3 random banded terms at npts =
+    # 121 (256 blocks at (8, 8), one wave) and 129, in turns
+    tiles = ((8, 8), (4, 8), (4, 16))
+    kt = {tile: ResidentTerms(129, 4, shell_terms, torch.float32, device=dev,
+                              tile=tile) for tile in tiles}
+    yp = ks.plain(xs)
+    for tile, k in kt.items():
+        off = float((k.raw(xs) - yp).abs().max() / yp.abs().max())
+        if not off <= TOL["f32"]:
+            raise RuntimeError(f"K4 shell at sub-tile {tile} is off its plain "
+                               f"version by {off:.3e}")
+    t = [chain_ms(kt[tile].raw, xs) for tile in tiles + tiles[::-1]]
+    say("6 throughput", "K4 shell by sub-tile, in turns, ms: " + ", ".join(
+        f"{tile} ({-(-129 // tile[0]) * -(-129 // tile[1])} blocks, "
+        f"{kt[tile].smem} B a block) {t[i]:.4f} {t[-1 - i]:.4f}"
+        for i, tile in enumerate(tiles)))
+    rng6 = np.random.default_rng(16)
+    kw = {}
+    for npts in (121, 129):
+        kw[npts] = ResidentTerms(npts, 4, [[random_banded(rng6, npts, 4)
+                                            for _ in range(3)]
+                                           for _ in range(3)],
+                                 torch.float32, device=dev)
+        kw[npts].x = kw[npts].pad(torch.tensor(
+            rng6.standard_normal(npts**3), dtype=torch.float32, device=dev))
+        y, yp = kw[npts].raw(kw[npts].x), kw[npts].plain(kw[npts].x)
+        off = float((y - yp).abs().max() / yp.abs().max())
+        if not off <= TOL["f32"]:
+            raise RuntimeError(f"K4 T=3 at npts={npts} is off its plain "
+                               f"version by {off:.3e}")
+    t = [chain_ms(kw[n].raw, kw[n].x) for n in (121, 129, 129, 121)]
+    say("6 throughput", "K4 T=3 random banded at sub-tile "
+        f"{kw[121].tile}, in turns, ms: npts 121 ({(121 // -8)**2} blocks, "
+        f"X {kw[121].X}) {t[0]:.4f} {t[3]:.4f}, npts 129 ({(129 // -8)**2} "
+        f"blocks, X {kw[129].X}) {t[1]:.4f} {t[2]:.4f}; 121/129 "
+        f"{(t[0] + t[3]) / (t[1] + t[2]):.3f}")
+    del kt, kw
     k3 = ResidentTerms2D(4097, 4, lap2d, torch.float32, device=dev)
     k3s = ResidentTerms2D(4097, 4, lap2d, torch.float32, mode="bf16s",
                           device=dev)
@@ -1212,6 +1353,17 @@ def main() -> int:
     bound.update(K2=band_bound(129**3, 7), K1=band_bound(mf.n_dofs, 7),
                  K4=band_bound(mfc.n_dofs, 9), K4_shell=band_bound(129**3, 9),
                  K3=band_bound(4097**2, 4))
+    # the design bound of K1's and K4's resident layout: each point of
+    # (npts, npts, X) read and written once
+    design_bound = {key: roofline_ms(2 * 4 * r.npts**2 * r.X, {})[0]
+                    for key, r in (("K1", rk1), ("K4", rkc))}
+    say("6 throughput", "design bound ms of the padded resident layout "
+        f"{(rk1.npts, rk1.npts, rk1.X)} f32: " + ", ".join(
+            f"{k} {v:.5f}" for k, v in design_bound.items()))
+    say("6 throughput", "K1 and K4 on the TMA ring, ms per apply (earlier, "
+        "on the tile routines, an H100 80GB HBM3 at 700 W): " + ", ".join(
+            f"{k} {ms[k]:.4f} (earlier {t:.4f}, {t / ms[k]:.2f}x)"
+            for k, t in EARLIER_MS.items()))
     say("6 throughput", "bound ms on an H100: " + ", ".join(
         f"{name} {bound[name][0]:.5f} ({bound[name][1]})"
         for name in ("K2", "K1", "K4", "K4_shell", "K3")))
@@ -1369,11 +1521,11 @@ def main() -> int:
         ("K2", "K2 separable_apply (flat vmult)",
          "tpufem_torch/csrc/separable_apply.cuh",
          "tpufem/ops/pallas_separable.py:116", abs_err["K2"], None),
-        ("K1", "K1 separable_apply (resident, fused mask)",
-         "tpufem_torch/csrc/separable_apply.cuh",
+        ("K1", "K1 resident_ring (Laplace plan, fused mask)",
+         "tpufem_torch/csrc/resident_ring.cuh",
          "tpufem/ops/pallas_separable.py:217", abs_err["K1"], None),
-        ("K4", "K4 terms_apply (3D resident terms)",
-         "tpufem_torch/csrc/terms_apply.cuh",
+        ("K4", "K4 resident_ring (term plan, fused mask)",
+         "tpufem_torch/csrc/resident_ring.cuh",
          "tpufem/ops/pallas_separable.py:729", abs_err["K4"], None),
         ("K3", "K3 terms_apply (2D resident terms)",
          "tpufem_torch/csrc/terms_apply.cuh",

@@ -37,8 +37,8 @@ static int run(int mode, int two, int nu, tpufem::LabGeo g, const void* u,
   using C = typename tpufem::LabMma<XP>::C;
   const long long bytes =
       tpufem::zy_smem_bytes(mode, P, XP, nu, g.tz, g.ty, g.X);
-  const int NT = g.sz - 2 * P, xc = tpufem::zy_ring_xc(sizeof(C));
-  const tpufem::ZyPieces pc = tpufem::zy_pieces(g.tz, g.ty);
+  const int NT = g.sz - 2 * P, xc = tpufem::ring_xc(sizeof(C));
+  const tpufem::RingPieces pc = tpufem::ring_pieces(g.tz, g.ty);
   tpufem::HopMap in_map, out_map;  // the launcher's two maps
   const long long in_dim[3] = {g.X, g.sy, g.sz}, out_dim[3] = {g.X, NT, NT};
   const int in_box[3] = {xc, g.ty + 2 * P, g.tz + 2 * P};

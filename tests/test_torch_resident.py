@@ -1,6 +1,8 @@
 """Port parity: the K1 wrapper (ResidentSeparable) and resident_jacobi_cg
 of tpufem_torch against tpufem (f64, CPU; Pallas in interpret mode)."""
 
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -62,11 +64,12 @@ def test_resident_bf16_storage_mode():
     u = torch.as_tensor(np.random.default_rng(2).standard_normal(npts**3))
     gp = tk.pad(u)
     y = tk.raw(gp)
-    assert y.dtype == torch.bfloat16 and y.shape == (npts,) * 3
+    assert y.dtype == torch.bfloat16 and y.shape == (npts, npts, 32)
     ref = tks.ResidentSeparable(npts, p, Ks, Ms, torch.float64,
                                 dirichlet=True, device="cpu")
-    y_ref = ref.raw(gp.to(torch.float64))
-    err = (y.to(torch.float64) - y_ref).abs().max() / y_ref.abs().max()
+    y_ref = ref(tk.unpad(gp).to(torch.float64))
+    err = (tk.unpad(y).to(torch.float64) - y_ref).abs().max() \
+        / y_ref.abs().max()
     assert err <= 4e-3
 
 
@@ -138,3 +141,116 @@ def test_resident_2d_not_ported():
     mf = MatrixFree.build(mesh, dofs, FemConfig(2, 2, scatter="separable",
                                                 use_pallas=True), "cpu")
     assert isinstance(mf.resident, ResidentTerms2D) and mf.kernel is not None
+
+
+# ---------------------------------------------------------------------
+# the ring's resident layout and the masked tables (K1)
+# ---------------------------------------------------------------------
+def test_resident_layout_round_trip_and_zero_pad():
+    """The resident layout (npts, npts, X), X the smallest multiple of the
+    ring's 64-byte chunk that is >= npts (272, 288, 264 at npts = 257 in
+    f32, bf16, f64): unpad(pad(u)) == u in each storage, the pad zero, and
+    the pad stays zero in every vector a CPU resident CG hands its apply."""
+    assert [tks.resident_x(257, dt) for dt in (
+        torch.float32, torch.bfloat16, torch.float64)] == [272, 288, 264]
+    p, n = 2, 4
+    npts = n * p + 1
+    Ks, Ms = _operators(p, n)
+    u = torch.as_tensor(np.random.default_rng(8).standard_normal(npts**3))
+    for dtype, mode, X in ((torch.float32, "f32", 16),
+                           (torch.float32, "bf16s", 32),
+                           (torch.float64, "f32", 16)):
+        tk = tks.ResidentSeparable(npts, p, Ks, Ms, dtype, mode=mode,
+                                   device="cpu")
+        gp = tk.pad(u)
+        assert gp.shape == (npts, npts, X) and tk.X == X
+        assert not gp[..., npts:].any()
+        assert torch.equal(tk.unpad(gp), u.to(tk.dt))
+        assert torch.equal(tk.unpad(tk.pad_any(u)), u)
+    mesh = Mesh.hyper_cube(3, 3)
+    dofs = DoFHandler(mesh, 2)
+    tmf = MatrixFree.build(mesh, dofs, FemConfig(3, 2, scatter="separable",
+                                                 use_pallas=True), "cpu")
+    rk = tmf.resident
+    seen = []
+
+    def raw(gp, _raw=rk.raw):
+        seen.append(bool(gp[..., rk.npts:].any()))
+        y = _raw(gp)
+        seen.append(bool(y[..., rk.npts:].any()))
+        return y
+
+    rk.raw = raw
+    top = LaplaceOperator(tmf)
+    b = tmf.interior_mask * torch.as_tensor(
+        np.random.default_rng(9).standard_normal(dofs.n_dofs))
+    r = resident_jacobi_cg(top, b, diag=top.diagonal(), rtol=1e-8,
+                           maxiter=400)
+    assert r.converged and len(seen) > 10 and not any(seen)
+    assert r.x.shape == (dofs.n_dofs,)
+
+
+class MaskedTables:
+    """The operator the ring kernels run with the fused mask, in plain
+    PyTorch on the CPU: the sum of products of the masked 1D matrices
+    D X D (kernel_separable.masked), plus (1 - m) x, on the wrapper's
+    resident layout."""
+
+    def __init__(self, rk, terms):
+        self.rk, self.dirichlet = rk, True
+        self.compute_dt, self.dt = rk.compute_dt, rk.dt
+        self.npts = rk.npts
+        self.mterms = [[torch.as_tensor(tks.masked(np.asarray(X)),
+                                        dtype=rk.compute_dt) for X in t]
+                       for t in terms]
+        self.m = tks.separable_interior_mask(rk.npts, rk.compute_dt, "cpu")
+
+    def pad_any(self, u):
+        return self.rk.pad_any(u)
+
+    def unpad(self, gp):
+        return self.rk.unpad(gp)
+
+    def raw(self, gp):
+        from tpufem_torch.ops.separable import laplace_apply_separable_terms
+
+        x = self.unpad(gp).to(self.compute_dt)
+        y = laplace_apply_separable_terms(x, 3, self.npts, self.mterms) \
+            + (1.0 - self.m) * x
+        return self.rk.pad_any(y.to(self.dt))
+
+
+def laplace_terms(Ks, Ms):
+    """K1's operator as three terms, x first: Kz My Mx + Mz Ky Mx +
+    Mz My Kx."""
+    return [[Ms[0], Ms[1], Ks[2]], [Ms[0], Ks[1], Ms[2]],
+            [Ks[0], Ms[1], Ms[2]]]
+
+
+def test_masked_tables_match_tpufem_mask_algebra():
+    """The masked-table operator the K1 kernel runs with the fused mask
+    equals tpufem's m·A(m·x) + (1-m)·x in f64 to 1e-10, and a resident CG
+    through it takes tpufem's iterations to the same x."""
+    mesh = Mesh.hyper_cube(3, 3)
+    dofs = DoFHandler(mesh, 2)
+    cfg = FemConfig(3, 2, scatter="separable", use_pallas=True)
+    jmf = JMatrixFree.build(mesh, dofs, cfg)
+    tmf = MatrixFree.build(mesh, dofs, cfg, "cpu")
+    assert tmf.resident.dirichlet
+    jop, top = JLaplace(jmf), LaplaceOperator(tmf)
+    mt = MaskedTables(tmf.resident, laplace_terms(
+        [K.numpy() for K in tmf.Ks], [M.numpy() for M in tmf.Ms]))
+    x = np.random.default_rng(10).standard_normal(dofs.n_dofs)
+    y_j = np.asarray(jop.vmult(jnp.asarray(x)))
+    y_t = mt.unpad(mt.raw(mt.pad_any(torch.as_tensor(x)))).numpy()
+    assert np.linalg.norm(y_t - y_j) <= 1e-10 * np.linalg.norm(y_j)
+    mask = np.asarray(jmf.interior_mask)
+    b = mask * np.random.default_rng(11).standard_normal(dofs.n_dofs)
+    rj = j_resident_cg(jop, jnp.asarray(b), diag=jop.diagonal(), rtol=1e-8,
+                       maxiter=400)
+    rt = resident_jacobi_cg(SimpleNamespace(mf=tmf, resident=mt),
+                            torch.as_tensor(b), diag=top.diagonal(),
+                            rtol=1e-8, maxiter=400)
+    assert rt.converged and rt.iterations == int(rj.iterations)
+    xj = np.asarray(rj.x)
+    assert np.linalg.norm(rt.x.numpy() - xj) <= 1e-10 * np.linalg.norm(xj)

@@ -156,7 +156,7 @@ def test_resident_terms_plain_matches_tpufem(dim, p, n, tile):
     # two applies chained in the resident layout
     y2_j = np.asarray(jk.unpad(jk.raw(jk.raw(jk.pad(jnp.asarray(u))))))
     gp = tk.pad(torch.as_tensor(u))
-    assert gp.shape == (npts,) * dim
+    assert gp.shape == ((npts, npts, 24) if dim == 3 else (npts, npts))
     y2_t = tk.unpad(tk.raw(tk.raw(gp))).numpy()
     assert np.linalg.norm(y2_t - y2_j) / np.linalg.norm(y2_j) < 1e-12
 
@@ -176,10 +176,12 @@ def test_resident_terms_bf16s_mode(dim):
     assert tk.dt == torch.bfloat16 and tk.compute_dt == torch.float32
     gp = tk.pad(torch.as_tensor(u))
     y = tk.raw(gp)
-    assert y.dtype == torch.bfloat16 and y.shape == (npts,) * dim
-    y = y.reshape(-1).to(torch.float64).numpy()
+    assert y.dtype == torch.bfloat16 and y.shape == (
+        (npts, npts, 32) if dim == 3 else (npts, npts))
+    y = tk.unpad(y).to(torch.float64).numpy()
     ref = cls_t(npts, p, terms, torch.float64, device="cpu")
-    y_ref = ref.raw(gp.to(torch.float64)).reshape(-1).numpy()
+    y_ref = ref.unpad(ref.raw(ref.pad(tk.unpad(gp).to(torch.float64))))
+    y_ref = y_ref.numpy()
     assert np.abs(y - y_ref).max() <= 4e-3 * np.abs(y_ref).max()
     jk = cls_j(npts, p, terms, "float32", mode="bf16s", interpret=True)
     y_j = np.asarray(jk(jnp.asarray(u, jnp.float32)), np.float64)
@@ -360,3 +362,77 @@ def test_resident_cg_shell_bf16s():
     assert abs(r["bf16s"].residual - true_res) <= 1e-3 * true_res
     rel = float((x16 - r["f32"].x).norm() / r["f32"].x.norm())
     assert rel <= 1e-2, rel
+
+
+# ---------------------------------------------------------------------
+# K4 on the ring: its resident layout, the fused mask, the masked tables
+# ---------------------------------------------------------------------
+def test_resident_terms_layout_round_trip_and_fused_mask():
+    """K4's resident layout is the ring's (npts, npts, X): unpad(pad(u))
+    == u, the pad zero and zero through a CPU resident CG.  On the shell
+    and the separable coefficient (whose boundary is the full box) the mask
+    is fused; ``raw`` is then m·A(m·x) + (1-m)·x and ``__call__`` stays the
+    unmasked A (the operator's vmult_raw)."""
+    from tpufem_torch.ops.kernel_separable import separable_interior_mask
+
+    for case in ("shell_3d", "coef_axes_3d_r3"):
+        _, tmf = _build_pair(case)
+        rk = tmf.resident
+        assert isinstance(rk, tkt.ResidentTerms) and rk.dirichlet
+        n = rk.npts
+        u = torch.as_tensor(np.random.default_rng(12).standard_normal(n**3))
+        gp = rk.pad(u)
+        assert gp.shape == (n, n, rk.X) and rk.X % 8 == 0 and rk.X - n < 8
+        assert not gp[..., n:].any() and torch.equal(rk.unpad(gp), u)
+        m = separable_interior_mask(n, torch.float64, "cpu")
+        A = lambda v: tsep.laplace_apply_separable_terms(v, 3, n, tmf.terms)
+        assert torch.allclose(rk.unpad(rk.raw(gp)),
+                              m * A(m * u) + (1.0 - m) * u, rtol=0,
+                              atol=1e-12 * float(A(u).abs().max()))
+        assert torch.equal(rk(u), A(u))
+        seen = []
+
+        def raw(g, _raw=rk.raw, n=n):
+            y = _raw(g)
+            seen.append(bool(g[..., n:].any() or y[..., n:].any()))
+            return y
+
+        rk.raw = raw
+        top = LaplaceOperator(tmf)
+        b = tmf.interior_mask * torch.as_tensor(
+            np.random.default_rng(13).standard_normal(tmf.n_dofs))
+        r = resident_jacobi_cg(top, b, diag=top.diagonal(), rtol=1e-8,
+                               maxiter=400)
+        assert r.converged and len(seen) > 10 and not any(seen)
+    _, tmf2 = _build_pair("shell_2d")
+    assert not tmf2.resident.dirichlet  # K3: the mask stays outside
+
+
+@pytest.mark.parametrize("case", ["shell_3d", "coef_axes_3d_r3"])
+def test_masked_terms_tables_match_tpufem_mask_algebra(case):
+    """The masked-table operator K4 runs with the fused mask equals
+    tpufem's m·A(m·x) + (1-m)·x in f64 to 1e-10, and a resident CG through
+    it takes tpufem's iterations to the same x."""
+    from types import SimpleNamespace
+
+    from test_torch_resident import MaskedTables
+
+    jmf, tmf = _build_pair(case)
+    jop, top = JLaplace(jmf), LaplaceOperator(tmf)
+    mt = MaskedTables(tmf.resident, [[X.numpy() for X in t]
+                                     for t in tmf.terms])
+    x = np.random.default_rng(14).standard_normal(tmf.n_dofs)
+    y_j = np.asarray(jop.vmult(jnp.asarray(x)))
+    y_t = mt.unpad(mt.raw(mt.pad_any(torch.as_tensor(x)))).numpy()
+    assert np.linalg.norm(y_t - y_j) <= 1e-10 * np.linalg.norm(y_j)
+    mask = np.asarray(jmf.interior_mask)
+    b = mask * np.random.default_rng(15).standard_normal(tmf.n_dofs)
+    rj = j_resident_cg(jop, jnp.asarray(b), diag=jop.diagonal(), rtol=1e-8,
+                       maxiter=400)
+    rt = resident_jacobi_cg(SimpleNamespace(mf=tmf, resident=mt),
+                            torch.as_tensor(b), diag=top.diagonal(),
+                            rtol=1e-8, maxiter=400)
+    assert rt.converged and rt.iterations == int(rj.iterations)
+    xj = np.asarray(rj.x)
+    assert np.linalg.norm(rt.x.numpy() - xj) <= 1e-10 * max(
+        np.linalg.norm(xj), 1.0)

@@ -1,6 +1,11 @@
 // Device pieces shared by the port's band-table kernels
-// (separable_apply.cuh: K1/K2; terms_apply.cuh: K3/K4).
+// (separable_apply.cuh: K2; terms_apply.cuh: K3; resident_ring.cuh: K1, K4;
+// the kernel labs).
 #pragma once
+
+#ifdef __CUDACC__
+#include <cuda_bf16.h>
+#endif
 
 namespace tpufem {
 

@@ -2,10 +2,12 @@
 // cp.async helpers of lab_mma.cuh: mbarriers, the Tensor Memory Accelerator
 // (TMA) and the warpgroup matrix multiply (wgmma).
 //
-// Used by lab_zyfirst.cuh (the all-band schedule's tile mover: vcopy, vband,
-// v16 of scripts/kernel_lab.py, _kernel_vcopy :500, _kernel_vband :525,
-// _kernel_v16 :1347) and lab_separable.cuh (the dense x stage of _kernel_vx
-// :164 and the x-first kernels around it).  What each piece is for:
+// Used by band_ring.cuh (the all-band ring under K1 and K4 in
+// resident_ring.cuh and under the lab's vcopy, vband, v16 of
+// scripts/kernel_lab.py, _kernel_vcopy :500, _kernel_vband :525, _kernel_v16
+// :1347, in lab_zyfirst.cuh) and lab_separable.cuh (the dense x stage of
+// _kernel_vx :164 and the x-first kernels around it).  What each piece is
+// for:
 //   mbarrier  a barrier in shared memory that counts thread arrivals and the
 //             bytes of asynchronous copies; a ring of `full`/`empty` pairs
 //             takes the place of the TPU kernels' DMA semaphores, and of a
@@ -57,10 +59,11 @@ struct HopMap {
 #endif
 
 // Encode the map of a dense (dim[2], dim[1], dim[0]) tensor of `elem`-byte
-// floating-point elements (4 or 8) at `base` (16-byte aligned, dim[0] * elem
-// a multiple of 16), copied in boxes of box[2] x box[1] x box[0] elements
-// (each at most 256, box[0] * elem a multiple of 16).  Returns 0, or a
-// non-zero code when libcuda's encoder is missing or refuses.
+// floating-point elements (8: f64, 4: f32, 2: bf16) at `base` (16-byte
+// aligned, dim[0] * elem a multiple of 16), copied in boxes of box[2] x
+// box[1] x box[0] elements (each at most 256, box[0] * elem a multiple of
+// 16).  Returns 0, or a non-zero code when libcuda's encoder is missing or
+// refuses.
 inline int hop_map_3d(HopMap* m, void* base, int elem, const long long* dim,
                       const int* box) {
 #ifdef __CUDACC__
@@ -83,8 +86,9 @@ inline int hop_map_3d(HopMap* m, void* base, int elem, const long long* dim,
                               (cuuint32_t)box[2]};
   const cuuint32_t estride[3] = {1, 1, 1};
   return (int)encode(m,
-                     elem == 8 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT64
-                               : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                     elem == 8   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT64
+                     : elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                      3, base, gdim, gstride, gbox, estride,
                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -224,6 +228,13 @@ template <int N>
 __device__ __forceinline__ void hop_store_wait() {
 #ifdef __CUDA_ARCH__
   asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+#endif
+}
+// Order this thread's earlier writes to device memory before the
+// asynchronous proxy's later accesses (a TMA store to the same addresses).
+__device__ __forceinline__ void hop_fence_async_global() {
+#ifdef __CUDA_ARCH__
+  asm volatile("fence.proxy.async.global;" ::: "memory");
 #endif
 }
 // Make this thread's shared-memory writes visible to the asynchronous proxy

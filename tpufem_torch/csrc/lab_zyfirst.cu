@@ -33,8 +33,8 @@ cudaError_t launch(int two, int nu, const tpufem::LabGeo& g, const void* u,
 template <int P, typename C>
 cudaError_t launch_ring(int mode, const tpufem::LabGeo& g, const void* u,
                         void* y, const void* tables, cudaStream_t stream) {
-  const int xc = tpufem::zy_ring_xc(sizeof(C)), NT = g.sz - 2 * P;
-  const tpufem::ZyPieces pc = tpufem::zy_pieces(g.tz, g.ty);
+  const int xc = tpufem::ring_xc(sizeof(C)), NT = g.sz - 2 * P;
+  const tpufem::RingPieces pc = tpufem::ring_pieces(g.tz, g.ty);
   tpufem::HopMap in_map, out_map;
   const long long in_dim[3] = {g.X, g.sy, g.sz}, out_dim[3] = {g.X, NT, NT};
   const int in_box[3] = {xc, g.ty + 2 * P, g.tz + 2 * P};
@@ -48,7 +48,7 @@ cudaError_t launch_ring(int mode, const tpufem::LabGeo& g, const void* u,
   static std::atomic<int> granted[tpufem::kLabMaxDevices];
   cudaError_t e = tpufem::lab_opt_in(kern, smem, granted);
   if (e != cudaSuccess) return e;
-  kern<<<dim3(g.nty, g.ntz), tpufem::kZyRingThreads, smem, stream>>>(
+  kern<<<dim3(g.nty, g.ntz), tpufem::kRingThreads, smem, stream>>>(
       in_map, out_map, static_cast<const C*>(tables), g, mode);
   return cudaGetLastError();
 }

@@ -70,7 +70,7 @@
 //          piece of the sub-tile's rows and stores its piece of every chunk
 //          as one box of the output layout, clipped at a ragged edge.  No
 //          thread computes an address of device memory or tests a bound.
-//   ring   kZyStages u slots, a `full` mbarrier each (armed with the box's
+//   ring   kRingStages u slots, a `full` mbarrier each (armed with the box's
 //          bytes) and an `empty` one (a warp arrives once it has read the
 //          slot); two output slots a warp, reused once the store of two
 //          chunks ago has been read (bulk wait_group).  Copy mode has no
@@ -87,7 +87,7 @@
 // 69,696 * 2X * X = 20.6 GFLOP a pass at the flagship: 0.125 ms in 3xTF32.
 #pragma once
 
-#include "hopper.cuh"
+#include "band_ring.cuh"
 #include "lab_resident.cuh"
 
 namespace tpufem {
@@ -142,44 +142,19 @@ zy_kernel(const typename LabMma<XP>::C* __restrict__ u,
 }
 
 // ---- the all-band schedule: vcopy, vband, v16 ------------------------------
+// on the ring of band_ring.cuh, which K1 and K4 (resident_ring.cuh) share
 
-constexpr int kZyWarps = 8;  // consumer warps of a block; one more produces
-constexpr int kZyRingThreads = 32 * (kZyWarps + 1);
-constexpr int kZyStages = 3;  // u slots of the ring
-constexpr int kZyWin = 48;    // columns of the q1/q23 window (>= 2 XC + P)
-
-// x columns per chunk: 64 bytes of a row (the bytes of the first version's
-// two 32-column slots now make three u slots and two output slots)
-__host__ __device__ constexpr int zy_ring_xc(int elem) { return 64 / elem; }
-
-// How the consumer warps share a (tz, ty) sub-tile: nwz x nwy pieces of
-// (bz, by) rows, piece w at (w / nwy, w % nwy).
-struct ZyPieces {
-  int nwz, nwy, bz, by;
-};
-__host__ __device__ inline ZyPieces zy_pieces(int tz, int ty) {
-  ZyPieces q;
-  q.nwz = tz < kZyWarps ? tz : kZyWarps;
-  q.nwy = kZyWarps / q.nwz;
-  q.bz = tz / q.nwz;
-  q.by = ty / q.nwy;
-  return q;
-}
-// The sub-tiles the routine takes: the pieces tile it, each piece's box of
-// a chunk is a multiple of 128 bytes, the halo'd box fits a TMA box and the
-// window holds two chunks (of at most 16 columns) and P columns behind them.
+constexpr int kZyWin = 48;  // columns of the q1/q23 window (>= 2 XC + P)
+// The sub-tiles the routine takes: the ring's pieces, and a window that holds
+// two chunks (of at most 16 columns) and P columns behind them.
 __host__ __device__ inline bool zy_ring_takes(int p, int tz, int ty) {
-  if (tz < 1 || ty < 1) return false;
-  const ZyPieces q = zy_pieces(tz, ty);
-  return kZyWarps % q.nwz == 0 && q.nwz * q.bz == tz && q.nwy * q.by == ty &&
-         q.bz * q.by % 2 == 0 && tz + 2 * p <= 256 && ty + 2 * p <= 256 &&
-         2 * 16 + p <= kZyWin;
+  return ring_pieces_take(p, tz, ty) && 2 * 16 + p <= kZyWin;
 }
 
 // Byte offsets of a block's shared-memory regions, each 128-byte aligned:
 //   bar  the ring's mbarriers, full then empty
 //   tab  z/y table rows of the sub-tile [Ky, My (TY rows), Kz, Mz (TZ rows)]
-//   u    kZyStages slots of the halo'd u chunk (TZ+2P, TY+2P, XC)
+//   u    kRingStages slots of the halo'd u chunk (TZ+2P, TY+2P, XC)
 //   st   s and t (2, TZ, TY+2P, XC)
 //   q    the windows of q1 and q23 (2, M, kZyWin)
 //   o    two output slots (M, XC), piece by piece
@@ -190,13 +165,13 @@ struct ZyRingSmem {
 __host__ __device__ inline ZyRingSmem zy_ring_smem(int p, int elem, int tz,
                                                    int ty) {
   const long long c = elem, nw = 2 * p + 2, ly = ty + 2 * p, lz = tz + 2 * p;
-  const long long xc = zy_ring_xc(elem), M = (long long)tz * ty;
+  const long long xc = ring_xc(elem), M = (long long)tz * ty;
   ZyRingSmem s;
   s.bar = 0;
-  s.tab = lab_align(2 * kZyStages * 8);
+  s.tab = lab_align(2 * kRingStages * 8);
   s.u = s.tab + lab_align(2 * (tz + ty) * nw * c);
   s.u_bytes = lab_align(lz * ly * xc * c);
-  s.st = s.u + kZyStages * s.u_bytes;
+  s.st = s.u + kRingStages * s.u_bytes;
   s.q = s.st + lab_align(2 * tz * ly * xc * c);
   s.o = s.q + lab_align(2 * M * kZyWin * c);
   s.o_bytes = lab_align(M * xc * c);
@@ -214,56 +189,44 @@ __host__ __device__ inline long long zy_smem_bytes(int mode, int p, int xp,
 }
 
 // One block per (TZ, TY) sub-tile of the output rows, grid (nty, ntz), of
-// kZyRingThreads threads: kZyWarps consumer warps and a producer warp.  in_map:
+// kRingThreads threads: kRingWarps consumer warps and a producer warp.  in_map:
 // the input layout (size, size, X) in boxes (TZ+2P, TY+2P, XC); out_map: the
 // output layout (NT, NT, X) in boxes (bz, by, XC), a warp's piece.  tables:
 // (6, npts, 2P+2) [Ky, My, Kz, Mz, Kx, Mx].  mode: kCopy, kBands or kZyXBand.
 // One host thread (blockDim 1) runs the producer's step, then each warp's,
 // in turn.
 template <int P, typename C>
-__global__ void __launch_bounds__(kZyRingThreads)
+__global__ void __launch_bounds__(kRingThreads)
 zy_ring_kernel(const __grid_constant__ HopMap in_map,
                const __grid_constant__ HopMap out_map,
                const C* __restrict__ tables, LabGeo g, int mode) {
-  constexpr int NW = 2 * P + 2, XC = zy_ring_xc(sizeof(C)), S = kZyStages;
+  constexpr int NW = 2 * P + 2, XC = ring_xc(sizeof(C));
   constexpr int WX = kZyWin;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int tid = threadIdx.x;
   const bool solo = blockDim.x < 64;
   const int warp = tid / 32, lane = tid % 32, nlanes = solo ? 1 : 32;
-  const int cn = solo ? 1 : 32 * kZyWarps;  // consumer threads
+  const int cn = solo ? 1 : 32 * kRingWarps;  // consumer threads
   const int tz = g.tz, ty = g.ty, lz = tz + 2 * P, ly = ty + 2 * P;
   const int X = g.X, npts = g.npts, NT = g.sz - 2 * P;
   const ZyRingSmem pl = zy_ring_smem(P, sizeof(C), tz, ty);
-  const ZyPieces pc = zy_pieces(tz, ty);
+  const RingPieces pc = ring_pieces(tz, ty);
   const int nsub = pc.bz * pc.by * XC;  // elements of a piece's box
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw + pl.bar);
-  uint64_t* empty = full + S;
+  const Ring ring{reinterpret_cast<uint64_t*>(smem_raw + pl.bar),
+                  smem_raw + pl.u, pl.u_bytes,
+                  (unsigned)(lz * ly * XC * sizeof(C))};
   const int z0 = blockIdx.y * tz, y0 = blockIdx.x * ty;
   const int nchunk = X / XC;
   const long long tsz = (long long)npts * NW;
 
-  if (tid == 0) {
-    for (int s = 0; s < S; ++s) {
-      hop_mbar_init(full + s, 1);
-      hop_mbar_init(empty + s, kZyWarps);
-    }
-    hop_mbar_init_fence();
-  }
+  ring.init(tid);
   __syncthreads();
 
-  auto slot = [&](int ch) {
-    return reinterpret_cast<C*>(smem_raw + pl.u + (ch % S) * pl.u_bytes);
-  };
-  auto produce = [&](int ch) {
-    hop_mbar_expect(full + ch % S, (unsigned)(lz * ly * XC * sizeof(C)));
-    hop_tma_load(slot(ch), &in_map, full + ch % S, ch * XC, y0, z0);
-  };
-  if (!solo && warp == kZyWarps) {  // the producer warp
+  if (!solo && warp == kRingWarps) {  // the producer warp
     if (lane == 0)
       for (int ch = 0; ch < nchunk; ++ch) {
-        if (ch >= S) hop_mbar_wait(empty + ch % S, (ch / S - 1) & 1);
-        produce(ch);
+        ring.reusable(ch);
+        ring.load(ch, &in_map, ch * XC, y0, z0);
       }
     return;
   }
@@ -292,7 +255,7 @@ zy_ring_kernel(const __grid_constant__ HopMap in_map,
                    ? tables[(2 + k) * tsz + (long long)gg * NW + (j - r * NW)]
                    : C(0);
     }
-    lab_sync(1, cn);
+    ring_sync(cn);
   }
 
   const long long zs = (long long)ly * XC;
@@ -301,10 +264,10 @@ zy_ring_kernel(const __grid_constant__ HopMap in_map,
   for (int ch = 0; ch < nsteps; ++ch) {
     const int cx0 = ch * XC;
     const bool loaded = ch < nchunk;
-    const C* U = slot(ch);
+    const C* U = reinterpret_cast<const C*>(ring.slot(ch));
     if (loaded) {
-      if (solo) produce(ch);
-      hop_mbar_wait(full + ch % S, (ch / S) & 1);
+      if (solo) ring.load(ch, &in_map, cx0, y0, z0);
+      ring.wait(ch);
     }
     if (mode != kCopy && loaded) {
       // z stage, the whole block: (LZ, LY, XC) -> s, t (TZ, LY, XC)
@@ -312,16 +275,15 @@ zy_ring_kernel(const __grid_constant__ HopMap in_map,
         band2<P>(wmz + i / (ly * XC) * NW, wkz + i / (ly * XC) * NW, U + i, zs,
                  s[i], t[i]);
       __syncwarp();
-      if (lane == 0 && !solo) hop_mbar_arrive(empty + ch % S);
-      lab_sync(1, cn);
+      if (lane == 0 && !solo) ring.release(ch);
+      ring_sync(cn);
     }
     // each warp its piece of the rows: y stage (v16: then x), into its box
-    for (int w = solo ? 0 : warp; w < kZyWarps; w += solo ? 1 : kZyWarps) {
+    for (int w = solo ? 0 : warp; w < kRingWarps; w += solo ? 1 : kRingWarps) {
       const int wz = w / pc.nwy * pc.bz, wy = w % pc.nwy * pc.by;
       C* O = reinterpret_cast<C*>(smem_raw + pl.o + (ch & 1) * pl.o_bytes) +
              (long long)w * nsub;
-      if (lane == 0) hop_store_wait<1>();  // the store of chunk ch - 2
-      __syncwarp();
+      ring_out_acquire(lane);  // the store of chunk ch - 2
       if (loaded)
         for (int e = lane; e < nsub; e += nlanes) {
           const int ix = e % XC, r = e / XC;
@@ -366,35 +328,22 @@ zy_ring_kernel(const __grid_constant__ HopMap in_map,
           if (!own) rows_of(x);
           C y = C(0);
           if (x < npts) {
-            const C* q1 = Q1 + (long long)(iz * ty + iy) * WX;
-            const C* q23 = Q23 + (long long)(iz * ty + iy) * WX;
-            int wi = (x + WX - P) % WX;  // the window's slot of column x - P
             C v1[2 * P + 1], v23[2 * P + 1];
-#pragma unroll
-            for (int k = 0; k <= 2 * P; ++k) {
-              const int xi = x + k - P;
-              const bool in = xi >= 0 && xi < X;
-              v1[k] = in ? q1[wi] : C(0);
-              v23[k] = in ? q23[wi] : C(0);
-              wi = wi + 1 == WX ? 0 : wi + 1;
-            }
+            ring_taps<P, WX>(Q1 + (long long)(iz * ty + iy) * WX, x, X, v1);
+            ring_taps<P, WX>(Q23 + (long long)(iz * ty + iy) * WX, x, X, v23);
             y = band<P>(wk, v1, 1) + band<P>(wm, v23, 1);
           }
           O[e] = y;
         }
       }
-      hop_fence_async();
-      __syncwarp();
-      if (lane == 0) {
-        if (mode == kCopy && loaded && !solo) hop_mbar_arrive(empty + ch % S);
-        if (z0 + wz < NT && y0 + wy < NT && (mode != kZyXBand || ch > 0))
-          hop_tma_store(&out_map, O, mode == kZyXBand ? cx0 - XC : cx0,
-                        y0 + wy, z0 + wz);
-        hop_store_commit();
-      }
+      ring_out_store(lane, &out_map, O,
+                     z0 + wz < NT && y0 + wy < NT &&
+                         (mode != kZyXBand || ch > 0),
+                     mode == kZyXBand ? cx0 - XC : cx0, y0 + wy, z0 + wz,
+                     &ring, mode == kCopy && loaded && !solo ? ch : -1);
     }
     // the next z stage overwrites s and t
-    if (mode != kCopy && ch + 1 < nchunk) lab_sync(1, cn);
+    if (mode != kCopy && ch + 1 < nchunk) ring_sync(cn);
   }
   if (lane == 0) hop_store_wait<0>();
 }

@@ -1,5 +1,5 @@
-// Host launcher of the sum-of-tensor-products apply (device code and the
-// design note in terms_apply.cuh), with a plain C interface for ctypes.
+// Host launcher of the 2D sum-of-tensor-products apply, K3 (device code and
+// the design note in terms_apply.cuh), with a plain C interface for ctypes.
 // Built by tpufem_torch/utils/build.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o <lib>.so terms_apply.cu
@@ -14,14 +14,12 @@ namespace {
 
 constexpr int kMaxDevices = 64;
 
-template <int P, int DIM, typename S, typename C>
-cudaError_t launch(int n_terms, int npts, int tz, int ty, int tx,
-                   const void* u, void* y, const void* tables,
-                   cudaStream_t stream) {
-  const int smem = (int)(tpufem::terms_smem_elems(DIM, P, n_terms, tz, ty,
-                                                  tx) *
+template <int P, typename S, typename C>
+cudaError_t launch(int n_terms, int npts, int ty, int tx, const void* u,
+                   void* y, const void* tables, cudaStream_t stream) {
+  const int smem = (int)(tpufem::terms_smem_elems(P, n_terms, ty, tx) *
                          (long long)sizeof(C));
-  auto kern = tpufem::terms_apply_kernel<P, DIM, S, C>;
+  auto kern = tpufem::terms_apply_kernel<P, S, C>;
   // above 48 KB dynamic shared memory must be opted into per kernel and
   // device; the opt-in is made once per instantiation and device (and again
   // only for a larger block).  A refused launch shows only in
@@ -37,22 +35,20 @@ cudaError_t launch(int n_terms, int npts, int tz, int ty, int tx,
     if (e != cudaSuccess) return e;
     granted[dev].store(smem);
   }
-  const dim3 grid((npts + tx - 1) / tx, (npts + ty - 1) / ty,
-                  DIM == 3 ? (npts + tz - 1) / tz : 1);
+  const dim3 grid((npts + tx - 1) / tx, (npts + ty - 1) / ty);
   kern<<<grid, tpufem::kThreads, smem, stream>>>(
       static_cast<const S*>(u), static_cast<S*>(y),
-      static_cast<const C*>(tables), n_terms, npts, tz, ty, tx);
+      static_cast<const C*>(tables), n_terms, npts, ty, tx);
   return cudaGetLastError();
 }
 
-template <int DIM, typename S, typename C>
-cudaError_t dispatch_p(int p, int n_terms, int npts, int tz, int ty, int tx,
+template <typename S, typename C>
+cudaError_t dispatch_p(int p, int n_terms, int npts, int ty, int tx,
                        const void* u, void* y, const void* tables,
                        cudaStream_t stream) {
-#define TPUFEM_CASE(PP)                                                  \
-  case PP:                                                               \
-    return launch<PP, DIM, S, C>(n_terms, npts, tz, ty, tx, u, y, tables, \
-                                 stream);
+#define TPUFEM_CASE(PP) \
+  case PP:              \
+    return launch<PP, S, C>(n_terms, npts, ty, tx, u, y, tables, stream);
   switch (p) {
     TPUFEM_CASE(1)
     TPUFEM_CASE(2)
@@ -67,51 +63,38 @@ cudaError_t dispatch_p(int p, int n_terms, int npts, int tz, int ty, int tx,
   return cudaErrorInvalidValue;
 }
 
-template <int DIM>
-cudaError_t dispatch_dtype(int dtype_code, int p, int n_terms, int npts,
-                           int tz, int ty, int tx, const void* u, void* y,
-                           const void* tables, cudaStream_t stream) {
-  switch (dtype_code) {
-    case 0:  // f64 storage, f64 compute
-      return dispatch_p<DIM, double, double>(p, n_terms, npts, tz, ty, tx, u,
-                                             y, tables, stream);
-    case 1:  // f32 storage, f32 compute
-      return dispatch_p<DIM, float, float>(p, n_terms, npts, tz, ty, tx, u, y,
-                                           tables, stream);
-    case 2:  // bf16 storage, f32 compute ("bf16s")
-      return dispatch_p<DIM, __nv_bfloat16, float>(p, n_terms, npts, tz, ty,
-                                                   tx, u, y, tables, stream);
-  }
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace
 
 extern "C" {
 
-// y = sum_a (x)_b X_{a,b} u on a (npts,)^dim grid.  tables: (n_terms, dim,
-// npts, 2p+2) band tables in the compute type, axis b = 0 is x.  Returns
-// the cudaError_t of the launch (0 = launched).
-int tpufem_terms_apply(int dtype_code, int dim, int p, int n_terms, int npts,
-                       int tz, int ty, int tx, const void* u, void* y,
-                       const void* tables, void* stream) {
+// y = sum_a X_{a,1} (x) X_{a,0} u on a (npts, npts) grid.  tables:
+// (n_terms, 2, npts, 2p+2) band tables in the compute type, axis b = 0 is
+// x.  dtype_code 0: f64, 1: f32, 2: bf16 storage with f32 arithmetic.
+// Returns the cudaError_t of the launch (0 = launched).
+int tpufem_terms_apply(int dtype_code, int p, int n_terms, int npts, int ty,
+                       int tx, const void* u, void* y, const void* tables,
+                       void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_terms < 1) return (int)cudaErrorInvalidValue;
-  if (dim == 3)
-    return (int)dispatch_dtype<3>(dtype_code, p, n_terms, npts, tz, ty, tx, u,
-                                  y, tables, s);
-  if (dim == 2)
-    return (int)dispatch_dtype<2>(dtype_code, p, n_terms, npts, 1, ty, tx, u,
-                                  y, tables, s);
+  switch (dtype_code) {
+    case 0:
+      return (int)dispatch_p<double, double>(p, n_terms, npts, ty, tx, u, y,
+                                             tables, s);
+    case 1:
+      return (int)dispatch_p<float, float>(p, n_terms, npts, ty, tx, u, y,
+                                           tables, s);
+    case 2:
+      return (int)dispatch_p<__nv_bfloat16, float>(p, n_terms, npts, ty, tx,
+                                                   u, y, tables, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
 // Shared-memory elements (of the compute type) of one block at this tile
 // and term count; the tile chooser in kernel_terms.py sizes its blocks
 // with it.
-long long tpufem_terms_smem_elems(int dim, int p, int n_terms, int tz, int ty,
-                                  int tx) {
-  return tpufem::terms_smem_elems(dim, p, n_terms, tz, ty, tx);
+long long tpufem_terms_smem_elems(int p, int n_terms, int ty, int tx) {
+  return tpufem::terms_smem_elems(p, n_terms, ty, tx);
 }
 
 const char* tpufem_cuda_error_string(int code) {

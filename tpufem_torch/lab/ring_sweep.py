@@ -1,9 +1,9 @@
 """Sweep the compile-time constants of the two redesigned lab routines.
 
-The all-band tile mover (``csrc/lab_zyfirst.cuh``: vcopy, vband, v16) and the
-dense x stage's ring (``csrc/lab_separable.cuh``: vx and the x-first kernels)
-fix their ring depth, and vx its x blocks a block, as constants, not run-time
-arguments.  This script builds copies of the two libraries with one constant
+The all-band tile mover (``csrc/lab_zyfirst.cuh``: vcopy, vband, v16, on the
+ring of ``csrc/band_ring.cuh``) and the dense x stage's ring
+(``csrc/lab_separable.cuh``: vx and the x-first kernels) fix their ring
+depth, and vx its x blocks a block, as constants, not run-time arguments.  This script builds copies of the two libraries with one constant
 changed each (``VARIANTS``; p = 4 only, so a copy builds in ~10 s), into
 ``build/tpufem_torch/sweep/``, and times the kernels that run them at the
 lab's flagship (3D Q4 refine 6, 16,974,593 DoFs, f32) beside the committed
@@ -41,10 +41,12 @@ SWEEP_DIR = build.BUILD_DIR / "sweep"
 # name -> (library, {file: [(text, replacement), ...]}, timed only)
 VARIANTS = {
     "committed": (None, {}, False),
-    "zy_stages2": ("lab_zyfirst", {"lab_zyfirst.cuh": [
-        ("kZyStages = 3;", "kZyStages = 2;")]}, False),
-    "zy_stages4": ("lab_zyfirst", {"lab_zyfirst.cuh": [
-        ("kZyStages = 3;", "kZyStages = 4;")]}, False),
+    # the ring's depth, in the skeleton the all-band routine shares with K1
+    # and K4 (only the lab library is rebuilt from the copy)
+    "zy_stages2": ("lab_zyfirst", {"band_ring.cuh": [
+        ("kRingStages = 3;", "kRingStages = 2;")]}, False),
+    "zy_stages4": ("lab_zyfirst", {"band_ring.cuh": [
+        ("kRingStages = 3;", "kRingStages = 4;")]}, False),
     "l2_stages5": ("lab_separable", {"lab_separable.cuh": [
         ("kL2Stages = 4;", "kL2Stages = 5;")]}, False),
     # vx with one x block a block, as the full variants run the ring

@@ -68,16 +68,45 @@ def resolve_device(device: torch.device | str) -> torch.device:
     return device
 
 
-def _terms_with_kernel(terms, npts, p, d, config, device):
-    """The K4 (3D) or K3 (2D) wrapper of a sum-of-tensor-products operator
-    under ``use_pallas``, else None (JAX ``matrix_free.py:44-66``, which
-    falls back to its XLA apply where the kernel's tiling is unmet; here
-    a kernel that cannot be built raises)."""
+def _fuse_mask(config, interior: np.ndarray, dofs: DoFHandler,
+               npts: int) -> bool:
+    """Whether a 3D resident kernel (K1, K4) fuses the Dirichlet mask: the
+    constrained set is the DoF handler's boundary and that is the full
+    boundary of the (npts,)^3 box, whose mask is separable (the kernels
+    fold it into their 1D tables).  ``config.pallas_dirichlet``: None =
+    auto, fuse exactly when representable; True requires it."""
+    g = np.arange(npts)
+    e = (g == 0) | (g == npts - 1)
+    box = (e[:, None, None] | e[None, :, None] | e[None, None, :]).reshape(-1)
+    plain_mask = (np.array_equal(interior == 0.0, dofs.boundary_mask)
+                  and np.array_equal(dofs.boundary_mask, box))
+    if config.pallas_dirichlet and not plain_mask:
+        # the fused kernel bakes the FULL-boundary separable mask in; any
+        # other constraint set would be mis-masked
+        raise ValueError(
+            "pallas_dirichlet=True requires the plain full-boundary "
+            "Dirichlet mask (no extra constraints / custom "
+            "constrained_mask)")
+    return plain_mask if config.pallas_dirichlet is None \
+        else config.pallas_dirichlet
+
+
+def _terms_with_kernel(terms, npts, p, d, config, device, interior, dofs):
+    """The K4 (3D, the mask fused by ``_fuse_mask``'s rule) or K3 (2D)
+    wrapper of a sum-of-tensor-products operator under ``use_pallas``,
+    else None (JAX ``matrix_free.py:44-66``, which falls back to its XLA
+    apply where the kernel's tiling is unmet; here a kernel that cannot be
+    built raises)."""
     if not config.use_pallas:
         return None
-    cls_k = ResidentTerms if d == 3 else ResidentTerms2D
-    return cls_k(npts, p, terms, torch_dtype(config.dtype),
-                 mode=config.pallas_mode, device=device)
+    dt = torch_dtype(config.dtype)
+    if d == 3:
+        return ResidentTerms(npts, p, terms, dt, mode=config.pallas_mode,
+                             dirichlet=_fuse_mask(config, interior, dofs,
+                                                  npts),
+                             device=device)
+    return ResidentTerms2D(npts, p, terms, dt, mode=config.pallas_mode,
+                           device=device)
 
 
 @dataclasses.dataclass
@@ -218,22 +247,10 @@ class MatrixFree:
         if config.use_pallas:
             kernel = KernelSeparable(d, npts, p, Ks, Ms, dt, device)
             if d == 3:
-                plain_mask = np.array_equal(interior == 0.0,
-                                            dofs.boundary_mask)
-                if config.pallas_dirichlet and not plain_mask:
-                    # the fused kernel bakes the FULL-boundary separable
-                    # mask in; any other constraint set would be mis-masked
-                    raise ValueError(
-                        "pallas_dirichlet=True requires the plain "
-                        "full-boundary Dirichlet mask (no extra "
-                        "constraints / custom constrained_mask)")
-                # None = auto: fuse exactly when representable
-                fuse_mask = (plain_mask if config.pallas_dirichlet is None
-                             else config.pallas_dirichlet)
-                resident = ResidentSeparable(npts, p, Ks, Ms, dt,
-                                             mode=config.pallas_mode,
-                                             dirichlet=fuse_mask,
-                                             device=device)
+                resident = ResidentSeparable(
+                    npts, p, Ks, Ms, dt, mode=config.pallas_mode,
+                    dirichlet=_fuse_mask(config, interior, dofs, npts),
+                    device=device)
             else:
                 # the 2-term Laplace factorisation through K3: the 2D
                 # resident CG (JAX matrix_free.py:408-424)
@@ -264,7 +281,8 @@ class MatrixFree:
         dt = torch_dtype(config.dtype)
         npts = int(mesh.U // mesh.sizes[0]) * p + 1
         terms = [[np.asarray(X, np.float64) for X in term] for term in terms]
-        resident = _terms_with_kernel(terms, npts, p, d, config, device)
+        resident = _terms_with_kernel(terms, npts, p, d, config, device,
+                                      interior, dofs)
         as_dev = lambda a: torch.tensor(np.asarray(a), dtype=dt,
                                         device=device)
         return cls(

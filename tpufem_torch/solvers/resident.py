@@ -3,11 +3,14 @@ kernel's layout, so each apply is one kernel launch.
 
 Port of ``tpufem/solvers/resident.py::resident_jacobi_cg``.  The port's
 resident kernels are K1 (``ResidentSeparable``, the 3D Laplace), K4
-(``ResidentTerms``, 3D terms) and K3 (``ResidentTerms2D``, 2D); their
-resident layout is the plain ``(npts,)*dim`` grid, so the padding of the
-JAX version reduces to reshapes.  The constraint mask algebra
-y = m·A(m·x) + (1-m)·x is either fused into the kernel (K1 with
-``dirichlet=True``) or applied around it.
+(``ResidentTerms``, 3D terms) and K3 (``ResidentTerms2D``, 2D).  K1 and K4
+keep their vectors in the TMA ring's layout ``(npts, npts, X)``, x
+zero-padded to X (``pad_any``); K3 in the plain ``(npts, npts)`` grid.
+The mask, the RHS, the inverse diagonal and x0 are computed flat, then
+padded with zeros; the dots run over the whole layout, where the pad adds
+nothing.  The constraint mask algebra y = m·A(m·x) + (1-m)·x is either
+fused into the kernel (K1 and K4 with ``dirichlet=True``) or applied
+around it.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ def resident_jacobi_cg(op, b: torch.Tensor, diag: torch.Tensor | None = None,
         raise ValueError("operator has no resident kernel (needs the "
                          "separable scheme with use_pallas=True)")
     cdt, sdt = rk.compute_dt, rk.dt
+    # computed flat, then padded with zeros (1/diag of the pad: 0, not inf)
     m = rk.pad_any(op.mf.interior_mask.to(cdt))
     bp = rk.pad_any(b.to(cdt))
     d = diag if diag is not None else op.diagonal()

@@ -34,10 +34,14 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpufem_torch"
 # one shared library per source, built side by side: name -> (source,
 # the csrc/ headers it includes, which enter its hash)
 SOURCES = {
-    "separable_apply": ("separable_apply.cu",  # K1, K2
+    "separable_apply": ("separable_apply.cu",  # K2
                         ("common.cuh", "separable_apply.cuh")),
-    "terms_apply": ("terms_apply.cu",  # K3, K4
+    "terms_apply": ("terms_apply.cu",  # K3
                     ("common.cuh", "terms_apply.cuh")),
+    # K1 and K4 on the TMA ring
+    "resident_ring": ("resident_ring.cu",
+                      ("band_ring.cuh", "common.cuh", "hopper.cuh",
+                       "resident_ring.cuh")),
     "lab_resident": ("lab_resident.cu",  # the K1 kernel lab (L1: v17-v20)
                      ("common.cuh", "lab_mma.cuh", "lab_resident.cuh")),
     # the K2 kernel lab's x-first half (L2a: v2, v3, v6, v8, v9, v12, vx,
@@ -48,8 +52,8 @@ SOURCES = {
     # its z/y-first half (L2b: v13, v14, v15, v16, vcopy, vband), on L1's
     # device functions
     "lab_zyfirst": ("lab_zyfirst.cu",
-                    ("common.cuh", "hopper.cuh", "lab_mma.cuh",
-                     "lab_resident.cuh", "lab_zyfirst.cuh")),
+                    ("band_ring.cuh", "common.cuh", "hopper.cuh",
+                     "lab_mma.cuh", "lab_resident.cuh", "lab_zyfirst.cuh")),
     # the toolchain probes (P1, P2)
     "toolchain_probe": ("toolchain_probe.cu",
                         ("lab_mma.cuh", "toolchain_probe.cuh")),
@@ -64,12 +68,15 @@ _I, _P, _LL, _F = (ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_float)
 _ENTRIES = {
     "separable_apply": {
-        "tpufem_separable_apply": ([_I] * 8 + [_P] * 4, _I),
-        "tpufem_separable_copy": ([_I] * 5 + [_P] * 4, _I),
+        "tpufem_separable_apply": ([_I] * 7 + [_P] * 4, _I),
         "tpufem_smem_elems": ([_I] * 5, _LL)},
     "terms_apply": {
-        "tpufem_terms_apply": ([_I] * 8 + [_P] * 4, _I),
-        "tpufem_terms_smem_elems": ([_I] * 6, _LL)},
+        "tpufem_terms_apply": ([_I] * 6 + [_P] * 4, _I),
+        "tpufem_terms_smem_elems": ([_I] * 4, _LL)},
+    "resident_ring": {
+        "tpufem_resident_apply": ([_I] * 11 + [_P] * 5, _I),
+        "tpufem_resident_smem_bytes": ([_I] * 5, _LL),
+        "tpufem_resident_takes": ([_I] * 3, _I)},
     "lab_resident": {
         "tpufem_lab_apply": ([_I] * 11 + [_P] * 7, _I),
         "tpufem_lab_smem_bytes": ([_I] * 6, _LL)},
