@@ -16,12 +16,16 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 4, 7 terms; at p = 8 also PASS_T = 22, more windows than a
                 block holds: passes over x) and K3 (T = 1, 2, 3) on random
                 non-symmetric banded
-                matrices, each at p = 1, 2, 4, 7, 8, K1 and K4 (the TMA
-                ring, csrc/resident_ring.cuh) with and without the fused
-                mask into a NaN-filled resident layout (every point
-                written, the pad columns zero); then every kernel at its
-                main-path shapes (K4: the coefficient operator and the
-                shell's terms; K3: 2D Q4 refine 10 and 8)
+                matrices, each at p = 1, 2, 4, 7, 8: K1, K3 and K4 on the
+                band ring (csrc/resident_ring.cuh) with and without the
+                fused mask into a NaN-filled resident layout (every point
+                written, the pad columns zero), K3 at the segment chooser's
+                count and at 1-4 segments of x, K2 by its tile routine
+                (csrc/separable_apply.cuh) into a NaN-filled flat grid;
+                then every kernel at its main-path shapes (K2: 3D Q4 refine
+                5 and 2D refine 10; K4: the coefficient operator and the
+                shell's terms; K3: 2D Q4 refine 10 and 8, again at every
+                segment count)
   4 main path   solve_poisson 3D Q4 refine 5 f32 through K2 (2,146,689
                 DoFs), then the 16,974,593-DoF resident Jacobi-CG through
                 K1, twice (bitwise-equal x); the kernel launch counts of
@@ -31,7 +35,8 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 hyper_shell f32 through K4; the 16,974,593-DoF separable-
                 coefficient operator's resident Jacobi-CG through K4 with
                 the fused mask, twice (bitwise-equal x); the 2D Q4 refine
-                8 resident Jacobi-CG through K3.  K3/K4 counts are read here; then the 2D
+                8 resident Jacobi-CG through K3 with the fused mask, twice
+                (bitwise-equal x).  K3/K4 counts are read here; then the 2D
                 solve again with the plain f32 apply and through K3 in
                 f64 (its true residual is f32 CG drift, not K3), and the
                 coefficient solve once more in bf16s, its K4 count apart
@@ -67,12 +72,16 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 larger ones, on a ragged output layout and at the flagship.
                 Every L2 output starts filled with NaN
   6 throughput  ms per apply over chains of 30 applies (CUDA events),
-                kernel and plain in turns: K1 at 17M DoFs, K2 at 2.1M, K4
-                on the 17M coefficient operator and the 2.1M shell, K3 at
-                2D Q4 refine 10 (16,785,409 DoFs), against K2 there too;
-                K1, K4 and the shell's K4 in turns with the ring's copy
-                and bands ablations (each held to its plain version
-                first): the split into tile mover, z/y bands and x band;
+                kernel and plain in turns: K1 at 17M DoFs, K2 at 3D Q4
+                refine 5 (2.1M) and 6 (17M) and 2D refine 10, K4 on the
+                17M coefficient operator and the 2.1M shell, K3 at 2D Q4
+                refine 10 (16,785,409 DoFs) and, with the fused mask, 8
+                (1,050,625: the 2D CG's), against K2 at refine 10 too, K2
+                and K3 beside EARLIER_MS (the routines of e3bfbab);
+                K1, K4, the shell's K4 and K3 at refine 10 and 8 in turns
+                with the ring's copy and bands ablations (each held to its
+                plain version first): the split into tile mover, z/y (2D:
+                y) bands and x band;
                 the shell's K4 at the sub-tiles (8, 8), (4, 8) and (4, 16)
                 in turns (its blocks in waves over the card's SMs); the
                 design bound of K1's and K4's padded resident layout;
@@ -107,6 +116,7 @@ before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -197,13 +207,20 @@ PROBE_N_ITER, PROBE_M = 256, 512
 STORAGE = {"f64": torch.float64, "f32": torch.float32,
            "bf16s": torch.bfloat16}
 N_CHAIN = 30
-# K1's and K4's ms per apply on the tile routines they ran before the TMA
-# ring (3D paths of separable_apply.cuh and terms_apply.cuh, K4 with its mask
-# outside; this script's phase 6 on an NVIDIA H100 80GB HBM3 at 700 W),
+# ms per apply on the tile routines the kernels ran before the ring,
 # printed beside this run's times and kept out of the kernels line, which
-# holds only what this run measured
+# holds only what this run measured (NVIDIA H100 80GB HBM3 at 700 W): K1's
+# and K4's (3D paths of separable_apply.cuh and terms_apply.cuh, K4 with
+# its mask outside) from this script's phase 6 before the TMA ring; K2's
+# (separable_apply.cuh, which it still runs) and K3's (terms_apply.cuh,
+# its mask outside) from ``python tpufem_torch/apps/resident_probe.py
+# --applies`` on a git archive of e3bfbab, in turns with this tree in one
+# call (the mean of its two runs' chains; K3 at refine 8 its device time,
+# as phase 6 takes it there)
 EARLIER_MS = {"K1": 1.1109, "K1_bf16s": 1.1485, "K4": 1.2770,
-              "K4_bf16s": 1.4755, "K4_shell": 0.1913}
+              "K4_bf16s": 1.4755, "K4_shell": 0.1913,
+              "K3": 0.0256, "K3_r10": 0.3310, "K2": 0.1285,
+              "K2_r6": 0.8425, "K2_2d": 0.2858}
 # K4's term count at p = 8 in phase 3 whose windows no sub-tile holds, so
 # the chooser takes passes over x (in f64, f32 and bf16s)
 PASS_T = 22
@@ -285,10 +302,11 @@ def resident_out(k, x):
 
 
 def check_kernel(kind, dim, p, npts, mode, dirichlet, Ks, Ms, rng):
-    """Launch one kernel instance on a seeded input (K1: into a NaN-filled
-    resident layout, every point and the zero pad checked); return (tag,
-    max relative error, max abs error) against the plain f64 version on the
-    same (storage-rounded) input.  Raises when out of tolerance."""
+    """Launch one kernel instance on a seeded input into a NaN-filled
+    output (K1: its resident layout, every point and the zero pad checked;
+    K2: the flat grid, every point checked); return (tag, max relative
+    error, max abs error) against the plain f64 version on the same
+    (storage-rounded) input.  Raises when out of tolerance."""
     from tpufem_torch.ops.kernel_separable import (
         KernelSeparable,
         ResidentSeparable,
@@ -300,9 +318,12 @@ def check_kernel(kind, dim, p, npts, mode, dirichlet, Ks, Ms, rng):
         k = KernelSeparable(dim, npts, p, Ks, Ms, STORAGE[mode], dev)
         before = KernelSeparable.launches
         x = u.to(STORAGE[mode])
-        y = k(x)
+        y = k(x, out=torch.full_like(x, float("nan")))
         rose = KernelSeparable.launches == before + 1
         torch.cuda.synchronize()
+        if not torch.isfinite(y).all():
+            raise RuntimeError(f"K2 dim={dim} p={p} npts={npts} {mode}: an "
+                               f"output point is not written or not finite")
     else:
         k = ResidentSeparable(npts, p, Ks, Ms,
                               torch.float64 if mode == "f64" else
@@ -326,6 +347,31 @@ def check_kernel(kind, dim, p, npts, mode, dirichlet, Ks, Ms, rng):
     return tag, rel, abs_err
 
 
+def segment_counts(npts, storage):
+    """The segment counts phase 3 holds K3 to at a grid: the chooser's
+    (None) and the forced 1-4 that its chunks of x allow."""
+    from tpufem_torch.ops.kernel_separable import resident_x, ring_xc
+
+    nchunk = resident_x(npts, storage, 2) // ring_xc(storage, 2)
+    return [None] + [s for s in (1, 2, 3, 4) if s <= nchunk]
+
+
+@contextlib.contextmanager
+def forced_segments(segments):
+    """Instances made inside cut x into ``segments`` (None: the chooser's
+    count): ``kernel_separable.choose_segments`` answers it while they are
+    made."""
+    from tpufem_torch.ops import kernel_separable
+
+    chooser = kernel_separable.choose_segments
+    if segments is not None:
+        kernel_separable.choose_segments = lambda *_: segments
+    try:
+        yield
+    finally:
+        kernel_separable.choose_segments = chooser
+
+
 def plain_terms_f64(terms, x):
     """The plain PyTorch terms apply in f64 on the card (x flat or a
     grid; terms f64 numpy)."""
@@ -338,34 +384,32 @@ def plain_terms_f64(terms, x):
                                          dim, npts, T)
 
 
-def check_terms(terms, p, mode, rng, dirichlet=False, passes=False):
-    """Launch the K4 (3D, into a NaN-filled resident layout, every point
-    and the zero pad checked; the fused mask with ``dirichlet``) or K3 (2D)
-    wrapper on a seeded input; return (tag, max relative error, max abs
-    error) against the plain f64 terms apply of the same (storage-rounded)
-    input.  Raises when out of tolerance, when the launch counter did not
-    rise, or with ``passes`` where K4's chooser kept every term's window
-    (one pass over x)."""
+def check_terms(terms, p, mode, rng, dirichlet=False, passes=False,
+                segments=None):
+    """Launch the K4 (3D) or K3 (2D, x cut into ``segments``, None: the
+    chooser's) wrapper on a seeded input into a NaN-filled resident layout
+    (every point and the zero pad checked; the fused mask with
+    ``dirichlet``); return (tag, max relative error, max abs error) against
+    the plain f64 terms apply of the same (storage-rounded) input.  Raises
+    when out of tolerance, when the launch counter did not rise, or with
+    ``passes`` where K4's chooser kept every term's window (one pass over
+    x)."""
     from tpufem_torch.ops.kernel_terms import ResidentTerms, ResidentTerms2D
 
     dim, npts = len(terms[0]), terms[0][0].shape[0]
     dt = torch.float64 if mode == "f64" else torch.float32
     kmode = "bf16s" if mode == "bf16s" else "f32"
     u = torch.tensor(rng.standard_normal(npts**dim), device="cuda")
-    if dim == 3:
-        cls = ResidentTerms
+    cls = ResidentTerms if dim == 3 else ResidentTerms2D
+    with forced_segments(segments):
         k = cls(npts, p, terms, dt, mode=kmode, dirichlet=dirichlet,
                 device="cuda")
-        before = cls.launches
-        xp = k.pad(u)
-        y = resident_out(k, xp)
-    else:
-        cls = ResidentTerms2D
-        k = cls(npts, p, terms, dt, mode=kmode, device="cuda")
-        before = cls.launches
-        xp = k.pad(u)
-        y = k.raw(xp)
-        torch.cuda.synchronize()
+    if segments is not None and k.segments != segments:
+        raise RuntimeError(f"{cls.__name__} cut x into {k.segments} "
+                           f"segments, not the {segments} forced")
+    before = cls.launches
+    xp = k.pad(u)
+    y = resident_out(k, xp)
     rose = cls.launches == before + 1
     x = k.unpad(xp).to(torch.float64)
     A = lambda v: plain_terms_f64(terms, v)
@@ -374,7 +418,8 @@ def check_terms(terms, p, mode, rng, dirichlet=False, passes=False):
     rel = abs_err / float(ref.abs().max())
     tag = (f"{'K4' if dim == 3 else 'K3'} T={len(terms)} p={p} npts={npts} "
            f"{mode} dirichlet={int(dirichlet)} tile={k.tile}"
-           + (f" group={k.group}" if dim == 3 else ""))
+           + (f" group={k.group}" if dim == 3 else
+              f" segments={k.segments}"))
     if not rose:
         raise RuntimeError(f"{tag}: launch counter did not rise")
     if passes and not k.group < len(terms):
@@ -632,31 +677,40 @@ def main() -> int:
                          for _ in range(T)]
                 rels = []
                 for mode in ("f64", "f32", "bf16s"):
-                    for dirichlet in (False, True)[:1 + (dim == 3)]:
-                        tag, rel, _ = check_terms(terms, p, mode, rng,
-                                                  dirichlet, T == PASS_T)
-                        worst[mode] = max(worst.get(mode, 0.0), rel)
-                        group = tag.split("group=")[-1]
-                        rels.append(f"{mode}{' masked' * dirichlet}"
-                                    f"{f' group {group}' * (T == PASS_T)} "
-                                    f"{rel:.3e}")
+                    for dirichlet in (False, True):
+                        for seg in ((None,) if dim == 3 else
+                                    segment_counts(npts, STORAGE[mode])):
+                            tag, rel, _ = check_terms(terms, p, mode, rng,
+                                                      dirichlet, T == PASS_T,
+                                                      seg)
+                            worst[mode] = max(worst.get(mode, 0.0), rel)
+                            group = tag.split("group=")[-1]
+                            rels.append(
+                                f"{mode}{' masked' * dirichlet}"
+                                f"{f' group {group}' * (T == PASS_T)}"
+                                + (f" segments {tag.split('segments=')[1]}"
+                                   if dim == 2 else "") + f" {rel:.3e}")
                 say("3 kernels", f"{'K4' if dim == 3 else 'K3'} T={T} p={p} "
-                    f"npts={npts} tile={tag.split('tile=')[1]}: max rel err "
-                    + ", ".join(rels))
-    # the main path's shapes: K2 at 3D Q4 refine 5, K1 at refine 6, K4 on
-    # the refine-6 coefficient operator and the refine-5 shell, K3 at 2D
-    # Q4 refine 10 and refine 8
+                    f"npts={npts} tile="
+                    f"{tag.split('tile=')[1].split(' segments')[0]}: max rel "
+                    f"err " + ", ".join(rels))
+    # the main path's shapes: K2 at 3D Q4 refine 5 (and 2D refine 10, phase
+    # 6's), K1 at refine 6, K4 on the refine-6 coefficient operator and the
+    # refine-5 shell, K3 at 2D Q4 refine 10 and refine 8, at the chooser's
+    # segments and at 1-4
     abs_err = {}
-    for name, kind_k, n, modes in (("K2", "K2", 32, ("f32", "f64")),
-                                   ("K1", "K1", 64, ("f32", "bf16s"))):
+    for name, kind_k, dim, n, modes in (
+            ("K2", "K2", 3, 32, ("f32", "f64")),
+            ("K2 2D", "K2", 2, 1024, ("f32",)),
+            ("K1", "K1", 3, 64, ("f32", "bf16s"))):
         npts = 4 * n + 1
         for mode in modes:
-            tag, rel, aerr = check_kernel(kind_k, 3, 4, npts, mode,
+            tag, rel, aerr = check_kernel(kind_k, dim, 4, npts, mode,
                                           kind_k == "K1",
-                                          *flagship_axes(4, n, 3), rng)
+                                          *flagship_axes(4, n, dim), rng)
             worst[mode] = max(worst.get(mode, 0.0), rel)
-            if mode == "f32":
-                abs_err[name] = aerr
+            if mode == "f32" and name != "K2 2D":
+                abs_err[name] = max(abs_err.get(name, 0.0), aerr)
             say("3 kernels", f"{tag} max rel err {rel:.3e} "
                 f"max abs err {aerr:.3e}")
     from tpufem_torch.ops.separable import (
@@ -679,14 +733,18 @@ def main() -> int:
     lap2d_r8 = [[K0, M1], [M0, K1]]
     for name, terms in (("K4", coef64), ("K4", shell_terms), ("K3", lap2d),
                         ("K3", lap2d_r8)):
+        npts = terms[0][0].shape[0]
         for mode in ("f32", "bf16s"):
-            for dirichlet in (True, False) if name == "K4" else (False,):
-                tag, rel, aerr = check_terms(terms, 4, mode, rng, dirichlet)
-                worst[mode] = max(worst.get(mode, 0.0), rel)
-                if mode == "f32":
-                    abs_err[name] = max(abs_err.get(name, 0.0), aerr)
-                say("3 kernels", f"{tag} max rel err {rel:.3e} "
-                    f"max abs err {aerr:.3e}")
+            for dirichlet in (True, False):
+                for seg in ((None,) if name == "K4" else
+                            segment_counts(npts, STORAGE[mode])):
+                    tag, rel, aerr = check_terms(terms, 4, mode, rng,
+                                                 dirichlet, segments=seg)
+                    worst[mode] = max(worst.get(mode, 0.0), rel)
+                    if mode == "f32":
+                        abs_err[name] = max(abs_err.get(name, 0.0), aerr)
+                    say("3 kernels", f"{tag} max rel err {rel:.3e} "
+                        f"max abs err {aerr:.3e}")
     say("3 kernels", "all within tolerance; worst max rel err "
         + ", ".join(f"{m} {worst[m]:.3e} (tol {TOL[m]})" for m in TOL))
 
@@ -837,19 +895,28 @@ def main() -> int:
     mask2 = op2.mf.interior_mask.cpu().numpy().astype(np.float64)
     b2 = torch.tensor(mask2 * np.random.default_rng(19).standard_normal(
         op2.mf.n_dofs), dtype=torch.float32, device=dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    r2 = resident_jacobi_cg(op2, b2, diag=diag2, rtol=SOLVE_RTOL,
-                            track_best=False)
-    torch.cuda.synchronize()
-    t2d = time.perf_counter() - t0
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = resident_jacobi_cg(op2, b2, diag=diag2, rtol=SOLVE_RTOL,
+                                 track_best=False)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0, res))
+    (t2d, r2), (t2e, r2b) = runs
+    rk2 = op2.mf.resident
     rel2 = true_rel_residual(op2.mf, b2, r2.x)
     say("4c main path", f"2D Q4 refine 8 resident f32 K3: {op2.mf.n_dofs} "
-        f"DoFs, {t2d:.3f} s, iterations {r2.iterations}, converged "
-        f"{r2.converged}, true rel residual {rel2:.3e}, K3 tile "
-        f"{op2.mf.resident.tile}")
-    if not r2.converged:
-        raise RuntimeError("2D resident f32 solve did not converge")
+        f"DoFs, {t2d:.3f} s / {t2e:.3f} s, iterations {r2.iterations} / "
+        f"{r2b.iterations}, converged {r2.converged}, true rel residual "
+        f"{rel2:.3e}, K3 tile {rk2.tile} segments {rk2.segments} fused "
+        f"mask {rk2.dirichlet}")
+    if not (r2.converged and r2b.converged and rk2.dirichlet
+            and r2.iterations == r2b.iterations and torch.equal(r2.x, r2b.x)):
+        raise RuntimeError("2D resident f32 solve: not converged through "
+                           "the fused-mask K3 or not bitwise reproducible")
+    say("4c main path", "two 2D resident solves: equal iterations, "
+        "bitwise-equal x")
     # the counts the kernels line reports for K3/K4: the shell
     # solve_poisson and the two coefficient solves (K4), the 2D solve (K3)
     launches["K4"] = ResidentTerms.launches
@@ -857,7 +924,7 @@ def main() -> int:
     say("4c main path", f"kernel launches of the terms-tier main path: "
         f"K4 {launches['K4']}, K3 {launches['K3']}")
     if not (launches["K4"] >= rs.iterations + rca.iterations + rcb.iterations
-            and launches["K3"] >= r2.iterations):
+            and launches["K3"] >= r2.iterations + r2b.iterations):
         raise RuntimeError(f"a kernel of the terms-tier main path did not "
                            f"run: {launches}")
 
@@ -943,6 +1010,9 @@ def main() -> int:
     from tpufem_torch.lab.resident_lab import KERNELS, V17Kernel
 
     lab_worst, emu_worst, emu_apart = {}, {}, {}
+    # the labs' inputs from a generator of their own, as phases 4 and 6
+    # seed theirs: the count of phase 3's checks no longer moves them
+    rng = np.random.default_rng(21)
 
     def lab_case(kern, mode, p, n, h, u):
         tag, rel, aerr, emu = check_lab(kern, mode, p, n, h, u)
@@ -1074,11 +1144,17 @@ def main() -> int:
     def chain_ms(fn, x):
         return 1e3 * time_fn(fn, x, reps=N_CHAIN)
 
-    def turns(kernel, plain, x):
-        a = chain_ms(plain, x)
-        b = chain_ms(kernel, x)
-        c = chain_ms(kernel, x)
-        d = chain_ms(plain, x)
+    def device_ms(fn, x):
+        """Device ms per apply of a chain of N_CHAIN (torch.profiler)."""
+        from tpufem_torch.apps.resident_probe import device_ms as dev_ms
+
+        return dev_ms(fn, x, N_CHAIN)
+
+    def turns(kernel, plain, x, timer=chain_ms):
+        a = timer(plain, x)
+        b = timer(kernel, x)
+        c = timer(kernel, x)
+        d = timer(plain, x)
         say("6 throughput", f"ms per apply in turns: plain {a:.4f}, kernel "
             f"{b:.4f}, kernel {c:.4f}, plain {d:.4f}")
         return (b + c) / 2, (a + d) / 2
@@ -1142,6 +1218,34 @@ def main() -> int:
     # the tile mover (copy), the z/y bands (bands - copy) and the x band
     # (apply - bands)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def split(name, rk, x, ablation, timer=chain_ms):
+        """The apply beside its copy and bands ablations, in turns: (mover,
+        z/y or y bands, x band) ms."""
+        abl = {mode: ablation(mode) for mode in ("copy", "bands")}
+        for mode, k in abl.items():
+            y, yp = k.raw(x), k.plain(x)
+            off = float((y - yp).abs().max() / yp.abs().max())
+            if not (off <= (0.0 if mode == "copy" else 1e-5)
+                    and torch.isfinite(y).all()):
+                raise RuntimeError(f"{name} {mode} ablation is off its plain "
+                                   f"version by {off:.3e}")
+        t = [timer(fn, x) for fn in (
+            abl["copy"].raw, abl["bands"].raw, rk.raw, rk.raw,
+            abl["bands"].raw, abl["copy"].raw)]
+        c, b, a = (t[0] + t[5]) / 2, (t[1] + t[4]) / 2, (t[2] + t[3]) / 2
+        tz, ty = rk.tile
+        dim = 3 if tz > 1 or x.dim() == 3 else 2
+        blocks = -(-rk.npts // ty) * (-(-rk.npts // tz) if dim == 3 else 1)
+        seg = getattr(rk, "segments", None) or 1
+        say("6 throughput", f"{name} at {rk.npts**dim} DoFs, sub-tile "
+            f"{rk.tile} ({blocks * seg} blocks, {seg} segment(s) of x, on "
+            f"{n_sm} SMs), in turns (copy, bands, apply, apply, bands, "
+            f"copy): " + ", ".join(f"{v:.4f}" for v in t) + f" ms; split: "
+            f"tile mover {c:.4f}, {'z/y' if dim == 3 else 'y'} bands "
+            f"{b - c:.4f}, x band {a - b:.4f} ms")
+        return c, b - c, a - b
+
     for name, rk, x, ablation in (
             ("K1", rk1, x17, lambda mode: ResidentSeparable(
                 mf.npts, 4, *flagship_axes(4, 64, 3), torch.float32,
@@ -1152,25 +1256,7 @@ def main() -> int:
             ("K4 shell", ks, xs, lambda mode: ResidentTerms(
                 129, 4, shell_terms, torch.float32, mode=mode, device=dev,
                 tile=ks.tile))):
-        abl = {mode: ablation(mode) for mode in ("copy", "bands")}
-        for mode, k in abl.items():
-            y, yp = k.raw(x), k.plain(x)
-            off = float((y - yp).abs().max() / yp.abs().max())
-            if not (off <= (0.0 if mode == "copy" else 1e-5)
-                    and torch.isfinite(y).all()):
-                raise RuntimeError(f"{name} {mode} ablation is off its plain "
-                                   f"version by {off:.3e}")
-        t = [chain_ms(fn, x) for fn in (
-            abl["copy"].raw, abl["bands"].raw, rk.raw, rk.raw,
-            abl["bands"].raw, abl["copy"].raw)]
-        c, b, a = (t[0] + t[5]) / 2, (t[1] + t[4]) / 2, (t[2] + t[3]) / 2
-        tz, ty = rk.tile
-        say("6 throughput", f"{name} at {rk.npts**3} DoFs, sub-tile "
-            f"{rk.tile} ({-(-rk.npts // tz) * -(-rk.npts // ty)} blocks on "
-            f"{n_sm} SMs), in turns (copy, bands, apply, apply, bands, "
-            f"copy): " + ", ".join(f"{v:.4f}" for v in t) + f" ms; split: "
-            f"tile mover {c:.4f}, z/y bands {b - c:.4f}, x band {a - b:.4f} "
-            f"ms")
+        split(name, rk, x, ablation)
     # the shell's K4 runs 289 blocks at (8, 8): at two an SM, a second wave
     # of 289 - 2 x SMs.  Held to its plain version and timed in turns at
     # (8, 8), (4, 8) and (4, 16); then T = 3 random banded terms at npts =
@@ -1210,27 +1296,58 @@ def main() -> int:
         f"blocks, X {kw[129].X}) {t[1]:.4f} {t[2]:.4f}; 121/129 "
         f"{(t[0] + t[3]) / (t[1] + t[2]):.3f}")
     del kt, kw
+    # K3 at 2D Q4 refine 10 (unmasked, as the tile routine before it was
+    # timed) and at refine 8 with the fused mask, as the 2D resident CG
+    # launches it (the kernels line's K3: there an apply is shorter than the
+    # host's launch, so kernel and plain are timed by their device time under
+    # torch.profiler); the 2D plan's split at both; K2 at 2D refine 10 and
+    # 3D refine 6, each in turns with its plain version
     k3 = ResidentTerms2D(4097, 4, lap2d, torch.float32, device=dev)
     k3s = ResidentTerms2D(4097, 4, lap2d, torch.float32, mode="bf16s",
                           device=dev)
-    x10 = k3.pad(torch.tensor(np.random.default_rng(15).standard_normal(
-        4097**2), dtype=torch.float32, device=dev))
-    ms["K3"], plain_ms["K3"] = turns(k3.raw, k3.plain, x10)
-    ms["K3_bf16s"] = chain_ms(k3s.raw, x10.to(torch.bfloat16))
-    for tier, t in (("resident-f32+cuda (K3, 2D)", ms["K3"]),
+    u10 = torch.tensor(np.random.default_rng(15).standard_normal(4097**2),
+                       dtype=torch.float32, device=dev)
+    x10 = k3.pad(u10)
+    ms["K3_r10"], plain_ms["K3_r10"] = turns(k3.raw, k3.plain, x10)
+    ms["K3_bf16s"] = chain_ms(k3s.raw, k3s.pad(u10))
+    for tier, t in (("resident-f32+cuda (K3, 2D)", ms["K3_r10"]),
                     ("resident-bf16s+cuda (K3, 2D)", ms["K3_bf16s"]),
-                    ("plain-torch-f32", plain_ms["K3"])):
+                    ("plain-torch-f32", plain_ms["K3_r10"])):
         apply_line("apply_2d_resident", 4097**2, t, tier, degree=4,
                    refine=10)
-    # K2 applies the same 2D operator on the same layout: which of the two
-    # should a 2D uniform MatrixFree keep (ROADMAP queue 2)
+    x8 = rk2.pad(torch.tensor(np.random.default_rng(18).standard_normal(
+        1025**2), dtype=torch.float32, device=dev))
+    say("6 throughput", "K3 at refine 8 by chains of 30 (host-bound): "
+        "ms per apply in turns: plain {:.4f}, kernel {:.4f}, kernel {:.4f}, "
+        "plain {:.4f}".format(*(chain_ms(f, x8) for f in (
+            rk2.plain, rk2.raw, rk2.raw, rk2.plain))))
+    ms["K3"], plain_ms["K3"] = turns(rk2.raw, rk2.plain, x8, device_ms)
+    split("K3", k3, x10, lambda mode: ResidentTerms2D(
+        4097, 4, lap2d, torch.float32, mode=mode, device=dev, tile=k3.tile))
+    split("K3 refine 8 (fused mask; device time)", rk2, x8,
+          lambda mode: ResidentTerms2D(1025, 4, lap2d_r8, torch.float32,
+                                       mode=mode, device=dev, tile=rk2.tile),
+          device_ms)
     k2_2d = KernelSeparable(2, 4097, 4, *flagship_axes(4, 1024, 2),
                             torch.float32, dev)
-    x10f = x10.reshape(-1)
-    k2_k3 = [chain_ms(k2_2d, x10f), chain_ms(k3.raw, x10),
-             chain_ms(k3.raw, x10), chain_ms(k2_2d, x10f)]
-    say("6 throughput", "2D Q4 refine 10 ms per apply in turns: K2 "
-        "{:.4f}, K3 {:.4f}, K3 {:.4f}, K2 {:.4f}".format(*k2_k3))
+    ms["K2_2d"], plain_ms["K2_2d"] = turns(k2_2d, k2_2d.plain, u10)
+    k2_k3 = [chain_ms(k2_2d, u10), chain_ms(k3.raw, x10),
+             chain_ms(k3.raw, x10), chain_ms(k2_2d, u10)]
+    say("6 throughput", "2D Q4 refine 10 ms per apply in turns: K2 (tile "
+        "routine) {:.4f}, K3 {:.4f}, K3 {:.4f}, K2 {:.4f}".format(*k2_k3))
+    del x10, u10
+    k2r6 = KernelSeparable(3, 257, 4, *flagship_axes(4, 64, 3),
+                           torch.float32, dev)
+    u6 = torch.tensor(np.random.default_rng(20).standard_normal(257**3),
+                      dtype=torch.float32, device=dev)
+    ms["K2_r6"], plain_ms["K2_r6"] = turns(k2r6, k2r6.plain, u6)
+    del u6
+    say("6 throughput", "K3 on the ring (fused mask at refine 8) and K2's "
+        "tile routine, ms per apply (earlier: the routines of e3bfbab, "
+        "resident_probe.py --applies on an H100 80GB HBM3 at 700 W): "
+        + ", ".join(f"{k} {ms[k]:.4f} (earlier {EARLIER_MS[k]:.4f}, "
+                    f"{EARLIER_MS[k] / ms[k]:.2f}x)"
+                    for k in ("K3", "K3_r10", "K2", "K2_r6", "K2_2d")))
 
     # the L1 kernels (f32: 3xTF32) at the flagship: kernel_lab.main timed
     # each raw apply in turns with its plain version (phase 5); one
@@ -1352,7 +1469,8 @@ def main() -> int:
 
     bound.update(K2=band_bound(129**3, 7), K1=band_bound(mf.n_dofs, 7),
                  K4=band_bound(mfc.n_dofs, 9), K4_shell=band_bound(129**3, 9),
-                 K3=band_bound(4097**2, 4))
+                 K3=band_bound(1025**2, 4), K3_r10=band_bound(4097**2, 4),
+                 K2_r6=band_bound(257**3, 7), K2_2d=band_bound(4097**2, 4))
     # the design bound of K1's and K4's resident layout: each point of
     # (npts, npts, X) read and written once
     design_bound = {key: roofline_ms(2 * 4 * r.npts**2 * r.X, {})[0]
@@ -1362,11 +1480,13 @@ def main() -> int:
             f"{k} {v:.5f}" for k, v in design_bound.items()))
     say("6 throughput", "K1 and K4 on the TMA ring, ms per apply (earlier, "
         "on the tile routines, an H100 80GB HBM3 at 700 W): " + ", ".join(
-            f"{k} {ms[k]:.4f} (earlier {t:.4f}, {t / ms[k]:.2f}x)"
-            for k, t in EARLIER_MS.items()))
+            f"{k} {ms[k]:.4f} (earlier {EARLIER_MS[k]:.4f}, "
+            f"{EARLIER_MS[k] / ms[k]:.2f}x)"
+            for k in ("K1", "K1_bf16s", "K4", "K4_bf16s", "K4_shell")))
     say("6 throughput", "bound ms on an H100: " + ", ".join(
         f"{name} {bound[name][0]:.5f} ({bound[name][1]})"
-        for name in ("K2", "K1", "K4", "K4_shell", "K3")))
+        for name in ("K2", "K2_r6", "K2_2d", "K1", "K4", "K4_shell", "K3",
+                     "K3_r10")))
 
     # ---- 7 the toolchain probes: each kernel against its plain version,
     # then the probes' entry point with the counts reset before and read
@@ -1518,7 +1638,7 @@ def main() -> int:
 
     say("done", f"{time.perf_counter() - t_start:.1f} s; {smi}")
     records = [
-        ("K2", "K2 separable_apply (flat vmult)",
+        ("K2", "K2 separable_apply (flat vmult, tile routine)",
          "tpufem_torch/csrc/separable_apply.cuh",
          "tpufem/ops/pallas_separable.py:116", abs_err["K2"], None),
         ("K1", "K1 resident_ring (Laplace plan, fused mask)",
@@ -1527,8 +1647,8 @@ def main() -> int:
         ("K4", "K4 resident_ring (term plan, fused mask)",
          "tpufem_torch/csrc/resident_ring.cuh",
          "tpufem/ops/pallas_separable.py:729", abs_err["K4"], None),
-        ("K3", "K3 terms_apply (2D resident terms)",
-         "tpufem_torch/csrc/terms_apply.cuh",
+        ("K3", "K3 resident_ring (2D terms plan, fused mask)",
+         "tpufem_torch/csrc/resident_ring.cuh",
          "tpufem/ops/pallas_separable.py:1057", abs_err["K3"], None),
     ] + [(kern, f"{kern} lab_resident ({LAB_KERNELS[kern][0]}, 3xTF32)",
           "tpufem_torch/csrc/lab_resident.cuh", LAB_KERNELS[kern][1],

@@ -1,21 +1,24 @@
-"""The CUDA routines of K2 (tpufem_torch/csrc/separable_apply.cuh), K3
-(terms_apply.cuh) and K1/K4 (the TMA ring, resident_ring.cuh), compiled
-for the CPU with g++ and held against the plain PyTorch versions.
+"""The CUDA routines of K1-K4 compiled for the CPU with g++ and held
+against the plain PyTorch versions: the band ring (tpufem_torch/csrc/
+resident_ring.cuh on band_ring.cuh) under K1 and K4 (3D) and K3 (2D;
+tests/test_torch_ring2d.py covers the 2D plan case by case), on their
+resident layouts, and K2's tile routine (separable_apply.cuh) on the flat
+grid.
 
-Every stage of the K2/K3 kernels is a loop ``for (i = threadIdx.x; i < n;
+Every stage of the tile routine is a loop ``for (i = threadIdx.x; i < n;
 i += blockDim.x)`` between ``__syncthreads()``, so one thread running each
-block in turn computes exactly what a block of 256 threads computes on
-the card.  The stub header below defines the CUDA built-ins for that
-(qualifiers, ``threadIdx``/``blockIdx``/``blockDim``, a no-op
-``__syncthreads``, round-to-nearest-even bf16 conversions).  The ring
-routine runs through csrc/hopper.cuh's host forms: a TMA box load is a
-loop copy with zero fill (negative coordinates included), a box store one
-with clipping, the mbarrier calls do nothing, and one host thread runs
-the producer's step, then each warp's piece, lane by lane.  This holds the
-kernels' indexing, halo, band tables, term loop and passes, fused mask,
-resident layout and storage conversions to the plain version on every run
-of the CPU tests; the card itself (launch configuration, shared-memory
-limits, TMA) is covered by ``chip_smoke.py``.
+block in turn computes exactly what a block of 256 threads computes on the
+card.  The stub header below defines the CUDA built-ins (qualifiers,
+``threadIdx``/``blockIdx``/``blockDim``, a no-op ``__syncthreads``,
+round-to-nearest-even bf16 conversions).  The ring runs through
+csrc/hopper.cuh's host forms: a TMA box load is a loop copy with zero fill
+(negative coordinates included), a box store one with clipping, the
+mbarrier calls do nothing, and one host thread runs the producer's step, then each warp's piece, lane by
+lane.  This holds the kernels' indexing, halo, segments, band tables, term
+loop and passes, fused mask, layouts and storage conversions to the plain
+version on every run of the CPU tests; the card itself (launch
+configuration, shared-memory limits, TMA) is covered by
+``chip_smoke.py``.
 """
 
 import ctypes
@@ -122,134 +125,106 @@ CODES = {"f64": (0, torch.float64, torch.float64),
          "bf16s": (2, torch.bfloat16, torch.float32)}
 TOL = {"f64": 1e-13, "f32": 1e-6, "bf16s": 4e-3}
 
-
-TERMS_SHIM = STUBS + r"""
-#include "terms_apply.cuh"
-
-template <int P, typename S, typename C>
-static int run(int nt, int npts, int ty, int tx, const void* u, void* y,
-               const void* tables) {
-  const long long bytes = tpufem::terms_smem_elems(P, nt, ty, tx) * sizeof(C);
-  const int gx = (npts + tx - 1) / tx, gy = (npts + ty - 1) / ty;
-  for (int by = 0; by < gy; ++by)
-    for (int bx = 0; bx < gx; ++bx) {
-      std::memset(tpufem::smem_raw, 0xAB, sizeof(tpufem::smem_raw));
-      blockIdx = Dim3{bx, by, 0};
-      tpufem::terms_apply_kernel<P, S, C>((const S*)u, (S*)y, (const C*)tables,
-                                          nt, npts, ty, tx);
-      for (long long i = bytes; i < bytes + 4096; ++i)
-        if (tpufem::smem_raw[i] != 0xAB) return 1;  // beyond its smem
-    }
-  return 0;
-}
-
-template <typename S, typename C>
-static int by_p(int p, int nt, int npts, int ty, int tx, const void* u,
-                void* y, const void* t) {
-  switch (p) {
-    case 1: return run<1, S, C>(nt, npts, ty, tx, u, y, t);
-    case 2: return run<2, S, C>(nt, npts, ty, tx, u, y, t);
-    case 3: return run<3, S, C>(nt, npts, ty, tx, u, y, t);
-    case 4: return run<4, S, C>(nt, npts, ty, tx, u, y, t);
-    case 8: return run<8, S, C>(nt, npts, ty, tx, u, y, t);
-  }
-  return 2;
-}
-
-extern "C" int host_terms_apply(int code, int p, int nt, int npts, int ty,
-                                int tx, const void* u, void* y,
-                                const void* t) {
-  if (code == 0) return by_p<double, double>(p, nt, npts, ty, tx, u, y, t);
-  if (code == 1) return by_p<float, float>(p, nt, npts, ty, tx, u, y, t);
-  return by_p<__nv_bfloat16, float>(p, nt, npts, ty, tx, u, y, t);
-}
-
-extern "C" long long host_terms_smem_elems(int p, int nt, int ty, int tx) {
-  return tpufem::terms_smem_elems(p, nt, ty, tx);
-}
-"""
-
+# The ring routine (resident_ring.cuh) for one host thread a block, each
+# block's shared memory NaN-filled first (a read of a point no stage wrote
+# shows in the output) and checked for writes beyond it.  SETS: the
+# instances a build carries, "3d" (K1, K4) and "2d" (K3).
 RING_SHIM = STUBS + r"""
 #define __syncwarp()
 #define __grid_constant__
 #include "resident_ring.cuh"
 
-template <int P, typename S, typename C, int PLAN>
+template <int P, typename S, typename C, int PLAN, int DIM>
 static int run(int mode, tpufem::ResGeo g, const void* u, void* y, void* part,
                const void* tab) {
-  if (!tpufem::res_takes(P, g.tz, g.ty)) return 3;
-  const int xc = tpufem::ring_xc(sizeof(S));
+  if (!tpufem::res_takes(P, g.tz, g.ty, DIM)) return 3;
+  const int xc = tpufem::ring_xc(sizeof(S), DIM);
   const tpufem::RingPieces pc = tpufem::ring_pieces(g.tz, g.ty);
-  tpufem::HopMap in_map, out_map;  // the launcher's two maps
-  const long long dim[3] = {g.X, g.npts, g.npts};
-  const int in_box[3] = {xc, g.ty + 2 * P, g.tz + 2 * P};
+  tpufem::HopMap in_map{}, out_map{};  // the launcher's two maps
+  const long long dim[3] = {g.X, g.npts, DIM == 3 ? g.npts : 1};
+  const int in_box[3] = {xc, g.ty + 2 * P, DIM == 3 ? g.tz + 2 * P : 1};
   const int out_box[3] = {xc, pc.by, pc.bz};
   tpufem::hop_map_3d(&in_map, (void*)u, sizeof(S), dim, in_box);
   tpufem::hop_map_3d(&out_map, y, sizeof(S), dim, out_box);
   const int nwin = PLAN == tpufem::kPlanTerms ? g.group : 2;
-  const long long bytes =
-      tpufem::res_smem(P, sizeof(S), sizeof(C), nwin, g.tz, g.ty).total;
-  for (int bz = 0; bz < (g.npts + g.tz - 1) / g.tz; ++bz)
-    for (int by = 0; by < (g.npts + g.ty - 1) / g.ty; ++by) {
-      // NaN in the block's own shared memory: a read of a point no stage
-      // wrote shows in the output
-      std::memset(tpufem::smem_raw, 0xFF, bytes);
-      std::memset(tpufem::smem_raw + bytes, 0xAB, 4096);
-      blockIdx = Dim3{by, bz, 0};
-      tpufem::resident_ring_kernel<P, S, C, PLAN>(
-          in_map, out_map, (const S*)u, (C*)part, (const C*)tab, g, mode);
-      for (long long i = bytes; i < bytes + 4096; ++i)
-        if (tpufem::smem_raw[i] != 0xAB) return 1;  // beyond its smem
-    }
+  const long long bytes = tpufem::res_smem(P, sizeof(S), sizeof(C), nwin,
+                                           g.tz, g.ty, DIM).total;
+  const int nz = DIM == 3 ? (g.npts + g.tz - 1) / g.tz : 1;
+  for (int sg = 0; sg < g.nseg; ++sg)
+    for (int bz = 0; bz < nz; ++bz)
+      for (int by = 0; by < (g.npts + g.ty - 1) / g.ty; ++by) {
+        std::memset(tpufem::smem_raw, 0xFF, bytes);
+        std::memset(tpufem::smem_raw + bytes, 0xAB, 4096);
+        blockIdx = Dim3{by, bz, sg};
+        tpufem::resident_ring_kernel<P, S, C, PLAN, DIM>(
+            in_map, out_map, (const S*)u, (C*)part, (const C*)tab, g, mode);
+        for (long long i = bytes; i < bytes + 4096; ++i)
+          if (tpufem::smem_raw[i] != 0xAB) return 1;  // beyond its smem
+      }
   return 0;
 }
 
-template <typename S, typename C, int PLAN>
+template <typename S, typename C, int PLAN, int DIM>
 static int by_p(int p, int mode, tpufem::ResGeo g, const void* u, void* y,
                 void* q, const void* t) {
   switch (p) {
-    case 1: return run<1, S, C, PLAN>(mode, g, u, y, q, t);
-    case 2: return run<2, S, C, PLAN>(mode, g, u, y, q, t);
-    case 3: return run<3, S, C, PLAN>(mode, g, u, y, q, t);
-    case 4: return run<4, S, C, PLAN>(mode, g, u, y, q, t);
-    case 7: return run<7, S, C, PLAN>(mode, g, u, y, q, t);
-    case 8: return run<8, S, C, PLAN>(mode, g, u, y, q, t);
+    case 1: return run<1, S, C, PLAN, DIM>(mode, g, u, y, q, t);
+    case 2: return run<2, S, C, PLAN, DIM>(mode, g, u, y, q, t);
+    case 3: return run<3, S, C, PLAN, DIM>(mode, g, u, y, q, t);
+    case 4: return run<4, S, C, PLAN, DIM>(mode, g, u, y, q, t);
+    case 7: return run<7, S, C, PLAN, DIM>(mode, g, u, y, q, t);
+    case 8: return run<8, S, C, PLAN, DIM>(mode, g, u, y, q, t);
   }
   return 2;
 }
 
-template <int PLAN>
+template <int PLAN, int DIM>
 static int by_dtype(int code, int p, int mode, tpufem::ResGeo g,
                     const void* u, void* y, void* q, const void* t) {
-  if (code == 0) return by_p<double, double, PLAN>(p, mode, g, u, y, q, t);
-  if (code == 1) return by_p<float, float, PLAN>(p, mode, g, u, y, q, t);
-  return by_p<__nv_bfloat16, float, PLAN>(p, mode, g, u, y, q, t);
+  if (code == 0)
+    return by_p<double, double, PLAN, DIM>(p, mode, g, u, y, q, t);
+  if (code == 1)
+    return by_p<float, float, PLAN, DIM>(p, mode, g, u, y, q, t);
+  return by_p<__nv_bfloat16, float, PLAN, DIM>(p, mode, g, u, y, q, t);
 }
 
-extern "C" int host_ring_apply(int plan, int code, int p, int npts, int X,
-                               int nt, int group, int tz, int ty, int mode,
-                               int dirichlet, const void* u, void* y,
-                               void* part, const void* t) {
-  const tpufem::ResGeo g{npts, X, tz, ty, nt, group, dirichlet};
-  return plan == 0 ? by_dtype<0>(code, p, mode, g, u, y, part, t)
-                   : by_dtype<1>(code, p, mode, g, u, y, part, t);
+// 4: refused by the launcher's argument check; 5: not in this build
+extern "C" int host_ring_apply(int plan, int dim, int code, int p, int npts,
+                               int X, int nt, int group, int tz, int ty,
+                               int nseg, int mode, int dirichlet,
+                               const void* u, void* y, void* part,
+                               const void* t) {
+  if (!tpufem::ring_args_ok(plan, dim, code, p, npts, X, nt, group, tz, ty,
+                            nseg, mode, dirichlet, u, y, part))
+    return 4;
+  const tpufem::ResGeo g{npts, X, tz, ty, nt, group, dirichlet, nseg};
+#ifdef SET3D
+  if (plan == 0 && dim == 3)
+    return by_dtype<0, 3>(code, p, mode, g, u, y, part, t);
+  if (plan == 1 && dim == 3)
+    return by_dtype<1, 3>(code, p, mode, g, u, y, part, t);
+#endif
+#ifdef SET2D
+  if (plan == 1 && dim == 2)
+    return by_dtype<1, 2>(code, p, mode, g, u, y, part, t);
+#endif
+  return 5;
 }
 
-static int bytes_of(int code) { return code == 0 ? 8 : code == 1 ? 4 : 2; }
-
-extern "C" long long host_ring_smem_bytes(int p, int code, int nwin, int tz,
-                                          int ty) {
-  return tpufem::res_smem(p, bytes_of(code), code == 0 ? 8 : 4, nwin, tz, ty)
+extern "C" long long host_ring_smem_bytes(int p, int dim, int code, int nwin,
+                                          int tz, int ty) {
+  return tpufem::res_smem(p, tpufem::ring_storage_bytes(code),
+                          code == 0 ? 8 : 4, nwin, tz, ty, dim)
       .total;
 }
 
-extern "C" int host_ring_takes(int p, int tz, int ty) {
-  return tpufem::res_takes(p, tz, ty) ? 1 : 0;
+extern "C" int host_ring_takes(int p, int dim, int tz, int ty) {
+  return tpufem::res_takes(p, tz, ty, dim) ? 1 : 0;
 }
 """
 
 
-def _build(tmp_path_factory, name, source):
+def _build(tmp_path_factory, name, source, defines=()):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ not found: the host build of the CUDA routine "
@@ -259,9 +234,32 @@ def _build(tmp_path_factory, name, source):
     lib_path = d / f"lib{name}.so"
     subprocess.run([gxx, "-std=c++17", "-O1", "-shared", "-fPIC",
                     "-Wno-unknown-pragmas", f"-I{CSRC}",
+                    *(f"-D{m}" for m in defines),
                     "-o", str(lib_path), str(d / "shim.cpp")],
                    check=True, capture_output=True, timeout=300)
     return ctypes.CDLL(str(lib_path))
+
+
+def build_ring(tmp_path_factory, name, sets):
+    """The host build of the ring routine with the instance sets ``sets``
+    ("3d", "2d"), its entries typed."""
+    lib = _build(tmp_path_factory, name, RING_SHIM,
+                 [f"SET{x.upper()}" for x in sets])
+    lib.host_ring_apply.argtypes = [ctypes.c_int] * 13 + [ctypes.c_void_p] * 4
+    lib.host_ring_apply.restype = ctypes.c_int
+    lib.host_ring_smem_bytes.argtypes = [ctypes.c_int] * 6
+    lib.host_ring_smem_bytes.restype = ctypes.c_longlong
+    lib.host_ring_takes.argtypes = [ctypes.c_int] * 4
+    lib.host_ring_takes.restype = ctypes.c_int
+    return lib
+
+
+def ring_counts(lib, dim=3):
+    """The chooser's two callables for a host build: ``smem(p, code, nwin,
+    tz, ty)`` and ``takes(p, tz, ty)``, at dim."""
+    return (lambda p, code, nwin, tz, ty: lib.host_ring_smem_bytes(
+                p, dim, code, nwin, tz, ty),
+            lambda p, tz, ty: lib.host_ring_takes(p, dim, tz, ty))
 
 
 @pytest.fixture(scope="module")
@@ -272,6 +270,12 @@ def host_lib(tmp_path_factory):
     lib.host_smem_elems.argtypes = [ctypes.c_int] * 5
     lib.host_smem_elems.restype = ctypes.c_longlong
     return lib
+
+
+@pytest.fixture(scope="module")
+def ring2d_lib(tmp_path_factory):
+    """K3's instances of the ring (the 2D resident layout)."""
+    return build_ring(tmp_path_factory, "ring2d_host", ("2d",))
 
 
 def _nonsym(rng, npts, p):
@@ -316,13 +320,14 @@ def _plain(dim, npts, Ks, Ms, u64, dirichlet):
     (3, 4, 21, "f32", False, (4, 4, 32)),
     (2, 2, 70, "f32", False, (1, 8, 32)),
 ])
-def test_kernel_host_build_matches_plain(host_lib, ring_lib, terms_lib, dim,
+def test_kernel_host_build_matches_plain(host_lib, ring_lib, ring2d_lib, dim,
                                          p, npts, mode, dirichlet, tile):
     """The Laplace apply on random non-symmetric banded matrices, distinct
     per axis: an axis swap, a transposed band or a boundary-row error
-    shows.  Unmasked: K2 on the flat grid.  With the Dirichlet mask, the
-    resident kernel that carries it: in 3D K1 on the ring, the mask fused;
-    in 2D K3 on the two-term factorisation, the mask algebra around it."""
+    shows.  Unmasked: K2's tile routine on the flat grid.  With the
+    Dirichlet mask, the resident
+    kernel that carries it, fused, on the ring: in 3D K1, in 2D K3 on the
+    two-term factorisation."""
     code, storage, compute = CODES[mode]
     rng = np.random.default_rng(npts * 10 + p)
     Ks = [_nonsym(rng, npts, p) for _ in range(dim)]
@@ -334,11 +339,8 @@ def test_kernel_host_build_matches_plain(host_lib, ring_lib, terms_lib, dim,
     if dirichlet and dim == 3:
         y, x, _ = _ring_apply(ring_lib, 0, mats, p, mode, u64, True, tile)
     elif dirichlet:
-        m = _mask(npts, 2)
-        x = u64.to(storage).to(torch.float64)
-        ym, _ = _terms_host_apply(terms_lib, [[Ks[0], Ms[1]], [Ms[0], Ks[1]]],
-                                  p, mode, m * x, tile)
-        y = m * ym + (1.0 - m) * x
+        y, x, _ = _ring_apply(ring2d_lib, 1, [Ks[0], Ms[1], Ms[0], Ks[1]], p,
+                              mode, u64, True, tile, dim=2)
     else:
         tables = torch.as_tensor(tks.band_tables(mats, p), dtype=compute)
         if tile is None:
@@ -397,50 +399,47 @@ def test_tiles_fit_for_every_degree(host_lib, dim):
 # ---------------------------------------------------------------------
 @pytest.fixture(scope="module")
 def ring_lib(tmp_path_factory):
-    lib = _build(tmp_path_factory, "ring_host", RING_SHIM)
-    lib.host_ring_apply.argtypes = [ctypes.c_int] * 11 + [ctypes.c_void_p] * 4
-    lib.host_ring_apply.restype = ctypes.c_int
-    lib.host_ring_smem_bytes.argtypes = [ctypes.c_int] * 5
-    lib.host_ring_smem_bytes.restype = ctypes.c_longlong
-    lib.host_ring_takes.argtypes = [ctypes.c_int] * 3
-    lib.host_ring_takes.restype = ctypes.c_int
-    return lib
+    """K1's and K4's instances of the ring (the 3D resident layout)."""
+    return build_ring(tmp_path_factory, "ring_host", ("3d",))
 
 
 def _ring_apply(lib, plan, mats, p, mode, u64, dirichlet=False, tile=None,
-                group=None, ablation=0):
+                group=None, ablation=0, *, dim=3, segments=1):
     """Run the host build of the ring routine on the flat f64 ``u64``:
-    tables as the wrappers make them (``RingApply``), the resident layout
-    padded with zeros, the output filled with NaN first.  Return (y flat in
-    f64, the storage-rounded input flat in f64, the output layout)."""
+    tables as the wrappers make them (``RingApply``), the layout padded
+    with zeros, the output filled with NaN first.  ``tile``: the sub-tile
+    (tz, ty), or (tz, ty, segments).  Return (y flat in f64, the
+    storage-rounded input flat in f64, the output layout)."""
     code, storage, compute = CODES[mode]
     npts = mats[0].shape[0]
-    nt = len(mats) // 3 if plan == 1 else 0
+    nt = len(mats) // dim if plan == 1 else 0
     if dirichlet:
         mats = [tks.masked(M) for M in mats]
     tab = tks.ring_tables(mats, p)
     if plan == 1:
-        tab = tab.reshape(nt, 3, npts, tab.shape[-1])
+        tab = tab.reshape(nt, dim, npts, tab.shape[-1])
     tables = torch.as_tensor(tab, dtype=compute)
-    tiles = tks.RING_TILES if tile is None else (tile,)
+    if tile is not None and len(tile) == 3:
+        tile, segments = tile[:2], tile[2]
+    tiles = ((tks.RING_TILES if dim == 3 else tks.RING_TILES_2D)
+             if tile is None else (tile,))
     (tz, ty), g = tks.choose_ring_tile(p, code, nt or None,
-                                       lib.host_ring_smem_bytes,
-                                       lib.host_ring_takes, tiles)
-    X = tks.resident_x(npts, storage)
-    u = torch.zeros((npts, npts, X), dtype=storage)
-    u[..., :npts] = u64.reshape((npts,) * 3).to(storage)
+                                       *ring_counts(lib, dim), tiles)
+    X = tks.resident_x(npts, storage, dim)
+    u = torch.zeros((npts,) * (dim - 1) + (X,), dtype=storage)
+    u[..., :npts] = u64.reshape((npts,) * dim).to(storage)
     y = torch.full_like(u, float("nan"))  # every point written
     group = group or g
     part = None  # the passes' partial sums, as RingApply.launch makes them
     if nt and group < nt and ablation != tks.RING_ABLATIONS["copy"]:
         part = y if storage == compute else torch.full_like(
             y, float("nan"), dtype=compute)
-    rc = lib.host_ring_apply(plan, code, p, npts, X, nt, group, tz, ty,
-                             ablation, int(dirichlet), u.data_ptr(),
-                             y.data_ptr(),
+    rc = lib.host_ring_apply(plan, dim, code, p, npts, X, nt, group, tz, ty,
+                             segments, ablation,
+                             int(dirichlet), u.data_ptr(), y.data_ptr(),
                              None if part is None else part.data_ptr(),
                              tables.data_ptr())
-    assert rc == 0, "kernel wrote beyond its shared memory"
+    assert rc == 0, f"host build returned {rc} (1: wrote beyond its smem)"
     assert torch.isfinite(y).all()
     assert not y[..., npts:].any(), "the pad columns are not zero"
     return (y[..., :npts].reshape(-1).to(torch.float64),
@@ -534,9 +533,7 @@ def test_ring_host_k4_chooser_takes_passes_at_many_terms(ring_lib, mode):
     with the fused mask stays within the storage's class."""
     p, npts, T = 8, 17, 22
     code = CODES[mode][0]
-    (tz, ty), g = tks.choose_ring_tile(p, code, T,
-                                       ring_lib.host_ring_smem_bytes,
-                                       ring_lib.host_ring_takes)
+    (tz, ty), g = tks.choose_ring_tile(p, code, T, *ring_counts(ring_lib))
     assert g < T
     rng = np.random.default_rng(8)
     terms = [[_nonsym(rng, npts, p) for _ in range(3)] for _ in range(T)]
@@ -551,9 +548,9 @@ def test_ring_host_k4_chooser_takes_passes_at_many_terms(ring_lib, mode):
 def _takes(lib, p, code):
     """Every (tz, ty) of 1..16 the ring routine takes whose block with
     three windows fits a block's shared memory."""
+    smem, takes = ring_counts(lib)
     return [(tz, ty) for tz in range(1, 17) for ty in range(1, 17)
-            if lib.host_ring_takes(p, tz, ty)
-            and lib.host_ring_smem_bytes(p, code, 3, tz, ty)
+            if takes(p, tz, ty) and smem(p, code, 3, tz, ty)
             <= tks.RING_BUDGET]
 
 
@@ -650,51 +647,16 @@ def test_ring_subtiles_fit_up_to_cp_terms(ring_lib):
     and storage, for K1 and for K4 up to the 18 terms of a rank-6 CP
     coefficient; at T = 3 and p = 4 in f32 it keeps all three windows at
     (8, 8) with two blocks an SM."""
+    smem, takes = ring_counts(ring_lib)
     for p in range(1, tks.MAX_DEGREE + 1):
         for code in (0, 1, 2):
             for nt in (None, 1, 3, 18):
-                (tz, ty), g = tks.choose_ring_tile(
-                    p, code, nt, ring_lib.host_ring_smem_bytes,
-                    ring_lib.host_ring_takes)
-                assert ring_lib.host_ring_smem_bytes(p, code, g, tz, ty) \
-                    <= tks.RING_BUDGET
+                (tz, ty), g = tks.choose_ring_tile(p, code, nt, smem, takes)
+                assert smem(p, code, g, tz, ty) <= tks.RING_BUDGET
                 assert g == 2 if nt is None else 1 <= g <= nt
-    assert tks.choose_ring_tile(4, 1, 3, ring_lib.host_ring_smem_bytes,
-                                ring_lib.host_ring_takes) == ((8, 8), 3)
-    assert ring_lib.host_ring_smem_bytes(4, 1, 3, 8, 8) <= tks.RING_TWO_BLOCKS
-    assert tks.choose_ring_tile(4, 1, None, ring_lib.host_ring_smem_bytes,
-                                ring_lib.host_ring_takes)[0] == (8, 8)
-
-
-@pytest.fixture(scope="module")
-def terms_lib(tmp_path_factory):
-    lib = _build(tmp_path_factory, "terms_host", TERMS_SHIM)
-    lib.host_terms_apply.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
-    lib.host_terms_apply.restype = ctypes.c_int
-    lib.host_terms_smem_elems.argtypes = [ctypes.c_int] * 4
-    lib.host_terms_smem_elems.restype = ctypes.c_longlong
-    return lib
-
-
-def _terms_host_apply(lib, terms, p, mode, u64, tile=None):
-    """Run the host build of the K3 routine (2D) on f64 ``u64``; return
-    (y in f64, the storage-rounded input in f64)."""
-    code, storage, compute = CODES[mode]
-    npts, nt = terms[0][0].shape[0], len(terms)
-    tables = torch.as_tensor(
-        tks.band_tables([X for t in terms for X in t], p).reshape(
-            nt, 2, npts, 2 * p + 2), dtype=compute)
-    if tile is None:
-        tile = tks.choose_tile(
-            2, p, tables.element_size(),
-            lambda d, pp, tz, ty, tx: lib.host_terms_smem_elems(pp, nt, ty,
-                                                                tx))
-    u = u64.to(storage)
-    y = torch.empty_like(u)
-    rc = lib.host_terms_apply(code, p, nt, npts, tile[1], tile[2],
-                              u.data_ptr(), y.data_ptr(), tables.data_ptr())
-    assert rc == 0, "kernel wrote beyond its shared memory"
-    return y.to(torch.float64), u.to(torch.float64)
+    assert tks.choose_ring_tile(4, 1, 3, smem, takes) == ((8, 8), 3)
+    assert smem(4, 1, 3, 8, 8) <= tks.RING_TWO_BLOCKS
+    assert tks.choose_ring_tile(4, 1, None, smem, takes)[0] == (8, 8)
 
 
 @pytest.mark.parametrize("dim,p,npts,n_terms,mode,tile", [
@@ -705,25 +667,23 @@ def _terms_host_apply(lib, terms, p, mode, u64, tile=None):
     (3, 3, 10, 3, "f32", (4, 8)),
     (3, 4, 21, 3, "bf16s", None),
     (2, 1, 9, 1, "f64", None),
-    (2, 3, 25, 3, "f64", (1, 5, 7)),
+    (2, 3, 25, 3, "f64", (1, 16, 2)),  # ragged rows, two segments
     (2, 8, 33, 3, "f64", None),
     (2, 4, 41, 1, "f32", None),
     (2, 2, 70, 3, "bf16s", None),
 ])
-def test_terms_host_build_matches_plain(terms_lib, ring_lib, dim, p, npts,
+def test_terms_host_build_matches_plain(ring_lib, ring2d_lib, dim, p, npts,
                                         n_terms, mode, tile):
-    """K3 (2D, terms_apply.cuh) and K4 (3D, the ring): random non-symmetric
-    banded matrices, distinct per term and axis, so a swapped axis or
-    term, a transposed band or a boundary-row error shows."""
+    """K3 (2D) and K4 (3D), both on the ring's terms plan: random
+    non-symmetric banded matrices, distinct per term and axis, so a swapped
+    axis or term, a transposed band or a boundary-row error shows."""
     rng = np.random.default_rng(npts * 10 + p + n_terms)
     terms = [[_nonsym(rng, npts, p) for _ in range(dim)]
              for _ in range(n_terms)]
     u64 = torch.as_tensor(rng.standard_normal(npts**dim))
-    if dim == 3:
-        y, x, _ = _ring_apply(ring_lib, 1, [X for t in terms for X in t], p,
-                              mode, u64, tile=tile)
-    else:
-        y, x = _terms_host_apply(terms_lib, terms, p, mode, u64, tile)
+    y, x, _ = _ring_apply(ring_lib if dim == 3 else ring2d_lib, 1,
+                          [X for t in terms for X in t], p, mode, u64,
+                          tile=tile, dim=dim)
     ref = laplace_apply_separable_terms(
         x, dim, npts, [[torch.as_tensor(X) for X in t] for t in terms])
     err = (y - ref).abs().max() / ref.abs().max()
@@ -731,44 +691,40 @@ def test_terms_host_build_matches_plain(terms_lib, ring_lib, dim, p, npts,
 
 
 @pytest.mark.parametrize("dim", [2, 3])
-def test_terms_host_build_f32_keeps_zero_row_sums(terms_lib, ring_lib, dim):
+def test_terms_host_build_f32_keeps_zero_row_sums(ring_lib, ring2d_lib, dim):
     """The shell's operator annihilates constants (each term has one
     weighted stiffness factor, whose rows sum to zero).  With the row sums
-    taken in f64, the f32 kernels (K3 in 2D, K4 on the ring in 3D) keep
-    A·1 = 0 to f64 rounding, as K1 does for the uniform Laplace."""
+    taken in f64, the f32 kernels (K3 in 2D, K4 in 3D) keep A·1 = 0 to f64
+    rounding, as K1 does for the uniform Laplace."""
     p, n = 4, 4
     npts = n * p + 1
     mesh = Mesh.hyper_shell_3d(2) if dim == 3 else Mesh.hyper_shell_2d(2)
     terms = build_separable_metric_terms(p, dim, p + 1, n,
                                          mesh.separable_metric, np.float64)
     ones = torch.ones(npts**dim, dtype=torch.float64)
-    if dim == 3:
-        y, _, _ = _ring_apply(ring_lib, 1, [X for t in terms for X in t], p,
-                              "f32", ones)
-    else:
-        y, _ = _terms_host_apply(terms_lib, terms, p, "f32", ones)
+    y, _, _ = _ring_apply(ring_lib if dim == 3 else ring2d_lib, 1,
+                          [X for t in terms for X in t], p, "f32", ones,
+                          dim=dim)
     scale = laplace_apply_separable_terms(
         ones, dim, npts,
         [[torch.as_tensor(abs(X)) for X in t] for t in terms]).max()
     assert y.abs().max() <= 1e-12 * scale
 
 
-def test_terms_tiles_fit_up_to_cp_terms(terms_lib, ring_lib):
-    """The tile choosers find a block within budget for every degree and
-    compute dtype, up to the 18 terms of a rank-6 CP coefficient: K3's
-    tile chooser in 2D, the ring's sub-tile and term group in 3D."""
+def test_terms_tiles_fit_up_to_cp_terms(ring_lib, ring2d_lib):
+    """The ring's chooser finds a sub-tile and term group within budget
+    for every degree and storage, up to the 18 terms of a rank-6 CP
+    coefficient: K3's (1, TY) in 2D, K4's (TZ, TY) in 3D."""
     for p in range(1, tks.MAX_DEGREE + 1):
-        for itemsize, code in ((4, 1), (8, 0), (4, 2)):
+        for code in (1, 0, 2):
             for nt in (1, 3, 18):
-                count = (lambda d, pp, tz, ty, tx, nt=nt:
-                         terms_lib.host_terms_smem_elems(pp, nt, ty, tx))
-                tile = tks.choose_tile(2, p, itemsize, count)
-                assert count(2, p, *tile) * itemsize <= tks.SMEM_BUDGET
-                (tz, ty), g = tks.choose_ring_tile(
-                    p, code, nt, ring_lib.host_ring_smem_bytes,
-                    ring_lib.host_ring_takes)
-                assert ring_lib.host_ring_smem_bytes(p, code, g, tz, ty) \
-                    <= tks.RING_BUDGET and 1 <= g <= nt
+                for dim, lib in ((2, ring2d_lib), (3, ring_lib)):
+                    smem, takes = ring_counts(lib, dim)
+                    (tz, ty), g = tks.choose_ring_tile(
+                        p, code, nt, smem, takes,
+                        tks.RING_TILES if dim == 3 else tks.RING_TILES_2D)
+                    assert smem(p, code, g, tz, ty) <= tks.RING_BUDGET \
+                        and 1 <= g <= nt and (dim == 3 or tz == 1)
 
 
 @pytest.mark.parametrize("name", sorted(build.SOURCES))

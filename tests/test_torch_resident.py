@@ -194,16 +194,17 @@ class MaskedTables:
     """The operator the ring kernels run with the fused mask, in plain
     PyTorch on the CPU: the sum of products of the masked 1D matrices
     D X D (kernel_separable.masked), plus (1 - m) x, on the wrapper's
-    resident layout."""
+    resident layout (2D or 3D, by the terms' length)."""
 
     def __init__(self, rk, terms):
         self.rk, self.dirichlet = rk, True
         self.compute_dt, self.dt = rk.compute_dt, rk.dt
-        self.npts = rk.npts
+        self.npts, self.dim = rk.npts, len(terms[0])
         self.mterms = [[torch.as_tensor(tks.masked(np.asarray(X)),
                                         dtype=rk.compute_dt) for X in t]
                        for t in terms]
-        self.m = tks.separable_interior_mask(rk.npts, rk.compute_dt, "cpu")
+        self.m = tks.separable_interior_mask(rk.npts, rk.compute_dt, "cpu",
+                                             self.dim)
 
     def pad_any(self, u):
         return self.rk.pad_any(u)
@@ -215,7 +216,8 @@ class MaskedTables:
         from tpufem_torch.ops.separable import laplace_apply_separable_terms
 
         x = self.unpad(gp).to(self.compute_dt)
-        y = laplace_apply_separable_terms(x, 3, self.npts, self.mterms) \
+        y = laplace_apply_separable_terms(x, self.dim, self.npts,
+                                          self.mterms) \
             + (1.0 - self.m) * x
         return self.rk.pad_any(y.to(self.dt))
 

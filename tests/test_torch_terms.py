@@ -156,7 +156,7 @@ def test_resident_terms_plain_matches_tpufem(dim, p, n, tile):
     # two applies chained in the resident layout
     y2_j = np.asarray(jk.unpad(jk.raw(jk.raw(jk.pad(jnp.asarray(u))))))
     gp = tk.pad(torch.as_tensor(u))
-    assert gp.shape == ((npts, npts, 24) if dim == 3 else (npts, npts))
+    assert gp.shape == ((npts, npts, 24) if dim == 3 else (npts, 48))
     y2_t = tk.unpad(tk.raw(tk.raw(gp))).numpy()
     assert np.linalg.norm(y2_t - y2_j) / np.linalg.norm(y2_j) < 1e-12
 
@@ -177,7 +177,7 @@ def test_resident_terms_bf16s_mode(dim):
     gp = tk.pad(torch.as_tensor(u))
     y = tk.raw(gp)
     assert y.dtype == torch.bfloat16 and y.shape == (
-        (npts, npts, 32) if dim == 3 else (npts, npts))
+        (npts, npts, 32) if dim == 3 else (npts, 32))
     y = tk.unpad(y).to(torch.float64).numpy()
     ref = cls_t(npts, p, terms, torch.float64, device="cpu")
     y_ref = ref.unpad(ref.raw(ref.pad(tk.unpad(gp).to(torch.float64))))
@@ -222,6 +222,8 @@ def _build_pair(case, use_pallas=True, pallas_mode="f32"):
     elif case == "coef_axes_3d_r3":
         mesh, dim, p = Mesh.hyper_cube(3, 3), 3, 2
         kw = dict(coefficient_axes=_sep_coef_axes(3))
+    elif case == "cube_2d":
+        mesh, dim, p = Mesh.hyper_cube(2, 4), 2, 3
     elif case == "cp_2d":
         mesh, dim, p = Mesh.hyper_cube(2, 3), 2, 2
         kw = dict(coefficient=_cp_coef, coefficient_cp_tol=1e-9,
@@ -368,24 +370,28 @@ def test_resident_cg_shell_bf16s():
 # K4 on the ring: its resident layout, the fused mask, the masked tables
 # ---------------------------------------------------------------------
 def test_resident_terms_layout_round_trip_and_fused_mask():
-    """K4's resident layout is the ring's (npts, npts, X): unpad(pad(u))
-    == u, the pad zero and zero through a CPU resident CG.  On the shell
-    and the separable coefficient (whose boundary is the full box) the mask
-    is fused; ``raw`` is then m·A(m·x) + (1-m)·x and ``__call__`` stays the
-    unmasked A (the operator's vmult_raw)."""
+    """K4's resident layout is the ring's (npts, npts, X), K3's (npts, X):
+    unpad(pad(u)) == u, the pad zero and zero through a CPU resident CG.
+    On the shells and the separable coefficient (whose boundary is the
+    full box) the mask is fused, in 2D as in 3D; ``raw`` is then
+    m·A(m·x) + (1-m)·x and ``__call__`` stays the unmasked A (the
+    operator's vmult_raw)."""
     from tpufem_torch.ops.kernel_separable import separable_interior_mask
 
-    for case in ("shell_3d", "coef_axes_3d_r3"):
+    for case in ("shell_3d", "coef_axes_3d_r3", "shell_2d"):
         _, tmf = _build_pair(case)
-        rk = tmf.resident
+        rk, d = tmf.resident, tmf.config.dim
         assert isinstance(rk, tkt.ResidentTerms) and rk.dirichlet
+        assert isinstance(rk, tkt.ResidentTerms2D) == (d == 2)
         n = rk.npts
-        u = torch.as_tensor(np.random.default_rng(12).standard_normal(n**3))
+        u = torch.as_tensor(np.random.default_rng(12).standard_normal(n**d))
         gp = rk.pad(u)
-        assert gp.shape == (n, n, rk.X) and rk.X % 8 == 0 and rk.X - n < 8
+        xc = 8 if d == 3 else 16  # a chunk of f64: 64 bytes, 2D 128
+        assert gp.shape == (n,) * (d - 1) + (rk.X,) and rk.X % xc == 0 \
+            and rk.X - n < xc
         assert not gp[..., n:].any() and torch.equal(rk.unpad(gp), u)
-        m = separable_interior_mask(n, torch.float64, "cpu")
-        A = lambda v: tsep.laplace_apply_separable_terms(v, 3, n, tmf.terms)
+        m = separable_interior_mask(n, torch.float64, "cpu", d)
+        A = lambda v: tsep.laplace_apply_separable_terms(v, d, n, tmf.terms)
         assert torch.allclose(rk.unpad(rk.raw(gp)),
                               m * A(m * u) + (1.0 - m) * u, rtol=0,
                               atol=1e-12 * float(A(u).abs().max()))
@@ -404,23 +410,24 @@ def test_resident_terms_layout_round_trip_and_fused_mask():
         r = resident_jacobi_cg(top, b, diag=top.diagonal(), rtol=1e-8,
                                maxiter=400)
         assert r.converged and len(seen) > 10 and not any(seen)
-    _, tmf2 = _build_pair("shell_2d")
-    assert not tmf2.resident.dirichlet  # K3: the mask stays outside
 
 
-@pytest.mark.parametrize("case", ["shell_3d", "coef_axes_3d_r3"])
+@pytest.mark.parametrize("case", ["shell_3d", "coef_axes_3d_r3",
+                                  "shell_2d", "cp_2d", "cube_2d"])
 def test_masked_terms_tables_match_tpufem_mask_algebra(case):
-    """The masked-table operator K4 runs with the fused mask equals
-    tpufem's m·A(m·x) + (1-m)·x in f64 to 1e-10, and a resident CG through
-    it takes tpufem's iterations to the same x."""
+    """The masked-table operator K4 (3D) and K3 (2D: the shell, a CP
+    coefficient, the cube's two Laplace terms) run with the fused mask
+    equals tpufem's m·A(m·x) + (1-m)·x in f64 to 1e-10, and a resident CG
+    through it takes tpufem's iterations to the same x."""
     from types import SimpleNamespace
 
     from test_torch_resident import MaskedTables
 
     jmf, tmf = _build_pair(case)
+    assert tmf.resident.dirichlet
     jop, top = JLaplace(jmf), LaplaceOperator(tmf)
-    mt = MaskedTables(tmf.resident, [[X.numpy() for X in t]
-                                     for t in tmf.terms])
+    terms = tmf.terms or [[tmf.Ks[0], tmf.Ms[1]], [tmf.Ms[0], tmf.Ks[1]]]
+    mt = MaskedTables(tmf.resident, [[X.numpy() for X in t] for t in terms])
     x = np.random.default_rng(14).standard_normal(tmf.n_dofs)
     y_j = np.asarray(jop.vmult(jnp.asarray(x)))
     y_t = mt.unpad(mt.raw(mt.pad_any(torch.as_tensor(x)))).numpy()

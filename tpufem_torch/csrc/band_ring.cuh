@@ -1,14 +1,16 @@
 // The all-band ring: the block skeleton shared by the routines that band
-// every axis of a 3D grid on Hopper's TMA (resident_ring.cuh: K1, K4; the
-// kernel lab's vcopy, vband and v16 in lab_zyfirst.cuh).
+// every axis of a 2D or 3D grid on Hopper's TMA (resident_ring.cuh: K1, K3,
+// K4; the kernel lab's vcopy, vband and v16 in lab_zyfirst.cuh).
 //
-// A block owns a (TZ, TY) sub-tile of the output rows over all of x and
-// walks x in chunks of XC columns (64 bytes of a row, ring_xc).  Its threads
-// are kRingWarps consumer warps and one producer warp:
-//   producer  one thread asks for each halo'd u box (TZ+2P, TY+2P, XC) by
-//             TMA, into one of kRingStages slots; what lies beyond the
-//             tensor arrives as zeros, so no thread computes an address or
-//             tests a bound on the way in
+// A block owns a (TZ, TY) sub-tile of the output rows (2D: (1, TY)) over
+// chunks [c0, c1) of x (a segment; K1, K4 and the lab: all of x) and walks
+// them in chunks of XC columns (ring_xc: 64 bytes of a row in 3D; 128 bytes,
+// at most 32 columns, in 2D, whose boxes are TZ + 2P times thinner).  Its
+// threads are kRingWarps consumer warps and one producer warp:
+//   producer  one thread asks for each halo'd u box (TZ+2P, TY+2P, XC) (2D:
+//             (TY+2P, XC)) by TMA, into one of kRingStages slots; what lies
+//             beyond the tensor arrives as zeros, so no thread computes an
+//             address or tests a bound on the way in
 //   full      a slot's mbarrier, armed with the box's bytes: the consumers
 //             wait on it
 //   empty     a slot's other mbarrier: each consumer warp arrives once it has
@@ -18,6 +20,11 @@
 //             a window of columns (circular, a few chunks wide): once chunk c
 //             has its y outputs, the x band writes chunk c - 1, and every
 //             stored box starts on a chunk
+//   segment   the x band of chunk c0 reads chunk c0 - 1's last P columns and
+//             that of c1 - 1 chunk c1's first P, so a block loads chunk
+//             c0 - 1 and chunk c1 too, where they exist, and stores [c0, c1)
+//             (ring_segment; the host picks the count, choose_segments in
+//             ops/kernel_separable.py)
 //   out       each consumer warp owns a (TZ/nwz, TY/nwy) piece of the rows
 //             (ring_pieces) and stores its piece of every chunk as one TMA
 //             box from one of two output slots, reused once the store of two
@@ -48,8 +55,11 @@ __host__ __device__ inline long long ring_align(long long b) {
   return (b + 127) / 128 * 128;
 }
 
-// x columns per chunk: 64 bytes of a row
-__host__ __device__ constexpr int ring_xc(int elem) { return 64 / elem; }
+// x columns per chunk: 64 bytes of a row in 3D; in 2D 128 bytes, at most 32
+// columns (a lane keeps its column: XC divides the warp)
+__host__ __device__ constexpr int ring_xc(int elem, int dim = 3) {
+  return dim == 2 ? (128 / elem < 32 ? 128 / elem : 32) : 64 / elem;
+}
 
 // How the consumer warps share a (tz, ty) sub-tile: nwz x nwy pieces of
 // (bz, by) rows, piece w at (w / nwy, w % nwy).
@@ -123,6 +133,14 @@ struct Ring {
     hop_mbar_arrive(empty() + k % kRingStages);
   }
 };
+
+// Chunks [c0, c1) of segment s of nseg over nchunk chunks: sizes differ by
+// one at most, none empty while nseg <= nchunk.
+__host__ __device__ inline void ring_segment(int s, int nseg, int nchunk,
+                                             int& c0, int& c1) {
+  c0 = (int)((long long)s * nchunk / nseg);
+  c1 = (int)((long long)(s + 1) * nchunk / nseg);
+}
 
 // A consumer warp's output slot, before it is written: the store of two
 // chunks ago has been read.

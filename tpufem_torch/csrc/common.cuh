@@ -1,6 +1,6 @@
-// Device pieces shared by the port's band-table kernels
-// (separable_apply.cuh: K2; terms_apply.cuh: K3; resident_ring.cuh: K1, K4;
-// the kernel labs).
+// Device pieces shared by the port's band-table kernels (separable_apply.cuh:
+// K2's tile routine; resident_ring.cuh: K1, K3 and K4 on the band ring; the
+// kernel labs).
 #pragma once
 
 #ifdef __CUDACC__

@@ -2,7 +2,7 @@
 // cp.async helpers of lab_mma.cuh: mbarriers, the Tensor Memory Accelerator
 // (TMA) and the warpgroup matrix multiply (wgmma).
 //
-// Used by band_ring.cuh (the all-band ring under K1 and K4 in
+// Used by band_ring.cuh (the all-band ring under K1, K3 and K4 in
 // resident_ring.cuh and under the lab's vcopy, vband, v16 of
 // scripts/kernel_lab.py, _kernel_vcopy :500, _kernel_vband :525, _kernel_v16
 // :1347, in lab_zyfirst.cuh) and lab_separable.cuh (the dense x stage of

@@ -1,6 +1,6 @@
-// Host launcher of the solver-resident 3D band operators K1 and K4 (device
-// code and the design note in resident_ring.cuh), with a plain C interface
-// for ctypes.  Built by tpufem_torch/utils/build.py:
+// Host entries of the band operators on the resident layouts, K1, K3 and K4
+// (device code and the design note in resident_ring.cuh): the launcher, with
+// a plain C interface for ctypes.  Built by tpufem_torch/utils/build.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o <lib>.so resident_ring.cu
 #include <cstdint>
@@ -12,41 +12,59 @@
 
 namespace {
 
-// the tensor maps of the two resident layouts, then the launch
-template <int P, typename S, typename C, int PLAN>
-cudaError_t launch(int mode, const tpufem::ResGeo& g, const void* u, void* y,
-                   void* part, const void* tables, cudaStream_t stream) {
-  const int xc = tpufem::ring_xc(sizeof(S));
-  const tpufem::RingPieces pc = tpufem::ring_pieces(g.tz, g.ty);
-  tpufem::HopMap in_map, out_map;
-  const long long dim[3] = {g.X, g.npts, g.npts};
-  const int in_box[3] = {xc, g.ty + 2 * P, g.tz + 2 * P};
-  const int out_box[3] = {xc, pc.by, pc.bz};
-  if (tpufem::hop_map_3d(&in_map, const_cast<void*>(u), sizeof(S), dim,
-                         in_box) ||
-      tpufem::hop_map_3d(&out_map, y, sizeof(S), dim, out_box))
-    return cudaErrorInvalidValue;
-  const int nwin = PLAN == tpufem::kPlanTerms ? g.group : 2;
+using namespace tpufem;
+
+// One launch: its arguments, or (blocks_per_sm not null) the query of how
+// many blocks of it an SM holds at once.
+struct RingArgs {
+  ResGeo g;
+  int mode;
+  const void* u;
+  void* y;
+  void* part;
+  const void* tables;
+  cudaStream_t stream;
+  int* blocks_per_sm;
+};
+
+// the shared-memory opt-in, the occupancy query or the tensor maps of the
+// resident layouts and the launch
+template <int P, typename S, typename C, int PLAN, int DIM>
+cudaError_t ring_launch(const RingArgs& a) {
+  const ResGeo& g = a.g;
+  const int nwin = PLAN == kPlanTerms ? g.group : 2;
   const int smem =
-      (int)tpufem::res_smem(P, sizeof(S), sizeof(C), nwin, g.tz, g.ty).total;
-  auto kern = tpufem::resident_ring_kernel<P, S, C, PLAN>;
-  static std::atomic<int> granted[tpufem::kRingMaxDevices];
-  cudaError_t e = tpufem::ring_opt_in(kern, smem, granted);
+      (int)res_smem(P, sizeof(S), sizeof(C), nwin, g.tz, g.ty, DIM).total;
+  auto kern = resident_ring_kernel<P, S, C, PLAN, DIM>;
+  static std::atomic<int> granted[kRingMaxDevices];
+  cudaError_t e = ring_opt_in(kern, smem, granted);
   if (e != cudaSuccess) return e;
-  const dim3 grid((g.npts + g.ty - 1) / g.ty, (g.npts + g.tz - 1) / g.tz);
-  kern<<<grid, tpufem::kRingThreads, smem, stream>>>(
-      in_map, out_map, static_cast<const S*>(u), static_cast<C*>(part),
-      static_cast<const C*>(tables), g, mode);
+  if (a.blocks_per_sm)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        a.blocks_per_sm, kern, kRingThreads, smem);
+  HopMap in_map, out_map;
+  const int xc = ring_xc(sizeof(S), DIM);
+  const RingPieces pc = ring_pieces(g.tz, g.ty);
+  const long long dim[3] = {g.X, g.npts, DIM == 3 ? g.npts : 1};
+  const int in_box[3] = {xc, g.ty + 2 * P, DIM == 3 ? g.tz + 2 * P : 1};
+  const int out_box[3] = {xc, pc.by, pc.bz};
+  if (hop_map_3d(&in_map, const_cast<void*>(a.u), sizeof(S), dim, in_box) ||
+      hop_map_3d(&out_map, a.y, sizeof(S), dim, out_box))
+    return cudaErrorInvalidValue;
+  const dim3 grid((g.npts + g.ty - 1) / g.ty,
+                  DIM == 3 ? (g.npts + g.tz - 1) / g.tz : 1, g.nseg);
+  kern<<<grid, kRingThreads, smem, a.stream>>>(
+      in_map, out_map, static_cast<const S*>(a.u), static_cast<C*>(a.part),
+      static_cast<const C*>(a.tables), g, a.mode);
   return cudaGetLastError();
 }
 
-template <typename S, typename C, int PLAN>
-cudaError_t dispatch_p(int p, int mode, const tpufem::ResGeo& g,
-                       const void* u, void* y, void* part, const void* tables,
-                       cudaStream_t stream) {
+// ring_launch at degree p = 1..8
+template <typename S, typename C, int PLAN, int DIM>
+cudaError_t ring_by_p(int p, const RingArgs& a) {
 #define TPUFEM_CASE(PP) \
   case PP:              \
-    return launch<PP, S, C, PLAN>(mode, g, u, y, part, tables, stream);
+    return ring_launch<PP, S, C, PLAN, DIM>(a);
   switch (p) {
     TPUFEM_CASE(1)
     TPUFEM_CASE(2)
@@ -61,87 +79,88 @@ cudaError_t dispatch_p(int p, int mode, const tpufem::ResGeo& g,
   return cudaErrorInvalidValue;
 }
 
-template <int PLAN>
-cudaError_t dispatch_dtype(int dtype_code, int p, int mode,
-                           const tpufem::ResGeo& g, const void* u, void* y,
-                           void* part, const void* tables,
-                           cudaStream_t stream) {
+template <int PLAN, int DIM>
+cudaError_t by_dtype(int dtype_code, int p, const RingArgs& a) {
   switch (dtype_code) {
     case 0:  // f64 storage, f64 compute
-      return dispatch_p<double, double, PLAN>(p, mode, g, u, y, part, tables,
-                                              stream);
+      return ring_by_p<double, double, PLAN, DIM>(p, a);
     case 1:  // f32 storage, f32 compute
-      return dispatch_p<float, float, PLAN>(p, mode, g, u, y, part, tables,
-                                            stream);
+      return ring_by_p<float, float, PLAN, DIM>(p, a);
     case 2:  // bf16 storage, f32 compute ("bf16s")
-      return dispatch_p<__nv_bfloat16, float, PLAN>(p, mode, g, u, y, part,
-                                                    tables, stream);
+      return ring_by_p<__nv_bfloat16, float, PLAN, DIM>(p, a);
   }
   return cudaErrorInvalidValue;
 }
 
-int storage_bytes(int dtype_code) {
-  return dtype_code == 0 ? 8 : dtype_code == 1 ? 4 : 2;
+// K1 (the Laplace plan, 3D), K4 (the terms plan, 3D), K3 (the terms plan, 2D)
+cudaError_t dispatch(int plan, int dim, int dtype_code, int p,
+                     const RingArgs& a) {
+  if (plan == kPlanLaplace && dim == 3)
+    return by_dtype<kPlanLaplace, 3>(dtype_code, p, a);
+  if (plan == kPlanTerms && dim == 3)
+    return by_dtype<kPlanTerms, 3>(dtype_code, p, a);
+  if (plan == kPlanTerms && dim == 2)
+    return by_dtype<kPlanTerms, 2>(dtype_code, p, a);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// y = the plan's operator of u on the resident layout (npts, npts, X), both
-// 16-byte aligned and apart.  Table rows are res_nwp(p) values apart, 16-byte
-// aligned.  plan 0 (K1): tables (6, npts, .) [Kx, Mx, Ky, My, Kz, Mz]; plan 1
-// (K4): tables (n_terms, 3, npts, .), axis 0 = x,
-// the windows of `group` terms resident (1 <= group <= n_terms; a smaller
-// group takes passes over x, which keep their partial sums in `part`: y
-// itself in f32 and f64, a (npts, npts, X) f32 buffer in bf16s).  With
-// dirichlet the tables are those of the masked 1D matrices and boundary
-// points store their input.  mode 0 applies; mode 1 copies (y = u through
-// the ring), mode 2 runs the z and y stages only (y = the sum of the windows
-// at x), both without the mask.  Sub-tile (tz, ty): tpufem_resident_takes.
-// Returns the cudaError_t of the launch (a refused argument or a tensor map
-// that cannot be encoded: cudaErrorInvalidValue).
-int tpufem_resident_apply(int plan, int dtype_code, int p, int npts, int X,
-                          int n_terms, int group, int tz, int ty, int mode,
-                          int dirichlet, const void* u, void* y, void* part,
-                          const void* tables, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype_code < 0 || dtype_code > 2 || p < 1 || p > 8 || npts < 2)
+// y = the plan's operator of u on the resident layout ((npts, npts, X) in
+// 3D, (npts, X) in 2D), both 16-byte aligned and apart.  Table rows are
+// res_nwp(p) values apart, 16-byte aligned.  plan 0 (K1, 3D): tables (6,
+// npts, .) [Kx, Mx, Ky, My, Kz, Mz]; plan 1 (K4 in 3D, K3 in 2D): tables
+// (n_terms, dim, npts, .), axis 0 = x, the windows of `group` terms resident
+// (1 <= group <= n_terms; a smaller group takes passes over x, which keep
+// their partial sums in `part`: y itself in f32 and f64, an f32 buffer of
+// y's layout in bf16s).  With dirichlet the tables are those of the masked
+// 1D matrices and boundary points store their input.  nseg: segments of x
+// (1 .. X / chunk; K1 and K4 take 1).  mode 0 applies; mode 1 copies (y = u
+// through the ring), mode 2 runs the z and y stages only (y = the sum of the
+// windows at x), both without the mask.  Sub-tile (tz, ty) (2D: tz = 1):
+// tpufem_ring_takes.  Returns the cudaError_t of the launch (a refused
+// argument or a tensor map that cannot be encoded: cudaErrorInvalidValue).
+int tpufem_ring_apply(int plan, int dim, int dtype_code, int p, int npts,
+                      int X, int n_terms, int group, int tz, int ty, int nseg,
+                      int mode, int dirichlet, const void* u, void* y,
+                      void* part, const void* tables, void* stream) {
+  if (!tpufem::ring_args_ok(plan, dim, dtype_code, p, npts, X, n_terms, group,
+                            tz, ty, nseg, mode, dirichlet, u, y, part))
     return (int)cudaErrorInvalidValue;
-  const int xc = tpufem::ring_xc(storage_bytes(dtype_code));
-  if (X % xc || X < npts || X - npts >= xc || mode < 0 || mode > 2 ||
-      (mode != 0 && dirichlet) || u == y ||
-      reinterpret_cast<uintptr_t>(u) % 16 ||
-      reinterpret_cast<uintptr_t>(y) % 16 ||
-      !tpufem::res_takes(p, tz, ty))
-    return (int)cudaErrorInvalidValue;
-  if (plan == tpufem::kPlanTerms &&
-      (n_terms < 1 || group < 1 || group > n_terms ||
-       (group < n_terms && mode != 1 && part == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  const tpufem::ResGeo g{npts, X, tz, ty, n_terms, group, dirichlet};
-  if (plan == tpufem::kPlanLaplace)
-    return (int)dispatch_dtype<tpufem::kPlanLaplace>(dtype_code, p, mode, g, u,
-                                                     y, part, tables, s);
-  if (plan == tpufem::kPlanTerms)
-    return (int)dispatch_dtype<tpufem::kPlanTerms>(dtype_code, p, mode, g, u,
-                                                   y, part, tables, s);
-  return (int)cudaErrorInvalidValue;
+  const RingArgs a{{npts, X, tz, ty, n_terms, group, dirichlet, nseg},
+                   mode, u, y, part, tables,
+                   static_cast<cudaStream_t>(stream), nullptr};
+  return (int)dispatch(plan, dim, dtype_code, p, a);
 }
 
-// Shared-memory bytes of one block: nwin windows (K1: 2; K4: its group) at
-// sub-tile (tz, ty); the sub-tile chooser in kernel_separable.py sizes its
-// blocks and K4's group with it.
-long long tpufem_resident_smem_bytes(int p, int dtype_code, int nwin, int tz,
-                                     int ty) {
-  return tpufem::res_smem(p, storage_bytes(dtype_code),
-                          dtype_code == 0 ? 8 : 4, nwin, tz, ty)
+// Blocks of one launch an SM holds at once (the segment chooser in
+// kernel_separable.py sizes its grid with it); -1 where refused.
+int tpufem_ring_blocks_per_sm(int plan, int dim, int dtype_code, int p,
+                              int group, int tz, int ty) {
+  int n = -1;
+  const RingArgs a{{0, 0, tz, ty, group, group, 0, 1},
+                   0, nullptr, nullptr, nullptr, nullptr, nullptr, &n};
+  if (!tpufem::res_takes(p, tz, ty, dim) || group < 1 ||
+      dispatch(plan, dim, dtype_code, p, a) != cudaSuccess)
+    return -1;
+  return n;
+}
+
+// Shared-memory bytes of one block: nwin windows (the Laplace plan: 2; the
+// terms plan: its group) at sub-tile (tz, ty); the sub-tile chooser in
+// kernel_separable.py sizes its blocks and the term group with it.
+long long tpufem_ring_smem_bytes(int p, int dim, int dtype_code, int nwin,
+                                 int tz, int ty) {
+  return tpufem::res_smem(p, tpufem::ring_storage_bytes(dtype_code),
+                          dtype_code == 0 ? 8 : 4, nwin, tz, ty, dim)
       .total;
 }
 
 // 1 where the routine takes the sub-tile.
-int tpufem_resident_takes(int p, int tz, int ty) {
-  return tpufem::res_takes(p, tz, ty) ? 1 : 0;
+int tpufem_ring_takes(int p, int dim, int tz, int ty) {
+  return tpufem::res_takes(p, tz, ty, dim) ? 1 : 0;
 }
 
 const char* tpufem_cuda_error_string(int code) {

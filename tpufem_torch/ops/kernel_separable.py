@@ -2,16 +2,17 @@
 
 Port of the Pallas kernels K2 (``_kernel`` / ``PallasSeparable``) and K1
 (``_kernel_resident`` / ``ResidentSeparable``) of
-``tpufem/ops/pallas_separable.py``.  K2 runs the tile routine of
-``tpufem_torch/csrc/separable_apply.cuh`` on the flat grid; K1 runs the
-TMA ring of ``csrc/resident_ring.cuh`` (shared with K4,
-``kernel_terms.ResidentTerms``) on the resident layout ``(npts, npts, X)``,
-X the smallest multiple of the ring's chunk (64 bytes of a row) that is
->= npts, columns npts .. X zero.  Each header note gives the schedule and
-what bounds it.  Each 1D operator enters as an EXACT per-row band table
-``W[g, o] = M[g, g+o-p]`` of shape ``(npts, 2p+1)`` plus its f64 row sum,
-so the TPU's periodic tables, deficit corrections, 128-lane padding and
-sublane halos have no counterpart here.
+``tpufem/ops/pallas_separable.py``.  K1 runs the band ring of
+``tpufem_torch/csrc/resident_ring.cuh`` (shared with K3 and K4,
+``kernel_terms``), its 3D Laplace plan on the resident layout ``(npts,
+npts, X)``, X the smallest multiple of the ring's chunk (64 bytes of a
+row) that is >= npts, columns npts .. X zero, boxes moved by TMA.  K2
+runs the tile routine of ``csrc/separable_apply.cuh`` on the flat grid.
+Each header note gives the schedule and what bounds it.  Each 1D operator
+enters as an EXACT per-row band table ``W[g, o] = M[g, g+o-p]`` of shape
+``(npts, 2p+1)`` plus its f64 row sum, so the TPU's periodic tables,
+deficit corrections, 128-lane padding and sublane halos have no
+counterpart here.
 
 Each wrapper dispatches on the device of the tensor it is given: on a
 CUDA tensor it launches the kernel (and raises if it cannot), on a CPU
@@ -45,14 +46,16 @@ _TILES = {
     2: ((1, 32, 32), (1, 16, 32), (1, 8, 32), (1, 4, 32), (1, 2, 32),
         (1, 1, 32)),
 }
-# The ring's (TZ, TY) sub-tiles (K1, K4), tried in order: first under the
-# budget of two blocks an SM, then under RING_BUDGET.  (8, 8) re-reads its
-# halo 4x at p = 4, (4, 16) 4.5x, (4, 8) 6x, (8, 16) 3x at one block an SM
+# The ring's 3D (TZ, TY) sub-tiles (K1, K4), tried in order: first under
+# the budget of two blocks an SM, then under RING_BUDGET.  (8, 8) re-reads
+# its halo 4x at p = 4, (4, 16) 4.5x, (4, 8) 6x, (8, 16) 3x at one block an
+# SM
 RING_TILES = ((8, 8), (4, 16), (4, 8), (8, 16), (2, 8), (1, 16))
+# its 2D sub-tiles (1, TY) (K3): TY + 2P rows a slot, (TY + 2P) / TY the
+# halo re-read (1.13x at TY = 64, p = 4; resident_probe --dim 2 sweeps them)
+RING_TILES_2D = ((1, 64), (1, 128), (1, 32), (1, 16))
 RING_TWO_BLOCKS = 113 * 1024  # (228 KB - 2 x 1 KB reserved) / 2
 RING_BUDGET = 220 * 1024  # of the 227 KB a block may use on an H100
-# bytes of a row the ring moves per chunk (csrc/band_ring.cuh, ring_xc)
-RING_CHUNK_BYTES = 64
 # the ring's timing ablations (resident_ring.cuh's ResMode), run at the
 # plan's shared memory, in float32, without the mask: "copy" y = u through
 # the loads and stores; "bands" the z and y stages too, y = the windows at x
@@ -111,22 +114,30 @@ def masked(M: np.ndarray) -> np.ndarray:
     return M
 
 
-def resident_x(npts: int, storage: torch.dtype) -> int:
-    """X of the ring's resident layout (npts, npts, X): the smallest
-    multiple of one chunk (RING_CHUNK_BYTES of a row) that is >= npts."""
-    xc = RING_CHUNK_BYTES // torch.empty((), dtype=storage).element_size()
+def ring_xc(storage: torch.dtype, dim: int = 3) -> int:
+    """Columns of the ring's chunk (csrc/band_ring.cuh, ring_xc): 64 bytes
+    of a row in 3D; 128 bytes, at most 32 columns, in 2D."""
+    elem = torch.empty((), dtype=storage).element_size()
+    return min(128 // elem, 32) if dim == 2 else 64 // elem
+
+
+def resident_x(npts: int, storage: torch.dtype, dim: int = 3) -> int:
+    """X of the ring's resident layouts: the smallest multiple of one chunk
+    (``ring_xc``) that is >= npts, the layout's row length."""
+    xc = ring_xc(storage, dim)
     return xc * -(-npts // xc)
 
 
 def choose_ring_tile(p: int, code: int, n_terms, smem_bytes, takes,
                      tiles=RING_TILES):
     """(sub-tile, windows) of the ring routine: the first of ``tiles`` the
-    routine takes (``takes(p, tz, ty)``, ``tpufem_resident_takes``) whose
+    routine takes (``takes(p, tz, ty)``, ``tpufem_ring_takes``) whose
     block fits RING_TWO_BLOCKS, else RING_BUDGET, by its own count
-    ``smem_bytes(p, code, nwin, tz, ty)`` (``tpufem_resident_smem_bytes``).
-    K1 (``n_terms`` None) keeps its two windows, K4 the windows of all T
-    terms; where no sub-tile holds T windows, K4 keeps as many as fit at
-    the first sub-tile that holds one, and takes passes over x."""
+    ``smem_bytes(p, code, nwin, tz, ty)`` (``tpufem_ring_smem_bytes``).
+    The Laplace plan (``n_terms`` None) keeps its two windows, the terms
+    plan the windows of all T terms; where no sub-tile holds T windows, it
+    keeps as many as fit at the first sub-tile that holds one, and takes
+    passes over x."""
     need = 2 if n_terms is None else n_terms
     budgets = (RING_TWO_BLOCKS, RING_BUDGET)
     for budget in budgets:
@@ -143,6 +154,27 @@ def choose_ring_tile(p: int, code: int, n_terms, smem_bytes, takes,
                 return (tz, ty), group
     raise ValueError(f"no ring sub-tile fits {RING_BUDGET} bytes of shared "
                      f"memory at p={p} (tried {tiles})")
+
+
+def choose_segments(rows: int, nchunk: int, slots: int) -> int:
+    """The count s of segments x is cut into, for a launch of ``rows``
+    sub-tiles over ``nchunk`` chunks of x on a card that holds ``slots``
+    blocks at once (its SMs times the blocks an SM takes): the s in
+    1..nchunk that minimises
+
+        rounds(s) x (ceil(nchunk / s) + halo(s)),
+
+    rounds(s) = ceil(rows s / slots) the waves of blocks, ceil(nchunk / s)
+    the chunks of the longest segment and halo(s) = min(s - 1, 2) the
+    chunks it loads beyond them for its x band (one on each side inside
+    x); the fewest segments among equals.  One segment walks all of x and
+    loads nothing twice, so a grid that fills the card keeps it."""
+    best = None
+    for s in range(1, nchunk + 1):
+        cost = -(-rows * s // slots) * (-(-nchunk // s) + min(s - 1, 2))
+        if best is None or cost < best[0]:
+            best = (cost, s)
+    return best[1]
 
 
 def choose_tile(dim: int, p: int, itemsize: int, smem_elems):
@@ -216,10 +248,12 @@ class _BandApply:
         self.tables = torch.as_tensor(band_tables(mats, p), dtype=dtype,
                                       device=self.device)
 
-    def launch(self, u: torch.Tensor) -> torch.Tensor:
-        """y = A u on the card."""
+    def launch(self, u: torch.Tensor, out: torch.Tensor | None = None
+               ) -> torch.Tensor:
+        """y = A u on the card, into ``out`` if given."""
         check_grid(u, self.device, self.dtype, self.npts, self.dim)
-        y = torch.empty_like(u)
+        y = torch.empty_like(u) if out is None else out
+        check_grid(y, self.device, self.dtype, self.npts, self.dim)
         tz, ty, tx = self.tile
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream().cuda_stream
@@ -231,54 +265,78 @@ class _BandApply:
 
 
 class RingApply:
-    """Tables, sub-tile and launch of the ring routine (K1, K4) for one
-    operator on the resident layout ``(npts, npts, X)``, and that layout's
-    contract (``pad``, ``pad_any``, ``unpad``).
+    """Tables, sub-tile, segments and launch of the ring routine for one
+    operator on its resident layout, and the layout's contract (``pad``,
+    ``pad_any``, ``unpad``).
 
-    plan 0 (K1): ``tables`` (6, npts, .) [Kx, Mx, Ky, My, Kz, Mz];
-    plan 1 (K4): ``tables`` (T, 3, npts, .), axis 0 = x, the windows of
-    ``group`` terms resident (fewer than T: ``npass`` passes over x, whose
-    partial sums a bf16s launch keeps in a float32 buffer of its own).
-    Table rows are ``ring_tables``'s, padded to a multiple of four values.
-    With ``dirichlet`` the tables are those of the masked 1D matrices
-    (``masked``) and the kernel stores a boundary point's input.  ``tile``
-    overrides the sub-tile (TZ, TY); ``smem`` is a block's shared-memory
-    bytes.  A CPU instance has neither tile, group nor smem.
+    plan 0, the Laplace plan (3D: K1): ``mats`` [Kx, Mx, Ky, My, Kz, Mz];
+    plan 1, the terms plan (K4 in 3D, K3 in 2D): ``mats`` term by term, x
+    first, the windows of ``group`` terms resident (fewer than T:
+    ``npass`` passes over x, whose partial sums a bf16s launch keeps in a
+    float32 buffer of its own).  Table rows are ``ring_tables``'s, padded
+    to a multiple of four values.  The layout is ``(npts, npts, X)`` (2D:
+    ``(npts, X)``), moved by TMA.  With ``dirichlet`` the tables are those
+    of the masked 1D matrices (``masked``) and the kernel stores a boundary
+    point's input.  ``tile`` overrides the sub-tile (TZ, TY) (2D: (1, TY)).
+    x is cut into ``nseg`` segments: ``choose_segments``'s count in 2D, one
+    for K1 and K4.  ``smem`` is a block's shared-memory bytes,
+    ``blocks_per_sm`` the blocks an SM holds.  A CPU instance has neither
+    tile, group, segments nor smem.
     """
 
     def __init__(self, plan, npts, p, mats, storage, compute, dirichlet,
-                 device, tile=None):
+                 device, tile=None, dim=3):
         self.code, self.device, self.lib = check_instance(
-            3, p, storage, compute, device, "resident_ring")
-        self.plan, self.npts, self.p = plan, npts, p
+            dim, p, storage, compute, device, "resident_ring")
+        self.plan, self.npts, self.p, self.dim = plan, npts, p, dim
         self.storage, self.compute = storage, compute
         self.dirichlet = bool(dirichlet)
-        self.X = resident_x(npts, storage)
-        self.n_terms = len(mats) // 3 if plan == 1 else None
-        self.tile = self.group = self.smem = None
+        self.X = resident_x(npts, storage, dim)
+        self.n_terms = len(mats) // dim if plan == 1 else None
+        self.tile = self.group = self.smem = self.nseg = None
+        self.blocks_per_sm = None
         self.npass = 1
         if self.lib is not None:
             lib = self.lib.lib
+            smem = lambda pp, code, nwin, tz, ty: lib.tpufem_ring_smem_bytes(
+                pp, dim, code, nwin, tz, ty)
+            takes = lambda pp, tz, ty: lib.tpufem_ring_takes(pp, dim, tz, ty)
+            tiles = RING_TILES_2D if dim == 2 else RING_TILES
             self.tile, self.group = choose_ring_tile(
-                p, self.code, self.n_terms, lib.tpufem_resident_smem_bytes,
-                lib.tpufem_resident_takes,
-                RING_TILES if tile is None else (tuple(tile),))
-            self.smem = lib.tpufem_resident_smem_bytes(p, self.code,
-                                                       self.group, *self.tile)
+                p, self.code, self.n_terms, smem, takes,
+                tiles if tile is None else (tuple(tile),))
+            self.smem = smem(p, self.code, self.group, *self.tile)
             if plan == 1:
                 self.npass = -(-self.n_terms // self.group)
+            self.blocks_per_sm = lib.tpufem_ring_blocks_per_sm(
+                plan, dim, self.code, p, self.group, *self.tile)
+            if self.blocks_per_sm < 1:
+                raise RuntimeError(f"the ring routine holds no block of "
+                                   f"sub-tile {self.tile} on an SM")
+            self.nseg = 1
+            if dim == 2:
+                n_sm = torch.cuda.get_device_properties(
+                    self.device).multi_processor_count
+                self.nseg = choose_segments(
+                    -(-npts // self.tile[1]), self.X // ring_xc(storage, dim),
+                    n_sm * self.blocks_per_sm)
         if self.dirichlet:
             mats = [masked(M) for M in mats]
         tab = ring_tables(mats, p)
         if plan == 1:
-            tab = tab.reshape(self.n_terms, 3, npts, tab.shape[-1])
+            tab = tab.reshape(self.n_terms, dim, npts, tab.shape[-1])
         self.tables = torch.as_tensor(tab, dtype=compute, device=self.device)
 
+    @property
+    def shape(self) -> tuple:
+        """The layout's shape."""
+        return (self.npts,) * (self.dim - 1) + (self.X,)
+
     def pad_any(self, u: torch.Tensor) -> torch.Tensor:
-        """Flat (npts**3,) vector -> resident layout, dtype kept, pad zero."""
+        """Flat (npts**dim,) vector -> the layout, dtype kept, pad zero."""
         n = self.npts
-        gp = u.new_zeros((n, n, self.X))
-        gp[..., :n] = u.reshape(n, n, n)
+        gp = u.new_zeros(self.shape)
+        gp[..., :n] = u.reshape((n,) * self.dim)
         return gp
 
     def unpad(self, gp: torch.Tensor) -> torch.Tensor:
@@ -288,15 +346,14 @@ class RingApply:
                out: torch.Tensor | None = None) -> torch.Tensor:
         """The plan's operator of u on the card (or one of
         RING_ABLATIONS), into ``out`` if given (a tensor like u)."""
-        n = self.npts
         if u.device != self.device or not u.is_cuda:
             raise ValueError(f"kernel on {self.device} got a tensor on "
                              f"{u.device}")
         if u.dtype != self.storage:
             raise ValueError(f"kernel stores {self.storage}, got {u.dtype}")
-        if u.shape != (n, n, self.X) or not u.is_contiguous():
-            raise ValueError(f"kernel takes a contiguous resident layout "
-                             f"{(n, n, self.X)}, got {tuple(u.shape)}")
+        if u.shape != self.shape or not u.is_contiguous():
+            raise ValueError(f"kernel takes a contiguous layout "
+                             f"{self.shape}, got {tuple(u.shape)}")
         y = torch.empty_like(u) if out is None else out
         if (y.shape, y.dtype, y.device) != (u.shape, u.dtype, u.device) \
                 or not y.is_contiguous() or y.data_ptr() == u.data_ptr():
@@ -309,13 +366,14 @@ class RingApply:
         tz, ty = self.tile
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream().cuda_stream
-            rc = self.lib.lib.tpufem_resident_apply(
-                self.plan, self.code, self.p, n, self.X, self.n_terms or 0,
-                self.group, tz, ty, RING_ABLATIONS.get(mode, 0),
-                int(self.dirichlet), u.data_ptr(), y.data_ptr(),
+            rc = self.lib.lib.tpufem_ring_apply(
+                self.plan, self.dim, self.code, self.p, self.npts, self.X,
+                self.n_terms or 0, self.group, tz, ty, self.nseg,
+                RING_ABLATIONS.get(mode, 0), int(self.dirichlet),
+                u.data_ptr(), y.data_ptr(),
                 None if part is None else part.data_ptr(),
                 self.tables.data_ptr(), stream)
-        self.lib.check(rc, "tpufem_resident_apply launch")
+        self.lib.check(rc, "tpufem_ring_apply launch")
         return y
 
 
@@ -326,13 +384,16 @@ def ablation_terms(terms, npts: int, dtype, device):
     return [[eye, *t[1:]] for t in terms]
 
 
-def separable_interior_mask(npts: int, dtype, device) -> torch.Tensor:
-    """(npts**3,) separable interior mask of the hyper_cube: 0 on the six
-    boundary planes, 1 elsewhere."""
+def separable_interior_mask(npts: int, dtype, device, dim: int = 3
+                            ) -> torch.Tensor:
+    """(npts**dim,) separable interior mask of the hyper_cube: 0 on the
+    boundary planes (2D: lines), 1 elsewhere."""
     m1 = torch.ones(npts, dtype=dtype, device=device)
     m1[0] = m1[-1] = 0.0
-    return (m1[:, None, None] * m1[None, :, None]
-            * m1[None, None, :]).reshape(-1)
+    m = m1
+    for _ in range(dim - 1):
+        m = torch.outer(m, m1).reshape(-1)
+    return m
 
 
 def _on(device, mats, dtype):
@@ -363,10 +424,12 @@ class KernelSeparable:
         return laplace_apply_separable(u, self.dim, self.npts, self.Ks,
                                        self.Ms)
 
-    def __call__(self, u: torch.Tensor) -> torch.Tensor:
+    def __call__(self, u: torch.Tensor, out: torch.Tensor | None = None
+                 ) -> torch.Tensor:
+        """y = A u; on the card into ``out`` if given (a tensor like u)."""
         if u.device.type == "cpu" and self.device.type == "cpu":
             return self.plain(u)
-        y = self._band.launch(u)
+        y = self._band.launch(u, out=out)
         KernelSeparable.launches += 1
         return y
 

@@ -9,15 +9,15 @@ CP-expanded coefficient, and (K3) of the 2D uniform Laplace.  Each 1D
 matrix enters as an exact per-row band table, as for K1/K2
 (``kernel_separable.band_tables``).
 
-K4 runs the TMA ring of ``tpufem_torch/csrc/resident_ring.cuh`` (its term
-plan; K1 runs its Laplace plan) on the ring's resident layout ``(npts,
-npts, X)`` (``kernel_separable.RingApply``), and with ``dirichlet`` fuses
-the mask algebra y = m·A(m·x) + (1-m)·x of the full-box boundary as K1
-does: the masked 1D tables inside, a boundary point's input at the store.
-K3 runs the tile routine of ``csrc/terms_apply.cuh`` on the plain
-``(npts, npts)`` grid (``pad``, ``pad_any`` and ``unpad`` are reshapes),
-its mask algebra outside the kernel.  The TPU kernels' halo'd,
-128-lane-padded layouts, tile clamps, ``interleave``, ``x_mode`` and the
+Both run the terms plan of the band ring, ``tpufem_torch/csrc/
+resident_ring.cuh`` (K1 runs its Laplace plan), on the ring's
+resident layout (``kernel_separable.RingApply``): ``(npts, npts, X)`` in
+3D, ``(npts, X)`` in 2D, x zero-padded to a multiple of the ring's chunk
+(``kernel_separable.ring_xc``).
+With ``dirichlet`` they fuse the mask algebra y = m·A(m·x) + (1-m)·x of
+the full-box boundary as K1 does: the masked 1D tables inside, a boundary
+point's input at the store.  The TPU kernels' halo'd, 128-lane-padded
+layouts, tile clamps, ``interleave``, ``x_mode`` and the
 ``TPUFEM_TERMS_BX_MAX`` knob answered VMEM limits and have no counterpart.
 
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU
@@ -36,10 +36,6 @@ from tpufem_torch.ops.kernel_separable import (
     RING_ABLATIONS,
     RingApply,
     ablation_terms,
-    band_tables,
-    check_grid,
-    check_instance,
-    choose_tile,
     separable_interior_mask,
 )
 from tpufem_torch.ops.separable import laplace_apply_separable_terms
@@ -84,7 +80,8 @@ class ResidentTerms:
     ``_check`` says.  A CUDA instance's sub-tile (TZ, TY) and term group
     (the terms whose windows are resident; T beyond it takes further passes
     over x) come from ``kernel_separable.choose_ring_tile``; ``tile``
-    overrides the sub-tile.
+    overrides the sub-tile.  x is cut into ``segments`` (K4: one; K3:
+    ``kernel_separable.choose_segments``'s).
 
     ``raw`` is the resident apply, layout to layout, masked with
     ``dirichlet``; ``__call__`` applies the unmasked A to flat vectors (the
@@ -92,20 +89,22 @@ class ResidentTerms:
     the same kernel with the unmasked tables.
 
     Pallas twin: ``tpufem/ops/pallas_separable.py::_kernel_resident_terms``
-    behind ``ResidentTerms``.  The ring's timing ablations at K4's shared
-    memory (float32, no mask) split its time: ``mode="copy"``, y = u
-    through its loads and stores; ``mode="bands"``, its z and y stages
+    behind ``ResidentTerms``.  The ring's timing ablations at the plan's
+    shared memory (float32, no mask) split its time: ``mode="copy"``, y =
+    u through its loads and stores; ``mode="bands"``, its z and y stages
     alone, y = sum_a q_a at each x, no x band.
     """
 
+    dim = 3
     launches = 0  # kernel launches by all instances (plain calls excluded)
 
     def __init__(self, npts, p, terms, dtype, mode="f32", dirichlet=False,
                  device="cuda", tile=None):
+        dim = self.dim
         ablation = mode in RING_ABLATIONS
         if ablation and dirichlet:
             raise ValueError(f"mode {mode!r} has no Dirichlet mask")
-        cdt, mats = _check(npts, terms, 3, "f32" if ablation else mode,
+        cdt, mats = _check(npts, terms, dim, "f32" if ablation else mode,
                            dtype)
         if ablation and cdt != torch.float32:
             raise ValueError(f"mode {mode!r} computes in float32")
@@ -114,17 +113,16 @@ class ResidentTerms:
         self.compute_dt = cdt
         self.dt = torch.bfloat16 if mode == "bf16s" else cdt  # storage
         self.dirichlet = bool(dirichlet)
-        self._ring = RingApply(1, npts, p, mats, self.dt, cdt,
-                               self.dirichlet, device, tile)
-        self._unmasked = (RingApply(1, npts, p, mats, self.dt, cdt, False,
-                                    device, tile)
-                          if self.dirichlet else self._ring)
+        ring = lambda masked: RingApply(1, npts, p, mats, self.dt, cdt,
+                                        masked, device, tile, dim=dim)
+        self._ring = ring(self.dirichlet)
+        self._unmasked = ring(False) if self.dirichlet else self._ring
         self.device, self.tile = self._ring.device, self._ring.tile
         self.group, self.X = self._ring.group, self._ring.X
-        self.smem = self._ring.smem
+        self.smem, self.segments = self._ring.smem, self._ring.nseg
         self.tables = self._ring.tables
         self.terms = [[torch.tensor(X, dtype=cdt, device=self.device)
-                       for X in mats[a * 3:(a + 1) * 3]]
+                       for X in mats[a * dim:(a + 1) * dim]]
                       for a in range(self.n_terms)]
 
     def pad(self, u: torch.Tensor) -> torch.Tensor:
@@ -148,10 +146,11 @@ class ResidentTerms:
         x = self.unpad(gp).to(self.compute_dt)
         terms = self.terms if self.mode != "bands" else ablation_terms(
             self.terms, self.npts, self.compute_dt, self.device)
-        A = lambda v: laplace_apply_separable_terms(v, 3, self.npts, terms)
+        A = lambda v: laplace_apply_separable_terms(v, self.dim, self.npts,
+                                                    terms)
         if self.dirichlet if masked is None else masked:
             m = separable_interior_mask(self.npts, self.compute_dt,
-                                        self.device)
+                                        self.device, self.dim)
             y = m * A(m * x) + (1.0 - m) * x
         else:
             y = A(x)
@@ -165,7 +164,7 @@ class ResidentTerms:
         if gp.device.type == "cpu" and self.device.type == "cpu":
             return self.plain(gp)
         y = self._ring.launch(gp, self.mode, out=out)
-        ResidentTerms.launches += 1
+        type(self).launches += 1
         return y
 
     def __call__(self, u: torch.Tensor) -> torch.Tensor:
@@ -174,80 +173,20 @@ class ResidentTerms:
         if gp.device.type == "cpu" and self.device.type == "cpu":
             return self.unpad(self.plain(gp, masked=False))
         y = self._unmasked.launch(gp, self.mode)
-        ResidentTerms.launches += 1
+        type(self).launches += 1
         return self.unpad(y)
 
 
-class ResidentTerms2D:
+class ResidentTerms2D(ResidentTerms):
     """K3: 2D ``A = sum_a X_{a,1} (x) X_{a,0}`` (y, x); the uniform grid
     passes the 2-term Laplace factorisation, a 2D shell its weighted
-    terms.  The resident layout is the plain ``(npts, npts)`` grid; the
-    mask algebra stays outside the kernel (``dirichlet`` is False).  A
-    CUDA instance's output tile (1, TY, TX) is the first of the tile
-    chooser's list whose block fits (``kernel_separable.choose_tile``).
+    terms.  K4's wrapper in 2D: the ring's terms plan on the resident
+    layout ``(npts, X)``, sub-tile (1, TY), x cut into segments that fill
+    the card (``kernel_separable.choose_segments``), the mask of the
+    full-box boundary fused with ``dirichlet``.
 
     Pallas twin: ``tpufem/ops/pallas_separable.py::_kernel_resident_2d``
-    behind ``ResidentTerms2D``."""
+    behind ``ResidentTerms2D`` (whose mask algebra stays outside)."""
 
+    dim = 2
     launches = 0  # kernel launches by all instances (plain calls excluded)
-
-    def __init__(self, npts, p, terms, dtype, mode="f32", device="cuda"):
-        cdt, mats = _check(npts, terms, 2, mode, dtype)
-        self.npts, self.p, self.mode = npts, p, mode
-        self.n_terms = len(terms)
-        self.compute_dt = cdt
-        self.dt = torch.bfloat16 if mode == "bf16s" else cdt  # storage
-        self.dirichlet = False  # the mask algebra stays outside the kernel
-        self.code, self.device, self.lib = check_instance(
-            2, p, self.dt, cdt, device, "terms_apply")
-        self.tile = None
-        if self.lib is not None:
-            itemsize = torch.empty((), dtype=cdt).element_size()
-            smem = self.lib.lib.tpufem_terms_smem_elems
-            T = self.n_terms
-            self.tile = choose_tile(
-                2, p, itemsize,
-                lambda d, pp, tz, ty, tx: smem(pp, T, ty, tx))
-        self.tables = torch.as_tensor(
-            band_tables(mats, p).reshape(self.n_terms, 2, npts, 2 * p + 2),
-            dtype=cdt, device=self.device)
-        self.terms = [[torch.tensor(X, dtype=cdt, device=self.device)
-                       for X in mats[a * 2:(a + 1) * 2]]
-                      for a in range(self.n_terms)]
-
-    def pad(self, u: torch.Tensor) -> torch.Tensor:
-        """Flat vector -> resident grid in the storage dtype."""
-        return u.to(self.dt).reshape(self.npts, self.npts)
-
-    def pad_any(self, u: torch.Tensor) -> torch.Tensor:
-        """Flat vector -> resident grid, dtype preserved."""
-        return u.reshape(self.npts, self.npts)
-
-    def unpad(self, gp: torch.Tensor) -> torch.Tensor:
-        return gp.reshape(-1)
-
-    def plain(self, gp: torch.Tensor) -> torch.Tensor:
-        """The plain PyTorch version of ``raw`` (compute dtype inside,
-        storage dtype out)."""
-        y = laplace_apply_separable_terms(gp.to(self.compute_dt).reshape(-1),
-                                          2, self.npts, self.terms)
-        return y.to(self.dt).reshape(gp.shape)
-
-    def raw(self, gp: torch.Tensor) -> torch.Tensor:
-        """y = A u on a resident grid (storage dtype in and out)."""
-        if gp.device.type == "cpu" and self.device.type == "cpu":
-            return self.plain(gp)
-        check_grid(gp, self.device, self.dt, self.npts, 2)
-        y = torch.empty_like(gp)
-        _, ty, tx = self.tile
-        with torch.cuda.device(self.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = self.lib.lib.tpufem_terms_apply(
-                self.code, self.p, self.n_terms, self.npts, ty, tx,
-                gp.data_ptr(), y.data_ptr(), self.tables.data_ptr(), stream)
-        self.lib.check(rc, "tpufem_terms_apply launch")
-        ResidentTerms2D.launches += 1
-        return y
-
-    def __call__(self, u: torch.Tensor) -> torch.Tensor:
-        return self.unpad(self.raw(self.pad(u)))

@@ -70,14 +70,16 @@ def resolve_device(device: torch.device | str) -> torch.device:
 
 def _fuse_mask(config, interior: np.ndarray, dofs: DoFHandler,
                npts: int) -> bool:
-    """Whether a 3D resident kernel (K1, K4) fuses the Dirichlet mask: the
+    """Whether a resident kernel (K1, K3, K4) fuses the Dirichlet mask: the
     constrained set is the DoF handler's boundary and that is the full
-    boundary of the (npts,)^3 box, whose mask is separable (the kernels
+    boundary of the (npts,)^dim box, whose mask is separable (the kernels
     fold it into their 1D tables).  ``config.pallas_dirichlet``: None =
     auto, fuse exactly when representable; True requires it."""
     g = np.arange(npts)
     e = (g == 0) | (g == npts - 1)
-    box = (e[:, None, None] | e[None, :, None] | e[None, None, :]).reshape(-1)
+    box = e
+    for _ in range(config.dim - 1):
+        box = (box[:, None] | e[None, :]).reshape(-1)
     plain_mask = (np.array_equal(interior == 0.0, dofs.boundary_mask)
                   and np.array_equal(dofs.boundary_mask, box))
     if config.pallas_dirichlet and not plain_mask:
@@ -92,21 +94,18 @@ def _fuse_mask(config, interior: np.ndarray, dofs: DoFHandler,
 
 
 def _terms_with_kernel(terms, npts, p, d, config, device, interior, dofs):
-    """The K4 (3D, the mask fused by ``_fuse_mask``'s rule) or K3 (2D)
-    wrapper of a sum-of-tensor-products operator under ``use_pallas``,
-    else None (JAX ``matrix_free.py:44-66``, which falls back to its XLA
-    apply where the kernel's tiling is unmet; here a kernel that cannot be
-    built raises)."""
+    """The K4 (3D) or K3 (2D) wrapper of a sum-of-tensor-products operator
+    under ``use_pallas``, the mask fused by ``_fuse_mask``'s rule, else
+    None (JAX ``matrix_free.py:44-66``, which falls back to its XLA apply
+    where the kernel's tiling is unmet; here a kernel that cannot be built
+    raises)."""
     if not config.use_pallas:
         return None
-    dt = torch_dtype(config.dtype)
-    if d == 3:
-        return ResidentTerms(npts, p, terms, dt, mode=config.pallas_mode,
-                             dirichlet=_fuse_mask(config, interior, dofs,
-                                                  npts),
-                             device=device)
-    return ResidentTerms2D(npts, p, terms, dt, mode=config.pallas_mode,
-                           device=device)
+    cls = ResidentTerms if d == 3 else ResidentTerms2D
+    return cls(npts, p, terms, torch_dtype(config.dtype),
+               mode=config.pallas_mode,
+               dirichlet=_fuse_mask(config, interior, dofs, npts),
+               device=device)
 
 
 @dataclasses.dataclass
@@ -253,10 +252,12 @@ class MatrixFree:
                     device=device)
             else:
                 # the 2-term Laplace factorisation through K3: the 2D
-                # resident CG (JAX matrix_free.py:408-424)
+                # resident CG (JAX matrix_free.py:408-424), the mask fused
                 resident = ResidentTerms2D(
                     npts, p, [[Ks[0], Ms[1]], [Ms[0], Ks[1]]], dt,
-                    mode=config.pallas_mode, device=device)
+                    mode=config.pallas_mode,
+                    dirichlet=_fuse_mask(config, interior, dofs, npts),
+                    device=device)
         as_dev = lambda a: torch.tensor(np.asarray(a), dtype=dt,
                                         device=device)
         return cls(

@@ -3,14 +3,14 @@ kernel's layout, so each apply is one kernel launch.
 
 Port of ``tpufem/solvers/resident.py::resident_jacobi_cg``.  The port's
 resident kernels are K1 (``ResidentSeparable``, the 3D Laplace), K4
-(``ResidentTerms``, 3D terms) and K3 (``ResidentTerms2D``, 2D).  K1 and K4
-keep their vectors in the TMA ring's layout ``(npts, npts, X)``, x
-zero-padded to X (``pad_any``); K3 in the plain ``(npts, npts)`` grid.
-The mask, the RHS, the inverse diagonal and x0 are computed flat, then
-padded with zeros; the dots run over the whole layout, where the pad adds
-nothing.  The constraint mask algebra y = m·A(m·x) + (1-m)·x is either
-fused into the kernel (K1 and K4 with ``dirichlet=True``) or applied
-around it.
+(``ResidentTerms``, 3D terms) and K3 (``ResidentTerms2D``, 2D).  They
+keep their vectors in the ring's resident layout, ``(npts, npts, X)`` in
+3D and ``(npts, X)`` in 2D, x zero-padded to X (``pad_any``).  The mask,
+the RHS, the inverse diagonal and x0 are computed flat, then padded with
+zeros; the dots run over the whole layout, where the pad adds nothing.
+The constraint mask algebra y = m·A(m·x) + (1-m)·x is either fused into
+the kernel (``dirichlet=True``: the full-box boundary) or applied around
+it.
 """
 
 from __future__ import annotations

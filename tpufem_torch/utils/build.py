@@ -34,11 +34,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpufem_torch"
 # one shared library per source, built side by side: name -> (source,
 # the csrc/ headers it includes, which enter its hash)
 SOURCES = {
-    "separable_apply": ("separable_apply.cu",  # K2
+    "separable_apply": ("separable_apply.cu",  # K2's tile routine
                         ("common.cuh", "separable_apply.cuh")),
-    "terms_apply": ("terms_apply.cu",  # K3
-                    ("common.cuh", "terms_apply.cuh")),
-    # K1 and K4 on the TMA ring
+    # K1, K3 and K4 on the TMA ring
     "resident_ring": ("resident_ring.cu",
                       ("band_ring.cuh", "common.cuh", "hopper.cuh",
                        "resident_ring.cuh")),
@@ -70,13 +68,11 @@ _ENTRIES = {
     "separable_apply": {
         "tpufem_separable_apply": ([_I] * 7 + [_P] * 4, _I),
         "tpufem_smem_elems": ([_I] * 5, _LL)},
-    "terms_apply": {
-        "tpufem_terms_apply": ([_I] * 6 + [_P] * 4, _I),
-        "tpufem_terms_smem_elems": ([_I] * 4, _LL)},
     "resident_ring": {
-        "tpufem_resident_apply": ([_I] * 11 + [_P] * 5, _I),
-        "tpufem_resident_smem_bytes": ([_I] * 5, _LL),
-        "tpufem_resident_takes": ([_I] * 3, _I)},
+        "tpufem_ring_apply": ([_I] * 13 + [_P] * 5, _I),
+        "tpufem_ring_blocks_per_sm": ([_I] * 7, _I),
+        "tpufem_ring_smem_bytes": ([_I] * 6, _LL),
+        "tpufem_ring_takes": ([_I] * 4, _I)},
     "lab_resident": {
         "tpufem_lab_apply": ([_I] * 11 + [_P] * 7, _I),
         "tpufem_lab_smem_bytes": ([_I] * 6, _LL)},
