@@ -133,3 +133,120 @@ def test_fem_config_equal():
     assert dataclasses.asdict(a) == dataclasses.asdict(b)
     with pytest.raises(ValueError):
         t_config.FemConfig(degree=13)
+
+
+def _adaptive(M, dim, base=2, steps=None, center=0.31):
+    mesh = M.hyper_cube(dim, base)
+    for _ in range((2 if dim == 2 else 1) if steps is None else steps):
+        centers = (mesh.origins + mesh.sizes[:, None] * 0.5) / mesh.U
+        mesh = mesh.refine(np.linalg.norm(centers - center, axis=1) < 0.35)
+    return mesh
+
+
+def _constraints_equal(aj, at):
+    assert at.n_dofs == aj.n_dofs
+    assert at.lines == aj.lines and at.inhom == aj.inhom
+    for a, b in zip(aj.padded_arrays(), at.padded_arrays()):
+        _same(a, b)
+    _same(aj.constrained_mask(), at.constrained_mask())
+
+
+@pytest.mark.parametrize("dim,p", [(2, 1), (2, 3), (3, 1), (3, 2), (3, 4)])
+@pytest.mark.parametrize("native", [True, False])
+def test_hanging_node_constraints_equal(dim, p, native, monkeypatch):
+    """make_hanging_node_constraints, on the native (C++) path and the
+    Python path of each package, bit-equal to tpufem's."""
+    from tpufem.fem import constraints as j_con
+    from tpufem.utils import native as j_native
+    from tpufem_torch.fem import constraints as t_con
+    from tpufem_torch.utils import native as t_native
+
+    if native and not (j_native.available() and t_native.available()):
+        pytest.skip("a native helper library is not built")
+    if not native:
+        monkeypatch.setenv("TPUFEM_NO_NATIVE", "1")
+    assert t_native.available() == j_native.available() == native
+    dj = j_dofs.DoFHandler(_adaptive(j_mesh.Mesh, dim), p)
+    dt = t_dofs.DoFHandler(_adaptive(t_mesh.Mesh, dim), p)
+    _same(dj.cell_dofs, dt.cell_dofs)
+    aj = j_con.make_hanging_node_constraints(dj)
+    at = t_con.make_hanging_node_constraints(dt)
+    assert len(at.lines) > 0
+    _constraints_equal(aj, at)
+    u = np.random.default_rng(p).standard_normal(dt.n_dofs)
+    _same(aj.distribute(u), at.distribute(u))
+    _same(aj.distribute_transpose(u), at.distribute_transpose(u))
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_color_cells_equal(dim):
+    from tpufem.fem import coloring as j_col
+    from tpufem_torch.fem import coloring as t_col
+
+    for M_j, M_t in ((j_mesh.Mesh.hyper_cube(dim, 2),
+                      t_mesh.Mesh.hyper_cube(dim, 2)),
+                     (_adaptive(j_mesh.Mesh, dim),
+                      _adaptive(t_mesh.Mesh, dim))):
+        cj = j_col.color_cells(M_j, j_dofs.DoFHandler(M_j, 2).cell_dofs)
+        ct = t_col.color_cells(M_t, t_dofs.DoFHandler(M_t, 2).cell_dofs)
+        assert len(cj) == len(ct)
+        for a, b in zip(cj, ct):
+            _same(a, b)
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_native_helpers_equal(native, monkeypatch):
+    """greedy_color, build_incidence and coarse_face_neighbors of the
+    port's native module against tpufem's, each on its native path and
+    its numpy fallback."""
+    from tpufem.utils import native as j_native
+    from tpufem_torch.utils import native as t_native
+
+    if not native:
+        monkeypatch.setenv("TPUFEM_NO_NATIVE", "1")
+    elif not t_native.available():
+        pytest.skip("the port's native helper library is not built")
+    assert t_native.available() == native
+    for dim in (2, 3):
+        m = _adaptive(t_mesh.Mesh, dim)
+        cd = t_dofs.DoFHandler(m, 2).cell_dofs
+        n = int(cd.max()) + 1
+        _same(j_native.greedy_color(cd, n), t_native.greedy_color(cd, n))
+        _same(j_native.build_incidence(cd, n, cd.size),
+              t_native.build_incidence(cd, n, cd.size))
+        _same(j_native.coarse_face_neighbors(m.origins, m.sizes, m.U),
+              t_native.coarse_face_neighbors(m.origins, m.sizes, m.U))
+
+
+def test_native_library_is_the_ports_own_build():
+    """The port builds its own copy of the C++ helper (under
+    build/tpufem_torch/, keyed on the source's hash), not tpufem's."""
+    from tpufem_torch.utils import native as t_native
+
+    if not t_native.available():
+        pytest.skip("no C++ compiler")
+    path = t_native._lib_path()
+    assert path.exists() and path.parent.name == "tpufem_torch"
+    assert t_native._SRC.parent.parent.name == "tpufem_torch"
+
+
+@pytest.mark.parametrize("dim,p", [(2, 1), (2, 3), (3, 2)])
+def test_kelly_estimate_and_marking_equal(dim, p):
+    from tpufem.fem import estimator as j_est
+    from tpufem_torch.fem import estimator as t_est
+
+    dj = j_dofs.DoFHandler(_adaptive(j_mesh.Mesh, dim), p)
+    dt = t_dofs.DoFHandler(_adaptive(t_mesh.Mesh, dim), p)
+    u = np.sin(3.0 * dt.dof_coords).sum(axis=1)
+    ej, et = j_est.kelly_estimate(dj, u), t_est.kelly_estimate(dt, u)
+    _same(ej, et)
+    _same(j_est.mark_fixed_fraction(ej, 0.3),
+          t_est.mark_fixed_fraction(et, 0.3))
+    for a, b in zip(j_est.mark_refine_and_coarsen(ej, 0.2, 0.3),
+                    t_est.mark_refine_and_coarsen(et, 0.2, 0.3)):
+        _same(a, b)
+    sj = j_mesh.Mesh.hyper_shell_2d(2)
+    st = t_mesh.Mesh.hyper_shell_2d(2)
+    dj, dt = j_dofs.DoFHandler(sj, 2), t_dofs.DoFHandler(st, 2)
+    u = dt.dof_coords[:, 0] ** 2 - dt.dof_coords[:, 1]
+    _same(j_est.kelly_estimate(dj, u), t_est.kelly_estimate(dt, u))

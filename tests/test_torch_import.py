@@ -25,6 +25,11 @@ def test_import_and_cpu_solve_leave_jax_out():
         "r = solve_poisson(dim=2, degree=2, refine=2, use_pallas=True, "
         "device='cpu')\n"
         "assert r.converged and r.l2_error < 1e-2, r\n"
+        "r = solve_poisson(dim=2, degree=2, refine=2, device='cpu')\n"
+        "assert r.converged and r.l2_error < 1e-2, r\n"
+        "r = solve_poisson(dim=2, degree=2, refine=1, adaptive_steps=1, "
+        "device='cpu')\n"
+        "assert r.converged and r.l2_error < 1e-1, r\n"
         "print(sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'jaxlib'))))\n"
         "print(sorted(m for m in sys.modules if m == 'tpufem' "
@@ -34,6 +39,33 @@ def test_import_and_cpu_solve_leave_jax_out():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-2:] == ["[]", "[]"]
+
+
+CELL_LOOP_MODULES = (
+    "tpufem_torch.ops.tensor_ops", "tpufem_torch.ops.structured",
+    "tpufem_torch.ops.dense_local", "tpufem_torch.ops.diagonal",
+    "tpufem_torch.fem.coloring", "tpufem_torch.fem.constraints",
+    "tpufem_torch.fem.estimator", "tpufem_torch.utils.native")
+
+
+def test_cell_loop_modules_import_without_jax():
+    """The modules of the cell-loop tiers, each imported in a fresh
+    interpreter with the AMR loop run: no jax or tpufem module loads."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {CELL_LOOP_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from tpufem_torch.apps.poisson import solve_poisson_amr\n"
+        "rs = solve_poisson_amr(dim=2, degree=1, refine=1, cycles=2, "
+        "device='cpu')\n"
+        "assert rs[-1].n_cells > rs[0].n_cells\n"
+        "print([m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'tpufem')])\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 def test_sources_do_not_import_jax_or_tpufem():

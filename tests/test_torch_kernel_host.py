@@ -224,7 +224,7 @@ extern "C" int host_ring_takes(int p, int dim, int tz, int ty) {
 """
 
 
-def _build(tmp_path_factory, name, source, defines=()):
+def _build(tmp_path_factory, name, source, defines=(), opt=("-O1",)):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ not found: the host build of the CUDA routine "
@@ -232,7 +232,7 @@ def _build(tmp_path_factory, name, source, defines=()):
     d = tmp_path_factory.mktemp(name)
     (d / "shim.cpp").write_text(source)
     lib_path = d / f"lib{name}.so"
-    subprocess.run([gxx, "-std=c++17", "-O1", "-shared", "-fPIC",
+    subprocess.run([gxx, "-std=c++17", *opt, "-shared", "-fPIC",
                     "-Wno-unknown-pragmas", f"-I{CSRC}",
                     *(f"-D{m}" for m in defines),
                     "-o", str(lib_path), str(d / "shim.cpp")],

@@ -338,6 +338,64 @@ def test_lab_host_build_matches_plain(lab_lib, kern, p, mode, tile, grid):
                      / ref2.abs().max()) <= TOL[mode]
 
 
+def _cpu_has_fma() -> bool:
+    try:
+        with open("/proc/cpuinfo") as f:
+            return " fma" in f.read()
+    except OSError:
+        return False
+
+
+@pytest.fixture(scope="module")
+def lab_lib_fma(tmp_path_factory):
+    """The p = 7 host build with each multiply-add contracted into one FMA
+    (-O2 -mfma), as nvcc compiles the band stages for the card."""
+    if not _cpu_has_fma():
+        pytest.skip("the CPU has no FMA instruction")
+    lib = _build(tmp_path_factory, "lab_host_fma", LAB_SHIM,
+                 opt=("-O2", "-mfma"))
+    lib.host_lab_apply.argtypes = [ctypes.c_int] * 11 + [ctypes.c_void_p] * 6
+    lib.host_lab_apply.restype = ctypes.c_int
+    lib.host_lab_smem_bytes.argtypes = [ctypes.c_int] * 6
+    lib.host_lab_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+# kernel vs emulation at p = 7 in bf16x3: the emulation's band stages give
+# the kernel's qq to the bit, so only the x stage's f32 sum order parts
+# them; an emulation with the bands in f64 turns a bf16 split at some
+# point on these seeds and lands above this level
+EMU_APART_FMA = 1e-6
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_emulation_follows_the_host_build_at_p7(lab_lib_fma, seed):
+    """v20 (and v17) at p = 7 in bf16 on the FMA host build against
+    ``V17Kernel.emulate``: apart by at most EMU_APART_FMA of max |y|."""
+    p, n = 7, 3
+    npts = n * p + 1
+    for kern in ("v17", "v20"):
+        k = _kernel(npts, p, "bf16", kern, n)
+        tile = resident_lab.choose_tile(p, k.xp, k.nbuf, k.X,
+                                        lab_lib_fma.host_lab_smem_bytes)
+        ntiles = (-(-npts // tile[0])) * (-(-npts // tile[1]))
+        gp = k.pad(torch.as_tensor(np.random.default_rng(100 + seed)
+                                   .standard_normal(npts**3),
+                                   dtype=torch.float32))
+        y = torch.full_like(gp, float("nan"))
+        rc = lab_lib_fma.host_lab_apply(
+            int(kern[1:]), k.xp, p, resident_lab.MODES[k.mode], npts, k.sz,
+            k.sy, k.X, *tile, ntiles, gp.data_ptr(), y.data_ptr(),
+            k.tables.data_ptr(), k.xk.data_ptr(), k.xk_lo.data_ptr(),
+            k.windows.data_ptr())
+        assert rc == 0
+        ye = k.emulate(gp).to(torch.float64)
+        apart = float((y.to(torch.float64) - ye).abs().max()
+                      / ye.abs().max())
+        print(f"{kern} bf16 p=7 seed {seed}: apart {apart:.3e}")
+        assert apart <= EMU_APART_FMA, (kern, seed, apart)
+
+
 def test_emulated_x_stage_classes():
     """The x stage's arithmetic alone, emulated in plain PyTorch on the
     grids of chip_smoke's phase 5 (p = 1, 2, 4, 7, 8; npts ~ 25; four

@@ -10,6 +10,10 @@ import pytest
 
 from tpufem.apps.poisson import solve_poisson as j_solve_poisson
 from tpufem_torch.apps import poisson as tpoisson
+from tpufem_torch.fem.dof_handler import DoFHandler
+from tpufem_torch.fem.mesh import Mesh
+from tpufem_torch.ops.matrix_free import MatrixFree
+from tpufem_torch.utils.config import FemConfig
 
 
 def _rough(x):
@@ -67,8 +71,9 @@ def test_plain_and_kernel_wrapper_solves_agree():
     """use_pallas only swaps the apply: on the CPU both paths are the plain
     version and give the identical solve."""
     a = tpoisson.solve_poisson(dim=2, degree=3, refine=3, device="cpu",
-                               use_pallas=True)
-    b = tpoisson.solve_poisson(dim=2, degree=3, refine=3, device="cpu")
+                               scatter="separable", use_pallas=True)
+    b = tpoisson.solve_poisson(dim=2, degree=3, refine=3, device="cpu",
+                               scatter="separable")
     assert a.iterations == b.iterations
     assert np.array_equal(a.solution, b.solution)
 
@@ -82,15 +87,73 @@ def test_cli_json(capsys):
     assert abs(line["l2_error"] - rj.l2_error) <= 1e-10 * rj.l2_error
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(scatter="auto"), "structured"),
-    (dict(scatter="incidence"), "hanging nodes"),
-    (dict(shards=2), "distributed"),
-    (dict(precond="gmg"), "GMG"),
-    (dict(precond="chebyshev"), "chebyshev"),
-    (dict(adaptive_steps=1), "hanging nodes"),
-    (dict(coefficient=lambda x: 1.0 + x[:, 0]), "coefficient"),
-])
-def test_unported_options_raise(kw, match):
+def _build_boxes():
+    mesh = Mesh.hyper_cube(2, 2)
+    MatrixFree.build(mesh, DoFHandler(mesh, 1),
+                     FemConfig(dim=2, degree=1, scatter="boxes"), "cpu")
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda: tpoisson.solve_poisson(scatter="boxes", device="cpu"),
+     "box tier"),
+    (lambda: tpoisson.solve_poisson(precond="gmg-bf16", device="cpu"),
+     "GMG"),
+    (lambda: tpoisson.solve_poisson(shards=2, device="cpu"), "distributed"),
+    (lambda: tpoisson.solve_poisson(precond="gmg", device="cpu"), "GMG"),
+    (lambda: tpoisson.solve_poisson(precond="chebyshev", device="cpu"),
+     "chebyshev"),
+    (_build_boxes, "box tier"),
+    (lambda: tpoisson.main(["--amr", "2", "--precond", "chebyshev",
+                            "--device", "cpu"]), "chebyshev"),
+], ids=["scatter-boxes", "gmg-bf16", "shards", "gmg", "chebyshev",
+        "build-boxes", "cli-amr-chebyshev"])
+def test_unported_options_raise(call, match):
     with pytest.raises(NotImplementedError, match=match):
-        tpoisson.solve_poisson(dim=2, degree=1, refine=2, device="cpu", **kw)
+        call()
+
+
+def test_pallas_on_the_default_tier_attaches_a_kernel(monkeypatch):
+    """use_pallas with the default scatter takes the separable scheme and
+    attaches its kernels; the flag is never left unread."""
+    built = []
+    build = MatrixFree.build
+
+    def spy(*args, **kwargs):
+        built.append(build(*args, **kwargs))
+        return built[-1]
+
+    monkeypatch.setattr(MatrixFree, "build", spy)
+    r = tpoisson.solve_poisson(dim=2, degree=2, refine=2, use_pallas=True,
+                               device="cpu")
+    assert r.converged
+    mf = built[-1]
+    assert mf.scheme == "separable"
+    assert mf.kernel is not None and mf.resident is not None
+
+
+@pytest.mark.parametrize("kw", [
+    dict(scatter="structured"), dict(scatter="dense"),
+    dict(scatter="incidence"), dict(scatter="colored"),
+    dict(adaptive_steps=1)])
+def test_pallas_on_a_cell_loop_tier_raises(kw):
+    """The cell-loop tiers run no kernel: use_pallas there raises instead
+    of running the plain apply."""
+    with pytest.raises(ValueError, match="separable"):
+        tpoisson.solve_poisson(dim=2, degree=1, refine=2, use_pallas=True,
+                               device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(scatter="auto"),
+    dict(scatter="incidence"),
+    dict(adaptive_steps=1),
+    dict(coefficient=lambda x: 1.0 + x[:, 0]),
+])
+def test_formerly_unported_options_match_tpufem(kw):
+    """The four options that raised before the cell-loop tiers: each solve
+    now equals tpufem's (iterations, L2 within 1e-10)."""
+    rt = tpoisson.solve_poisson(dim=2, degree=1, refine=2, device="cpu",
+                                **kw)
+    rj = j_solve_poisson(dim=2, degree=1, refine=2, **kw)
+    assert rt.n_dofs == rj.n_dofs and rt.iterations == rj.iterations
+    assert abs(rt.l2_error - rj.l2_error) <= 1e-10 * rj.l2_error

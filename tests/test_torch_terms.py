@@ -269,7 +269,7 @@ def test_matrix_free_terms_options():
     with pytest.raises(ValueError, match="not both"):
         MatrixFree.build(mesh, dofs, cfg, "cpu", coefficient=_cp_coef,
                          coefficient_axes=_sep_coef_axes(2))
-    with pytest.raises(NotImplementedError, match="coefficient_cp_tol"):
+    with pytest.raises(ValueError, match="coefficient_cp_tol"):
         MatrixFree.build(mesh, dofs, cfg, "cpu", coefficient=_cp_coef)
     shell = Mesh.hyper_shell_2d(2)
     with pytest.raises(ValueError, match="Cartesian"):

@@ -1,16 +1,21 @@
 """End-to-end Poisson solver application (the reference's ``poisson.cu``).
 
-Port of ``tpufem/apps/poisson.py`` for the uniform hyper_cube and the
-curved hyper_shell (``--mesh shell``) on the separable tier: mesh -> Q_p
-DoFs -> MatrixFree -> host RHS -> Jacobi-CG on the device -> L2 error
-against the manufactured solution.  With ``--pallas`` every operator apply
-runs a hand-written CUDA kernel: K2 on the cube, K4 (3D) or K3 (2D) on
-the shell.
+Port of ``tpufem/apps/poisson.py``: mesh -> Q_p DoFs -> hanging-node
+constraints (adaptive meshes) -> MatrixFree -> host RHS -> Jacobi-CG on
+the device -> L2 error against the manufactured solution, on the
+hyper_cube, the curved hyper_shell (``--mesh shell``), a refined mesh
+(``--adaptive-steps``) or a caller's mesh (``solve_poisson(mesh=...)``),
+and the solve -> estimate -> mark -> refine loop (``--amr``).  The tier
+defaults to ``auto`` (structured on uniform meshes, incidence otherwise);
+with ``--pallas`` it is the separable tier, and every operator apply runs
+a hand-written CUDA kernel: K2 on the cube, K4 (3D) or K3 (2D) on the
+shell.  The other tiers run no kernel and refuse ``--pallas``.
 
-Run:  tpufem-torch-poisson --dim 3 --degree 4 --refine 5 --pallas \
-          --dtype float32 [--mesh shell]
-      (python -m tpufem_torch.apps.poisson ...; --device cpu runs the
-      plain PyTorch version on the CPU)
+Run:  tpufem-torch-poisson --dim 3 --degree 4 --refine 5 --dtype float32 \
+          [--mesh shell] [--pallas]
+      tpufem-torch-poisson --dim 2 --degree 2 --refine 2 --amr 4
+      (python -m tpufem_torch.apps.poisson ...; --device cpu runs on the
+      CPU)
 """
 
 from __future__ import annotations
@@ -28,7 +33,9 @@ from tpufem_torch.fem.assemble import (
     integrate_difference,
     integrate_errors,
 )
+from tpufem_torch.fem.constraints import make_hanging_node_constraints
 from tpufem_torch.fem.dof_handler import DoFHandler
+from tpufem_torch.fem.estimator import kelly_estimate, mark_fixed_fraction
 from tpufem_torch.fem.mesh import Mesh
 from tpufem_torch.operators.laplace import LaplaceOperator
 from tpufem_torch.ops.matrix_free import MatrixFree, not_ported, resolve_device
@@ -61,13 +68,16 @@ def default_gradient(dim: int):
 def dirichlet_setup(op: LaplaceOperator, b: np.ndarray,
                     boundary_values: np.ndarray):
     """Turn an unconstrained RHS into the constrained system's RHS + x0:
-      x0 = g on the boundary;  b' = mask * (b - A_raw x0) + (1-mask) x0.
+      x0 = g on the boundary (hanging DoFs interpolated from it);
+      b' = mask * C^T (b - A_raw x0) + (1-mask) x0.
     CG on the constrained operator then keeps constrained values exact."""
-    mask = op.mf.interior_mask
+    mf = op.mf
+    mask = mf.interior_mask
     g = torch.as_tensor(boundary_values, dtype=mask.dtype, device=mask.device)
-    x0 = (1.0 - mask) * g
+    x0 = mf.distribute((1.0 - mask) * g)
     b_dev = torch.as_tensor(b, dtype=mask.dtype, device=mask.device)
-    b_con = mask * (b_dev - op.vmult_raw(x0)) + (1.0 - mask) * x0
+    b1 = mf.distribute_transpose(b_dev - op.vmult_raw(x0))
+    b_con = mask * b1 + (1.0 - mask) * x0
     return b_con, x0
 
 
@@ -84,6 +94,7 @@ class PoissonResult:
     converged: bool
     dofs: object = None  # DoFHandler (for output writers)
     h1_error: float | None = None  # H1 seminorm, with --h1
+    eta: float | None = None  # global Kelly estimate (AMR loop)
 
 
 def poisson_mesh(dim: int, refine: int, mesh_kind: str = "cube") -> Mesh:
@@ -99,33 +110,56 @@ def poisson_mesh(dim: int, refine: int, mesh_kind: str = "cube") -> Mesh:
                      f"{mesh_kind!r}")
 
 
+def refine_toward_ball(mesh: Mesh, steps: int, center: float,
+                       radius: float) -> Mesh:
+    """``mesh`` refined ``steps`` times: each round refines the cells whose
+    centre lies within ``radius`` of the point (center, ..., center) in
+    coordinates scaled to the unit box."""
+    for _ in range(steps):
+        centers = (mesh.origins + mesh.sizes[:, None] * 0.5) / mesh.U
+        mesh = mesh.refine(np.linalg.norm(centers - center, axis=1) < radius)
+    return mesh
+
+
+def adaptive_mesh(dim: int, refine: int, steps: int, center: float = 0.31,
+                  radius: float = 0.35) -> Mesh:
+    """Uniform base + ``steps`` rounds of refinement toward a ball: the
+    JAX package's adaptive benchmark mesh (``tpufem/apps/bmop.py``)."""
+    return refine_toward_ball(Mesh.hyper_cube(dim, refine), steps, center,
+                              radius)
+
+
 def poisson_operator(dim: int, degree: int, refine: int, dtype: str,
                      use_pallas: bool, device: torch.device | str,
                      scatter: str = "separable",
                      coefficient: Optional[Callable] = None,
                      pallas_mode: str = "f32",
                      mesh_kind: str = "cube",
-                     coefficient_axes: Optional[list] = None
-                     ) -> LaplaceOperator:
-    """The Laplace operator of ``solve_poisson``: Q_degree on
-    ``poisson_mesh(dim, refine, mesh_kind)``, with the kernels attached
+                     coefficient_axes: Optional[list] = None,
+                     mesh: Mesh | None = None) -> LaplaceOperator:
+    """The Laplace operator of ``solve_poisson``: Q_degree on ``mesh``, or
+    on ``poisson_mesh(dim, refine, mesh_kind)``, with hanging-node
+    constraints where the mesh is not uniform and the kernels attached
     under ``use_pallas`` (the resident kernel in ``pallas_mode``).
     ``coefficient_axes`` is forwarded to ``MatrixFree.build`` (a separable
     variable coefficient, the operator of the K4 terms tier)."""
-    mesh = poisson_mesh(dim, refine, mesh_kind)
+    if mesh is None:
+        mesh = poisson_mesh(dim, refine, mesh_kind)
     dofs = DoFHandler(mesh, degree)
+    constraints = (None if mesh.is_uniform
+                   else make_hanging_node_constraints(dofs))
     cfg = FemConfig(dim=dim, degree=degree, scatter=scatter, dtype=dtype,
                     use_pallas=use_pallas, pallas_mode=pallas_mode)
     return LaplaceOperator(MatrixFree.build(
         mesh, dofs, cfg, device, coefficient=coefficient,
-        coefficient_axes=coefficient_axes))
+        constraints=constraints, coefficient_axes=coefficient_axes))
 
 
 def solve_poisson(
     dim: int = 2,
     degree: int = 1,
     refine: int = 3,
-    scatter: str = "separable",
+    scatter: str = "auto",
     dtype: str = "float64",
     coefficient: Optional[Callable] = None,
     adaptive_steps: int = 0,
@@ -138,23 +172,23 @@ def solve_poisson(
     precond: str = "jacobi",
     h1: bool = False,
     mesh_kind: str = "cube",
+    mesh: Mesh | None = None,
     device: torch.device | str = "cuda",
 ) -> PoissonResult:
-    """Jacobi-CG Poisson solve on the uniform hyper_cube or hyper_shell
-    (``mesh_kind``), separable tier.  On the shell the default
-    manufactured solution gives inhomogeneous Dirichlet data.
+    """Jacobi-CG Poisson solve on ``poisson_mesh(dim, refine, mesh_kind)``
+    refined ``adaptive_steps`` times toward the ball of radius 0.3 about
+    the centre, or on ``mesh`` (``refine``/``mesh_kind`` then ignored).
+    A non-uniform mesh gets hanging-node constraints.  On the shell the
+    default manufactured solution gives inhomogeneous Dirichlet data.
 
-    Arguments keep the JAX package's names; the ones this slice has not
-    ported raise NotImplementedError naming their ROADMAP.md item.
+    Arguments keep the JAX package's names; the ones not ported yet raise
+    NotImplementedError naming their ROADMAP.md item.
     """
     device = resolve_device(device)
     if shards is not None:
         raise not_ported("--shards", "distributed")
     if precond != "jacobi":
         raise not_ported(f"--precond {precond}", "GMG plus resident_gmg_cg")
-    if adaptive_steps:
-        raise not_ported("--adaptive-steps",
-                         "incidence, colored and dense with hanging nodes")
     if h1 and exact is not None:
         raise ValueError("--h1 supports the default manufactured "
                          "solution only (no gradient for a custom exact)")
@@ -163,10 +197,12 @@ def solve_poisson(
         rtol = 1e-10 if dtype == "float64" else 1e-6
     timer = Timer(device)
     with timer.section("setup"):
-        op = poisson_operator(dim, degree, refine, dtype, use_pallas,
-                              device, scatter, coefficient,
-                              mesh_kind=mesh_kind)
-        mesh, dofs = op.mf.mesh, op.mf.dofs
+        if mesh is None:
+            mesh = poisson_mesh(dim, refine, mesh_kind)
+        mesh = refine_toward_ball(mesh, adaptive_steps, 0.5, 0.3)
+        op = poisson_operator(dim, degree, refine, dtype, use_pallas, device,
+                              scatter, coefficient, mesh=mesh)
+        dofs = op.mf.dofs
         diag = op.diagonal()
         u_exact, f = default_solution(dim)
         if exact is not None:
@@ -187,7 +223,7 @@ def solve_poisson(
         solve()  # first run pays the one-time costs; time the second
     with timer.section("solve"):
         res = solve()
-        x = res.x.cpu().numpy()
+        x = op.mf.distribute(res.x).cpu().numpy()
     if not res.converged:
         import sys
 
@@ -209,6 +245,29 @@ def solve_poisson(
         dofs=dofs, h1_error=h1_err)
 
 
+def solve_poisson_amr(dim: int = 2, degree: int = 1, refine: int = 2,
+                      cycles: int = 5, fraction: float = 0.3,
+                      mesh_kind: str = "cube", exact=None, rhs=None,
+                      **kwargs) -> list[PoissonResult]:
+    """Solve -> estimate -> mark -> refine loop (deal.II step-6): runs
+    ``cycles`` solves on ``poisson_mesh(dim, refine, mesh_kind)``,
+    refining the top ``fraction`` of cells by Kelly indicator between
+    them.  Returns one PoissonResult per cycle with ``eta`` the global
+    estimate sqrt(sum eta_K^2).  kwargs pass through to solve_poisson
+    (scatter, dtype, device, ...)."""
+    mesh = poisson_mesh(dim, refine, mesh_kind)
+    results = []
+    for cycle in range(cycles):
+        r = solve_poisson(dim=dim, degree=degree, mesh=mesh, exact=exact,
+                          rhs=rhs, **kwargs)
+        eta = kelly_estimate(r.dofs, r.solution.astype(np.float64))
+        r.eta = float(np.sqrt((eta**2).sum()))
+        results.append(r)
+        if cycle < cycles - 1:
+            mesh = mesh.refine(mark_fixed_fraction(eta, fraction))
+    return results
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--dim", type=int, default=2)
@@ -217,16 +276,18 @@ def main(argv=None):
     ap.add_argument("--mesh", default="cube", choices=["cube", "shell"],
                     help="domain: the unit hyper_cube or the curved "
                          "hyper_shell wedge")
-    ap.add_argument("--scatter", default="separable",
+    ap.add_argument("--scatter", default="auto",
                     choices=["auto", "incidence", "colored", "structured",
                              "dense", "separable", "boxes"],
-                    help="apply tier (only 'separable' is ported)")
+                    help="apply tier ('boxes' is not ported yet)")
     ap.add_argument("--dtype", default="float64",
                     choices=["float64", "float32"])
     ap.add_argument("--adaptive-steps", type=int, default=0)
     ap.add_argument("--amr", type=int, default=0, metavar="CYCLES",
-                    help="solve->estimate->mark->refine loop (not ported)")
-    ap.add_argument("--amr-fraction", type=float, default=0.3)
+                    help="solve->estimate->mark->refine loop: run CYCLES "
+                         "solves, refining by Kelly indicator between them")
+    ap.add_argument("--amr-fraction", type=float, default=0.3,
+                    help="fraction of cells refined per AMR cycle")
     ap.add_argument("--shards", default=None,
                     help="distributed solve (not ported)")
     ap.add_argument("--precond", default="jacobi",
@@ -247,16 +308,41 @@ def main(argv=None):
     ap.add_argument("--warm", action="store_true",
                     help="run the solve twice and time the second")
     args = ap.parse_args(argv)
+    device = "cpu" if args.cpu else args.device
     if args.amr:
-        raise not_ported("--amr", "incidence, colored and dense with "
-                         "hanging nodes")
+        rs = solve_poisson_amr(
+            dim=args.dim, degree=args.degree, refine=args.refine,
+            cycles=args.amr, fraction=args.amr_fraction,
+            mesh_kind=args.mesh, scatter=args.scatter, dtype=args.dtype,
+            use_pallas=args.pallas, shards=args.shards,
+            precond=args.precond, h1=args.h1, device=device)
+        if args.json:
+            for c, r in enumerate(rs):
+                line = {"cycle": c, "n_cells": r.n_cells,
+                        "n_dofs": r.n_dofs, "iterations": r.iterations,
+                        "l2_error": r.l2_error, "eta": r.eta,
+                        "solve_time": r.solve_time}
+                if r.h1_error is not None:
+                    line["h1_error"] = r.h1_error
+                print(json.dumps(line))
+        else:
+            print(f"{'cycle':>5} {'cells':>9} {'dofs':>10} {'iters':>6} "
+                  f"{'L2 error':>12} {'eta':>12}")
+            for c, r in enumerate(rs):
+                print(f"{c:>5} {r.n_cells:>9} {r.n_dofs:>10} "
+                      f"{r.iterations:>6} {r.l2_error:>12.4e} "
+                      f"{r.eta:>12.4e}")
+        if args.vtu:
+            from tpufem_torch.utils.output import write_vtu
+
+            write_vtu(args.vtu, rs[-1].dofs, {"u": rs[-1].solution})
+        return None
     r = solve_poisson(
         dim=args.dim, degree=args.degree, refine=args.refine,
         scatter=args.scatter, dtype=args.dtype,
         adaptive_steps=args.adaptive_steps, use_pallas=args.pallas,
         warm=args.warm, shards=args.shards, precond=args.precond,
-        h1=args.h1, mesh_kind=args.mesh,
-        device="cpu" if args.cpu else args.device,
+        h1=args.h1, mesh_kind=args.mesh, device=device,
     )
     if args.vtu:
         from tpufem_torch.utils.output import write_vtu

@@ -250,31 +250,27 @@ class V17Kernel:
         return self.unpad(self.raw(self.pad(u)))
 
     def emulate(self, gp: torch.Tensor) -> torch.Tensor:
-        """``raw`` with the x stage in the kernel's arithmetic, in plain
-        PyTorch (f32 storage, mode "f32" or "bf16"): the z/y band stages in
-        f64, rounded to f32 as the kernel's ``qq``; both operands split as
-        the kernel splits them (3xTF32: big + small; 1xTF32: one rounding;
-        bf16x3: hi + lo, lo*lo dropped); each product an f32 matmul of the
-        split parts, which are exact in f32, summed in f32.  It differs
-        from the kernel in the order of the f32 sums and in its band stages
-        (f64 here, f32 there), which can turn a split's rounding."""
+        """``raw`` in the kernel's arithmetic, in plain PyTorch (f32
+        storage, mode "f32" or "bf16"): the z/y band stages as the kernel
+        runs them (``band_fma``: its f32 tables, its taps in its order, one
+        f32 rounding per multiply-add), so ``qq`` is the kernel's; both
+        operands of the x stage split as the kernel splits them (3xTF32:
+        big + small; 1xTF32: one rounding; bf16x3: hi + lo, lo*lo dropped);
+        each product an f32 matmul of the split parts, which are exact in
+        f32, summed in f32.  It differs from the kernel only in the order
+        of the x stage's f32 sums."""
         if self.dt != torch.float32 or self.mode not in ("f32", "bf16"):
             raise ValueError("emulate: f32 storage, mode 'f32' or 'bf16'")
         n, X = self.npts, self.X
-        f64 = lambda M: torch.as_tensor(M, dtype=torch.float64,
-                                        device=gp.device)
-        Ky, My, Kz, Mz = (f64(self.Ks[1]), f64(self.Ms[1]), f64(self.Ks[2]),
-                          f64(self.Ms[2]))
-        u = self.unpad(gp).to(torch.float64).reshape(n, n, n)  # (z, y, x)
-        s = torch.einsum("az,zyx->ayx", Mz, u)
-        t = torch.einsum("az,zyx->ayx", Kz, u)
-        q1 = torch.einsum("by,ayx->abx", My, s)
-        q23 = (torch.einsum("by,ayx->abx", Ky, s)
-               + torch.einsum("by,ayx->abx", My, t))
+        wky, wmy, wkz, wmz = self.tables.to(gp.device)  # Ky, My, Kz, Mz
+        u = self.unpad(gp).to(torch.float32).reshape(n, n, n)  # (z, y, x)
+        s, t = band_fma(wmz, u, 0), band_fma(wkz, u, 0)
+        q1 = band_fma(wmy, s, 1)
+        q23 = band_fma(wky, s, 1) + band_fma(wmy, t, 1)
         qq = torch.zeros((n * n, 2 * X), dtype=torch.float32,
                          device=gp.device)
-        qq[:, :n] = q1.reshape(n * n, n).to(torch.float32)
-        qq[:, X:X + n] = q23.reshape(n * n, n).to(torch.float32)
+        qq[:, :n] = q1.reshape(n * n, n)
+        qq[:, X:X + n] = q23.reshape(n * n, n)
         if self.xp == XBF16X3:
             bf = lambda a: a.to(torch.bfloat16).to(torch.float32)
             ah = bf(qq)
@@ -326,6 +322,29 @@ class V17Kernel:
         return roofline_ms(nbytes, {
             "fp64" if self.xp == XF64 else "fp32": bands,
             mma: passes * 2.0 * n * n * k_rows * X})
+
+
+def band_fma(tab: torch.Tensor, v: torch.Tensor, dim: int) -> torch.Tensor:
+    """The kernels' band stage (``band`` in csrc/common.cuh) along tensor
+    dim ``dim`` of the f32 tensor v, in their arithmetic: output g is
+    sum_o W[g,o] (v[g+o-p] - v[g]) + R[g] v[g] with the f32 table row
+    ``tab[g] = (W[g, 0..2p], R[g])``, v zero outside the axis, the taps
+    taken in order o = 0..2p from a zero accumulator, each difference an
+    f32 subtraction and each multiply-add rounded once to f32, as the FMA
+    the kernel compiles to (computed in f64, where the product of two f32
+    values is exact, then rounded)."""
+    n = v.shape[dim]
+    p = (tab.shape[1] - 2) // 2
+    v = v.movedim(dim, -1)
+    vp = torch.nn.functional.pad(v, (p, p))
+    W = tab.to(torch.float64)
+    vc = v.to(torch.float64)
+    acc = torch.zeros_like(v)
+    for o in range(2 * p + 1):
+        d = (vp[..., o:o + n] - v).to(torch.float64)
+        acc = (acc.to(torch.float64) + W[:, o] * d).to(torch.float32)
+    out = (acc.to(torch.float64) + W[:, 2 * p + 1] * vc).to(torch.float32)
+    return out.movedim(-1, dim)
 
 
 def tf32(a: torch.Tensor) -> torch.Tensor:

@@ -45,6 +45,7 @@ import torch
 from tpufem_torch.lab.resident_lab import (
     MMA,
     X_ALIGN,
+    band_fma,
     operator_bound,
     tf32,
     x_operator,
@@ -455,9 +456,9 @@ class LabKernel:
         storage): each dense stage a split product of f32 operands, the
         part products in f64 (``_split_product``), rounded to f32 at the
         stage's end as the kernel's shared-memory intermediates; each band
-        stage exact in f64, rounded to f32.  It differs from the kernel in
-        the order and precision of the sums, which can turn a split's
-        rounding."""
+        stage as the kernel runs it (``band_fma``: its f32 tables, its taps
+        in its order, one f32 rounding per multiply-add).  It differs from
+        the kernel in the order and precision of the dense stages' sums."""
         if self.dt != torch.float32 or self.variant in NO_MMA:
             raise ValueError("emulate: f32 storage, a variant with a "
                              "tensor-core stage")
@@ -465,42 +466,39 @@ class LabKernel:
         f32 = lambda t: t.to(torch.float32)
         f64 = lambda M: torch.as_tensor(M, dtype=torch.float64, device=dev)
         m32 = lambda M: f32(f64(M))  # the f32 operand the kernel reads
+        tab = self.tables.to(dev)
         u = gp[p:p + n, p:p + n, :n].to(torch.float32)  # (z, y, x)
         Mx, Kx, My, Ky, Mz, Kz = (self.Ms[0], self.Ks[0], self.Ms[1],
                                   self.Ks[1], self.Ms[2], self.Ks[2])
-        if self.zy:  # bands z, y exact; then the x products
-            bz = lambda M, t: torch.einsum("az,zyx->ayx", f64(M), t.double())
-            by = lambda M, t: torch.einsum("by,zyx->zbx", f64(M), t)
-            s, t = bz(Mz, u), bz(Kz, u)
-            q1, q23 = f32(by(My, s)), f32(by(Ky, s) + by(My, t))
+        if self.zy:  # bands z, y; then the x products
+            wky, wmy, wkz, wmz = tab[:4]
+            s, t = band_fma(wmz, u, 0), band_fma(wkz, u, 0)
+            q1 = band_fma(wmy, s, 1)
+            q23 = band_fma(wky, s, 1) + band_fma(wmy, t, 1)
             return self._place(f32(
                 _split_product(q1, m32(Kx), self.xp, "zyx,ox->zyo")
                 + _split_product(q23, m32(Mx), self.xp, "zyx,ox->zyo")))
+        wmx, wkx, wmy, wky, wmz, wkz = tab
         if self.flags & XBAND:
-            ax = f32(torch.einsum("zyx,ox->zyo", u.double(), f64(Mx)))
-            gx = f32(torch.einsum("zyx,ox->zyo", u.double(), f64(Kx)))
+            ax, gx = band_fma(wmx, u, 2), band_fma(wkx, u, 2)
         else:
             ax = f32(_split_product(u, m32(Mx), self.xp, "zyx,ox->zyo"))
             gx = f32(_split_product(u, m32(Kx), self.xp, "zyx,ox->zyo"))
         if self.variant == "vx":
-            return self._place(f32(ax.double() + gx.double()))
+            return self._place(ax + gx)
         if self.flags & YZBAND:
-            by = lambda M, t: torch.einsum("by,zyx->zbx", f64(M), t.double())
-            t1, t2 = f32(by(My, ax)), f32(by(Ky, ax) + by(My, gx))
+            t1 = band_fma(wmy, ax, 1)
+            t2 = band_fma(wky, ax, 1) + band_fma(wmy, gx, 1)
         else:
             sp = lambda M, t: _split_product(m32(M), t, self.xp,
                                              "by,zyx->zbx")
             t1, t2 = f32(sp(My, ax)), f32(sp(Ky, ax) + sp(My, gx))
         if self.variant == "vxy":
-            return self._place(f32(t1.double() + t2.double()))
+            return self._place(t1 + t2)
         if self.flags & YZBAND:
-            bz = lambda M, t: torch.einsum("az,zyx->ayx", f64(M), t.double())
-            y = bz(Kz, t1) + bz(Mz, t2)
-        else:
-            sp = lambda M, t: _split_product(m32(M), t, self.xp,
-                                             "az,zyx->ayx")
-            y = sp(Kz, t1) + sp(Mz, t2)
-        return self._place(f32(y))
+            return self._place(band_fma(wkz, t1, 0) + band_fma(wmz, t2, 0))
+        sp = lambda M, t: _split_product(m32(M), t, self.xp, "az,zyx->ayx")
+        return self._place(f32(sp(Kz, t1) + sp(Mz, t2)))
 
     def bound(self) -> tuple[float, str]:
         """(ms, "bytes" or "operations"): the least time an H100 could take

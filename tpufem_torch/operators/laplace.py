@@ -1,12 +1,14 @@
 """Matrix-free Laplace operator: vmult and diagonal.
 
-Port of ``tpufem/operators/laplace.py`` for the separable scheme (the
-Laplace factorisation and the sum-of-tensor-products terms).  The
-reference's constraint save/zero/restore around ``cell_loop`` is mask
-algebra, ``y = m·A(m·x) + (1-m)·x``: identity on constrained DoFs,
-keeping the operator symmetric.  The slice has no hanging nodes, so the
-JAX package's ``distribute``/``distribute_transpose`` are identities and
-do not appear.
+Port of ``tpufem/operators/laplace.py`` (the reference's
+``LaplaceOperatorGpu``): ``vmult_raw`` dispatches on the MatrixFree's
+scheme — separable (the Laplace factorisation or the
+sum-of-tensor-products terms, through their kernels under
+``use_pallas``), structured, dense, or the general cell loop (gather ->
+``laplace_cell_apply`` -> scatter).  The reference's constraint
+save/zero/restore around ``cell_loop`` is mask algebra with the
+hanging-node resolution C: ``y = m·C^T A C(m·x) + (1-m)·x``, identity on
+constrained DoFs, keeping the operator symmetric.
 """
 
 from __future__ import annotations
@@ -15,11 +17,49 @@ import numpy as np
 import torch
 
 from tpufem_torch.fem.assemble import cell_basis_gradients
+from tpufem_torch.ops import tensor_ops as tops
+from tpufem_torch.ops.dense_local import laplace_apply_dense
+from tpufem_torch.ops.diagonal import diagonal_device_hanging
 from tpufem_torch.ops.matrix_free import MatrixFree
 from tpufem_torch.ops.separable import (
     laplace_apply_separable,
     laplace_apply_separable_terms,
 )
+from tpufem_torch.ops.structured import (
+    laplace_apply_global_general,
+    laplace_apply_structured,
+)
+
+
+def _apply_metric_to_gradients(mf: MatrixFree, g: torch.Tensor):
+    """g (nc, d, nq) reference gradients -> submitted reference gradients
+    t[b] = sum_a invJ[b,a] * jxw * coef * (sum_b' invJ[b',a] g[b'])."""
+    if mf.metric_kind == "cartesian":
+        # J diagonal: t[a] = inv_h[a]^2 * det * w_q * coef * g[a]
+        scale = mf.inv_h**2 * mf.det[:, None]  # (nc, d)
+        t = g * scale[:, :, None] * mf.w_q[None, None, :]
+        if mf.coef_dev is not None:
+            t = t * mf.coef_dev[:, None, :]
+        return t
+    gp = torch.einsum("cqba,cbq->caq", mf.inv_jac, g)
+    w = mf.jxw if mf.coef_dev is None else mf.jxw * mf.coef_dev
+    gp = gp * w[:, None, :]
+    return torch.einsum("cqba,caq->cbq", mf.inv_jac, gp)
+
+
+def laplace_cell_apply(mf: MatrixFree, u_loc: torch.Tensor) -> torch.Tensor:
+    """The per-cell-batch pipeline: evaluate -> quadrature op -> integrate
+    (the FEEvaluation evaluate / submit_gradient / integrate sequence over
+    the whole cell batch).  u_loc: (nc, nn) -> (nc, nn)."""
+    mf.cell_data()
+    dim = mf.config.dim
+    if mf.D_col is not None:
+        _, g = tops.eval_gradients_collocation(u_loc, mf.S, mf.D_col, dim)
+        t = _apply_metric_to_gradients(mf, g)
+        return tops.integrate_collocation(None, t, mf.S, mf.D_col, dim)
+    g = tops.eval_gradients_basis(u_loc, mf.S, mf.D, dim)
+    t = _apply_metric_to_gradients(mf, g)
+    return tops.integrate_gradients_basis(t, mf.S, mf.D, dim)
 
 
 class LaplaceOperator:
@@ -30,31 +70,47 @@ class LaplaceOperator:
         self.n_dofs = mf.n_dofs
 
     def vmult_raw(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A x without constraint handling (JAX ``laplace.py:201-216``):
-        a terms operator goes through its K4/K3 wrapper when attached
-        (``use_pallas``), else the plain terms apply; the Laplace
+        """y = A x without constraint handling (JAX ``laplace.py:201-248``):
+        separable — a terms operator through its K4/K3 wrapper when
+        attached (``use_pallas``), else the plain terms apply; the Laplace
         factorisation through K2 when attached, else the plain separable
-        apply."""
+        apply; dense and structured (curved: the global quadrature-grid
+        form) gather-free; incidence and colored the general cell loop."""
         mf = self.mf
-        if mf.terms is not None:
-            if mf.resident is not None:
-                return mf.resident(x)
-            return laplace_apply_separable_terms(x, mf.config.dim, mf.npts,
-                                                 mf.terms)
-        if mf.kernel is not None:
-            return mf.kernel(x)
-        return laplace_apply_separable(x, mf.config.dim, mf.npts, mf.Ks,
-                                       mf.Ms)
+        d, p = mf.config.dim, mf.config.degree
+        if mf.scheme == "separable":
+            if mf.terms is not None:
+                if mf.resident is not None:
+                    return mf.resident(x)
+                return laplace_apply_separable_terms(x, d, mf.npts, mf.terms)
+            if mf.kernel is not None:
+                return mf.kernel(x)
+            return laplace_apply_separable(x, d, mf.npts, mf.Ks, mf.Ms)
+        if mf.scheme == "dense":
+            return laplace_apply_dense(x, d, mf.uniform_n, p, mf.dense_A)
+        if mf.scheme == "structured":
+            if mf.struct_gsym is not None:  # curved/general metric
+                E_list, G_list = mf.global_EG
+                return laplace_apply_global_general(
+                    x, d, mf.uniform_n, p, E_list, G_list, mf.struct_gsym)
+            return laplace_apply_structured(x, d, mf.uniform_n, p, mf.S,
+                                            mf.D_col, mf.struct_scale,
+                                            mf.struct_w)
+        return mf.scatter(laplace_cell_apply(mf, mf.gather(x)))
 
     def vmult(self, x: torch.Tensor) -> torch.Tensor:
-        """y = m·A(m·x) + (1-m)·x: identity rows/cols on constrained DoFs."""
-        m = self.mf.interior_mask
-        y = self.vmult_raw(m * x)
-        return m * y + (1.0 - m) * x
+        """y = m·C^T A C(m·x) + (1-m)·x: identity rows/cols on constrained
+        DoFs; C fills hanging DoFs from their masters on read, C^T
+        accumulates their results into the masters on write."""
+        mf = self.mf
+        m = mf.interior_mask
+        y = self.vmult_raw(mf.distribute(m * x))
+        return m * mf.distribute_transpose(y) + (1.0 - m) * x
 
     def diagonal(self) -> torch.Tensor:
-        """Diagonal of the constrained operator, for Jacobi: the host
-        closed form of the reference's unit-basis trick
+        """Diagonal of the constrained operator, for Jacobi: with hanging
+        nodes diag(C^T A C) on the device (``diagonal_device_hanging``);
+        else the host closed form of the reference's unit-basis trick
         (``tpufem/operators/laplace.py::diagonal``), in its Cartesian
         branch (with the coefficient at the quadrature points, if any)
         and its general-metric branch (curved meshes); constrained DoFs
@@ -63,6 +119,9 @@ class LaplaceOperator:
         mf = self.mf
         if mf.jacobi_diag is not None:
             return mf.jacobi_diag
+        if mf.has_hanging:
+            m = mf.interior_mask
+            return diagonal_device_hanging(mf) * m + (1.0 - m)
         p, d = mf.config.degree, mf.config.dim
         metric, coef = mf.host_metric, mf.coef_q
         G = cell_basis_gradients(p, d, mf.quad)  # (nq, nn, d) f64
