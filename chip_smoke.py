@@ -128,6 +128,27 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 equal x, an f64 one (f32 L2 at most 1e-6 above it); the
                 AMR loop (3D Q2 refine 3, 3 cycles) on the card, each
                 cycle's eta against the CPU's solve on the same mesh
+  9 gmg         geometric multigrid (``gmg_level_checks``, ``gmg_phase``):
+                K2 (f64, f32) at every flat level size of the 3D and 2D Q4
+                V-cycles (3D npts 9-129, 2D 9-513), K1 and K4 (f64, f32,
+                bf16s, with and without the fused mask) at 3D npts 9, 17,
+                33 and K3 at 2D npts 17, 33 at every segment count, against
+                their plain versions as in phase 3; then, counts reset, the
+                16,974,593-DoF flagship GeometricMultigrid(3, 4, 6,
+                coarsest_refine=1, f32, use_pallas) through
+                resident_gmg_cg twice (bitwise-equal x; K1 fine with the
+                fused mask, K2 below) and the flat GMG-CG (equal
+                iterations, x within GMG_FLAT_TOL), the true residual, again
+                with pallas_mode="bf16"; BASELINE config 5
+                (coefficient_axes: K4 on every level) likewise; the 2D Q4
+                refine 8 hierarchy (K3 fine, K2 below); solve_poisson_mg 3D
+                Q4 refine 5 f32 and solve_poisson(precond="chebyshev")
+                there, L2 <= 1e-6; the launches of that path join the
+                kernels line; then the GMG solves' seconds beside the
+                resident Jacobi-CG on the same operator and b, and a
+                torch.profiler split of the flagship's GMG iteration (K1,
+                K2 per level, transfers, coarse solve, dots, elementwise,
+                idle share)
 Then one JSON line with each kernel's record (time, plain time, bound on
 an H100 and library time), and as the last line
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
@@ -897,6 +918,339 @@ def cell_loop_phase(dev, refine=5, adaptive=ADAPTIVE,
         if not (r.iterations == q.iterations
                 and abs(r.eta - eta_cpu) <= 1e-10 * eta_cpu):
             raise RuntimeError("AMR on the card is off the CPU's solve")
+
+
+# ---- phase 9: geometric multigrid ------------------------------------
+# 3D Q4 and 2D Q4 level sizes of the V-cycle from coarsest refine 1 (npts
+# = 4 2^r + 1): K2 on every flat level, K1/K4 and K3 at the smallest
+GMG_K2_NPTS = {3: (9, 17, 33, 65, 129), 2: (9, 17, 33, 65, 129, 257, 513)}
+GMG_RING_NPTS = {3: (9, 17, 33), 2: (17, 33)}
+# how far the flat GMG-CG's x may sit from the resident one's (f32: K2 with
+# the mask outside against K1's masked tables)
+GMG_FLAT_TOL = 1e-4
+
+
+def gmg_level_checks(rng) -> dict:
+    """Phase 9's kernel-vs-plain checks at the V-cycle's level sizes (K2
+    f64 and f32 at every flat level; K1 and K4, 3D, and K3, 2D at every
+    segment count, in f64, f32 and bf16s with and without the fused mask,
+    at the smallest), each as phase 3 holds it; returns the worst max
+    relative error per mode.  Their launches are checks, not the path's."""
+    from tpufem_torch.ops.separable import (
+        cartesian_coef_terms,
+        global_1d_matrices,
+    )
+
+    worst = {}
+
+    def keep(mode, tag, rel):
+        worst[mode] = max(worst.get(mode, 0.0), rel)
+        say("9 gmg", f"{tag} max rel err {rel:.3e}")
+
+    for dim, sizes in GMG_K2_NPTS.items():
+        for npts in sizes:
+            for mode in ("f64", "f32"):
+                tag, rel, _ = check_kernel("K2", dim, 4, npts, mode, False,
+                                           *flagship_axes(4, npts // 4, dim),
+                                           rng)
+                keep(mode, tag, rel)
+    for npts in GMG_RING_NPTS[3]:
+        n = npts // 4
+        coef = cartesian_coef_terms(4, 3, 5, n, [0.0] * 3, [1.0] * 3,
+                                    COEF_AXES, np.float64)
+        for mode in ("f64", "f32", "bf16s"):
+            for dirichlet in (False, True):
+                tag, rel, _ = check_kernel("K1", 3, 4, npts, mode, dirichlet,
+                                           *flagship_axes(4, n, 3), rng)
+                keep(mode, tag, rel)
+                tag, rel, _ = check_terms(coef, 4, mode, rng, dirichlet)
+                keep(mode, tag, rel)
+    for npts in GMG_RING_NPTS[2]:
+        n = npts // 4
+        K, M = global_1d_matrices(4, n, 5)
+        lap = [[K * n, M / n], [M / n, K * n]]
+        for mode in ("f64", "f32", "bf16s"):
+            for dirichlet in (False, True):
+                for seg in segment_counts(npts, STORAGE[mode]):
+                    tag, rel, _ = check_terms(lap, 4, mode, rng, dirichlet,
+                                              segments=seg)
+                    keep(mode, tag, rel)
+    return worst
+
+
+def seconds(dev, fn):
+    """(seconds, fn()): CUDA events on the card, the host clock on the
+    CPU."""
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return time.perf_counter() - t0, out
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3, out
+
+
+def gmg_profile(dev, mg, b, wall_s) -> None:
+    """Where a resident GMG-CG iteration's device time goes: one solve
+    under ``torch.profiler``; the transfers and the coarse solve labelled
+    by ``record_function`` around the calls the V-cycle makes (instance
+    attributes, removed after); K1 (the fine level), K2 (the coarser
+    levels) and the dots by kernel name, the elementwise passes the rest;
+    the idle share against ``wall_s``, the same solve unprofiled.  A label
+    does not collect the kernels our libraries launch (their launches are
+    not children of it), so K2's time by level comes from chains of its
+    applies at each level's size (CUDA events) times its launches there."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from tpufem_torch.solvers.resident import resident_gmg_cg
+    from tpufem_torch.utils.timer import time_fn
+
+    def labelled(name, fn):
+        def call(*args):
+            with record_function(name):
+                return fn(*args)
+        return call
+
+    labels = ("transfer", "coarse")
+    cycle = mg._cycle
+    mg.restrict = labelled("transfer", mg.restrict)
+    mg.prolongate = labelled("transfer", mg.prolongate)
+    mg._cycle = lambda l, x: (labelled("coarse", cycle)(l, x) if l == 0
+                              else cycle(l, x))
+    try:
+        resident_gmg_cg(mg, b, rtol=SOLVE_RTOL)  # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            res = resident_gmg_cg(mg, b, rtol=SOLVE_RTOL)
+            torch.cuda.synchronize()
+    finally:
+        for attr in ("restrict", "prolongate", "_cycle"):
+            delattr(mg, attr)
+    events = prof.events()
+    on_card = [e for e in events if str(e.device_type).endswith("CUDA")
+               and e.name not in labels]
+    total = lambda key: sum(e.time_range.elapsed_us() for e in on_card
+                            if key(e.name)) / 1e3
+    split = {name: sum(e.device_time_total for e in events
+                       if e.name == name
+                       and not str(e.device_type).endswith("CUDA")) / 1e3
+             for name in labels}
+    busy = total(lambda n: True)
+    if not busy > 0:
+        raise RuntimeError("the profiler saw no kernel of the GMG solve")
+    # the V-cycle runs M_inv once before the first iteration
+    n_pre = res.iterations + 1
+    parts = [("K1 (fine level)", total(lambda n: "resident_ring" in n)),
+             ("K2 (coarser levels)", total(lambda n: "separable_apply" in n)),
+             ("transfers", split["transfer"]),
+             ("coarse solve", split["coarse"]),
+             ("dots (CG)", total(lambda n: "dot" in n
+                                 or "reduce" in n.lower()))]
+    parts.append(("elementwise (Chebyshev, CG, mask, pad/unpad)",
+                  busy - sum(t for _, t in parts)))
+    say("9 gmg", f"profile of one resident GMG-CG ({res.iterations} "
+        f"iterations, {n_pre} V-cycles): device {busy:.3f} ms "
+        f"({busy / n_pre:.4f} ms a V-cycle and its CG step), wall "
+        f"unprofiled {1e3 * wall_s:.3f} ms, busy share "
+        f"{busy / (1e3 * wall_s):.3f}, idle share "
+        f"{1 - busy / (1e3 * wall_s):.3f}")
+    for name, t in parts:
+        say("9 gmg", f"  {name}: {t / n_pre:.4f} ms a V-cycle "
+            f"({100 * t / busy:.1f}%)")
+    for lvl in mg.levels[1:-1]:
+        x = torch.randn(lvl.mf.n_dofs, dtype=torch.float32, device=dev,
+                        generator=torch.Generator(dev).manual_seed(9))
+        t = 1e3 * time_fn(lvl.mf.kernel, x, reps=N_CHAIN)
+        say("9 gmg", f"  K2 at npts {lvl.npts} ({lvl.mf.n_dofs} DoFs): "
+            f"{t:.4f} ms an apply (chain of {N_CHAIN}), 8 a V-cycle: "
+            f"{8 * t:.4f} ms")
+    top = {}
+    for e in on_card:
+        top[e.name] = top.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    for name, t in sorted(top.items(), key=lambda kv: -kv[1])[:10]:
+        say("9 gmg", f"    {t:9.3f} ms  {name[:100]}")
+
+
+def gmg_phase(dev, coef64=None, refine=6, refine2d=8, refine_mg=5,
+              l2_max=1e-6, profile=True) -> dict:
+    """Phase 9: geometric multigrid through the port's entry points, the
+    kernels' launch counts reset at its start and returned at the end of
+    its main path (the level-size checks run before it, the Jacobi
+    comparisons and the profile after).  The flagship hierarchy (3D Q4
+    from refine 1 to ``refine``, f32, use_pallas: K1 fine with the fused
+    mask, K2 below) through resident_gmg_cg twice (bitwise) and the flat
+    GMG-CG (equal iterations, x within GMG_FLAT_TOL), again with
+    pallas_mode="bf16"; BASELINE config 5 (``coefficient_axes``: K4 on
+    every level) likewise, its true residual against the f64 terms
+    ``coef64`` where given; the 2D hierarchy to ``refine2d`` (K3 fine, K2
+    below); solve_poisson_mg at 3D Q4 ``refine_mg`` f32 (L2 <=
+    ``l2_max``) and solve_poisson(precond="chebyshev") there.  Runs on the
+    CPU at small sizes (the plain versions; profile=False)."""
+    from tpufem_torch.apps.poisson import solve_poisson
+    from tpufem_torch.apps.poisson_mg import solve_poisson_mg
+    from tpufem_torch.ops.kernel_separable import (
+        KernelSeparable,
+        ResidentSeparable,
+    )
+    from tpufem_torch.ops.kernel_terms import ResidentTerms, ResidentTerms2D
+    from tpufem_torch.solvers.cg import cg_solve
+    from tpufem_torch.solvers.multigrid import GeometricMultigrid
+    from tpufem_torch.solvers.resident import (
+        resident_gmg_cg,
+        resident_jacobi_cg,
+    )
+
+    t_phase = time.perf_counter()
+    classes = {"K1": ResidentSeparable, "K2": KernelSeparable,
+               "K3": ResidentTerms2D, "K4": ResidentTerms}
+    counts = lambda: {k: c.launches for k, c in classes.items()}
+    for cls in classes.values():
+        cls.launches = 0
+
+    def hierarchy(dim, r, **kw):
+        t0 = time.perf_counter()
+        mg = GeometricMultigrid(dim, 4, r, coarsest_refine=1,
+                                dtype="float32", use_pallas=True, device=dev,
+                                **kw)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        rk = mg.fine.mf.resident
+        say("9 gmg", f"GeometricMultigrid({dim}, 4, {r}, coarsest_refine=1, "
+            f"f32, use_pallas{''.join(f', {k}=...' for k in kw)}): "
+            f"{mg.fine.mf.n_dofs} DoFs, levels npts "
+            f"{[lvl.npts for lvl in mg.levels]}, setup {t:.2f} s, fine "
+            f"{type(rk).__name__} tile {rk.tile} fused mask {rk.dirichlet}, "
+            f"theta/delta of the fine level {mg.fine.cheb.theta:.5f} / "
+            f"{mg.fine.cheb.delta:.5f}")
+        if not rk.dirichlet:
+            raise RuntimeError("the fine level's kernel does not fuse the "
+                               "mask")
+        return mg
+
+    def rhs(mg, seed):
+        m = mg.fine.mask.cpu().to(torch.float64).numpy()
+        return torch.tensor(m * np.random.default_rng(seed).standard_normal(
+            m.size), dtype=torch.float32, device=dev)
+
+    def solves(name, mg, b, terms64=None, pair=True):
+        """resident_gmg_cg (twice with ``pair``: bitwise) and the flat
+        GMG-CG; returns the last resident solve's seconds, and the first's
+        result and K1..K4 launches."""
+        runs = []
+        for _ in range(2 if pair else 1):
+            before = counts()
+            t, res = seconds(dev, lambda: resident_gmg_cg(mg, b,
+                                                          rtol=SOLVE_RTOL))
+            runs.append((t, res, {k: n - before[k]
+                                  for k, n in counts().items()}))
+        t, res, used = runs[0]
+        tf, flat = seconds(dev, lambda: cg_solve(
+            mg.fine.op.vmult, b, M_inv=mg.preconditioner(), rtol=SOLVE_RTOL))
+        rel_x = float((res.x - flat.x).norm() / flat.x.norm())
+        r32 = float((b - mg.fine.op.vmult(res.x)).norm() / b.norm())
+        mf = mg.fine.mf
+        if mf.terms is not None and terms64 is None:  # f32-rounded terms
+            terms64 = [[X.cpu().double().numpy() for X in t]
+                       for t in mf.terms]
+        r64 = true_rel_residual(mf, b, res.x, terms64)
+        it = res.iterations
+        # M_inv runs once before the first iteration and once in each
+        per_it = ", ".join(f"{k} {n} ({n / (it + 1):.1f} a V-cycle and its "
+                           f"CG step)" for k, n in used.items() if n)
+        say("9 gmg", f"{name} resident GMG-CG: "
+            + " / ".join(f"{r[0]:.4f} s" for r in runs)
+            + f", iterations {' / '.join(str(r[1].iterations) for r in runs)}"
+            f", converged {res.converged}; flat GMG-CG {tf:.4f} s, "
+            f"{flat.iterations} iterations, x rel diff {rel_x:.2e}; true rel "
+            f"residual (f32 flat operator) {r32:.3e}, (f64) {r64:.3e}; "
+            f"launches {per_it}")
+        if not (res.converged and flat.converged
+                and res.iterations == flat.iterations
+                and rel_x <= GMG_FLAT_TOL):
+            raise RuntimeError(f"{name}: the resident GMG-CG did not converge "
+                               f"or is off the flat GMG-CG")
+        if pair and not (runs[1][1].iterations == it
+                         and torch.equal(runs[1][1].x, res.x)):
+            raise RuntimeError(f"{name}: two resident GMG-CG solves differ")
+        return runs[-1][0], res, used
+
+    # the flagship: K1 fine, K2 on refine 1..5
+    mg = hierarchy(3, refine)
+    b = rhs(mg, 7)
+    t_gmg, res, used = solves(f"3D Q4 refine {refine} f32", mg, b)
+    n_pre = res.iterations + 1
+    if dev.type == "cuda" and not (used["K1"] >= 9 * n_pre
+            and used["K2"] >= 8 * (len(mg.levels) - 2) * n_pre):
+        raise RuntimeError(f"the V-cycle did not run its kernels: {used}")
+    say("9 gmg", "two flagship resident GMG-CG solves: equal iterations, "
+        "bitwise-equal x")
+    mg16 = hierarchy(3, refine, pallas_mode="bf16")
+    t16, res16, _ = solves(f"3D Q4 refine {refine} pallas_mode=bf16", mg16,
+                           b, pair=False)
+    say("9 gmg", f"pallas_mode=bf16 (the f32 instance here): x bitwise equal "
+        f"to f32's {torch.equal(res16.x, res.x)}")
+    del mg16, res16
+
+    # BASELINE config 5 on the fast tier: K4 on every level
+    mgc = hierarchy(3, refine, coefficient_axes=COEF_AXES)
+    bc = rhs(mgc, 17)
+    t_c, res_c, _ = solves(f"3D Q4 refine {refine} coefficient_axes f32",
+                           mgc, bc, coef64)
+    say("9 gmg", "two coefficient resident GMG-CG solves: equal iterations, "
+        "bitwise-equal x")
+
+    # 2D: K3 fine, K2 below
+    mg2 = hierarchy(2, refine2d)
+    b2 = rhs(mg2, 19)
+    t_2d, res_2d, _ = solves(f"2D Q4 refine {refine2d} f32", mg2, b2,
+                             pair=False)
+    del mg2
+
+    r = solve_poisson_mg(dim=3, degree=4, refine=refine_mg, dtype="float32",
+                         device=dev)
+    say("9 gmg", f"solve_poisson_mg 3D Q4 refine {refine_mg} f32 (auto: "
+        f"structured levels): dofs {r['n_dofs']} iterations "
+        f"{r['iterations']} residual {r['residual']:.3e} L2 "
+        f"{r['l2_error']:.4e} setup {r['setup_time']:.2f} s solve "
+        f"{r['solve_time']:.3f} s")
+    rc = solve_poisson(dim=3, degree=4, refine=refine_mg, dtype="float32",
+                       precond="chebyshev", device=dev)
+    say("9 gmg", f"solve_poisson 3D Q4 refine {refine_mg} f32 "
+        f"precond=chebyshev (auto: structured): iterations {rc.iterations} "
+        f"converged {rc.converged} L2 {rc.l2_error:.4e} setup "
+        f"{rc.setup_time:.2f} s solve {rc.solve_time:.3f} s")
+    if not (r["l2_error"] <= l2_max and rc.converged
+            and rc.l2_error <= l2_max):
+        raise RuntimeError("solve_poisson_mg or the Chebyshev solve_poisson "
+                           "failed its checks")
+    launches = counts()
+    say("9 gmg", f"kernel launches of the GMG path: {launches}")
+    if dev.type == "cuda" and not all(launches[k] > 0 for k in classes):
+        raise RuntimeError(f"a kernel of the GMG path did not run: "
+                           f"{launches}")
+
+    # beside Jacobi on the same operator and b (not counted)
+    for name, m_, b_, t_ in (("flagship", mg, b, t_gmg),
+                             ("coefficient_axes", mgc, bc, t_c)):
+        op = m_.fine.op
+        tj, rj = seconds(dev, lambda: resident_jacobi_cg(
+            op, b_, diag=1.0 / m_.fine.inv_diag, rtol=SOLVE_RTOL,
+            track_best=False))
+        say("9 gmg", f"{name}: resident GMG-CG {t_:.4f} s against resident "
+            f"Jacobi-CG {tj:.4f} s ({rj.iterations} iterations), "
+            f"{tj / t_:.1f}x")
+    del mgc
+    if profile:
+        gmg_profile(dev, mg, b, t_gmg)
+    say("9 gmg", f"phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def main() -> int:
@@ -1953,6 +2307,14 @@ def main() -> int:
 
     # ---- 8 the cell-loop tiers (no kernel of the kernels line) --------
     cell_loop_phase(dev)
+
+    # ---- 9 geometric multigrid: K1-K4 at the V-cycle's level sizes
+    # against their plain versions, then the GMG path with its counts
+    worst = gmg_level_checks(np.random.default_rng(2026))
+    say("9 gmg", "level sizes all within tolerance; worst max rel err "
+        + ", ".join(f"{m} {worst[m]:.3e} (tol {TOL[m]})" for m in TOL))
+    for key, n in gmg_phase(dev, coef64).items():
+        launches[key] += n
 
     say("done", f"{time.perf_counter() - t_start:.1f} s; {smi}")
     records = [

@@ -250,3 +250,30 @@ def test_kelly_estimate_and_marking_equal(dim, p):
     dj, dt = j_dofs.DoFHandler(sj, 2), t_dofs.DoFHandler(st, 2)
     u = dt.dof_coords[:, 0] ** 2 - dt.dof_coords[:, 1]
     _same(j_est.kelly_estimate(dj, u), t_est.kelly_estimate(dt, u))
+
+
+@pytest.mark.parametrize("dim,p", [(2, 1), (2, 3), (3, 2)])
+@pytest.mark.parametrize("kind", ["refined", "coarsened"])
+def test_solution_transfer_equal(dim, p, kind):
+    """``fem/transfer.py`` is the port's copy: interpolation onto an
+    adaptively refined mesh, and from it onto the mesh coarsened back,
+    bit-equal to tpufem's."""
+    from tpufem.fem import transfer as j_transfer
+    from tpufem_torch.fem import transfer as t_transfer
+
+    def meshes(M):
+        m1 = _adaptive(M, dim, steps=1)
+        if kind == "refined":
+            return M.hyper_cube(dim, 2), m1
+        return m1, m1.coarsen(np.ones(m1.n_cells, bool))
+
+    (j0, j1), (t0, t1) = meshes(j_mesh.Mesh), meshes(t_mesh.Mesh)
+    dj0, dj1 = j_dofs.DoFHandler(j0, p), j_dofs.DoFHandler(j1, p)
+    dt0, dt1 = t_dofs.DoFHandler(t0, p), t_dofs.DoFHandler(t1, p)
+    u = np.sin(3.0 * dt0.dof_coords).sum(axis=1)
+    uj = j_transfer.interpolate_solution(dj0, u, dj1)
+    ut = t_transfer.interpolate_solution(dt0, u, dt1)
+    assert ut.size == dt1.n_dofs
+    _same(uj, ut)
+    _same(j_transfer._dof_logical_coords(dj1),
+          t_transfer._dof_logical_coords(dt1))

@@ -68,6 +68,37 @@ def test_cell_loop_modules_import_without_jax():
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
+def test_multigrid_solves_leave_jax_out():
+    """A fresh CPU solve_poisson_mg (the bf16 hierarchy too), a resident
+    GMG-CG and a Chebyshev solve_poisson load no jax or tpufem module."""
+    code = (
+        "import sys, torch\n"
+        "from tpufem_torch.apps.poisson import solve_poisson\n"
+        "from tpufem_torch.apps.poisson_mg import solve_poisson_mg\n"
+        "from tpufem_torch.fem import transfer  # noqa: F401\n"
+        "from tpufem_torch.solvers.multigrid import GeometricMultigrid\n"
+        "from tpufem_torch.solvers.resident import resident_gmg_cg\n"
+        "r = solve_poisson_mg(dim=2, degree=2, refine=3, device='cpu')\n"
+        "assert r['iterations'] <= 10 and r['l2_error'] < 1e-3, r\n"
+        "r = solve_poisson_mg(dim=2, degree=2, refine=3, dtype='float32', "
+        "precond_dtype='bfloat16', device='cpu')\n"
+        "assert r['l2_error'] < 1e-3, r\n"
+        "mg = GeometricMultigrid(3, 2, 2, use_pallas=True, device='cpu')\n"
+        "b = mg.fine.mask * torch.ones(mg.fine.mf.n_dofs, "
+        "dtype=torch.float64)\n"
+        "assert resident_gmg_cg(mg, b, rtol=1e-8).converged\n"
+        "r = solve_poisson(dim=2, degree=2, refine=2, precond='chebyshev', "
+        "device='cpu')\n"
+        "assert r.converged, r\n"
+        "print([m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'tpufem')])\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
 def test_sources_do_not_import_jax_or_tpufem():
     pat = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.M)
     banned = re.compile(r"^\s*(from|import)\s+tpufem(\.|\s|$)", re.M)

@@ -743,3 +743,56 @@ def test_build_hash_covers_the_included_headers(name):
                 seen.add(inc)
                 todo.append(inc)
     assert seen == set(headers)
+
+
+VCYCLE_CASES = (
+    [("K2", dim, npts, mode, False, None) for dim in (2, 3)
+     for npts in (9, 17, 33) for mode in ("f64", "f32")]
+    + [(k, 3, npts, mode, d, None) for k in ("K1", "K4") for npts in (9, 17)
+       for mode in TOL for d in (False, True)]
+    + [("K3", 2, npts, mode, d, s) for npts in (17, 33)
+       for mode in TOL for d in (False, True)
+       for s in range(1, tks.resident_x(npts, CODES[mode][1], 2)
+                      // tks.ring_xc(CODES[mode][1], 2) + 1)])
+
+
+@pytest.mark.parametrize("kernel,dim,npts,mode,dirichlet,segments",
+                         VCYCLE_CASES)
+def test_host_build_at_vcycle_level_sizes(host_lib, ring_lib, ring2d_lib,
+                                          kernel, dim, npts, mode, dirichlet,
+                                          segments):
+    """The V-cycle's level sizes at p = 4 (3D Q4 from coarsest refine 1:
+    npts 9, 17, 33, ...), where the band of 2p + 1 = 9 rows spans half an
+    axis or all of it and every box reaches past both ends: K2's tile
+    routine (its chosen tile), K1 and K4 (3 terms) on the ring with and
+    without the fused mask, K3 (2 terms) at every segment count its chunks
+    of x allow (32 columns in f32 and bf16s, 16 in f64), each at the
+    sub-tile its chooser takes."""
+    p = 4
+    code, storage, compute = CODES[mode]
+    rng = np.random.default_rng(npts * 10 + dim)
+    nmat = {"K2": 2 * dim, "K1": 6, "K4": 9, "K3": 4}[kernel]
+    mats = [_nonsym(rng, npts, p) for _ in range(nmat)]
+    u64 = torch.as_tensor(rng.standard_normal(npts**dim))
+    if kernel == "K2":
+        tables = torch.as_tensor(tks.band_tables(mats, p), dtype=compute)
+        tile = tks.choose_tile(dim, p, tables.element_size(),
+                               host_lib.host_smem_elems)
+        u = u64.to(storage)
+        y = torch.full_like(u, float("nan"))
+        rc = host_lib.host_apply(code, dim, p, npts, *tile, u.data_ptr(),
+                                 y.data_ptr(), tables.data_ptr())
+        assert rc == 0, "kernel wrote beyond its shared memory"
+        y, x = y.to(torch.float64), u.to(torch.float64)
+        ref = _plain(dim, npts, mats[0::2], mats[1::2], x, False)
+    elif kernel == "K1":
+        y, x, _ = _ring_apply(ring_lib, 0, mats, p, mode, u64, dirichlet)
+        ref = _plain(3, npts, mats[0::2], mats[1::2], x, dirichlet)
+    else:
+        y, x, _ = _ring_apply(ring_lib if dim == 3 else ring2d_lib, 1, mats,
+                              p, mode, u64, dirichlet, dim=dim,
+                              segments=segments or 1)
+        terms = [mats[i:i + dim] for i in range(0, nmat, dim)]
+        ref = _terms_plain(terms, x, dirichlet)
+    err = (y - ref).abs().max() / ref.abs().max()
+    assert err <= TOL[mode], err

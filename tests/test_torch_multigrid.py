@@ -1,0 +1,334 @@
+"""Port parity for geometric multigrid: the Chebyshev smoother, the
+V-cycle hierarchy, solve_poisson_mg and resident_gmg_cg, against tpufem
+in f64 on the CPU (the port's kernel wrappers run their plain versions
+there, the JAX package its Pallas kernels in interpret mode).
+
+The power iteration's start vector is drawn by each package's own
+generator; the parity tests put tpufem's draw into the port
+(``chebyshev.power_start``), so both estimate the same lambda_max and the
+iteration counts can be held equal."""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpufem.apps.poisson_mg import solve_poisson_mg as j_solve_mg
+from tpufem.fem.dof_handler import DoFHandler as JDoFHandler
+from tpufem.fem.mesh import Mesh as JMesh
+from tpufem.operators.laplace import LaplaceOperator as JLaplace
+from tpufem.ops.matrix_free import MatrixFree as JMatrixFree
+from tpufem.solvers import chebyshev as j_cheb
+from tpufem.solvers import multigrid as j_mg
+from tpufem.solvers.resident import resident_gmg_cg as j_resident_gmg
+from tpufem.utils.config import FemConfig as JFemConfig
+from tpufem_torch.apps import poisson_mg as t_poisson_mg
+from tpufem_torch.fem.dof_handler import DoFHandler
+from tpufem_torch.fem.mesh import Mesh
+from tpufem_torch.operators.laplace import LaplaceOperator
+from tpufem_torch.ops.kernel_separable import ResidentSeparable
+from tpufem_torch.ops.kernel_terms import ResidentTerms, ResidentTerms2D
+from tpufem_torch.ops.matrix_free import MatrixFree
+from tpufem_torch.solvers import chebyshev as t_cheb
+from tpufem_torch.solvers import multigrid as t_mg
+from tpufem_torch.solvers.cg import cg_solve, make_jacobi
+from tpufem_torch.solvers.resident import resident_gmg_cg
+from tpufem_torch.utils.config import FemConfig
+
+# the separable coefficient of tests/test_multigrid.py
+COEF_AXES = [lambda x: 1.0 + 0.5 * np.sin(2.1 * np.pi * x),
+             lambda y: 1.3 + y * y,
+             lambda z: np.exp(0.5 * z)]
+_JNP = {torch.float64: jnp.float64, torch.float32: jnp.float32,
+        torch.bfloat16: jnp.bfloat16}
+
+
+def tpufem_start(n, seed, dtype, device):
+    """tpufem's power-iteration start (``jax.random.normal``)."""
+    v = jax.random.normal(jax.random.PRNGKey(seed), (n,), dtype=_JNP[dtype])
+    return torch.tensor(np.asarray(v.astype(jnp.float64)), dtype=dtype,
+                        device=device)
+
+
+@pytest.fixture
+def same_start(monkeypatch):
+    monkeypatch.setattr(t_cheb, "power_start", tpufem_start)
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.linalg.norm(a - b) / np.linalg.norm(b)
+
+
+@pytest.mark.parametrize("p", range(1, 8))
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_prolongation_1d_equal(p, n):
+    Pj, Pt = j_mg.prolongation_1d(p, n), t_mg.prolongation_1d(p, n)
+    assert Pj.dtype == Pt.dtype and Pj.shape == Pt.shape
+    assert np.array_equal(Pj, Pt)
+
+
+def _laplace_pair(dim, p, refine):
+    """The default-tier operator of the hyper_cube in both packages."""
+    mj = JMesh.hyper_cube(dim, refine)
+    mfj = JMatrixFree.build(mj, JDoFHandler(mj, p), JFemConfig(dim, p))
+    mt = Mesh.hyper_cube(dim, refine)
+    mft = MatrixFree.build(mt, DoFHandler(mt, p), FemConfig(dim, p), "cpu")
+    return JLaplace(mfj), LaplaceOperator(mft)
+
+
+def test_chebyshev_matches_tpufem(same_start):
+    """lambda_max, theta/delta and a smooth with and without x0, 1e-12."""
+    opj, opt = _laplace_pair(2, 2, 3)
+    dj, dt = opj.diagonal(), opt.diagonal()
+    n = opt.n_dofs
+    lam_j = float(j_cheb.estimate_lambda_max(opj.vmult, 1.0 / dj, n))
+    lam_t = t_cheb.estimate_lambda_max(opt.vmult, 1.0 / dt, n)
+    assert abs(lam_t - lam_j) <= 1e-12 * lam_j
+    cj = j_cheb.make_chebyshev_params(opj.vmult, dj, n, degree=5)
+    ct = t_cheb.make_chebyshev_params(opt.vmult, dt, n, degree=5)
+    assert ct.degree == cj.degree == 5
+    for a, b in ((ct.theta, cj.theta), (ct.delta, cj.delta)):
+        assert abs(a - float(b)) <= 1e-12 * abs(float(b))
+    rng = np.random.default_rng(1)
+    b, x0 = rng.standard_normal(n), rng.standard_normal(n)
+    for x0_ in (None, x0):
+        xj = j_cheb.chebyshev_smooth(
+            opj.vmult, 1.0 / dj, cj, jnp.asarray(b),
+            None if x0_ is None else jnp.asarray(x0_))
+        xt = t_cheb.chebyshev_smooth(
+            opt.vmult, 1.0 / dt, ct, torch.tensor(b),
+            None if x0_ is None else torch.tensor(x0_))
+        assert _rel(xt, xj) <= 1e-12
+
+
+def test_lambda_max_own_generator():
+    """The port's own start vector (test_multigrid.py::
+    test_lambda_max_estimate_sane): a sane estimate, a Rayleigh quotient
+    at most 1.05 lambda_max and within 2% of it (lambda_max of the dense
+    D^-1 A).  tpufem's draw reads 1.4466 here, 3.4% under 1.05 lambda_max
+    = 1.4981, so the port is held to the exact value, not to tpufem's
+    estimate."""
+    _, op = _laplace_pair(2, 1, 3)
+    n, diag = op.n_dofs, op.diagonal()
+    lam_t = t_cheb.estimate_lambda_max(op.vmult, 1.0 / diag, n)
+    A = torch.stack([op.vmult(e) for e in torch.eye(n, dtype=torch.float64)],
+                    1)
+    exact = 1.05 * float(np.linalg.eigvals((A / diag[:, None]).numpy())
+                         .real.max())
+    assert 1.0 < lam_t < 3.0
+    assert exact * (1.0 - 0.02) <= lam_t <= exact * (1.0 + 1e-12)
+    v = t_cheb.power_start(5, 3, torch.float64, "cpu")
+    assert torch.equal(v, t_cheb.power_start(5, 3, torch.float64, "cpu"))
+    assert not torch.equal(v, t_cheb.power_start(5, 4, torch.float64, "cpu"))
+
+
+def test_chebyshev_reduces_error():
+    """test_multigrid.py::test_chebyshev_reduces_error on the port."""
+    _, op = _laplace_pair(2, 1, 4)
+    diag = op.diagonal()
+    params = t_cheb.make_chebyshev_params(op.vmult, diag, op.n_dofs,
+                                          degree=4)
+    rng = np.random.default_rng(0)
+    x_true = op.mf.interior_mask * torch.tensor(
+        rng.standard_normal(op.n_dofs))
+    b = op.vmult(x_true)
+    x = t_cheb.chebyshev_smooth(op.vmult, 1.0 / diag, params, b)
+    assert float((b - op.vmult(x)).norm()) < 0.6 * float(b.norm())
+
+
+@pytest.mark.parametrize("dim,p,refine,n_cycles", [
+    (2, 1, 5, 1), (2, 2, 4, 1), (3, 2, 3, 1), (2, 2, 4, 2)])
+def test_vcycle_matches_tpufem(same_start, dim, p, refine, n_cycles):
+    """One preconditioner application (a V-cycle; with n_cycles = 2 a
+    second one on the fine residual) equal to tpufem's to 1e-12; the
+    transfers against the dense Kronecker products."""
+    mj = j_mg.GeometricMultigrid(dim, p, refine, n_cycles=n_cycles)
+    mt = t_mg.GeometricMultigrid(dim, p, refine, n_cycles=n_cycles,
+                                 device="cpu")
+    assert [lvl.npts for lvl in mt.levels] == [lvl.npts for lvl in mj.levels]
+    assert mt.fine.mf.scheme == "structured"
+    for lt, lj in zip(mt.levels, mj.levels):
+        assert abs(lt.cheb.theta - float(lj.cheb.theta)) \
+            <= 1e-12 * float(lj.cheb.theta)
+    rng = np.random.default_rng(7)
+    b = rng.standard_normal(mt.fine.mf.n_dofs)
+    xj = mj.preconditioner()(jnp.asarray(b))
+    xt = mt.preconditioner()(torch.tensor(b))
+    assert _rel(xt, xj) <= 1e-12
+    if n_cycles == 1:
+        assert torch.equal(mt.vcycle(torch.tensor(b)), xt)
+    # the separable transfer is the Kronecker product of the 1D one
+    L = len(mt.levels) - 1
+    P = mt.P1d[-1].numpy()
+    Pk = P
+    for _ in range(dim - 1):
+        Pk = np.kron(P, Pk)
+    xc = rng.standard_normal(mt.levels[L - 1].mf.n_dofs)
+    assert np.allclose(mt.prolongate(L, torch.tensor(xc)).numpy(), Pk @ xc,
+                       rtol=0, atol=1e-13)
+    assert np.allclose(mt.restrict(L, torch.tensor(b)).numpy(), Pk.T @ b,
+                       rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("dim,degree,refine", [(2, 1, 5), (2, 2, 4),
+                                               (3, 2, 3)])
+def test_solve_poisson_mg_matches_tpufem(same_start, dim, degree, refine):
+    """test_multigrid.py::test_gmg_preconditioned_cg_converges_fast on both
+    packages: equal iterations, L2 equal to 1e-10."""
+    rt = t_poisson_mg.solve_poisson_mg(dim=dim, degree=degree,
+                                       refine=refine, device="cpu")
+    rj = j_solve_mg(dim=dim, degree=degree, refine=refine)
+    assert rt["n_dofs"] == rj["n_dofs"]
+    assert rt["iterations"] == rj["iterations"] <= 10
+    assert rt["residual"] < 1e-8
+    assert abs(rt["l2_error"] - rj["l2_error"]) <= 1e-10 * rj["l2_error"]
+
+
+def test_gmg_iterations_mesh_independent():
+    iters = [t_poisson_mg.solve_poisson_mg(dim=2, degree=1, refine=r,
+                                           device="cpu")["iterations"]
+             for r in (3, 4, 5)]
+    assert max(iters) - min(iters) <= 2, iters
+
+
+def test_gmg_variable_coefficient():
+    """BASELINE config 5: -div(c grad u) = f against the assembled direct
+    solve of the same discrete system, 1e-8."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    from tpufem_torch.apps.poisson import default_solution
+    from tpufem_torch.fem.assemble import assemble_laplace, assemble_rhs
+
+    coef = lambda x: 1.0 + 10.0 * np.sum(x**2, axis=1)
+    r = t_poisson_mg.solve_poisson_mg(dim=2, degree=2, refine=4,
+                                      coefficient=coef, device="cpu")
+    assert r["iterations"] <= 14
+    assert r["residual"] < 1e-8
+    dofs = DoFHandler(Mesh.hyper_cube(2, 4), 2)
+    K = assemble_laplace(dofs, coefficient=coef)
+    b = assemble_rhs(dofs, default_solution(2)[1])
+    mask = np.ones(dofs.n_dofs)
+    mask[dofs.boundary_mask] = 0.0
+    Kc = (sp.diags(mask) @ K @ sp.diags(mask) + sp.diags(1 - mask)).tocsc()
+    u_ref = spla.spsolve(Kc, mask * b)
+    assert _rel(r["solution"], u_ref) < 1e-8
+
+
+def test_gmg_shell_mesh_factory():
+    """Curved-domain GMG on the 2D annulus wedge: O(10) iterations, the
+    Jacobi-CG solution."""
+    mg = t_mg.GeometricMultigrid(2, 2, 4, coarsest_refine=1,
+                                 mesh_factory=Mesh.hyper_shell_2d,
+                                 device="cpu")
+    fine = mg.fine
+    assert fine.mf.metric_kind == "general"
+    b = fine.mask * torch.tensor(
+        np.random.default_rng(3).standard_normal(fine.mf.n_dofs))
+    res = cg_solve(fine.op.vmult, b, M_inv=mg.preconditioner(), rtol=1e-10,
+                   maxiter=60)
+    assert res.converged and res.iterations <= 25, res.iterations
+    ref = cg_solve(fine.op.vmult, b, M_inv=make_jacobi(1.0 / fine.inv_diag),
+                   rtol=1e-10, maxiter=2000)
+    assert _rel(res.x, ref.x) <= 1e-7
+
+
+def test_gmg_mixed_precision_bf16_preconditioner(same_start):
+    """A bf16 hierarchy under an f32 outer CG: the reference test's bounds
+    (at most 3x the f32 count; L2 within 2x of the f32 solve's), and the
+    port's count within 2 of tpufem's (XLA and torch round bf16 products
+    differently, so the counts may part)."""
+    kw = dict(dim=2, degree=2, refine=4, dtype="float32")
+    r16 = t_poisson_mg.solve_poisson_mg(**kw, precond_dtype="bfloat16",
+                                        device="cpu")
+    r32 = t_poisson_mg.solve_poisson_mg(**kw, device="cpu")
+    assert r16["iterations"] <= 3 * max(1, r32["iterations"])
+    assert r16["l2_error"] < 2.0 * r32["l2_error"] + 1e-8
+    rj = j_solve_mg(**kw, precond_dtype="bfloat16")
+    assert abs(r16["iterations"] - rj["iterations"]) <= 2
+
+
+def test_cli(capsys):
+    t_poisson_mg.main(["--dim", "2", "--degree", "2", "--refine", "3",
+                       "--device", "cpu"])
+    out = capsys.readouterr().out
+    r = t_poisson_mg.solve_poisson_mg(dim=2, degree=2, refine=3,
+                                      device="cpu")
+    assert f"({r['iterations']} CG iters)" in out
+    assert f"{r['l2_error']:.6e}" in out
+
+
+@functools.lru_cache(maxsize=None)
+def _tpufem_resident(case):
+    """tpufem's resident_gmg_cg on the case's b: (iterations, x)."""
+    dim, p, refine, coarsest, cax = CASES[case]
+    mg = j_mg.GeometricMultigrid(dim, p, refine, coarsest_refine=coarsest,
+                                 use_pallas=True, coefficient_axes=cax)
+    b = _rhs(np.asarray(mg.fine.mask))
+    res = j_resident_gmg(mg, jnp.asarray(b), rtol=1e-8, maxiter=100)
+    return int(res.iterations), np.asarray(res.x)
+
+
+def _rhs(mask):
+    return mask * np.random.default_rng(5).standard_normal(mask.size)
+
+
+# (dim, p, refine, coarsest, coefficient_axes): the resident kernel is K1
+# (3D Laplace), K4 (3D terms) or K3 (2D); tpufem's K1 case (its default,
+# the fused mask) is the reference of both port K1 cases
+CASES = {"K1": (3, 2, 4, 2, None), "K4": (3, 2, 4, 2, COEF_AXES),
+         "K3": (2, 2, 4, 1, None)}
+
+
+@pytest.mark.parametrize("case,dirichlet,kind", [
+    ("K1", True, ResidentSeparable), ("K1", False, ResidentSeparable),
+    ("K4", None, ResidentTerms), ("K3", None, ResidentTerms2D)],
+    ids=["K1-fused-mask", "K1-mask-outside", "K4", "K3"])
+def test_resident_gmg_cg_matches(same_start, case, dirichlet, kind):
+    """The fine level on its resident kernel (plain version here): the
+    port's flat GMG-CG's iterations and x (1e-8), and tpufem's
+    resident_gmg_cg's iterations and x (1e-10) on the same b."""
+    dim, p, refine, coarsest, cax = CASES[case]
+    mg = t_mg.GeometricMultigrid(dim, p, refine, coarsest_refine=coarsest,
+                                 use_pallas=True, pallas_dirichlet=dirichlet,
+                                 coefficient_axes=cax, device="cpu")
+    rk = mg.fine.mf.resident
+    assert type(rk) is kind
+    assert rk.dirichlet == (dirichlet is not False)
+    b = torch.tensor(_rhs(mg.fine.mask.numpy()))
+    flat = cg_solve(mg.fine.op.vmult, b, M_inv=mg.preconditioner(),
+                    rtol=1e-8, maxiter=100)
+    res = resident_gmg_cg(mg, b, rtol=1e-8, maxiter=100)
+    assert res.converged and flat.iterations <= 15
+    assert res.iterations == flat.iterations
+    assert _rel(res.x, flat.x) <= 1e-8
+    iters_j, x_j = _tpufem_resident(case)
+    assert res.iterations == iters_j
+    assert _rel(res.x, x_j) <= 1e-10
+
+
+def test_resident_gmg_cg_needs_a_resident_kernel():
+    mg = t_mg.GeometricMultigrid(3, 2, 2, device="cpu")
+    with pytest.raises(ValueError, match="resident kernel"):
+        resident_gmg_cg(mg, torch.zeros(mg.fine.mf.n_dofs,
+                                        dtype=torch.float64))
+    one = t_mg.GeometricMultigrid(3, 2, 2, coarsest_refine=2,
+                                  use_pallas=True, device="cpu")
+    assert one.resident_context() is None
+
+
+def test_refusals_and_the_card(monkeypatch):
+    with pytest.raises(ValueError, match="coarsest_refine"):
+        t_mg.GeometricMultigrid(2, 1, 2, coarsest_refine=3, device="cpu")
+    with pytest.raises(ValueError, match="coefficient_axes"):
+        t_mg.GeometricMultigrid(2, 1, 2, coefficient=lambda x: x[:, 0],
+                                coefficient_axes=COEF_AXES[:2], device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        t_mg.GeometricMultigrid(2, 1, 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        t_poisson_mg.main(["--refine", "2"])

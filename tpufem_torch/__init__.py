@@ -15,7 +15,9 @@ Ported so far: the 2D/3D Q_p Poisson Jacobi-CG on the separable tier
 hyper_cube and the curved hyper_shell, with separable or CP-expanded
 variable coefficients, with the flat (K2) and solver-resident (K1)
 Laplace kernels and the solver-resident sum-of-tensor-products kernels
-(K4 in 3D, K3 in 2D).
+(K4 in 3D, K3 in 2D); Chebyshev and geometric-multigrid preconditioning
+(``solvers.chebyshev``, ``solvers.multigrid``, ``apps.poisson_mg``,
+``solvers.resident.resident_gmg_cg``), every level on the same kernels.
 """
 
 from tpufem_torch.utils.precision import configure_precision

@@ -1,11 +1,12 @@
 """End-to-end Poisson solver application (the reference's ``poisson.cu``).
 
 Port of ``tpufem/apps/poisson.py``: mesh -> Q_p DoFs -> hanging-node
-constraints (adaptive meshes) -> MatrixFree -> host RHS -> Jacobi-CG on
-the device -> L2 error against the manufactured solution, on the
-hyper_cube, the curved hyper_shell (``--mesh shell``), a refined mesh
-(``--adaptive-steps``) or a caller's mesh (``solve_poisson(mesh=...)``),
-and the solve -> estimate -> mark -> refine loop (``--amr``).  The tier
+constraints (adaptive meshes) -> MatrixFree -> host RHS -> CG (Jacobi or
+Chebyshev, ``--precond``) on the device -> L2 error against the
+manufactured solution, on the hyper_cube, the curved hyper_shell
+(``--mesh shell``), a refined mesh (``--adaptive-steps``) or a caller's
+mesh (``solve_poisson(mesh=...)``), and the solve -> estimate -> mark ->
+refine loop (``--amr``).  The tier
 defaults to ``auto`` (structured on uniform meshes, incidence otherwise);
 with ``--pallas`` it is the separable tier, and every operator apply runs
 a hand-written CUDA kernel: K2 on the cube, K4 (3D) or K3 (2D) on the
@@ -40,6 +41,10 @@ from tpufem_torch.fem.mesh import Mesh
 from tpufem_torch.operators.laplace import LaplaceOperator
 from tpufem_torch.ops.matrix_free import MatrixFree, not_ported, resolve_device
 from tpufem_torch.solvers.cg import cg_solve
+from tpufem_torch.solvers.chebyshev import (
+    chebyshev_smooth,
+    make_chebyshev_params,
+)
 from tpufem_torch.utils.config import FemConfig
 from tpufem_torch.utils.timer import Timer
 
@@ -175,11 +180,13 @@ def solve_poisson(
     mesh: Mesh | None = None,
     device: torch.device | str = "cuda",
 ) -> PoissonResult:
-    """Jacobi-CG Poisson solve on ``poisson_mesh(dim, refine, mesh_kind)``
+    """CG Poisson solve on ``poisson_mesh(dim, refine, mesh_kind)``
     refined ``adaptive_steps`` times toward the ball of radius 0.3 about
     the centre, or on ``mesh`` (``refine``/``mesh_kind`` then ignored).
     A non-uniform mesh gets hanging-node constraints.  On the shell the
     default manufactured solution gives inhomogeneous Dirichlet data.
+    ``precond``: "jacobi", or "chebyshev" (a Chebyshev polynomial of the
+    Jacobi-scaled operator); "gmg"/"gmg-bf16" belong to the box tier.
 
     Arguments keep the JAX package's names; the ones not ported yet raise
     NotImplementedError naming their ROADMAP.md item.
@@ -187,8 +194,10 @@ def solve_poisson(
     device = resolve_device(device)
     if shards is not None:
         raise not_ported("--shards", "distributed")
-    if precond != "jacobi":
-        raise not_ported(f"--precond {precond}", "GMG plus resident_gmg_cg")
+    if precond in ("gmg", "gmg-bf16") and scatter != "boxes":
+        raise ValueError(
+            "--precond gmg pairs with the box tier (--scatter boxes / "
+            "adaptive meshes) or the poisson_mg app for uniform meshes")
     if h1 and exact is not None:
         raise ValueError("--h1 supports the default manufactured "
                          "solution only (no gradient for a custom exact)")
@@ -217,8 +226,13 @@ def solve_poisson(
         b_con, x0 = dirichlet_setup(op, b, g)
 
     inv_diag = 1.0 / diag
-    solve = lambda: cg_solve(op.vmult, b_con, M_inv=lambda r: inv_diag * r,
-                             x0=x0, rtol=rtol)
+    M_inv = lambda r: inv_diag * r
+    if precond == "chebyshev":
+        # one Chebyshev polynomial of D^-1 A as the preconditioner (the
+        # reference's PreconditionChebyshev)
+        cp = make_chebyshev_params(op.vmult, diag, dofs.n_dofs)
+        M_inv = lambda r: chebyshev_smooth(op.vmult, inv_diag, cp, r)
+    solve = lambda: cg_solve(op.vmult, b_con, M_inv=M_inv, x0=x0, rtol=rtol)
     if warm:
         solve()  # first run pays the one-time costs; time the second
     with timer.section("solve"):

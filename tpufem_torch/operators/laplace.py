@@ -155,7 +155,7 @@ class LaplaceOperator:
                 diag_e[c0:c1] = JJ.reshape(c1 - c0, -1) @ GG
         diag = np.zeros(mf.n_dofs)
         np.add.at(diag, mf.dofs.cell_dofs.ravel(), diag_e.ravel())
-        mask = mf.interior_mask.cpu().numpy().astype(np.float64)
+        mask = mf.interior_mask.cpu().to(torch.float64).numpy()
         diag = diag * mask + (1.0 - mask)
         return torch.as_tensor(diag, dtype=mf.interior_mask.dtype,
                                device=mf.device)

@@ -416,12 +416,11 @@ class MatrixFree:
             mf.global_EG = ([as_dev(E)] * d, [as_dev(Gd)] * d)
         elif scheme in ("structured", "dense"):
             inv_h0 = metric.inv_h[0]  # identical for all cells
-            scale = np.asarray(inv_h0**2 * metric.det[0],
-                               np.dtype(config.dtype))
+            scale = inv_h0**2 * metric.det[0]  # f64, rounded once to dt
             mf.struct_scale = as_dev(scale)
             if scheme == "dense":
-                mf.dense_A = as_dev(build_dense_local_matrix(p, d, q1,
-                                                             scale))
+                mf.dense_A = as_dev(build_dense_local_matrix(
+                    p, d, q1, np.asarray(scale, np.dtype(config.dtype))))
             else:
                 # weight block broadcastable against the blocked layout:
                 # quadrature dims at odd positions, axis order z..x

@@ -1,7 +1,8 @@
-"""Solver-resident Jacobi-CG: every solver vector lives in the resident
-kernel's layout, so each apply is one kernel launch.
+"""Solver-resident CG: every solver vector lives in the resident kernel's
+layout, so each apply is one kernel launch.
 
-Port of ``tpufem/solvers/resident.py::resident_jacobi_cg``.  The port's
+Port of ``tpufem/solvers/resident.py``: ``resident_jacobi_cg`` and
+``resident_gmg_cg`` (the V-cycle's fine level resident).  The port's
 resident kernels are K1 (``ResidentSeparable``, the 3D Laplace), K4
 (``ResidentTerms``, 3D terms) and K3 (``ResidentTerms2D``, 2D).  They
 keep their vectors in the ring's resident layout, ``(npts, npts, X)`` in
@@ -77,3 +78,24 @@ def resident_jacobi_cg(op, b: torch.Tensor, diag: torch.Tensor | None = None,
         rn = float(torch.sqrt(_dot3(rt, rt)))
         converged = rn <= rtol * float(torch.sqrt(_dot3(bp, bp)))
     return CGResult(rk.unpad(res.x), res.iterations, rn, converged)
+
+
+def resident_gmg_cg(mg, b: torch.Tensor, rtol: float = 1e-5,
+                    maxiter: int = 10000,
+                    track_best: bool | None = None) -> CGResult:
+    """GMG-preconditioned CG with the fine level solver-resident.
+
+    mg: a ``GeometricMultigrid`` whose fine level carries a resident
+    kernel (``mg.resident_context()`` not None).  b is flat (n_dofs,) on
+    the kernel's device; the returned x is flat.  ``track_best`` is
+    forwarded to :func:`cg_solve`.
+    """
+    ctx = mg.resident_context()
+    if ctx is None:
+        raise ValueError("multigrid fine level has no resident kernel (needs "
+                         "use_pallas=True and at least two levels)")
+    A, m_inv, rk = ctx
+    res = cg_solve(A, rk.pad(b), M_inv=m_inv, rtol=rtol, maxiter=maxiter,
+                   dot=_dot3, track_best=track_best)
+    return CGResult(rk.unpad(res.x), res.iterations, res.residual,
+                    res.converged)

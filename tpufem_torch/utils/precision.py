@@ -12,12 +12,14 @@ import os
 
 import torch
 
-_DTYPES = {"float64": torch.float64, "float32": torch.float32}
+_DTYPES = {"float64": torch.float64, "float32": torch.float32,
+           "bfloat16": torch.bfloat16}
 
 
 def torch_dtype(dtype: str | torch.dtype) -> torch.dtype:
-    """The torch dtype for a tpufem dtype name ("float64", "float32") or a
-    torch dtype."""
+    """The torch dtype for a tpufem dtype name ("float64", "float32",
+    "bfloat16": the multigrid hierarchy's ``precond_dtype``) or a torch
+    dtype."""
     if isinstance(dtype, torch.dtype):
         return dtype
     if dtype not in _DTYPES:
