@@ -149,8 +149,24 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 torch.profiler split of the flagship's GMG iteration (K1,
                 K2 per level, transfers, coarse solve, dots, elementwise,
                 idle share)
-Then one JSON line with each kernel's record (time, plain time, bound on
-an H100 and library time), and as the last line
+  10 boxes      the adaptive box tier (plain PyTorch, no kernel of the
+                kernels line; ``box_phase``) on phase 8's adaptive
+                flagship (3,302,995 DoFs): the host setup (box operator in
+                f64 and f32, diagonal, the GMG hierarchy), the box vmult
+                and vmult_raw against the incidence tier's (f64 1e-12, f32
+                1e-6) and the bf16 recast's vmult and vmult_raw against
+                f32 (``BOX_BF16_TOL``, ``BOX_BF16_RAW_TOL``),
+                every apply bitwise equal twice; apply ms of the box tier
+                in f32 and bf16 beside incidence and colored; on the JAX
+                bench's b (interior, non-hanging, N(0, 1), seed 7) at rtol
+                1e-5 the box Jacobi-CG, two f32 box GMG-CGs (equal
+                iterations, bitwise-equal x, fewer iterations than Jacobi)
+                and the bf16-cycle GMG-CG, each with the f64 box
+                operator's true residual (<= ``BOX_RES_FACTOR`` * rtol);
+                solve_poisson(mesh=..., scatter="boxes", precond="gmg") in
+                f32 and f64 (L2 f32 <= f64 + 1e-6)
+Then the seconds each phase took, one JSON line with each kernel's record
+(time, plain time, bound on an H100 and library time), and as the last line
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 before printing any result.
 """
@@ -719,13 +735,31 @@ def f32_rounding(dev, refine=5) -> dict:
     return out
 
 
+def apply_ms_line(dev, phase, name, fn, n, dtype=torch.float32,
+                  n_dofs=None) -> None:
+    """Print ms per apply of ``fn`` on a seeded vector of ``n`` entries
+    (chains of ``N_CHAIN`` applies, ``time_fn``), beside the bound of its
+    bytes (x read, y written once) on an H100; GDoF/s counts ``n_dofs``
+    (default ``n``)."""
+    from tpufem_torch.utils.timer import roofline_ms, time_fn
+
+    x = torch.randn(n, dtype=dtype, device=dev,
+                    generator=torch.Generator(dev).manual_seed(5))
+    t = 1e3 * time_fn(fn, x, reps=N_CHAIN)
+    item = torch.empty((), dtype=dtype).element_size()
+    bound, by = roofline_ms(2 * item * n, {})
+    say(phase, f"apply {name}: {t:.4f} ms/apply, "
+        f"{(n_dofs or n) / t / 1e6:.3f} GDoF/s, bound (x read, y written) "
+        f"{bound:.4f} ms ({by}), {bound / t:.3f} of it")
+
+
 def cell_loop_phase(dev, refine=5, adaptive=ADAPTIVE,
                     adaptive_size=ADAPTIVE_SIZE, l2_max=1e-6) -> None:
     """Phase 8: the cell-loop tiers (structured, dense, incidence, colored)
     through the port's entry points, the uniform ones at 3D Q4 ``refine``
-    (dense against structured one refine below), the gather tiers on
-    ``adaptive_mesh(*adaptive)`` of ``adaptive_size`` (cells, DoFs); every
-    failure raises; the f32 structured solves' L2 is at most ``l2_max``.
+    (dense against structured one refine below), the gather tiers
+    on ``adaptive_mesh(*adaptive)`` of ``adaptive_size`` (cells, DoFs);
+    every failure raises; the f32 structured solves' L2 is at most ``l2_max``.
     No kernel of the kernels line runs on these tiers (K2 only as their
     reference)."""
     from tpufem_torch.apps.poisson import (
@@ -744,7 +778,7 @@ def cell_loop_phase(dev, refine=5, adaptive=ADAPTIVE,
     from tpufem_torch.ops.matrix_free import MatrixFree
     from tpufem_torch.utils import native
     from tpufem_torch.utils.config import FemConfig
-    from tpufem_torch.utils.timer import roofline_ms, synchronize, time_fn
+    from tpufem_torch.utils.timer import synchronize
 
     def rel(a, b):
         return float((a.double() - b.double()).norm() / b.double().norm())
@@ -768,16 +802,6 @@ def cell_loop_phase(dev, refine=5, adaptive=ADAPTIVE,
         x = m * torch.as_tensor(r.solution, dtype=torch.float64,
                                 device=dev) + (1.0 - m) * x0
         return float((b_con - op.vmult(x)).norm() / b_con.norm())
-
-    def apply_line(name, fn, n_dofs, dtype=torch.float32):
-        x = torch.randn(n_dofs, dtype=dtype, device=dev,
-                        generator=torch.Generator(dev).manual_seed(5))
-        t = 1e3 * time_fn(fn, x, reps=N_CHAIN)
-        item = torch.empty((), dtype=dtype).element_size()
-        bound, by = roofline_ms(2 * item * n_dofs, {})
-        say("8 cell loop", f"apply {name}: {t:.4f} ms/apply, "
-            f"{n_dofs / t / 1e6:.3f} GDoF/s, bound (x read, y written) "
-            f"{bound:.4f} ms ({by}), {bound / t:.3f} of it")
 
     # ---- structured: the default tier of solve_poisson at the flagship
     for kind, rtol in (("cube", None), ("shell", SHELL_RTOL)):
@@ -822,8 +846,8 @@ def cell_loop_phase(dev, refine=5, adaptive=ADAPTIVE,
                                   ("K2", "separable", True)):
         op = poisson_operator(3, 4, refine, "float32", pallas, dev,
                               scatter=scatter)
-        apply_line(f"{name} 3D Q4 refine {refine} f32", op.vmult_raw,
-                   op.n_dofs)
+        apply_ms_line(dev, "8 cell loop", f"{name} 3D Q4 refine {refine} f32",
+                      op.vmult_raw, op.n_dofs)
         del op
 
     # ---- hanging nodes: the JAX bench's adaptive flagship shape
@@ -877,9 +901,11 @@ def cell_loop_phase(dev, refine=5, adaptive=ADAPTIVE,
             raise RuntimeError("incidence and colored disagree")
     for scatter in ("incidence", "colored"):
         op = aops[scatter, "float32"]
-        apply_line(f"{scatter} adaptive f32 (raw)", op.vmult_raw, op.n_dofs)
-        apply_line(f"{scatter} adaptive f32 (vmult: C^T A C, mask)",
-                   op.vmult, op.n_dofs)
+        apply_ms_line(dev, "8 cell loop", f"{scatter} adaptive f32 (raw)",
+                      op.vmult_raw, op.n_dofs)
+        apply_ms_line(dev, "8 cell loop",
+                      f"{scatter} adaptive f32 (vmult: C^T A C, mask)",
+                      op.vmult, op.n_dofs)
     del aops, mf
     runs = [solve_poisson(dim=3, degree=4, mesh=mesh, dtype=dtype,
                           device=dev)
@@ -1253,6 +1279,191 @@ def gmg_phase(dev, coef64=None, refine=6, refine2d=8, refine_mg=5,
     return launches
 
 
+# ---- phase 10: the adaptive box tier -----------------------------------
+# tests/test_boxes.py::test_box_bf16_tier_parity's class: the bf16 box
+# apply against the f32 one
+BOX_BF16_TOL = 5e-3
+# the bf16 raw apply (no constraints, no mask) against the f32 one: about
+# five units of bf16 roundoff (2^-9); it read 5.8e-3 on an H100
+BOX_BF16_RAW_TOL = 1e-2
+# each box solve's true relative residual (f64 box operator) at most this
+# multiple of its rtol: the f32 CGs stop on their own recurrence, which
+# drifts from the true residual (read at rtol 1e-5 on an H100: Jacobi
+# 1.13e-5, GMG 2.7e-6, the bf16 cycle 7.0e-6)
+BOX_RES_FACTOR = 10
+
+
+def box_phase(dev, adaptive=ADAPTIVE, adaptive_size=ADAPTIVE_SIZE,
+              l2_max=1e-6, rtol=SOLVE_RTOL) -> None:
+    """Phase 10: the adaptive box tier (plain PyTorch, no kernel of the
+    kernels line) on ``adaptive_mesh(*adaptive)`` of ``adaptive_size``
+    (cells, DoFs), Q4: the host setup (box operator, diagonal, GMG
+    hierarchy), the box operator against the incidence tier's (f64 1e-12,
+    f32 1e-6) and its bf16 recast against f32 (``BOX_BF16_TOL``, the raw
+    apply ``BOX_BF16_RAW_TOL``), every apply bitwise equal twice, apply ms
+    beside incidence and colored; the box Jacobi-CG, two f32 GMG-CGs
+    (equal iterations, bitwise-equal x) and the bf16-cycle GMG-CG at
+    ``rtol`` on the JAX bench's b (interior, non-hanging, N(0, 1), seed
+    7), each with the true relative residual of the f64 box operator (at
+    most ``BOX_RES_FACTOR`` * ``rtol``); then solve_poisson(scatter=
+    "boxes", precond="gmg") in f32 and f64 (L2 f32 <= f64 + ``l2_max``).
+    Every failure raises."""
+    from tpufem_torch.apps.poisson import adaptive_mesh, solve_poisson
+    from tpufem_torch.fem.constraints import make_hanging_node_constraints
+    from tpufem_torch.fem.dof_handler import DoFHandler
+    from tpufem_torch.operators.laplace import LaplaceOperator
+    from tpufem_torch.ops.boxes import BoxLaplaceOperator
+    from tpufem_torch.ops.matrix_free import MatrixFree
+    from tpufem_torch.solvers.box_multigrid import BoxMultigrid
+    from tpufem_torch.utils.config import FemConfig
+    from tpufem_torch.utils.timer import synchronize
+
+    ph = "10 boxes"
+    t_phase = time.perf_counter()
+    setup = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        synchronize(dev)
+        setup[name] = time.perf_counter() - t0
+        return r
+
+    mesh = adaptive_mesh(*adaptive)
+    dofs = DoFHandler(mesh, 4)
+    ac = make_hanging_node_constraints(dofs)
+    if (mesh.n_cells, dofs.n_dofs) != adaptive_size:
+        raise RuntimeError(f"adaptive mesh: {mesh.n_cells} cells, "
+                           f"{dofs.n_dofs} DoFs, not {adaptive_size}")
+    op64 = timed("box f64", lambda: BoxLaplaceOperator(
+        mesh, dofs, constraints=ac, dtype="float64", device=dev))
+    op = timed("box f32", lambda: BoxLaplaceOperator(
+        mesh, dofs, constraints=ac, dtype="float32", device=dev))
+    op16 = op.recast("bfloat16")
+    diag = timed("diagonal", op.diagonal)
+    mg = timed("hierarchy", lambda: BoxMultigrid(
+        mesh, dofs, constraints=ac, dtype="float32", fine_op=op,
+        fine_diag=diag, device=dev))
+    say(ph, f"adaptive 3D Q4 (hyper_cube refine {adaptive[1]}, "
+        f"{adaptive[2]} steps toward the ball): {mesh.n_cells} cells, "
+        f"{dofs.n_dofs} DoFs, {len(ac.lines)} hanging; {len(op.boxes)} "
+        f"boxes, {op.n_patch} patch entries, {len(op._pair_meta)} pair "
+        f"plans, {op.n_rect_rows} hanging rows on them, single compress "
+        f"{op._single_compress}; GMG levels {len(mg.levels)}, patch sizes "
+        f"{[lvl.op.n_patch for lvl in mg.levels]}; host setup: box "
+        f"build f64 {setup['box f64']:.2f} s, f32 {setup['box f32']:.2f} s, "
+        f"diagonal {setup['diagonal']:.2f} s, hierarchy "
+        f"{setup['hierarchy']:.2f} s")
+
+    # ---- the operator against the incidence tier's, on the same x
+    inc = {key: LaplaceOperator(MatrixFree.build(
+        mesh, dofs, FemConfig(3, 4, scatter=scatter, dtype=dt), dev,
+        constraints=ac)) for key, dt, scatter in (
+            ("float64", "float64", "incidence"),
+            ("float32", "float32", "incidence"),
+            ("colored", "float32", "colored"))}
+    x = np.random.default_rng(10).standard_normal(dofs.n_dofs)
+    box_y = {}
+    for tag, bop, iop, tol in (("f64", op64, inc["float64"], 1e-12),
+                               ("f32", op, inc["float32"], 1e-6)):
+        xp = bop.to_patch(x)
+        xi = torch.as_tensor(x, device=dev).to(bop.dt)
+        for name in ("vmult", "vmult_raw"):
+            fn = getattr(bop, name)
+            y = fn(xp)
+            if not torch.equal(y, fn(xp)):
+                raise RuntimeError(f"box {tag} {name} is not bitwise equal "
+                                   f"across two calls")
+            yb = bop.from_patch(y)
+            yi = getattr(iop, name)(xi).to("cpu", torch.float64).numpy()
+            e = float(np.linalg.norm(yb - yi) / np.linalg.norm(yi))
+            box_y[tag, name] = yb
+            say(ph, f"box {tag} {name} against incidence {e:.3e} (tol "
+                f"{tol}), bitwise equal across two calls")
+            if not e <= tol:
+                raise RuntimeError(f"box {tag} {name} disagrees with the "
+                                   f"incidence tier")
+    xp16 = op16.to_patch(x)
+    for name in ("vmult", "vmult_raw"):
+        fn = getattr(op16, name)
+        y = fn(xp16)
+        if y.dtype != torch.bfloat16 or not torch.equal(y, fn(xp16)):
+            raise RuntimeError(f"box bf16 {name}: not bf16 or not bitwise "
+                               f"equal across two calls")
+        ref = box_y["f32", name]
+        e = float(np.linalg.norm(op16.from_patch(y) - ref)
+                  / np.linalg.norm(ref))
+        tol = BOX_BF16_TOL if name == "vmult" else BOX_BF16_RAW_TOL
+        say(ph, f"box bf16 {name} against f32 {e:.3e} (tol {tol}), "
+            f"bitwise equal across two calls")
+        if not e <= tol:
+            raise RuntimeError(f"box bf16 {name} off its class")
+
+    # ---- apply ms: the box applies beside incidence and colored
+    for tag, bop, dt in (("f32", op, torch.float32),
+                         ("bf16", op16, torch.bfloat16)):
+        for name in ("vmult_raw", "vmult"):
+            apply_ms_line(dev, ph, f"box {tag} {name} (patch entries)",
+                          getattr(bop, name), op.n_patch, dt, dofs.n_dofs)
+    for key, tag in (("float32", "incidence"), ("colored", "colored")):
+        for name in ("vmult_raw", "vmult"):
+            apply_ms_line(dev, ph, f"{tag} f32 {name}",
+                          getattr(inc[key], name), dofs.n_dofs)
+    del inc, box_y
+
+    # ---- solves on the JAX bench's b
+    b = mg.fine.mnh * op.to_patch(np.random.default_rng(7).standard_normal(
+        dofs.n_dofs))
+    b64 = b.double()
+    bn64 = float(torch.sqrt(op64.dot(b64, b64)))
+
+    def run(name, fn):
+        synchronize(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        synchronize(dev)
+        sec = time.perf_counter() - t0
+        r = b64 - op64.vmult(res.x.double())
+        tr = float(torch.sqrt(op64.dot(r, r))) / bn64
+        say(ph, f"{name}: iterations {res.iterations} converged "
+            f"{res.converged} {sec:.3f} s true rel residual (f64 box "
+            f"operator, owner-weighted) {tr:.3e} (<= "
+            f"{BOX_RES_FACTOR * rtol:.0e})")
+        if not (res.converged and tr <= BOX_RES_FACTOR * rtol):
+            raise RuntimeError(f"{name} did not converge, or its true "
+                               f"residual is off its rtol")
+        return res
+
+    jac = run("box Jacobi-CG f32", lambda: op.cg_solve(b, diag, rtol=rtol))
+    g1 = run("box GMG-CG f32", lambda: mg.cg_solve(b, rtol=rtol))
+    g2 = run("box GMG-CG f32 again", lambda: mg.cg_solve(b, rtol=rtol))
+    if not (g1.iterations == g2.iterations and torch.equal(g1.x, g2.x)):
+        raise RuntimeError("box GMG-CG is not bitwise reproducible")
+    if not g1.iterations < jac.iterations:
+        raise RuntimeError("box GMG-CG took no fewer iterations than "
+                           "Jacobi")
+    mg16 = timed("bf16 recast", lambda: mg.recast("bfloat16", solve_op=op))
+    run("box GMG-CG bf16 cycle (f32 CG)", lambda: mg16.cg_solve(b, rtol=rtol))
+    del mg, mg16, op16, op, op64, diag
+
+    # ---- the entry point
+    apps = [solve_poisson(dim=3, degree=4, mesh=mesh, scatter="boxes",
+                          precond="gmg", dtype=dt, device=dev)
+            for dt in ("float32", "float64")]
+    for r, dt in zip(apps, ("f32", "f64")):
+        say(ph, f"solve_poisson(mesh=adaptive, scatter='boxes', "
+            f"precond='gmg') {dt}: iterations {r.iterations} converged "
+            f"{r.converged} L2 {r.l2_error:.4e} setup {r.setup_time:.2f} s "
+            f"solve {r.solve_time:.3f} s")
+    a, c = apps
+    if not (a.converged and c.converged
+            and a.l2_error <= c.l2_error + l2_max):
+        raise RuntimeError("box app solves: not converged, or the f32 L2 "
+                           "is off the f64")
+    say(ph, f"L2 f32 - f64 = {a.l2_error - c.l2_error:.3e} (<= {l2_max}); "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1269,9 +1480,11 @@ def main() -> int:
     from tpufem_torch.utils.timer import roofline_ms, time_fn
 
     t_start = time.perf_counter()
+    marks = []  # (phase, start) for the seconds each phase took
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
 
+    marks.append(("1", time.perf_counter()))
     # ---- 1 header -----------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1281,6 +1494,7 @@ def main() -> int:
     say("1 header", f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {kind} count {torch.cuda.device_count()}")
 
+    marks.append(("2", time.perf_counter()))
     # ---- 2 build ------------------------------------------------------
     t0 = time.perf_counter()
     libs = load_kernels()
@@ -1305,6 +1519,7 @@ def main() -> int:
                              for lib in libs.values())
         + f" (side by side, {t_build:.1f} s in all)")
 
+    marks.append(("3", time.perf_counter()))
     # ---- 3 kernel vs plain on the card --------------------------------
     rng = np.random.default_rng(2024)
     worst = {}
@@ -1415,6 +1630,7 @@ def main() -> int:
     say("3 kernels", "all within tolerance; worst max rel err "
         + ", ".join(f"{m} {worst[m]:.3e} (tol {TOL[m]})" for m in TOL))
 
+    marks.append(("4", time.perf_counter()))
     # ---- 4 main path: counts reset here, read at the end of phase 4 ----
     KernelSeparable.launches = 0
     ResidentSeparable.launches = 0
@@ -1498,6 +1714,7 @@ def main() -> int:
         raise RuntimeError("bf16s resident solve: non-finite x or the bf16s "
                            "kernel did not run")
 
+    marks.append(("4c", time.perf_counter()))
     # ---- 4c main path of the terms tier: K3/K4 counts reset here, read
     # after the 2D resident solve ----------------------------------------
     from tpufem_torch.operators.laplace import LaplaceOperator
@@ -1641,6 +1858,7 @@ def main() -> int:
         raise RuntimeError("bf16s coefficient solve: non-finite x or the "
                            "bf16s kernel did not run")
 
+    marks.append(("4b", time.perf_counter()))
     # ---- 4b f64 kernel-vs-plain solve parity (3D, and 2D for K2/K3).  L2
     # must sit well above the solver tolerance's floor for "equal to
     # 1e-10" to mean anything: the 3D cases' sine RHS gives L2 ~1e-7
@@ -1671,6 +1889,7 @@ def main() -> int:
                 and rel_l2 <= 1e-10):
             raise RuntimeError("f64 kernel and plain solves differ")
 
+    marks.append(("5", time.perf_counter()))
     # ---- 5 the K1 kernel lab (L1): every kernel and mode vs plain, then
     # the lab's entry point with the L1 counts reset before and read after
     from tpufem_torch.lab import kernel_lab
@@ -1808,6 +2027,7 @@ def main() -> int:
     say("5 lab", f"kernel_lab best (held against the plain version): "
         f"{lab_best[1]} {lab_best[0]:.2f} GDoF/s")
 
+    marks.append(("6", time.perf_counter()))
     # ---- 6 apply throughput: flagship K1 (17M), main-path K2 (2.1M) -----
     # kernel and plain timed in turns (plain, kernel, kernel, plain)
     def chain_ms(fn, x):
@@ -2157,6 +2377,7 @@ def main() -> int:
         for name in ("K2", "K2_r6", "K2_2d", "K1", "K4", "K4_shell", "K3",
                      "K3_r10")))
 
+    marks.append(("7", time.perf_counter()))
     # ---- 7 the toolchain probes: each kernel against its plain version,
     # then the probes' entry point with the counts reset before and read
     # after
@@ -2305,9 +2526,11 @@ def main() -> int:
         f"plain {plain_ms['P2']:.4f}, bound {bound['P2'][0]:.4f} "
         f"({bound['P2'][1]})")
 
+    marks.append(("8", time.perf_counter()))
     # ---- 8 the cell-loop tiers (no kernel of the kernels line) --------
     cell_loop_phase(dev)
 
+    marks.append(("9", time.perf_counter()))
     # ---- 9 geometric multigrid: K1-K4 at the V-cycle's level sizes
     # against their plain versions, then the GMG path with its counts
     worst = gmg_level_checks(np.random.default_rng(2026))
@@ -2316,6 +2539,13 @@ def main() -> int:
     for key, n in gmg_phase(dev, coef64).items():
         launches[key] += n
 
+    marks.append(("10", time.perf_counter()))
+    # ---- 10 the adaptive box tier (no kernel of the kernels line) -------
+    box_phase(dev)
+
+    marks.append(("end", time.perf_counter()))
+    say("done", "seconds by phase: " + ", ".join(
+        f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(marks, marks[1:])))
     say("done", f"{time.perf_counter() - t_start:.1f} s; {smi}")
     records = [
         ("K2", "K2 separable_apply (flat vmult, tile routine)",

@@ -99,6 +99,33 @@ def test_multigrid_solves_leave_jax_out():
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
+BOX_MODULES = (
+    "tpufem_torch.ops.box_interface", "tpufem_torch.ops.box_pairs",
+    "tpufem_torch.ops.boxes", "tpufem_torch.solvers.box_multigrid")
+
+
+def test_box_tier_leaves_jax_out():
+    """The box tier's modules, each imported in a fresh interpreter, and a
+    CPU box solve with each preconditioner: no jax or tpufem module
+    loads."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {BOX_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from tpufem_torch.apps.poisson import solve_poisson\n"
+        "for pc in ('jacobi', 'chebyshev', 'gmg', 'gmg-bf16'):\n"
+        "    r = solve_poisson(dim=2, degree=2, refine=2, adaptive_steps=1, "
+        "scatter='boxes', precond=pc, device='cpu')\n"
+        "    assert r.converged and r.l2_error < 1e-2, (pc, r)\n"
+        "print([m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'tpufem')])\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
 def test_sources_do_not_import_jax_or_tpufem():
     pat = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.M)
     banned = re.compile(r"^\s*(from|import)\s+tpufem(\.|\s|$)", re.M)

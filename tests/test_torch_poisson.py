@@ -10,10 +10,7 @@ import pytest
 
 from tpufem.apps.poisson import solve_poisson as j_solve_poisson
 from tpufem_torch.apps import poisson as tpoisson
-from tpufem_torch.fem.dof_handler import DoFHandler
-from tpufem_torch.fem.mesh import Mesh
 from tpufem_torch.ops.matrix_free import MatrixFree
-from tpufem_torch.utils.config import FemConfig
 
 
 def _rough(x):
@@ -87,18 +84,9 @@ def test_cli_json(capsys):
     assert abs(line["l2_error"] - rj.l2_error) <= 1e-10 * rj.l2_error
 
 
-def _build_boxes():
-    mesh = Mesh.hyper_cube(2, 2)
-    MatrixFree.build(mesh, DoFHandler(mesh, 1),
-                     FemConfig(dim=2, degree=1, scatter="boxes"), "cpu")
-
-
 @pytest.mark.parametrize("call,match", [
-    (lambda: tpoisson.solve_poisson(scatter="boxes", device="cpu"),
-     "box tier"),
     (lambda: tpoisson.solve_poisson(shards=2, device="cpu"), "distributed"),
-    (_build_boxes, "box tier"),
-], ids=["scatter-boxes", "shards", "build-boxes"])
+], ids=["shards"])
 def test_unported_options_raise(call, match):
     with pytest.raises(NotImplementedError, match=match):
         call()

@@ -11,10 +11,15 @@ defaults to ``auto`` (structured on uniform meshes, incidence otherwise);
 with ``--pallas`` it is the separable tier, and every operator apply runs
 a hand-written CUDA kernel: K2 on the cube, K4 (3D) or K3 (2D) on the
 shell.  The other tiers run no kernel and refuse ``--pallas``.
+``--scatter boxes`` runs the CG on the adaptive box tier's patchwork
+vector, where ``--precond gmg`` (or ``gmg-bf16``) preconditions it with
+the adaptive geometric multigrid V-cycle.
 
 Run:  tpufem-torch-poisson --dim 3 --degree 4 --refine 5 --dtype float32 \
           [--mesh shell] [--pallas]
       tpufem-torch-poisson --dim 2 --degree 2 --refine 2 --amr 4
+      tpufem-torch-poisson --dim 3 --degree 2 --refine 2 \
+          --adaptive-steps 2 --scatter boxes --precond gmg
       (python -m tpufem_torch.apps.poisson ...; --device cpu runs on the
       CPU)
 """
@@ -185,22 +190,25 @@ def solve_poisson(
     the centre, or on ``mesh`` (``refine``/``mesh_kind`` then ignored).
     A non-uniform mesh gets hanging-node constraints.  On the shell the
     default manufactured solution gives inhomogeneous Dirichlet data.
-    ``precond``: "jacobi", or "chebyshev" (a Chebyshev polynomial of the
-    Jacobi-scaled operator); "gmg"/"gmg-bf16" belong to the box tier.
+    ``scatter="boxes"`` runs the whole solve on the box tier's patchwork
+    vector (``_solve_poisson_boxes``).  ``precond``: "jacobi", or
+    "chebyshev" (a Chebyshev polynomial of the Jacobi-scaled operator);
+    "gmg" (the adaptive global-coarsening V-cycle) and "gmg-bf16" (the
+    same V-cycle in bf16 under the CG's dtype) belong to the box tier.
 
-    Arguments keep the JAX package's names; the ones not ported yet raise
-    NotImplementedError naming their ROADMAP.md item.
+    Arguments keep the JAX package's names, resolved in its order;
+    ``shards`` is not ported yet and raises NotImplementedError naming
+    its ROADMAP.md item.
     """
     device = resolve_device(device)
-    if shards is not None:
-        raise not_ported("--shards", "distributed")
-    if precond in ("gmg", "gmg-bf16") and scatter != "boxes":
-        raise ValueError(
-            "--precond gmg pairs with the box tier (--scatter boxes / "
-            "adaptive meshes) or the poisson_mg app for uniform meshes")
     if h1 and exact is not None:
         raise ValueError("--h1 supports the default manufactured "
                          "solution only (no gradient for a custom exact)")
+    if shards is not None and scatter not in ("auto", "boxes"):
+        raise ValueError("--shards runs the distributed box tier; use "
+                         "scatter auto/boxes")
+    if shards is not None:
+        raise not_ported("--shards", "distributed")
     if rtol is None:
         # f32 CG cannot reach f64-grade residuals; pick a reachable default
         rtol = 1e-10 if dtype == "float64" else 1e-6
@@ -209,20 +217,23 @@ def solve_poisson(
         if mesh is None:
             mesh = poisson_mesh(dim, refine, mesh_kind)
         mesh = refine_toward_ball(mesh, adaptive_steps, 0.5, 0.3)
+    if scatter == "boxes":
+        if use_pallas:
+            raise ValueError("use_pallas attaches kernels only in the "
+                             "separable scheme, not scatter='boxes'")
+        return _solve_poisson_boxes(mesh, degree, coefficient, dtype, rtol,
+                                    exact, rhs, warm, precond, h1, device,
+                                    timer)
+    if precond in ("gmg", "gmg-bf16"):
+        raise ValueError(
+            "--precond gmg pairs with the box tier (--scatter boxes / "
+            "adaptive meshes) or the poisson_mg app for uniform meshes")
+    with timer.section("setup"):
         op = poisson_operator(dim, degree, refine, dtype, use_pallas, device,
                               scatter, coefficient, mesh=mesh)
         dofs = op.mf.dofs
         diag = op.diagonal()
-        u_exact, f = default_solution(dim)
-        if exact is not None:
-            u_exact = exact
-        if rhs is not None:
-            f = rhs
-        b = assemble_rhs(dofs, f)
-        g = np.zeros(dofs.n_dofs)
-        bv = dofs.boundary_mask
-        if np.any(bv):
-            g[bv] = u_exact(dofs.dof_coords[bv])
+        u_exact, b, g = _manufactured_rhs(dofs, exact, rhs)
         b_con, x0 = dirichlet_setup(op, b, g)
 
     inv_diag = 1.0 / diag
@@ -259,6 +270,84 @@ def solve_poisson(
         dofs=dofs, h1_error=h1_err)
 
 
+def _manufactured_rhs(dofs, exact, rhs):
+    """The exact solution, the assembled RHS and the Dirichlet values of
+    a solve: the default manufactured solution unless given."""
+    u_exact, f = default_solution(dofs.mesh.dim)
+    if exact is not None:
+        u_exact = exact
+    if rhs is not None:
+        f = rhs
+    b = assemble_rhs(dofs, f)
+    g = np.zeros(dofs.n_dofs)
+    bv = dofs.boundary_mask
+    if np.any(bv):
+        g[bv] = u_exact(dofs.dof_coords[bv])
+    return u_exact, b, g
+
+
+def _solve_poisson_boxes(mesh, degree, coefficient, dtype, rtol, exact,
+                         rhs, warm, precond, h1, device, timer):
+    """Poisson solve on the box tier: the whole CG runs on the patchwork
+    vector (``ops.boxes``), with the Dirichlet setup in patch space.
+    ``precond`` "gmg" preconditions it with the adaptive V-cycle
+    (``solvers.box_multigrid``) on the solve's operator and diagonal;
+    "gmg-bf16" builds that hierarchy in bf16 under the solve's operator
+    (its finest defects in the solve's dtype)."""
+    from tpufem_torch.ops.boxes import BoxLaplaceOperator
+    from tpufem_torch.solvers.box_multigrid import BoxMultigrid
+
+    with timer.section("setup"):
+        dofs = DoFHandler(mesh, degree)
+        constraints = (None if mesh.is_uniform
+                       else make_hanging_node_constraints(dofs))
+        op = BoxLaplaceOperator(mesh, dofs, constraints=constraints,
+                                coefficient=coefficient, dtype=dtype,
+                                device=device)
+        u_exact, b, g = _manufactured_rhs(dofs, exact, rhs)
+        # dirichlet_setup's algebra, in patch space
+        m = op.interior_mask
+        x0 = op.distribute((1.0 - m) * op.to_patch(g), homogeneous=False)
+        b1 = op.distribute_transpose(op.to_patch(b) - op.vmult_raw(x0))
+        b_con = m * b1 + (1.0 - m) * x0
+        diag = op.diagonal()
+        mg = None
+        if precond == "gmg-bf16":
+            mg = BoxMultigrid(mesh, dofs, constraints=constraints,
+                              coefficient=coefficient, dtype="bfloat16",
+                              solve_op=op, device=device)
+        elif precond == "gmg":
+            mg = BoxMultigrid(mesh, dofs, constraints=constraints,
+                              coefficient=coefficient, dtype=dtype,
+                              fine_op=op, fine_diag=diag, device=device)
+    if mg is not None:
+        solve = lambda: mg.cg_solve(b_con, x0=x0, rtol=rtol)
+    else:
+        solve = lambda: op.cg_solve(b_con, diag, x0=x0, rtol=rtol,
+                                    precond=precond)
+    if warm:
+        solve()  # first run pays the one-time costs; time the second
+    with timer.section("solve"):
+        res = solve()
+        x = op.from_patch(op.distribute(res.x, homogeneous=False))
+    if not res.converged:
+        import sys
+
+        print(f"WARNING: CG did not converge in {res.iterations} iterations "
+              f"(residual {res.residual:.3e})", file=sys.stderr)
+    h1_err = None
+    if h1:
+        err, h1_err = integrate_errors(dofs, x, u_exact,
+                                       default_gradient(mesh.dim))
+    else:
+        err = integrate_difference(dofs, x, u_exact)
+    return PoissonResult(
+        n_dofs=dofs.n_dofs, n_cells=mesh.n_cells, iterations=res.iterations,
+        l2_error=err, residual=res.residual,
+        setup_time=timer.totals["setup"], solve_time=timer.totals["solve"],
+        solution=x, converged=res.converged, dofs=dofs, h1_error=h1_err)
+
+
 def solve_poisson_amr(dim: int = 2, degree: int = 1, refine: int = 2,
                       cycles: int = 5, fraction: float = 0.3,
                       mesh_kind: str = "cube", exact=None, rhs=None,
@@ -293,7 +382,8 @@ def main(argv=None):
     ap.add_argument("--scatter", default="auto",
                     choices=["auto", "incidence", "colored", "structured",
                              "dense", "separable", "boxes"],
-                    help="apply tier ('boxes' is not ported yet)")
+                    help="apply tier ('boxes': the adaptive box tier, "
+                         "whose CG runs on the patchwork vector)")
     ap.add_argument("--dtype", default="float64",
                     choices=["float64", "float32"])
     ap.add_argument("--adaptive-steps", type=int, default=0)
@@ -305,7 +395,11 @@ def main(argv=None):
     ap.add_argument("--shards", default=None,
                     help="distributed solve (not ported)")
     ap.add_argument("--precond", default="jacobi",
-                    choices=["jacobi", "chebyshev", "gmg", "gmg-bf16"])
+                    choices=["jacobi", "chebyshev", "gmg", "gmg-bf16"],
+                    help="CG preconditioner (gmg = the adaptive global-"
+                         "coarsening V-cycle, gmg-bf16 = the same V-cycle "
+                         "in bf16 under the CG's dtype: both with "
+                         "--scatter boxes)")
     ap.add_argument("--pallas", action="store_true",
                     help="apply the operator with the hand-written CUDA "
                          "kernel (the JAX package's Pallas flag)")

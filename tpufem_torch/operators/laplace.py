@@ -78,6 +78,11 @@ class LaplaceOperator:
         form) gather-free; incidence and colored the general cell loop."""
         mf = self.mf
         d, p = mf.config.dim, mf.config.degree
+        if mf.scheme == "boxes":
+            raise TypeError(
+                "a MatrixFree built with scatter='boxes' has no apply (nor "
+                "has the JAX package's); the box tier's operator is "
+                "tpufem_torch.ops.boxes.BoxLaplaceOperator")
         if mf.scheme == "separable":
             if mf.terms is not None:
                 if mf.resident is not None:

@@ -35,8 +35,14 @@ mesh with nq1 == p+1, else ``incidence``, and to ``separable`` under
 No scheme uses an accumulating scatter over repeated indices, so every
 apply is the same from run to run on the card.  The cell-loop tiers run
 no hand-written kernel: the JAX package attaches its Pallas kernels only
-in the separable scheme.  ``boxes`` raises NotImplementedError naming the
-ROADMAP.md item that ports it.
+in the separable scheme.
+
+``boxes`` builds as in the JAX package: the constraint tables and the
+host data, with the incidence branch behind ``gather``/``scatter`` and
+``LaplaceOperator.diagonal``.  Its ``LaplaceOperator`` has no apply there
+(the JAX package's raises TypeError, its device data carrying no cell->DoF
+map), and neither has the port's; the box tier's operator is
+``ops.boxes.BoxLaplaceOperator``.
 """
 
 from __future__ import annotations
@@ -68,9 +74,6 @@ from tpufem_torch.ops.structured import (
 from tpufem_torch.utils.config import FemConfig
 from tpufem_torch.utils.native import build_incidence
 from tpufem_torch.utils.precision import torch_dtype
-
-_NOT_PORTED = {"boxes": "the adaptive box tier"}
-
 
 def not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
@@ -278,9 +281,6 @@ class MatrixFree:
         p, d = config.degree, config.dim
         if mesh.dim != d or dofs.degree != p:
             raise ValueError("mesh/dofs do not match the config's dim/degree")
-        if config.scatter in _NOT_PORTED:
-            raise not_ported(f"scatter={config.scatter!r}",
-                             _NOT_PORTED[config.scatter])
         if coefficient_axes is not None:
             if coefficient is not None:
                 raise ValueError(
