@@ -165,6 +165,31 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 operator's true residual (<= ``BOX_RES_FACTOR`` * rtol);
                 solve_poisson(mesh=..., scatter="boxes", precond="gmg") in
                 f32 and f64 (L2 f32 <= f64 + 1e-6)
+  11 operators  the operator families beyond Laplace (``operator_term_checks``,
+                ``operators_phase``): K4 on their term sets against its
+                plain version as in phase 3 (heat's 4-term Helmholtz at
+                dt 1e-4 and 1 and 1-term mass with and without the fused
+                mask, the nine elasticity blocks unmasked; 3D npts 9, 17,
+                33 at p = 2 and 4 in f64, f32 and bf16s, with the term
+                group printed; then Helmholtz and mass at npts 257 and the
+                blocks at 129); then, K4's launches of the f32
+                runs at full width counted (heat, the elasticity apply,
+                the fast solve; the rest printed apart), the JAX
+                bench's 3d_heat_implicit_step (run_heat 3D Q4 refine 6,
+                16,974,593 DoFs, dt 1e-4, 5 steps, resident: f32 twice,
+                bitwise-equal u, and f64, L2 within HEAT_L2_GAP), its two
+                K4 instances timed alone, and at refine 4 the
+                tensor-product tier against the generic one in f64;
+                3d_nonlinear_newton_solve (run_nonlinear 3D Q2 refine 5,
+                274,625 DoFs, CG Jacobi f32 twice: equal counts,
+                bitwise-equal x) and the minimal surface with GMRES;
+                3d_elasticity_apply (SeparableElasticityOperator 3D Q4
+                refine 5, 2,146,689 x 3 DoFs, 9 K4 launches an apply, f32
+                and bf16s against the plain f64 apply, ms beside one
+                block's K4 and the generic vector tier; at refine 3 in f64
+                against elasticity_operator) and run_elasticity fast (3D
+                Q4 refine 4, K4) and GMG (3D Q2 refine 4), f32 and f64,
+                each solve's true residual held to EL_RES_FACTOR * rtol
 Then the seconds each phase took, one JSON line with each kernel's record
 (time, plain time, bound on an H100 and library time), and as the last line
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
@@ -176,6 +201,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -1464,6 +1490,394 @@ def box_phase(dev, adaptive=ADAPTIVE, adaptive_size=ADAPTIVE_SIZE,
         f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---- phase 11: the operator families beyond Laplace ---------------------
+# the JAX bench's elasticity constants (bench.py:626)
+EL_MU, EL_LAM = 0.8, 1.7
+# the summed fast-tier elasticity apply against its plain version: a
+# kernel's class (TOL) in f64 and f32; in bf16s each component sums three
+# bf16-stored block outputs, each within 2^-9 of its own size, so three
+# times the one-kernel class
+EL_TOL = {"f64": TOL["f64"], "f32": TOL["f32"], "bf16s": 3 * TOL["bf16s"]}
+# heat: the tensor-product tier against the generic one in f64
+# (tests/test_tensor_product.py:96), and the f32 L2 against the f64 one
+HEAT_TIER_TOL = 1e-9
+HEAT_L2_GAP = 1e-6
+# the fast elasticity tier against the generic vector tier in f64
+EL_TIER_TOL = 1e-10
+# an elasticity solve's f32 L2 at most this above its f64 one (readings on
+# the H100: fast 3D Q4 refine 4 2.23e-7, GMG 3D Q2 refine 4 3.2e-9)
+EL_L2_GAP = 1e-6
+# an elasticity solve's true relative residual (f64 operator) at most this
+# many times its rtol.  f64 (rtol 1e-10) reads 0.98 (fast) and 0.11 (GMG)
+# times rtol; f32 (rtol 1e-6) stops on its recurrence residual while the
+# true one sits on the f32 floor: fast Jacobi-CG (248 iterations) 318, GMG
+# 22.9 times rtol (the H100 readings)
+EL_RES_FACTOR = {("fast", "float32"): 400, ("gmg", "float32"): 30,
+                 ("fast", "float64"): 2, ("gmg", "float64"): 2}
+
+
+def operator_term_sets(p, n):
+    """(name, scalar, terms) of the operator families in 3D at degree p
+    on n cells an axis (h = 1/n): heat's Helmholtz M + dt K at dt 1e-4 and
+    1 (4 terms), the mass (1 term), and the nine elasticity blocks
+    (EL_MU, EL_LAM: 3 terms on the diagonal, 2 off it, with G and G^T)."""
+    from tpufem_torch.operators.tensor_product import (
+        elasticity_separable_blocks,
+        helmholtz_separable_terms,
+        mass_separable_terms,
+    )
+
+    h = np.full(3, 1.0 / n)
+    sets = [(f"helmholtz dt={dt:g}", True,
+             helmholtz_separable_terms(p, 3, p + 1, n, h, 1.0, dt))
+            for dt in (1e-4, 1.0)]
+    sets.append(("mass", True, mass_separable_terms(p, 3, p + 1, n, h)))
+    blocks = elasticity_separable_blocks(p, 3, p + 1, n, h, EL_MU, EL_LAM)
+    sets += [(f"elasticity block ({c}, {a})", False, blocks[c][a])
+             for c in range(3) for a in range(3)]
+    return sets
+
+
+def operator_term_checks(rng) -> tuple[dict, float]:
+    """Phase 11's kernel checks, as phase 3 holds K4 (``check_terms``):
+    every set of ``operator_term_sets`` at 3D npts 9, 17 and 33 for p = 2
+    and 4, in f64, f32 and bf16s, the scalar sets with and without the
+    fused mask, the blocks unmasked; then at the main path's shapes:
+    heat's Helmholtz (dt 1e-4) and mass at npts 257 (3D Q4 refine 6) in
+    f64, f32 and bf16s with and without the mask, and the nine blocks at
+    npts 129 (refine 5) in f32 and bf16s.  Returns the worst max relative
+    error by mode and the largest f32 max abs error at the main path's
+    shapes."""
+    worst, abs_f32 = {}, 0.0
+
+    def run(name, terms, p, modes, masks):
+        nonlocal abs_f32
+        rels, npts = [], terms[0][0].shape[0]
+        for mode in modes:
+            for dirichlet in masks:
+                tag, rel, aerr = check_terms(terms, p, mode, rng, dirichlet)
+                worst[mode] = max(worst.get(mode, 0.0), rel)
+                if mode == "f32" and npts > 33:
+                    abs_f32 = max(abs_f32, aerr)
+                rels.append(f"{mode}{' masked' * dirichlet} {rel:.3e}")
+        group = int(tag.split("group=")[1])
+        say("11 operators", f"K4 {name} T={len(terms)} p={p} npts={npts} "
+            f"tile={tag.split('tile=')[1].split(' group')[0]} group {group}"
+            f" ({'passes over x' if group < len(terms) else 'one pass'}): "
+            f"max rel err " + ", ".join(rels))
+
+    for npts in (9, 17, 33):
+        for p in (2, 4):
+            for name, scalar, terms in operator_term_sets(p, (npts - 1) // p):
+                run(name, terms, p, TOL, (False, True) if scalar
+                    else (False,))
+    for name, scalar, terms in operator_term_sets(4, 64)[0:3:2]:
+        run(name, terms, 4, TOL, (False, True))
+    for name, _, terms in operator_term_sets(4, 32)[3:]:
+        run(name, terms, 4, ("f32", "bf16s"), (False,))
+    return worst, abs_f32
+
+
+def elasticity_rhs(dofs, mask, mu, lam, dtype, dev):
+    """The elasticity app's right-hand side (C, n) on ``dev``."""
+    from tpufem_torch.apps.elasticity import manufactured
+    from tpufem_torch.fem.assemble import assemble_rhs
+
+    _, f_component = manufactured(3, mu, lam)
+    m = mask.cpu().to(torch.float64).numpy()
+    return torch.tensor(np.stack([
+        m * assemble_rhs(dofs, lambda p_, c=c: f_component(c, p_))
+        for c in range(3)]), dtype=dtype, device=dev)
+
+
+def operators_phase(dev, heat_refine=6, heat_cross_refine=4, nl_refine=5,
+                    ms_refine=3, el_refine=5, el_cross_refine=3,
+                    el_fast_refine=4, el_gmg_refine=4, heat_steps=5,
+                    nl_l2_max=1e-5) -> dict:
+    """Phase 11: the operator families through the port's entry points,
+    K4's launches of its main path counted and returned: the two f32 heat
+    runs at ``heat_refine``, the f32 elasticity apply at ``el_refine`` and
+    the f32 fast elasticity solve.  The f64 reruns, the bf16s apply and the
+    cross-checks at other sizes launch K4 too; their count is printed
+    apart.
+
+    Heat (the JAX bench's 3d_heat_implicit_step): run_heat(3D Q4
+    ``heat_refine``, dt 1e-4, ``heat_steps`` steps, rtol 1e-6, resident)
+    in f32 twice (bitwise-equal u) and in f64 (f32 L2 within HEAT_L2_GAP
+    of it), K4's launches a step (iterations + 2: the mass apply and the
+    CG's initial residual); at ``heat_cross_refine`` in f64 the tensor-
+    product tier against the generic one (HEAT_TIER_TOL).  Nonlinear (the
+    JAX bench's 3d_nonlinear_newton_solve): run_nonlinear(3D Q2
+    ``nl_refine``, quasilinear, CG, Jacobi, f32, rtol 1e-6) twice (equal
+    counts, bitwise-equal x), L2 <= ``nl_l2_max``, and the minimal surface
+    with GMRES at 3D Q2 ``ms_refine`` in f64.  Elasticity (the JAX bench's
+    3d_elasticity_apply): SeparableElasticityOperator(use_pallas) at 3D Q4
+    ``el_refine`` in f32 and bf16s, its vmult_raw (9 K4 launches) against
+    the plain f64 apply (EL_TOL), ms an apply beside one block's K4 and
+    the generic vector tier at the same size (its f32 apply within
+    TOL["f32"] of the plain f64 fast tier), and in f64 at
+    ``el_cross_refine`` against the generic vector operator (EL_TIER_TOL);
+    run_elasticity 3D Q4 ``el_fast_refine`` fast through K4 and 3D Q2
+    ``el_gmg_refine`` GMG, f32 at rtol 1e-6 and f64 at 1e-10: iterations,
+    true relative residual (f64 operator, at most EL_RES_FACTOR * rtol),
+    L2 (f32 at most EL_L2_GAP above f64).  Runs on the CPU at small sizes (the plain versions, no
+    launches)."""
+    from tpufem_torch.apps.elasticity import run_elasticity
+    from tpufem_torch.apps.heat import run_heat
+    from tpufem_torch.apps.nonlinear import run_nonlinear
+    from tpufem_torch.fem.dof_handler import DoFHandler
+    from tpufem_torch.fem.mesh import Mesh
+    from tpufem_torch.operators.tensor_product import (
+        SeparableElasticityOperator,
+    )
+    from tpufem_torch.operators.vector import elasticity_operator
+    from tpufem_torch.ops.kernel_terms import ResidentTerms
+    from tpufem_torch.ops.matrix_free import MatrixFree
+    from tpufem_torch.utils.config import FemConfig
+    from tpufem_torch.utils.timer import synchronize, time_fn
+
+    ph = "11 operators"
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    path = 0  # K4 launches of the main path
+    aside = 0  # K4 launches of the reruns and cross-checks, not counted
+
+    # ---- heat on the tensor-product tier
+    heat = {}
+    for run, dtype in (("f32", "float32"), ("f32 again", "float32"),
+                       ("f64", "float64")):
+        before = ResidentTerms.launches
+        t0 = time.perf_counter()
+        r = run_heat(dim=3, degree=4, refine=heat_refine, dt=1e-4,
+                     steps=heat_steps, dtype=dtype, resident=True, rtol=1e-6,
+                     device=dev)
+        used = ResidentTerms.launches - before
+        if dtype == "float32":
+            path += used
+        else:
+            aside += used
+        heat[run] = r
+        its = r["iterations"]
+        say(ph, f"run_heat 3D Q4 refine {heat_refine} dt 1e-4 {heat_steps} "
+            f"steps {dtype} resident: {r['n_dofs']} DoFs, host setup "
+            f"{r['setup_s']:.2f} s, {1e3 * r['solve_s'] / heat_steps:.2f} ms "
+            f"a step ({r['solve_s']:.3f} s), CG iterations a step {its}, K4 "
+            f"launches {used} ({used / heat_steps:.1f} a step), L2 "
+            f"{r['l2_error']:.9e}; the call {time.perf_counter() - t0:.1f} s")
+        if on_card and used != sum(its) + 2 * heat_steps:
+            raise RuntimeError(f"heat {run}: {used} K4 launches, not the CG "
+                               f"iterations + 2 a step")
+    same = np.array_equal(heat["f32"]["u"], heat["f32 again"]["u"])
+    gap = abs(heat["f32"]["l2_error"] - heat["f64"]["l2_error"])
+    say(ph, f"heat: two f32 runs bitwise equal {same}; f32 L2 - f64 L2 "
+        f"{gap:.3e} (limit {HEAT_L2_GAP})")
+    if not (same and gap <= HEAT_L2_GAP):
+        raise RuntimeError("the heat runs failed their checks")
+    del heat
+    if on_card:  # heat's two K4 instances alone, as its runs launch them
+        npts = (1 << heat_refine) * 4 + 1
+        sets = operator_term_sets(4, 1 << heat_refine)
+        u = torch.randn(npts**3, device=dev,
+                        generator=torch.Generator(dev).manual_seed(3))
+        line = []
+        for (name, _, terms), masked in ((sets[0], True), (sets[2], False)):
+            k = ResidentTerms(npts, 4, terms, torch.float32,
+                              dirichlet=masked, device=dev)
+            line.append(f"{name} (T={len(terms)}, group {k.group}, tile "
+                        f"{k.tile}{', fused mask' * masked}) "
+                        f"{1e3 * time_fn(k.raw, k.pad(u), reps=N_CHAIN):.4f}"
+                        f" ms")
+        say(ph, f"heat's K4 at npts {npts} f32, chains of {N_CHAIN} (not "
+            f"counted): " + "; ".join(line))
+    cross = {}
+    for resident in (True, False):
+        before = ResidentTerms.launches
+        cross[resident] = run_heat(dim=3, degree=4, refine=heat_cross_refine,
+                                   dt=1e-4, steps=heat_steps,
+                                   dtype="float64", resident=resident,
+                                   device=dev)
+        aside += ResidentTerms.launches - before
+    rel_u = float(np.linalg.norm(cross[True]["u"] - cross[False]["u"])
+                  / np.linalg.norm(cross[False]["u"]))
+    say(ph, f"run_heat 3D Q4 refine {heat_cross_refine} f64: tensor-product "
+        f"tier (K4) {cross[True]['solve_s']:.3f} s, iterations "
+        f"{cross[True]['iterations']}; generic tier (incidence) "
+        f"{cross[False]['solve_s']:.3f} s, iterations "
+        f"{cross[False]['iterations']}; u rel diff {rel_u:.3e} (limit "
+        f"{HEAT_TIER_TOL})")
+    if not rel_u <= HEAT_TIER_TOL:
+        raise RuntimeError("the heat tiers disagree")
+
+    parts = {"heat": time.perf_counter() - t_phase}
+    # ---- Newton on the functor tier (no kernel)
+    kw = dict(dim=3, degree=2, refine=nl_refine, problem="quasilinear",
+              linear="cg", rtol=1e-6, dtype="float32", precond="jacobi",
+              device=dev)
+    (o1, x1), (o2, x2) = run_nonlinear(**kw), run_nonlinear(**kw)
+    for o in (o1, o2):
+        say(ph, f"run_nonlinear 3D Q2 refine {nl_refine} quasilinear CG "
+            f"Jacobi f32: {o['n_dofs']} DoFs, Newton {o['newton_iterations']}"
+            f", linear {o['linear_iterations']}, residual "
+            f"{o['residual']:.3e}, converged {o['converged']}, L2 "
+            f"{o['l2_error']:.4e}, setup {o['setup_s']:.2f} s, solve "
+            f"{o['solve_s']:.3f} s")
+    # converged is printed, not required: in f32 ||F|| levels off near
+    # 1e-6 of ||F_0|| and the line search stops the iteration there, in the
+    # JAX package too (its CPU run at 3D Q2 refine 4: 18 Newton steps,
+    # converged False, L2 at the f64 solve's)
+    if not (math.isfinite(o1["residual"]) and o1["l2_error"] <= nl_l2_max
+            and (o1["newton_iterations"], o1["linear_iterations"])
+            == (o2["newton_iterations"], o2["linear_iterations"])
+            and np.array_equal(x1, x2)):
+        raise RuntimeError("the Newton solves failed their checks")
+    o, _ = run_nonlinear(dim=3, degree=2, refine=ms_refine,
+                         problem="minimal-surface", linear="gmres",
+                         device=dev)
+    say(ph, f"run_nonlinear 3D Q2 refine {ms_refine} minimal-surface GMRES "
+        f"f64: {o['n_dofs']} DoFs, Newton {o['newton_iterations']}, linear "
+        f"{o['linear_iterations']}, residual {o['residual']:.3e}, converged "
+        f"{o['converged']}, solve {o['solve_s']:.3f} s")
+    if not o["converged"]:
+        raise RuntimeError("the minimal surface did not converge")
+
+    parts["newton"] = time.perf_counter() - t_phase - sum(parts.values())
+    # ---- elasticity: the fast tier's apply at full width
+    mesh = Mesh.hyper_cube(3, el_refine)
+    dofs = DoFHandler(mesh, 4)
+    n = dofs.n_dofs
+    mf = {dt: MatrixFree.build(mesh, dofs, FemConfig(
+        3, 4, scatter="separable", dtype=dt), dev)
+        for dt in ("float32", "float64")}
+    plain64 = SeparableElasticityOperator(mf["float64"], EL_MU, EL_LAM)
+    x = torch.randn(3, n, dtype=torch.float32, device=dev,
+                    generator=torch.Generator(dev).manual_seed(11))
+    for mode in ("f32", "bf16s"):
+        t0 = time.perf_counter()
+        op = SeparableElasticityOperator(mf["float32"], EL_MU, EL_LAM,
+                                         use_pallas=True, mode=mode)
+        synchronize(dev)
+        t_build = time.perf_counter() - t0
+        before = ResidentTerms.launches
+        y = op.vmult_raw(x)
+        synchronize(dev)
+        used = ResidentTerms.launches - before
+        if mode == "f32":
+            path += used
+        else:
+            aside += used
+        sdt = op.kernels[0][0].dt
+        ref = plain64.vmult_raw(x.to(sdt).to(torch.float64))
+        rel = float((y.double() - ref).abs().max() / ref.abs().max())
+        ms = 1e3 * time_fn(op.vmult_raw, x, reps=N_CHAIN) if on_card else 0.0
+        k_ms = {}
+        if on_card:
+            for c, a in ((0, 0), (0, 1)):
+                k = op.kernels[c][a]
+                k_ms[c, a] = 1e3 * time_fn(k.raw, k.pad(x[a]), reps=N_CHAIN)
+        say(ph, f"SeparableElasticityOperator 3D Q4 refine {el_refine} "
+            f"use_pallas {mode}: {n} x 3 DoFs, build {t_build:.2f} s, "
+            f"vmult_raw {used} K4 launches, max rel err vs the plain f64 "
+            f"apply {rel:.3e} (tol {EL_TOL[mode]}), {ms:.4f} ms an apply; "
+            f"one block's K4 alone: diagonal (T=3) "
+            f"{k_ms.get((0, 0), 0.0):.4f} ms, off-diagonal (T=2) "
+            f"{k_ms.get((0, 1), 0.0):.4f} ms, tile "
+            f"{op.kernels[0][0].tile}")
+        if not (rel <= EL_TOL[mode] and torch.isfinite(y).all()
+                and (used == 9 or not on_card)):
+            raise RuntimeError(f"the elasticity apply ({mode}) failed its "
+                               f"checks")
+        del op
+    mfi = MatrixFree.build(mesh, dofs, FemConfig(3, 4, scatter="incidence",
+                                                 dtype="float32"), dev)
+    gen = elasticity_operator(mfi, EL_MU, EL_LAM)
+    rel = float((gen.vmult_raw(x).double() - plain64.vmult_raw(x.double()))
+                .abs().max() / plain64.vmult_raw(x.double()).abs().max())
+    g_ms = 1e3 * time_fn(gen.vmult_raw, x, reps=3, warmup=1) if on_card \
+        else 0.0
+    say(ph, f"generic vector tier (elasticity_operator, incidence) 3D Q4 "
+        f"refine {el_refine} f32: {g_ms:.3f} ms an apply, max rel err vs "
+        f"the plain f64 fast tier {rel:.3e} (tol {TOL['f32']})")
+    if not rel <= TOL["f32"]:
+        raise RuntimeError("the generic vector tier is off the fast one")
+    del gen, mfi, plain64, mf
+    mesh3 = Mesh.hyper_cube(3, el_cross_refine)
+    dofs3 = DoFHandler(mesh3, 4)
+    fast = SeparableElasticityOperator(MatrixFree.build(
+        mesh3, dofs3, FemConfig(3, 4, scatter="separable"), dev), EL_MU,
+        EL_LAM, use_pallas=True)
+    gen = elasticity_operator(MatrixFree.build(
+        mesh3, dofs3, FemConfig(3, 4, scatter="incidence"), dev), EL_MU,
+        EL_LAM)
+    x3 = torch.randn(3, dofs3.n_dofs, dtype=torch.float64, device=dev,
+                     generator=torch.Generator(dev).manual_seed(13))
+    rel_raw = float((fast.vmult_raw(x3) - gen.vmult_raw(x3)).norm()
+                    / gen.vmult_raw(x3).norm())
+    rel_con = float((fast.vmult(x3) - gen.vmult(x3)).norm()
+                    / gen.vmult(x3).norm())
+    say(ph, f"3D Q4 refine {el_cross_refine} f64: the fast tier (9 K4) "
+        f"against elasticity_operator: vmult_raw {rel_raw:.3e}, vmult "
+        f"{rel_con:.3e} (limit {EL_TIER_TOL})")
+    if not max(rel_raw, rel_con) <= EL_TIER_TOL:
+        raise RuntimeError("the fast elasticity tier is off the generic one")
+    del fast, gen
+
+    parts["elasticity apply"] = (time.perf_counter() - t_phase
+                                 - sum(parts.values()))
+    # ---- the elasticity solves, f32 beside f64
+    for name, kw in (("fast", dict(degree=4, refine=el_fast_refine,
+                                   fast=True, use_pallas=on_card)),
+                     ("gmg", dict(degree=2, refine=el_gmg_refine,
+                                  precond="gmg"))):
+        m_ = Mesh.hyper_cube(3, kw["refine"])
+        d_ = DoFHandler(m_, kw["degree"])
+        mf64 = MatrixFree.build(m_, d_, FemConfig(
+            3, kw["degree"], scatter="separable" if kw.get("fast")
+            else "incidence"), dev)
+        op64 = (SeparableElasticityOperator(mf64) if kw.get("fast")
+                else elasticity_operator(mf64))
+        b = elasticity_rhs(d_, mf64.interior_mask, 1.0, 1.0, torch.float64,
+                           dev)
+        l2 = {}
+        for dtype, rtol in (("float32", 1e-6), ("float64", 1e-10)):
+            before = ResidentTerms.launches
+            o, xs = run_elasticity(dim=3, dtype=dtype, rtol=rtol, device=dev,
+                                   **kw)
+            used = ResidentTerms.launches - before
+            if dtype == "float32":
+                path += used
+            else:
+                aside += used
+            xt = torch.tensor(xs, dtype=torch.float64, device=dev)
+            true = float((b - op64.vmult(xt)).norm() / b.norm())
+            limit = EL_RES_FACTOR[name, dtype] * rtol
+            l2[dtype] = o["l2_error"]
+            say(ph, f"run_elasticity 3D Q{kw['degree']} refine "
+                f"{kw['refine']} {name} {dtype} rtol {rtol:g}: {o['n_dofs']}"
+                f" x 3 DoFs, iterations {o['iterations']}, converged "
+                f"{o['converged']}, true rel residual {true:.3e} (limit "
+                f"{limit:.1e}), L2 {o['l2_error']:.6e}, setup "
+                f"{o['setup_s']:.2f} s, solve {o['solve_s']:.3f} s, K4 "
+                f"launches {used}")
+            if not (o["converged"] and true <= limit
+                    and (used > 0) == (on_card and bool(kw.get("fast")))):
+                raise RuntimeError(f"run_elasticity {name} {dtype} failed "
+                                   f"its checks")
+        if not l2["float32"] <= l2["float64"] + EL_L2_GAP:
+            raise RuntimeError(f"run_elasticity {name}: f32 L2 more than "
+                               f"{EL_L2_GAP} above f64's")
+    parts["elasticity solves"] = (time.perf_counter() - t_phase
+                                  - sum(parts.values()))
+    say(ph, f"K4 launches of the phase's main path {path} (f32 heat at "
+        f"refine {heat_refine} twice, the f32 elasticity apply at refine "
+        f"{el_refine}, the f32 fast solve); not counted {aside} (the f64 "
+        f"reruns, the bf16s apply, the cross-checks); phase "
+        f"{time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + ")")
+    if on_card and path == 0:
+        raise RuntimeError("K4 did not run on the phase's main path")
+    return {"K4": path}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2542,6 +2956,16 @@ def main() -> int:
     marks.append(("10", time.perf_counter()))
     # ---- 10 the adaptive box tier (no kernel of the kernels line) -------
     box_phase(dev)
+
+    marks.append(("11", time.perf_counter()))
+    # ---- 11 the operator families: K4 on their term sets against its
+    # plain version, then heat, Newton and elasticity with K4's counts
+    worst, aerr = operator_term_checks(np.random.default_rng(2027))
+    say("11 operators", "term sets all within tolerance; worst max rel err "
+        + ", ".join(f"{m} {worst[m]:.3e} (tol {TOL[m]})" for m in TOL))
+    abs_err["K4"] = max(abs_err["K4"], aerr)
+    for key, n in operators_phase(dev).items():
+        launches[key] += n
 
     marks.append(("end", time.perf_counter()))
     say("done", "seconds by phase: " + ", ".join(

@@ -185,3 +185,59 @@ def test_kernels_default_to_the_card(monkeypatch):
                                    "cpu").device.type == "cpu"
     assert ResidentSeparable(npts, p, [K] * 3, [M] * 3, torch.float32,
                              device="cpu").device.type == "cpu"
+
+
+OPERATOR_MODULES = (
+    "tpufem_torch.operators.generic", "tpufem_torch.operators.tensor_product",
+    "tpufem_torch.operators.vector", "tpufem_torch.solvers.bicgstab",
+    "tpufem_torch.solvers.gmres", "tpufem_torch.solvers.newton",
+    "tpufem_torch.solvers.vector_multigrid", "tpufem_torch.apps.heat",
+    "tpufem_torch.apps.nonlinear", "tpufem_torch.apps.elasticity")
+
+
+def test_operator_families_leave_jax_out():
+    """The operator families' modules, each imported in a fresh
+    interpreter, then CPU heat runs (generic and tensor-product tier), a
+    Newton solve and a fast-tier elasticity solve: no jax or tpufem module
+    loads."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {OPERATOR_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from tpufem_torch.apps.heat import run_heat\n"
+        "from tpufem_torch.apps.nonlinear import run_nonlinear\n"
+        "from tpufem_torch.apps.elasticity import run_elasticity\n"
+        "for res in (False, True):\n"
+        "    r = run_heat(dim=2, degree=2, refine=2, steps=2, "
+        "resident=res, device='cpu')\n"
+        "    assert r['l2_error'] < 1e-2, r\n"
+        "o, _ = run_nonlinear(dim=2, degree=2, refine=2, precond='jacobi', "
+        "device='cpu')\n"
+        "assert o['converged'], o\n"
+        "o, _ = run_elasticity(dim=2, degree=2, refine=2, fast=True, "
+        "device='cpu')\n"
+        "assert o['converged'], o\n"
+        "print([m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'tpufem')])\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_operator_entry_points_default_to_the_card(monkeypatch):
+    """run_heat, run_nonlinear, run_elasticity and VectorMultigrid take
+    device="cuda" unless told otherwise, and raise without a card."""
+    from tpufem_torch.apps.elasticity import run_elasticity
+    from tpufem_torch.apps.heat import run_heat
+    from tpufem_torch.apps.nonlinear import run_nonlinear
+    from tpufem_torch.solvers.vector_multigrid import VectorMultigrid
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: run_heat(dim=2, degree=1, refine=1, steps=1),
+                 lambda: run_nonlinear(dim=2, degree=1, refine=1),
+                 lambda: run_elasticity(dim=2, degree=1, refine=1),
+                 lambda: VectorMultigrid(2, 1, 2)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()

@@ -796,3 +796,59 @@ def test_host_build_at_vcycle_level_sizes(host_lib, ring_lib, ring2d_lib,
         ref = _terms_plain(terms, x, dirichlet)
     err = (y - ref).abs().max() / ref.abs().max()
     assert err <= TOL[mode], err
+
+
+def _operator_term_sets():
+    """The term sets of the operator families at p = 2 and 4 on n = 2 to
+    8 cells an axis (npts 9 and 17): the heat step's 4-term Helmholtz
+    M + dt K (dt 1e-4 and 1) and 1-term mass, and the elasticity blocks
+    (mu 0.8, lam 1.7): a diagonal block (3 terms) and the off-diagonal
+    (0, 1) and (2, 0) blocks (2 terms, G^T (x) G (x) M and G (x) G^T
+    (x) M), whose G's row sums vanish except on the two end rows."""
+    from tpufem_torch.operators.tensor_product import (
+        elasticity_separable_blocks,
+        helmholtz_separable_terms,
+        mass_separable_terms,
+    )
+
+    sets = []
+    for p, n in ((2, 4), (2, 8), (4, 2), (4, 4)):
+        h = np.full(3, 1.0 / n)
+        for dt in (1e-4, 1.0):
+            sets.append((f"helmholtz dt={dt:g}", p, True,
+                         helmholtz_separable_terms(p, 3, p + 1, n, h, 1.0,
+                                                   dt)))
+        sets.append(("mass", p, True, mass_separable_terms(p, 3, p + 1, n,
+                                                           h)))
+        blocks = elasticity_separable_blocks(p, 3, p + 1, n, h, 0.8, 1.7)
+        for c, a in ((1, 1), (0, 1), (2, 0)):
+            sets.append((f"elasticity block ({c}, {a})", p, False,
+                         blocks[c][a]))
+    return sets
+
+
+OPERATOR_CASES = [(name, p, terms, mode, d)
+                  for name, p, scalar, terms in _operator_term_sets()
+                  for mode in TOL for d in ((False, True) if scalar
+                                            else (False,))]
+
+
+@pytest.mark.parametrize(
+    "name,p,terms,mode,dirichlet", OPERATOR_CASES,
+    ids=[f"{c[0]}-p{c[1]}-npts{c[2][0][0].shape[0]}-{c[3]}"
+         f"{'-masked' * c[4]}" for c in OPERATOR_CASES])
+def test_ring_host_k4_on_the_operator_term_sets(ring_lib, name, p, terms,
+                                                mode, dirichlet):
+    """K4's terms plan on the term sets that heat (--resident) and the
+    elasticity fast tier give it: the scalar sets with and without the
+    fused mask, the blocks unmasked (the operator keeps their mask algebra
+    outside), against the plain version in f64 on the same
+    storage-rounded input; every output point and the zero pad checked."""
+    npts = terms[0][0].shape[0]
+    rng = np.random.default_rng(npts * 10 + p + len(terms))
+    y, x, _ = _ring_apply(ring_lib, 1, [X for t in terms for X in t], p,
+                          mode, torch.as_tensor(rng.standard_normal(npts**3)),
+                          dirichlet)
+    ref = _terms_plain(terms, x, dirichlet)
+    err = (y - ref).abs().max() / ref.abs().max()
+    assert err <= TOL[mode], (name, err)
