@@ -190,6 +190,25 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 against elasticity_operator) and run_elasticity fast (3D
                 Q4 refine 4, K4) and GMG (3D Q2 refine 4), f32 and f64,
                 each solve's true residual held to EL_RES_FACTOR * rtol
+  12 bench      the bench apps through their entry points at the JAX
+                bench's flagship sizes, f32, 30 applies a chain
+                (``bench_phase``): bmop's bench_resident through K1 (f32,
+                bf16s; 16,974,593 DoFs) and K3 (bf16s; 2D refine 10,
+                16,785,409), bench_varcoef through K4 (f32, bf16s; the
+                structured attribution tier at refine 5) and bench_curved
+                (the 2,146,689-DoF shell: the separable tier, K4 in f32,
+                bf16, bf16s), each kernel tier present and none in
+                tier_errors; the adaptive flagship's bench_adaptive (box
+                f32 and bf16, bf16 within BOX_BF16_TOL, beside incidence)
+                and bench_adaptive_solve (Jacobi, GMG, bf16 cycle:
+                converged, GMG in fewer iterations; true residuals beside
+                phase 10's); bmop.main --spmv at 3D Q1-Q4 refine 4 (the
+                Q4 ELL SpMV against the structured f32 apply on a seeded
+                vector within SPMV_MF_TOL, each side beside its bound) and
+                bmspmv.main at refine 3 (CSR cross-check within CSR_TOL);
+                every rate finite and positive.  Its K1, K3 and K4
+                launches are printed apart: timing repetitions of bmop,
+                not main-path launches
 Then the seconds each phase took, one JSON line with each kernel's record
 (time, plain time, bound on an H100 and library time), and as the last line
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
@@ -1320,7 +1339,7 @@ BOX_RES_FACTOR = 10
 
 
 def box_phase(dev, adaptive=ADAPTIVE, adaptive_size=ADAPTIVE_SIZE,
-              l2_max=1e-6, rtol=SOLVE_RTOL) -> None:
+              l2_max=1e-6, rtol=SOLVE_RTOL) -> dict:
     """Phase 10: the adaptive box tier (plain PyTorch, no kernel of the
     kernels line) on ``adaptive_mesh(*adaptive)`` of ``adaptive_size``
     (cells, DoFs), Q4: the host setup (box operator, diagonal, GMG
@@ -1333,7 +1352,8 @@ def box_phase(dev, adaptive=ADAPTIVE, adaptive_size=ADAPTIVE_SIZE,
     7), each with the true relative residual of the f64 box operator (at
     most ``BOX_RES_FACTOR`` * ``rtol``); then solve_poisson(scatter=
     "boxes", precond="gmg") in f32 and f64 (L2 f32 <= f64 + ``l2_max``).
-    Every failure raises."""
+    Every failure raises.  Returns the three solves' true relative
+    residuals by bmop's variant names (jacobi, gmg, gmg_bf16cycle)."""
     from tpufem_torch.apps.poisson import adaptive_mesh, solve_poisson
     from tpufem_torch.fem.constraints import make_hanging_node_constraints
     from tpufem_torch.fem.dof_handler import DoFHandler
@@ -1347,6 +1367,7 @@ def box_phase(dev, adaptive=ADAPTIVE, adaptive_size=ADAPTIVE_SIZE,
     ph = "10 boxes"
     t_phase = time.perf_counter()
     setup = {}
+    true_res = {}
 
     def timed(name, fn):
         t0 = time.perf_counter()
@@ -1443,14 +1464,14 @@ def box_phase(dev, adaptive=ADAPTIVE, adaptive_size=ADAPTIVE_SIZE,
     b64 = b.double()
     bn64 = float(torch.sqrt(op64.dot(b64, b64)))
 
-    def run(name, fn):
+    def run(name, fn, key):
         synchronize(dev)
         t0 = time.perf_counter()
         res = fn()
         synchronize(dev)
         sec = time.perf_counter() - t0
         r = b64 - op64.vmult(res.x.double())
-        tr = float(torch.sqrt(op64.dot(r, r))) / bn64
+        tr = true_res[key] = float(torch.sqrt(op64.dot(r, r))) / bn64
         say(ph, f"{name}: iterations {res.iterations} converged "
             f"{res.converged} {sec:.3f} s true rel residual (f64 box "
             f"operator, owner-weighted) {tr:.3e} (<= "
@@ -1460,16 +1481,19 @@ def box_phase(dev, adaptive=ADAPTIVE, adaptive_size=ADAPTIVE_SIZE,
                                f"residual is off its rtol")
         return res
 
-    jac = run("box Jacobi-CG f32", lambda: op.cg_solve(b, diag, rtol=rtol))
-    g1 = run("box GMG-CG f32", lambda: mg.cg_solve(b, rtol=rtol))
-    g2 = run("box GMG-CG f32 again", lambda: mg.cg_solve(b, rtol=rtol))
+    jac = run("box Jacobi-CG f32", lambda: op.cg_solve(b, diag, rtol=rtol),
+              "jacobi")
+    g1 = run("box GMG-CG f32", lambda: mg.cg_solve(b, rtol=rtol), "gmg")
+    g2 = run("box GMG-CG f32 again", lambda: mg.cg_solve(b, rtol=rtol),
+             "gmg")
     if not (g1.iterations == g2.iterations and torch.equal(g1.x, g2.x)):
         raise RuntimeError("box GMG-CG is not bitwise reproducible")
     if not g1.iterations < jac.iterations:
         raise RuntimeError("box GMG-CG took no fewer iterations than "
                            "Jacobi")
     mg16 = timed("bf16 recast", lambda: mg.recast("bfloat16", solve_op=op))
-    run("box GMG-CG bf16 cycle (f32 CG)", lambda: mg16.cg_solve(b, rtol=rtol))
+    run("box GMG-CG bf16 cycle (f32 CG)", lambda: mg16.cg_solve(b, rtol=rtol),
+        "gmg_bf16cycle")
     del mg, mg16, op16, op, op64, diag
 
     # ---- the entry point
@@ -1488,6 +1512,7 @@ def box_phase(dev, adaptive=ADAPTIVE, adaptive_size=ADAPTIVE_SIZE,
                            "is off the f64")
     say(ph, f"L2 f32 - f64 = {a.l2_error - c.l2_error:.3e} (<= {l2_max}); "
         f"phase {time.perf_counter() - t_phase:.1f} s")
+    return true_res
 
 
 # ---- phase 11: the operator families beyond Laplace ---------------------
@@ -1876,6 +1901,233 @@ def operators_phase(dev, heat_refine=6, heat_cross_refine=4, nl_refine=5,
     if on_card and path == 0:
         raise RuntimeError("K4 did not run on the phase's main path")
     return {"K4": path}
+
+
+# ---- phase 12: the bench apps ------------------------------------------
+# the ELL SpMV against the structured f32 apply of the same operator on one
+# seeded vector (both f32 applies of one assembled operator)
+SPMV_MF_TOL = 2e-5
+# bmspmv's CSR cross-check tolerance in f32 (tpufem/apps/bmspmv.py:55)
+CSR_TOL = 2e-5
+# the JAX bench's flagship sizes (bench.py:395-402): bench_resident (p,
+# refine) in 3D (K1) and 2D (K3), bench_varcoef (p, refine, attr_refine),
+# bench_curved (p, refine), the adaptive build (p, refine, steps); the
+# assembled baseline's degrees and refinements
+BENCH_SIZES = dict(resident=(4, 6), resident2d=(4, 10), varcoef=(4, 6, 5),
+                   curved=(4, 5), adaptive=(4, 4, 2),
+                   spmv_degrees=(1, 2, 3, 4), spmv_refine=4,
+                   bmspmv_degrees=(1, 2, 3, 4), bmspmv_refine=3)
+
+
+@contextlib.contextmanager
+def bench_config_spy(bmop):
+    """Inside, ``bmop.bench_config``'s operators are kept as it builds
+    them: ``spy["op"]`` its last ``LaplaceOperator``, ``spy["ell"]`` its
+    last ``EllMatrix`` and ``spy["csr"]`` each assembled matrix's (rows,
+    nonzeros, row width), so that phase 12 holds the largest pair to each
+    other without assembling it a second time."""
+    spy = {"csr": []}
+    cls = bmop.EllMatrix
+    laplace, from_csr = bmop.LaplaceOperator, cls.__dict__["from_csr"]
+
+    def keep_op(mf):
+        spy["op"] = laplace(mf)
+        return spy["op"]
+
+    def keep_ell(A, *args, **kw):
+        spy["ell"] = from_csr.__get__(None, cls)(A, *args, **kw)
+        spy["csr"].append((A.shape[0], int(A.nnz),
+                           spy["ell"].indices.shape[1]))
+        return spy["ell"]
+
+    bmop.LaplaceOperator = keep_op
+    cls.from_csr = keep_ell
+    try:
+        yield spy
+    finally:
+        bmop.LaplaceOperator = laplace
+        cls.from_csr = from_csr
+
+
+def bench_phase(dev, box_res=None, sizes=None, reps=N_CHAIN) -> dict:
+    """Phase 12: the port's bench apps through their entry points at the
+    JAX bench's flagship sizes (``BENCH_SIZES``; f32, ``reps`` the JAX
+    bench's chain, bench.py:70): ``bench_resident`` through K1 (f32,
+    bf16s) and K3 (bf16s), ``bench_varcoef`` through K4 (f32, bf16s; the
+    structured attribution tier at its own refinement), ``bench_curved``
+    (the separable tier and K4 in f32, bf16, bf16s), the adaptive flagship
+    (``build_adaptive_op`` once, ``bench_adaptive`` with the incidence
+    tier, ``bench_adaptive_solve`` with the bf16 cycle, each true residual
+    printed beside phase 10's ``box_res``), then ``bmop.main --spmv`` (the
+    structured tier beside the ELL SpMV; the largest pair held to each
+    other on a seeded vector within ``SPMV_MF_TOL``, each side beside its
+    bound) and ``bmspmv.main`` (its CSR cross-check within ``CSR_TOL``).
+    Raises on a kernel tier missing or in ``tier_errors``, a rate that is
+    not finite and positive, a box solve that did not converge, a GMG-CG
+    no faster in iterations than the Jacobi-CG, or a bf16 tier off
+    ``BOX_BF16_TOL``.  Returns the phase's K1, K3 and K4 launches: timing
+    repetitions of bmop, apart from the kernels line's main-path counts."""
+    import io
+
+    from tpufem_torch.apps import bmop, bmspmv
+    from tpufem_torch.ops.kernel_separable import ResidentSeparable
+    from tpufem_torch.ops.kernel_terms import ResidentTerms, ResidentTerms2D
+    from tpufem_torch.utils.timer import roofline_ms, synchronize
+
+    sz = dict(BENCH_SIZES, **(sizes or {}))
+    ph = "12 bench"
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    dev_args = [] if on_card else ["--device", str(dev)]
+    counted = {"K1": ResidentSeparable, "K3": ResidentTerms2D,
+               "K4": ResidentTerms}
+    for cls in counted.values():
+        cls.launches = 0
+    parts = {}
+
+    def lap(name, t0):
+        parts[name] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    def show(rec):
+        say(ph, json.dumps(rec))
+        rates = [v for k, v in rec.items()
+                 if k.endswith(("_per_s", "_s", "s_per_apply"))
+                 or "speedup" in k]
+        # bench_adaptive rounds its tiers' rates to 4 decimals (the
+        # reference's record), so a tiny CPU run reads 0 there
+        tiers = rec.get("tiers_gdofs", {}).values()
+        if not (rates and all(math.isfinite(v) and v > 0 for v in rates)
+                and all(math.isfinite(v) and v >= 0 for v in tiers)):
+            raise RuntimeError(f"{rec['bench']}: a rate or time is not "
+                               f"finite and positive")
+        return rec
+
+    def kernel_tiers(rec, modes):
+        want = {f"resident-terms-{m}+pallas" for m in modes}
+        missing = sorted(want - set(rec["tiers_gdofs"]))
+        if missing or "tier_errors" in rec:
+            raise RuntimeError(f"{rec['bench']}: kernel tiers missing "
+                               f"{missing}, tier_errors "
+                               f"{rec.get('tier_errors')}")
+
+    # ---- K1 and K3: the resident kernels on their own layout
+    t0 = time.perf_counter()
+    p, r = sz["resident"]
+    for mode in ("f32", "bf16s"):
+        show(bmop.bench_resident(p, r, "float32", reps, mode=mode,
+                                 device=dev))
+    p, r = sz["resident2d"]
+    show(bmop.bench_resident(p, r, "float32", reps, mode="bf16s", dim=2,
+                             device=dev))
+    t0 = lap("resident", t0)
+    # ---- K4: the separable coefficient and the shell
+    p, r, ar = sz["varcoef"]
+    kernel_tiers(show(bmop.bench_varcoef(3, p, r, "float32", reps,
+                                         modes=("f32", "bf16s"),
+                                         attr_refine=ar, device=dev)),
+                 ("f32", "bf16s"))
+    t0 = lap("varcoef", t0)
+    p, r = sz["curved"]
+    kernel_tiers(show(bmop.bench_curved(3, p, r, "float32", reps,
+                                        device=dev)),
+                 ("f32", "bf16", "bf16s"))
+    t0 = lap("curved", t0)
+    # ---- the adaptive box tier and its solves
+    p, r, steps = sz["adaptive"]
+    pre = bmop.build_adaptive_op(3, p, r, steps, "float32", device=dev)
+    t0 = lap("adaptive build", t0)
+    ad = show(bmop.bench_adaptive(3, p, r, steps, "float32", reps,
+                                  compare=True, prebuilt=pre))
+    if not ad["bf16_rel_err"] <= BOX_BF16_TOL:
+        raise RuntimeError(f"bench_adaptive: the bf16 tier is off f32 by "
+                           f"{ad['bf16_rel_err']:.3e}")
+    t0 = lap("adaptive apply", t0)
+    sv = show(bmop.bench_adaptive_solve(
+        3, p, r, steps, "float32", prebuilt=pre, bf16_cycle=True,
+        emit_cb=lambda rec: say(ph, "before the bf16 hierarchy: "
+                                + json.dumps(rec))))
+    del pre
+    for name in ("jacobi", "gmg", "gmg_bf16cycle"):
+        say(ph, f"{name}: {sv[name + '_iterations']} iterations, "
+            f"converged {sv[name + '_converged']}, {sv[name + '_s']:.3f} s, "
+            f"true rel residual {sv[name + '_true_rel_res']:.3e} (f32 box "
+            f"operator, 2-norm of the patch vector); phase 10's "
+            + (f"{box_res[name]:.3e} (f64 box operator, owner-weighted)"
+               if box_res else "not run"))
+        if not sv[name + "_converged"]:
+            raise RuntimeError(f"bench_adaptive_solve: {name} did not "
+                               f"converge")
+    if not sv["gmg_iterations"] < sv["jacobi_iterations"]:
+        raise RuntimeError("bench_adaptive_solve: the GMG-CG took no fewer "
+                           "iterations than the Jacobi-CG")
+    t0 = lap("adaptive solves", t0)
+    # ---- the assembled baseline: the structured tier beside the ELL SpMV
+    argv = ["--dim", "3", "--degrees", *map(str, sz["spmv_degrees"]),
+            "--refine", str(sz["spmv_refine"]), "--spmv", *dev_args]
+    with bench_config_spy(bmop) as spy, \
+            contextlib.redirect_stdout(io.StringIO()) as out:
+        bmop.main(argv)
+    recs = [show(json.loads(line)) for line in out.getvalue().splitlines()]
+    op, A = spy["op"], spy["ell"]
+    v = torch.as_tensor(np.random.default_rng(12).standard_normal(
+        A.indices.shape[0]), dtype=torch.float32, device=dev)
+    y_mf = op.vmult_raw(v).double()
+    synchronize(dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+    y_ell = A.matvec(v).double()
+    n, K = A.indices.shape
+    temps = (f"; the apply's peak above its inputs "
+             f"{(torch.cuda.max_memory_allocated(dev) - base) / 1e9:.3f} GB "
+             f"(two (n, K) f32 temporaries {2 * 4 * n * K / 1e9:.3f} GB; "
+             f"int64 indices would add {8 * n * K / 1e9:.3f} GB)"
+             if on_card else "")
+    rel = float(torch.linalg.norm(y_ell - y_mf) / torch.linalg.norm(y_mf))
+    say(ph, f"ELL SpMV against the structured f32 apply at "
+        f"Q{recs[-1]['degree']} refine {sz['spmv_refine']} ({n} DoFs, row "
+        f"width {K}) on a seeded vector: {rel:.3e} (tol {SPMV_MF_TOL})"
+        f"{temps}")
+    if not rel <= SPMV_MF_TOL:
+        raise RuntimeError("the ELL SpMV disagrees with the structured "
+                           "apply")
+    csr = spy["csr"]
+    del spy, op, A, v, y_mf, y_ell
+    # each side beside its bound: the matrix-free apply reads x and writes
+    # y (f32), the ELL apply reads its int32 indices and f32 values, x,
+    # and writes y, one multiply-add per padded entry; the nonzeros alone
+    # are the least any assembled SpMV reads
+    for rec, (n, nnz, K) in zip(recs, csr):
+        mf_b = roofline_ms(8 * n, {})[0]
+        ell_b = roofline_ms(8 * n * K + 8 * n, {"fp32": 2.0 * n * K})[0]
+        nnz_b = roofline_ms(8 * nnz + 8 * n, {"fp32": 2.0 * nnz})[0]
+        say(ph, f"Q{rec['degree']} refine {rec['refine']}: {n} DoFs, {nnz} "
+            f"nonzeros, row width {K}: {rec['scheme']} "
+            f"{1e3 * rec['s_per_apply']:.4f} ms (bound {mf_b:.4f}, bytes), "
+            f"ELL SpMV {1e3 * rec['spmv_s_per_apply']:.4f} ms (bound "
+            f"{ell_b:.4f} padded, {nnz_b:.4f} on the nonzeros alone); "
+            f"matrix-free {rec['mf_speedup_vs_spmv']:.2f}x the SpMV")
+    t0 = lap("bmop --spmv", t0)
+    argv = ["--dim", "3", "--degrees", *map(str, sz["bmspmv_degrees"]),
+            "--refine", str(sz["bmspmv_refine"]), *dev_args]
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        bmspmv.main(argv)
+    for line in out.getvalue().splitlines():
+        rec = show(json.loads(line))
+        if not rec["csr_cross_check_rel_err"] <= CSR_TOL:
+            raise RuntimeError(f"bmspmv Q{rec['degree']}: CSR cross-check "
+                               f"{rec['csr_cross_check_rel_err']:.3e}")
+    lap("bmspmv", t0)
+    counts = {key: cls.launches for key, cls in counted.items()}
+    say(ph, "launches of phase 12 (timing repetitions of bmop's chains, "
+        "apart from the kernels line's main-path counts): "
+        + ", ".join(f"{k} {n}" for k, n in counts.items()))
+    if on_card and not all(counts.values()):
+        raise RuntimeError(f"a kernel of bmop's tiers did not run: {counts}")
+    say(ph, f"phase {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + ")")
+    return counts
 
 
 def main() -> int:
@@ -2955,7 +3207,7 @@ def main() -> int:
 
     marks.append(("10", time.perf_counter()))
     # ---- 10 the adaptive box tier (no kernel of the kernels line) -------
-    box_phase(dev)
+    box_res = box_phase(dev)
 
     marks.append(("11", time.perf_counter()))
     # ---- 11 the operator families: K4 on their term sets against its
@@ -2966,6 +3218,11 @@ def main() -> int:
     abs_err["K4"] = max(abs_err["K4"], aerr)
     for key, n in operators_phase(dev).items():
         launches[key] += n
+
+    marks.append(("12", time.perf_counter()))
+    # ---- 12 the bench apps (bmop, bmspmv) at the JAX bench's flagship
+    # sizes; their K1/K3/K4 launches are timing repetitions, printed apart
+    bench_phase(dev, box_res)
 
     marks.append(("end", time.perf_counter()))
     say("done", "seconds by phase: " + ", ".join(

@@ -241,3 +241,52 @@ def test_operator_entry_points_default_to_the_card(monkeypatch):
                  lambda: VectorMultigrid(2, 1, 2)):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
+
+
+def test_bench_apps_leave_jax_out():
+    """CPU records of bmop (default tier with the SpMV, the resident and
+    curved kernel tiers, the adaptive box tier) and bmspmv, with the
+    metrics and debug utilities, in a fresh interpreter: no jax or tpufem
+    module loads."""
+    code = (
+        "import sys\n"
+        "from tpufem_torch.apps import bmop, bmspmv\n"
+        "from tpufem_torch.utils import debug, metrics\n"
+        "r = bmspmv.bench_spmv(2, 2, 2, 'float64', 1, device='cpu')\n"
+        "assert r['csr_cross_check_rel_err'] < 1e-12, r\n"
+        "recs = [bmop.bench_config(2, 2, 2, 'float32', 'auto', 1, "
+        "with_spmv=True, device='cpu'),\n"
+        "        bmop.bench_resident(2, 2, 'float32', 2, dim=2, "
+        "device='cpu'),\n"
+        "        bmop.bench_curved(3, 1, 1, 'float32', 2, device='cpu'),\n"
+        "        bmop.bench_adaptive(2, 1, 2, 1, 'float32', 2, "
+        "device='cpu')]\n"
+        "debug.check_finite(r['gdofs_per_s'])\n"
+        "for rec in recs:\n"
+        "    metrics.emit(rec)\n"
+        "print([m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'tpufem')])\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_bench_entry_points_default_to_the_card(monkeypatch):
+    """bmop's and bmspmv's benchmarks take device="cuda" unless told
+    otherwise, and raise without a card before they build anything."""
+    from tpufem_torch.apps import bmop, bmspmv
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: bmop.bench_resident(2, 2, "float32", 2),
+                 lambda: bmop.bench_resident(2, 3, "float32", 2, dim=2),
+                 lambda: bmop.bench_varcoef(3, 2, 2, "float32", 2),
+                 lambda: bmop.bench_curved(3, 2, 1, "float32", 2),
+                 lambda: bmop.bench_config(2, 2, 2, "float32", "auto", 2),
+                 lambda: bmop.build_adaptive_op(3, 2, 2, 1, "float32"),
+                 lambda: bmspmv.bench_spmv(2, 2, 2, "float32", 2),
+                 lambda: bmop.main(["--dim", "2", "--degrees", "1"]),
+                 lambda: bmspmv.main(["--dim", "2", "--degrees", "1"])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 from tpufem.apps.poisson import solve_poisson as j_solve_poisson
+from tpufem_torch.apps import bmop as tbmop
 from tpufem_torch.apps import poisson as tpoisson
 from tpufem_torch.ops.matrix_free import MatrixFree
 
@@ -86,7 +87,9 @@ def test_cli_json(capsys):
 
 @pytest.mark.parametrize("call,match", [
     (lambda: tpoisson.solve_poisson(shards=2, device="cpu"), "distributed"),
-], ids=["shards"])
+    (lambda: tbmop.main(["--cpu", "--adaptive", "1", "--shards", "2x2"]),
+     "distributed"),
+], ids=["shards", "bmop_shards"])
 def test_unported_options_raise(call, match):
     with pytest.raises(NotImplementedError, match=match):
         call()
