@@ -209,6 +209,21 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 every rate finite and positive.  Its K1, K3 and K4
                 launches are printed apart: timing repetitions of bmop,
                 not main-path launches
+ 13 distributed the distributed layer (``distributed_phase``; plain
+                PyTorch on an in-process shard mesh, every shard on the
+                card, no kernel of the kernels line: the wrappers'
+                counters must not move): apps.multichip.dryrun at 8
+                shards in f64 (the nine parity lines: each distributed
+                count equal to the single-device count on the card, x
+                within 1e-9, printed beside MULTICHIP_r05.json's JAX CPU
+                counts); solve_poisson(mesh=adaptive flagship, degree=4,
+                precond="gmg", shards=(2, 2)) in f64 (phase 10's count,
+                x within 1e-9) and f32 (L2 within 1e-6 of f64); two f32
+                distributed GMG-CGs bitwise equal; the box Jacobi-CG at
+                shards (4, 1) in f64 against the single-device one;
+                bmop.bench_distributed 2x2 and 4x1 (f32) beside the
+                single-device box apply; run_heat and run_elasticity with
+                shards=4 (3D Q2, f64) against their single-device runs
 Then the seconds each phase took, one JSON line with each kernel's record
 (time, plain time, bound on an H100 and library time), and as the last line
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
@@ -1339,7 +1354,7 @@ BOX_RES_FACTOR = 10
 
 
 def box_phase(dev, adaptive=ADAPTIVE, adaptive_size=ADAPTIVE_SIZE,
-              l2_max=1e-6, rtol=SOLVE_RTOL) -> dict:
+              l2_max=1e-6, rtol=SOLVE_RTOL, apps_out=None) -> dict:
     """Phase 10: the adaptive box tier (plain PyTorch, no kernel of the
     kernels line) on ``adaptive_mesh(*adaptive)`` of ``adaptive_size``
     (cells, DoFs), Q4: the host setup (box operator, diagonal, GMG
@@ -1353,7 +1368,12 @@ def box_phase(dev, adaptive=ADAPTIVE, adaptive_size=ADAPTIVE_SIZE,
     most ``BOX_RES_FACTOR`` * ``rtol``); then solve_poisson(scatter=
     "boxes", precond="gmg") in f32 and f64 (L2 f32 <= f64 + ``l2_max``).
     Every failure raises.  Returns the three solves' true relative
-    residuals by bmop's variant names (jacobi, gmg, gmg_bf16cycle)."""
+    residuals by bmop's variant names (jacobi, gmg, gmg_bf16cycle).  When
+    ``apps_out`` is given, the two entry-point results go into it by dtype
+    name, and under "box" the mesh, DoFs, constraints, the f32 operator,
+    its diagonal, its GMG hierarchy and the f32 GMG-CG's iterations: phase
+    13 holds its distributed solves to them and builds none of them
+    again."""
     from tpufem_torch.apps.poisson import adaptive_mesh, solve_poisson
     from tpufem_torch.fem.constraints import make_hanging_node_constraints
     from tpufem_torch.fem.dof_handler import DoFHandler
@@ -1494,6 +1514,9 @@ def box_phase(dev, adaptive=ADAPTIVE, adaptive_size=ADAPTIVE_SIZE,
     mg16 = timed("bf16 recast", lambda: mg.recast("bfloat16", solve_op=op))
     run("box GMG-CG bf16 cycle (f32 CG)", lambda: mg16.cg_solve(b, rtol=rtol),
         "gmg_bf16cycle")
+    if apps_out is not None:
+        apps_out["box"] = dict(mesh=mesh, dofs=dofs, ac=ac, op=op, diag=diag,
+                               mg=mg, gmg_iterations=g1.iterations)
     del mg, mg16, op16, op, op64, diag
 
     # ---- the entry point
@@ -1512,6 +1535,8 @@ def box_phase(dev, adaptive=ADAPTIVE, adaptive_size=ADAPTIVE_SIZE,
                            "is off the f64")
     say(ph, f"L2 f32 - f64 = {a.l2_error - c.l2_error:.3e} (<= {l2_max}); "
         f"phase {time.perf_counter() - t_phase:.1f} s")
+    if apps_out is not None:
+        apps_out.update(float32=a, float64=c)
     return true_res
 
 
@@ -2128,6 +2153,276 @@ def bench_phase(dev, box_res=None, sizes=None, reps=N_CHAIN) -> dict:
     say(ph, f"phase {time.perf_counter() - t_phase:.1f} s ("
         + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + ")")
     return counts
+
+
+# ---- phase 13: the distributed layer ----------------------------------
+# the distributed solves' x against the single-device solve's (f64)
+DIST_X_TOL = 1e-9
+# |L2 f32 - L2 f64| of the distributed flagship solve_poisson
+DIST_L2_TOL = 1e-6
+# the side paths' sizes: 3D Q2 refine 4 (heat) and 3 (elasticity is
+# vector-valued, three components a node)
+DIST_SIDE = dict(heat_refine=4, el_refine=3, steps=3)
+
+
+def kernel_launches() -> int:
+    """Every kernel wrapper's launch count, summed (the kernels line's and
+    the labs' counters)."""
+    from tpufem_torch.lab import toolchain_probe
+    from tpufem_torch.lab.resident_lab import V17Kernel
+    from tpufem_torch.lab.separable_lab import LabKernel
+    from tpufem_torch.ops.kernel_separable import (
+        KernelSeparable,
+        ResidentSeparable,
+    )
+    from tpufem_torch.ops.kernel_terms import ResidentTerms, ResidentTerms2D
+
+    return (KernelSeparable.launches + ResidentSeparable.launches
+            + ResidentTerms.launches + ResidentTerms2D.launches
+            + sum(V17Kernel.launches.values())
+            + sum(LabKernel.launches.values())
+            + sum(toolchain_probe.launches.values()))
+
+
+def distributed_phase(dev, box_apps=None, adaptive=ADAPTIVE,
+                      adaptive_size=ADAPTIVE_SIZE, n_shards=8,
+                      parts="abcd", side=None, reps=N_CHAIN,
+                      rtol=SOLVE_RTOL) -> dict:
+    """Phase 13: the distributed layer (``tpufem_torch.parallel``, plain
+    PyTorch, no kernel of the kernels line) on an in-process shard mesh
+    whose shards all sit on ``dev``.  (a) ``apps.multichip.dryrun`` at
+    ``n_shards`` shards, f64: the JAX package's nine parity lines, each
+    distributed count equal to the port's single-device count on the card
+    and x within ``DIST_X_TOL`` (printed beside MULTICHIP_r05.json's JAX
+    CPU count; a difference from the JAX record is printed, not failed).
+    (b) The main path at full width: ``solve_poisson(mesh=adaptive_mesh(
+    *adaptive), degree=4, precond="gmg", shards=(2, 2))`` in f64 (count
+    equal to phase 10's single-device f64 solve, ``box_apps``, x within
+    ``DIST_X_TOL``) and f32 (L2 within ``DIST_L2_TOL`` of the f64 one);
+    two f32 distributed GMG-CGs on phase 10's b and hierarchy
+    (``box_apps["box"]``, built here when phase 10 gave none), equal
+    counts and bitwise-equal x; the box Jacobi-CG at shards (4, 1) in f64
+    against the single-device one (equal counts, x within
+    ``DIST_X_TOL``).  (c)
+    ``bmop.bench_distributed`` at the same mesh, Q4, f32, shards 2x2 and
+    4x1, beside the single-device box apply timed the same way.  (d)
+    ``run_heat(shards=4)`` and ``run_elasticity(shards=4)`` (3D Q2, f64)
+    against their single-device generic tiers: equal counts.  The kernel
+    wrappers' counters must not move.  Returns the phase's numbers."""
+    from tpufem_torch.apps import bmop
+    from tpufem_torch.apps.poisson import adaptive_mesh, solve_poisson
+    from tpufem_torch.fem.constraints import make_hanging_node_constraints
+    from tpufem_torch.fem.dof_handler import DoFHandler
+    from tpufem_torch.ops.boxes import BoxLaplaceOperator
+    from tpufem_torch.parallel.box_multigrid import DistributedBoxMultigrid
+    from tpufem_torch.parallel.boxes import DistributedBoxLaplace
+    from tpufem_torch.solvers.box_multigrid import BoxMultigrid
+
+    ph = "13 distributed"
+    side = dict(DIST_SIDE, **(side or {}))
+    t_phase = time.perf_counter()
+    k_before = kernel_launches()
+    out: dict = {}
+    secs: dict = {}
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    if "a" in parts:
+        from tpufem_torch.apps import multichip
+
+        t0 = time.perf_counter()
+        record = json.loads(
+            (Path(__file__).resolve().parent / "MULTICHIP_r05.json")
+            .read_text())["tail"] if (
+                Path(__file__).resolve().parent
+                / "MULTICHIP_r05.json").exists() else ""
+        jax_counts = multichip.record_counts(record)
+        lines = multichip.dryrun(n_shards, device=dev, dtype="float64",
+                                 log=lambda m: say(ph, m))
+        for ln in lines:
+            j = jax_counts.get(ln["section"])
+            mark = ("" if j is None or j == ln["iterations"] else
+                    " — differs from the JAX record")
+            say(ph, f"(a) {ln['section']}: {ln['iterations']} iterations "
+                f"on the card (single-device {ln['single']}), rel diff "
+                f"{ln['rel']:.2e}; MULTICHIP_r05.json (JAX, CPU, 8 devices)"
+                f" {j}{mark}")
+        out["multichip"] = lines
+        secs["a"] = time.perf_counter() - t0
+
+    if "b" in parts or "c" in parts:
+        t0 = time.perf_counter()
+        built = (box_apps or {}).get("box")
+        if built is None:
+            mesh = adaptive_mesh(*adaptive)
+            dofs = DoFHandler(mesh, 4)
+            ac = make_hanging_node_constraints(dofs)
+            if (mesh.n_cells, dofs.n_dofs) != adaptive_size:
+                raise RuntimeError(f"adaptive mesh: {mesh.n_cells} cells, "
+                                   f"{dofs.n_dofs} DoFs, not "
+                                   f"{adaptive_size}")
+            op = BoxLaplaceOperator(mesh, dofs, constraints=ac,
+                                    dtype="float32", device=dev)
+            diag = op.diagonal()
+            mg = BoxMultigrid(mesh, dofs, constraints=ac, dtype="float32",
+                              fine_op=op, fine_diag=diag, device=dev)
+            built = dict(mesh=mesh, dofs=dofs, ac=ac, op=op, diag=diag,
+                         mg=mg, gmg_iterations=None)
+        mesh, dofs, ac, op, diag, mg = (built[k] for k in (
+            "mesh", "dofs", "ac", "op", "diag", "mg"))
+
+    if "b" in parts:
+        if box_apps is None:
+            box_apps = {"float64": solve_poisson(
+                dim=3, degree=4, mesh=mesh, scatter="boxes", precond="gmg",
+                dtype="float64", device=dev)}
+        ref = box_apps["float64"]
+        app = {dt: solve_poisson(dim=3, degree=4, mesh=mesh, precond="gmg",
+                                 shards=(2, 2), dtype=dt, device=dev)
+               for dt in ("float64", "float32")}
+        d64, d32 = app["float64"], app["float32"]
+        e = rel(d64.solution, ref.solution)
+        say(ph, f"(b) solve_poisson(mesh=adaptive, degree=4, precond='gmg',"
+            f" shards=(2, 2)) f64: iterations {d64.iterations} (single "
+            f"device: {ref.iterations}), x rel diff {e:.2e} (tol "
+            f"{DIST_X_TOL}), L2 {d64.l2_error:.6e}, setup "
+            f"{d64.setup_time:.2f} s, solve {d64.solve_time:.3f} s")
+        if not (d64.converged and d64.iterations == ref.iterations
+                and e <= DIST_X_TOL):
+            raise RuntimeError("distributed f64 box GMG-CG off the "
+                               "single-device solve")
+        dl2 = abs(d32.l2_error - d64.l2_error)
+        say(ph, f"(b) the same in f32: iterations {d32.iterations}, L2 "
+            f"{d32.l2_error:.6e} (f64 {d64.l2_error:.6e}, |diff| "
+            f"{dl2:.2e} <= {DIST_L2_TOL}), setup {d32.setup_time:.2f} s, "
+            f"solve {d32.solve_time:.3f} s")
+        if not (d32.converged and dl2 <= DIST_L2_TOL):
+            raise RuntimeError("distributed f32 box GMG-CG off its L2")
+        out["gmg"] = {"f64": (d64.iterations, e, d64.solve_time),
+                      "f32": (d32.iterations, d32.l2_error,
+                              d32.solve_time)}
+        # two f32 distributed GMG-CGs on phase 10's b: bitwise equal
+        dop = DistributedBoxLaplace(op, shards=(2, 2))
+        dop.diagonal_local(diag)
+        dmg = DistributedBoxMultigrid(dop, mg)
+        b = mg.fine.mnh * op.to_patch(np.random.default_rng(7)
+                                      .standard_normal(dofs.n_dofs))
+        bl = dop.put_vector(b)
+        runs = []
+        for _ in range(2):
+            t, r = seconds(dev, lambda: dmg.cg_solve(bl, rtol=rtol))
+            runs.append((t, r))
+        (t1, r1), (t2, r2) = runs
+        same = (r1.iterations == r2.iterations and all(
+            torch.equal(a, c) for a, c in zip(r1.x.parts, r2.x.parts)))
+        single = built["gmg_iterations"]
+        if single is None:
+            single = mg.cg_solve(b, rtol=rtol).iterations
+        say(ph, f"(b) distributed box GMG-CG f32 on phase 10's b (2x2, "
+            f"rtol {rtol}): iterations {r1.iterations} and "
+            f"{r2.iterations}, {t1:.3f} s and {t2:.3f} s, x bitwise equal "
+            f"{same}; single-device {single}")
+        if not (same and r1.converged):
+            raise RuntimeError("distributed f32 GMG-CG is not bitwise "
+                               "reproducible")
+        out["gmg_f32_pair"] = (r1.iterations, t1, t2)
+        del mg, dmg, dop, bl
+        # the 1-axis cuts over hundreds of iterations: box Jacobi-CG f64
+        op64 = BoxLaplaceOperator(mesh, dofs, constraints=ac,
+                                  dtype="float64", device=dev)
+        diag64 = op64.diagonal()
+        b64 = op64.interior_mask * op64.to_patch(
+            np.random.default_rng(7).standard_normal(dofs.n_dofs))
+        ts, rs = seconds(dev, lambda: op64.cg_solve(b64, diag64, rtol=rtol))
+        dop64 = DistributedBoxLaplace(op64, shards=(4, 1))
+        bl64 = dop64.put_vector(b64)
+        dl64 = dop64.diagonal_local(diag64)
+        td, rd = seconds(dev, lambda: dop64.cg_solve(bl64, dl64, rtol=rtol))
+        own = op64.w_owner.cpu().numpy() > 0
+        xs = rs.x.cpu().numpy()
+        e = rel(dop64.from_local(rd.x)[own], xs[own])
+        say(ph, f"(b) box Jacobi-CG f64 (rtol {rtol}) at shards (4, 1): "
+            f"iterations {rd.iterations} (single device {rs.iterations}), "
+            f"x rel diff {e:.2e} (tol {DIST_X_TOL}); {td:.2f} s against "
+            f"{ts:.2f} s on one shard")
+        if not (rd.converged and rd.iterations == rs.iterations
+                and e <= DIST_X_TOL):
+            raise RuntimeError("distributed box Jacobi-CG off the "
+                               "single-device solve")
+        out["jacobi"] = (rd.iterations, e, td, ts)
+        del op64, dop64, bl64, diag64, b64
+        secs["b"] = time.perf_counter() - t0
+
+    if "c" in parts:
+        t0 = time.perf_counter()
+        n_chain = max(reps, 2)
+        x = op.to_patch(np.ones(dofs.n_dofs))
+        t_single = bmop.chain_seconds(op.vmult, x, n_chain, "box apply")
+        say(ph, f"(c) single-device box f32 apply (chained, {n_chain} "
+            f"applies): {t_single * 1e3:.3f} ms, "
+            f"{dofs.n_dofs / t_single / 1e9:.4f} GDoF/s")
+        out["bench"] = {"single": t_single}
+        n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+        for shards in ((2, 2), (4, 1)):
+            rec = bmop.bench_distributed(3, 4, adaptive[1], adaptive[2],
+                                         "float32", reps, shards,
+                                         prebuilt=(mesh, dofs, ac, op),
+                                         device=dev)
+            # shard s sits on cuda:(s mod the card count)
+            n_cards = len({s % n_dev for s in range(4)})
+            if not (rec["gdofs_per_s"] > 0 and rec["n_devices"] == n_cards):
+                raise RuntimeError("bench_distributed record off")
+            say(ph, f"(c) bench_distributed {rec['shards']}: "
+                f"{rec['s_per_apply'] * 1e3:.3f} ms/apply, "
+                f"{rec['gdofs_per_s']:.4f} GDoF/s on {rec['n_devices']} "
+                f"device(s) ({rec['s_per_apply'] / t_single:.2f}x the "
+                f"single-device apply)" + (
+                    ": the shards share one card, so this is what the "
+                    "decomposition costs, not scaling across cards"
+                    if n_cards == 1 else ": one shard a card"))
+            out["bench"][rec["shards"]] = rec["s_per_apply"]
+        secs["c"] = time.perf_counter() - t0
+
+    if "d" in parts:
+        from tpufem_torch.apps.elasticity import run_elasticity
+        from tpufem_torch.apps.heat import run_heat
+
+        t0 = time.perf_counter()
+        kw = dict(dim=3, degree=2, dtype="float64", device=dev)
+        h1 = run_heat(refine=side["heat_refine"], steps=side["steps"], **kw)
+        h4 = run_heat(refine=side["heat_refine"], steps=side["steps"],
+                      shards=4, **kw)
+        e = rel(h4["u"], h1["u"])
+        say(ph, f"(d) run_heat 3D Q2 refine {side['heat_refine']} f64, "
+            f"{side['steps']} steps: CG iterations {h4['iterations']} at 4 "
+            f"shards, {h1['iterations']} on one; u rel diff {e:.2e}; "
+            f"solve {h4['solve_s']:.2f} s against {h1['solve_s']:.2f} s")
+        if not (h4["iterations"] == h1["iterations"] and e <= DIST_X_TOL):
+            raise RuntimeError("distributed heat off the single-device run")
+        (m1, x1) = run_elasticity(refine=side["el_refine"], **kw)
+        (m4, x4) = run_elasticity(refine=side["el_refine"], shards=4, **kw)
+        e = rel(x4, x1)
+        say(ph, f"(d) run_elasticity 3D Q2 refine {side['el_refine']} f64: "
+            f"CG iterations {m4['iterations']} ({m4['precond']}), "
+            f"{m1['iterations']} on one; u rel diff {e:.2e}; solve "
+            f"{m4['solve_s']:.2f} s against {m1['solve_s']:.2f} s")
+        if not (m4["iterations"] == m1["iterations"] and e <= DIST_X_TOL):
+            raise RuntimeError("distributed elasticity off the "
+                               "single-device run")
+        out["side"] = {"heat": (h4["iterations"], h1["iterations"]),
+                       "elasticity": (m4["iterations"], m1["iterations"])}
+        secs["d"] = time.perf_counter() - t0
+
+    moved = kernel_launches() - k_before
+    say(ph, f"kernel launches in phase 13: {moved} (the distributed layer "
+        f"runs no kernel of the kernels line); seconds by part "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+        + f"; phase {time.perf_counter() - t_phase:.1f} s")
+    if moved:
+        raise RuntimeError("phase 13 launched a kernel of the kernels line")
+    return out
 
 
 def main() -> int:
@@ -3207,7 +3502,8 @@ def main() -> int:
 
     marks.append(("10", time.perf_counter()))
     # ---- 10 the adaptive box tier (no kernel of the kernels line) -------
-    box_res = box_phase(dev)
+    box_apps = {}
+    box_res = box_phase(dev, apps_out=box_apps)
 
     marks.append(("11", time.perf_counter()))
     # ---- 11 the operator families: K4 on their term sets against its
@@ -3223,6 +3519,12 @@ def main() -> int:
     # ---- 12 the bench apps (bmop, bmspmv) at the JAX bench's flagship
     # sizes; their K1/K3/K4 launches are timing repetitions, printed apart
     bench_phase(dev, box_res)
+
+    marks.append(("13", time.perf_counter()))
+    # ---- 13 the distributed layer (no kernel of the kernels line): the
+    # nine parity lines at 8 shards, the flagship box GMG-CG at 2x2 beside
+    # phase 10's single-device solve, bench_distributed, heat/elasticity
+    distributed_phase(dev, box_apps)
 
     marks.append(("end", time.perf_counter()))
     say("done", "seconds by phase: " + ", ".join(

@@ -13,6 +13,7 @@ the test names the TPU limit that stopped the reference there.  The
 adaptive benchmarks are in ``test_torch_bmop_adaptive.py``."""
 
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -209,13 +210,26 @@ def test_bmop_cli(args, capsys):
     assert "ts" in rt
 
 
-def test_bmop_cli_shards_raise_not_ported():
-    r = _cli(["--dim", "3", "--degrees", "2", "--refine", "2", "--adaptive",
-              "1", "--shards", "2x2"])
-    assert r.returncode != 0
-    assert "NotImplementedError" in r.stderr and "distributed" in r.stderr
-    with pytest.raises(NotImplementedError, match="distributed"):
-        bmop.main(["--cpu", "--adaptive", "1", "--shards", "2x2"])
+def test_bmop_cli_shards_raise_not_ported(capsys):
+    """``--shards`` is ported (``bench_distributed`` on an in-process shard
+    mesh): the CLI in a subprocess gives the reference's record (its keys
+    and non-timing values; n_devices 1: every shard on the CPU)."""
+    full = ["--dim", "3", "--degrees", "2", "--refine", "1", "--adaptive",
+            "1", "--shards", "2x2", "--reps", "2"]
+    # one intra-op thread: the sharded apply is many small torch ops
+    r = subprocess.run(
+        [sys.executable, "-m", "tpufem_torch.apps.bmop", "--cpu", *full],
+        capture_output=True, text=True, timeout=120, cwd=REPO,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert r.returncode == 0, r.stderr[-2000:]
+    rt = json.loads(r.stdout.strip().splitlines()[-1])
+    j_bmop.main(["--cpu", *full])
+    rj = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(rt) == set(rj)
+    for key in set(rj) - TIMINGS - {"n_devices"}:
+        assert rt[key] == rj[key], key
+    assert rt["n_devices"] == 1 and rj["n_devices"] == 4
+    assert np.isfinite(rt["gdofs_per_s"]) and rt["gdofs_per_s"] > 0
 
 
 def test_bmop_shards_argument_check_as_tpufem(capsys):

@@ -370,13 +370,19 @@ def test_box_cli_matches_tpufem(capsys, same_start):
 
 
 def test_box_app_refusals():
-    """shards still raises NotImplementedError naming its item, after the
-    reference's scatter check; use_pallas refuses the box tier as it
-    refuses every cell-loop tier."""
+    """shards takes the reference's checks (scatter auto/boxes only; no
+    gmg-bf16 cycle), with the reference's messages; use_pallas refuses
+    the box tier as it refuses every cell-loop tier."""
     with pytest.raises(ValueError, match="scatter auto/boxes"):
         tpoisson.solve_poisson(shards=2, scatter="incidence", device="cpu")
-    with pytest.raises(NotImplementedError, match="distributed"):
-        tpoisson.solve_poisson(shards=2, scatter="boxes", device="cpu")
+    with pytest.raises(ValueError) as et:
+        tpoisson.solve_poisson(dim=2, degree=1, refine=2, shards=2,
+                               scatter="boxes", precond="gmg-bf16",
+                               device="cpu")
+    with pytest.raises(ValueError) as ej:
+        j_solve_poisson(dim=2, degree=1, refine=2, shards=2,
+                        scatter="boxes", precond="gmg-bf16")
+    assert str(et.value) == str(ej.value)
     with pytest.raises(ValueError, match="separable"):
         tpoisson.solve_poisson(dim=2, degree=1, refine=2, scatter="boxes",
                                use_pallas=True, device="cpu")

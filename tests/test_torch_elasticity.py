@@ -221,8 +221,11 @@ def test_elasticity_refusals():
     with pytest.raises(ValueError, match="gmg"):
         tel.run_elasticity(dim=2, degree=1, refine=2, precond="gmg",
                            fast=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="distributed"):
-        tel.run_elasticity(dim=2, degree=1, refine=2, shards=2,
+    # the port refuses the fast tier with shards (the reference builds it
+    # and leaves it unused); shards alone runs (tests/
+    # test_torch_parallel_apps.py)
+    with pytest.raises(ValueError, match="fast"):
+        tel.run_elasticity(dim=2, degree=1, refine=2, shards=2, fast=True,
                            device="cpu")
     with pytest.raises(ValueError, match="fast"):
         tel.run_elasticity(dim=3, degree=1, refine=1, use_pallas=True,

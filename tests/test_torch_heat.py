@@ -2,8 +2,8 @@
 stepping on the generic-functor tier and on the tensor-product tier
 (``resident``: K4 in 3D, K3 in 2D, their plain versions on the CPU)
 against tpufem in f64 (u and L2 to 1e-10), the two tiers against each
-other, the decay accuracy, the bitwise checkpoint resume and the refusal
-of ``shards``."""
+other, the decay accuracy, the bitwise checkpoint resume, and the
+distributed run (``shards``) against tpufem's."""
 
 import numpy as np
 import pytest
@@ -67,8 +67,22 @@ def test_heat_checkpoint_resume_exact(tmp_path, resident):
 
 
 def test_heat_shards_not_ported():
-    with pytest.raises(NotImplementedError, match="distributed"):
-        run_heat(dim=2, degree=1, refine=2, steps=1, shards=2)
+    """``shards`` is ported (the generic tier on the general partitioner,
+    ``tpufem_torch.parallel``): u and L2 equal tpufem's distributed run to
+    1e-10 (the reference returns no counts), each step's CG count equals
+    the port's single-device run; ``resident`` with ``shards`` raises the
+    reference's ValueError."""
+    kw = dict(dim=2, degree=1, refine=2, steps=2)
+    r = run_heat(shards=2, **kw)
+    rj = j_run_heat(shards=2, **kw)
+    assert rel(r["u"], np.asarray(rj["u"])) < 1e-10
+    assert r["l2_error"] == pytest.approx(rj["l2_error"], rel=1e-10)
+    assert r["iterations"] == run_heat(**kw)["iterations"]
+    with pytest.raises(ValueError) as et:
+        run_heat(resident=True, shards=2, **kw)
+    with pytest.raises(ValueError) as ej:
+        j_run_heat(resident=True, shards=2, **kw)
+    assert str(et.value) == str(ej.value)
 
 
 def test_heat_cli(capsys):

@@ -290,3 +290,58 @@ def test_bench_entry_points_default_to_the_card(monkeypatch):
                  lambda: bmspmv.main(["--dim", "2", "--degrees", "1"])):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
+
+
+PARALLEL_MODULES = (
+    "tpufem_torch.parallel.mesh", "tpufem_torch.parallel.partitioner",
+    "tpufem_torch.parallel.distributed", "tpufem_torch.parallel.multigrid",
+    "tpufem_torch.parallel.general", "tpufem_torch.parallel.vector",
+    "tpufem_torch.parallel.boxes", "tpufem_torch.parallel.box_multigrid",
+    "tpufem_torch.apps.multichip", "tpufem_torch.apps.distributed_probe")
+
+
+def test_distributed_layer_leaves_jax_out():
+    """The distributed layer's modules, apps.multichip and
+    apps.distributed_probe, each imported in a fresh interpreter, and a
+    CPU distributed box GMG solve and
+    general-partitioner CG: no jax or tpufem module loads."""
+    code = (
+        "import importlib, sys, torch\n"
+        "torch.set_num_threads(1)  # many small sharded ops\n"
+        f"for m in {PARALLEL_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from tpufem_torch.apps.poisson import solve_poisson\n"
+        "from tpufem_torch.apps.elasticity import run_elasticity\n"
+        "r = solve_poisson(dim=3, degree=1, refine=1, adaptive_steps=1, "
+        "precond='gmg', shards=(2, 2), device='cpu')\n"
+        "assert r.converged, r\n"
+        "m, _ = run_elasticity(dim=2, degree=1, refine=2, shards=2, "
+        "device='cpu')\n"
+        "assert m['converged'], m\n"
+        "print([m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'tpufem')])\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_distributed_entry_points_default_to_the_card(monkeypatch):
+    """The shard mesh and the distributed entry points take
+    device="cuda" unless told otherwise, and raise without a card."""
+    from tpufem_torch.apps import distributed_probe, multichip
+    from tpufem_torch.apps.heat import run_heat
+    from tpufem_torch.apps.poisson import solve_poisson
+    from tpufem_torch.parallel.mesh import ShardMesh
+    from tpufem_torch.parallel.partitioner import Partitioner
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: ShardMesh((2,), ("shard",)),
+                 lambda: Partitioner(2, 4, 1, 2).device_mesh(),
+                 lambda: solve_poisson(dim=2, refine=2, shards=2),
+                 lambda: run_heat(dim=2, refine=2, steps=1, shards=2),
+                 lambda: multichip.dryrun(2),
+                 lambda: distributed_probe.main(["--refine", "1"])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()

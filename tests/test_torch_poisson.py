@@ -8,6 +8,7 @@ import json
 import numpy as np
 import pytest
 
+from tpufem.apps import bmop as j_bmop
 from tpufem.apps.poisson import solve_poisson as j_solve_poisson
 from tpufem_torch.apps import bmop as tbmop
 from tpufem_torch.apps import poisson as tpoisson
@@ -85,14 +86,37 @@ def test_cli_json(capsys):
     assert abs(line["l2_error"] - rj.l2_error) <= 1e-10 * rj.l2_error
 
 
-@pytest.mark.parametrize("call,match", [
-    (lambda: tpoisson.solve_poisson(shards=2, device="cpu"), "distributed"),
-    (lambda: tbmop.main(["--cpu", "--adaptive", "1", "--shards", "2x2"]),
-     "distributed"),
-], ids=["shards", "bmop_shards"])
-def test_unported_options_raise(call, match):
-    with pytest.raises(NotImplementedError, match=match):
-        call()
+BMOP_SHARDS = ["--cpu", "--dim", "3", "--degrees", "2", "--refine", "1",
+               "--adaptive", "1", "--shards", "2x2", "--reps", "2"]
+
+
+@pytest.mark.parametrize("case", ["shards", "bmop_shards"])
+def test_unported_options_raise(case, capsys):
+    """The two options this test held to NotImplementedError are ported
+    (``tpufem_torch.parallel``): each now runs on the CPU and matches
+    tpufem — the distributed box-tier solve (iterations, L2 and solution
+    to 1e-10) and ``bmop --shards`` (its record's keys and non-timing
+    values)."""
+    if case == "shards":
+        rt = tpoisson.solve_poisson(shards=2, device="cpu")
+        rj = j_solve_poisson(shards=2)
+        assert rt.iterations == rj.iterations and rt.converged
+        assert abs(rt.l2_error - rj.l2_error) <= 1e-10 * rj.l2_error
+        xj = np.asarray(rj.solution)
+        assert (np.linalg.norm(rt.solution - xj)
+                <= 1e-10 * np.linalg.norm(xj))
+        return
+    tbmop.main(BMOP_SHARDS)
+    rt = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    j_bmop.main(BMOP_SHARDS)
+    rj = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(rt) == set(rj)
+    # n_devices: the distinct devices the shards sit on (the reference's
+    # shards are devices)
+    for key in set(rj) - {"s_per_apply", "gdofs_per_s", "ts", "n_devices"}:
+        assert rt[key] == rj[key], key
+    assert rt["n_devices"] == 1 and rj["n_devices"] == 4
+    assert rt["gdofs_per_s"] > 0 and rt["shards"] == "2x2"
 
 
 @pytest.mark.parametrize("precond", ["gmg", "gmg-bf16"])

@@ -25,11 +25,15 @@ finite), one warm chain, then two timed chains under CUDA events;
 reference's ``time_fn`` does.  A tier that the reference drops without a
 word when it raises (a kernel tier whose tiling its TPU could not meet)
 is recorded instead, its exception's type and text under the record's
-``tier_errors``, and the benchmark goes on.  ``--shards`` (the reference's
-distributed benchmark) is not ported and raises.
+``tier_errors``, and the benchmark goes on.  ``bench_distributed``
+(``--adaptive N --shards 4`` or ``2x2``) chains the distributed box tier's
+apply over an in-process shard mesh (``tpufem_torch.parallel``); on one
+card its shards share the card, so it measures what the decomposition
+costs, not scaling across cards.
 
 Run:  tpufem-torch-bmop --dim 3 --degrees 1 2 3 4 --refine 4 [--spmv]
       tpufem-torch-bmop --degrees 4 --refine 6 --resident f32
+      tpufem-torch-bmop --degrees 4 --refine 3 --adaptive 2 --shards 2x2
       (python -m tpufem_torch.apps.bmop ...; --cpu or --device cpu runs
       on the CPU)
 """
@@ -52,9 +56,10 @@ from tpufem_torch.operators.laplace import LaplaceOperator
 from tpufem_torch.ops.boxes import BoxLaplaceOperator
 from tpufem_torch.ops.kernel_separable import ResidentSeparable
 from tpufem_torch.ops.kernel_terms import ResidentTerms, ResidentTerms2D
-from tpufem_torch.ops.matrix_free import MatrixFree, not_ported, resolve_device
+from tpufem_torch.ops.matrix_free import MatrixFree, resolve_device
 from tpufem_torch.ops.separable import cartesian_coef_terms, global_1d_matrices
 from tpufem_torch.ops.sparse import EllMatrix
+from tpufem_torch.parallel.mesh import Sharded
 from tpufem_torch.solvers.box_multigrid import BoxMultigrid
 from tpufem_torch.utils.config import FemConfig
 from tpufem_torch.utils.metrics import emit
@@ -62,11 +67,12 @@ from tpufem_torch.utils.precision import torch_dtype
 from tpufem_torch.utils.timer import synchronize, time_fn
 
 
-def chain_seconds(apply, x: torch.Tensor, n_chain: int, what: str) -> float:
+def chain_seconds(apply, x, n_chain: int, what: str) -> float:
     """Seconds per apply of ``n_chain`` chained applies v <- (apply(v) *
     1e-7) in v's dtype, from x (the rescale keeps the chain finite: the
     operator's spectral radius is >> 1): one warm chain, then two timed
-    chains, CUDA events around them on the card.  Raises
+    chains, CUDA events around them on the card (on the first shard's
+    card for a ``Sharded`` x, after waiting for every card).  Raises
     FloatingPointError ("``what`` produced non-finite output") if the
     chain's output is not finite."""
 
@@ -75,15 +81,20 @@ def chain_seconds(apply, x: torch.Tensor, n_chain: int, what: str) -> float:
             v = (apply(v) * 1e-7).to(v.dtype)
         return v
 
+    parts = x.parts if isinstance(x, Sharded) else [x]
+    devices = list(dict.fromkeys(a.device for a in parts))
     chain(x)
-    if x.device.type == "cuda":
-        synchronize(x.device)
+    if devices[0].type == "cuda":
+        for d in devices:
+            synchronize(d)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        start.record()
+        start.record(torch.cuda.current_stream(devices[0]))
         for _ in range(2):
             y = chain(x)
-        end.record()
+        for d in devices[1:]:
+            synchronize(d)
+        end.record(torch.cuda.current_stream(devices[0]))
         end.synchronize()
         dt = start.elapsed_time(end) / 1e3
     else:
@@ -91,7 +102,8 @@ def chain_seconds(apply, x: torch.Tensor, n_chain: int, what: str) -> float:
         for _ in range(2):
             y = chain(x)
         dt = time.perf_counter() - t0
-    if not np.isfinite(float(y.abs().float().sum())):
+    ys = y.parts if isinstance(y, Sharded) else [y]
+    if not np.isfinite(sum(float(a.abs().float().sum()) for a in ys)):
         raise FloatingPointError(f"{what} produced non-finite output")
     return dt / (2 * n_chain)
 
@@ -177,6 +189,36 @@ def bench_adaptive(dim, p, refine, steps, dtype, reps, compare=False,
         rec["incidence_s_per_apply"] = dt_i
         rec["box_speedup_vs_incidence"] = dt_i / dt
     return rec
+
+
+def bench_distributed(dim, p, refine, steps, dtype, reps, shards,
+                      prebuilt=None, device: torch.device | str = "cuda"):
+    """Distributed box-tier apply benchmark: the chained rate of the
+    sharded apply (each shard's partial apply and the cut-plane
+    exchanges) over a shard mesh (the multi-GPU bmop run of the
+    reference, SURVEY.md §3.6).  Reports the aggregate GDoF/s across all
+    shards; ``n_devices`` counts the distinct devices the shards sit on.
+    ``prebuilt``: (mesh, dofs, constraints, op) from
+    ``build_adaptive_op``."""
+    from tpufem_torch.parallel.boxes import DistributedBoxLaplace
+
+    if prebuilt is None:
+        prebuilt = build_adaptive_op(dim, p, refine, steps, dtype, device)
+    mesh, dofs, ac, gop = prebuilt
+    dop = DistributedBoxLaplace(gop, shards=shards)
+    x = dop.put_vector(gop.to_patch(np.ones(dofs.n_dofs)))
+    n_chain = max(reps, 2)
+    dt = chain_seconds(dop.vmult, x, n_chain, "distributed apply")
+    return {
+        "bench": "bmop-distributed",
+        "dim": dim, "degree": p, "refine": refine, "adaptive_steps": steps,
+        "n_dofs": dofs.n_dofs, "n_cells": mesh.n_cells,
+        "n_hanging": len(ac.lines),
+        "shards": f"{dop.sz}x{dop.sy}", "n_devices": dop.mesh.n_devices,
+        "scheme": "boxes-distributed", "dtype": dtype,
+        "s_per_apply": dt,
+        "gdofs_per_s": dofs.n_dofs / dt / 1e9,
+    }
 
 
 def bench_adaptive_solve(dim, p, refine, steps, dtype, rtol=1e-5,
@@ -512,7 +554,9 @@ def main(argv=None):
                          "layout in/out, 2D/3D via --dim) in this mode")
     ap.add_argument("--shards", default=None,
                     help="with --adaptive: distributed box-tier apply "
-                         "(not ported)")
+                         "over an in-process shard mesh, '4' (z slabs) or "
+                         "'2x4' (z x y); the shards share the device's "
+                         "cards round-robin")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cuda' raises when CUDA is absent")
     ap.add_argument("--cpu", action="store_true",
@@ -523,8 +567,6 @@ def main(argv=None):
         ap.error("--shards runs the distributed adaptive box tier: it "
                  "requires --adaptive and excludes "
                  "--resident/--curved/--spmv")
-    if args.shards:
-        raise not_ported("--shards", "distributed")
     device = "cpu" if args.cpu else args.device
     for p in args.degrees:
         if args.resident:
@@ -534,6 +576,11 @@ def main(argv=None):
         elif args.curved:
             rec = bench_curved(args.dim, p, args.refine, args.dtype,
                                args.reps, device=device)
+        elif args.adaptive and args.shards:
+            rec = bench_distributed(
+                args.dim, p, args.refine, args.adaptive, args.dtype,
+                args.reps, args.shards, device=device,
+            )
         elif args.adaptive:
             rec = bench_adaptive(
                 args.dim, p, args.refine, args.adaptive, args.dtype,

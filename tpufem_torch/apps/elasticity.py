@@ -13,8 +13,10 @@ blocks run K4 in 3D on a CUDA device (``use_pallas``; the CLI asks for it
 with ``--fast`` on the card in 3D).  Preconditioners: jacobi | chebyshev | gmg
 (the vector V-cycle, ``solvers.vector_multigrid``).  ``--fast`` with
 ``gmg`` raises (the V-cycle's levels are the generic operator; the
-reference ignores ``--fast`` there without a word), and ``--shards`` is
-not ported yet.
+reference ignores ``--fast`` there without a word).  ``--shards N``
+distributes the generic vector operator over an in-process shard mesh
+(``parallel.vector``); ``--fast`` with ``--shards`` raises likewise (the
+reference builds the fast tier and leaves it unused).
 
 Run:  python -m tpufem_torch.apps.elasticity --dim 3 --degree 4 \\
           --refine 4 --fast --dtype float32 --rtol 1e-6
@@ -27,6 +29,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -36,7 +39,7 @@ from tpufem_torch.fem.dof_handler import DoFHandler
 from tpufem_torch.fem.mesh import Mesh
 from tpufem_torch.operators.tensor_product import SeparableElasticityOperator
 from tpufem_torch.operators.vector import elasticity_operator
-from tpufem_torch.ops.matrix_free import MatrixFree, not_ported, resolve_device
+from tpufem_torch.ops.matrix_free import MatrixFree, resolve_device
 from tpufem_torch.solvers.cg import cg_solve, make_jacobi
 from tpufem_torch.solvers.chebyshev import (
     chebyshev_smooth,
@@ -84,11 +87,18 @@ def run_elasticity(dim=2, degree=2, refine=4, precond="jacobi", mu=1.0,
                    fast=False, use_pallas=False,
                    device: torch.device | str = "cuda"):
     """Returns (metrics dict, x (C, n_dofs) numpy).  ``use_pallas`` with
-    ``fast``: the blocks through K4 (3D; 2D raises)."""
+    ``fast``: the blocks through K4 (3D; 2D raises).  ``shards``: the
+    generic vector tier distributed over that many shards
+    (``parallel.vector``), Jacobi- or Chebyshev-preconditioned (with
+    "gmg" Jacobi, as in the JAX package); ``fast`` with shards raises
+    ``ValueError``, where the JAX package builds the fast tier and leaves
+    it unused."""
     dt = torch_dtype(dtype)
     device = resolve_device(device)
-    if shards:
-        raise not_ported("--shards", "distributed")
+    if fast and shards:
+        raise ValueError("--fast is the single-device separable block "
+                         "tier; --shards distributes the generic vector "
+                         "operator: use one or the other")
     if fast and precond == "gmg":
         raise ValueError("--fast is the separable block tier; the vector "
                          "V-cycle (--precond gmg) runs on the generic "
@@ -144,11 +154,28 @@ def run_elasticity(dim=2, degree=2, refine=4, precond="jacobi", mu=1.0,
     setup = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    res = cg_solve(op.vmult, bj, M_inv=M_inv, rtol=rtol, maxiter=10000,
-                   dot=fdot)
-    x = res.x.cpu().numpy()
+    if shards:
+        from tpufem_torch.parallel.general import GeneralPartitioner
+        from tpufem_torch.parallel.vector import (
+            distributed_elasticity_operator,
+        )
+
+        part = GeneralPartitioner.build(mf, shards)
+        dop = distributed_elasticity_operator(part, mu=mu, lam=lam)
+        pr = "chebyshev" if precond == "chebyshev" else "jacobi"
+        x, iterations, residual = dop.cg_solve(
+            b, diag.cpu().to(torch.float64).numpy(), rtol=rtol,
+            maxiter=10000, precond=pr)
+        res = SimpleNamespace(
+            iterations=iterations, residual=residual,
+            converged=residual <= rtol * float(np.linalg.norm(b)))
+        tier = f"distributed-{pr} ({shards} shards)"
+    else:
+        res = cg_solve(op.vmult, bj, M_inv=M_inv, rtol=rtol, maxiter=10000,
+                       dot=fdot)
+        x = res.x.cpu().numpy()
+        tier = precond + (" (separable fast tier)" if fast else "")
     solve = time.perf_counter() - t0
-    tier = precond + (" (separable fast tier)" if fast else "")
 
     err2 = sum(integrate_difference(dofs, x[c].astype(np.float64),
                                     u_exact) ** 2 for c in range(dim))
@@ -179,7 +206,9 @@ def main(argv=None):
     ap.add_argument("--dtype", default="float64",
                     choices=["float64", "float32"])
     ap.add_argument("--shards", type=int, default=0,
-                    help="distributed solve (not ported)")
+                    help="distributed solve over an in-process shard mesh "
+                         "(the generic vector tier on the general "
+                         "partitioner)")
     ap.add_argument("--fast", action="store_true",
                     help="separable block tier (uniform grids; K4 for each "
                          "block in 3D on a CUDA device)")

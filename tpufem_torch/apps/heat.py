@@ -13,7 +13,11 @@ Two tiers:
   apply and Helmholtz Jacobi-CG (``solvers.resident.resident_jacobi_cg``)
   run on K4 in 3D (K3 in 2D), the hand-written CUDA kernel of the terms
   plan.  Its MatrixFree is the separable scheme's (no cell tables, no
-  kernel of its own); the operators attach the kernels.
+  kernel of its own); the operators attach the kernels;
+- ``--shards N``, the generic tier distributed over an in-process shard
+  mesh (``parallel.general``: the mass and Helmholtz functors on the
+  general partitioner, unpreconditioned CG); the state stays sharded
+  across steps, and checkpoints are written in global numbering.
 
 Run:  tpufem-torch-heat --dim 3 --degree 4 --refine 6 --dt 1e-4 \\
           --steps 5 --dtype float32 --resident
@@ -40,7 +44,7 @@ from tpufem_torch.operators.tensor_product import (
     helmholtz_tensor_operator,
     mass_tensor_operator,
 )
-from tpufem_torch.ops.matrix_free import MatrixFree, not_ported, resolve_device
+from tpufem_torch.ops.matrix_free import MatrixFree, resolve_device
 from tpufem_torch.solvers.cg import cg_solve
 from tpufem_torch.solvers.resident import resident_jacobi_cg
 from tpufem_torch.utils.config import FemConfig
@@ -55,8 +59,9 @@ def run_heat(dim=2, degree=2, refine=4, dt=1e-3, steps=20, dtype="float64",
              device: torch.device | str = "cuda"):
     """``resident``: the tensor-product tier, every step's mass apply and
     Helmholtz Jacobi-CG through K4 (3D) or K3 (2D) on a CUDA device, their
-    plain versions on the CPU.  ``shards`` (the distributed run) is not
-    ported yet and raises.
+    plain versions on the CPU.  ``shards``: the generic tier distributed
+    over that many shards (``parallel.general``); it excludes
+    ``resident``, as in the JAX package.
 
     Returns a dict: n_dofs, steps, t_end, l2_error, u (numpy), and the
     run's setup_s, solve_s and the CG iterations of each step."""
@@ -67,8 +72,6 @@ def run_heat(dim=2, degree=2, refine=4, dt=1e-3, steps=20, dtype="float64",
     if resident and shards:
         raise ValueError("--resident is a single-device fast path; "
                          "combine with --shards is not supported")
-    if shards:
-        raise not_ported("--shards", "distributed")
     t0 = time.perf_counter()
     mesh = Mesh.hyper_cube(dim, refine)
     dofs = DoFHandler(mesh, degree)
@@ -118,22 +121,29 @@ def run_heat(dim=2, degree=2, refine=4, dt=1e-3, steps=20, dtype="float64",
 
     t0 = time.perf_counter()
     iterations = []
-    for n in range(start, steps):
-        if resident:
-            # u is masked, so the constrained mass apply equals mask * M u
-            rhs = M.vmult(u)
-            res = resident_jacobi_cg(A, rhs, diag=diag, rtol=rtol, x0=u)
-        else:
-            rhs = mask * M.vmult_raw(u)
-            res = cg_solve(A.vmult, rhs, x0=u, rtol=rtol)
-        if not res.converged:
-            print(f"WARNING: step {n}: CG did not converge (residual "
-                  f"{res.residual:.3e})", file=sys.stderr)
-        iterations.append(res.iterations)
-        u = mask * res.x
-        if checkpoint and checkpoint_every and (n + 1) % checkpoint_every == 0:
-            save_checkpoint(checkpoint, u=u.cpu().numpy(),
-                            step=np.int64(n + 1), **meta)
+    if shards:
+        u = _step_distributed(mf, dt, u, start, steps, int(shards), rtol,
+                              iterations, checkpoint, checkpoint_every,
+                              meta)
+    else:
+        for n in range(start, steps):
+            if resident:
+                # u is masked, so the constrained mass apply equals
+                # mask * M u
+                rhs = M.vmult(u)
+                res = resident_jacobi_cg(A, rhs, diag=diag, rtol=rtol, x0=u)
+            else:
+                rhs = mask * M.vmult_raw(u)
+                res = cg_solve(A.vmult, rhs, x0=u, rtol=rtol)
+            if not res.converged:
+                print(f"WARNING: step {n}: CG did not converge (residual "
+                      f"{res.residual:.3e})", file=sys.stderr)
+            iterations.append(res.iterations)
+            u = mask * res.x
+            if (checkpoint and checkpoint_every
+                    and (n + 1) % checkpoint_every == 0):
+                save_checkpoint(checkpoint, u=u.cpu().numpy(),
+                                step=np.int64(n + 1), **meta)
     synchronize(device)
     solve = time.perf_counter() - t0
     t_end = steps * dt
@@ -143,6 +153,43 @@ def run_heat(dim=2, degree=2, refine=4, dt=1e-3, steps=20, dtype="float64",
     return {"n_dofs": dofs.n_dofs, "steps": steps, "t_end": t_end,
             "l2_error": err, "u": u_host, "setup_s": setup,
             "solve_s": solve, "iterations": iterations}
+
+
+def _step_distributed(mf, dt, u, start, steps, shards, rtol, iterations,
+                      checkpoint, checkpoint_every, meta) -> torch.Tensor:
+    """Steps ``start..steps`` on the general partitioner over ``shards``
+    shards: each step's RHS the distributed mass apply, its solve the
+    distributed unpreconditioned CG from the previous state; the state
+    stays sharded, checkpoints go out in global numbering.  Appends each
+    step's iterations; returns the final u (global, on mf's device)."""
+    from tpufem_torch.parallel.general import (
+        GeneralDistributedOperator,
+        GeneralPartitioner,
+    )
+
+    part = GeneralPartitioner.build(mf, shards)
+    A_d = GeneralDistributedOperator(
+        part, quad_op=lambda vals, grads, ctx: (vals, dt * grads))
+    M_d = GeneralDistributedOperator(
+        part, quad_op=lambda vals, grads, ctx: (vals, None),
+        needs_gradients=False, device_mesh=A_d.mesh)
+    d_l = A_d.put_vector(np.ones(mf.n_dofs))  # unpreconditioned
+    u_l = A_d.put_vector(u.cpu().to(torch.float64).numpy())
+    for n in range(start, steps):
+        # u is masked, so the constrained apply's identity part is 0 and
+        # this equals mask * M.vmult_raw(u)
+        rhs_l = M_d.vmult(u_l)
+        res = A_d.cg_solve_local(rhs_l, d_l, x0_local=u_l, rtol=rtol)
+        if not res.converged:
+            print(f"WARNING: step {n}: distributed CG did not converge "
+                  f"(residual {res.residual:.3e})", file=sys.stderr)
+        iterations.append(res.iterations)
+        u_l = res.x
+        if checkpoint and checkpoint_every and (n + 1) % checkpoint_every == 0:
+            save_checkpoint(checkpoint, u=part.to_global(u_l),
+                            step=np.int64(n + 1), **meta)
+    return torch.as_tensor(part.to_global(u_l), dtype=u.dtype,
+                           device=u.device)
 
 
 def main(argv=None):
@@ -158,7 +205,9 @@ def main(argv=None):
     ap.add_argument("--checkpoint-every", type=int, default=0)
     ap.add_argument("--resume", default=None)
     ap.add_argument("--shards", type=int, default=None,
-                    help="distributed stepping (not ported)")
+                    help="distributed stepping over an in-process shard "
+                         "mesh (the generic tier on the general "
+                         "partitioner)")
     ap.add_argument("--resident", action="store_true",
                     help="tensor-product tier: every step's mass apply and "
                          "Helmholtz CG through the terms kernel (K4 in 3D, "

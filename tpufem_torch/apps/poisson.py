@@ -13,13 +13,17 @@ a hand-written CUDA kernel: K2 on the cube, K4 (3D) or K3 (2D) on the
 shell.  The other tiers run no kernel and refuse ``--pallas``.
 ``--scatter boxes`` runs the CG on the adaptive box tier's patchwork
 vector, where ``--precond gmg`` (or ``gmg-bf16``) preconditions it with
-the adaptive geometric multigrid V-cycle.
+the adaptive geometric multigrid V-cycle.  ``--shards N`` or ``SZxSY``
+runs that box-tier solve distributed over an in-process shard mesh
+(``tpufem_torch.parallel``; ``--precond jacobi|chebyshev|gmg``).
 
 Run:  tpufem-torch-poisson --dim 3 --degree 4 --refine 5 --dtype float32 \
           [--mesh shell] [--pallas]
       tpufem-torch-poisson --dim 2 --degree 2 --refine 2 --amr 4
       tpufem-torch-poisson --dim 3 --degree 2 --refine 2 \
           --adaptive-steps 2 --scatter boxes --precond gmg
+      tpufem-torch-poisson --dim 3 --degree 2 --refine 2 \
+          --adaptive-steps 2 --precond gmg --shards 2x2
       (python -m tpufem_torch.apps.poisson ...; --device cpu runs on the
       CPU)
 """
@@ -44,7 +48,7 @@ from tpufem_torch.fem.dof_handler import DoFHandler
 from tpufem_torch.fem.estimator import kelly_estimate, mark_fixed_fraction
 from tpufem_torch.fem.mesh import Mesh
 from tpufem_torch.operators.laplace import LaplaceOperator
-from tpufem_torch.ops.matrix_free import MatrixFree, not_ported, resolve_device
+from tpufem_torch.ops.matrix_free import MatrixFree, resolve_device
 from tpufem_torch.solvers.cg import cg_solve
 from tpufem_torch.solvers.chebyshev import (
     chebyshev_smooth,
@@ -195,10 +199,12 @@ def solve_poisson(
     "chebyshev" (a Chebyshev polynomial of the Jacobi-scaled operator);
     "gmg" (the adaptive global-coarsening V-cycle) and "gmg-bf16" (the
     same V-cycle in bf16 under the CG's dtype) belong to the box tier.
+    ``shards`` (an int, or ``(sz, sy)`` in 3D) runs the box-tier solve
+    distributed over a shard mesh (``parallel.boxes``, and with
+    "gmg" ``parallel.box_multigrid``); it takes ``scatter`` "auto" or
+    "boxes" and refuses "gmg-bf16", as the JAX package does.
 
-    Arguments keep the JAX package's names, resolved in its order;
-    ``shards`` is not ported yet and raises NotImplementedError naming
-    its ROADMAP.md item.
+    Arguments keep the JAX package's names, resolved in its order.
     """
     device = resolve_device(device)
     if h1 and exact is not None:
@@ -208,7 +214,7 @@ def solve_poisson(
         raise ValueError("--shards runs the distributed box tier; use "
                          "scatter auto/boxes")
     if shards is not None:
-        raise not_ported("--shards", "distributed")
+        scatter = "boxes"
     if rtol is None:
         # f32 CG cannot reach f64-grade residuals; pick a reachable default
         rtol = 1e-10 if dtype == "float64" else 1e-6
@@ -223,7 +229,7 @@ def solve_poisson(
                              "separable scheme, not scatter='boxes'")
         return _solve_poisson_boxes(mesh, degree, coefficient, dtype, rtol,
                                     exact, rhs, warm, precond, h1, device,
-                                    timer)
+                                    timer, shards=shards)
     if precond in ("gmg", "gmg-bf16"):
         raise ValueError(
             "--precond gmg pairs with the box tier (--scatter boxes / "
@@ -287,13 +293,16 @@ def _manufactured_rhs(dofs, exact, rhs):
 
 
 def _solve_poisson_boxes(mesh, degree, coefficient, dtype, rtol, exact,
-                         rhs, warm, precond, h1, device, timer):
+                         rhs, warm, precond, h1, device, timer, shards=None):
     """Poisson solve on the box tier: the whole CG runs on the patchwork
     vector (``ops.boxes``), with the Dirichlet setup in patch space.
     ``precond`` "gmg" preconditions it with the adaptive V-cycle
     (``solvers.box_multigrid``) on the solve's operator and diagonal;
     "gmg-bf16" builds that hierarchy in bf16 under the solve's operator
-    (its finest defects in the solve's dtype)."""
+    (its finest defects in the solve's dtype).  With ``shards`` (sz or
+    (sz, sy)) the solve runs distributed over a shard mesh
+    (``parallel.boxes``, ``parallel.box_multigrid``), the multi-GPU
+    poisson of the reference (SURVEY.md §3.6)."""
     from tpufem_torch.ops.boxes import BoxLaplaceOperator
     from tpufem_torch.solvers.box_multigrid import BoxMultigrid
 
@@ -311,7 +320,16 @@ def _solve_poisson_boxes(mesh, degree, coefficient, dtype, rtol, exact,
         b1 = op.distribute_transpose(op.to_patch(b) - op.vmult_raw(x0))
         b_con = m * b1 + (1.0 - m) * x0
         diag = op.diagonal()
-        mg = None
+        mg = dop = None
+        if shards is not None:
+            from tpufem_torch.parallel.boxes import DistributedBoxLaplace
+
+            dop = DistributedBoxLaplace(op, shards=shards)
+            bl, x0l = dop.put_vector(b_con), dop.put_vector(x0)
+            dl = dop.diagonal_local(diag)
+            if precond == "gmg-bf16":
+                raise ValueError("--precond gmg-bf16 is single-device; "
+                                 "use --precond gmg with --shards")
         if precond == "gmg-bf16":
             mg = BoxMultigrid(mesh, dofs, constraints=constraints,
                               coefficient=coefficient, dtype="bfloat16",
@@ -320,7 +338,23 @@ def _solve_poisson_boxes(mesh, degree, coefficient, dtype, rtol, exact,
             mg = BoxMultigrid(mesh, dofs, constraints=constraints,
                               coefficient=coefficient, dtype=dtype,
                               fine_op=op, fine_diag=diag, device=device)
-    if mg is not None:
+        if dop is not None and mg is not None:
+            # distributed adaptive GMG: fine level sharded, coarser
+            # levels replicated (parallel/box_multigrid.py)
+            from tpufem_torch.parallel.box_multigrid import (
+                DistributedBoxMultigrid,
+            )
+
+            dmg = DistributedBoxMultigrid(dop, mg)
+    if dop is not None:
+        def solve():
+            res = (dmg.cg_solve(bl, x0=x0l, rtol=rtol) if mg is not None
+                   else dop.cg_solve(bl, dl, x0=x0l, rtol=rtol,
+                                     precond=precond))
+            # the solution in patch space, from each shard's owned planes
+            return res._replace(x=torch.as_tensor(
+                dop.from_local(res.x), dtype=op.dt, device=op.device))
+    elif mg is not None:
         solve = lambda: mg.cg_solve(b_con, x0=x0, rtol=rtol)
     else:
         solve = lambda: op.cg_solve(b_con, diag, x0=x0, rtol=rtol,
@@ -393,7 +427,10 @@ def main(argv=None):
     ap.add_argument("--amr-fraction", type=float, default=0.3,
                     help="fraction of cells refined per AMR cycle")
     ap.add_argument("--shards", default=None,
-                    help="distributed solve (not ported)")
+                    help="distributed solve over an in-process shard "
+                         "mesh: '4' (z slabs) or '2x4' (z x y, 3D) — the "
+                         "multi-GPU poisson analogue; the shards share "
+                         "the device's cards round-robin")
     ap.add_argument("--precond", default="jacobi",
                     choices=["jacobi", "chebyshev", "gmg", "gmg-bf16"],
                     help="CG preconditioner (gmg = the adaptive global-"
@@ -417,12 +454,17 @@ def main(argv=None):
                     help="run the solve twice and time the second")
     args = ap.parse_args(argv)
     device = "cpu" if args.cpu else args.device
+    shards = None
+    if args.shards:
+        from tpufem_torch.parallel.boxes import parse_shards
+
+        shards = parse_shards(args.shards)
     if args.amr:
         rs = solve_poisson_amr(
             dim=args.dim, degree=args.degree, refine=args.refine,
             cycles=args.amr, fraction=args.amr_fraction,
             mesh_kind=args.mesh, scatter=args.scatter, dtype=args.dtype,
-            use_pallas=args.pallas, shards=args.shards,
+            use_pallas=args.pallas, shards=shards,
             precond=args.precond, h1=args.h1, device=device)
         if args.json:
             for c, r in enumerate(rs):
@@ -449,7 +491,7 @@ def main(argv=None):
         dim=args.dim, degree=args.degree, refine=args.refine,
         scatter=args.scatter, dtype=args.dtype,
         adaptive_steps=args.adaptive_steps, use_pallas=args.pallas,
-        warm=args.warm, shards=args.shards, precond=args.precond,
+        warm=args.warm, shards=shards, precond=args.precond,
         h1=args.h1, mesh_kind=args.mesh, device=device,
     )
     if args.vtu:

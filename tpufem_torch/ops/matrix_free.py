@@ -75,10 +75,6 @@ from tpufem_torch.utils.config import FemConfig
 from tpufem_torch.utils.native import build_incidence
 from tpufem_torch.utils.precision import torch_dtype
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue 1: {item})")
-
 
 def resolve_device(device: torch.device | str) -> torch.device:
     """The requested device; a CUDA device that is absent raises (the port

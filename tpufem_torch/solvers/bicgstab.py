@@ -62,9 +62,8 @@ def bicgstab_solve(
     r = b - A(x0)
     rhat = r  # fixed shadow residual
     rnorm = float(torch.sqrt(dot(r, r)))
-    one = torch.ones((), dtype=r.dtype, device=r.device)
     p = v = torch.zeros_like(r)
-    rho = alpha = omega = one
+    rho = alpha = omega = 1.0
     k, rn_best, since_best = 0, rnorm, 0
 
     while (rnorm > tol and k < maxiter and math.isfinite(rnorm)

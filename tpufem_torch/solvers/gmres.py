@@ -85,8 +85,7 @@ def gmres_solve(
         least-squares update.  Returns (x, k, true residual)."""
         r = b - A(x)
         beta = float(norm(r))
-        V = torch.zeros((m + 1,) + tuple(b.shape), dtype=b.dtype,
-                        device=b.device)
+        V = torch.stack([torch.zeros_like(b)] * (m + 1))
         V[0] = r / max(beta, tiny)
         R = [[0.0] * m for _ in range(m)]
         cs, sn = [0.0] * m, [0.0] * m
@@ -135,8 +134,7 @@ def gmres_solve(
             g[j] = c * g[j]
             j += 1
         if j:
-            y = torch.tensor(_back_substitute(R, g, j), dtype=b.dtype,
-                             device=b.device)
+            y = b.new_tensor(_back_substitute(R, g, j))
             x = x + M_inv(torch.tensordot(y, V[:j], dims=1))
         return x, k, float(norm(b - A(x)))
 
