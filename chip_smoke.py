@@ -201,8 +201,8 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 tier_errors; the adaptive flagship's bench_adaptive (box
                 f32 and bf16, bf16 within BOX_BF16_TOL, beside incidence)
                 and bench_adaptive_solve (Jacobi, GMG, bf16 cycle:
-                converged, GMG in fewer iterations; true residuals beside
-                phase 10's); bmop.main --spmv at 3D Q1-Q4 refine 4 (the
+                converged, GMG in fewer iterations; true residuals, printed
+                beside phase 10's once both have run); bmop.main --spmv at 3D Q1-Q4 refine 4 (the
                 Q4 ELL SpMV against the structured f32 apply on a seeded
                 vector within SPMV_MF_TOL, each side beside its bound) and
                 bmspmv.main at refine 3 (CSR cross-check within CSR_TOL);
@@ -224,6 +224,29 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 bmop.bench_distributed 2x2 and 4x1 (f32) beside the
                 single-device box apply; run_heat and run_elasticity with
                 shards=4 (3D Q2, f64) against their single-device runs
+ 14 labs        the solver labs and the chip checks (``labs_phase``):
+                apps.chip_checks (3D Q4 refine 5 f32: K2's Jacobi-CG and
+                GMG-CG twice, equal iterations and bitwise-equal x; K2
+                against the structured tier; GMRES and the quasilinear
+                Newton solve twice; K4 on the Helmholtz terms at npts 65
+                against the f64 oracle), its artifact diffed against the
+                H100 golden (tpufem_torch/goldens/chip_checks_h100.json)
+                by apps.check_chip_goldens; lab.resident_mask_lab at 3D Q4
+                refine 6 f32 (K1, flat and fused mask, equal iterations);
+                lab.cg_blas1_lab at the resident layout (257, 257, 272),
+                40 iterations; lab.adaptive_prec_lab on phase 10's
+                operator (f32, cells-tf32, all-tf32, bf16-patch; none
+                failing) and lab.adaptive_solve_lab's solve stages on the
+                same operator, its diagonal and its GMG hierarchy (the
+                flagship, built by phase 10).  Its K1, K2 and K4 launches
+                join the kernels line
+Phases 8, 12 and 13 run in processes of their own (``chip_smoke.py --phase
+N --result PATH``, two host threads each), started after phase 7 and
+joined after phase 11: their seconds are mostly host setup and none of
+their launches join the kernels line.  Their times share the card and the
+host with phases 9-11 (and theirs with them); phase 14 runs after they
+have ended.  Each child's output is printed when it is joined, and kept in
+chiprun_out/chip_smoke_phase<N>.log.
 Then the seconds each phase took, one JSON line with each kernel's record
 (time, plain time, bound on an H100 and library time), and as the last line
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
@@ -236,7 +259,9 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
+import resource
 import subprocess
 import sys
 import time
@@ -1974,7 +1999,7 @@ def bench_config_spy(bmop):
         cls.from_csr = from_csr
 
 
-def bench_phase(dev, box_res=None, sizes=None, reps=N_CHAIN) -> dict:
+def bench_phase(dev, sizes=None, reps=N_CHAIN) -> dict:
     """Phase 12: the port's bench apps through their entry points at the
     JAX bench's flagship sizes (``BENCH_SIZES``; f32, ``reps`` the JAX
     bench's chain, bench.py:70): ``bench_resident`` through K1 (f32,
@@ -1982,16 +2007,18 @@ def bench_phase(dev, box_res=None, sizes=None, reps=N_CHAIN) -> dict:
     structured attribution tier at its own refinement), ``bench_curved``
     (the separable tier and K4 in f32, bf16, bf16s), the adaptive flagship
     (``build_adaptive_op`` once, ``bench_adaptive`` with the incidence
-    tier, ``bench_adaptive_solve`` with the bf16 cycle, each true residual
-    printed beside phase 10's ``box_res``), then ``bmop.main --spmv`` (the
+    tier, ``bench_adaptive_solve`` with the bf16 cycle), then
+    ``bmop.main --spmv`` (the
     structured tier beside the ELL SpMV; the largest pair held to each
     other on a seeded vector within ``SPMV_MF_TOL``, each side beside its
     bound) and ``bmspmv.main`` (its CSR cross-check within ``CSR_TOL``).
     Raises on a kernel tier missing or in ``tier_errors``, a rate that is
     not finite and positive, a box solve that did not converge, a GMG-CG
     no faster in iterations than the Jacobi-CG, or a bf16 tier off
-    ``BOX_BF16_TOL``.  Returns the phase's K1, K3 and K4 launches: timing
-    repetitions of bmop, apart from the kernels line's main-path counts."""
+    ``BOX_BF16_TOL``.  Returns the phase's K1, K3 and K4 launches (timing
+    repetitions of bmop, apart from the kernels line's main-path counts)
+    under "launches" and each box solve's true residual under
+    "true_rel_res", which ``main`` prints beside phase 10's."""
     import io
 
     from tpufem_torch.apps import bmop, bmspmv
@@ -2077,9 +2104,7 @@ def bench_phase(dev, box_res=None, sizes=None, reps=N_CHAIN) -> dict:
         say(ph, f"{name}: {sv[name + '_iterations']} iterations, "
             f"converged {sv[name + '_converged']}, {sv[name + '_s']:.3f} s, "
             f"true rel residual {sv[name + '_true_rel_res']:.3e} (f32 box "
-            f"operator, 2-norm of the patch vector); phase 10's "
-            + (f"{box_res[name]:.3e} (f64 box operator, owner-weighted)"
-               if box_res else "not run"))
+            f"operator, 2-norm of the patch vector)")
         if not sv[name + "_converged"]:
             raise RuntimeError(f"bench_adaptive_solve: {name} did not "
                                f"converge")
@@ -2152,7 +2177,9 @@ def bench_phase(dev, box_res=None, sizes=None, reps=N_CHAIN) -> dict:
         raise RuntimeError(f"a kernel of bmop's tiers did not run: {counts}")
     say(ph, f"phase {time.perf_counter() - t_phase:.1f} s ("
         + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + ")")
-    return counts
+    return {"launches": counts, "true_rel_res": {
+        name: sv[name + "_true_rel_res"]
+        for name in ("jacobi", "gmg", "gmg_bf16cycle")}}
 
 
 # ---- phase 13: the distributed layer ----------------------------------
@@ -2184,6 +2211,33 @@ def kernel_launches() -> int:
             + sum(toolchain_probe.launches.values()))
 
 
+def flagship_box(dev, adaptive=ADAPTIVE, adaptive_size=None) -> dict:
+    """What ``box_phase(..., apps_out=...)["box"]`` holds, built for a
+    phase that runs without phase 10: ``adaptive_mesh(*adaptive)`` (of
+    ``adaptive_size`` (cells, DoFs) where given), Q4, its DoFs and
+    constraints, the f32 box operator, its diagonal and GMG hierarchy;
+    the GMG-CG's iterations are not known (None)."""
+    from tpufem_torch.apps.poisson import adaptive_mesh
+    from tpufem_torch.fem.constraints import make_hanging_node_constraints
+    from tpufem_torch.fem.dof_handler import DoFHandler
+    from tpufem_torch.ops.boxes import BoxLaplaceOperator
+    from tpufem_torch.solvers.box_multigrid import BoxMultigrid
+
+    mesh = adaptive_mesh(*adaptive)
+    dofs = DoFHandler(mesh, 4)
+    ac = make_hanging_node_constraints(dofs)
+    if adaptive_size and (mesh.n_cells, dofs.n_dofs) != adaptive_size:
+        raise RuntimeError(f"adaptive mesh: {mesh.n_cells} cells, "
+                           f"{dofs.n_dofs} DoFs, not {adaptive_size}")
+    op = BoxLaplaceOperator(mesh, dofs, constraints=ac, dtype="float32",
+                            device=dev)
+    diag = op.diagonal()
+    mg = BoxMultigrid(mesh, dofs, constraints=ac, dtype="float32",
+                      fine_op=op, fine_diag=diag, device=dev)
+    return dict(mesh=mesh, dofs=dofs, ac=ac, op=op, diag=diag, mg=mg,
+                gmg_iterations=None)
+
+
 def distributed_phase(dev, box_apps=None, adaptive=ADAPTIVE,
                       adaptive_size=ADAPTIVE_SIZE, n_shards=8,
                       parts="abcd", side=None, reps=N_CHAIN,
@@ -2210,13 +2264,10 @@ def distributed_phase(dev, box_apps=None, adaptive=ADAPTIVE,
     against their single-device generic tiers: equal counts.  The kernel
     wrappers' counters must not move.  Returns the phase's numbers."""
     from tpufem_torch.apps import bmop
-    from tpufem_torch.apps.poisson import adaptive_mesh, solve_poisson
-    from tpufem_torch.fem.constraints import make_hanging_node_constraints
-    from tpufem_torch.fem.dof_handler import DoFHandler
+    from tpufem_torch.apps.poisson import solve_poisson
     from tpufem_torch.ops.boxes import BoxLaplaceOperator
     from tpufem_torch.parallel.box_multigrid import DistributedBoxMultigrid
     from tpufem_torch.parallel.boxes import DistributedBoxLaplace
-    from tpufem_torch.solvers.box_multigrid import BoxMultigrid
 
     ph = "13 distributed"
     side = dict(DIST_SIDE, **(side or {}))
@@ -2254,22 +2305,8 @@ def distributed_phase(dev, box_apps=None, adaptive=ADAPTIVE,
 
     if "b" in parts or "c" in parts:
         t0 = time.perf_counter()
-        built = (box_apps or {}).get("box")
-        if built is None:
-            mesh = adaptive_mesh(*adaptive)
-            dofs = DoFHandler(mesh, 4)
-            ac = make_hanging_node_constraints(dofs)
-            if (mesh.n_cells, dofs.n_dofs) != adaptive_size:
-                raise RuntimeError(f"adaptive mesh: {mesh.n_cells} cells, "
-                                   f"{dofs.n_dofs} DoFs, not "
-                                   f"{adaptive_size}")
-            op = BoxLaplaceOperator(mesh, dofs, constraints=ac,
-                                    dtype="float32", device=dev)
-            diag = op.diagonal()
-            mg = BoxMultigrid(mesh, dofs, constraints=ac, dtype="float32",
-                              fine_op=op, fine_diag=diag, device=dev)
-            built = dict(mesh=mesh, dofs=dofs, ac=ac, op=op, diag=diag,
-                         mg=mg, gmg_iterations=None)
+        built = (box_apps or {}).get("box") or flagship_box(
+            dev, adaptive, adaptive_size)
         mesh, dofs, ac, op, diag, mg = (built[k] for k in (
             "mesh", "dofs", "ac", "op", "diag", "mg"))
 
@@ -2423,6 +2460,212 @@ def distributed_phase(dev, box_apps=None, adaptive=ADAPTIVE,
     if moved:
         raise RuntimeError("phase 13 launched a kernel of the kernels line")
     return out
+
+
+# ---- phase 14: the solver labs and the chip checks -----------------------
+# the H100 golden of apps.chip_checks (apps.check_chip_goldens' default)
+CHIP_GOLDEN = (Path(__file__).resolve().parent / "tpufem_torch" / "goldens"
+               / "chip_checks_h100.json")
+# PERF.md §5: the resident Jacobi-CG through K1 (fused mask, 16,974,593
+# DoFs) at 1.2757 ms an iteration unprofiled (apps/resident_probe.py)
+MASK_NOTE_MS = 1.2757
+
+
+def labs_phase(dev, box_apps=None, mask_refine=6, blas_shape=None,
+               blas_iters=40, adaptive=ADAPTIVE) -> dict:
+    """Phase 14: the solver labs and the chip checks through their entry
+    points.
+    (a) ``apps.chip_checks.main`` (K2's Jacobi-CG and GMG-CG twice, K2
+    against the structured tier, GMRES and Newton twice, K4 against the
+    f64 oracle), its artifact written to chiprun_out/chip_checks.json and
+    diffed by ``apps.check_chip_goldens`` against the H100 golden (on the
+    card only: a CPU artifact has no golden); (b)
+    ``lab.resident_mask_lab.run`` at 3D Q4 ``mask_refine``, f32, rtol
+    1e-5 (K1, flat and fused mask: equal iterations); (c)
+    ``lab.cg_blas1_lab.main`` at ``blas_shape`` (default: the resident
+    layout of refine 6), ``blas_iters`` iterations; (d)
+    ``lab.adaptive_prec_lab.main`` on phase 10's mesh, DoFs, constraints
+    and f32 box operator (``box_apps["box"]``; built from ``adaptive``
+    when absent), no variant failing, and ``lab.adaptive_solve_lab.main``
+    on the same operator, its diagonal and its GMG hierarchy: only the
+    solve stages run.  Returns the K1, K2 and K4 launches of (a) and (b),
+    which join the kernels line."""
+    from tpufem_torch.apps import check_chip_goldens, chip_checks
+    from tpufem_torch.lab import (
+        adaptive_prec_lab,
+        adaptive_solve_lab,
+        cg_blas1_lab,
+        resident_mask_lab,
+    )
+    from tpufem_torch.ops.kernel_separable import (
+        KernelSeparable,
+        ResidentSeparable,
+    )
+    from tpufem_torch.ops.kernel_terms import ResidentTerms
+
+    ph = "14 labs"
+    log = lambda msg: say(ph, str(msg))
+    t_phase = time.perf_counter()
+    classes = {"K1": ResidentSeparable, "K2": KernelSeparable,
+               "K4": ResidentTerms}
+    counts = lambda: {k: c.launches for k, c in classes.items()}
+    secs = {}
+    c0 = counts()
+
+    # (a) the chip checks and their golden
+    t0 = time.perf_counter()
+    art = Path(__file__).resolve().parent / "chiprun_out" / \
+        "chip_checks.json"
+    chip_checks.main(out=art, device=dev, log=log)
+    ca = counts()
+    if dev.type == "cuda":
+        rc = check_chip_goldens.main([str(art), "--golden",
+                                      str(CHIP_GOLDEN)])
+        if rc != 0:
+            raise RuntimeError("chip checks regressed against the H100 "
+                               "golden")
+    else:
+        log("no golden for a CPU artifact; not diffed")
+    secs["a"] = time.perf_counter() - t0
+
+    # (b) the flat against the fused mask through K1
+    t0 = time.perf_counter()
+    m = resident_mask_lab.run(mask_refine, "f32", SOLVE_RTOL, device=dev,
+                              log=log)
+    cb = counts()
+    fl, fu, v = m["flat"], m["fused"], m["verdict"]
+    log(f"(b) fused mask speedup {v['speedup']} ({fu['s']:.4f} s, "
+        f"{fu['ms_per_iteration']:.4f} ms an iteration, against flat "
+        f"{fl['s']:.4f} s, {fl['ms_per_iteration']:.4f} ms; PERF.md §5: "
+        f"{MASK_NOTE_MS} ms an iteration with the fused mask), iterations "
+        f"{fu['iterations']} and {fl['iterations']}")
+    if not (v["same_iterations"] and fl["converged"] and fu["converged"]):
+        raise RuntimeError("the flat and fused mask took unequal "
+                           "iterations, or did not converge")
+    del m
+    secs["b"] = time.perf_counter() - t0
+
+    # (c) the CG's BLAS-1 at the resident shape
+    t0 = time.perf_counter()
+    cg_blas1_lab.main(blas_shape, blas_iters, device=dev, log=log)
+    secs["c"] = time.perf_counter() - t0
+
+    # (d) the adaptive labs on phase 10's operator: the precision ladder,
+    # then the solve's stages on its diagonal and hierarchy
+    t0 = time.perf_counter()
+    box = (box_apps or {}).get("box") or flagship_box(dev, adaptive)
+    pre = tuple(box[k] for k in ("mesh", "dofs", "ac", "op"))
+    pr = adaptive_prec_lab.main(*adaptive[1:], device=dev, prebuilt=pre,
+                                log=log)
+    if pr["failed"]:
+        raise RuntimeError(f"precision ladder variants failed: "
+                           f"{pr['failed']}")
+    del pr
+    sr = adaptive_solve_lab.main(*adaptive[1:], device=dev,
+                                 prebuilt=(*pre, box["diag"], box["mg"]),
+                                 log=log)
+    it = sr["iterations"]
+    log(f"(d) adaptive solve lab on phase 10's operator, diagonal and "
+        f"hierarchy: {sr['n_dofs']} DoFs, {sr['n_hanging']} hanging, "
+        f"{sr['levels']} levels; iterations {it}")
+    if not it["gmg"] < it["jacobi"]:
+        raise RuntimeError("the adaptive solve lab's GMG-CG took no fewer "
+                           "iterations than Jacobi")
+    secs["d"] = time.perf_counter() - t0
+
+    launches = {k: cb[k] - c0[k] for k in classes}
+    say(ph, f"kernel launches of the phase (a) K2 {ca['K2'] - c0['K2']}, "
+        f"K4 {ca['K4'] - c0['K4']}; (b) K1 {cb['K1'] - ca['K1']}; "
+        f"seconds by part " + ", ".join(f"{k} {t:.1f}"
+                                        for k, t in secs.items())
+        + f"; phase {time.perf_counter() - t_phase:.1f} s")
+    if dev.type == "cuda" and not (ca["K2"] > c0["K2"]
+                                   and ca["K4"] > c0["K4"]
+                                   and cb["K1"] > ca["K1"]):
+        raise RuntimeError(f"a kernel of phase 14's path did not run: "
+                           f"{launches}")
+    return launches
+
+
+# ---- phases 8, 12 and 13 in processes of their own ---------------------
+# Most of their seconds are host setup (meshes, DoFs, constraints, partition
+# plans, assembly) and none of their launches join the kernels line, so
+# each runs in a child process on the same card while the main process
+# runs phases 9-11; phase 14 starts once they have ended, on a card it has
+# to itself
+CHILD_PHASES = ("8", "12", "13")
+# the script's seconds by which they must have ended (its limit is 1200 s)
+CHILD_DEADLINE_S = 1100.0
+# host threads of each (torch's and the BLAS libraries'), so that the four
+# processes' thread pools do not crowd the host's cores
+CHILD_THREADS = {"OMP_NUM_THREADS": "2", "OPENBLAS_NUM_THREADS": "2",
+                 "MKL_NUM_THREADS": "2"}
+
+
+def run_child_phase(name: str) -> dict:
+    """Phase ``name`` (one of ``CHILD_PHASES``) in this process, as
+    ``python3 chip_smoke.py --phase NAME --result PATH`` runs it: its
+    numbers for ``main``, its seconds, this process's peak resident
+    memory (GiB) and the wall-clock time it ended."""
+    from tpufem_torch.utils.build import load_kernels
+
+    load_kernels()  # phase 2 built them: each library loads from build/
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    out = {}
+    if name == "8":
+        cell_loop_phase(dev)
+    elif name == "12":
+        out = bench_phase(dev)
+    elif name == "13":
+        distributed_phase(dev)
+    else:
+        raise ValueError(f"phase {name} does not run in a process of its "
+                         f"own")
+    out["seconds"] = time.perf_counter() - t0
+    out["max_rss_gib"] = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss / 2**20
+    out["ended_at"] = time.time()
+    return out
+
+
+class ChildPhase:
+    """One of ``CHILD_PHASES`` started in a process of its own, its output
+    sent to chiprun_out/chip_smoke_phase<NAME>.log and shown by ``join``."""
+
+    def __init__(self, name: str, out_dir: Path):
+        self.name = name
+        self.log = out_dir / f"chip_smoke_phase{name}.log"
+        self.result = out_dir / f"chip_smoke_phase{name}.json"
+        self.result.unlink(missing_ok=True)
+        self.started_at = time.time()
+        with open(self.log, "w") as f:
+            self.proc = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--phase",
+                 name, "--result", str(self.result)],
+                stdout=f, stderr=subprocess.STDOUT,
+                cwd=Path(__file__).resolve().parent,
+                env=dict(os.environ, **CHILD_THREADS))
+
+    def join(self, timeout: float) -> dict:
+        """Wait for the process, print its output; its result, or raise
+        if it failed."""
+        rc = self.proc.wait(timeout=timeout)
+        sys.stdout.write(self.log.read_text())
+        sys.stdout.flush()
+        if rc != 0 or not self.result.exists():
+            raise RuntimeError(f"phase {self.name} failed in its process "
+                               f"(exit code {rc})")
+        out = json.loads(self.result.read_text())
+        # from its start to the end of its phase, the process's own start
+        # (imports, the card's context, loading the kernels) included
+        self.seconds = out["ended_at"] - self.started_at
+        return out
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
 
 
 def main() -> int:
@@ -3487,48 +3730,75 @@ def main() -> int:
         f"plain {plain_ms['P2']:.4f}, bound {bound['P2'][0]:.4f} "
         f"({bound['P2'][1]})")
 
-    marks.append(("8", time.perf_counter()))
-    # ---- 8 the cell-loop tiers (no kernel of the kernels line) --------
-    cell_loop_phase(dev)
+    # ---- 8, 12 and 13 start in processes of their own; 9-11 run here
+    # meanwhile, and 14 once those processes have ended
+    children = {}
+    try:
+        for name in CHILD_PHASES:
+            children[name] = ChildPhase(name, out_dir)
 
-    marks.append(("9", time.perf_counter()))
-    # ---- 9 geometric multigrid: K1-K4 at the V-cycle's level sizes
-    # against their plain versions, then the GMG path with its counts
-    worst = gmg_level_checks(np.random.default_rng(2026))
-    say("9 gmg", "level sizes all within tolerance; worst max rel err "
-        + ", ".join(f"{m} {worst[m]:.3e} (tol {TOL[m]})" for m in TOL))
-    for key, n in gmg_phase(dev, coef64).items():
-        launches[key] += n
+        marks.append(("9", time.perf_counter()))
+        # ---- 9 geometric multigrid: K1-K4 at the V-cycle's level sizes
+        # against their plain versions, then the GMG path with its counts
+        worst = gmg_level_checks(np.random.default_rng(2026))
+        say("9 gmg", "level sizes all within tolerance; worst max rel err "
+            + ", ".join(f"{m} {worst[m]:.3e} (tol {TOL[m]})" for m in TOL))
+        for key, n in gmg_phase(dev, coef64).items():
+            launches[key] += n
 
-    marks.append(("10", time.perf_counter()))
-    # ---- 10 the adaptive box tier (no kernel of the kernels line) -------
-    box_apps = {}
-    box_res = box_phase(dev, apps_out=box_apps)
+        marks.append(("10", time.perf_counter()))
+        # ---- 10 the adaptive box tier (no kernel of the kernels line) ---
+        box_apps = {}
+        box_res = box_phase(dev, apps_out=box_apps)
 
-    marks.append(("11", time.perf_counter()))
-    # ---- 11 the operator families: K4 on their term sets against its
-    # plain version, then heat, Newton and elasticity with K4's counts
-    worst, aerr = operator_term_checks(np.random.default_rng(2027))
-    say("11 operators", "term sets all within tolerance; worst max rel err "
-        + ", ".join(f"{m} {worst[m]:.3e} (tol {TOL[m]})" for m in TOL))
-    abs_err["K4"] = max(abs_err["K4"], aerr)
-    for key, n in operators_phase(dev).items():
-        launches[key] += n
+        marks.append(("11", time.perf_counter()))
+        # ---- 11 the operator families: K4 on their term sets against its
+        # plain version, then heat, Newton and elasticity with K4's counts
+        worst, aerr = operator_term_checks(np.random.default_rng(2027))
+        say("11 operators", "term sets all within tolerance; worst max rel "
+            "err " + ", ".join(f"{m} {worst[m]:.3e} (tol {TOL[m]})"
+                               for m in TOL))
+        abs_err["K4"] = max(abs_err["K4"], aerr)
+        for key, n in operators_phase(dev).items():
+            launches[key] += n
 
-    marks.append(("12", time.perf_counter()))
-    # ---- 12 the bench apps (bmop, bmspmv) at the JAX bench's flagship
-    # sizes; their K1/K3/K4 launches are timing repetitions, printed apart
-    bench_phase(dev, box_res)
+        marks.append(("join", time.perf_counter()))
+        # ---- 8 the cell-loop tiers (no kernel of the kernels line); 12 the
+        # bench apps (bmop, bmspmv) at the JAX bench's flagship sizes, their
+        # K1/K3/K4 launches timing repetitions, printed apart; 13 the
+        # distributed layer (no kernel of the kernels line)
+        child_out = {}
+        for name in CHILD_PHASES:
+            left = CHILD_DEADLINE_S - (time.perf_counter() - t_start)
+            child_out[name] = children[name].join(timeout=max(left, 1.0))
+        bench_res = child_out["12"]["true_rel_res"]
+        say("12 bench", "box solves' true rel residuals (f32 box operator, "
+            "2-norm of the patch vector) beside phase 10's (f64 box "
+            "operator, owner-weighted): " + ", ".join(
+                f"{k} {bench_res[k]:.3e} and {box_res[k]:.3e}"
+                for k in bench_res))
 
-    marks.append(("13", time.perf_counter()))
-    # ---- 13 the distributed layer (no kernel of the kernels line): the
-    # nine parity lines at 8 shards, the flagship box GMG-CG at 2x2 beside
-    # phase 10's single-device solve, bench_distributed, heat/elasticity
-    distributed_phase(dev, box_apps)
+        marks.append(("14", time.perf_counter()))
+        # ---- 14 the solver labs and the chip checks with their H100
+        # golden; K1, K2 and K4 launches of the checks and the mask lab
+        # counted
+        for key, n in labs_phase(dev, box_apps).items():
+            launches[key] += n
+    finally:
+        for child in children.values():
+            child.stop()
 
     marks.append(("end", time.perf_counter()))
     say("done", "seconds by phase: " + ", ".join(
-        f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(marks, marks[1:])))
+        f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(marks, marks[1:]))
+        + "; in processes of their own, started with 9: "
+        + ", ".join(f"{name} {children[name].seconds:.1f} (the phase "
+                    f"{child_out[name]['seconds']:.1f}, peak resident "
+                    f"{child_out[name]['max_rss_gib']:.1f} GiB)"
+                    for name in CHILD_PHASES)
+        + f"; this process's peak resident "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.1f}"
+        f" GiB")
     say("done", f"{time.perf_counter() - t_start:.1f} s; {smi}")
     records = [
         ("K2", "K2 separable_apply (flat vmult, tile routine)",
@@ -3571,4 +3841,14 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--phase" in sys.argv[1:]:
+        import argparse
+
+        ap = argparse.ArgumentParser()
+        ap.add_argument("--phase", choices=CHILD_PHASES, required=True)
+        ap.add_argument("--result", type=Path, required=True)
+        args = ap.parse_args()
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        args.result.write_text(json.dumps(run_child_phase(args.phase)))
+        sys.exit(0)
     sys.exit(main())

@@ -345,3 +345,36 @@ def test_distributed_entry_points_default_to_the_card(monkeypatch):
                  lambda: distributed_probe.main(["--refine", "1"])):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
+
+
+LAB_MODULES = (
+    "tpufem_torch.lab.cg_blas1_lab", "tpufem_torch.lab.resident_mask_lab",
+    "tpufem_torch.lab.adaptive_prec_lab",
+    "tpufem_torch.lab.adaptive_solve_lab", "tpufem_torch.apps.chip_checks",
+    "tpufem_torch.apps.check_chip_goldens", "tpufem_torch.apps.run_sweep",
+    "tpufem_torch.apps.plot_benchmarks")
+
+
+def test_solver_labs_leave_jax_out():
+    """The solver labs, the chip checks and the sweep and plot tools, each
+    imported in a fresh interpreter, then the BLAS-1 lab, the mask lab and
+    ``multichip.entry`` on the CPU: no jax or tpufem module loads."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {LAB_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from tpufem_torch.lab import cg_blas1_lab, resident_mask_lab\n"
+        "from tpufem_torch.apps.multichip import entry\n"
+        "cg_blas1_lab.main((5, 5, 16), 2, device='cpu', log=lambda s: 0)\n"
+        "o = resident_mask_lab.run(1, 'f32', 1e-8, dtype='float64', "
+        "device='cpu', log=lambda s: 0)\n"
+        "assert o['verdict']['same_iterations'], o\n"
+        "fn, args = entry(device='cpu')\n"
+        "assert fn(*args).shape == args[0].shape\n"
+        "print([m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'tpufem')])\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"

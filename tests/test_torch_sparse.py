@@ -235,12 +235,14 @@ def test_chip_smoke_bench_phase_on_the_cpu(monkeypatch, capsys):
     monkeypatch.syspath_prepend(str(REPO))
     import chip_smoke
 
-    counts = chip_smoke.bench_phase(
+    res = chip_smoke.bench_phase(
         torch.device("cpu"), sizes=dict(
             resident=(2, 2), resident2d=(2, 3), varcoef=(2, 2, 1),
             curved=(2, 2), adaptive=(2, 2, 1), spmv_degrees=(1, 2),
             spmv_refine=2, bmspmv_degrees=(1, 2), bmspmv_refine=2), reps=2)
-    assert counts == {"K1": 0, "K3": 0, "K4": 0}
+    assert res["launches"] == {"K1": 0, "K3": 0, "K4": 0}
+    assert set(res["true_rel_res"]) == {"jacobi", "gmg", "gmg_bf16cycle"}
+    assert all(0 < r < 1e-4 for r in res["true_rel_res"].values())
     out = capsys.readouterr().out
     assert out.count('"bench": "bmop-resident"') == 3
     assert out.count('"bench": "bmspmv"') == 2

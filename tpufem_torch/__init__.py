@@ -10,14 +10,31 @@ for ``sm_90a`` (``tpufem_torch/csrc``), built with ``nvcc`` at first use
 (``tpufem_torch.utils.build``); on CPU tensors each kernel wrapper runs its
 plain PyTorch version instead.
 
-Ported so far: the 2D/3D Q_p Poisson Jacobi-CG on the separable tier
-(``apps.poisson.solve_poisson`` with ``scatter="separable"``) on the
-hyper_cube and the curved hyper_shell, with separable or CP-expanded
-variable coefficients, with the flat (K2) and solver-resident (K1)
-Laplace kernels and the solver-resident sum-of-tensor-products kernels
-(K4 in 3D, K3 in 2D); Chebyshev and geometric-multigrid preconditioning
-(``solvers.chebyshev``, ``solvers.multigrid``, ``apps.poisson_mg``,
-``solvers.resident.resident_gmg_cg``), every level on the same kernels.
+Ported: everything the JAX package does, apart from ``bench.py`` (the
+port's bench is yet to be written) and the JAX-only tooling (the compile
+cache, ``scripts/_micro.py``, ``scripts/_check_*.py``):
+
+- ``fem``, ``utils``: the numpy host setup (mesh, DoFs, quadrature,
+  shapes, mapping, assembly, coloring, hanging-node constraints, the
+  Kelly estimator, transfers, the g++ helper), config, VTU output,
+  precision, timing, metrics and debug helpers, the kernel build;
+- ``ops``: the apply tiers, separable (K2 flat, K1 resident, K3/K4 terms:
+  hand-written CUDA for ``sm_90a``), structured, dense, incidence and
+  colored with hanging nodes, the adaptive box tier, the ELL SpMV;
+- ``operators``: Laplace, the generic quadrature-point functors (mass,
+  Helmholtz, convection-diffusion, nonlinear), the tensor-product tier,
+  vector elasticity;
+- ``solvers``: CG and the resident CGs, Chebyshev, geometric and box
+  multigrid, vector multigrid, GMRES, BiCGStab, AD Newton;
+- ``parallel``: the distributed layer on an in-process shard mesh;
+- ``apps``: poisson (uniform, shell, adaptive, AMR), poisson_mg, heat,
+  nonlinear, elasticity, bmop, bmspmv, multichip (``dryrun``,
+  ``entry``), the chip checks with their H100 golden
+  (``chip_checks``, ``check_chip_goldens``), ``run_sweep``,
+  ``plot_benchmarks``;
+- ``lab``: the kernel labs (L1, L2, the toolchain probes) and the solver
+  labs (``cg_blas1_lab``, ``resident_mask_lab``, ``adaptive_prec_lab``,
+  ``adaptive_solve_lab``).
 """
 
 from tpufem_torch.utils.precision import configure_precision

@@ -223,26 +223,41 @@ def bench_distributed(dim, p, refine, steps, dtype, reps, shards,
 
 def bench_adaptive_solve(dim, p, refine, steps, dtype, rtol=1e-5,
                          prebuilt=None, bf16_cycle=False,
-                         emit_cb=None, device: torch.device | str = "cuda"):
+                         emit_cb=None, device: torch.device | str = "cuda",
+                         stage=None):
     """Adaptive whole-solve benchmark: Jacobi-CG against the
     global-coarsening GMG-CG on the box tier
     (``tpufem_torch.solvers.box_multigrid``), on the reference's b (seed 7,
     interior and non-hanging entries).  Each variant runs once warm, then
     once timed.
 
-    ``bf16_cycle`` (float32 only) also times the mixed-precision variant
-    (f32 outer CG, the bf16 recast of the V-cycle hierarchy) with its true
-    residual.  The bf16 hierarchy is derived only after the f32 variants
-    ran, and ``emit_cb`` (if given) is called with the partial record
-    first, so a failure in the bf16 variant does not lose the f32 lines.
-    Every variant's true residual is the f32 (or f64) operator's, relative
-    to ||b||."""
-    mesh, dofs, ac, op = (prebuilt if prebuilt is not None
-                          else build_adaptive_op(dim, p, refine, steps,
-                                                 dtype, device))
-    diag = op.diagonal()
-    mg = BoxMultigrid(mesh, dofs, constraints=ac, dtype=dtype,
-                      fine_op=op, fine_diag=diag, device=op.device)
+    ``prebuilt`` is ``build_adaptive_op``'s (mesh, dofs, constraints, op),
+    optionally followed by the operator's diagonal and its ``BoxMultigrid``
+    hierarchy, which are then not built again.  ``bf16_cycle`` (float32
+    only) also times the mixed-precision variant (f32 outer CG, the bf16
+    recast of the V-cycle hierarchy) with its true residual.  The bf16
+    hierarchy is derived only after the f32 variants ran, and ``emit_cb``
+    (if given) is called with the partial record first, so a failure in
+    the bf16 variant does not lose the f32 lines.  Every variant's true
+    residual is the f32 (or f64) operator's, relative to ||b||.
+
+    ``stage(name, fn)`` runs each step (``build_adaptive_op``,
+    ``diagonal``, ``mg_f32_build``, ``{jacobi,gmg}_{warm,timed}``,
+    ``mg_bf16_recast``, ``gmg16_{warm,timed}``) and returns ``fn()``; the
+    solve lab (``tpufem_torch.lab.adaptive_solve_lab``) passes one that
+    clocks each step."""
+    stage = stage or (lambda name, fn: fn())
+    if prebuilt is None:
+        prebuilt = stage("build_adaptive_op", lambda: build_adaptive_op(
+            dim, p, refine, steps, dtype, device))
+    mesh, dofs, ac, op, *hierarchy = prebuilt
+    diag, mg = hierarchy or (None, None)
+    if diag is None:
+        diag = stage("diagonal", op.diagonal)
+    if mg is None:
+        mg = stage("mg_f32_build", lambda: BoxMultigrid(
+            mesh, dofs, constraints=ac, dtype=dtype, fine_op=op,
+            fine_diag=diag, device=op.device))
     rng = np.random.default_rng(7)
     mask = op.interior_mask.to("cpu", torch.float64).numpy() \
         * mg.fine.nh_mask
@@ -250,34 +265,31 @@ def bench_adaptive_solve(dim, p, refine, steps, dtype, rtol=1e-5,
     b = torch.as_tensor(mask * xp.to("cpu").numpy(), dtype=op.dt,
                         device=op.device)
     out = {
-        "bench": "bmop-adaptive-solve", "dim": dim, "degree": p,
+        "bench": "bmop-adaptive-solve", "dim": dim, "degree": dofs.degree,
         "refine": refine, "adaptive_steps": steps, "dtype": dtype,
         "n_dofs": dofs.n_dofs, "n_hanging": len(ac.lines),
         "rtol": rtol, "levels": len(mg.levels),
     }
     runs = [
-        ("jacobi", lambda: op.cg_solve(b, diag, rtol=rtol)),
-        ("gmg", lambda: mg.cg_solve(b, rtol=rtol)),
+        ("jacobi", "jacobi", lambda: op.cg_solve(b, diag, rtol=rtol)),
+        ("gmg", "gmg", lambda: mg.cg_solve(b, rtol=rtol)),
     ]
     if bf16_cycle and torch_dtype(dtype) == torch.float32:
-        mg16_box = []
-
-        def bf16_run():
-            if not mg16_box:  # derived only after the f32 lines are out
-                # recast shares the f32 hierarchy's host build and its
-                # Chebyshev estimates
-                mg16_box.append(mg.recast("bfloat16", solve_op=op))
-            return mg16_box[0].cg_solve(b, rtol=rtol)
-
-        runs.append(("gmg_bf16cycle", bf16_run))
+        runs.append(("gmg_bf16cycle", "gmg16", None))
     bnorm = float(torch.linalg.norm(b))
-    for name, run in runs:
-        if name == "gmg_bf16cycle" and emit_cb is not None:
-            emit_cb(dict(out))  # f32 lines are safe before the build
-        run()  # warm
+    for name, tag, run in runs:
+        if run is None:  # the bf16 cycle, derived after the f32 lines
+            if emit_cb is not None:
+                emit_cb(dict(out))  # f32 lines are safe before the build
+            # recast shares the f32 hierarchy's host build and its
+            # Chebyshev estimates
+            mg16 = stage("mg_bf16_recast",
+                         lambda: mg.recast("bfloat16", solve_op=op))
+            run = lambda: mg16.cg_solve(b, rtol=rtol)  # noqa: E731
+        stage(f"{tag}_warm", run)
         synchronize(op.device)
         t0 = time.perf_counter()
-        res = run()
+        res = stage(f"{tag}_timed", run)
         synchronize(op.device)
         out[f"{name}_s"] = time.perf_counter() - t0
         out[f"{name}_iterations"] = int(res.iterations)

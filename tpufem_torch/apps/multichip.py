@@ -24,6 +24,9 @@ single-device solve's on the same device and whose solution must agree to
 Run:  python -m tpufem_torch.apps.multichip --shards 8 [--device cpu]
 (``--device cuda``, the default, puts every shard on the card when there
 is one card).
+
+``entry()`` is the port of ``__graft_entry__.py::entry``: the flagship's
+single-card apply as (fn, args).
 """
 
 from __future__ import annotations
@@ -276,6 +279,20 @@ def dryrun(n_shards: int, device: torch.device | str = "cuda",
     log(f"dryrun({n_shards}): all distributed solves match single-device "
         "iteration counts and solutions — OK")
     return lines
+
+
+def entry(device: torch.device | str = "cuda"):
+    """(fn, args): the single-card forward step on the flagship model,
+    the raw (unmasked) 3D Q4 refine 3 f32 Laplace apply on the default
+    (``auto``) tier, and a vector of ones.
+
+    Port of ``__graft_entry__.py::entry``, whose ``fn`` is
+    ``partial(_vmult_raw, mf)`` jitted with the operator's device arrays
+    as its first argument; the port is eager, so ``fn`` is the operator's
+    ``vmult_raw`` and ``args`` holds the vector alone."""
+    _, dofs, mf = _build(3, 4, 3, "float32", resolve_device(device))
+    x = torch.ones(dofs.n_dofs, dtype=torch.float32, device=mf.device)
+    return LaplaceOperator(mf).vmult_raw, (x,)
 
 
 def main(argv=None):
