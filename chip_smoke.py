@@ -20,8 +20,9 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 band ring (csrc/resident_ring.cuh) with and without the
                 fused mask into a NaN-filled resident layout (every point
                 written, the pad columns zero), K3 at the segment chooser's
-                count and at 1-4 segments of x, K2 by its tile routine
-                (csrc/separable_apply.cuh) into a NaN-filled flat grid;
+                count and at 1-4 segments of x, K2 by its z-march
+                (csrc/separable_apply.cuh) into a NaN-filled flat grid,
+                bit for bit equal to its tile routine on the same input;
                 then every kernel at its main-path shapes (K2: 3D Q4 refine
                 5 and 2D refine 10; K4: the coefficient operator and the
                 shell's terms; K3: 2D Q4 refine 10 and 8, again at every
@@ -76,8 +77,12 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 refine 5 (2.1M) and 6 (17M) and 2D refine 10, K4 on the
                 17M coefficient operator and the 2.1M shell, K3 at 2D Q4
                 refine 10 (16,785,409 DoFs) and, with the fused mask, 8
-                (1,050,625: the 2D CG's), against K2 at refine 10 too, K2
-                and K3 beside EARLIER_MS (the routines of e3bfbab);
+                (1,050,625: the 2D CG's), against K2 at refine 10 too; K2's
+                z-march in turns with its tile routine at those three
+                shapes and at the flat GMG levels (GMG_K2_NPTS, by chains
+                and by device time), with the march's design bound; K3
+                beside EARLIER_MS (the routine of e3bfbab), K2 beside its
+                tile routine;
                 K1, K4, the shell's K4 and K3 at refine 10 and 8 in turns
                 with the ring's copy and bands ablations (each held to its
                 plain version first): the split into tile mover, z/y (2D:
@@ -133,7 +138,8 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 V-cycles (3D npts 9-129, 2D 9-513), K1 and K4 (f64, f32,
                 bf16s, with and without the fused mask) at 3D npts 9, 17,
                 33 and K3 at 2D npts 17, 33 at every segment count, against
-                their plain versions as in phase 3; then, counts reset, the
+                their plain versions as in phase 3 (K2's z-march also bit
+                for bit against its tile routine); then, counts reset, the
                 16,974,593-DoF flagship GeometricMultigrid(3, 4, 6,
                 coarsest_refine=1, f32, use_pallas) through
                 resident_gmg_cg twice (bitwise-equal x; K1 fine with the
@@ -361,16 +367,17 @@ N_CHAIN = 30
 # printed beside this run's times and kept out of the kernels line, which
 # holds only what this run measured (NVIDIA H100 80GB HBM3 at 700 W): K1's
 # and K4's (3D paths of separable_apply.cuh and terms_apply.cuh, K4 with
-# its mask outside) from this script's phase 6 before the TMA ring; K2's
-# (separable_apply.cuh, which it still runs) and K3's (terms_apply.cuh,
-# its mask outside) from ``python tpufem_torch/apps/resident_probe.py
-# --applies`` on a git archive of e3bfbab, in turns with this tree in one
-# call (the mean of its two runs' chains; K3 at refine 8 its device time,
-# as phase 6 takes it there)
+# its mask outside) from this script's phase 6 before the TMA ring; K3's
+# (terms_apply.cuh, its mask outside) from ``python
+# tpufem_torch/apps/resident_probe.py --applies`` on a git archive of
+# e3bfbab, in turns with this tree in one call (the mean of its two runs'
+# chains; at refine 8 its device time, as phase 6 takes it there).  K2's
+# earlier schedule, the tile routine, is still in separable_apply.cuh:
+# phase 6 times it in turns with the z-march and adds its times here
+# (K2, K2_r6, K2_2d)
 EARLIER_MS = {"K1": 1.1109, "K1_bf16s": 1.1485, "K4": 1.2770,
               "K4_bf16s": 1.4755, "K4_shell": 0.1913,
-              "K3": 0.0256, "K3_r10": 0.3310, "K2": 0.1285,
-              "K2_r6": 0.8425, "K2_2d": 0.2858}
+              "K3": 0.0256, "K3_r10": 0.3310}
 # K4's term count at p = 8 in phase 3 whose windows no sub-tile holds, so
 # the chooser takes passes over x (in f64, f32 and bf16s)
 PASS_T = 22
@@ -456,10 +463,49 @@ def resident_out(k, x):
     return y
 
 
+def march_design_bound(band) -> tuple[float, str]:
+    """The least time of what K2's z-march does at its schedule (its
+    ``KernelSeparable.with_routine("march")``): every u point its blocks
+    load (the halo'd tile's columns on the grid, each segment's planes and
+    its 2P warm-up planes on the grid), each output written once; and its
+    band outputs (2 a halo'd column and plane from registers, 3 TY (TX+2P)
+    + 2 TY TX a plane from shared memory; 2D 2 (TX+2P) and 2 TX) at 2p+1
+    multiply-adds each, at the card's f32 (f64) peak."""
+    from tpufem_torch.utils.timer import roofline_ms
+
+    p, n, dim = band.p, band.npts, band.dim
+    ty, tx = band.tile
+    seg = -(-n // band.nseg)
+
+    def loaded(t):  # points of an axis cut into pieces of t, halo p each
+        return sum(min(n, a + t + p) - max(0, a - p) for a in range(0, n, t))
+
+    elem = torch.empty((), dtype=band.dtype).element_size()
+    if dim == 3:
+        reads = loaded(tx) * loaded(ty) * loaded(seg)
+        nt = -(-n // tx) * -(-n // ty)
+        lx, ly = tx + 2 * p, ty + 2 * p
+        bands = nt * n * (2 * ly * lx + 3 * ty * lx + 2 * ty * tx)
+    else:
+        reads = loaded(tx) * loaded(seg)
+        bands = -(-n // tx) * n * (2 * (tx + 2 * p) + 2 * tx)
+    return roofline_ms(elem * (reads + n**dim),
+                       {"fp32" if elem == 4 else "fp64":
+                        bands * 2 * (2 * p + 1)})
+
+
+def same_bits(a, b) -> bool:
+    """a and b equal bit for bit (the sign of a zero included)."""
+    it = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return torch.equal(a.view(it), b.view(it))
+
+
 def check_kernel(kind, dim, p, npts, mode, dirichlet, Ks, Ms, rng):
     """Launch one kernel instance on a seeded input into a NaN-filled
     output (K1: its resident layout, every point and the zero pad checked;
-    K2: the flat grid, every point checked); return (tag, max relative
+    K2: the flat grid, every point checked, and its routine bit for bit
+    against its other routine, z-march and tile routine, on the same
+    input); return (tag, max relative
     error, max abs error) against the plain f64 version on the same
     (storage-rounded) input.  Raises when out of tolerance."""
     from tpufem_torch.ops.kernel_separable import (
@@ -475,10 +521,17 @@ def check_kernel(kind, dim, p, npts, mode, dirichlet, Ks, Ms, rng):
         x = u.to(STORAGE[mode])
         y = k(x, out=torch.full_like(x, float("nan")))
         rose = KernelSeparable.launches == before + 1
+        other = k.with_routine("tile" if k.routine == "march" else "march")
+        y_other = other.launch(x, out=torch.full_like(x, float("nan")))
         torch.cuda.synchronize()
         if not torch.isfinite(y).all():
             raise RuntimeError(f"K2 dim={dim} p={p} npts={npts} {mode}: an "
                                f"output point is not written or not finite")
+        if not same_bits(y, y_other):
+            raise RuntimeError(
+                f"K2 dim={dim} p={p} npts={npts} {mode}: the {k.routine} at "
+                f"{k.tile} is not bitwise equal to the {other.routine} at "
+                f"{other.tile} ({int((y != y_other).sum())} points differ)")
     else:
         k = ResidentSeparable(npts, p, Ks, Ms,
                               torch.float64 if mode == "f64" else
@@ -494,7 +547,9 @@ def check_kernel(kind, dim, p, npts, mode, dirichlet, Ks, Ms, rng):
     abs_err = float((y.to(torch.float64) - ref).abs().max())
     rel = abs_err / float(ref.abs().max())
     tag = (f"{kind} dim={dim} p={p} npts={npts} {mode} "
-           f"dirichlet={int(dirichlet)} tile={k.tile}")
+           f"dirichlet={int(dirichlet)} tile={k.tile}"
+           + (f" routine={k.routine} segments={k.nseg} bitwise=both"
+              if kind == "K2" else ""))
     if not rose:
         raise RuntimeError(f"{tag}: launch counter did not rise")
     if not rel <= TOL[mode]:
@@ -1033,7 +1088,8 @@ def cell_loop_phase(dev, refine=5, adaptive=ADAPTIVE,
 
 # ---- phase 9: geometric multigrid ------------------------------------
 # 3D Q4 and 2D Q4 level sizes of the V-cycle from coarsest refine 1 (npts
-# = 4 2^r + 1): K2 on every flat level, K1/K4 and K3 at the smallest
+# = 4 2^r + 1): K2 on every flat level (phase 6 times its two routines
+# there), K1/K4 and K3 at the smallest
 GMG_K2_NPTS = {3: (9, 17, 33, 65, 129), 2: (9, 17, 33, 65, 129, 257, 513)}
 GMG_RING_NPTS = {3: (9, 17, 33), 2: (17, 33)}
 # how far the flat GMG-CG's x may sit from the resident one's (f32: K2 with
@@ -3272,6 +3328,25 @@ def main() -> int:
     x5 = torch.tensor(np.random.default_rng(12).standard_normal(129**3),
                       dtype=torch.float32, device=dev)
     ms["K2"], plain_ms["K2"] = turns(k2, k2.plain, x5)
+    earlier = dict(EARLIER_MS)
+
+    def routine_turns(name, k, x, timer=chain_ms):
+        """K2's tile routine and z-march in turns (tile, march, march,
+        tile); the tile routine's mean goes to ``earlier[name]``."""
+        tile, march = k.with_routine("tile"), k.with_routine("march")
+        t = [timer(f, x) for f in (tile.launch, march.launch, march.launch,
+                                   tile.launch)]
+        earlier[name] = (t[0] + t[3]) / 2
+        say("6 throughput", f"{name} {k.dim}D npts {k.npts}: ms per apply "
+            f"({'device time' if timer is device_ms else 'chains'}) in "
+            f"turns: tile routine {t[0]:.4f} at {tile.tile}, z-march "
+            f"{t[1]:.4f} at {march.tile} x {march.nseg} segments, z-march "
+            f"{t[2]:.4f}, tile routine {t[3]:.4f}; march/tile "
+            f"{(t[1] + t[2]) / (t[0] + t[3]):.3f}; K2 runs the {k.routine}"
+            "; the march's design bound {:.5f} ms ({})".format(
+                *march_design_bound(march)))
+
+    routine_turns("K2", k2, x5)
     print(json.dumps({
         "metric": "apply_separable", "value": 129**3 / (ms["K2"] * 1e-3)
         / 1e9, "unit": "GDoF/s", "tier": "separable+cuda (K2)",
@@ -3424,22 +3499,36 @@ def main() -> int:
     k2_2d = KernelSeparable(2, 4097, 4, *flagship_axes(4, 1024, 2),
                             torch.float32, dev)
     ms["K2_2d"], plain_ms["K2_2d"] = turns(k2_2d, k2_2d.plain, u10)
+    routine_turns("K2_2d", k2_2d, u10)
     k2_k3 = [chain_ms(k2_2d, u10), chain_ms(k3.raw, x10),
              chain_ms(k3.raw, x10), chain_ms(k2_2d, u10)]
-    say("6 throughput", "2D Q4 refine 10 ms per apply in turns: K2 (tile "
-        "routine) {:.4f}, K3 {:.4f}, K3 {:.4f}, K2 {:.4f}".format(*k2_k3))
+    say("6 throughput", "2D Q4 refine 10 ms per apply in turns: K2 "
+        "(z-march) {:.4f}, K3 {:.4f}, K3 {:.4f}, K2 {:.4f}".format(*k2_k3))
     del x10, u10
     k2r6 = KernelSeparable(3, 257, 4, *flagship_axes(4, 64, 3),
                            torch.float32, dev)
     u6 = torch.tensor(np.random.default_rng(20).standard_normal(257**3),
                       dtype=torch.float32, device=dev)
     ms["K2_r6"], plain_ms["K2_r6"] = turns(k2r6, k2r6.plain, u6)
+    routine_turns("K2_r6", k2r6, u6)
     del u6
+    # the flat GMG levels by chains and by device time, the tile routine
+    # in turns with the march
+    for dim, sizes in GMG_K2_NPTS.items():
+        for npts in sizes:
+            kl = KernelSeparable(dim, npts, 4,
+                                 *flagship_axes(4, npts // 4, dim),
+                                 torch.float32, dev)
+            xl = torch.tensor(np.random.default_rng(npts).standard_normal(
+                npts**dim), dtype=torch.float32, device=dev)
+            routine_turns(f"K2 {dim}D {npts}", kl, xl)
+            routine_turns(f"K2 {dim}D {npts}", kl, xl, device_ms)
     say("6 throughput", "K3 on the ring (fused mask at refine 8) and K2's "
-        "tile routine, ms per apply (earlier: the routines of e3bfbab, "
-        "resident_probe.py --applies on an H100 80GB HBM3 at 700 W): "
-        + ", ".join(f"{k} {ms[k]:.4f} (earlier {EARLIER_MS[k]:.4f}, "
-                    f"{EARLIER_MS[k] / ms[k]:.2f}x)"
+        "z-march, ms per apply (earlier: K3 the routine of e3bfbab, "
+        "resident_probe.py --applies on an H100 80GB HBM3 at 700 W; K2 "
+        "its tile routine, in turns above): "
+        + ", ".join(f"{k} {ms[k]:.4f} (earlier {earlier[k]:.4f}, "
+                    f"{earlier[k] / ms[k]:.2f}x)"
                     for k in ("K3", "K3_r10", "K2", "K2_r6", "K2_2d")))
 
     # the L1 kernels (f32: 3xTF32) at the flagship: kernel_lab.main timed
@@ -3573,8 +3662,8 @@ def main() -> int:
             f"{k} {v:.5f}" for k, v in design_bound.items()))
     say("6 throughput", "K1 and K4 on the TMA ring, ms per apply (earlier, "
         "on the tile routines, an H100 80GB HBM3 at 700 W): " + ", ".join(
-            f"{k} {ms[k]:.4f} (earlier {EARLIER_MS[k]:.4f}, "
-            f"{EARLIER_MS[k] / ms[k]:.2f}x)"
+            f"{k} {ms[k]:.4f} (earlier {earlier[k]:.4f}, "
+            f"{earlier[k] / ms[k]:.2f}x)"
             for k in ("K1", "K1_bf16s", "K4", "K4_bf16s", "K4_shell")))
     say("6 throughput", "bound ms on an H100: " + ", ".join(
         f"{name} {bound[name][0]:.5f} ({bound[name][1]})"
@@ -3801,7 +3890,7 @@ def main() -> int:
         f" GiB")
     say("done", f"{time.perf_counter() - t_start:.1f} s; {smi}")
     records = [
-        ("K2", "K2 separable_apply (flat vmult, tile routine)",
+        ("K2", "K2 separable_apply (flat vmult, z-march)",
          "tpufem_torch/csrc/separable_apply.cuh",
          "tpufem/ops/pallas_separable.py:116", abs_err["K2"], None),
         ("K1", "K1 resident_ring (Laplace plan, fused mask)",

@@ -2,13 +2,13 @@
 against the plain PyTorch versions: the band ring (tpufem_torch/csrc/
 resident_ring.cuh on band_ring.cuh) under K1 and K4 (3D) and K3 (2D;
 tests/test_torch_ring2d.py covers the 2D plan case by case), on their
-resident layouts, and K2's tile routine (separable_apply.cuh) on the flat
-grid.
+resident layouts, and K2 (separable_apply.cuh) on the flat grid: its
+z-march, held to the plain version and bit for bit to its tile routine.
 
-Every stage of the tile routine is a loop ``for (i = threadIdx.x; i < n;
+Every stage of K2's two routines is a loop ``for (i = threadIdx.x; i < n;
 i += blockDim.x)`` between ``__syncthreads()``, so one thread running each
 block in turn computes exactly what a block of 256 threads computes on the
-card.  The stub header below defines the CUDA built-ins (qualifiers,
+card (the march's thread carries every halo'd column in its ring).  The stub header below defines the CUDA built-ins (qualifiers,
 ``threadIdx``/``blockIdx``/``blockDim``, a no-op ``__syncthreads``,
 round-to-nearest-even bf16 conversions).  The ring runs through
 csrc/hopper.cuh's host forms: a TMA box load is a loop copy with zero fill
@@ -96,6 +96,8 @@ static int by_p(int p, int npts, int tz, int ty, int tx, const void* u,
     case 2: return run<2, DIM, C>(npts, tz, ty, tx, u, y, t);
     case 3: return run<3, DIM, C>(npts, tz, ty, tx, u, y, t);
     case 4: return run<4, DIM, C>(npts, tz, ty, tx, u, y, t);
+    case 5: return run<5, DIM, C>(npts, tz, ty, tx, u, y, t);
+    case 6: return run<6, DIM, C>(npts, tz, ty, tx, u, y, t);
     case 7: return run<7, DIM, C>(npts, tz, ty, tx, u, y, t);
     case 8: return run<8, DIM, C>(npts, tz, ty, tx, u, y, t);
   }
@@ -117,6 +119,71 @@ extern "C" int host_apply(int code, int dim, int p, int npts, int tz, int ty,
 
 extern "C" long long host_smem_elems(int dim, int p, int tz, int ty, int tx) {
   return tpufem::smem_elems(dim, p, tz, ty, tx);
+}
+
+// The z-march: one host thread a block carries every halo'd column (a ring
+// of kHostCpt columns, the unused ones skipped), after the launcher's check
+// that the tile fits the columns a block of the card holds.
+constexpr int kHostCpt = 4096;
+
+template <int P, int DIM, typename C>
+static int run_march(int npts, int ty, int tx, int nseg, const void* u,
+                     void* y, const void* tables) {
+  if (DIM == 2) ty = 1;
+  const long long ncols = (DIM == 3 ? ty + 2 * P : 1) * (long long)(tx + 2 * P);
+  if (npts < 1 || ty < 1 || tx < 1 || nseg < 1 ||
+      ncols > tpufem::march_cols(DIM, P, sizeof(C)) || ncols > kHostCpt)
+    return 4;  // refused, as the launcher refuses it
+  const long long bytes = tpufem::march_smem_elems(DIM, P, ty, tx) * sizeof(C);
+  const int seg = (npts + nseg - 1) / nseg, nm = (npts + seg - 1) / seg;
+  const int gx = (npts + tx - 1) / tx;
+  const int gy = DIM == 3 ? (npts + ty - 1) / ty : nm;
+  const int gz = DIM == 3 ? nm : 1;
+  for (int bz = 0; bz < gz; ++bz)
+    for (int by = 0; by < gy; ++by)
+      for (int bx = 0; bx < gx; ++bx) {
+        std::memset(tpufem::smem_raw, 0xFF, bytes);  // NaN: unwritten reads
+        std::memset(tpufem::smem_raw + bytes, 0xAB, 4096);
+        blockIdx = Dim3{bx, by, bz};
+        tpufem::separable_apply_march<P, DIM, C, kHostCpt>(
+            (const C*)u, (C*)y, (const C*)tables, npts, ty, tx, seg);
+        for (long long i = bytes; i < bytes + 4096; ++i)
+          if (tpufem::smem_raw[i] != 0xAB) return 1;  // beyond its smem
+      }
+  return 0;
+}
+
+template <int DIM, typename C>
+static int march_p(int p, int npts, int ty, int tx, int nseg, const void* u,
+                   void* y, const void* t) {
+  switch (p) {
+    case 1: return run_march<1, DIM, C>(npts, ty, tx, nseg, u, y, t);
+    case 2: return run_march<2, DIM, C>(npts, ty, tx, nseg, u, y, t);
+    case 3: return run_march<3, DIM, C>(npts, ty, tx, nseg, u, y, t);
+    case 4: return run_march<4, DIM, C>(npts, ty, tx, nseg, u, y, t);
+    case 5: return run_march<5, DIM, C>(npts, ty, tx, nseg, u, y, t);
+    case 6: return run_march<6, DIM, C>(npts, ty, tx, nseg, u, y, t);
+    case 7: return run_march<7, DIM, C>(npts, ty, tx, nseg, u, y, t);
+    case 8: return run_march<8, DIM, C>(npts, ty, tx, nseg, u, y, t);
+  }
+  return 2;
+}
+
+extern "C" int host_march(int code, int dim, int p, int npts, int ty, int tx,
+                          int nseg, const void* u, void* y, const void* t) {
+  if (dim == 3)
+    return code == 0 ? march_p<3, double>(p, npts, ty, tx, nseg, u, y, t)
+                     : march_p<3, float>(p, npts, ty, tx, nseg, u, y, t);
+  return code == 0 ? march_p<2, double>(p, npts, ty, tx, nseg, u, y, t)
+                   : march_p<2, float>(p, npts, ty, tx, nseg, u, y, t);
+}
+
+extern "C" long long host_march_smem_elems(int dim, int p, int ty, int tx) {
+  return tpufem::march_smem_elems(dim, p, ty, tx);
+}
+
+extern "C" int host_march_cols(int code, int dim, int p) {
+  return tpufem::march_cols(dim, p, code == 0 ? 8 : 4);
 }
 """
 
@@ -269,6 +336,12 @@ def host_lib(tmp_path_factory):
     lib.host_apply.restype = ctypes.c_int
     lib.host_smem_elems.argtypes = [ctypes.c_int] * 5
     lib.host_smem_elems.restype = ctypes.c_longlong
+    lib.host_march.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3
+    lib.host_march.restype = ctypes.c_int
+    lib.host_march_smem_elems.argtypes = [ctypes.c_int] * 4
+    lib.host_march_smem_elems.restype = ctypes.c_longlong
+    lib.host_march_cols.argtypes = [ctypes.c_int] * 3
+    lib.host_march_cols.restype = ctypes.c_int
     return lib
 
 
@@ -302,6 +375,52 @@ def _plain(dim, npts, Ks, Ms, u64, dirichlet):
     return m * A(m * u64) + (1.0 - m) * u64
 
 
+# the card the host build's chooser stands for: its SMs and the blocks of
+# the z-march an SM holds (the library's occupancy query on the card)
+HOST_SMS, HOST_BLOCKS_PER_SM = 132, 2
+
+
+def march_schedule(lib, dim, npts, p, code):
+    """``choose_march``'s (tile, nseg) with the host build's own counts."""
+    itemsize = 8 if code == 0 else 4
+    return tks.choose_march(
+        dim, npts, p, lib.host_march_cols(code, dim, p),
+        lambda ty, tx: lib.host_march_smem_elems(dim, p, ty, tx) * itemsize,
+        lambda ty, tx: HOST_BLOCKS_PER_SM, HOST_SMS)
+
+
+def k2_march(lib, code, dim, p, npts, u, tables, tile=None, nseg=None):
+    """K2's z-march on the host into a NaN-filled grid, at ``tile`` and
+    ``nseg`` (None: the chooser's)."""
+    if tile is None or nseg is None:
+        t, n = march_schedule(lib, dim, npts, p, code)
+        tile, nseg = tile or t, nseg or n
+    y = torch.full_like(u, float("nan"))
+    rc = lib.host_march(code, dim, p, npts, *tile, nseg, u.data_ptr(),
+                        y.data_ptr(), tables.data_ptr())
+    assert rc == 0, f"march refused ({rc}) or wrote beyond its shared memory"
+    return y
+
+
+def k2_tile(lib, code, dim, p, npts, u, tables, tile=None):
+    """K2's tile routine on the host into a NaN-filled grid (its chooser's
+    tile where ``tile`` is None)."""
+    if tile is None:
+        tile = tks.choose_tile(dim, p, tables.element_size(),
+                               lib.host_smem_elems)
+    y = torch.full_like(u, float("nan"))
+    rc = lib.host_apply(code, dim, p, npts, *tile, u.data_ptr(),
+                        y.data_ptr(), tables.data_ptr())
+    assert rc == 0, "tile routine wrote beyond its shared memory"
+    return y
+
+
+def same_bits(a, b):
+    """a and b equal bit for bit (the sign of a zero included)."""
+    it = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return torch.equal(a.view(it), b.view(it))
+
+
 @pytest.mark.parametrize("dim,p,npts,mode,dirichlet,tile", [
     (3, 1, 9, "f64", False, None),
     (3, 2, 13, "f64", True, None),
@@ -324,8 +443,10 @@ def test_kernel_host_build_matches_plain(host_lib, ring_lib, ring2d_lib, dim,
                                          p, npts, mode, dirichlet, tile):
     """The Laplace apply on random non-symmetric banded matrices, distinct
     per axis: an axis swap, a transposed band or a boundary-row error
-    shows.  Unmasked: K2's tile routine on the flat grid.  With the
-    Dirichlet mask, the resident
+    shows.  Unmasked: K2's z-march on the flat grid (a given tile (TZ, TY,
+    TX) stands for the march's tile (TY, TX) with segments of TZ planes, in
+    2D TX with segments of TY rows), bitwise equal to the tile routine at
+    its own tile.  With the Dirichlet mask, the resident
     kernel that carries it, fused, on the ring: in 3D K1, in 2D K3 on the
     two-term factorisation."""
     code, storage, compute = CODES[mode]
@@ -343,14 +464,15 @@ def test_kernel_host_build_matches_plain(host_lib, ring_lib, ring2d_lib, dim,
                               mode, u64, True, tile, dim=2)
     else:
         tables = torch.as_tensor(tks.band_tables(mats, p), dtype=compute)
-        if tile is None:
-            tile = tks.choose_tile(dim, p, tables.element_size(),
-                                   host_lib.host_smem_elems)
         u = u64.to(storage)
-        y = torch.empty_like(u)
-        rc = host_lib.host_apply(code, dim, p, npts, *tile, u.data_ptr(),
-                                 y.data_ptr(), tables.data_ptr())
-        assert rc == 0, "kernel wrote beyond its shared memory"
+        march, nseg = None, None
+        if tile is not None:
+            march = (tile[1], tile[2]) if dim == 3 else (1, tile[2])
+            seg = tile[0] if dim == 3 else tile[1]
+            nseg = -(-npts // seg)
+        y = k2_march(host_lib, code, dim, p, npts, u, tables, march, nseg)
+        assert same_bits(y, k2_tile(host_lib, code, dim, p, npts, u, tables,
+                                    tile))
         y, x = y.to(torch.float64), u.to(torch.float64)
     ref = _plain(dim, npts, Ks, Ms, x, dirichlet)
     err = (y - ref).abs().max() / ref.abs().max()
@@ -373,10 +495,7 @@ def test_kernel_host_build_f32_keeps_zero_row_sums(host_lib):
         mats += [Ks[a], Ms[a]]
     tables = torch.as_tensor(tks.band_tables(mats, p), dtype=torch.float32)
     u = torch.ones(npts**3, dtype=torch.float32)
-    y = torch.empty_like(u)
-    tile = tks.choose_tile(3, p, 4, host_lib.host_smem_elems)
-    assert host_lib.host_apply(1, 3, p, npts, *tile, u.data_ptr(),
-                               y.data_ptr(), tables.data_ptr()) == 0
+    y = k2_march(host_lib, 1, 3, p, npts, u, tables)
     scale = _plain(3, npts, [abs(K) for K in Ks], [abs(M) for M in Ms],
                    u.to(torch.float64), False).max()
     assert y.abs().max() <= 1e-12 * scale
@@ -384,14 +503,61 @@ def test_kernel_host_build_f32_keeps_zero_row_sums(host_lib):
 
 @pytest.mark.parametrize("dim", [2, 3])
 def test_tiles_fit_for_every_degree(host_lib, dim):
-    """K2's tile chooser, sized by the routine's own shared-memory count,
-    finds a block within budget at every degree and compute dtype."""
+    """K2's z-march chooser, sized by the routine's own counts of the
+    columns a block holds and of its shared memory, finds a tile and
+    segments within them at every degree, compute dtype and level size of
+    the V-cycles (npts 9 to 4p 2^k + 1 at the main path's largest), with
+    even tiles (no last tile or segment under half the others); the tile
+    routine's chooser a block within budget."""
+    sizes = (9, 17, 33, 65, 129, 257) + ((1025, 4097) if dim == 2 else ())
     for p in range(1, tks.MAX_DEGREE + 1):
-        for itemsize in (4, 8):
+        for code, itemsize in ((1, 4), (0, 8)):
+            for npts in sizes:
+                (ty, tx), nseg = march_schedule(host_lib, dim, npts, p, code)
+                ly = ty + 2 * p if dim == 3 else 1
+                assert ly * (tx + 2 * p) <= host_lib.host_march_cols(code, dim,
+                                                                    p)
+                assert (host_lib.host_march_smem_elems(dim, p, ty, tx)
+                        * itemsize <= tks.SMEM_BUDGET)
+                assert dim == 3 or ty == 1
+                seg = -(-npts // nseg)
+                for t in (tx, seg) + ((ty,) if dim == 3 else ()):
+                    assert 1 <= t <= npts and 2 * (npts % t or t) >= t, \
+                        (npts, t)
             tile = tks.choose_tile(dim, p, itemsize, host_lib.host_smem_elems)
             assert (host_lib.host_smem_elems(dim, p, *tile) * itemsize
                     <= tks.SMEM_BUDGET)
             assert dim == 3 or tile[0] == 1
+
+
+MARCH_BITWISE = [(dim, p, mode) for dim in (3, 2)
+                 for p in range(1, tks.MAX_DEGREE + 1)
+                 for mode in ("f32", "f64")]
+
+
+@pytest.mark.parametrize("dim,p,mode", MARCH_BITWISE)
+def test_march_host_bitwise_equals_tile_routine(host_lib, dim, p, mode):
+    """The z-march against the tile routine, both in one host library, bit
+    for bit: the same taps of the same band tables summed in the same order
+    at every point.  At npts 9 (the band spans the axis from p = 4) and an
+    odd npts (rows of the flat grid start at every offset), each at the
+    chooser's tile, at a ragged tile (the last tile narrower on x and y)
+    and at 1, 2 and the chooser's count of segments (the last one ragged
+    at 2); random non-symmetric banded matrices, distinct per axis."""
+    code, storage, _ = CODES[mode]
+    for npts in (9, 2 * p + 11):
+        rng = np.random.default_rng(npts * 100 + p * 10 + dim)
+        mats = [_nonsym(rng, npts, p) for _ in range(2 * dim)]
+        tables = torch.as_tensor(tks.band_tables(mats, p), dtype=storage)
+        u = torch.as_tensor(rng.standard_normal(npts**dim)).to(storage)
+        ref = k2_tile(host_lib, code, dim, p, npts, u, tables)
+        assert torch.isfinite(ref).all()
+        chosen, nseg = march_schedule(host_lib, dim, npts, p, code)
+        ragged = (3, 5) if dim == 3 else (1, 5)
+        for tile in (chosen, ragged):
+            for n in sorted({1, 2, nseg}):
+                y = k2_march(host_lib, code, dim, p, npts, u, tables, tile, n)
+                assert same_bits(y, ref), (npts, tile, n)
 
 
 # ---------------------------------------------------------------------
@@ -763,8 +929,8 @@ def test_host_build_at_vcycle_level_sizes(host_lib, ring_lib, ring2d_lib,
                                           segments):
     """The V-cycle's level sizes at p = 4 (3D Q4 from coarsest refine 1:
     npts 9, 17, 33, ...), where the band of 2p + 1 = 9 rows spans half an
-    axis or all of it and every box reaches past both ends: K2's tile
-    routine (its chosen tile), K1 and K4 (3 terms) on the ring with and
+    axis or all of it and every box reaches past both ends: K2's z-march
+    (its chosen tile and segments; bitwise equal to the tile routine), K1 and K4 (3 terms) on the ring with and
     without the fused mask, K3 (2 terms) at every segment count its chunks
     of x allow (32 columns in f32 and bf16s, 16 in f64), each at the
     sub-tile its chooser takes."""
@@ -776,13 +942,9 @@ def test_host_build_at_vcycle_level_sizes(host_lib, ring_lib, ring2d_lib,
     u64 = torch.as_tensor(rng.standard_normal(npts**dim))
     if kernel == "K2":
         tables = torch.as_tensor(tks.band_tables(mats, p), dtype=compute)
-        tile = tks.choose_tile(dim, p, tables.element_size(),
-                               host_lib.host_smem_elems)
         u = u64.to(storage)
-        y = torch.full_like(u, float("nan"))
-        rc = host_lib.host_apply(code, dim, p, npts, *tile, u.data_ptr(),
-                                 y.data_ptr(), tables.data_ptr())
-        assert rc == 0, "kernel wrote beyond its shared memory"
+        y = k2_march(host_lib, code, dim, p, npts, u, tables)
+        assert same_bits(y, k2_tile(host_lib, code, dim, p, npts, u, tables))
         y, x = y.to(torch.float64), u.to(torch.float64)
         ref = _plain(dim, npts, mats[0::2], mats[1::2], x, False)
     elif kernel == "K1":

@@ -117,3 +117,25 @@ def test_kernel_refuses_what_it_cannot_run():
         # no silent CPU fallback: a CUDA instance needs its built kernel
         with pytest.raises(RuntimeError, match="CUDA"):
             tks.KernelSeparable(3, 5, 2, Ks, Ms, torch.float32, "cuda")
+
+
+@pytest.mark.parametrize("dim,npts", [(3, n) for n in (9, 17, 33, 65, 129)]
+                         + [(2, n) for n in (9, 17, 33, 65, 129, 257, 513)])
+def test_k2_routine_by_level_size(dim, npts):
+    """K2 takes the z-march at every flat V-cycle level size but the 2D
+    npts 257 and 513, where the tile routine's one-shot blocks measured
+    faster on the card and K2 takes it (``TILE_NPTS``); either way the
+    other routine is at hand for the comparisons, and a routine of neither
+    name is refused."""
+    p, n = 4, (npts - 1) // 4
+    K, M = tsep.global_1d_matrices(p, n, p + 1)
+    k = tks.KernelSeparable(dim, npts, p, [K] * dim, [M] * dim,
+                            torch.float64, "cpu")
+    tile = (dim, npts) in ((2, 257), (2, 513))
+    assert tks.TILE_NPTS == {2: (257, 513), 3: ()}
+    assert k.routine == ("tile" if tile else "march")
+    assert k.with_routine("march").routine == "march"
+    assert k.with_routine("tile").routine == "tile"
+    assert k.routine == k._band.routine  # the copies leave K2's own alone
+    with pytest.raises(ValueError, match="routine"):
+        k.with_routine("ring")

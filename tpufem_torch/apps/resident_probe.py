@@ -38,7 +38,9 @@ DoFs) and 8, with the fused mask where the tree's K3 takes one; K3's
 operator as the 2D resident CG applies it at refine 8 (``K3 operator``:
 m·A(m·x) + (1-m)·x, the mask in the kernel or, in a tree whose K3 takes
 none, the elementwise launches around it); K2 at 3D refine 5 (the
-``solve_poisson`` main path) and 6, and at 2D refine 10.
+``solve_poisson`` main path) and 6, and at 2D refine 10: its tile routine,
+then K2 as it launches there, the z-march (a tree before the march: its
+tile routine alone).
 
 Run from the repository root:  python -m tpufem_torch.apps.resident_probe
 (or, to hold another tree against this one on the same card, in turns A B
@@ -281,7 +283,7 @@ def applies(dev, smi: str) -> None:
         print(json.dumps({
             "tree": str(CSRC.parents[1]), "kernel": kernel, "shape": shape,
             "ms": ms, "device_ms": device_ms(fn, x), "tile": k.tile,
-            "segments": getattr(k, "segments", None),
+            "segments": getattr(k, "segments", getattr(k, "nseg", None)),
             "fused_mask": fused and kernel.startswith("K3"), "device": smi}),
             flush=True)
 
@@ -313,6 +315,10 @@ def applies(dev, smi: str) -> None:
         x = torch.tensor(np.random.default_rng(dim + refine)
                          .standard_normal(npts**dim), dtype=torch.float32,
                          device=dev)
+        if hasattr(k2, "with_routine"):  # the tile routine beside K2
+            tile = k2.with_routine("tile")
+            line("K2 tile routine", f"{dim}D refine {refine}", tile,
+                 tile.launch, x)
         line("K2", f"{dim}D refine {refine}", k2, k2, x)
 
 

@@ -7,7 +7,10 @@ Port of the Pallas kernels K2 (``_kernel`` / ``PallasSeparable``) and K1
 ``kernel_terms``), its 3D Laplace plan on the resident layout ``(npts,
 npts, X)``, X the smallest multiple of the ring's chunk (64 bytes of a
 row) that is >= npts, columns npts .. X zero, boxes moved by TMA.  K2
-runs the tile routine of ``csrc/separable_apply.cuh`` on the flat grid.
+runs the z-march of ``csrc/separable_apply.cuh`` on the flat grid (its
+tile routine, the earlier schedule of the same arithmetic, stays beside it
+for the comparisons, ``KernelSeparable.with_routine``, and runs the 2D
+levels of ``TILE_NPTS``, where it is faster).
 Each header note gives the schedule and what bounds it.  Each 1D operator
 enters as an EXACT per-row band table ``W[g, o] = M[g, g+o-p]`` of shape
 ``(npts, 2p+1)`` plus its f64 row sum, so the TPU's periodic tables,
@@ -24,6 +27,8 @@ the class attribute ``launches``.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
@@ -38,8 +43,26 @@ from tpufem_torch.utils.precision import torch_dtype
 # leave fewer blocks per SM (228 KB of shared memory per H100 SM).
 SMEM_BUDGET = 100 * 1024
 MAX_DEGREE = 8  # the CUDA routines are instantiated for p = 1..8
-# K2's output tiles (TZ, TY, TX) tried in order; TX = 32 keeps warp rows
-# contiguous.  2D tiles have TZ = 1.
+# K2's z-march (choose_march): the cost of a band output from registers
+# (the z stage) and of a warm-up plane's load, a halo'd column, each against
+# a band output from shared memory (the y and x stages)
+MARCH_REG_BAND = 0.5
+MARCH_LOAD = 0.25
+# and a step's fixed cost (its barriers and the latency they expose), in
+# band outputs; the march axis's rows a step (csrc: march_rows)
+MARCH_STEP = 1000.0
+MARCH_ROWS = {2: 8, 3: 1}
+# npts at which K2 runs the tile routine instead of the z-march, by dim: the
+# 2D V-cycle levels where the tile routine's one-shot blocks beat the
+# march's (one wave of blocks either way; a march block pays its 2P warm-up
+# rows and a barrier a step).  Device time a launch, f32 Q4, NVIDIA H100
+# 80GB HBM3 at 700 W (``python -m tpufem_torch.lab.march_sweep``, in
+# turns): npts 257 tile 0.0068 against the march's 0.0075 (its best
+# schedule 0.0070), 513 0.0100 against 0.0106; the march wins at every
+# other level (2D 9-129, 3D 9-257)
+TILE_NPTS = {2: (257, 513), 3: ()}
+# the tile routine's output tiles (TZ, TY, TX) tried in order; TX = 32 keeps
+# warp rows contiguous.  2D tiles have TZ = 1.
 _TILES = {
     3: ((8, 8, 32), (4, 8, 32), (4, 4, 32), (2, 4, 32), (2, 2, 32),
         (2, 2, 16), (1, 2, 16), (1, 1, 16)),
@@ -177,8 +200,66 @@ def choose_segments(rows: int, nchunk: int, slots: int) -> int:
     return best[1]
 
 
+def choose_march(dim: int, npts: int, p: int, cols: int, smem_bytes,
+                 blocks_per_sm, n_sm: int):
+    """(tile, nseg) of K2's z-march: the output tile (TY, TX) (2D: (1,
+    TX)) and the count of segments the march axis (z; 2D: y) is cut into.
+
+    TX, TY and the segments are even splits of their axis, ceil(npts / n)
+    whose last piece holds at least half of one (129 = 3 x 43, not 32 x 4
+    + 1); the halo'd tile must fit the ``cols`` columns a block holds
+    (``tpufem_march_cols``: its register ring) and ``smem_bytes(ty, tx)``
+    SMEM_BUDGET.  Of those, the (tile, nseg) that minimises
+
+        rounds x (steps x (R x plane + MARCH_STEP) + warm),
+
+    rounds = ceil(blocks / slots) the waves of blocks on a card of ``n_sm``
+    SMs holding ``blocks_per_sm(ty, tx)`` each (the library's occupancy
+    query), steps = ceil(seg / R) the steps of R = ``MARCH_ROWS`` planes
+    (2D: rows) of a segment of seg = ceil(npts / nseg) planes, plane a
+    plane's band outputs (``MARCH_REG_BAND`` per register band: 2
+    (TY+2P)(TX+2P); one per shared-memory band: 3 TY (TX+2P) + 2 TY TX; 2D:
+    2 (TX+2P) and 2 TX) and warm the 2P warm-up planes' loads
+    (``MARCH_LOAD`` a column); the widest tile and the fewest segments
+    among equals."""
+    splits = sorted({t for t in (-(-npts // n) for n in range(1, npts + 1))
+                     if 2 * (npts % t or t) >= t}, reverse=True)
+    best = None
+    for tx in splits:
+        lx = tx + 2 * p
+        for ty in (splits if dim == 3 else (1,)):
+            ly = ty + 2 * p if dim == 3 else 1
+            if ly * lx > cols or smem_bytes(ty, tx) > SMEM_BUDGET:
+                continue
+            bps = blocks_per_sm(ty, tx)
+            if bps < 1:
+                continue
+            tiles = -(-npts // tx) * (-(-npts // ty) if dim == 3 else 1)
+            if dim == 3:
+                plane = (2 * MARCH_REG_BAND * ly * lx + 3 * ty * lx
+                         + 2 * ty * tx)
+            else:
+                plane = 2 * MARCH_REG_BAND * lx + 2 * tx
+            warm = 2 * p * MARCH_LOAD * ly * lx
+            for seg in splits:
+                nseg = -(-npts // seg)
+                steps = -(-seg // MARCH_ROWS[dim])
+                cost = (-(-tiles * nseg // (n_sm * bps))
+                        * (steps * (MARCH_ROWS[dim] * plane + MARCH_STEP)
+                           + warm))
+                key = (cost, -tx * ty, nseg)
+                if best is None or key < best[0]:
+                    best = (key, (ty, tx), nseg)
+    if best is None:
+        raise ValueError(f"no z-march tile of npts={npts} fits {cols} "
+                         f"columns and {SMEM_BUDGET} bytes at dim={dim}, "
+                         f"p={p}")
+    return best[1], best[2]
+
+
 def choose_tile(dim: int, p: int, itemsize: int, smem_elems):
-    """The first tile of ``_TILES[dim]`` whose block fits SMEM_BUDGET.
+    """The tile routine's tile: the first of ``_TILES[dim]`` whose block
+    fits SMEM_BUDGET.
 
     ``smem_elems(dim, p, tz, ty, tx)`` is the kernel library's own count
     of a block's shared-memory elements (``tpufem_smem_elems``)."""
@@ -225,28 +306,57 @@ def check_grid(u: torch.Tensor, device, storage, npts: int, dim: int):
 
 
 class _BandApply:
-    """Tables, tile and launch of K2's tile routine for one operator.
+    """Tables, schedule and launch of K2 for one operator.
 
     Ks/Ms: per-axis (npts, npts) 1D operators (x first), any banded
     matrices of bandwidth p; ``dtype`` is the vectors' and the
-    arithmetic's.  ``tile`` is the output tile (TZ, TY, TX) of a CUDA
-    instance (the first of ``_TILES`` that fits); a CPU instance has none.
+    arithmetic's.  ``routine``: "march" (the z-march) or "tile" (the tile
+    routine), the main path's (``schedule``): the march except at the npts
+    of ``TILE_NPTS``.  A CUDA instance's ``tile`` is the march's (TY, TX)
+    (2D: (1, TX)) with ``nseg`` segments of the march axis
+    (``choose_march``), or the tile routine's (TZ, TY, TX) (the first of
+    ``_TILES`` that fits); a CPU instance has neither.
     """
 
     def __init__(self, dim, npts, p, Ks, Ms, dtype, device):
         self.code, self.device, self.lib = check_instance(
             dim, p, dtype, dtype, device, "separable_apply")
         self.dim, self.npts, self.p, self.dtype = dim, npts, p, dtype
-        self.tile = None
-        if self.lib is not None:
-            itemsize = torch.empty((), dtype=dtype).element_size()
-            self.tile = choose_tile(dim, p, itemsize,
-                                    self.lib.lib.tpufem_smem_elems)
         mats = []
         for a in range(dim):
             mats += [Ks[a], Ms[a]]
         self.tables = torch.as_tensor(band_tables(mats, p), dtype=dtype,
                                       device=self.device)
+        self.schedule()
+
+    def schedule(self, routine=None, tile=None, nseg=None):
+        """Take ``routine`` (None: the main path's) and its tile; ``tile``
+        and ``nseg`` stand in for the march's chooser (its sweep,
+        ``tpufem_torch.lab.march_sweep``)."""
+        if routine is None:
+            routine = "tile" if self.npts in TILE_NPTS[self.dim] else "march"
+        if routine not in ("march", "tile"):
+            raise ValueError(f"routine must be 'march' or 'tile', got "
+                             f"{routine!r}")
+        self.routine, self.tile, self.nseg = routine, None, None
+        if self.lib is None:
+            return
+        lib, dim, p, code = self.lib.lib, self.dim, self.p, self.code
+        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        if routine == "tile":
+            self.tile = choose_tile(dim, p, itemsize, lib.tpufem_smem_elems)
+            return
+        if tile is not None:
+            self.tile, self.nseg = tuple(tile), nseg
+            return
+        n_sm = torch.cuda.get_device_properties(
+            self.device).multi_processor_count
+        self.tile, self.nseg = choose_march(
+            dim, self.npts, p, lib.tpufem_march_cols(code, dim, p),
+            lambda ty, tx: lib.tpufem_march_smem_elems(dim, p, ty, tx)
+            * itemsize,
+            lambda ty, tx: lib.tpufem_march_blocks_per_sm(code, dim, p, ty,
+                                                          tx), n_sm)
 
     def launch(self, u: torch.Tensor, out: torch.Tensor | None = None
                ) -> torch.Tensor:
@@ -254,13 +364,21 @@ class _BandApply:
         check_grid(u, self.device, self.dtype, self.npts, self.dim)
         y = torch.empty_like(u) if out is None else out
         check_grid(y, self.device, self.dtype, self.npts, self.dim)
-        tz, ty, tx = self.tile
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream().cuda_stream
-            rc = self.lib.lib.tpufem_separable_apply(
-                self.code, self.dim, self.p, self.npts, tz, ty, tx,
-                u.data_ptr(), y.data_ptr(), self.tables.data_ptr(), stream)
-        self.lib.check(rc, "tpufem_separable_apply launch")
+            if self.routine == "march":
+                ty, tx = self.tile
+                rc = self.lib.lib.tpufem_separable_march(
+                    self.code, self.dim, self.p, self.npts, ty, tx,
+                    self.nseg, u.data_ptr(), y.data_ptr(),
+                    self.tables.data_ptr(), stream)
+            else:
+                tz, ty, tx = self.tile
+                rc = self.lib.lib.tpufem_separable_apply(
+                    self.code, self.dim, self.p, self.npts, tz, ty, tx,
+                    u.data_ptr(), y.data_ptr(), self.tables.data_ptr(),
+                    stream)
+        self.lib.check(rc, f"tpufem_separable_{self.routine} launch")
         return y
 
 
@@ -406,7 +524,9 @@ class KernelSeparable:
 
     Pallas twin: ``tpufem/ops/pallas_separable.py::_kernel`` behind
     ``PallasSeparable``.  dtype float32 or float64 (Hopper runs f64
-    natively; the TPU kernel compiled f32 only).
+    natively; the TPU kernel compiled f32 only).  On the card it launches
+    the z-march, or at the npts of ``TILE_NPTS`` the tile routine
+    (``_BandApply``; ``routine``, ``tile`` and ``nseg`` its schedule).
     """
 
     launches = 0  # kernel launches by all instances (plain calls excluded)
@@ -416,6 +536,7 @@ class KernelSeparable:
         self.dim, self.npts = dim, npts
         self._band = _BandApply(dim, npts, p, Ks, Ms, dt, device)
         self.device, self.tile = self._band.device, self._band.tile
+        self.nseg, self.routine = self._band.nseg, self._band.routine
         self.Ks = _on(self.device, Ks, dt)
         self.Ms = _on(self.device, Ms, dt)
 
@@ -423,6 +544,15 @@ class KernelSeparable:
         """The plain PyTorch version (dense 1D contractions)."""
         return laplace_apply_separable(u, self.dim, self.npts, self.Ks,
                                        self.Ms)
+
+    def with_routine(self, routine: str) -> _BandApply:
+        """K2's "march" or "tile" routine on this operator's tables (its
+        ``launch``, on the card only, uncounted), whichever the main path
+        takes here: the two equal each other bit for bit, for the
+        comparisons and timings in turns."""
+        band = copy.copy(self._band)
+        band.schedule(routine)
+        return band
 
     def __call__(self, u: torch.Tensor, out: torch.Tensor | None = None
                  ) -> torch.Tensor:

@@ -34,7 +34,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpufem_torch"
 # one shared library per source, built side by side: name -> (source,
 # the csrc/ headers it includes, which enter its hash)
 SOURCES = {
-    "separable_apply": ("separable_apply.cu",  # K2's tile routine
+    "separable_apply": ("separable_apply.cu",  # K2: z-march, tile routine
                         ("common.cuh", "separable_apply.cuh")),
     # K1, K3 and K4 on the TMA ring
     "resident_ring": ("resident_ring.cu",
@@ -66,6 +66,10 @@ _I, _P, _LL, _F = (ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_float)
 _ENTRIES = {
     "separable_apply": {
+        "tpufem_separable_march": ([_I] * 7 + [_P] * 4, _I),
+        "tpufem_march_blocks_per_sm": ([_I] * 5, _I),
+        "tpufem_march_cols": ([_I] * 3, _I),
+        "tpufem_march_smem_elems": ([_I] * 4, _LL),
         "tpufem_separable_apply": ([_I] * 7 + [_P] * 4, _I),
         "tpufem_smem_elems": ([_I] * 5, _LL)},
     "resident_ring": {
