@@ -51,7 +51,11 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 bf16, against the emulation of its x stage's arithmetic
                 (``EMU_TOL``; f32h within its class), halo zeros and two
                 chained applies, at p = 1, 2, 4, 7, 8 on small grids and at
-                the 16,974,593-DoF flagship; then the lab's entry point
+                the 16,974,593-DoF flagship (v17 and v19 on their ring
+                routine, csrc/lab_resident_ring.cuh, its copy and bands
+                ablations bit for bit equal to the tile routine, which is
+                checked the same way as their earlier schedule); then the
+                lab's entry point
                 ``kernel_lab.main`` at the flagship, whose L1 launch counts
                 are the ones reported and whose raw applies, each timed in
                 turns with its plain version (K1's copy ablation too), are
@@ -300,10 +304,16 @@ EMU_TOL = {"f32": 1e-6, "bf16": 1e-5}
 # random inputs per kernel, mode and p at phase 5's small sizes (the
 # flagship keeps one)
 LAB_DRAWS = 3
-LAB_KERNELS = {"v17": ("dense x stage", "scripts/kernel_lab.py:581"),
-               "v18": ("fused bands", "scripts/kernel_lab.py:1090"),
-               "v19": ("pipelined", "scripts/kernel_lab.py:922"),
-               "v20": ("block-banded x stage", "scripts/kernel_lab.py:747")}
+LAB_KERNELS = {"v17": ("dense x stage on the TMA ring, wgmma",
+                       "scripts/kernel_lab.py:581",
+                       "tpufem_torch/csrc/lab_resident_ring.cuh"),
+               "v18": ("fused bands", "scripts/kernel_lab.py:1090",
+                       "tpufem_torch/csrc/lab_resident.cuh"),
+               "v19": ("warp-specialised, persistent",
+                       "scripts/kernel_lab.py:922",
+                       "tpufem_torch/csrc/lab_resident_ring.cuh"),
+               "v20": ("block-banded x stage", "scripts/kernel_lab.py:747",
+                       "tpufem_torch/csrc/lab_resident.cuh")}
 # the L2a kernels: (what the variant is, the Pallas kernel it replaces)
 L2_KERNELS = {"v2": ("dense x, y, z", "scripts/kernel_lab.py:47"),
               "v3": ("band x, dense y/z", "scripts/kernel_lab.py:78"),
@@ -639,9 +649,38 @@ def check_terms(terms, p, mode, rng, dirichlet=False, passes=False,
     return tag, rel, abs_err
 
 
-def lab_kernel(kern, mode, npts, p, n, h, dtype=None):
+def ring_ptxas_summary(log: str) -> str:
+    """Per ring kernel of L1 and x-stage precision: the registers and the
+    spill stores of its eight degrees, and the count of ptxas's wgmma
+    serialisation warnings, from the build's ptxas log (none where the
+    library came from an earlier build)."""
+    from tpufem_torch.utils.build import ptxas_lines
+
+    if not log.strip():
+        return "no ptxas log (cached build)"
+    per, warn = {}, 0
+    for line in ptxas_lines(log, "lab_ring"):
+        m = re.search(r"(lab_ring\w*kernel)ILi(\d)ELi(\d)E.*: (\d+) "
+                      r"registers, (\d+) bytes", line)
+        if m:
+            key = (m.group(1), int(m.group(3)))
+            regs, spill = int(m.group(4)), int(m.group(5))
+            r0, r1, s1, ns = per.get(key, (regs, regs, 0, 0))
+            per[key] = (min(r0, regs), max(r1, regs), max(s1, spill),
+                        ns + (spill > 0))
+        else:
+            warn += 1
+    xp = {0: "3xTF32", 1: "1xTF32", 2: "bf16x3", 3: "f64"}
+    return "; ".join(
+        f"{k} {xp[x]}: {r0}-{r1} registers, {ns} of p = 1..8 spill (max "
+        f"{s1} B)" for (k, x), (r0, r1, s1, ns) in sorted(per.items())) + \
+        f"; {warn} wgmma serialisation warnings"
+
+
+def lab_kernel(kern, mode, npts, p, n, h, dtype=None, routine=None):
     """An L1 kernel on the card; ``mode`` is a LAB_TOL key (f64: the exact
-    x stage in float64)."""
+    x stage in float64); routine: v17 and v19's ring (the default) or the tile
+    routine."""
     from tpufem_torch.lab.resident_lab import V17Kernel
     from tpufem_torch.ops.separable import global_1d_matrices
 
@@ -651,10 +690,11 @@ def lab_kernel(kern, mode, npts, p, n, h, dtype=None):
     return V17Kernel(npts, p, K1, M1, h,
                      mode={"f64": "f32", "f32h": "f32"}.get(mode, mode),
                      prec="high" if mode == "f32h" else "highest",
-                     kern_name=kern, dtype=dtype, device="cuda")
+                     kern_name=kern, dtype=dtype, device="cuda",
+                     routine=routine)
 
 
-def check_lab(kern, mode, p, n, h, u):
+def check_lab(kern, mode, p, n, h, u, routine=None):
     """Launch one L1 kernel on the f64 input ``u`` ((n p + 1)**3 points on
     the card); return (tag, max relative error, max abs error, emulation)
     against the plain version of its mode in f64 on the same
@@ -663,11 +703,13 @@ def check_lab(kern, mode, p, n, h, u):
     emulation is (its own max relative error, the kernel's max distance
     from it over max |y|), else None.  Raises when out of tolerance, when
     a halo or padding point is not zero, when two chained applies are off
-    (f64, f32) or when the launch counter did not rise."""
+    (f64, f32), when the launch counter did not rise or, for the ring
+    routine's copy and bands ablations, when they are not the tile routine's
+    bit for bit."""
     from tpufem_torch.lab.resident_lab import V17Kernel
 
     npts = n * p + 1
-    k = lab_kernel(kern, mode, npts, p, n, h)
+    k = lab_kernel(kern, mode, npts, p, n, h, routine=routine)
     ref_k = lab_kernel(kern, "f64" if mode in ("f32", "f32h", "bf16")
                        else mode, npts, p, n, h, torch.float64)
     gp = k.pad(u)
@@ -675,8 +717,8 @@ def check_lab(kern, mode, p, n, h, u):
     y = k.raw(gp)
     rose = V17Kernel.launches[kern] == before + 1
     torch.cuda.synchronize()
-    tag = (f"{kern} {mode} p={p} npts={npts} tile={k.tile} grid={k.grid} "
-           f"smem={k.smem}")
+    tag = (f"{kern} {mode} p={p} npts={npts} {k.routine} tile={k.tile} "
+           f"grid={k.grid} smem={k.smem}")
     halo = torch.ones_like(y, dtype=torch.bool)
     halo[p:p + npts, p:p + npts, :npts] = False
     if not rose:
@@ -693,6 +735,10 @@ def check_lab(kern, mode, p, n, h, u):
     if not rel <= LAB_TOL[mode]:
         raise RuntimeError(f"{tag}: max rel err {rel:.3e} (chained "
                            f"{errs[-1][0]:.3e}) > {LAB_TOL[mode]}")
+    if k.routine == "ring" and mode in ("copy", "bands"):
+        earlier = lab_kernel(kern, mode, npts, p, n, h, routine="tile")
+        if not same_bits(y, earlier.raw(gp)):
+            raise RuntimeError(f"{tag}: not the tile routine's bit for bit")
     emu = None
     if mode in ("f32", "f32h", "bf16"):
         ref = ref_k.plain(gp.to(torch.float64))
@@ -2778,6 +2824,13 @@ def main() -> int:
                              f"{lib.build_seconds:.1f} s, {ptxas(lib)}"
                              for lib in libs.values())
         + f" (side by side, {t_build:.1f} s in all)")
+    # the ring routine of L1's v17 and v19: its instances' registers and
+    # spills, and any wgmma ptxas serialised (a library reused from an
+    # earlier build has no log)
+    say("2 build", "lab_resident_ring (v17: lab_ring_kernel, v19: "
+        "lab_ring_pipe_kernel, its registers at launch; setmaxnreg gives "
+        "its x stage 160 and its band and producer warps 96): "
+        + ring_ptxas_summary(libs["lab_resident"].compiler_log))
 
     marks.append(("3", time.perf_counter()))
     # ---- 3 kernel vs plain on the card --------------------------------
@@ -3194,6 +3247,24 @@ def main() -> int:
             rels.append(line)
         say("5 lab", f"flagship {tag.split(' ', 2)[2]}: {kern} max rel err "
             + ", ".join(rels) + f"; f32 max abs err {lab_abs[kern]:.3e}")
+    # v17 and v19's earlier schedule (the tile routine, routine="tile") in
+    # every mode, one input a degree and the flagship
+    from tpufem_torch.lab.resident_lab import RING_KERNELS
+
+    for p in (1, 2, 4, 7, 8):
+        n = max(2, 24 // p)
+        u = torch.tensor(rng.standard_normal((n * p + 1)**3), device=dev)
+        for kern in RING_KERNELS:
+            rels = [check_lab(kern, mode, p, n, [1.0 / n, 1.3 / n, 0.7 / n],
+                              u, routine="tile")[1] for mode in LAB_TOL]
+            say("5 lab", f"{kern} earlier routine p={p} npts={n * p + 1}: "
+                "max rel err " + ", ".join(
+                    f"{m} {r:.3e}" for m, r in zip(LAB_TOL, rels)))
+    for kern in RING_KERNELS:
+        rels = [check_lab(kern, mode, 4, 64, [1.0 / 64] * 3, u257,
+                          routine="tile")[1] for mode in LAB_TOL]
+        say("5 lab", f"{kern} earlier routine flagship: max rel err "
+            + ", ".join(f"{m} {r:.3e}" for m, r in zip(LAB_TOL, rels)))
     say("5 lab", "all within tolerance, halo zeros kept, chains agree, "
         f"f32/f32h/bf16 within {EMU_TOL} of their emulation; worst max rel "
         "err " + ", ".join(
@@ -3586,6 +3657,63 @@ def main() -> int:
         f"{l2_xstage_ms:.4f} (L2a); ({rows3}, {2 * X}) x ({2 * X}, {X}) "
         f"{zy_xstage_ms:.4f} (L2b)")
 
+    # v17 and v19: the ring routine and the tile routine (their earlier schedule) in
+    # turns at the flagship in each precision (earlier, ring, ring,
+    # earlier), beside the ring's design bound and what it moves from L2
+    from tpufem_torch.lab.resident_lab import RING_KERNELS
+
+    def raw_ms(k, gp):
+        return 1e3 * time_fn(lambda _: k.raw(gp), gp, reps=N_CHAIN)
+
+    for kern in RING_KERNELS:
+        for mode in ("f32", "f32h", "bf16", "f64"):
+            kr = lab_kernel(kern, mode, 257, 4, 64, [1.0 / 64] * 3)
+            kt = lab_kernel(kern, mode, 257, 4, 64, [1.0 / 64] * 3,
+                            routine="tile")
+            gp = kr.pad(u257.to(kr.dt))
+            t = [raw_ms(k, gp) for k in (kt, kr, kr, kt)]
+            say("6 throughput", f"{kern} {mode} at the flagship, ms per raw "
+                f"apply in turns: earlier {t[0]:.4f}, ring {t[1]:.4f}, ring "
+                f"{t[2]:.4f}, earlier {t[3]:.4f}; ring / earlier "
+                f"{(t[1] + t[2]) / (t[0] + t[3]):.3f}; the ring's design "
+                f"bound {kr.design_bound()[0]:.4f} ms "
+                f"({kr.design_bound()[1]}), {kr.l2_bytes() / 1e9:.3f} GB "
+                f"from L2 an apply (sub-tile {kr.tile}, rings {kr.ring}, "
+                f"grid {kr.grid}, {kr.smem} B a block)")
+            del gp
+    # the ring's mm ablation (qq = [u | u]: out = [u | u] @ [Kx^T; Mx^T])
+    # beside one strict-f32 torch.matmul of the layout's data rows, timed
+    # only: the port never calls it
+    km = {kern: lab_kernel(kern, "mm", 257, 4, 64, [1.0 / 64] * 3)
+          for kern in RING_KERNELS}
+    gp = km["v17"].pad(u257.to(torch.float32))
+    rows = gp[4:261, 4:261].reshape(257**2, km["v17"].X)
+    A = torch.cat([rows, rows], 1).contiguous()
+    B = km["v17"].xk
+    tf32_was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yl = torch.matmul(A, B)
+        for kern, k in km.items():
+            yk = k.raw(gp)[4:261, 4:261].reshape(257**2, k.X)
+            off = float((yk - yl).abs().max() / yl.abs().max())
+            if not off <= 1e-5:
+                raise RuntimeError(f"{kern} mm is off the f32 matmul by "
+                                   f"{off:.3e}")
+        t = [1e3 * time_fn(lambda _: torch.matmul(A, B), A, reps=N_CHAIN)]
+        t += [raw_ms(km[kern], gp) for kern in ("v17", "v19", "v19", "v17")]
+        t += [1e3 * time_fn(lambda _: torch.matmul(A, B), A, reps=N_CHAIN)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32_was
+    say("6 throughput", f"the ring's mm ablation at the flagship beside one "
+        f"strict-f32 torch.matmul ({257**2}, {2 * B.shape[1]}) x "
+        f"({B.shape[0]}, {B.shape[1]}) of the same product (3xTF32 off it "
+        f"by <= 1e-5), ms in turns: matmul {t[0]:.4f}, v17 {t[1]:.4f}, v19 "
+        f"{t[2]:.4f}, v19 {t[3]:.4f}, v17 {t[4]:.4f}, matmul {t[5]:.4f}; "
+        f"v17 / matmul {(t[1] + t[4]) / (t[0] + t[5]):.2f}, v19 / matmul "
+        f"{(t[2] + t[3]) / (t[0] + t[5]):.2f}")
+    del A, B, gp, rows, yl, km
+
     # vcopy's function (the input layout's inner (nt b)^2 rows, made
     # contiguous) and vx's ((Mx + Kx) along x of its first (nt b)^2 rows: one
     # product) are each one PyTorch call: their library_ms, each call held
@@ -3902,9 +4030,9 @@ def main() -> int:
         ("K3", "K3 resident_ring (2D terms plan, fused mask)",
          "tpufem_torch/csrc/resident_ring.cuh",
          "tpufem/ops/pallas_separable.py:1057", abs_err["K3"], None),
-    ] + [(kern, f"{kern} lab_resident ({LAB_KERNELS[kern][0]}, 3xTF32)",
-          "tpufem_torch/csrc/lab_resident.cuh", LAB_KERNELS[kern][1],
-          lab_abs[kern], None) for kern in KERNELS] + [
+    ] + [(kern, f"{kern} {Path(LAB_KERNELS[kern][2]).stem} "
+          f"({LAB_KERNELS[kern][0]}, 3xTF32)", LAB_KERNELS[kern][2],
+          LAB_KERNELS[kern][1], lab_abs[kern], None) for kern in KERNELS] + [
         (f"L2 {v}", f"{v} {'lab_zyfirst' if v in ZYFIRST else 'lab_separable'}"
          f" ({L2_KERNELS[v][0]}, "
          f"{'bf16x3' if v == 'v9' else 'f32' if v in NO_MMA else '3xTF32'})",

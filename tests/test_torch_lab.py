@@ -1,13 +1,19 @@
 """The K1 kernel lab (L1: v17-v20) on the CPU: its plain version against
 tpufem's separable apply, its layout and tables, its entry point's refusal
-without a card, and a g++ build of the CUDA routine
-(tpufem_torch/csrc/lab_resident.cuh) against the plain version.
+without a card, and g++ builds of the CUDA routines against the plain
+version: the tile routine's (tpufem_torch/csrc/lab_resident.cuh; v18, v20 and the
+earlier schedule of v17 and v19) and the ring routine of v17 and v19
+(lab_resident_ring.cuh).
 
-The host build runs one thread per block, as in test_torch_kernel_host.py,
-with a stub of the WMMA calls the routine uses: a fragment holds its whole
+The host builds run one thread per block, as in test_torch_kernel_host.py,
+with a stub of the WMMA calls the routines use: a fragment holds its whole
 tile row-major, ``mma_sync`` is a loop, ``__float_to_tf32`` rounds to a
 10-bit mantissa (to nearest, ties away).  Warp-wide code takes one thread
 for the whole warp, and v19's two warp groups take turns in each step.
+The ring routine runs through hopper.cuh's host forms: a TMA box is a loop
+copy with zero fill, a bulk copy a memcpy, an mbarrier call does nothing,
+and the one thread runs each chunk's load, bands and both warpgroups'
+products (a wgmma operand or accumulator holds its whole tile) in turn.
 """
 
 import ctypes
@@ -151,6 +157,125 @@ extern "C" int host_lab_apply(int variant, int xp, int p, int mode, int npts,
 extern "C" long long host_lab_smem_bytes(int p, int xp, int nbuf, int tz,
                                          int ty, int X) {
   return tpufem::lab_smem(p, xp, nbuf, tz, ty, X).total;
+}
+"""
+
+RING_SHIM = STUBS + WMMA_STUBS + r"""
+#define __grid_constant__
+#include "lab_resident_ring.cuh"
+
+static unsigned long long* ticket_ctr;  // v19's, at 0 for each launch
+
+template <int P, int XP>
+static int run(int variant, int mode, tpufem::LrGeo q, int grid,
+               const void* u, void* y, const void* tab, const void* xb) {
+  using C = typename tpufem::LabMma<XP>::C;
+  const tpufem::LabGeo& g = q.g;
+  const long long bytes =
+      tpufem::lr_smem(P, XP, g.tz, g.ty, q.nu, q.nb, q.nq, q.ncols).total;
+  tpufem::HopMap in_map;  // the launcher's map of the input layout
+  const long long dim[3] = {g.X, g.sy, g.sz};
+  const int box[3] = {tpufem::lr_xc(XP), g.ty + 2 * P, g.tz + 2 * P};
+  tpufem::hop_map_3d(&in_map, (void*)u, sizeof(C), dim, box);
+  const int nblk = variant == 19 ? grid : g.ntz * g.nty * q.nsplit;
+  gridDim = Dim3{grid, 1, 1};
+  for (int b = 0; b < nblk; ++b) {
+    std::memset(tpufem::smem_raw, 0xAB, bytes + 4096);
+    if (variant == 19) {
+      blockIdx = Dim3{b, 0, 0};
+      tpufem::lab_ring_pipe_kernel<P, XP>(in_map, (C*)y, (const C*)tab,
+                                          (const unsigned char*)xb, q, mode,
+                                          ticket_ctr);
+    } else {
+      blockIdx = Dim3{b % g.nty, b / g.nty % g.ntz, b / (g.nty * g.ntz)};
+      tpufem::lab_ring_kernel<P, XP>(in_map, (C*)y, (const C*)tab,
+                                     (const unsigned char*)xb, q, mode);
+    }
+    for (long long i = bytes; i < bytes + 4096; ++i)
+      if (tpufem::smem_raw[i] != 0xAB) return 1;  // beyond its smem
+  }
+  return 0;
+}
+
+// the instances the cases use: f64 at p = 1, 2, 4, 7, 8; 3xTF32 at 2, 4, 7
+// (the ablations at 2); 1xTF32 and bf16x3 at 4 and 7
+template <int XP>
+static int by_p(int p, int v, int mode, tpufem::LrGeo q, int grid,
+                const void* u, void* y, const void* t, const void* xb) {
+  constexpr bool f64 = XP == tpufem::kXF64, tf = XP == tpufem::kX3TF32;
+  switch (p) {
+    case 1: if constexpr (f64) return run<1, XP>(v, mode, q, grid, u, y, t, xb);
+            break;
+    case 2: if constexpr (f64 || tf)
+              return run<2, XP>(v, mode, q, grid, u, y, t, xb);
+            break;
+    case 4: return run<4, XP>(v, mode, q, grid, u, y, t, xb);
+    case 7: return run<7, XP>(v, mode, q, grid, u, y, t, xb);
+    case 8: if constexpr (f64) return run<8, XP>(v, mode, q, grid, u, y, t, xb);
+            break;
+  }
+  return 2;
+}
+
+extern "C" int host_lab_ring_apply(int variant, int xp, int p, int mode,
+                                   int npts, int sz, int sy, int X, int tz,
+                                   int ty, int nu, int nb, int nq, int ncols,
+                                   int nsplit, int grid, const void* u,
+                                   void* y, const void* t, const void* xb,
+                                   void* tickets) {
+  const tpufem::LrGeo q{{npts, sz, sy, X, tz, ty, (npts + tz - 1) / tz,
+                         (npts + ty - 1) / ty},
+                        nu, nb, nq, ncols, nsplit};
+  ticket_ctr = (unsigned long long*)tickets;
+  switch (xp) {
+    case 0: return by_p<0>(p, variant, mode, q, grid, u, y, t, xb);
+    case 1: return by_p<1>(p, variant, mode, q, grid, u, y, t, xb);
+    case 2: return by_p<2>(p, variant, mode, q, grid, u, y, t, xb);
+    case 3: return by_p<3>(p, variant, mode, q, grid, u, y, t, xb);
+  }
+  return 2;
+}
+
+// The x stage alone: the products of nchunk (64, K) qq stages (the A
+// operand's layout) by their B stages (xb, as the kernel's), out (64,
+// ncols) row-major: every column block on both warpgroups.
+template <int XP>
+static void xstage(int nchunk, int ncols, const void* qq, const void* xb,
+                   void* out) {
+  using C = typename tpufem::LabMma<XP>::C;
+  const tpufem::LrSmem pl = tpufem::lr_smem(1, XP, 8, 8, 1, 1, 1, ncols);
+  tpufem::LrX<XP> x;
+  x.zero();
+  for (int ch = 0; ch < nchunk; ++ch) {
+    x.retire();
+    tpufem::lr_x_issue<XP>(
+        x, (const unsigned char*)qq + ch * pl.qq_bytes,
+        (const unsigned char*)xb + ch * pl.b_bytes, pl, ncols / 32, 0, [] {});
+  }
+  x.retire();
+  auto st = [&](int m, int n, C v) { ((C*)out)[m * ncols + n] = v; };
+  if constexpr (XP == tpufem::kXF64)
+    x.store(ncols / 32, (double*)tpufem::smem_raw, 0, 0, 1, st);
+  else
+    x.store(ncols / 32, 0, 0, 0, st);
+}
+
+extern "C" int host_lab_ring_xstage(int xp, int nchunk, int ncols,
+                                    const void* qq, const void* xb,
+                                    void* out) {
+  switch (xp) {
+    case 0: xstage<0>(nchunk, ncols, qq, xb, out); return 0;
+    case 1: xstage<1>(nchunk, ncols, qq, xb, out); return 0;
+    case 2: xstage<2>(nchunk, ncols, qq, xb, out); return 0;
+    case 3: xstage<3>(nchunk, ncols, qq, xb, out); return 0;
+  }
+  return 2;
+}
+
+extern "C" long long host_lab_ring_smem_bytes(int p, int xp, int tz, int ty,
+                                              int nu, int nb, int nq,
+                                              int ncols) {
+  return tpufem::lr_smem(p, xp, tz, ty, nu, nb, nq, ncols).total;
 }
 """
 
@@ -484,3 +609,249 @@ def test_lab_tiles_fit(lab_lib):
                 assert (tz * ty) % resident_lab.MMA[xp][0] == 0
                 assert lab_lib.host_lab_smem_bytes(p, xp, nbuf, tz, ty, 272) \
                     <= resident_lab.SMEM_BUDGET
+
+
+@pytest.fixture(scope="module")
+def ring_lib(tmp_path_factory):
+    lib = _build(tmp_path_factory, "lab_ring_host", RING_SHIM)
+    lib.host_lab_ring_apply.argtypes = ([ctypes.c_int] * 16
+                                        + [ctypes.c_void_p] * 5)
+    lib.host_lab_ring_apply.restype = ctypes.c_int
+    lib.host_lab_ring_xstage.argtypes = ([ctypes.c_int] * 3
+                                         + [ctypes.c_void_p] * 3)
+    lib.host_lab_ring_xstage.restype = ctypes.c_int
+    lib.host_lab_ring_smem_bytes.argtypes = [ctypes.c_int] * 8
+    lib.host_lab_ring_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def _ring_host(lib, k, tile=None, grid=None, ncols=None):
+    """The ring routine's host build as a function of the layout, for the
+    CPU instance k: the chooser's plan (its sub-tile and rings, by the
+    build's own shared-memory count), or the sub-tile, v19 grid and block
+    columns given."""
+    nq = 2 if k.kern_name == "v19" else 1
+    (tz, ty), nu, nb, nc, nsplit = resident_lab.choose_ring(
+        k.p, k.xp, k.X, nq, lib.host_lab_ring_smem_bytes,
+        (tile,) if tile else resident_lab.RING_TILES, k.mode)
+    if ncols:
+        nc = ncols
+        nsplit = 1 if k.mode in resident_lab.NO_XSTAGE else -(-k.X // ncols)
+    units = nsplit * (-(-k.npts // tz)) * (-(-k.npts // ty))
+    xkm = torch.as_tensor(resident_lab.x_operator(k.Ks[0], k.Ms[0], k.X),
+                          dtype=k.dt)
+    xb = None if k.mode in resident_lab.NO_XSTAGE else \
+        resident_lab.ring_operand(xkm, k.xp, k.X, nc, nsplit)
+
+    def host(gp):
+        y = torch.full_like(gp, float("nan"))  # every point must be written
+        tickets = torch.zeros(1, dtype=torch.int64)
+        rc = lib.host_lab_ring_apply(
+            int(k.kern_name[1:]), k.xp, k.p, resident_lab.MODES[k.mode],
+            k.npts, k.sz, k.sy, k.X, tz, ty, nu, nb, nq, nc, nsplit,
+            grid or units, gp.data_ptr(), y.data_ptr(), k.tables.data_ptr(),
+            None if xb is None else xb.data_ptr(), tickets.data_ptr())
+        assert rc == 0, "kernel wrote beyond its shared memory"
+        if k.kern_name == "v19":  # each block took one ticket past the end
+            assert int(tickets) == units + (grid or units)
+        return y
+
+    return host
+
+
+RING_CASES = (
+    [(kern, p, "f64", None, None, None) for kern in resident_lab.RING_KERNELS
+     for p in (1, 2, 4, 7, 8)]
+    + [(kern, p, mode, None, None, None)
+       for kern in resident_lab.RING_KERNELS for p in (4, 7)
+       for mode in ("f32", "f32h", "bf16")]
+    + [(kern, 2, mode, None, None, None)
+       for kern in resident_lab.RING_KERNELS
+       for mode in ("copy", "bands", "mm")]
+    # ragged sub-tiles in z and in y; v19 with fewer persistent blocks than
+    # units and with more (blocks with none); X = 48 in two column splits,
+    # and the copy and bands ablations there in one split of fewer columns
+    + [("v17", 2, "f64", (4, 16), None, None),
+       ("v17", 4, "f32", (16, 4), None, None),
+       ("v19", 2, "f64", (16, 4), 3, None),
+       ("v19", 4, "f32", (4, 16), 40, None),
+       ("v17", 4, "f64", None, None, 33), ("v19", 4, "bf16", None, 7, 33),
+       ("v17", 4, "copy", None, None, 33), ("v19", 4, "bands", None, 7, 33)])
+
+
+@pytest.mark.parametrize("kern,p,mode,tile,grid,npts", RING_CASES)
+def test_ring_host_build_matches_plain(ring_lib, kern, p, mode, tile, grid,
+                                       npts):
+    """The ring routine of v17 and v19 in each x-stage class against the
+    plain version in f64 on the same (storage-rounded) input and against
+    ``emulate`` (f32, f32h, bf16), with the halo and padding zeros written
+    and two chained applies.  X = 16 (npts <= 17) and 48 fill a 32-column
+    block of the x operator half with zeros; at npts 33 the block's columns
+    are 32, in two splits."""
+    n = (npts - 1) // p if npts else 2 if p > 2 else 5 // p + 1
+    npts = n * p + 1
+    k = _kernel(npts, p, mode, kern, n)
+    host = _ring_host(ring_lib, k, tile, grid, 32 if n * p + 1 > 17 else None)
+    ref_k = _kernel(npts, p, "f64" if mode in ("f32h", "bf16") else mode,
+                    kern, n, torch.float64)
+    u = torch.as_tensor(np.random.default_rng(npts + p + 1).standard_normal(
+        npts**3))
+    gp = k.pad(u)
+    y = host(gp)
+    ref = ref_k.plain(gp.to(torch.float64))
+    assert not y[_halo_mask(k)].any() and torch.isfinite(y).all()
+    err = float((y.to(torch.float64) - ref).abs().max() / ref.abs().max())
+    assert err <= TOL[mode], err
+    if mode in ("f32", "f32h", "bf16"):
+        ye = k.emulate(gp).to(torch.float64)
+        diff = float((y.to(torch.float64) - ye).abs().max()
+                     / ref.abs().max())
+        print(f"ring {kern} {mode} p={p} npts={npts}: host {err:.3e}, "
+              f"apart from the emulation {diff:.3e}")
+        assert diff <= EMU_TOL.get(mode, TOL[mode]), (diff, err)
+    if mode in ("f64", "f32"):
+        y2 = host(y)
+        ref2 = ref_k.plain(y.to(torch.float64))
+        assert float((y2.to(torch.float64) - ref2).abs().max()
+                     / ref2.abs().max()) <= TOL[mode]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", ["copy", "bands"])
+@pytest.mark.parametrize("kern", resident_lab.RING_KERNELS)
+def test_ring_ablations_equal_the_tile_routine_bitwise(lab_lib, ring_lib,
+                                                        kern, mode, dtype):
+    """The ring routine's copy and bands ablations are the tile routine's bit
+    for bit: the same band tables, taps and order (band2 runs band's
+    operations), on a ragged layout (npts 9 against sub-tiles of 8)."""
+    p, n = 4, 2
+    npts = n * p + 1
+    k = _kernel(npts, p, mode, kern, n, dtype)
+    gp = k.pad(torch.as_tensor(np.random.default_rng(7).standard_normal(
+        npts**3), dtype=dtype))
+    y = _ring_host(ring_lib, k)(gp)
+    tile = resident_lab.choose_tile(p, k.xp, k.nbuf, k.X,
+                                    lab_lib.host_lab_smem_bytes)
+    ntiles = (-(-npts // tile[0])) * (-(-npts // tile[1]))
+    y_tile = torch.full_like(gp, float("nan"))
+    assert lab_lib.host_lab_apply(
+        int(kern[1:]), k.xp, p, resident_lab.MODES[mode], npts, k.sz, k.sy,
+        k.X, *tile, ntiles, gp.data_ptr(), y_tile.data_ptr(),
+        k.tables.data_ptr(), k.xk.data_ptr(), None,
+        k.windows.data_ptr()) == 0
+    bits = torch.int32 if dtype == torch.float32 else torch.int64
+    assert torch.equal(y.view(bits), y_tile.view(bits))
+    assert mode == "copy" or not torch.equal(y, gp)
+
+
+def _a_layout(a: np.ndarray, xp: int) -> np.ndarray:
+    """A (64, K) qq stage in the ring's A operand layout (``lr_at``)."""
+    m, k = np.meshgrid(np.arange(64), np.arange(a.shape[1]), indexing="ij")
+    if xp == resident_lab.XF64:
+        at = m * 16 + k
+    else:
+        at = m * 32 + (k ^ ((m & 7) << 2))
+    out = np.zeros(a.size, a.dtype)
+    out[at.ravel()] = a.ravel()
+    return out
+
+
+@pytest.mark.parametrize("xp", sorted(resident_lab.MMA))
+def test_ring_x_stage_over_all_column_blocks(ring_lib, xp):
+    """The ring's x stage alone on the flagship's X = 272 (nine 32-column
+    blocks: five on one warpgroup, four on the other, the fifth's one past
+    the last not stored; f64: 160-column splits) over two chunks, against
+    the products of the split operands the kernel multiplies, summed in
+    f64."""
+    X, nchunk = 272, 2
+    xc = resident_lab.RING_XC[xp]
+    K = 2 * xc
+    ncols, nsplit = resident_lab.ring_columns(xp, X)
+    rng = np.random.default_rng(xp)
+    f64 = xp == resident_lab.XF64
+    dt = torch.float64 if f64 else torch.float32
+    xkm = torch.as_tensor(rng.standard_normal((2 * X, X)), dtype=dt)
+    xb = resident_lab.ring_operand(xkm, xp, X, ncols, nsplit)
+    a = torch.as_tensor(rng.standard_normal((nchunk, 64, K)), dtype=dt)
+    qq = torch.as_tensor(np.concatenate([_a_layout(a[c].numpy(), xp)
+                                         for c in range(nchunk)]))
+    out = torch.zeros((64, ncols), dtype=dt)
+    assert ring_lib.host_lab_ring_xstage(xp, nchunk, ncols, qq.data_ptr(),
+                                         xb.data_ptr(), out.data_ptr()) == 0
+    ref = torch.zeros((64, X), dtype=torch.float64)
+    for c in range(nchunk):
+        rows = torch.cat([torch.arange(c * xc, (c + 1) * xc),
+                          X + torch.arange(c * xc, (c + 1) * xc)])
+        b, ac = xkm[rows], a[c]
+        if xp == resident_lab.XBF16X3:
+            bf = lambda v: v.to(torch.bfloat16).to(dt)
+            pa = [(bf(ac - bf(ac)), bf(b)), (bf(ac), bf(b - bf(b))),
+                  (bf(ac), bf(b))]
+        elif xp == resident_lab.X3TF32:
+            t = resident_lab.tf32
+            pa = [(t(ac - t(ac)), t(b)), (t(ac), t(b - t(b))), (t(ac), t(b))]
+        elif xp == resident_lab.X1TF32:
+            pa = [(resident_lab.tf32(ac), resident_lab.tf32(b))]
+        else:
+            pa = [(ac, b)]
+        for pa_, pb in pa:
+            ref += pa_.to(torch.float64) @ pb.to(torch.float64)
+    got = out[:, :X].to(torch.float64) if nsplit == 1 else None
+    if nsplit > 1:  # the stage multiplies one split: the first ncols columns
+        ref = ref[:, :ncols]
+        got = out.to(torch.float64)
+    err = float((got - ref).abs().max() / ref.abs().max())
+    assert err <= (1e-12 if f64 else 1e-6), err
+
+
+def test_ring_blocks_fit(ring_lib):
+    """The ring chooser finds a block within 227 KB by the routine's own
+    count at every degree, x-stage precision and variant, at the flagship's
+    X = 272 and at X = 528 (p = 8, refine 6: two column splits on wgmma)."""
+    for X in (272, 528):
+        for p in range(1, resident_lab.MAX_DEGREE + 1):
+            for xp in resident_lab.MMA:
+                for nq in (1, 2):
+                    (tz, ty), nu, nb, nc, ns = resident_lab.choose_ring(
+                        p, xp, X, nq, ring_lib.host_lab_ring_smem_bytes)
+                    assert tz * ty == resident_lab.RING_M
+                    assert nc * ns >= X and nc % 32 == 0
+                    assert nc <= resident_lab.RING_MAX_COLS[xp]
+                    assert ring_lib.host_lab_ring_smem_bytes(
+                        p, xp, tz, ty, nu, nb, nq, nc) \
+                        <= resident_lab.RING_BUDGET
+    # the flagship's rings in 3xTF32: three u slots and two B stages, beside
+    # v19's two qq stages too (230,784 bytes)
+    for nq in (1, 2):
+        assert resident_lab.choose_ring(
+            4, resident_lab.X3TF32, 272, nq,
+            ring_lib.host_lab_ring_smem_bytes)[1:3] == (3, 2)
+
+
+def test_ring_columns_by_mode():
+    """The column splits that the x stage's registers force (f64 at X =
+    272: two of 160 columns; on wgmma one of 288), and one split for the
+    copy and bands ablations, which have no x stage and so band each
+    sub-tile once."""
+    XF64, X3TF32 = resident_lab.XF64, resident_lab.X3TF32
+    for mode in ("f32", "mm"):
+        assert resident_lab.ring_columns(XF64, 272, mode) == (160, 2)
+        assert resident_lab.ring_columns(X3TF32, 528, mode) == (288, 2)
+    for mode in resident_lab.NO_XSTAGE:
+        assert resident_lab.ring_columns(XF64, 272, mode) == (160, 1)
+        assert resident_lab.ring_columns(X3TF32, 528, mode) == (288, 1)
+    assert resident_lab.ring_columns(X3TF32, 272) == (288, 1)
+
+
+def test_ring_routine_selection():
+    """v17 and v19 run the ring routine unless the tile routine is asked
+    for; v18 and v20 have only the tile routine."""
+    K1, M1 = global_1d_matrices(2, 2, 3)
+    for kern in resident_lab.KERNELS:
+        k = V17Kernel(5, 2, K1, M1, [0.5] * 3, kern_name=kern, device="cpu")
+        assert k.routine == ("ring" if kern in ("v17", "v19") else "tile")
+        assert V17Kernel(5, 2, K1, M1, [0.5] * 3, kern_name=kern,
+                         device="cpu", routine="tile").routine == "tile"
+    with pytest.raises(ValueError, match="routine"):
+        V17Kernel(5, 2, K1, M1, [0.5] * 3, kern_name="v20", device="cpu",
+                  routine="ring")

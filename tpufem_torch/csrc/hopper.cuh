@@ -5,9 +5,10 @@
 // Used by band_ring.cuh (the all-band ring under K1, K3 and K4 in
 // resident_ring.cuh and under the lab's vcopy, vband, v16 of
 // scripts/kernel_lab.py, _kernel_vcopy :500, _kernel_vband :525, _kernel_v16
-// :1347, in lab_zyfirst.cuh) and lab_separable.cuh (the dense x stage of
-// _kernel_vx :164 and the x-first kernels around it).  What each piece is
-// for:
+// :1347, in lab_zyfirst.cuh), lab_separable.cuh (the dense x stage of
+// _kernel_vx :164 and the x-first kernels around it) and
+// lab_resident_ring.cuh (the ring routine of the K1 lab's v17 and v19).
+// What each piece is for:
 //   mbarrier  a barrier in shared memory that counts thread arrivals and the
 //             bytes of asynchronous copies; a ring of `full`/`empty` pairs
 //             takes the place of the TPU kernels' DMA semaphores, and of a
@@ -190,6 +191,22 @@ __device__ __forceinline__ void hop_tma_load(void* dst, const HopMap* map,
 #endif
 }
 
+// Copy `bytes` (a multiple of 16; both addresses 16-byte aligned) of device
+// memory at `src` to `dst` in one bulk copy, completing on `bar` as a TMA
+// box does: a tensor laid out on the host as shared memory wants it.
+__device__ __forceinline__ void hop_bulk_load(void* dst, const void* src,
+                                              unsigned bytes, uint64_t* bar) {
+#ifdef __CUDA_ARCH__
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(hop_smem(dst)),
+      "l"(src), "r"(bytes), "r"(hop_smem(bar))
+      : "memory");
+#elif !defined(__CUDACC__)
+  std::memcpy(dst, src, bytes);
+#endif
+}
+
 // Store the dense box at `src` to element coordinates (c0, c1, c2) of `map`,
 // clipped at the tensor's extent.  The writers of `src` call hop_fence_async
 // and synchronise before the one thread that stores; that thread then
@@ -242,6 +259,44 @@ __device__ __forceinline__ void hop_fence_async_global() {
 __device__ __forceinline__ void hop_fence_async() {
 #ifdef __CUDA_ARCH__
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+#endif
+}
+
+// ---- warp roles --------------------------------------------------------------
+
+// The next ticket of a counter in device memory that the blocks of a launch
+// share (a dynamic scheduler of persistent blocks).
+__device__ __forceinline__ unsigned long long hop_ticket(
+    unsigned long long* ctr) {
+#ifdef __CUDA_ARCH__
+  return atomicAdd(ctr, 1ULL);
+#else
+  return (*ctr)++;
+#endif
+}
+
+// v, the same in every lane of the warp, as the compiler can see it (a role
+// index the warp branches on: ptxas serialises wgmma on a path it cannot
+// prove warp-uniform)
+__device__ __forceinline__ int hop_uniform(int v) {
+#ifdef __CUDA_ARCH__
+  return __shfl_sync(0xffffffffu, v, 0);
+#else
+  return v;
+#endif
+}
+// Raise (lower) the registers of each thread of this warpgroup to N (a
+// multiple of 8); every warp of the warpgroup calls it.
+template <int N>
+__device__ __forceinline__ void hop_reg_alloc() {
+#ifdef __CUDA_ARCH__
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+#endif
+}
+template <int N>
+__device__ __forceinline__ void hop_reg_dealloc() {
+#ifdef __CUDA_ARCH__
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
 #endif
 }
 

@@ -1,6 +1,8 @@
 // The K1 kernel lab on Hopper: four schedules of the solver-resident 3D
-// Laplace apply with a tensor-core x stage.  Device code; the host launcher
-// with its plain C interface is lab_resident.cu.
+// Laplace apply with a tensor-core x stage, on two routines.  Device code of
+// the tile routine and of the pieces both share; the ring routine is
+// lab_resident_ring.cuh, the host launcher with its plain C interface
+// lab_resident.cu.
 //
 // Replaces the Pallas lab kernels of scripts/kernel_lab.py:
 //   v17  _kernel_v17  (kernel_lab.py:581)   halo'd resident layout, z/y band
@@ -15,7 +17,20 @@
 // in z and y (the TPU's H is not needed).  Each kernel writes the whole
 // layout, halo and padding zeros included, so raw(raw(u)) chains.
 //
-// Schedule of one (TZ, TY) output tile over all of x (M = TZ*TY rows):
+// The two routines:
+//   ring  v17 and v19 (lab_resident_ring.cuh: lab_ring_kernel,
+//         lab_ring_pipe_kernel): a producer warp feeds the halo'd u boxes by
+//         TMA and the host-split rows of [Kx^T; Mx^T] by bulk copies through
+//         mbarrier rings; the bands of a 64-row sub-tile run chunk by chunk
+//         of x into a qq stage that two warpgroups multiply on wgmma (A from
+//         registers), the output accumulated in registers over all of x.
+//         v17 overlaps a chunk's products with the next chunk's bands; v19
+//         gives bands and products warps of their own and walks the
+//         sub-tiles with persistent blocks.  Bounded by the bands on CUDA
+//         cores and by B's stream from L2 into every block (PERF.md).
+//   tile  the first version (lab_tile_kernel, lab_pipe_kernel, below):
+//         v18 and v20's, and v17 and v19's earlier schedule.  One (TZ, TY)
+//         output tile over all of x (M = TZ*TY rows):
 //   z, y   s = Bz(u; Mz), t = Bz(u; Kz); q1 = By(s; My), q23 = By(s; Ky) +
 //          By(t; My) on CUDA cores, x streamed in chunks of kXC columns (the
 //          TPU's (b+2p)(b+2H)X slab, ~2 MB, does not fit a block's 227 KB);
@@ -55,10 +70,12 @@
 // 272): 0.118 ms in 3xTF32, 0.039 ms in 1xTF32, 0.059 ms in bf16x3, so
 // v17-v19 cannot come within 3x of the function's bound, while v20 (~8x
 // fewer rows per column block at P = 4) keeps the design's bound at its
-// bytes.  This first version approaches neither: WMMA (not wgmma) from
-// shared memory with the B operand read from L2 by every block, no TMA, a
-// (TZ+2P)(TY+2P)/(TZ TY) ~ 7x halo re-read in the band stage.  PERF.md has
-// the measured split.
+// bytes.  The tile routine approaches neither: WMMA (not wgmma) from shared
+// memory with the B operand read from L2 by every block, no TMA, a
+// (TZ+2P)(TY+2P)/(TZ TY) ~ 7x halo re-read in the band stage (v17 in
+// 3xTF32 at the flagship on an H100 80GB HBM3 at 700 W, timed in turns by
+// chip_smoke.py phase 6: 3.31 ms, the ring routine 0.69).  PERF.md has the
+// measured split.
 #pragma once
 
 #include "common.cuh"

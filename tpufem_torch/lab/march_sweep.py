@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
 import subprocess
 from pathlib import Path
 
@@ -34,7 +33,7 @@ import torch
 from tpufem_torch.apps.resident_probe import device_ms
 from tpufem_torch.ops import kernel_separable as ks
 from tpufem_torch.ops.separable import global_1d_matrices
-from tpufem_torch.utils.build import load_kernels
+from tpufem_torch.utils.build import load_kernels, ptxas_lines
 from tpufem_torch.utils.timer import time_fn
 
 SHAPES = ((3, 17), (3, 33), (3, 65), (3, 129), (3, 257), (2, 33), (2, 129),
@@ -43,25 +42,6 @@ OUT = Path(__file__).resolve().parents[2] / "chiprun_out"
 # grids of at most this many points are ranked by the kernels' device time
 # (torch.profiler; a chain of their applies measures the host's launches)
 DEVICE_TIMED = 300_000
-
-
-def ptxas_lines(log: str) -> list[str]:
-    """'<kernel>: N registers, S bytes spill stores' for each march
-    instance of the build log."""
-    out, name = [], None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m and name and "march" in name:
-            spills = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name and "march" in name:
-            out.append(f"{name}: {m.group(1)} registers, {spills} bytes "
-                       f"spill stores")
-            name = None
-    return out
 
 
 def candidates(band: ks._BandApply, cols: int, slots_of):
@@ -103,7 +83,7 @@ def main(argv=None) -> None:
                          text=True, check=True).stdout.strip()
     print(smi.splitlines()[0], flush=True)
     lib = load_kernels()["separable_apply"]
-    for line in ptxas_lines(lib.compiler_log) or [
+    for line in ptxas_lines(lib.compiler_log, "march") or [
             "no log: the library was built by an earlier process"]:
         print("ptxas", line, flush=True)
     shapes = SHAPES if args.shapes is None else [

@@ -15,6 +15,12 @@ per-row tables in difference form (``kernel_separable.band_tables``), so
 the TPU's periodic tables and deficit corrections (``_periodic_band``,
 ``corr_z``/``corr_y``) are not ported.
 
+v17 and v19 run the ring routine (``csrc/lab_resident_ring.cuh``: the
+z/y bands fed by a TMA ring, the x stage on wgmma over x chunks, v19
+warp-specialised and persistent); the tile routine (``lab_tile_kernel``,
+``lab_pipe_kernel``) stays as their earlier schedule, taken with
+``routine="tile"``, and is what v18 and v20 run.
+
 ``V17Kernel.raw`` on a CUDA tensor launches the kernel (or raises); on a
 CPU tensor it runs ``plain``, the dense separable contraction of
 ``tpufem_torch.ops.separable.laplace_apply_separable`` on the unpadded
@@ -46,6 +52,19 @@ MAX_DEGREE = 8
 # (TZ, TY) output tiles tried in order; M = TZ*TY must be a multiple of
 # the MMA tile's M
 TILES = ((2, 16), (4, 8), (2, 8), (1, 16), (1, 8))
+# the ring routine (v17, v19): sub-tiles of one wgmma M (64 rows), the least
+# halo first; ring depths (u slots, B stages) tried in order, deepest first
+RING_KERNELS = ("v17", "v19")
+RING_M = 64
+RING_TILES = ((8, 8), (4, 16), (16, 4))
+RING_DEPTHS = ((3, 2), (2, 2), (3, 1), (2, 1))
+RING_BUDGET = 227 * 1024  # a block's shared memory on an H100
+# per precision: x columns of a chunk, B parts, B element bytes, columns a
+# block multiplies at most (lr_xc, lr_parts, lr_belem, lr_max_cols)
+RING_XC = {X3TF32: 16, X1TF32: 16, XBF16X3: 16, XF64: 8}
+RING_PARTS = {X3TF32: 2, X1TF32: 1, XBF16X3: 2, XF64: 1}
+RING_MAX_COLS = {X3TF32: 320, X1TF32: 320, XBF16X3: 320, XF64: 160}
+NO_XSTAGE = ("copy", "bands")  # the ablations that run no x product
 
 
 def x_operator(Kx: np.ndarray, Mx: np.ndarray, X: int) -> np.ndarray:
@@ -78,6 +97,74 @@ def choose_tile(p: int, xp: int, nbuf: int, X: int, smem_bytes):
             return tz, ty
     raise ValueError(f"no lab tile fits {SMEM_BUDGET} bytes of shared "
                      f"memory at p={p}, X={X}")
+
+
+def ring_columns(xp: int, X: int, mode: str = "f32") -> tuple[int, int]:
+    """(ncols, nsplit): the columns of the x operator a ring block
+    multiplies (32-column blocks, as even as the splits allow) and the
+    splits of X that the block's registers force.  The copy and bands
+    ablations have no x stage: one split (the block's shared memory still
+    the full mode's)."""
+    nb32 = -(-X // 32)
+    nsplit = -(-nb32 // (RING_MAX_COLS[xp] // 32))
+    return 32 * -(-nb32 // nsplit), (1 if mode in NO_XSTAGE else nsplit)
+
+
+def choose_ring(p: int, xp: int, X: int, nq: int, smem_bytes,
+                tiles=RING_TILES, mode: str = "f32"):
+    """(tile, nu, nb, ncols, nsplit) of the ring routine in ``mode``: the
+    first of ``tiles`` and the deepest rings (``RING_DEPTHS``) whose block
+    fits RING_BUDGET by the routine's own count ``smem_bytes(p, xp, tz, ty,
+    nu, nb, nq, ncols)`` (``tpufem_lab_ring_smem_bytes``); nq: qq stages
+    (v17 1, v19 2)."""
+    ncols, nsplit = ring_columns(xp, X, mode)
+    for tz, ty in tiles:
+        if tz * ty != RING_M or max(tz, ty) + 2 * p > 256:
+            continue
+        for nu, nb in RING_DEPTHS:
+            if smem_bytes(p, xp, tz, ty, nu, nb, nq, ncols) <= RING_BUDGET:
+                return (tz, ty), nu, nb, ncols, nsplit
+    raise ValueError(f"no ring block fits {RING_BUDGET} bytes of shared "
+                     f"memory at p={p}, X={X}")
+
+
+def ring_operand(xkm: torch.Tensor, xp: int, X: int, ncols: int,
+                 nsplit: int) -> torch.Tensor:
+    """The x operator ``[Kx^T; Mx^T]`` (2X, X) as the ring routine's B
+    stages, flat: (nsplit, X / XC chunks, parts, stage) where chunk c's
+    stage holds rows [c XC, (c+1) XC) of the Kx^T half, then the same rows
+    of the Mx^T half (K = 2 XC), for the split's ncols columns (zeros
+    beyond X).  Parts: 3xTF32 big and small (``tf32``, the kernel's
+    rounding), 1xTF32 one rounding, bf16x3 hi and lo, f64 itself.  Laid
+    out as wgmma's K-major B operand (``hopper.cuh::hop_b_offset``: core
+    matrices of 8 columns by 16 bytes of k), f64 as WMMA's column-major B
+    (each column's K values in turn)."""
+    xc = RING_XC[xp]
+    K, nchunk = 2 * xc, X // xc
+    if xp == XBF16X3:
+        hi = xkm.to(torch.bfloat16)
+        parts = [hi, (xkm - hi.to(xkm.dtype)).to(torch.bfloat16)]
+    elif xp == X3TF32:
+        big = tf32(xkm)
+        parts = [big, tf32(xkm - big)]
+    elif xp == X1TF32:
+        parts = [tf32(xkm)]
+    else:
+        parts = [xkm]
+    rows = (torch.arange(nchunk)[:, None] * xc + torch.arange(xc)[None, :])
+    rows = torch.cat([rows, rows + X], 1).to(xkm.device)  # (nchunk, K)
+    out = []
+    for part in parts:
+        b = torch.zeros((2 * X, ncols * nsplit), dtype=part.dtype,
+                        device=part.device)
+        b[:, :X] = part
+        b = b[rows].reshape(nchunk, K, nsplit, ncols).permute(2, 0, 3, 1)
+        if xp != XF64:  # (n / 8, 8, k / E, E) -> (n / 8, k / E, 8, E)
+            e = 16 // part.element_size()
+            b = b.reshape(nsplit, nchunk, ncols // 8, 8, K // e, e) \
+                .permute(0, 1, 2, 4, 3, 5)
+        out.append(b.reshape(nsplit, nchunk, 1, -1))
+    return torch.cat(out, 2).contiguous().reshape(-1)
 
 
 def operator_bound(npts: int, p: int, bands: int,
@@ -118,16 +205,28 @@ class V17Kernel:
     - "copy", "bands", "mm": the timing ablations of the JAX lab (the
       layout alone, the band stages alone, the x product alone); each
       still computes a defined function, which ``plain`` gives.
+
+    routine: "ring" (v17 and v19's default: ``lab_resident_ring.cuh``) or
+    "tile" (the first version: v18 and v20's, and the earlier schedule of v17
+    and v19).  tile: the output tile (the ring's: a sub-tile of 64 rows);
+    the chooser's by default (``choose_ring``, ``choose_tile``).
     """
 
     launches = {name: 0 for name in KERNELS}  # per kernel; plain excluded
 
     def __init__(self, npts, p, K1, M1, h, mode="f32", prec="highest",
                  kern_name="v17", dtype=torch.float32, device="cuda",
-                 tile=None):
+                 tile=None, routine=None):
         if kern_name not in KERNELS:
             raise ValueError(f"kern_name must be one of {KERNELS}, got "
                              f"{kern_name!r}")
+        if routine is None:
+            routine = "ring" if kern_name in RING_KERNELS else "tile"
+        if routine not in ("ring", "tile") or (
+                routine == "ring" and kern_name not in RING_KERNELS):
+            raise ValueError(f"routine must be 'tile', or 'ring' for "
+                             f"{RING_KERNELS}; got {routine!r} for "
+                             f"{kern_name}")
         if mode not in MODES:
             raise ValueError(f"mode must be one of {tuple(MODES)}, got "
                              f"{mode!r}")
@@ -144,7 +243,7 @@ class V17Kernel:
         if prec == "high" and mode != "f32":
             raise ValueError("prec 'high' (1xTF32) applies to mode 'f32'")
         self.npts, self.p, self.mode, self.prec = npts, p, mode, prec
-        self.kern_name, self.dt = kern_name, dtype
+        self.kern_name, self.dt, self.routine = kern_name, dtype, routine
         self.xp = (XF64 if dtype == torch.float64 else XBF16X3
                    if mode == "bf16" else X1TF32 if prec == "high"
                    else X3TF32)
@@ -164,8 +263,27 @@ class V17Kernel:
                 device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
         self.nbuf = 2 if kern_name == "v19" else 1
-        self.tile = self.grid = self.smem = None
-        if self.lib is not None:
+        self.tile = self.grid = self.smem = self.ring = None
+        if self.lib is not None and routine == "ring":
+            lib = self.lib.lib
+            (self.tile, nu, nb, ncols, nsplit) = choose_ring(
+                p, self.xp, self.X, self.nbuf, lib.tpufem_lab_ring_smem_bytes,
+                (tuple(tile),) if tile is not None else RING_TILES, mode)
+            self.ring = (nu, nb, self.nbuf, ncols, nsplit)
+            self.smem = lib.tpufem_lab_ring_smem_bytes(
+                p, self.xp, *self.tile, *self.ring[:4])
+            units = nsplit * (-(-npts // self.tile[0])) * \
+                (-(-npts // self.tile[1]))
+            self.grid = units
+            if kern_name == "v19":  # persistent: the blocks the card holds
+                bps = lib.tpufem_lab_ring_blocks_per_sm(
+                    19, self.xp, p, *self.tile, *self.ring[:4])
+                if bps < 1:
+                    raise ValueError(f"the ring routine's v19 block does not "
+                                     f"fit an SM at p={p}, X={self.X}")
+                props = torch.cuda.get_device_properties(device)
+                self.grid = min(units, props.multi_processor_count * bps)
+        elif self.lib is not None:
             self.tile = tuple(tile) if tile is not None else choose_tile(
                 p, self.xp, self.nbuf, self.X,
                 self.lib.lib.tpufem_lab_smem_bytes)
@@ -189,6 +307,9 @@ class V17Kernel:
             self.xk, self.xk_lo = hi, (xkm - hi.to(dtype)).to(torch.bfloat16)
         else:
             self.xk, self.xk_lo = xkm, None
+        self.xb = None
+        if self.ring is not None and mode not in NO_XSTAGE:
+            self.xb = ring_operand(xkm, self.xp, self.X, *self.ring[3:])
         n_mma, k_mma = MMA[self.xp][1], MMA[self.xp][2]
         self.windows = torch.as_tensor(x_windows(self.X, p, n_mma, k_mma),
                                        device=device)
@@ -233,6 +354,22 @@ class V17Kernel:
                              f"{(self.sz, self.sy, self.X)}, got "
                              f"{gp.dtype} {tuple(gp.shape)}")
         y = torch.empty_like(gp)
+        if self.routine == "ring":
+            # v19's ticket counter, the launcher sets it to 0 on the stream
+            tickets = torch.empty(1, dtype=torch.int64, device=self.device)
+            with torch.cuda.device(self.device):
+                rc = self.lib.lib.tpufem_lab_ring_apply(
+                    int(self.kern_name[1:]), self.xp, self.p,
+                    MODES[self.mode], self.npts, self.sz, self.sy, self.X,
+                    *self.tile, *self.ring, self.grid, gp.data_ptr(),
+                    y.data_ptr(), self.tables.data_ptr(),
+                    None if self.xb is None else self.xb.data_ptr(),
+                    tickets.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream)
+            self.lib.check(rc, f"tpufem_lab_ring_apply {self.kern_name} "
+                           "launch")
+            V17Kernel.launches[self.kern_name] += 1
+            return y
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc = self.lib.lib.tpufem_lab_apply(
@@ -304,6 +441,8 @@ class V17Kernel:
         data rows (dense: K = 2X; v20: its windows)."""
         n, X, p = self.npts, self.X, self.p
         item = torch.empty((), dtype=self.dt).element_size()
+        if self.routine == "ring":
+            return self._ring_design_bound(item)
         nbytes = (2 * self.sz * self.sy * X * item
                   + self.tables.numel() * item + self.xk.numel()
                   * self.xk.element_size() * (2 if self.xk_lo is not None
@@ -322,6 +461,52 @@ class V17Kernel:
         return roofline_ms(nbytes, {
             "fp64" if self.xp == XF64 else "fp32": bands,
             mma: passes * 2.0 * n * n * k_rows * X})
+
+
+    def _ring_plan(self):
+        """(tile, ncols, nsplit) of the ring routine: the instance's, or on
+        the CPU (no chooser) the first sub-tile and the columns of X."""
+        ncols, nsplit = ring_columns(self.xp, self.X, self.mode)
+        return self.tile or RING_TILES[0], ncols, nsplit
+
+    def _ring_design_bound(self, item) -> tuple[float, str]:
+        """The ring routine's design bound: the padded layout read and
+        written, the tables and the split x operator (copy and bands: not
+        read) read once from device memory; 5 band stages over the
+        sub-tiles' halo'd boxes, once a column split, on CUDA cores; the x
+        product over every sub-tile's 64 rows (overhang rows too) and the
+        padded columns, K = 2X, each pass of its split.  B's
+        traffic from L2 (``l2_bytes``) is not in it: the card's L2 rate is
+        not in the bound's table."""
+        n, X, p = self.npts, self.X, self.p
+        (tz, ty), ncols, nsplit = self._ring_plan()
+        units = nsplit * (-(-n // tz)) * (-(-n // ty))
+        xb = 0 if self.mode in NO_XSTAGE else 2 * X * ncols * nsplit * \
+            RING_PARTS[self.xp] * (2 if self.xp == XBF16X3 else item)
+        nbytes = (2 * self.sz * self.sy * X * item
+                  + self.tables.numel() * item + xb)
+        bands = (0 if self.mode in ("copy", "mm") else 2 * units * (
+            2 * tz * (ty + 2 * p) + 3 * tz * ty) * X * (2 * p + 1))
+        rows = 0 if self.mode in NO_XSTAGE else units * RING_M
+        passes = {X3TF32: 3, X1TF32: 1, XBF16X3: 3, XF64: 1}[self.xp]
+        mma = {X3TF32: "tf32", X1TF32: "tf32", XBF16X3: "bf16",
+               XF64: "fp64_tensor"}[self.xp]
+        return roofline_ms(nbytes, {
+            "fp64" if self.xp == XF64 else "fp32": bands,
+            mma: passes * 2.0 * rows * 2 * X * ncols})
+
+    def l2_bytes(self) -> int:
+        """Bytes the ring routine moves from L2 into shared memory an apply:
+        every block's halo'd u boxes and its B stages (all of the split x
+        operator, once a block)."""
+        n, X, p = self.npts, self.X, self.p
+        (tz, ty), ncols, nsplit = self._ring_plan()
+        units = nsplit * (-(-n // tz)) * (-(-n // ty))
+        item = torch.empty((), dtype=self.dt).element_size()
+        belem = 2 if self.xp == XBF16X3 else item
+        u = (tz + 2 * p) * (ty + 2 * p) * X * item
+        b = 2 * X * ncols * RING_PARTS[self.xp] * belem
+        return units * (u + (b if self.mode in ("f32", "bf16", "mm") else 0))
 
 
 def band_fma(tab: torch.Tensor, v: torch.Tensor, dim: int) -> torch.Tensor:

@@ -23,6 +23,7 @@ import dataclasses
 import functools
 import hashlib
 import os
+import re
 import subprocess
 import time
 from pathlib import Path
@@ -40,8 +41,10 @@ SOURCES = {
     "resident_ring": ("resident_ring.cu",
                       ("band_ring.cuh", "common.cuh", "hopper.cuh",
                        "resident_ring.cuh")),
-    "lab_resident": ("lab_resident.cu",  # the K1 kernel lab (L1: v17-v20)
-                     ("common.cuh", "lab_mma.cuh", "lab_resident.cuh")),
+    # the K1 kernel lab (L1: v17-v20; v17 and v19 also on the ring routine)
+    "lab_resident": ("lab_resident.cu",
+                     ("common.cuh", "hopper.cuh", "lab_mma.cuh",
+                      "lab_resident.cuh", "lab_resident_ring.cuh")),
     # the K2 kernel lab's x-first half (L2a: v2, v3, v6, v8, v9, v12, vx,
     # vxy)
     "lab_separable": ("lab_separable.cu",
@@ -79,7 +82,10 @@ _ENTRIES = {
         "tpufem_ring_takes": ([_I] * 4, _I)},
     "lab_resident": {
         "tpufem_lab_apply": ([_I] * 11 + [_P] * 7, _I),
-        "tpufem_lab_smem_bytes": ([_I] * 6, _LL)},
+        "tpufem_lab_smem_bytes": ([_I] * 6, _LL),
+        "tpufem_lab_ring_apply": ([_I] * 16 + [_P] * 6, _I),
+        "tpufem_lab_ring_blocks_per_sm": ([_I] * 9, _I),
+        "tpufem_lab_ring_smem_bytes": ([_I] * 8, _LL)},
     "lab_separable": {
         "tpufem_l2_apply": ([_I] * 8 + [_P] * 3 + [_LL, _P, _LL, _P, _LL, _P,
                                                    _P], _I),
@@ -109,6 +115,27 @@ class KernelLibrary:
         if code != 0:
             msg = self.lib.tpufem_cuda_error_string(code).decode()
             raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
+
+
+def ptxas_lines(log: str, key: str) -> list[str]:
+    """'<kernel>: N registers, S bytes spill stores' for each kernel of a
+    build's ptxas log (``KernelLibrary.compiler_log``) whose mangled name
+    holds ``key``, and each warning that ptxas serialised a ``wgmma``."""
+    out, name, spills = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spills = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spills = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and key in name:
+            out.append(f"{name}: {m.group(1)} registers, {spills} bytes "
+                       "spill stores")
+        if "wgmma" in line and ("C7520" in line or "serializ" in line):
+            out.append(line.strip())
+    return out
 
 
 def _nvcc() -> str:
