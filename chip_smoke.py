@@ -51,10 +51,11 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 bf16, against the emulation of its x stage's arithmetic
                 (``EMU_TOL``; f32h within its class), halo zeros and two
                 chained applies, at p = 1, 2, 4, 7, 8 on small grids and at
-                the 16,974,593-DoF flagship (v17 and v19 on their ring
-                routine, csrc/lab_resident_ring.cuh, its copy and bands
-                ablations bit for bit equal to the tile routine, which is
-                checked the same way as their earlier schedule); then the
+                the 16,974,593-DoF flagship (v17, v19 and v20 on their ring
+                routines, csrc/lab_resident_ring.cuh, v20's x stage
+                windowed, their copy and bands ablations bit for bit equal
+                to the tile routine, which is checked the same way as their
+                earlier schedule); then the
                 lab's entry point
                 ``kernel_lab.main`` at the flagship, whose L1 launch counts
                 are the ones reported and whose raw applies, each timed in
@@ -74,8 +75,11 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 and vband (no tensor-core stage) in f64 and f32 against
                 their plain versions (vcopy exactly, vband 1e-6), and again
                 at every sub-tile their routine's chooser can pick and two
-                larger ones, on a ragged output layout and at the flagship.
-                Every L2 output starts filled with NaN
+                larger ones, on a ragged output layout and at the flagship;
+                v15 runs L1's persistent ring routine on L2's layouts, and
+                its earlier schedule (zy_kernel) and L1's other ring routine
+                are checked the same way, one input a degree and the
+                flagship.  Every L2 output starts filled with NaN
   6 throughput  ms per apply over chains of 30 applies (CUDA events),
                 kernel and plain in turns: K1 at 17M DoFs, K2 at 3D Q4
                 refine 5 (2.1M) and 6 (17M) and 2D refine 10, K4 on the
@@ -104,7 +108,12 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 bytes its design moves from L2 into shared memory an apply;
                 vx's x stage as the first version ran it (per-warp jobs, B
                 from device memory) with shared memory sized by its flags,
-                in turns with the ring; torch.matmul of (256, 256) f32, P1's
+                in turns with the ring; v17, v19 and v20 in turns with
+                their earlier schedule (the tile routine) in each precision,
+                beside their design bound, the bytes they move from L2, and
+                v20 beside K1 and v16; v15 in turns with its earlier
+                schedule (zy_kernel) and with L1's other ring routine;
+                torch.matmul of (256, 256) f32, P1's
   7 probes      the toolchain probes (tpufem_torch/lab/toolchain_probe.py):
                 P1's product kernel in each arithmetic against the f64
                 product on a seeded (256, 256) pair (``P1_TOL``) and on
@@ -312,8 +321,9 @@ LAB_KERNELS = {"v17": ("dense x stage on the TMA ring, wgmma",
                "v19": ("warp-specialised, persistent",
                        "scripts/kernel_lab.py:922",
                        "tpufem_torch/csrc/lab_resident_ring.cuh"),
-               "v20": ("block-banded x stage", "scripts/kernel_lab.py:747",
-                       "tpufem_torch/csrc/lab_resident.cuh")}
+               "v20": ("block-banded x stage, windowed wgmma on the ring",
+                       "scripts/kernel_lab.py:747",
+                       "tpufem_torch/csrc/lab_resident_ring.cuh")}
 # the L2a kernels: (what the variant is, the Pallas kernel it replaces)
 L2_KERNELS = {"v2": ("dense x, y, z", "scripts/kernel_lab.py:47"),
               "v3": ("band x, dense y/z", "scripts/kernel_lab.py:78"),
@@ -327,7 +337,8 @@ L2_KERNELS = {"v2": ("dense x, y, z", "scripts/kernel_lab.py:47"),
 L2_KERNELS.update({
     "v13": ("z/y bands, two x products", "scripts/kernel_lab.py:302"),
     "v14": ("v13, next load in flight", "scripts/kernel_lab.py:359"),
-    "v15": ("v14, one K-stacked product", "scripts/kernel_lab.py:431"),
+    "v15": ("v14, one K-stacked product; L1's persistent ring",
+            "scripts/kernel_lab.py:431"),
     "v16": ("all bands", "scripts/kernel_lab.py:1347"),
     "vcopy": ("loads and stores alone", "scripts/kernel_lab.py:500"),
     "vband": ("band stages alone", "scripts/kernel_lab.py:525")})
@@ -650,30 +661,31 @@ def check_terms(terms, p, mode, rng, dirichlet=False, passes=False,
 
 
 def ring_ptxas_summary(log: str) -> str:
-    """Per ring kernel of L1 and x-stage precision: the registers and the
-    spill stores of its eight degrees, and the count of ptxas's wgmma
-    serialisation warnings, from the build's ptxas log (none where the
-    library came from an earlier build)."""
+    """Per ring kernel of the lab (lab_ring_kernel, lab_ring_pipe_kernel,
+    lab_window_kernel) and x-stage precision: the registers and the spill
+    stores of its instances, and the count of ptxas's wgmma serialisation
+    warnings, from a build's ptxas log (none where the library came from an
+    earlier build)."""
     from tpufem_torch.utils.build import ptxas_lines
 
     if not log.strip():
         return "no ptxas log (cached build)"
     per, warn = {}, 0
-    for line in ptxas_lines(log, "lab_ring"):
-        m = re.search(r"(lab_ring\w*kernel)ILi(\d)ELi(\d)E.*: (\d+) "
-                      r"registers, (\d+) bytes", line)
+    for line in ptxas_lines(log, "lab_"):
+        m = re.search(r"(lab_(?:ring|window)\w*kernel)ILi(\d)ELi(\d)E.*: "
+                      r"(\d+) registers, (\d+) bytes", line)
         if m:
             key = (m.group(1), int(m.group(3)))
             regs, spill = int(m.group(4)), int(m.group(5))
-            r0, r1, s1, ns = per.get(key, (regs, regs, 0, 0))
+            r0, r1, s1, ns, n = per.get(key, (regs, regs, 0, 0, 0))
             per[key] = (min(r0, regs), max(r1, regs), max(s1, spill),
-                        ns + (spill > 0))
-        else:
+                        ns + (spill > 0), n + 1)
+        elif "wgmma" in line:
             warn += 1
-    xp = {0: "3xTF32", 1: "1xTF32", 2: "bf16x3", 3: "f64"}
+    xp = {0: "3xTF32", 1: "1xTF32", 2: "bf16x3", 3: "f64", 4: "bf16"}
     return "; ".join(
-        f"{k} {xp[x]}: {r0}-{r1} registers, {ns} of p = 1..8 spill (max "
-        f"{s1} B)" for (k, x), (r0, r1, s1, ns) in sorted(per.items())) + \
+        f"{k} {xp[x]}: {r0}-{r1} registers, {ns} of {n} spill (max {s1} B)"
+        for (k, x), (r0, r1, s1, ns, n) in sorted(per.items())) + \
         f"; {warn} wgmma serialisation warnings"
 
 
@@ -755,9 +767,10 @@ def check_lab(kern, mode, p, n, h, u, routine=None):
     return tag, rel, errs[0][1], emu
 
 
-def check_l2(v, mode, p, n, h, u, b=None, tile=None):
-    """Launch one L2 kernel (tile b, sub-tile ``tile``: None, the chooser's)
-    on the f64 input ``u`` ((n p + 1)**3 points on the card) into an output
+def check_l2(v, mode, p, n, h, u, b=None, tile=None, routine=None):
+    """Launch one L2 kernel (tile b, sub-tile ``tile``: None, the chooser's;
+    routine: v15's, None its default) on the f64 input ``u`` ((n p + 1)**3
+    points on the card) into an output
     filled with NaN; return (tag, max relative error, max abs error, emulation)
     against the plain version of its function in f64 on the same
     (storage-rounded) layout, every output point checked; a split
@@ -775,7 +788,7 @@ def check_l2(v, mode, p, n, h, u, b=None, tile=None):
     tol = kernel_lab.L2_OWN_TOL.get(v, separable_lab.TOL[
         separable_lab.XF64 if mode == "f64" else separable_lab.PRECS[prec]])
     k = LabKernel(v, npts, p, K1, M1, h, b=b, prec=prec, dtype=dtype,
-                  device="cuda", tile=tile)
+                  device="cuda", tile=tile, routine=routine)
     gp = k.pad(u)
     before = LabKernel.launches[v]
     NT = k.nt * k.b
@@ -784,7 +797,10 @@ def check_l2(v, mode, p, n, h, u, b=None, tile=None):
     rose = LabKernel.launches[v] == before + 1
     torch.cuda.synchronize()
     tag = (f"{v} {mode} p={p} npts={npts} b={k.b}"
-           + (f" sub-tile={k.tile}" if k.tile else "") + f" smem={k.smem}")
+           + (f" {k.routine}" if k.routine else "")
+           + (f" sub-tile={k.tile}" if k.tile else "")
+           + (f" rings={k.ring} grid={k.grid}" if k.ring else "")
+           + f" smem={k.smem}")
     if not rose:
         raise RuntimeError(f"{tag}: launch counter did not rise")
     if not torch.isfinite(y).all():
@@ -2827,10 +2843,14 @@ def main() -> int:
     # the ring routine of L1's v17 and v19: its instances' registers and
     # spills, and any wgmma ptxas serialised (a library reused from an
     # earlier build has no log)
-    say("2 build", "lab_resident_ring (v17: lab_ring_kernel, v19: "
-        "lab_ring_pipe_kernel, its registers at launch; setmaxnreg gives "
-        "its x stage 160 and its band and producer warps 96): "
+    say("2 build", "lab_resident_ring in lab_resident (v17: lab_ring_kernel, "
+        "v19: lab_ring_pipe_kernel, v20: lab_window_kernel, the last two's "
+        "registers at launch; setmaxnreg gives their x stage 160 and their "
+        "band and producer warps 96): "
         + ring_ptxas_summary(libs["lab_resident"].compiler_log))
+    say("2 build", "lab_resident_ring in lab_zyfirst (v15 on L2's layouts: "
+        "lab_ring_pipe_kernel, and lab_ring_kernel): "
+        + ring_ptxas_summary(libs["lab_zyfirst"].compiler_log))
 
     marks.append(("3", time.perf_counter()))
     # ---- 3 kernel vs plain on the card --------------------------------
@@ -3331,6 +3351,28 @@ def main() -> int:
                  for v in NO_MMA]
         say("5 lab", f"sub-tile {tile}, ragged rows: max rel err "
             + ", ".join(rels))
+    # v15's earlier schedule (zy_kernel, routine="tile") and its other ring
+    # routine (f32 storage: lab_ring_kernel; f64: the persistent one) in
+    # every precision, one input a degree and the flagship
+    from tpufem_torch.lab.separable_lab import zy_routine
+
+    def v15_other(p, n, h, u):
+        rels = []
+        for mode, (dt, _) in L2_MODES.items():
+            other = "pipe" if zy_routine("v15", dt) == "ring" else "ring"
+            rels += [f"{r} " + l2_case("v15", mode, p, n, h, u,
+                                       routine=r)[2]
+                     for r in ("tile", other)]
+        return rels
+
+    for p in (1, 2, 4, 7, 8):
+        n = max(2, 24 // p)
+        u = torch.tensor(rng.standard_normal((n * p + 1)**3), device=dev)
+        say("5 lab", f"v15's other routines p={p} npts={n * p + 1}: max rel "
+            "err " + ", ".join(v15_other(p, n, [1.0 / n, 1.3 / n, 0.7 / n],
+                                         u)))
+    say("5 lab", "v15's other routines flagship: max rel err "
+        + ", ".join(v15_other(4, 64, [1.0 / 64] * 3, u257)))
     say("5 lab", "L2a and L2b all within their classes, every point finite; "
         "worst "
         "max rel err " + ", ".join(
@@ -3681,6 +3723,38 @@ def main() -> int:
                 f"from L2 an apply (sub-tile {kr.tile}, rings {kr.ring}, "
                 f"grid {kr.grid}, {kr.smem} B a block)")
             del gp
+    say("6 throughput", f"v20 (windowed wgmma x stage) beside the CUDA-core "
+        f"x band, ms per apply in this run: v20 {ms['v20']:.4f} "
+        f"(kernel_lab.main, 3xTF32), K1 {ms['K1']:.4f} (K1's ring, its x "
+        f"band on CUDA cores, with its fused mask), v16 {ms['L2 v16']:.4f} "
+        f"(L2b's all-band schedule); v20 / K1 {ms['v20'] / ms['K1']:.3f}, "
+        f"v20 / v16 {ms['v20'] / ms['L2 v16']:.3f}")
+    # v15 on L1's persistent ring routine (its default in f32 storage; in
+    # f64 lab_ring_kernel, "ring"), in turns with its earlier schedule
+    # (zy_kernel: earlier, pipe, pipe, earlier) and with the other ring
+    # routine (ring, pipe, pipe, ring) in each precision
+    from tpufem_torch.ops.separable import global_1d_matrices
+
+    K1l, M1l = global_1d_matrices(4, 64, 5)
+    for mode, (dt, prec) in L2_MODES.items():
+        ks = {r: LabKernel("v15", 257, 4, K1l, M1l, [1.0 / 64] * 3,
+                           prec=prec, dtype=dt, device="cuda", routine=r)
+              for r in ("tile", "pipe", "ring")}
+        gp = ks["pipe"].pad(u257.to(dt))
+        t = [raw_ms(ks[r], gp) for r in ("tile", "pipe", "pipe", "tile")]
+        t2 = [raw_ms(ks[r], gp) for r in ("ring", "pipe", "pipe", "ring")]
+        k = ks["pipe"]
+        say("6 throughput", f"v15 {mode} at the flagship, ms per raw apply "
+            f"in turns: earlier {t[0]:.4f}, pipe {t[1]:.4f}, pipe "
+            f"{t[2]:.4f}, earlier {t[3]:.4f} (pipe / earlier "
+            f"{(t[1] + t[2]) / (t[0] + t[3]):.3f}); ring {t2[0]:.4f}, pipe "
+            f"{t2[1]:.4f}, pipe {t2[2]:.4f}, ring {t2[3]:.4f} (pipe / ring "
+            f"{(t2[1] + t2[2]) / (t2[0] + t2[3]):.3f}); the pipe's design "
+            f"bound {k.design_bound()[0]:.4f} ms ({k.design_bound()[1]}), "
+            f"{k.l2_bytes() / 1e9:.3f} GB from L2 an apply (sub-tile "
+            f"{k.tile}, rings {k.ring}, grid {k.grid}, {k.smem} B a block; "
+            f"ring: grid {ks['ring'].grid}, {ks['ring'].smem} B)")
+        del gp, ks
     # the ring's mm ablation (qq = [u | u]: out = [u | u] @ [Kx^T; Mx^T])
     # beside one strict-f32 torch.matmul of the layout's data rows, timed
     # only: the port never calls it
@@ -3703,6 +3777,7 @@ def main() -> int:
         t = [1e3 * time_fn(lambda _: torch.matmul(A, B), A, reps=N_CHAIN)]
         t += [raw_ms(km[kern], gp) for kern in ("v17", "v19", "v19", "v17")]
         t += [1e3 * time_fn(lambda _: torch.matmul(A, B), A, reps=N_CHAIN)]
+        t20 = [raw_ms(km["v20"], gp) for _ in range(2)]
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32_was
     say("6 throughput", f"the ring's mm ablation at the flagship beside one "
@@ -3711,7 +3786,8 @@ def main() -> int:
         f"by <= 1e-5), ms in turns: matmul {t[0]:.4f}, v17 {t[1]:.4f}, v19 "
         f"{t[2]:.4f}, v19 {t[3]:.4f}, v17 {t[4]:.4f}, matmul {t[5]:.4f}; "
         f"v17 / matmul {(t[1] + t[4]) / (t[0] + t[5]):.2f}, v19 / matmul "
-        f"{(t[2] + t[3]) / (t[0] + t[5]):.2f}")
+        f"{(t[2] + t[3]) / (t[0] + t[5]):.2f}; v20's windowed mm "
+        f"{t20[0]:.4f}, {t20[1]:.4f}")
     del A, B, gp, rows, yl, km
 
     # vcopy's function (the input layout's inner (nt b)^2 rows, made
@@ -4036,7 +4112,8 @@ def main() -> int:
         (f"L2 {v}", f"{v} {'lab_zyfirst' if v in ZYFIRST else 'lab_separable'}"
          f" ({L2_KERNELS[v][0]}, "
          f"{'bf16x3' if v == 'v9' else 'f32' if v in NO_MMA else '3xTF32'})",
-         "tpufem_torch/csrc/lab_zyfirst.cuh" if v in ZYFIRST
+         "tpufem_torch/csrc/lab_resident_ring.cuh" if v == "v15"
+         else "tpufem_torch/csrc/lab_zyfirst.cuh" if v in ZYFIRST
          else "tpufem_torch/csrc/lab_separable.cuh", L2_KERNELS[v][1],
          l2_abs[v], l2_library_ms.get(v)) for v in L2V] + [
         ("P1", "P1 toolchain_probe (bf16x3 product)",

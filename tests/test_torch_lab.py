@@ -1,9 +1,9 @@
 """The K1 kernel lab (L1: v17-v20) on the CPU: its plain version against
 tpufem's separable apply, its layout and tables, its entry point's refusal
 without a card, and g++ builds of the CUDA routines against the plain
-version: the tile routine's (tpufem_torch/csrc/lab_resident.cuh; v18, v20 and the
-earlier schedule of v17 and v19) and the ring routine of v17 and v19
-(lab_resident_ring.cuh).
+version: the tile routine's (tpufem_torch/csrc/lab_resident.cuh; v18 and the
+earlier schedule of v17, v19 and v20) and the ring routines of v17, v19 and
+v20 (lab_resident_ring.cuh; v20's x stage windowed).
 
 The host builds run one thread per block, as in test_torch_kernel_host.py,
 with a stub of the WMMA calls the routines use: a fragment holds its whole
@@ -172,12 +172,15 @@ static int run(int variant, int mode, tpufem::LrGeo q, int grid,
   using C = typename tpufem::LabMma<XP>::C;
   const tpufem::LabGeo& g = q.g;
   const long long bytes =
-      tpufem::lr_smem(P, XP, g.tz, g.ty, q.nu, q.nb, q.nq, q.ncols).total;
+      variant == 20
+          ? tpufem::lw_smem(P, XP, g.tz, g.ty, q.nu, q.nq).total
+          : tpufem::lr_smem(P, XP, g.tz, g.ty, q.nu, q.nb, q.nq, q.ncols)
+                .total;
   tpufem::HopMap in_map;  // the launcher's map of the input layout
   const long long dim[3] = {g.X, g.sy, g.sz};
   const int box[3] = {tpufem::lr_xc(XP), g.ty + 2 * P, g.tz + 2 * P};
   tpufem::hop_map_3d(&in_map, (void*)u, sizeof(C), dim, box);
-  const int nblk = variant == 19 ? grid : g.ntz * g.nty * q.nsplit;
+  const int nblk = variant != 17 ? grid : g.ntz * g.nty * q.nsplit;
   gridDim = Dim3{grid, 1, 1};
   for (int b = 0; b < nblk; ++b) {
     std::memset(tpufem::smem_raw, 0xAB, bytes + 4096);
@@ -186,6 +189,11 @@ static int run(int variant, int mode, tpufem::LrGeo q, int grid,
       tpufem::lab_ring_pipe_kernel<P, XP>(in_map, (C*)y, (const C*)tab,
                                           (const unsigned char*)xb, q, mode,
                                           ticket_ctr);
+    } else if (variant == 20) {
+      blockIdx = Dim3{b, 0, 0};
+      tpufem::lab_window_kernel<P, XP>(in_map, (C*)y, (const C*)tab,
+                                       (const unsigned char*)xb, q, mode,
+                                       ticket_ctr);
     } else {
       blockIdx = Dim3{b % g.nty, b / g.nty % g.ntz, b / (g.nty * g.ntz)};
       tpufem::lab_ring_kernel<P, XP>(in_map, (C*)y, (const C*)tab,
@@ -223,9 +231,10 @@ extern "C" int host_lab_ring_apply(int variant, int xp, int p, int mode,
                                    int nsplit, int grid, const void* u,
                                    void* y, const void* t, const void* xb,
                                    void* tickets) {
-  const tpufem::LrGeo q{{npts, sz, sy, X, tz, ty, (npts + tz - 1) / tz,
-                         (npts + ty - 1) / ty},
-                        nu, nb, nq, ncols, nsplit};
+  const tpufem::LabGeo g{npts, sz, sy, X, tz, ty, (npts + tz - 1) / tz,
+                         (npts + ty - 1) / ty};
+  const tpufem::LrGeo q{g, nu, nb, nq, ncols, nsplit,
+                        tpufem::lab_resident_out(g, p)};
   ticket_ctr = (unsigned long long*)tickets;
   switch (xp) {
     case 0: return by_p<0>(p, variant, mode, q, grid, u, y, t, xb);
@@ -276,6 +285,18 @@ extern "C" long long host_lab_ring_smem_bytes(int p, int xp, int tz, int ty,
                                               int nu, int nb, int nq,
                                               int ncols) {
   return tpufem::lr_smem(p, xp, tz, ty, nu, nb, nq, ncols).total;
+}
+
+extern "C" long long host_lab_window_smem_bytes(int p, int xp, int tz, int ty,
+                                                int nu, int nq) {
+  return tpufem::lw_smem(p, xp, tz, ty, nu, nq).total;
+}
+
+// how many column blocks read chunk c (lw_readers), for X
+extern "C" int host_lab_window_readers(int xp, int c, int X) {
+  const int nbl = (X + 31) / 32;
+  return xp == tpufem::kXF64 ? tpufem::lw_readers<8>(c, nbl, X / 8)
+                             : tpufem::lw_readers<16>(c, nbl, X / 16);
 }
 """
 
@@ -622,26 +643,38 @@ def ring_lib(tmp_path_factory):
     lib.host_lab_ring_xstage.restype = ctypes.c_int
     lib.host_lab_ring_smem_bytes.argtypes = [ctypes.c_int] * 8
     lib.host_lab_ring_smem_bytes.restype = ctypes.c_longlong
+    lib.host_lab_window_smem_bytes.argtypes = [ctypes.c_int] * 6
+    lib.host_lab_window_smem_bytes.restype = ctypes.c_longlong
+    lib.host_lab_window_readers.argtypes = [ctypes.c_int] * 3
+    lib.host_lab_window_readers.restype = ctypes.c_int
     return lib
 
 
 def _ring_host(lib, k, tile=None, grid=None, ncols=None):
     """The ring routine's host build as a function of the layout, for the
     CPU instance k: the chooser's plan (its sub-tile and rings, by the
-    build's own shared-memory count), or the sub-tile, v19 grid and block
-    columns given."""
-    nq = 2 if k.kern_name == "v19" else 1
-    (tz, ty), nu, nb, nc, nsplit = resident_lab.choose_ring(
-        k.p, k.xp, k.X, nq, lib.host_lab_ring_smem_bytes,
-        (tile,) if tile else resident_lab.RING_TILES, k.mode)
-    if ncols:
-        nc = ncols
-        nsplit = 1 if k.mode in resident_lab.NO_XSTAGE else -(-k.X // ncols)
-    units = nsplit * (-(-k.npts // tz)) * (-(-k.npts // ty))
+    build's own shared-memory count), or the sub-tile, v19 and v20 grid and
+    block columns (v17, v19) given."""
+    tiles = (tile,) if tile else resident_lab.RING_TILES
     xkm = torch.as_tensor(resident_lab.x_operator(k.Ks[0], k.Ms[0], k.X),
                           dtype=k.dt)
-    xb = None if k.mode in resident_lab.NO_XSTAGE else \
-        resident_lab.ring_operand(xkm, k.xp, k.X, nc, nsplit)
+    xstage = k.mode not in resident_lab.NO_XSTAGE
+    if k.kern_name == "v20":
+        (tz, ty), nu, nq = resident_lab.choose_window(
+            k.p, k.xp, lib.host_lab_window_smem_bytes, tiles)
+        nb, nc, nsplit = resident_lab.WIN_B, resident_lab.WIN_N, 1
+        xb = resident_lab.window_operand(xkm, k.xp, k.X, k.p) \
+            if xstage else None
+    else:
+        nq = 2 if k.kern_name == "v19" else 1
+        (tz, ty), nu, nb, nc, nsplit = resident_lab.choose_ring(
+            k.p, k.xp, k.X, nq, lib.host_lab_ring_smem_bytes, tiles, k.mode)
+        if ncols:
+            nc = ncols
+            nsplit = -(-k.X // ncols) if xstage else 1
+        xb = resident_lab.ring_operand(xkm, k.xp, k.X, nc, nsplit) \
+            if xstage else None
+    units = nsplit * (-(-k.npts // tz)) * (-(-k.npts // ty))
 
     def host(gp):
         y = torch.full_like(gp, float("nan"))  # every point must be written
@@ -652,7 +685,7 @@ def _ring_host(lib, k, tile=None, grid=None, ncols=None):
             grid or units, gp.data_ptr(), y.data_ptr(), k.tables.data_ptr(),
             None if xb is None else xb.data_ptr(), tickets.data_ptr())
         assert rc == 0, "kernel wrote beyond its shared memory"
-        if k.kern_name == "v19":  # each block took one ticket past the end
+        if k.kern_name != "v17":  # each block took one ticket past the end
             assert int(tickets) == units + (grid or units)
         return y
 
@@ -676,18 +709,27 @@ RING_CASES = (
        ("v19", 2, "f64", (16, 4), 3, None),
        ("v19", 4, "f32", (4, 16), 40, None),
        ("v17", 4, "f64", None, None, 33), ("v19", 4, "bf16", None, 7, 33),
-       ("v17", 4, "copy", None, None, 33), ("v19", 4, "bands", None, 7, 33)])
+       ("v17", 4, "copy", None, None, 33), ("v19", 4, "bands", None, 7, 33)]
+    # v20: ragged sub-tiles, fewer persistent blocks than units and more;
+    # X = 48 (npts 33: a last block of 16 columns, windows clipped at row 0
+    # and at row X) and X = 80 (three blocks, five chunks) in each
+    # arithmetic
+    + [("v20", 2, "f64", (4, 16), 3, None),
+       ("v20", 4, "f32", (16, 4), 40, None),
+       ("v20", 4, "f64", None, 5, 33), ("v20", 4, "f32", None, 7, 33),
+       ("v20", 4, "f32h", None, None, 33), ("v20", 4, "bf16", None, 3, 33),
+       ("v20", 2, "f64", None, 4, 41), ("v20", 4, "f32", None, 6, 77)])
 
 
 @pytest.mark.parametrize("kern,p,mode,tile,grid,npts", RING_CASES)
 def test_ring_host_build_matches_plain(ring_lib, kern, p, mode, tile, grid,
                                        npts):
-    """The ring routine of v17 and v19 in each x-stage class against the
-    plain version in f64 on the same (storage-rounded) input and against
-    ``emulate`` (f32, f32h, bf16), with the halo and padding zeros written
-    and two chained applies.  X = 16 (npts <= 17) and 48 fill a 32-column
-    block of the x operator half with zeros; at npts 33 the block's columns
-    are 32, in two splits."""
+    """The ring routines of v17, v19 and v20 in each x-stage class against
+    the plain version in f64 on the same (storage-rounded) input and
+    against ``emulate`` (f32, f32h, bf16), with the halo and padding zeros
+    written and two chained applies.  X = 16 (npts <= 17) and 48 fill a
+    32-column block of the x operator half with zeros; at npts 33 v17 and
+    v19's block columns are 32, in two splits."""
     n = (npts - 1) // p if npts else 2 if p > 2 else 5 // p + 1
     npts = n * p + 1
     k = _kernel(npts, p, mode, kern, n)
@@ -826,6 +868,22 @@ def test_ring_blocks_fit(ring_lib):
         assert resident_lab.choose_ring(
             4, resident_lab.X3TF32, 272, nq,
             ring_lib.host_lab_ring_smem_bytes)[1:3] == (3, 2)
+    # v20's windowed ring: its count does not grow with X; at every degree
+    # and precision a block of the deepest rings that fit, at least six qq
+    # stages (f64's window of six chunks)
+    count = ring_lib.host_lab_window_smem_bytes
+    for p in range(1, resident_lab.MAX_DEGREE + 1):
+        for xp in resident_lab.MMA:
+            (tz, ty), nu, nq = resident_lab.choose_window(p, xp, count)
+            assert tz * ty == resident_lab.RING_M and nq >= 6
+            assert count(p, xp, tz, ty, nu, nq) <= resident_lab.RING_BUDGET
+    # the flagship in 3xTF32: (8, 8); barriers, unit slots and zero bytes
+    # (256), tables, three u slots of 16 KB, s and t, eight qq stages of 8 KB
+    # and two B stages of a block's window (24 KB)
+    assert resident_lab.choose_window(4, resident_lab.X3TF32, count) == (
+        (8, 8), 3, 8)
+    assert count(4, resident_lab.X3TF32, 8, 8, 3, 8) == (
+        256 + 1280 + 3 * 16384 + 16384 + 8 * 8192 + 2 * 24576) == 181760
 
 
 def test_ring_columns_by_mode():
@@ -844,14 +902,58 @@ def test_ring_columns_by_mode():
 
 
 def test_ring_routine_selection():
-    """v17 and v19 run the ring routine unless the tile routine is asked
-    for; v18 and v20 have only the tile routine."""
+    """v17, v19 and v20 run the ring routines unless the tile routine is
+    asked for; v18 has only the tile routine."""
     K1, M1 = global_1d_matrices(2, 2, 3)
     for kern in resident_lab.KERNELS:
         k = V17Kernel(5, 2, K1, M1, [0.5] * 3, kern_name=kern, device="cpu")
-        assert k.routine == ("ring" if kern in ("v17", "v19") else "tile")
+        assert k.routine == ("ring" if kern in ("v17", "v19", "v20")
+                             else "tile")
         assert V17Kernel(5, 2, K1, M1, [0.5] * 3, kern_name=kern,
                          device="cpu", routine="tile").routine == "tile"
     with pytest.raises(ValueError, match="routine"):
-        V17Kernel(5, 2, K1, M1, [0.5] * 3, kern_name="v20", device="cpu",
+        V17Kernel(5, 2, K1, M1, [0.5] * 3, kern_name="v18", device="cpu",
                   routine="ring")
+
+
+@pytest.mark.parametrize("xp", [resident_lab.X3TF32, resident_lab.XF64])
+def test_window_chunks_and_readers(ring_lib, xp):
+    """v20's windows over the chunks (16 columns; f64: 8) at every X from 16
+    to 544: each block's window holds the rows ``x_windows(X, p, 32, 8)``
+    gives it at every p, every chunk has one or two reader blocks (the
+    routine's release counts), and the windows cover every chunk."""
+    xc = resident_lab.RING_XC[xp]
+    for X in range(16, 545, 16):
+        nbl, nchunk = -(-X // 32), X // xc
+        readers = [ring_lib.host_lab_window_readers(xp, c, X)
+                   for c in range(nchunk)]
+        assert set(readers) <= {1, 2}, (X, readers)
+        for p in range(1, resident_lab.MAX_DEGREE + 1):
+            win = resident_lab.x_windows(X, p, 32, 8)
+            assert win.shape == (nbl, 2)
+            for j, (lo, hi) in enumerate(win):
+                assert 32 * j - 8 <= lo and hi <= 32 * j + 40, (X, p, j)
+
+
+@pytest.mark.parametrize("mode,p", [("f32", 4), ("f32", 7), ("bf16", 4),
+                                    ("f32h", 7)])
+def test_window_agrees_with_the_dense_ring(ring_lib, mode, p):
+    """v20's windowed x stage against v17's dense one, the same ring and
+    band stages (so the same qq) on the same input: the windowed product
+    leaves out exact zeros only, so the two differ in the order of the
+    x stage's f32 sums; held to EMU_TOL (f32h: its class), ``-s`` prints
+    the largest difference."""
+    n = 9 if p == 4 else 5  # X = 48: two column blocks, three chunks
+    npts = n * p + 1
+    u = torch.as_tensor(np.random.default_rng(31 + p).standard_normal(
+        npts**3))
+    y = {}
+    for kern in ("v17", "v20"):
+        k = _kernel(npts, p, mode, kern, n)
+        y[kern] = _ring_host(ring_lib, k)(k.pad(u)).to(torch.float64)
+    ref = _kernel(npts, p, "f64", "v17", n, torch.float64).plain(
+        k.pad(u).to(torch.float64))
+    apart = float((y["v20"] - y["v17"]).abs().max() / ref.abs().max())
+    print(f"v20 against v17's ring, {mode} p={p} npts={npts}: largest "
+          f"difference {apart:.3e} of max |y|")
+    assert apart <= EMU_TOL.get(mode, TOL[mode]), apart

@@ -23,12 +23,13 @@ from test_torch_kernel_host import STUBS, _build
 from test_torch_lab import WMMA_STUBS
 from test_torch_lab_separable import MODES, _max_rel, klab  # noqa: F401
 
-from tpufem_torch.lab import kernel_lab, separable_lab
+from tpufem_torch.lab import kernel_lab, resident_lab, separable_lab
 from tpufem_torch.lab.separable_lab import NO_MMA, ZY_ARGS, ZYFIRST, LabKernel
 from tpufem_torch.ops.separable import global_1d_matrices
 
 ZY_SHIM = STUBS + WMMA_STUBS + r"""
 #define __grid_constant__
+#include "lab_resident_ring.cuh"
 #include "lab_zyfirst.cuh"
 
 template <int P, int XP>
@@ -94,6 +95,91 @@ extern "C" int host_zy_apply(int mode, int two, int nu, int xp, int p,
 extern "C" long long host_zy_smem_bytes(int mode, int p, int xp, int nu,
                                         int tz, int ty, int X) {
   return tpufem::zy_smem_bytes(mode, p, xp, nu, tz, ty, X);
+}
+
+// v15 on L1's ring routines, as tpufem_zy_lr_apply launches them: the
+// persistent lab_ring_pipe_kernel (pipe, `grid` blocks) or lab_ring_kernel
+static unsigned long long* ticket_ctr;  // at 0 for each launch
+
+template <int P, int XP>
+static int run_lr(int pipe, tpufem::LrGeo q, int grid, const void* u,
+                  void* y, const void* tab, const void* xb) {
+  using C = typename tpufem::LabMma<XP>::C;
+  const tpufem::LabGeo& g = q.g;
+  const long long bytes =
+      tpufem::lr_smem(P, XP, g.tz, g.ty, q.nu, q.nb, q.nq, q.ncols).total;
+  tpufem::HopMap in_map;
+  const long long dim[3] = {g.X, g.sy, g.sz};
+  const int box[3] = {tpufem::lr_xc(XP), g.ty + 2 * P, g.tz + 2 * P};
+  tpufem::hop_map_3d(&in_map, (void*)u, sizeof(C), dim, box);
+  const int nblk = pipe ? grid : g.ntz * g.nty * q.nsplit;
+  gridDim = Dim3{grid, 1, 1};
+  for (int b = 0; b < nblk; ++b) {
+    std::memset(tpufem::smem_raw, 0xAB, bytes + 4096);
+    if (pipe) {
+      blockIdx = Dim3{b, 0, 0};
+      tpufem::lab_ring_pipe_kernel<P, XP>(in_map, (C*)y, (const C*)tab,
+                                          (const unsigned char*)xb, q,
+                                          tpufem::kFull, ticket_ctr);
+    } else {
+      blockIdx = Dim3{b % g.nty, b / g.nty % g.ntz, b / (g.nty * g.ntz)};
+      tpufem::lab_ring_kernel<P, XP>(in_map, (C*)y, (const C*)tab,
+                                     (const unsigned char*)xb, q,
+                                     tpufem::kFull);
+    }
+    for (long long i = bytes; i < bytes + 4096; ++i)
+      if (tpufem::smem_raw[i] != 0xAB) return 1;  // beyond its smem
+  }
+  return 0;
+}
+
+// the instances the cases use: f64 at p = 1, 2, 4, 7, 8; 3xTF32 at 2, 4, 7;
+// 1xTF32 and bf16x3 at 4 and 7; one bf16 product at 4
+template <int XP>
+static int lr_by_p(int p, int pipe, tpufem::LrGeo q, int grid, const void* u,
+                   void* y, const void* t, const void* xb) {
+  constexpr bool f64 = XP == tpufem::kXF64, tf = XP == tpufem::kX3TF32;
+  constexpr bool one = XP == tpufem::kXBF16;
+  switch (p) {
+    case 1: if constexpr (f64) return run_lr<1, XP>(pipe, q, grid, u, y, t, xb);
+            break;
+    case 2: if constexpr (f64 || tf)
+              return run_lr<2, XP>(pipe, q, grid, u, y, t, xb);
+            break;
+    case 4: return run_lr<4, XP>(pipe, q, grid, u, y, t, xb);
+    case 7: if constexpr (!one)
+              return run_lr<7, XP>(pipe, q, grid, u, y, t, xb);
+            break;
+    case 8: if constexpr (f64) return run_lr<8, XP>(pipe, q, grid, u, y, t, xb);
+            break;
+  }
+  return 2;
+}
+
+extern "C" int host_zy_lr_apply(int pipe, int xp, int p, int npts, int size,
+                                int X, int tz, int ty, int nu, int nb, int nq,
+                                int ncols, int nsplit, int grid,
+                                const void* u, void* y, const void* t,
+                                const void* xb, void* tickets) {
+  const int NT = size - 2 * p;
+  const tpufem::LabGeo g{npts, size, size, X, tz, ty, (NT + tz - 1) / tz,
+                         (NT + ty - 1) / ty};
+  const tpufem::LrGeo q{g, nu, nb, nq, ncols, nsplit, {0, NT, NT}};
+  ticket_ctr = (unsigned long long*)tickets;
+  switch (xp) {
+    case 0: return lr_by_p<0>(p, pipe, q, grid, u, y, t, xb);
+    case 1: return lr_by_p<1>(p, pipe, q, grid, u, y, t, xb);
+    case 2: return lr_by_p<2>(p, pipe, q, grid, u, y, t, xb);
+    case 3: return lr_by_p<3>(p, pipe, q, grid, u, y, t, xb);
+    case 4: return lr_by_p<4>(p, pipe, q, grid, u, y, t, xb);
+  }
+  return 2;
+}
+
+extern "C" long long host_zy_lr_smem_bytes(int p, int xp, int tz, int ty,
+                                           int nu, int nb, int nq,
+                                           int ncols) {
+  return tpufem::lr_smem(p, xp, tz, ty, nu, nb, nq, ncols).total;
 }
 """
 
@@ -251,6 +337,10 @@ def zy_lib(tmp_path_factory):
     lib.host_zy_apply.restype = ctypes.c_int
     lib.host_zy_smem_bytes.argtypes = [ctypes.c_int] * 7
     lib.host_zy_smem_bytes.restype = ctypes.c_longlong
+    lib.host_zy_lr_apply.argtypes = [ctypes.c_int] * 14 + [ctypes.c_void_p] * 5
+    lib.host_zy_lr_apply.restype = ctypes.c_int
+    lib.host_zy_lr_smem_bytes.argtypes = [ctypes.c_int] * 8
+    lib.host_zy_lr_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -304,6 +394,111 @@ def test_host_build_matches_plain(zy_lib, v, p, mode, b, tile):
         print(f"{v} {mode} p={p} b={k.b}: host stub {err:.3e}, emulation "
               f"{emu:.3e}, apart {apart:.3e}")
         assert apart <= EMU_TOL[k.xp], (apart, err, emu)
+
+
+def _lr_host(lib, k, gp, routine="pipe", tile=None, grid=None):
+    """v15 on the ring routine's host build (``routine``: "pipe" or
+    "ring"): the chooser's plan by the build's own count, the sub-tile and
+    persistent grid given, into a NaN-filled output layout; checks the
+    tickets the persistent blocks took."""
+    pipe = routine == "pipe"
+    NT = k.nt * k.b
+    (tz, ty), nu, nb, nc, ns = resident_lab.choose_ring(
+        k.p, k.xp, k.X, 2 if pipe else 1, lib.host_zy_lr_smem_bytes,
+        (tile,) if tile else resident_lab.RING_TILES)
+    units = ns * -(-NT // tz) * -(-NT // ty)
+    xb = resident_lab.ring_operand(torch.as_tensor(
+        resident_lab.x_operator(k.Ks[0], k.Ms[0], k.X), dtype=k.dt), k.xp,
+        k.X, nc, ns)
+    y = torch.full((NT, NT, k.X), float("nan"), dtype=k.dt)  # all written
+    tickets = torch.zeros(1, dtype=torch.int64)
+    rc = lib.host_zy_lr_apply(int(pipe), k.xp, k.p, k.npts, k.size, k.X, tz,
+                              ty, nu, nb, 2 if pipe else 1, nc, ns,
+                              grid or units, gp.data_ptr(), y.data_ptr(),
+                              k.tables.data_ptr(), xb.data_ptr(),
+                              tickets.data_ptr())
+    assert rc == 0, "kernel wrote beyond its shared memory"
+    if pipe:  # each block took one ticket past the end
+        assert int(tickets) == units + (grid or units)
+    return y
+
+
+LR_CASES = (
+    [("pipe", p, "f64", None, None, None) for p in (1, 2, 4, 7, 8)]
+    + [("pipe", p, m, None, None, None) for p in (4, 7)
+       for m in ("f32", "f32h", "bf16")]
+    + [("pipe", 4, "bf16d", None, None, None)]
+    # ragged layouts: npts 13 and 21 against sub-tiles of 8 and against b
+    # (NT = 16 and 24 > npts); fewer persistent blocks than units and more;
+    # lab_ring_kernel (v17's routine) beside it; X = 48 in 3xTF32
+    + [("pipe", 2, "f64", 4, (4, 16), 3), ("pipe", 4, "f32", 8, (16, 4), 40),
+       ("ring", 2, "f64", 4, None, None), ("ring", 4, "f32", 24, None, None),
+       ("pipe", 2, "f32", 6, None, 5)])
+
+
+@pytest.mark.parametrize("routine,p,mode,b,tile,grid", LR_CASES)
+def test_lr_host_build_matches_plain(zy_lib, routine, p, mode, b, tile, grid):
+    """v15 on L1's ring routines (its default "pipe", and "ring") on L2's
+    layouts against the plain version in f64 and, in a split arithmetic,
+    against ``emulate``: every point of the NaN-filled output written, zero
+    past npts in each axis (NT > npts, sub-tiles ragged against it)."""
+    n = {1: 9, 2: 6 if mode == "f32" else 4}.get(p, 2) if b is None else \
+        {2: 6 if b == 4 else 10, 4: 3 if b == 8 else 5}[p]
+    k = _kernel("v15", p, n, mode, b)
+    npts, NT = k.npts, k.nt * k.b
+    u = torch.as_tensor(np.random.default_rng(npts + p).standard_normal(
+        npts**3))
+    gp = k.pad(u)
+    y = _lr_host(zy_lib, k, gp, routine, tile, grid)
+    assert torch.isfinite(y).all()
+    assert not y[npts:].any() and not y[:, npts:].any() \
+        and not y[..., npts:].any()
+    ref = k.plain(gp.to(torch.float64))
+    err = _max_rel(y, ref)
+    assert err <= TOL[k.xp], err
+    if mode != "f64":
+        ye = k.emulate(gp).to(torch.float64)
+        apart = float((y.to(torch.float64) - ye).abs().max()
+                      / ref.abs().max())
+        print(f"v15 {routine} {mode} p={p} npts={npts} NT={NT}: host "
+              f"{err:.3e}, apart from the emulation {apart:.3e}")
+        assert apart <= EMU_TOL[k.xp], (apart, err)
+
+
+def test_lr_rings_fit(zy_lib):
+    """v15's ring plan fits a block's 227 KB by the routine's own count at
+    every degree and arithmetic (one bf16 product too), at the flagship's
+    X = 272 and at X = 528, for both routines (one qq stage, two)."""
+    for X in (272, 528):
+        for p in range(1, separable_lab.MAX_DEGREE + 1):
+            for xp in TOL:
+                for nq in (1, 2):
+                    (tz, ty), nu, nb, nc, ns = resident_lab.choose_ring(
+                        p, xp, X, nq, zy_lib.host_zy_lr_smem_bytes)
+                    assert tz * ty == 64 and nc * ns >= X
+                    assert zy_lib.host_zy_lr_smem_bytes(
+                        p, xp, tz, ty, nu, nb, nq, nc) <= \
+                        resident_lab.RING_BUDGET
+
+
+def test_routines():
+    """v15 runs its persistent ring routine ("pipe"), in float64 the other
+    ring routine ("ring"), unless a routine or its earlier schedule ("tile")
+    is asked for; v13 and v14 have the tile routine only, the other
+    variants no choice."""
+    K1, M1 = global_1d_matrices(2, 4, 3)
+    mk = lambda v, r=None, dt=torch.float32: LabKernel(
+        v, 9, 2, K1, M1, [0.25] * 3, dtype=dt, device="cpu", routine=r)
+    assert mk("v15").routine == "pipe"
+    assert mk("v15", dt=torch.float64).routine == "ring"
+    assert mk("v15", "pipe", torch.float64).routine == "pipe"
+    assert [mk("v15", r).routine for r in ("ring", "tile")] == ["ring",
+                                                                "tile"]
+    assert mk("v13").routine == mk("v14").routine == "tile"
+    assert mk("v16").routine is None and mk("v2").routine is None
+    for v, r in (("v13", "pipe"), ("v16", "tile"), ("v15", "dense")):
+        with pytest.raises(ValueError, match="routine"):
+            mk(v, r)
 
 
 RING_VARIANTS = ("vcopy", "vband", "v16")
@@ -461,9 +656,12 @@ def test_emulated_classes():
 def test_bounds_at_the_flagship():
     """At 3D Q4 refine 6 (npts 257, b = 24, X = 272, f32): v13-v16 have K2's
     bound, 0.0405 ms (bytes); vcopy the same bytes; vband 4 band outputs a
-    DoF, bytes-bound too.  The design bound of v13-v15 is the x product
-    over the 264^2 rows of the output layout, 20.6 GFLOP a pass, three
-    passes in 3xTF32; v16's and the ablations' are the layouts' bytes."""
+    DoF, bytes-bound too.  The design bound of v13, v14 and v15's earlier
+    schedule is the x product over the 264^2 rows of the output layout,
+    20.6 GFLOP a pass, three passes in 3xTF32; v15's on the ring the same
+    rows in 33 x 33 sub-tiles of 64 by the 288 padded columns, 21.8 GFLOP a
+    pass (one pass: the layouts', tables' and B's bytes); v16's and the
+    ablations' are the layouts' bytes."""
     from tpufem_torch.lab.resident_lab import operator_bound
 
     K1, M1 = global_1d_matrices(4, 64, 5)
@@ -480,11 +678,22 @@ def test_bounds_at_the_flagship():
     flop = 2 * 264**2 * 544 * 272
     assert abs(flop - 20.6e9) < 0.05e9
     layouts_ms = (272**2 + 264**2) * 272 * 4 / 3.35e9
-    for v in ("v13", "v14", "v15"):
-        assert ks[v].design_bound() == (3 * flop / 495e12 * 1e3, "operations")
+    v15 = {r: LabKernel("v15", 257, 4, K1, M1, [1 / 64] * 3, device="cpu",
+                        routine=r) for r in ("tile", "ring")}
+    for k in (ks["v13"], ks["v14"], v15["tile"]):
+        assert k.design_bound() == (3 * flop / 495e12 * 1e3, "operations")
+    ring_flop = 2 * 33**2 * 64 * 544 * 288
+    assert 33**2 * 64 == 264**2 and abs(ring_flop - 21.8e9) < 0.05e9
+    for k in (ks["v15"], v15["ring"]):
+        ms, by = k.design_bound()
+        assert by == "operations"
+        assert abs(ms - 3 * ring_flop / 495e12 * 1e3) < 1e-12
     for v in ("v16", "vcopy", "vband"):
         ms, by = ks[v].design_bound()
         assert by == "bytes" and abs(ms - layouts_ms) < 1e-12
-    high = LabKernel("v15", 257, 4, K1, M1, [1 / 64] * 3, prec="high",
-                     device="cpu")
-    assert high.design_bound() == (layouts_ms, "bytes")  # one TF32 pass
+    high = {r: LabKernel("v15", 257, 4, K1, M1, [1 / 64] * 3, prec="high",
+                         device="cpu", routine=r) for r in ("tile", "pipe")}
+    assert high["tile"].design_bound() == (layouts_ms, "bytes")  # one pass
+    ring_bytes = (272**2 + 264**2) * 272 * 4 + 544 * 288 * 4 + 4 * 257 * 10 * 4
+    ms, by = high["pipe"].design_bound()
+    assert by == "bytes" and abs(ms - ring_bytes / 3.35e9) < 1e-12

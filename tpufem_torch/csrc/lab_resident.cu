@@ -1,7 +1,7 @@
 // Host launcher of the K1 kernel lab (device code and the design notes in
 // lab_resident.cuh, the tile routine, and lab_resident_ring.cuh, the ring
-// routine of v17 and v19), with a plain C interface for ctypes.  Built by
-// tpufem_torch/utils/build.py:
+// routines of v17, v19 and v20), with a plain C interface for ctypes.
+// Built by tpufem_torch/utils/build.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -ldl -o <lib>.so lab_resident.cu
 #include <cuda_bf16.h>
@@ -65,68 +65,16 @@ cudaError_t dispatch_p(int p, int variant, int mode, const tpufem::LabGeo& g,
   return cudaErrorInvalidValue;
 }
 
-// The ring routine (v17: lab_ring_kernel, v19: lab_ring_pipe_kernel): its
-// shared-memory opt-in, then the occupancy query (blocks_per_sm not null) or
-// the tensor map of the input layout and the launch.
-struct RingLaunch {
-  int grid;
-  const void* u;
-  void* y;
-  const void* tables;
-  const void* xb;
-  unsigned long long* tickets;
-  cudaStream_t stream;
-  int* blocks_per_sm;
-};
-
-template <int P, int XP>
-cudaError_t launch_ring(int variant, int mode, const tpufem::LrGeo& q,
-                        const RingLaunch& a) {
-  using C = typename tpufem::LabMma<XP>::C;
-  const tpufem::LabGeo& g = q.g;
-  const int smem = (int)tpufem::lr_smem(P, XP, g.tz, g.ty, q.nu, q.nb, q.nq,
-                                        q.ncols)
-                       .total;
-  const bool pipe = variant == 19;
-  const int threads = pipe ? tpufem::kLrPipeThreads : tpufem::kLrThreads;
-  auto v17 = tpufem::lab_ring_kernel<P, XP>;
-  auto v19 = tpufem::lab_ring_pipe_kernel<P, XP>;
-  static std::atomic<int> granted[2][tpufem::kLabMaxDevices];
-  cudaError_t e = pipe ? tpufem::lab_opt_in(v19, smem, granted[1])
-                       : tpufem::lab_opt_in(v17, smem, granted[0]);
-  if (e != cudaSuccess) return e;
-  if (a.blocks_per_sm)
-    return pipe ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                      a.blocks_per_sm, v19, threads, smem)
-                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                      a.blocks_per_sm, v17, threads, smem);
-  tpufem::HopMap in_map;
-  const long long dim[3] = {g.X, g.sy, g.sz};
-  const int box[3] = {tpufem::lr_xc(XP), g.ty + 2 * P, g.tz + 2 * P};
-  if (tpufem::hop_map_3d(&in_map, const_cast<void*>(a.u), sizeof(C), dim,
-                         box))
-    return cudaErrorInvalidValue;
-  if (pipe) {
-    // the counter starts at 0 on the launch's stream, whatever ran before
-    e = cudaMemsetAsync(a.tickets, 0, sizeof(*a.tickets), a.stream);
-    if (e != cudaSuccess) return e;
-    v19<<<a.grid, threads, smem, a.stream>>>(
-        in_map, static_cast<C*>(a.y), static_cast<const C*>(a.tables),
-        static_cast<const unsigned char*>(a.xb), q, mode, a.tickets);
-  } else {
-    v17<<<dim3(g.nty, g.ntz, q.nsplit), threads, smem, a.stream>>>(
-        in_map, static_cast<C*>(a.y), static_cast<const C*>(a.tables),
-        static_cast<const unsigned char*>(a.xb), q, mode);
-  }
-  return cudaGetLastError();
-}
-
+// The ring routines (v17: lab_ring_kernel, v19: lab_ring_pipe_kernel, v20:
+// lab_window_kernel) by variant, degree and precision.
 template <int XP>
 cudaError_t ring_by_p(int p, int variant, int mode, const tpufem::LrGeo& q,
-                      const RingLaunch& a) {
-#define TPUFEM_CASE(PP) \
-  case PP:              \
-    return launch_ring<PP, XP>(variant, mode, q, a);
+                      const tpufem::LrLaunch& a) {
+#define TPUFEM_CASE(PP)                                                   \
+  case PP:                                                                \
+    return variant == 17   ? tpufem::lr_launch<PP, XP, 17>(mode, q, a)    \
+           : variant == 19 ? tpufem::lr_launch<PP, XP, 19>(mode, q, a)    \
+                           : tpufem::lr_launch<PP, XP, 20>(mode, q, a);
   switch (p) {
     TPUFEM_CASE(1)
     TPUFEM_CASE(2)
@@ -142,7 +90,7 @@ cudaError_t ring_by_p(int p, int variant, int mode, const tpufem::LrGeo& q,
 }
 
 cudaError_t ring_dispatch(int xp, int p, int variant, int mode,
-                          const tpufem::LrGeo& q, const RingLaunch& a) {
+                          const tpufem::LrGeo& q, const tpufem::LrLaunch& a) {
   switch (xp) {
     case tpufem::kX3TF32:
       return ring_by_p<tpufem::kX3TF32>(p, variant, mode, q, a);
@@ -156,41 +104,46 @@ cudaError_t ring_dispatch(int xp, int p, int variant, int mode,
   return cudaErrorInvalidValue;
 }
 
-// The ring routine takes: v17 or v19, a sub-tile of 64 rows whose halo'd box
-// is a TMA box, rings of 1..3 u slots, 1..2 B stages and qq stages (v17: 1),
-// column splits of a multiple of 32 columns within the block's registers
-// that cover X (copy and bands, which have no x stage: one split), X a
-// multiple of the chunk.
+// The ring routines take: v17, v19 or v20, a sub-tile of 64 rows whose
+// halo'd box is a TMA box, rings of 1..3 u slots; v17 and v19: 1..2 B stages
+// and qq stages (v17: 1), column splits of a multiple of 32 columns within
+// the block's registers that cover X (copy and bands, which have no x stage:
+// one split); v20: kLwB B stages, 6..kLwMaxQ qq stages (a window of f64's
+// six chunks fits), one split; X a multiple of the chunk.
 bool ring_args_ok(int variant, int xp, int p, int mode, int X, int tz, int ty,
                   int nu, int nb, int nq, int ncols, int nsplit) {
-  if ((variant != 17 && variant != 19) || xp < tpufem::kX3TF32 ||
-      xp > tpufem::kXF64 || p < 1 || p > 8)
+  if ((variant != 17 && variant != 19 && variant != 20) ||
+      xp < tpufem::kX3TF32 || xp > tpufem::kXF64 || p < 1 || p > 8)
     return false;
   if (tz < 1 || ty < 1 || tz * ty != tpufem::kLrM || tz + 2 * p > 256 ||
-      ty + 2 * p > 256)
+      ty + 2 * p > 256 || nu < 1 || nu > tpufem::kLrMaxU ||
+      X <= 0 || X % tpufem::lr_xc(xp))
     return false;
-  if (nu < 1 || nu > tpufem::kLrMaxU || nb < 1 || nb > tpufem::kLrMaxB ||
-      nq < 1 || nq > tpufem::kLrMaxQ || (variant == 17 && nq != 1))
+  if (variant == 20)
+    return nb == tpufem::kLwB && nq >= 6 && nq <= tpufem::kLwMaxQ &&
+           nsplit == 1;
+  if (nb < 1 || nb > tpufem::kLrMaxB || nq < 1 || nq > tpufem::kLrMaxQ ||
+      (variant == 17 && nq != 1))
     return false;
   const bool xstage = mode == tpufem::kFull || mode == tpufem::kMM;
   return ncols > 0 && ncols % tpufem::kHopN == 0 &&
          ncols <= tpufem::lr_max_cols(xp) &&
          (xstage ? nsplit >= 1 && (long long)ncols * nsplit >= X
-                 : nsplit == 1) &&
-         X > 0 && X % tpufem::lr_xc(xp) == 0;
+                 : nsplit == 1);
 }
 
 }  // namespace
 
 extern "C" {
 
-// y = A u on the resident layout (sz, sy, X) by the ring routine of v17 or
-// v19 (lab_resident_ring.cuh) with x-stage precision xp in mode; sub-tile
+// y = A u on the resident layout (sz, sy, X) by the ring routine of v17, v19
+// or v20 (lab_resident_ring.cuh) with x-stage precision xp in mode; sub-tile
 // (tz, ty) of 64 rows; rings nu, nb, nq; ncols columns a block in nsplit
-// splits; grid: v19's persistent blocks (v17 ignores it).  tables: (4, npts,
-// 2p+2) [Ky, My, Kz, Mz]; xb: the B stages as the host lays them out
-// (resident_lab.ring_operand).  v19: tickets, 8 bytes of device memory for
-// the counter its blocks take units from, set to 0 on the stream before the
+// splits (v20: one split, its blocks' windows); grid: the persistent blocks
+// of v19 and v20 (v17 ignores it).  tables: (4, npts, 2p+2) [Ky, My, Kz,
+// Mz]; xb: the B stages as the host lays them out (resident_lab.ring_operand;
+// v20: window_operand).  v19, v20: tickets, 8 bytes of device memory for the
+// counter their blocks take units from, set to 0 on the stream before the
 // launch (v17 ignores it).  Returns the cudaError_t of the launch.
 int tpufem_lab_ring_apply(int variant, int xp, int p, int mode, int npts,
                           int sz, int sy, int X, int tz, int ty, int nu,
@@ -199,37 +152,46 @@ int tpufem_lab_ring_apply(int variant, int xp, int p, int mode, int npts,
                           const void* xb, void* tickets, void* stream) {
   if (!ring_args_ok(variant, xp, p, mode, X, tz, ty, nu, nb, nq, ncols,
                     nsplit) ||
-      grid < 1 || (variant == 19 && !tickets))
+      grid < 1 || (variant != 17 && !tickets))
     return (int)cudaErrorInvalidValue;
-  const tpufem::LrGeo q{{npts, sz, sy, X, tz, ty, (npts + tz - 1) / tz,
-                         (npts + ty - 1) / ty},
-                        nu, nb, nq, ncols, nsplit};
-  const RingLaunch a{grid, u, y, tables, xb,
-                     static_cast<unsigned long long*>(tickets),
-                     static_cast<cudaStream_t>(stream), nullptr};
+  const tpufem::LabGeo g{npts, sz, sy, X, tz, ty, (npts + tz - 1) / tz,
+                         (npts + ty - 1) / ty};
+  const tpufem::LrGeo q{g, nu, nb, nq, ncols, nsplit,
+                        tpufem::lab_resident_out(g, p)};
+  const tpufem::LrLaunch a{grid, u, y, tables, xb,
+                           static_cast<unsigned long long*>(tickets),
+                           static_cast<cudaStream_t>(stream), nullptr};
   return (int)ring_dispatch(xp, p, variant, mode, q, a);
 }
 
-// Blocks of a ring launch an SM holds at once (v19's grid is that times the
-// SMs); -1 where refused.
+// Blocks of a ring launch an SM holds at once (v19 and v20's grid is that
+// times the SMs); -1 where refused.
 int tpufem_lab_ring_blocks_per_sm(int variant, int xp, int p, int tz, int ty,
                                   int nu, int nb, int nq, int ncols) {
   if (!ring_args_ok(variant, xp, p, tpufem::kFull, ncols, tz, ty, nu, nb,
                     nq, ncols, 1))
     return -1;
   int n = -1;
-  const tpufem::LrGeo q{{0, 0, 0, 0, tz, ty, 0, 0}, nu, nb, nq, ncols, 1};
-  const RingLaunch a{1,       nullptr, nullptr, nullptr, nullptr,
-                     nullptr, nullptr, &n};
+  const tpufem::LrGeo q{{0, 0, 0, 0, tz, ty, 0, 0}, nu, nb, nq, ncols, 1,
+                        {0, 0, 0}};
+  const tpufem::LrLaunch a{1,       nullptr, nullptr, nullptr, nullptr,
+                           nullptr, nullptr, &n};
   if (ring_dispatch(xp, p, variant, 0, q, a) != cudaSuccess) return -1;
   return n;
 }
 
-// Shared-memory bytes of one block of the ring routine; the chooser in
-// tpufem_torch/lab/resident_lab.py sizes its rings with it.
+// Shared-memory bytes of one block of v17 or v19's ring routine; the chooser
+// in tpufem_torch/lab/resident_lab.py sizes its rings with it.
 long long tpufem_lab_ring_smem_bytes(int p, int xp, int tz, int ty, int nu,
                                      int nb, int nq, int ncols) {
   return tpufem::lr_smem(p, xp, tz, ty, nu, nb, nq, ncols).total;
+}
+
+// The same for v20's (lab_window_kernel: kLwB B stages of a column block's
+// window, nq qq stages of one chunk).
+long long tpufem_lab_window_smem_bytes(int p, int xp, int tz, int ty, int nu,
+                                       int nq) {
+  return tpufem::lw_smem(p, xp, tz, ty, nu, nq).total;
 }
 
 // y = A u on the resident layout (sz, sy, X) by lab kernel `variant` (17,

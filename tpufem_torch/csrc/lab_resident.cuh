@@ -1,7 +1,7 @@
 // The K1 kernel lab on Hopper: four schedules of the solver-resident 3D
-// Laplace apply with a tensor-core x stage, on two routines.  Device code of
-// the tile routine and of the pieces both share; the ring routine is
-// lab_resident_ring.cuh, the host launcher with its plain C interface
+// Laplace apply with a tensor-core x stage, on two kinds of routine.  Device
+// code of the tile routine and of the pieces they share; the ring routines
+// are lab_resident_ring.cuh, the host launcher with its plain C interface
 // lab_resident.cu.
 //
 // Replaces the Pallas lab kernels of scripts/kernel_lab.py:
@@ -17,19 +17,25 @@
 // in z and y (the TPU's H is not needed).  Each kernel writes the whole
 // layout, halo and padding zeros included, so raw(raw(u)) chains.
 //
-// The two routines:
-//   ring  v17 and v19 (lab_resident_ring.cuh: lab_ring_kernel,
-//         lab_ring_pipe_kernel): a producer warp feeds the halo'd u boxes by
-//         TMA and the host-split rows of [Kx^T; Mx^T] by bulk copies through
-//         mbarrier rings; the bands of a 64-row sub-tile run chunk by chunk
-//         of x into a qq stage that two warpgroups multiply on wgmma (A from
-//         registers), the output accumulated in registers over all of x.
-//         v17 overlaps a chunk's products with the next chunk's bands; v19
-//         gives bands and products warps of their own and walks the
-//         sub-tiles with persistent blocks.  Bounded by the bands on CUDA
-//         cores and by B's stream from L2 into every block (PERF.md).
+// The two kinds:
+//   ring  v17, v19 and v20 (lab_resident_ring.cuh: lab_ring_kernel,
+//         lab_ring_pipe_kernel, lab_window_kernel): a producer warp feeds the
+//         halo'd u boxes by TMA and the host-split rows of [Kx^T; Mx^T] by
+//         bulk copies through mbarrier rings; the bands of a 64-row sub-tile
+//         run chunk by chunk of x into qq stages that warpgroups multiply on
+//         wgmma (A from registers).  v17 and v19: the dense product, the
+//         output accumulated in registers over all of x; v17 overlaps a
+//         chunk's products with the next chunk's bands, v19 gives bands and
+//         products warps of their own and walks the sub-tiles with
+//         persistent blocks.  Bounded by the bands on CUDA cores and by B's
+//         stream from L2 into every block.  v20: v19's roles, the x stage
+//         windowed: each 32-column block multiplies only the 48 rows a half
+//         of [Kx^T; Mx^T] its band needs (B 0.24 GB from L2 an apply, not
+//         1.36), gathered from a ring of qq stages, and is stored as soon
+//         as it retires; its products are small beside its bands, which
+//         bound it (PERF.md has the split).
 //   tile  the first version (lab_tile_kernel, lab_pipe_kernel, below):
-//         v18 and v20's, and v17 and v19's earlier schedule.  One (TZ, TY)
+//         v18's, and the earlier schedule of v17, v19 and v20.  One (TZ, TY)
 //         output tile over all of x (M = TZ*TY rows):
 //   z, y   s = Bz(u; Mz), t = Bz(u; Kz); q1 = By(s; My), q23 = By(s; Ky) +
 //          By(t; My) on CUDA cores, x streamed in chunks of kXC columns (the
@@ -68,14 +74,14 @@
 // the padded layout moves 2 x 4 bytes per layout point, 0.046 ms, and the
 // dense x stage is 2 npts^2 (2X) X = 19.5 GFLOP a pass at npts 257 (X =
 // 272): 0.118 ms in 3xTF32, 0.039 ms in 1xTF32, 0.059 ms in bf16x3, so
-// v17-v19 cannot come within 3x of the function's bound, while v20 (~8x
-// fewer rows per column block at P = 4) keeps the design's bound at its
-// bytes.  The tile routine approaches neither: WMMA (not wgmma) from shared
-// memory with the B operand read from L2 by every block, no TMA, a
-// (TZ+2P)(TY+2P)/(TZ TY) ~ 7x halo re-read in the band stage (v17 in
-// 3xTF32 at the flagship on an H100 80GB HBM3 at 700 W, timed in turns by
-// chip_smoke.py phase 6: 3.31 ms, the ring routine 0.69).  PERF.md has the
-// measured split.
+// v17-v19 cannot come within 3x of the function's bound, while v20 (~6x
+// fewer rows per 32-column block) keeps the design's bound at its bytes.
+// The tile routine approaches neither: WMMA (not wgmma) from shared memory
+// with the B operand read from L2 by every block, no TMA, a (TZ+2P)(TY+2P)
+// /(TZ TY) ~ 7x halo re-read in the band stage (in 3xTF32 at the flagship on
+// an H100 80GB HBM3 at 700 W, timed in turns with the ring routines by
+// chip_smoke.py phase 6: v17 3.31 ms, its ring routine 0.69; v20 1.46, its
+// windowed ring routine 0.49).  PERF.md has the measured split.
 #pragma once
 
 #include "common.cuh"
@@ -309,22 +315,28 @@ __device__ void lab_zero_halo(const LabGeo& g, int bz, int by, int P,
   }
 }
 
-// Offset of row m of the tile at (z0, y0) in the layout; -1 for an
-// overhang row (beyond npts - 1 in z or y), which the tile does not store.
-__device__ __forceinline__ long long lab_out_row(const LabGeo& g, int z0,
-                                                 int y0, int m, int P) {
-  const int gz = z0 + m / g.ty, gy = y0 + m % g.ty;
-  if (gz >= g.npts || gy >= g.npts) return -1;
-  return ((long long)(gz + P) * g.sy + gy + P) * g.X;
+// Where the rows of a sub-tile go in an output layout (., stride, X): row
+// (gz, gy) of the grid at layout row (org + gz, org + gy), for gz, gy <
+// nrows; beyond, the row is not stored.  L1's resident layout: org P,
+// stride sy, nrows npts (its halo rows are lab_zero_halo's).  L2's output
+// layout: org 0, stride NT, nrows NT (rows past npts come out of the band
+// stages, whose tables are zero there, as exact zeros).
+struct LabOut {
+  int org, stride, nrows;
+};
+__host__ __device__ inline LabOut lab_resident_out(const LabGeo& g, int P) {
+  return LabOut{P, g.sy, g.npts};
 }
 
 // Where a tile's row m goes in the output: rows(m) is its offset, or -1 for
-// a row the tile does not store.  L1's: the resident layout.
+// a row the tile does not store; the tile at (z0, y0), ty rows in y.
 struct LabRows {
-  LabGeo g;
-  int z0, y0, P;
+  LabOut o;
+  int X, z0, y0, ty;
   __device__ __forceinline__ long long operator()(int m) const {
-    return lab_out_row(g, z0, y0, m, P);
+    const int gz = z0 + m / ty, gy = y0 + m % ty;
+    if (gz >= o.nrows || gy >= o.nrows) return -1;
+    return ((long long)(gz + o.org) * o.stride + gy + o.org) * X;
   }
 };
 
@@ -481,7 +493,7 @@ lab_tile_kernel(const typename LabMma<XP>::C* __restrict__ u,
   lab_bands<P, XP>(u, tables, g, z0, y0, fused, mode, smem_raw, pl, qq, tid,
                    nthr, 0);
   lab_zero_halo(g, bz, by, P, out, tid, nthr);
-  const LabRows rows{g, z0, y0, P};
+  const LabRows rows{lab_resident_out(g, P), g.X, z0, y0, g.ty};
   if (mode == kCopy || mode == kBands) {
     lab_store_rows<XP>(qq, g, rows, out, tid, nthr);
     return;
@@ -526,7 +538,8 @@ lab_pipe_kernel(const typename LabMma<XP>::C* __restrict__ u,
       const int t = b + (step - 1) * G, bz = t / g.nty, by = t % g.nty;
       const unsigned char* qq =
           smem_raw + pl.qq + ((step - 1) & 1) * pl.qq_bytes;
-      const LabRows rows{g, bz * g.tz, by * g.ty, P};
+      const LabRows rows{lab_resident_out(g, P), g.X, bz * g.tz,
+                         by * g.ty, g.ty};
       if (mode == kCopy || mode == kBands) {
         lab_store_rows<XP>(qq, g, rows, out, mtid, half);
       } else {

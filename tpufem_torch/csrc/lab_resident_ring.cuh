@@ -1,13 +1,18 @@
-// The K1 kernel lab's v17 and v19 on Hopper's asynchronous machinery: the z/y
-// bands of a sub-tile fed by a TMA ring, the x stage on wgmma over x chunks.
-// Device code; the host launcher is lab_resident.cu, the design note of the
-// lab and of the tile routine (lab_tile_kernel, lab_pipe_kernel: the earlier
-// schedule of v17 and v19, still built) is lab_resident.cuh's.
+// The K1 kernel lab's v17, v19 and v20 on Hopper's asynchronous machinery:
+// the z/y bands of a sub-tile fed by a TMA ring, the x stage on wgmma over x
+// chunks (v20: over each column block's window).  Device code; the host
+// launches are lr_launch (below), called by lab_resident.cu and, for the K2
+// lab's v15 on L2's layouts, by lab_zyfirst.cu; the design note of the lab
+// and of the tile routine (lab_tile_kernel, lab_pipe_kernel: the earlier
+// schedule of v17, v19 and v20, still built) is lab_resident.cuh's.
 //
-// Both compute what _kernel_v17 (scripts/kernel_lab.py:581) computes, on the
-// same resident layout (sz, sy, X), from the same host tables: out rows =
-// [q1 | q23] @ [Kx^T; Mx^T] over all 2X rows (the dense x stage), every layout
-// point written, halo and padding zeros included.
+// All three compute what _kernel_v17 (scripts/kernel_lab.py:581) computes,
+// on the same resident layout (sz, sy, X), from the same host tables: out
+// rows = [q1 | q23] @ [Kx^T; Mx^T] over all 2X rows (v20: the rows of each
+// column block's band, the rest being exact zeros), every layout point
+// written, halo and padding zeros included.  Where the rows go is a run-time
+// map (LrGeo::o, LabOut), so v15 runs v17's and v19's routines on L2's
+// output layout.
 //
 // One sub-tile (TZ, TY) of M = 64 data rows (one wgmma M; (8, 8) unless asked)
 // over x chunks of XC columns (64 bytes of a row: 16 in f32, 8 in f64):
@@ -66,6 +71,16 @@
 // a sub-tile in 3xTF32, 1.36 GB an apply): shared memory holds one chunk's
 // B, not all of it.  PERF.md has the measured split.
 //
+// v20 (lab_window_kernel, at the end of this file): v19's roles and rings;
+// each 32-column block multiplies its 48-row window of each half, gathered
+// from a ring of qq stages that holds every chunk of the window, and is
+// stored once its products retire, so its accumulator is one 64 x 32 tile
+// (no column split in any precision).  The window's A (12 TF32 k steps,
+// big and small: 96 registers) is why it keeps v19's 160-register x-stage
+// warpgroups, one block an SM, rather than a 288-thread block at two.  Its
+// products are 11.6 GFLOP in 3xTF32 (three passes) at the flagship, B 0.24
+// GB from L2; the bands bound it.
+//
 // One host thread (blockDim 1, the g++ build of the tests) runs a block: the
 // mbarrier calls do nothing, the thread loads each chunk itself before it
 // waits, runs the bands, then both warpgroups' products in turn (a wgmma
@@ -101,18 +116,22 @@ __host__ __device__ constexpr int lr_parts(int xp) {
   return xp == kX3TF32 || xp == kXBF16x3 ? 2 : 1;
 }
 __host__ __device__ constexpr int lr_belem(int xp) {
-  return xp == kXF64 ? 8 : xp == kXBF16x3 ? 2 : 4;
+  return xp == kXF64 ? 8 : xp == kXBF16x3 || xp == kXBF16 ? 2 : 4;
 }
 // columns of the x operator a block multiplies at most
 __host__ __device__ constexpr int lr_max_cols(int xp) {
   return xp == kXF64 ? 8 * kLrF64Tiles : 2 * kLrNBW * kHopN;
 }
 
-// One launch: the layout, the ring depths (u slots, B stages, qq stages), the
-// columns of a block (a multiple of 32) and the column splits of X.
+// One launch: the input layout and the sub-tiles' grid (g), the ring depths
+// (u slots, B stages, qq stages), the columns of a block (a multiple of 32),
+// the column splits of X and where the rows go in the output layout (o; a
+// layout with a halo, org > 0, gets its halo zeros from the boundary
+// sub-tiles).
 struct LrGeo {
   LabGeo g;
   int nu, nb, nq, ncols, nsplit;
+  LabOut o;
 };
 
 // Byte offsets of a block's shared-memory regions, each 128-byte aligned:
@@ -124,8 +143,9 @@ struct LrGeo {
 //   b    nb stages of B, its parts one after the other (b_part bytes each:
 //        exactly the host's, so one bulk copy fills a stage)
 //   scr  f64: one 8 x 8 accumulator tile a warp
+// (zero: v20's 16 zero bytes, lw_smem; none here)
 struct LrSmem {
-  long long bar, units, tab, u, u_bytes, st, qq, qq_bytes, b, b_part,
+  long long bar, units, zero, tab, u, u_bytes, st, qq, qq_bytes, b, b_part,
       b_bytes, scr, total;
 };
 __host__ __device__ inline LrSmem lr_smem(int p, int xp, int tz, int ty,
@@ -135,6 +155,7 @@ __host__ __device__ inline LrSmem lr_smem(int p, int xp, int tz, int ty,
   LrSmem s;
   s.bar = 0;
   s.units = 2 * (kLrMaxU + kLrMaxB + kLrMaxQ) * 8;
+  s.zero = 0;
   s.tab = lab_align(s.units + kLrUnits * 4);
   s.u = s.tab + lab_align(2LL * (tz + ty) * nw * c);
   s.u_bytes = lab_align(lz * ly * xc * c);
@@ -149,45 +170,51 @@ __host__ __device__ inline LrSmem lr_smem(int p, int xp, int tz, int ty,
   return s;
 }
 
-// The rings' mbarriers: u, B and qq, a full and an empty one a slot.
-struct LrBars {
+// The rings' mbarriers: u, B and qq, a full and an empty one a slot, for
+// rings of at most MU, MB and MQ slots.
+template <int MU, int MB, int MQ>
+struct LrBarsOf {
+  static constexpr int kCount = 2 * (MU + MB + MQ);
   uint64_t* b;
   __device__ __forceinline__ uint64_t* uf(int s) const { return b + s; }
   __device__ __forceinline__ uint64_t* ue(int s) const {
-    return b + kLrMaxU + s;
+    return b + MU + s;
   }
   __device__ __forceinline__ uint64_t* bf(int s) const {
-    return b + 2 * kLrMaxU + s;
+    return b + 2 * MU + s;
   }
   __device__ __forceinline__ uint64_t* be(int s) const {
-    return b + 2 * kLrMaxU + kLrMaxB + s;
+    return b + 2 * MU + MB + s;
   }
   __device__ __forceinline__ uint64_t* qf(int s) const {
-    return b + 2 * (kLrMaxU + kLrMaxB) + s;
+    return b + 2 * (MU + MB) + s;
   }
   __device__ __forceinline__ uint64_t* qe(int s) const {
-    return b + 2 * (kLrMaxU + kLrMaxB) + kLrMaxQ + s;
+    return b + 2 * (MU + MB) + MQ + s;
   }
   // tid 0 of the block; then a block barrier.  A u slot is released by one
-  // band thread, a B stage by each x-stage warp, a qq stage (v19) by each
-  // x-stage warp once it holds its operand.
-  __device__ __forceinline__ void init(int tid) const {
+  // band thread, a B stage by be_n x-stage warps (v17, v19: each of the
+  // eight), a qq stage (v19) by qe_n arrivals of x-stage warps once they
+  // hold its operand.
+  __device__ __forceinline__ void init(int tid, int be_n = kLrWarps,
+                                       int qe_n = kLrWarps) const {
     if (tid != 0) return;
-    for (int s = 0; s < kLrMaxU; ++s) {
+    for (int s = 0; s < MU; ++s) {
       hop_mbar_init(uf(s), 1);
       hop_mbar_init(ue(s), 1);
     }
-    for (int s = 0; s < kLrMaxB; ++s) {
+    for (int s = 0; s < MB; ++s) {
       hop_mbar_init(bf(s), 1);
-      hop_mbar_init(be(s), kLrWarps);
+      hop_mbar_init(be(s), be_n);
     }
-    for (int s = 0; s < kLrMaxQ; ++s) {
+    for (int s = 0; s < MQ; ++s) {
       hop_mbar_init(qf(s), 1);
-      hop_mbar_init(qe(s), kLrWarps);
+      hop_mbar_init(qe(s), qe_n);
     }
     hop_mbar_init_fence();
   }
 };
+using LrBars = LrBarsOf<kLrMaxU, kLrMaxB, kLrMaxQ>;
 
 // Wait for the phase of item k of an n-slot ring (parity k / n), or, before
 // the slot is filled again, for the readers of item k - n.
@@ -213,8 +240,8 @@ __host__ __device__ __forceinline__ int lr_at(int m, int k) {
 // The producer's item k: the u box of chunk cx0 of the sub-tile at (z0, y0)
 // into u slot k % nu, and, with_b, the chunk's B stage (b_bytes at bsrc) into
 // B stage k % nb.
-template <typename C>
-__device__ __forceinline__ void lr_produce(const LrBars& br,
+template <typename C, typename Bars>
+__device__ __forceinline__ void lr_produce(const Bars& br,
                                            unsigned char* smem,
                                            const LrSmem& pl, const LrGeo& q,
                                            long long k, const HopMap* map,
@@ -265,15 +292,16 @@ __device__ void lr_tables(const C* __restrict__ tables, const LabGeo& g,
 //   kBands  out rows = q1 + q23     kCopy   out rows = u
 // the last two straight to the layout, masked to the data rows.  free_u()
 // runs on one thread once U has been read; the team's barrier ends the
-// stage (qq complete; s and t free).  TZ, TY: the sub-tile as compile-time
+// stage (qq complete; s and t free).  o: where the rows go (copy and bands).
+// TZ, TY: the sub-tile as compile-time
 // constants (the chooser's (8, 8): the index arithmetic of every output
 // folds into shifts), or 0 for g's.
 template <int P, int XP, int TZ, int TY, typename Free>
 __device__ void lr_bands(const typename LabMma<XP>::C* U,
                          const typename LabMma<XP>::C* tab,
                          typename LabMma<XP>::C* s, typename LabMma<XP>::C* t,
-                         typename LabMma<XP>::C* qq, const LabGeo& g, int z0,
-                         int y0, int cx0, int mode,
+                         typename LabMma<XP>::C* qq, const LabGeo& g,
+                         const LabOut& o, int z0, int y0, int cx0, int mode,
                          typename LabMma<XP>::C* __restrict__ out, int tid,
                          int nthr, int bar, Free free_u) {
   using C = typename LabMma<XP>::C;
@@ -283,7 +311,7 @@ __device__ void lr_bands(const typename LabMma<XP>::C* U,
   const C* wmy = wky + ty * NW;
   const C* wkz = wmy + ty * NW;
   const C* wmz = wkz + tz * NW;
-  const LabRows rows{g, z0, y0, P};
+  const LabRows rows{o, g.X, z0, y0, ty};
   if (mode == kCopy || mode == kMM) {
     for (int i = tid; i < tz * ty * XC; i += nthr) {
       const int ix = i % XC, m = i / XC, iy = m % ty, iz = m / ty;
@@ -331,25 +359,26 @@ template <int P, int XP, typename Free>
 __device__ __forceinline__ void lr_bands_any(
     const typename LabMma<XP>::C* U, const typename LabMma<XP>::C* tab,
     typename LabMma<XP>::C* s, typename LabMma<XP>::C* t,
-    typename LabMma<XP>::C* qq, const LabGeo& g, int z0, int y0, int cx0,
-    int mode, typename LabMma<XP>::C* __restrict__ out, int tid, int nthr,
-    int bar, Free free_u) {
+    typename LabMma<XP>::C* qq, const LabGeo& g, const LabOut& o, int z0,
+    int y0, int cx0, int mode, typename LabMma<XP>::C* __restrict__ out,
+    int tid, int nthr, int bar, Free free_u) {
   if (g.tz == 8 && g.ty == 8)
-    lr_bands<P, XP, 8, 8>(U, tab, s, t, qq, g, z0, y0, cx0, mode, out, tid,
-                          nthr, bar, free_u);
+    lr_bands<P, XP, 8, 8>(U, tab, s, t, qq, g, o, z0, y0, cx0, mode, out,
+                          tid, nthr, bar, free_u);
   else
-    lr_bands<P, XP, 0, 0>(U, tab, s, t, qq, g, z0, y0, cx0, mode, out, tid,
-                          nthr, bar, free_u);
+    lr_bands<P, XP, 0, 0>(U, tab, s, t, qq, g, o, z0, y0, cx0, mode, out,
+                          tid, nthr, bar, free_u);
 }
 
-// The x stage on wgmma (3xTF32, 1xTF32, bf16x3): warpgroup wg holds the
+// The x stage on wgmma (3xTF32, 1xTF32, bf16x3, one bf16 product): warpgroup
+// wg holds the
 // products of the column blocks wg kLrNBW .. + kLrNBW - 1 of the block's nbl;
 // one past the last multiplies the last again and is not stored, so no wgmma
 // depends on a run-time condition.  One host thread stands for both
 // warpgroups (acc holds both, issue and store run them in turn).
 template <int XP>
 struct LrWgmma {
-  static constexpr bool BF = XP == kXBF16x3;
+  static constexpr bool BF = XP == kXBF16x3 || XP == kXBF16;
   static constexpr bool kSplit = lr_parts(XP) == 2;
   static constexpr int KS = BF ? 2 : 4;  // k steps of a chunk (K = 32)
   static constexpr int kbytes = 32 * (BF ? 2 : 4);  // B bytes of k a column
@@ -513,8 +542,7 @@ __device__ __forceinline__ void lr_x_store(LrX<XP>& x, const LrGeo& q,
                                            typename LabMma<XP>::C* out,
                                            int tid, bool solo) {
   using C = typename LabMma<XP>::C;
-  const int P = (q.g.sz - q.g.npts) / 2;
-  const LabRows rows{q.g, z0, y0, P};
+  const LabRows rows{q.o, q.g.X, z0, y0, q.g.ty};
   const int X = q.g.X, nbl = q.ncols / kHopN;
   auto st = [&](int m, int n, C v) {
     const long long o = rows(m);
@@ -573,7 +601,7 @@ lab_ring_kernel(const __grid_constant__ HopMap in_map,
   C* t = s + (long long)g.tz * (g.ty + 2 * P) * XC;
   C* qq = reinterpret_cast<C*>(smem_raw + pl.qq);
   lr_tables<P>(tables, g, z0, y0, tab, tid, cn);
-  if (split == 0) lab_zero_halo(g, bz, by, P, out, tid, cn);
+  if (q.o.org && split == 0) lab_zero_halo(g, bz, by, P, out, tid, cn);
   lab_sync(1, cn);
   LrX<XP> x;
   x.zero();
@@ -584,7 +612,8 @@ lab_ring_kernel(const __grid_constant__ HopMap in_map,
     lr_wait_full(br.uf(su), ch, q.nu);
     lr_bands_any<P, XP>(reinterpret_cast<const C*>(smem_raw + pl.u +
                                                su * pl.u_bytes),
-                    tab, s, t, qq, g, z0, y0, ch * XC, mode, out, tid, cn, 1,
+                    tab, s, t, qq, g, q.o, z0, y0, ch * XC, mode, out, tid,
+                    cn, 1,
                     [&] { hop_mbar_arrive(br.ue(su)); });
     if (!mm) continue;
     x.retire();  // chunk ch - 1's products are done: its B stage is free
@@ -601,20 +630,137 @@ lab_ring_kernel(const __grid_constant__ HopMap in_map,
                  solo);
 }
 
+// What the roles of a persistent ring kernel (v19: lab_ring_pipe_kernel,
+// v20: lab_window_kernel) share.  The producer takes the block's units
+// (sub-tile and split) one at a time from the launch's ticket counter (0 at
+// the launch: 0 .. units - 1, then past the end: every block takes one
+// ticket more than its units, so a launch takes units + grid), publishes
+// each in a unit slot before its first load, and loads the unit's u boxes
+// (items k, a unit's chunks in turn) into the u ring; the band warps learn a
+// unit from its slot once its first item has reached them, write its
+// tables and (split 0 of a layout with a halo) its halo zeros, and band each
+// item from its u slot into qq stage k % nq (copy and bands: into out); a
+// unit of -1 ends each role, passed on through the u ring, then the qq ring.
+template <int P, int XP, typename Bars>
+struct LrPipe {
+  using C = typename LabMma<XP>::C;
+  static constexpr int XC = lr_xc(XP);
+  struct Unit {
+    int bz, by, split, z0, y0;
+  };
+  const LrGeo& q;
+  const LrSmem& pl;
+  const Bars& br;
+  unsigned char* smem;
+  const HopMap* map;
+  const C* tables;
+  C* out;
+  unsigned long long* tickets;
+  int mode;
+
+  __device__ __forceinline__ int nchunk() const { return q.g.X / XC; }
+  __device__ __forceinline__ bool mm() const {
+    return mode == kFull || mode == kMM;
+  }
+  __device__ __forceinline__ volatile int* slots() const {
+    return reinterpret_cast<int*>(smem + pl.units);
+  }
+  __device__ __forceinline__ unsigned char* qq(long long k) const {
+    return smem + pl.qq + (k % q.nq) * pl.qq_bytes;
+  }
+  __device__ __forceinline__ Unit unit_of(int u) const {
+    const int ntile = q.g.ntz * q.g.nty, tile = u % ntile;
+    Unit r;
+    r.split = u / ntile;
+    r.bz = tile / q.g.nty;
+    r.by = tile % q.g.nty;
+    r.z0 = r.bz * q.g.tz;
+    r.y0 = r.by * q.g.ty;
+    return r;
+  }
+  // the producer's unit i: its ticket, published in slot i (-1: none left)
+  __device__ __forceinline__ int take(int i) const {
+    const unsigned long long t = hop_ticket(tickets);
+    const int nunit = q.g.ntz * q.g.nty * q.nsplit;
+    const int u = t < (unsigned long long)nunit ? (int)t : -1;
+    slots()[i % kLrUnits] = u;
+    return u;
+  }
+  // item k, chunk ch of unit un: its u box, and with_b its B stage from bsrc
+  __device__ __forceinline__ void produce(const Unit& un, long long k, int ch,
+                                          const unsigned char* bsrc,
+                                          bool with_b) const {
+    const unsigned ubytes =
+        (unsigned)((q.g.tz + 2 * P) * (q.g.ty + 2 * P) * XC * sizeof(C));
+    lr_produce<C>(br, smem, pl, q, k, map, ch * XC, un.y0, un.z0, ubytes,
+                  bsrc, with_b);
+  }
+  // the producer's end: an arrival with no bytes on the u slot of item k0
+  __device__ __forceinline__ void end(long long k0) const {
+    const int su = (int)(k0 % q.nu);
+    lr_wait_empty(br.ue(su), k0, q.nu);
+    hop_mbar_arrive(br.uf(su));
+  }
+  // the band warps' start of a unit: its tables and halo zeros
+  __device__ __forceinline__ void band_unit(const Unit& un, int btid,
+                                            int bn) const {
+    C* tab = reinterpret_cast<C*>(smem + pl.tab);
+    lr_tables<P>(tables, q.g, un.z0, un.y0, tab, btid, bn);
+    if (q.o.org && un.split == 0)
+      lab_zero_halo(q.g, un.bz, un.by, P, out, btid, bn);
+    lab_sync(2, bn);
+  }
+  // the band warps' item: u slot -> qq stage (or, copy and bands, out)
+  __device__ __forceinline__ void bands(const Unit& un, long long k, int ch,
+                                        int btid, int bn) const {
+    const int su = (int)(k % q.nu);
+    lr_wait_full(br.uf(su), k, q.nu);
+    if (mm()) lr_wait_empty(br.qe((int)(k % q.nq)), k, q.nq);
+    C* s = reinterpret_cast<C*>(smem + pl.st);
+    lr_bands_any<P, XP>(
+        reinterpret_cast<const C*>(smem + pl.u + su * pl.u_bytes),
+        reinterpret_cast<const C*>(smem + pl.tab), s,
+        s + (long long)q.g.tz * (q.g.ty + 2 * P) * XC,
+        reinterpret_cast<C*>(qq(k)), q.g, q.o, un.z0, un.y0, ch * XC, mode,
+        out, btid, bn, 2, [&] { hop_mbar_arrive(br.ue(su)); });
+    if (mm() && btid == 0) hop_mbar_arrive(br.qf((int)(k % q.nq)));
+  }
+  // the band warps' role (named barrier 2, bn threads)
+  __device__ void band_role(int btid, int bn) const {
+    for (int i = 0;; ++i) {
+      const long long k0 = (long long)i * nchunk();
+      lr_wait_full(br.uf((int)(k0 % q.nu)), k0, q.nu);
+      const int u = slots()[i % kLrUnits];
+      if (u < 0) {  // the end: passed on to the x stage through its qq ring
+        if (mm() && btid == 0) {
+          lr_wait_empty(br.qe((int)(k0 % q.nq)), k0, q.nq);
+          hop_mbar_arrive(br.qf((int)(k0 % q.nq)));
+        }
+        return;
+      }
+      const Unit un = unit_of(u);
+      band_unit(un, btid, bn);
+      for (int ch = 0; ch < nchunk(); ++ch)
+        bands(un, k0 + ch, ch, btid, bn);
+    }
+  }
+  // the x stage's wait for unit i's first qq item: its unit, or -1 (the end)
+  __device__ __forceinline__ int x_unit(int i) const {
+    const long long k0 = (long long)i * nchunk();
+    lr_wait_full(br.qf((int)(k0 % q.nq)), k0, q.nq);
+    return slots()[i % kLrUnits];
+  }
+};
+
 // v19: persistent blocks (grid <= sub-tiles x splits), kLrPipeThreads
 // threads: warps 0-7 the x stage (two warpgroups, kLrXRegs registers a
-// thread), warps 8-14 the bands (named barrier 2), warp 15 the producer
-// (kLrBandRegs).  The producer takes the block's units (sub-tile and split)
-// one at a time from the launch's ticket counter (0 at the launch: 0 ..
-// units - 1, then past the end: every block takes one ticket more than its
-// units, so a launch takes units + grid), and publishes each in a unit slot
-// before its first load.  Items k (a unit's chunks, in turn) flow through the
-// u ring (producer -> bands), the qq ring (bands -> x stage) and the B ring
-// (producer -> x stage), each role learning a unit from its slot once the
-// unit's first item has reached it; a unit of -1 ends each role.  The
-// producer and the band warps run on into the next unit while the x stage
-// finishes and stores the last.  One host thread (blockDim 1) runs each
-// item through the three in turn.
+// thread), warps 8-14 the bands, warp 15 the producer (kLrBandRegs), with
+// the roles of LrPipe; the producer loads each item's B stage beside its u
+// box, and items flow through the u ring (producer -> bands), the qq ring
+// (bands -> x stage) and the B ring (producer -> x stage).  The producer and
+// the band warps run on into the next unit while the x stage finishes and
+// stores the last.  One host thread (blockDim 1) runs each item through the
+// three in turn.
 template <int P, int XP>
 __global__ void __launch_bounds__(kLrPipeThreads, 1)
 lab_ring_pipe_kernel(const __grid_constant__ HopMap in_map,
@@ -622,8 +768,6 @@ lab_ring_pipe_kernel(const __grid_constant__ HopMap in_map,
                      const typename LabMma<XP>::C* __restrict__ tables,
                      const unsigned char* __restrict__ xb, LrGeo q, int mode,
                      unsigned long long* tickets) {
-  using C = typename LabMma<XP>::C;
-  constexpr int XC = lr_xc(XP);
   constexpr int kBandTid = 32 * kLrWarps, kBandN = 32 * kLrBandWarps;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const LabGeo& g = q.g;
@@ -632,59 +776,14 @@ lab_ring_pipe_kernel(const __grid_constant__ HopMap in_map,
   const bool solo = kHopHost && blockDim.x < 64;  // the host build's thread
   const LrSmem pl = lr_smem(P, XP, g.tz, g.ty, q.nu, q.nb, q.nq, q.ncols);
   const LrBars br{reinterpret_cast<uint64_t*>(smem_raw + pl.bar)};
-  volatile int* slots = reinterpret_cast<int*>(smem_raw + pl.units);
-  const int ntile = g.ntz * g.nty, nunit = ntile * q.nsplit;
-  const int nchunk = g.X / XC, nbl = q.ncols / kHopN;
-  const bool mm = mode == kFull || mode == kMM;
-  const unsigned ubytes =
-      (unsigned)((g.tz + 2 * P) * (g.ty + 2 * P) * XC * sizeof(C));
-  struct Unit {
-    int bz, by, split, z0, y0;
-  };
-  auto unit_of = [&](int u) {
-    const int tile = u % ntile;
-    Unit r;
-    r.split = u / ntile;
-    r.bz = tile / g.nty;
-    r.by = tile % g.nty;
-    r.z0 = r.bz * g.tz;
-    r.y0 = r.by * g.ty;
-    return r;
-  };
-  // the producer's unit i: its ticket, published in slot i (-1: none left)
-  auto take = [&](int i) {
-    const unsigned long long t = hop_ticket(tickets);
-    const int u = t < (unsigned long long)nunit ? (int)t : -1;
-    slots[i % kLrUnits] = u;
-    return u;
-  };
+  const LrPipe<P, XP, LrBars> pp{q,      pl,  br,      smem_raw, &in_map,
+                                 tables, out, tickets, mode};
+  using Unit = typename LrPipe<P, XP, LrBars>::Unit;
+  const int nchunk = pp.nchunk(), nbl = q.ncols / kHopN;
+  const bool mm = pp.mm();
   auto produce = [&](const Unit& un, long long k, int ch) {
-    lr_produce<C>(br, smem_raw, pl, q, k, &in_map, ch * XC, un.y0, un.z0,
-                  ubytes,
-                  xb + ((long long)un.split * nchunk + ch) * pl.b_bytes, mm);
-  };
-  C* tab = reinterpret_cast<C*>(smem_raw + pl.tab);
-  C* s = reinterpret_cast<C*>(smem_raw + pl.st);
-  C* t = s + (long long)g.tz * (g.ty + 2 * P) * XC;
-  auto qq_of = [&](long long k) {
-    return smem_raw + pl.qq + (k % q.nq) * pl.qq_bytes;
-  };
-  // the band warps' start of a unit: its tables and halo zeros
-  auto band_unit = [&](const Unit& un, int btid, int bn) {
-    lr_tables<P>(tables, g, un.z0, un.y0, tab, btid, bn);
-    if (un.split == 0) lab_zero_halo(g, un.bz, un.by, P, out, btid, bn);
-    lab_sync(2, bn);
-  };
-  // the band warps' item: u slot -> qq stage (or, copy and bands, out)
-  auto bands = [&](const Unit& un, long long k, int ch, int btid, int bn) {
-    const int su = (int)(k % q.nu);
-    lr_wait_full(br.uf(su), k, q.nu);
-    if (mm) lr_wait_empty(br.qe((int)(k % q.nq)), k, q.nq);
-    lr_bands_any<P, XP>(
-        reinterpret_cast<const C*>(smem_raw + pl.u + su * pl.u_bytes), tab, s,
-        t, reinterpret_cast<C*>(qq_of(k)), g, un.z0, un.y0, ch * XC, mode,
-        out, btid, bn, 2, [&] { hop_mbar_arrive(br.ue(su)); });
-    if (mm && btid == 0) hop_mbar_arrive(br.qf((int)(k % q.nq)));
+    pp.produce(un, k, ch,
+               xb + ((long long)un.split * nchunk + ch) * pl.b_bytes, mm);
   };
   LrX<XP> x;
   // the x stage's item: the products of chunk ch (k - 1's first retired)
@@ -695,7 +794,7 @@ lab_ring_pipe_kernel(const __grid_constant__ HopMap in_map,
     const int sq = (int)(k % q.nq), sb = (int)(k % q.nb);
     lr_wait_full(br.qf(sq), k, q.nq);
     lr_wait_full(br.bf(sb), k, q.nb);
-    lr_x_issue<XP>(x, qq_of(k), smem_raw + pl.b + sb * pl.b_bytes, pl, nbl,
+    lr_x_issue<XP>(x, pp.qq(k), smem_raw + pl.b + sb * pl.b_bytes, pl, nbl,
                    tid, [&] {
                      __syncwarp();
                      if (lane == 0) hop_mbar_arrive(br.qe(sq));
@@ -714,15 +813,15 @@ lab_ring_pipe_kernel(const __grid_constant__ HopMap in_map,
   __syncthreads();
   if (solo) {
     for (int i = 0;; ++i) {
-      const int u = take(i);
+      const int u = pp.take(i);
       if (u < 0) break;
-      const Unit un = unit_of(u);
-      band_unit(un, 0, 1);
+      const Unit un = pp.unit_of(u);
+      pp.band_unit(un, 0, 1);
       x.zero();
       for (int ch = 0; ch < nchunk; ++ch) {
         const long long k = (long long)i * nchunk + ch;
         produce(un, k, ch);
-        bands(un, k, ch, 0, 1);
+        pp.bands(un, k, ch, 0, 1);
         if (mm) xstep(k, ch);
       }
       if (mm) xend(un, (long long)(i + 1) * nchunk - 1, 0);
@@ -737,49 +836,492 @@ lab_ring_pipe_kernel(const __grid_constant__ HopMap in_map,
       if (lane != 0) return;
       for (int i = 0;; ++i) {
         const long long k0 = (long long)i * nchunk;
-        const int u = take(i);
-        if (u < 0) {  // the end: an arrival with no bytes on the next u slot
-          const int su = (int)(k0 % q.nu);
-          lr_wait_empty(br.ue(su), k0, q.nu);
-          hop_mbar_arrive(br.uf(su));
-          return;
-        }
-        const Unit un = unit_of(u);
+        const int u = pp.take(i);
+        if (u < 0) return pp.end(k0);
+        const Unit un = pp.unit_of(u);
         for (int ch = 0; ch < nchunk; ++ch) produce(un, k0 + ch, ch);
       }
     }
-    // the band warps
-    const int btid = tid - kBandTid;
-    for (int i = 0;; ++i) {
-      const long long k0 = (long long)i * nchunk;
-      lr_wait_full(br.uf((int)(k0 % q.nu)), k0, q.nu);
-      const int u = slots[i % kLrUnits];
-      if (u < 0) {  // the end: passed on to the x stage through its qq ring
-        if (mm && btid == 0) {
-          lr_wait_empty(br.qe((int)(k0 % q.nq)), k0, q.nq);
-          hop_mbar_arrive(br.qf((int)(k0 % q.nq)));
-        }
-        return;
-      }
-      const Unit un = unit_of(u);
-      band_unit(un, btid, kBandN);
-      for (int ch = 0; ch < nchunk; ++ch)
-        bands(un, k0 + ch, ch, btid, kBandN);
-    }
+    return pp.band_role(tid - kBandTid, kBandN);
   }
   // the x-stage warpgroups (copy and bands: nothing to do)
   hop_reg_alloc<kLrXRegs>();
   if (!mm) return;
   for (int i = 0;; ++i) {
-    const long long k0 = (long long)i * nchunk;
-    lr_wait_full(br.qf((int)(k0 % q.nq)), k0, q.nq);
-    const int u = slots[i % kLrUnits];
+    const int u = pp.x_unit(i);
     if (u < 0) return;
-    const Unit un = unit_of(u);
+    const Unit un = pp.unit_of(u);
+    const long long k0 = (long long)i * nchunk;
     x.zero();
     for (int ch = 0; ch < nchunk; ++ch) xstep(k0 + ch, ch);
     xend(un, k0 + nchunk - 1, tid);
   }
 }
+
+// ---- v20: the block-banded x stage as a windowed wgmma stage --------------
+// Column block j (kHopN = 32 columns of the output, [32 j, 32 j + 32)) needs
+// rows [32 j - P, 32 j + 32 + P) of each half of [Kx^T; Mx^T].  At every P <=
+// 8 those lie in its window, x in [32 j - 8, 32 j + 40): 48 rows a half,
+// resident_lab.x_windows(X, p, 32, 8), whose rows beyond [0, X) the host
+// lays out as zeros (the window is clipped at the table, not in the kernel).
+// A block's product is (64, 96) x (96, 32): its qq window's columns, gathered
+// from the qq stages of the chunks that hold them, times its B.
+constexpr int kLwLead = 8;  // rows of a window before its block
+constexpr int kLwRows = kHopN + 2 * kLwLead;  // 48 rows a half
+constexpr int kLwK = 2 * kLwRows;             // K of a block's product
+constexpr int kLwMaxQ = 8;                    // deepest qq window ring
+// B stages: two.  Two warpgroups take the blocks in turn, so each waits on
+// every other B item; with an even ring it has seen the fill before the one
+// it waits for in the same stage, and a parity wait cannot pass a phase early
+constexpr int kLwB = 2;
+using LwBars = LrBarsOf<kLrMaxU, kLwB, kLwMaxQ>;
+
+// B bytes of one part of a column block's operand (the host's layout: K-major
+// for wgmma, hop_b_offset with kLwK values a column; f64 column-major)
+__host__ __device__ constexpr long long lw_b_part(int xp) {
+  return (long long)kHopN * kLwK * lr_belem(xp);
+}
+
+// Byte offsets of a block's shared-memory regions, as lr_smem's: the rings'
+// mbarriers (LwBars), the unit slots, 16 zero bytes (the A operand beyond [0,
+// X): B's rows there are zeros), tables, nu u slots, s and t, nq qq stages of
+// one chunk each (the window ring), kLwB B stages of one column block each,
+// f64's accumulator tiles.
+__host__ __device__ inline LrSmem lw_smem(int p, int xp, int tz, int ty,
+                                          int nu, int nq) {
+  const long long c = xp == kXF64 ? 8 : 4, nw = 2 * p + 2;
+  const long long lz = tz + 2 * p, ly = ty + 2 * p, xc = lr_xc(xp);
+  LrSmem s;
+  s.bar = 0;
+  s.units = LwBars::kCount * 8;
+  s.zero = s.units + kLrUnits * 4;
+  s.tab = lab_align(s.zero + 16);
+  s.u = s.tab + lab_align(2LL * (tz + ty) * nw * c);
+  s.u_bytes = lab_align(lz * ly * xc * c);
+  s.st = s.u + nu * s.u_bytes;
+  s.qq = s.st + lab_align(2 * tz * ly * xc * c);
+  s.qq_bytes = lab_align((long long)tz * ty * 2 * xc * c);
+  s.b = s.qq + nq * s.qq_bytes;
+  s.b_part = lw_b_part(xp);
+  s.b_bytes = lr_parts(xp) * s.b_part;
+  s.scr = s.b + kLwB * s.b_bytes;
+  s.total = s.scr + (xp == kXF64 ? lab_align(kLrWarps * 64 * 8) : 0);
+  return s;
+}
+
+// The chunks (x columns [c XC, (c + 1) XC)) block j's window reads, within
+// the unit's nchunk; how many blocks read chunk c (one or two: a stage is
+// free once each of its readers holds its operand, so a lone reader arrives
+// twice).
+template <int XC>
+__host__ __device__ inline int lw_c0(int j) {
+  const int x = kHopN * j - kLwLead;
+  return x < 0 ? 0 : x / XC;
+}
+template <int XC>
+__host__ __device__ inline int lw_c1(int j, int nchunk) {
+  const int c = (kHopN * j + kHopN + kLwLead - 1) / XC;
+  return c < nchunk ? c : nchunk - 1;
+}
+template <int XC>
+__host__ __device__ inline int lw_readers(int c, int nbl, int nchunk) {
+  const int j0 = c * XC / kHopN;
+  int n = 0;
+  for (int j = j0 - 2; j <= j0 + 2; ++j)
+    if (j >= 0 && j < nbl && lw_c0<XC>(j) <= c && c <= lw_c1<XC>(j, nchunk))
+      ++n;
+  return n;
+}
+
+// A unit's place in the qq ring, from its first item k0: chunk c is item k0
+// + c, in stage (k0 % nq + c) % nq, of phase k0 / nq + (k0 % nq + c) / nq
+// (32-bit arithmetic once k0 is split).
+struct LwUnit {
+  long long k0, kq;  // k0 / nq
+  int kr, nq;        // k0 % nq
+  __device__ __forceinline__ int stage(int c) const { return (kr + c) % nq; }
+  __device__ __forceinline__ void wait(const LwBars& br, int c) const {
+    hop_mbar_wait(br.qf(stage(c)), (unsigned)((kq + (kr + c) / nq) & 1));
+  }
+};
+
+// The qq stages of column block j's window: the element offset of each
+// chunk it reads (W from floor((32 j - 8) / XC)), -1 for a chunk beyond the
+// unit's nchunk (B's rows there are zeros).  Window column d (x = 32 j - 8 +
+// d) lies in chunk slot (kMod + d) / XC at column (kMod + d) % XC: known at
+// compile time for every k step.
+template <int XC>
+struct LwWindow {
+  static constexpr int kMod = (XC - kLwLead % XC) % XC;  // (32 j - 8) mod XC
+  static constexpr int W = (kMod + kLwRows + XC - 1) / XC;
+  int off[W];
+  __device__ __forceinline__ LwWindow(const LwUnit& un, int j, int nchunk,
+                                      long long qq, long long qq_bytes,
+                                      int esz) {
+    const int cb = (kHopN * j - kLwLead - kMod) / XC;
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      const int c = cb + i;
+      off[i] = c < 0 || c >= nchunk
+                   ? -1
+                   : (int)((qq + un.stage(c) * qq_bytes) / esz);
+    }
+  }
+};
+
+// v20's x stage on wgmma (3xTF32, 1xTF32, bf16x3): a warpgroup multiplies
+// one column block at a time, A from registers (its window's 96 columns, k
+// steps of 8 TF32 or 16 bf16 columns: 12 or 6, hop_load_a splitting them),
+// B from its stage; the three 3xTF32 products in l2_xring's order.  One host
+// thread multiplies the whole 64-row tile.
+template <int XP>
+struct LwWgmma {
+  static constexpr bool BF = XP == kXBF16x3 || XP == kXBF16;
+  static constexpr bool kSplit = lr_parts(XP) == 2;
+  static constexpr int XC = lr_xc(XP);
+  static constexpr int SW = BF ? 16 : 8;   // x columns of a k step
+  static constexpr int KH = kLwRows / SW;  // k steps a half
+  static constexpr int KS = 2 * KH;
+  static constexpr int kbytes = kLwK * (BF ? 2 : 4);
+  HopAcc acc;
+  HopA big[KS], small[KS];
+
+  // the block's A from its window's stages (zero: the element offset of
+  // the zero bytes)
+  __device__ __forceinline__ void load(const float* smem,
+                                       const LwWindow<XC>& win, int zero,
+                                       int w, int lane) {
+    constexpr int M = LwWindow<XC>::kMod;
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      // the step's pieces of 8 columns (bf16: two, across a chunk's edge)
+      const int h = s / KH, d = SW * (s % KH);
+      const int o0 = win.off[(M + d) / XC];
+      const int o1 = win.off[(M + d + 8) / XC < LwWindow<XC>::W
+                                 ? (M + d + 8) / XC
+                                 : LwWindow<XC>::W - 1];
+      const int c0 = h * XC + (M + d) % XC;
+      const int c1 = h * XC + (M + d + 8) % XC;
+      hop_load_a<BF>(
+          big[s], small[s], kSplit, smem,
+          [&](int r, int k) {
+            const int o = k < 8 ? o0 : o1;
+            return o < 0 ? zero
+                         : o + lr_at<XP>(r, (k < 8 ? c0 : c1) + (k & 7));
+          },
+          0, w, lane);
+    }
+  }
+  // its products against the B stage (asynchronous on the card)
+  __device__ __forceinline__ void issue(const unsigned char* B,
+                                        long long b_part) {
+    hop_acc_zero(acc);
+    hop_wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < KS; ++s)
+#pragma unroll
+      for (int part = kSplit ? 0 : 2; part < 3; ++part)
+        hop_wgmma<BF>(acc, part == 0 ? small[s] : big[s],
+                      B + (part == 1 ? b_part : 0), s, kbytes);
+    hop_wgmma_commit();
+  }
+  __device__ __forceinline__ void retire() {
+    hop_wgmma_wait<0>();
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      hop_keep(big[s]);
+      if constexpr (kSplit) hop_keep(small[s]);
+    }
+  }
+  // st(m, n, v) for each product (n: the block's column)
+  template <typename St>
+  __device__ __forceinline__ void store(int w, int lane, St st) {
+    hop_acc_each(acc, w, lane, st);
+  }
+};
+
+// v20's x stage in f64: DMMA m8n8k4 (WMMA), warp w the 8-row tile w by the
+// block's four 8-column tiles over its window's 24 k steps, A from the
+// stages (zeros beyond [0, X)), B column-major (kLwK a column).  One host
+// thread stands for the eight warps.
+struct LwDmma {
+  using T = LabMma<kXF64>;
+  using FA = typename LabFrag<kXF64>::FA;
+  using FC = typename LabFrag<kXF64>::FC;
+  using FB = wmma::fragment<wmma::matrix_b, T::M, T::N, T::K, double,
+                            wmma::col_major>;
+  static constexpr int XC = lr_xc(kXF64);
+  static constexpr int NT = kHopN / T::N;   // column tiles of a block
+  static constexpr int KH = kLwRows / T::K;  // k steps a half
+  static constexpr int NG = kHopHost ? kLrWarps : 1;
+  FC acc[NG * NT];
+
+  __device__ __forceinline__ void run(const double* smem,
+                                      const LwWindow<XC>& win, const double* B,
+                                      int warp) {
+    constexpr int M = LwWindow<XC>::kMod;
+    for (int w = kHopHost ? 0 : warp; w < (kHopHost ? NG : warp + 1); ++w) {
+      FC* d = acc + (kHopHost ? w * NT : 0);
+#pragma unroll
+      for (int jn = 0; jn < NT; ++jn) wmma::fill_fragment(d[jn], 0.0);
+#pragma unroll
+      for (int s = 0; s < 2 * KH; ++s) {
+        const int h = s / KH, x = M + T::K * (s % KH);
+        const int o = win.off[x / XC];
+        FA fa;
+        if (o < 0)
+          wmma::fill_fragment(fa, 0.0);
+        else
+          wmma::load_matrix_sync(
+              fa, smem + o + w * T::M * 2 * XC + h * XC + x % XC, 2 * XC);
+#pragma unroll
+        for (int jn = 0; jn < NT; ++jn) {
+          FB fb;
+          wmma::load_matrix_sync(fb, B + jn * T::N * kLwK + T::K * s, kLwK);
+          wmma::mma_sync(d[jn], fa, fb, d[jn]);
+        }
+      }
+    }
+  }
+  template <typename St>
+  __device__ __forceinline__ void store(double* scr, int warp, int lane,
+                                        int nlanes, St st) {
+    for (int w = kHopHost ? 0 : warp; w < (kHopHost ? NG : warp + 1); ++w) {
+      FC* d = acc + (kHopHost ? w * NT : 0);
+      double* sw = scr + (kHopHost ? 0 : w * T::M * T::N);
+#pragma unroll
+      for (int jn = 0; jn < NT; ++jn) {
+        wmma::store_matrix_sync(sw, d[jn], T::N, wmma::mem_row_major);
+        __syncwarp();
+        for (int e = lane; e < T::M * T::N; e += nlanes)
+          st(w * T::M + e / T::N, jn * T::N + e % T::N, sw[e]);
+        __syncwarp();
+      }
+    }
+  }
+};
+
+template <int XP>
+using LwX = std::conditional_t<XP == kXF64, LwDmma, LwWgmma<XP>>;
+
+// v20: lab_ring_pipe_kernel's roles and rings (LrPipe: persistent blocks
+// taking sub-tiles from the ticket counter; a producer warp, seven band
+// warps, two x-stage warpgroups; kLrPipeThreads threads, one split: the
+// accumulator is one 64 x 32 tile a block), with the x stage windowed.  The
+// bands write chunk c of a unit into qq stage (k0 + c) % nq of the window
+// ring.  Once the chunks of block j's window are in (lw_c1), its B (one bulk
+// copy of b_bytes, xb + j b_bytes, into stage kb % kLwB: the producer asks
+// for it right after that chunk's u box) and its A are multiplied: on wgmma,
+// block j by warpgroup j % 2, which releases the window's stages once it
+// holds A, waits for its products and stores them; in f64, every block by
+// the eight warps, each its 8 rows.  Every product is issued from a loop of
+// fixed trips, never under a condition on j; the ragged last block's
+// columns are masked at the store.  One host thread (blockDim 1) runs a
+// unit's chunks (load, bands), each block's products as soon as its window
+// is in.
+template <int P, int XP>
+__global__ void __launch_bounds__(kLrPipeThreads, 1)
+lab_window_kernel(const __grid_constant__ HopMap in_map,
+                  typename LabMma<XP>::C* __restrict__ out,
+                  const typename LabMma<XP>::C* __restrict__ tables,
+                  const unsigned char* __restrict__ xb, LrGeo q, int mode,
+                  unsigned long long* tickets) {
+  using C = typename LabMma<XP>::C;
+  constexpr int XC = lr_xc(XP);
+  constexpr bool F64 = XP == kXF64;
+  constexpr int kBandTid = 32 * kLrWarps, kBandN = 32 * kLrBandWarps;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const LabGeo& g = q.g;
+  const int tid = threadIdx.x, warp = hop_uniform(tid / 32), lane = tid % 32;
+  const int wg = hop_uniform(tid / 128);
+  const bool solo = kHopHost && blockDim.x < 64;  // the host build's thread
+  const LrSmem pl = lw_smem(P, XP, g.tz, g.ty, q.nu, q.nq);
+  const LwBars br{reinterpret_cast<uint64_t*>(smem_raw + pl.bar)};
+  const LrPipe<P, XP, LwBars> pp{q,      pl,  br,      smem_raw, &in_map,
+                                 tables, out, tickets, mode};
+  using Unit = typename LrPipe<P, XP, LwBars>::Unit;
+  const int nchunk = pp.nchunk(), nbl = (g.X + kHopN - 1) / kHopN;
+  const bool mm = pp.mm();
+  // unit i's items: its chunks' u boxes, each column block's B right after
+  // the u box of the last chunk of its window
+  auto produce = [&](const Unit& un, int i, auto&& with_block) {
+    const long long k0 = (long long)i * nchunk;
+    for (int ch = 0, j = 0; ch < nchunk; ++ch) {
+      pp.produce(un, k0 + ch, ch, nullptr, false);
+      if (solo) pp.bands(un, k0 + ch, ch, 0, 1);
+      for (; mm && j < nbl && lw_c1<XC>(j, nchunk) == ch; ++j) {
+        const long long kb = (long long)i * nbl + j;
+        const int sb = (int)(kb % kLwB);
+        lr_wait_empty(br.be(sb), kb, kLwB);
+        hop_mbar_expect(br.bf(sb), (unsigned)pl.b_bytes);
+        hop_bulk_load(smem_raw + pl.b + sb * pl.b_bytes,
+                      xb + (long long)j * pl.b_bytes, (unsigned)pl.b_bytes,
+                      br.bf(sb));
+        with_block(j);
+      }
+    }
+  };
+  // block j of the unit at k0 (its B item kb): wait for its window's chunks
+  // and its B stage, multiply, release, store
+  LwX<XP> x;
+  auto xblock = [&](const Unit& un, const LwUnit& ku, long long kb, int j,
+                    int xtid) {
+    const int c0 = lw_c0<XC>(j), c1 = lw_c1<XC>(j, nchunk);
+    for (int c = c0; c <= c1; ++c) ku.wait(br, c);
+    const int sb = (int)(kb % kLwB);
+    lr_wait_full(br.bf(sb), kb, kLwB);
+    const LwWindow<XC> win(ku, j, nchunk, pl.qq, pl.qq_bytes, sizeof(C));
+    const unsigned char* B = smem_raw + pl.b + sb * pl.b_bytes;
+    auto release = [&] {
+      __syncwarp();
+      if (lane == 0)
+        for (int c = c0; c <= c1; ++c) {
+          uint64_t* e = br.qe(ku.stage(c));
+          hop_mbar_arrive(e);
+          if (lw_readers<XC>(c, nbl, nchunk) == 1) hop_mbar_arrive(e);
+        }
+    };
+    if constexpr (F64) {
+      x.run(reinterpret_cast<const double*>(smem_raw), win,
+            reinterpret_cast<const double*>(B), xtid / 32);
+    } else {
+      x.load(reinterpret_cast<const float*>(smem_raw), win,
+             (int)(pl.zero / sizeof(float)), xtid / 32 % 4, lane);
+      release();
+      x.issue(B, pl.b_part);
+      x.retire();
+    }
+    __syncwarp();
+    if (lane == 0) hop_mbar_arrive(br.be(sb));
+    if constexpr (F64) release();
+    const LabRows rows{q.o, g.X, un.z0, un.y0, g.ty};
+    const int col0 = kHopN * j;
+    auto st = [&](int r, int n, C v) {
+      const long long o = rows(r);
+      if (o >= 0 && col0 + n < g.X) out[o + col0 + n] = v;
+    };
+    if constexpr (F64)
+      x.store(reinterpret_cast<double*>(smem_raw + pl.scr), xtid / 32, lane,
+              solo ? 1 : 32, st);
+    else
+      x.store(xtid / 32 % 4, lane, st);
+  };
+
+  // a B stage's readers: one warpgroup (f64: the eight warps); a qq stage's:
+  // those of two blocks
+  constexpr int kReaders = F64 ? kLrWarps : kLrWarps / 2;
+  if (tid == 0)
+    for (int i = 0; i < 4; ++i)
+      reinterpret_cast<float*>(smem_raw + pl.zero)[i] = 0.f;
+  br.init(tid, kReaders, 2 * kReaders);
+  __syncthreads();
+  if (solo) {
+    for (int i = 0;; ++i) {
+      const int u = pp.take(i);
+      if (u < 0) break;
+      const Unit un = pp.unit_of(u);
+      pp.band_unit(un, 0, 1);
+      const long long k0 = (long long)i * nchunk;
+      const LwUnit ku{k0, k0 / q.nq, (int)(k0 % q.nq), q.nq};
+      produce(un, i, [&](int j) {
+        xblock(un, ku, (long long)i * nbl + j, j, 0);
+      });
+    }
+    return;
+  }
+  if (wg >= kLrWarps / 4) {
+    hop_reg_dealloc<kLrBandRegs>();
+    if (warp == kLrWarps + kLrBandWarps) {  // the producer warp
+      if (lane != 0) return;
+      for (int i = 0;; ++i) {
+        const int u = pp.take(i);
+        if (u < 0) return pp.end((long long)i * nchunk);
+        produce(pp.unit_of(u), i, [](int) {});
+      }
+    }
+    return pp.band_role(tid - kBandTid, kBandN);
+  }
+  // the x-stage warpgroups (copy and bands: nothing to do)
+  hop_reg_alloc<kLrXRegs>();
+  if (!mm) return;
+  for (int i = 0;; ++i) {
+    const int u = pp.x_unit(i);
+    if (u < 0) return;
+    const Unit un = pp.unit_of(u);
+    const long long k0 = (long long)i * nchunk;
+    const LwUnit ku{k0, k0 / q.nq, (int)(k0 % q.nq), q.nq};
+    for (int j = F64 ? 0 : wg; j < nbl; j += F64 ? 1 : 2)
+      xblock(un, ku, (long long)i * nbl + j, j, tid);
+  }
+}
+
+#ifdef __CUDACC__
+// ---- host side: one launch of a ring routine -------------------------------
+// V: 17 (lab_ring_kernel), 19 (lab_ring_pipe_kernel) or 20
+// (lab_window_kernel).  The shared-memory opt-in, then the occupancy query
+// (blocks_per_sm not null) or the tensor map of the input layout (g.sz, g.sy,
+// X) in halo'd boxes and the launch: grid (nty, ntz, nsplit) for 17, `grid`
+// persistent blocks for 19 and 20, whose ticket counter is set to 0 on the
+// stream first.  Shared by lab_resident.cu (L1) and lab_zyfirst.cu (L2's
+// v15, which passes its output layout in q.o).  Internal linkage (static):
+// the opt-in record of each instance must be its library's own, as each
+// library registers its own kernels; a template's local static with
+// external linkage is one object for every library loaded in the process,
+// and the second library's kernel would never be opted in.
+struct LrLaunch {
+  int grid;
+  const void* u;
+  void* y;
+  const void* tables;
+  const void* xb;
+  unsigned long long* tickets;
+  cudaStream_t stream;
+  int* blocks_per_sm;
+};
+
+template <int P, int XP, int V>
+static constexpr auto lr_kernel() {
+  if constexpr (V == 17) return lab_ring_kernel<P, XP>;
+  else if constexpr (V == 19) return lab_ring_pipe_kernel<P, XP>;
+  else return lab_window_kernel<P, XP>;
+}
+
+template <int P, int XP, int V>
+static cudaError_t lr_launch(int mode, const LrGeo& q, const LrLaunch& a) {
+  using C = typename LabMma<XP>::C;
+  const LabGeo& g = q.g;
+  const int smem =
+      (int)(V == 20 ? lw_smem(P, XP, g.tz, g.ty, q.nu, q.nq)
+                    : lr_smem(P, XP, g.tz, g.ty, q.nu, q.nb, q.nq, q.ncols))
+          .total;
+  constexpr int threads = V == 17 ? kLrThreads : kLrPipeThreads;
+  auto kern = lr_kernel<P, XP, V>();
+  static std::atomic<int> granted[kLabMaxDevices];
+  cudaError_t e = lab_opt_in(kern, smem, granted);
+  if (e != cudaSuccess) return e;
+  if (a.blocks_per_sm)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.blocks_per_sm, kern,
+                                                         threads, smem);
+  HopMap in_map;
+  const long long dim[3] = {g.X, g.sy, g.sz};
+  const int box[3] = {lr_xc(XP), g.ty + 2 * P, g.tz + 2 * P};
+  if (hop_map_3d(&in_map, const_cast<void*>(a.u), sizeof(C), dim, box))
+    return cudaErrorInvalidValue;
+  C* y = static_cast<C*>(a.y);
+  const C* tab = static_cast<const C*>(a.tables);
+  const unsigned char* xb = static_cast<const unsigned char*>(a.xb);
+  if constexpr (V == 17) {
+    kern<<<dim3(g.nty, g.ntz, q.nsplit), threads, smem, a.stream>>>(
+        in_map, y, tab, xb, q, mode);
+  } else {
+    // the counter starts at 0 on the launch's stream, whatever ran before
+    e = cudaMemsetAsync(a.tickets, 0, sizeof(*a.tickets), a.stream);
+    if (e != cudaSuccess) return e;
+    kern<<<a.grid, threads, smem, a.stream>>>(in_map, y, tab, xb, q, mode,
+                                              a.tickets);
+  }
+  return cudaGetLastError();
+}
+#endif
 
 }  // namespace tpufem

@@ -8,6 +8,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "lab_resident_ring.cuh"
 #include "lab_zyfirst.cuh"
 
 namespace {
@@ -79,6 +80,61 @@ cudaError_t dispatch_p(int p, int mode, int two, int nu,
   return cudaErrorInvalidValue;
 }
 
+// v15 on L1's ring routines (lab_resident_ring.cuh): pipe, the persistent
+// lab_ring_pipe_kernel (v19's), or lab_ring_kernel (v17's)
+template <int XP>
+cudaError_t lr_by_p(int p, int pipe, const tpufem::LrGeo& q,
+                    const tpufem::LrLaunch& a) {
+#define TPUFEM_CASE(PP)                                                    \
+  case PP:                                                                 \
+    return pipe ? tpufem::lr_launch<PP, XP, 19>(tpufem::kFull, q, a)       \
+                : tpufem::lr_launch<PP, XP, 17>(tpufem::kFull, q, a);
+  switch (p) {
+    TPUFEM_CASE(1)
+    TPUFEM_CASE(2)
+    TPUFEM_CASE(3)
+    TPUFEM_CASE(4)
+    TPUFEM_CASE(5)
+    TPUFEM_CASE(6)
+    TPUFEM_CASE(7)
+    TPUFEM_CASE(8)
+  }
+#undef TPUFEM_CASE
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t lr_dispatch(int xp, int p, int pipe, const tpufem::LrGeo& q,
+                        const tpufem::LrLaunch& a) {
+  switch (xp) {
+#define TPUFEM_XP(XP) \
+  case XP:            \
+    return lr_by_p<XP>(p, pipe, q, a);
+    TPUFEM_XP(tpufem::kX3TF32)
+    TPUFEM_XP(tpufem::kX1TF32)
+    TPUFEM_XP(tpufem::kXBF16x3)
+    TPUFEM_XP(tpufem::kXF64)
+    TPUFEM_XP(tpufem::kXBF16)
+#undef TPUFEM_XP
+  }
+  return cudaErrorInvalidValue;
+}
+
+// What v15's ring takes: a sub-tile of 64 rows whose halo'd box is a TMA box,
+// rings of 1..3 u slots, 1..2 B stages, 1..2 qq stages (lab_ring_kernel: 1),
+// column splits of a multiple of 32 columns within the block's registers
+// that cover X, X a multiple of the chunk.
+bool lr_args_ok(int pipe, int xp, int p, int X, int tz, int ty, int nu, int nb,
+                int nq, int ncols, int nsplit) {
+  return xp >= tpufem::kX3TF32 && xp <= tpufem::kXBF16 && p >= 1 && p <= 8 &&
+         tz >= 1 && ty >= 1 && tz * ty == tpufem::kLrM &&
+         tz + 2 * p <= 256 && ty + 2 * p <= 256 && nu >= 1 &&
+         nu <= tpufem::kLrMaxU && nb >= 1 && nb <= tpufem::kLrMaxB &&
+         nq >= 1 && nq <= (pipe ? tpufem::kLrMaxQ : 1) && ncols > 0 &&
+         ncols % tpufem::kHopN == 0 && ncols <= tpufem::lr_max_cols(xp) &&
+         nsplit >= 1 && (long long)ncols * nsplit >= X && X > 0 &&
+         X % tpufem::lr_xc(xp) == 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -123,6 +179,55 @@ int tpufem_zy_apply(int mode, int two, int nu, int xp, int p, int npts,
 #undef TPUFEM_XP
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// v15: out = [q1 | q23] @ [Kx^T; Mx^T] from the input layout (size, size,
+// X) into the output layout (NT, NT, X), NT = size - 2p, every point written
+// (rows and columns past npts as zeros), on L1's ring routine: pipe (the
+// persistent lab_ring_pipe_kernel, `grid` blocks; tickets: 8 bytes of device
+// memory the launcher sets to 0 on the stream) or lab_ring_kernel (one block
+// per sub-tile and split).  Sub-tile (tz, ty) of 64 rows over the (NT, NT)
+// output rows; rings nu, nb, nq; ncols columns a block in nsplit splits; xp
+// as tpufem_zy_apply's (one bf16 product too).  tables: (6, npts, 2p+2)
+// [Ky, My, Kz, Mz, Kx, Mx] (the first four read); xb: the B stages as
+// resident_lab.ring_operand lays them out.  Returns the cudaError_t.
+int tpufem_zy_lr_apply(int pipe, int xp, int p, int npts, int size, int X,
+                       int tz, int ty, int nu, int nb, int nq, int ncols,
+                       int nsplit, int grid, const void* u, void* y,
+                       const void* tables, const void* xb, void* tickets,
+                       void* stream) {
+  const int NT = size - 2 * p;
+  if (!lr_args_ok(pipe, xp, p, X, tz, ty, nu, nb, nq, ncols, nsplit) ||
+      grid < 1 || NT < npts || X < npts || (pipe && !tickets))
+    return (int)cudaErrorInvalidValue;
+  const tpufem::LabGeo g{npts, size, size, X, tz, ty, (NT + tz - 1) / tz,
+                         (NT + ty - 1) / ty};
+  const tpufem::LrGeo q{g, nu, nb, nq, ncols, nsplit, {0, NT, NT}};
+  const tpufem::LrLaunch a{grid, u, y, tables, xb,
+                           static_cast<unsigned long long*>(tickets),
+                           static_cast<cudaStream_t>(stream), nullptr};
+  return (int)lr_dispatch(xp, p, pipe, q, a);
+}
+
+// Blocks of v15's ring launch an SM holds at once (the persistent grid is
+// that times the SMs); -1 where refused.
+int tpufem_zy_lr_blocks_per_sm(int pipe, int xp, int p, int tz, int ty,
+                               int nu, int nb, int nq, int ncols) {
+  if (!lr_args_ok(pipe, xp, p, ncols, tz, ty, nu, nb, nq, ncols, 1)) return -1;
+  int n = -1;
+  const tpufem::LrGeo q{{0, 0, 0, 0, tz, ty, 0, 0}, nu, nb, nq, ncols, 1,
+                        {0, 0, 0}};
+  const tpufem::LrLaunch a{1,       nullptr, nullptr, nullptr, nullptr,
+                           nullptr, nullptr, &n};
+  if (lr_dispatch(xp, p, pipe, q, a) != cudaSuccess) return -1;
+  return n;
+}
+
+// Shared-memory bytes of one block of v15's ring (lr_smem); the chooser in
+// tpufem_torch/lab/separable_lab.py sizes its rings with it.
+long long tpufem_zy_lr_smem_bytes(int p, int xp, int tz, int ty, int nu,
+                                  int nb, int nq, int ncols) {
+  return tpufem::lr_smem(p, xp, tz, ty, nu, nb, nq, ncols).total;
 }
 
 // Shared-memory bytes of one block (mode kFull: with nu u slots, over X

@@ -30,10 +30,30 @@
 // difference form (common.cuh) take the place of the TPU kernels' periodic
 // tables and deficit corrections, so any b is taken.
 //
-// zy_kernel (v13, v14, v15): the tensor-core x product needs qq = [q1 | q23]
-// (M, 2X), M = TZ TY, over all of x in shared memory, which keeps the
-// sub-tile small ((2, 8): a 10x halo re-read at P = 4).  It is L1's schedule
-// (lab_resident.cuh, whose device functions it calls) on L2's layouts:
+// The routines of v13-v15: v13 and v14 run zy_kernel (below); v15 runs L1's
+// ring routines of lab_resident_ring.cuh, built into this library by
+// lab_zyfirst.cu: lab_ring_pipe_kernel (v19's schedule: a producer warp,
+// seven band warps, two x-stage warpgroups, persistent blocks on a ticket
+// counter; the default in f32 storage) or lab_ring_kernel (v17's; the
+// default in f64, where the persistent x stage's DMMA tiles spill at its
+// 160 registers: 4.62 ms against 3.39).  Its function is theirs
+// on other layouts: the input layout's data row g sits at row g + P as in
+// L1's, so the TMA boxes are L1's; the sub-tiles of 64 rows cover the
+// (nt b)^2 output rows, and the store's row map (LabOut) is {org 0, stride
+// nt b, rows nt b}: rows past npts come out of the bands as exact zeros
+// (their table rows are zero), columns past npts out of the x product (B's
+// columns are zero there).  zy_kernel stays as v15's earlier schedule.  On
+// an H100 80GB HBM3 at 700 W at the flagship in 3xTF32, in turns by
+// chip_smoke.py phase 6: zy_kernel 2.19 ms, lab_ring_pipe_kernel 0.62,
+// lab_ring_kernel 0.69; the design bound 0.132 ms (65.5 GFLOP of 3xTF32
+// products over the 288 padded columns) and B streamed from L2 into every
+// sub-tile (1.67 GB an apply with the u boxes) hold it at ~5x.
+//
+// zy_kernel (v13, v14, v15's earlier schedule): the tensor-core x product
+// needs qq = [q1 | q23] (M, 2X), M = TZ TY, over all of x in shared memory,
+// which keeps the sub-tile small ((2, 8): a 10x halo re-read at P = 4).  It is
+// L1's tile routine (lab_resident.cuh, whose device functions it calls) on
+// L2's layouts:
 //   z, y   lab_bands: per chunk of XC x columns, the halo'd u chunk (TZ+2P,
 //          TY+2P, XC) into shared memory, band z, band y into qq.
 //   load   v13: each chunk is loaded, then computed (one u slot, plain
@@ -44,7 +64,9 @@
 //   x      v13, v14: lab_xstage with `two`, a k step of q1 @ Kx^T then one of
 //          q23 @ Mx^T into the same accumulator fragments; v15: one product
 //          over K = 2X.  WMMA from shared memory, B from device memory
-//          (L2-resident), any of lab_mma.cuh's five arithmetics.
+//          (L2-resident), any of lab_mma.cuh's five arithmetics; every warp
+//          re-reads and re-splits its B fragment at every k step, which
+//          with the 10x halo and the plain loads held v15 at 2.19 ms.
 //
 // zy_ring_kernel (vcopy, vband, v16: no tensor-core stage): the all-band
 // schedule's tile mover, one routine with a mode argument.  What bounded the
@@ -84,7 +106,8 @@
 // too.  The design adds: the layouts' bytes (0.0468 ms), the halo re-read
 // from L2 (4x at (8, 8): 0.32 GB an apply; 10x at (2, 8): 0.80 GB), 5 band
 // stages (v16: 7), and for v13-v15 the x product over (nt b)^2 rows, 2 *
-// 69,696 * 2X * X = 20.6 GFLOP a pass at the flagship: 0.125 ms in 3xTF32.
+// 69,696 * 2X * X = 20.6 GFLOP a pass at the flagship: 0.125 ms in 3xTF32
+// (v15 on the ring: 288 padded columns, 21.8 GFLOP a pass, 0.132 ms).
 #pragma once
 
 #include "band_ring.cuh"
@@ -106,17 +129,6 @@ __host__ __device__ inline LabSmem zy_smem(int p, int xp, int nu, int tz,
   return lab_smem(p, xp, 1, tz, ty, X, nu, zy_xc(xp));
 }
 
-// Row m of the sub-tile at (z0, y0) in the output layout (NT, NT, X); -1
-// beyond a ragged edge.
-struct ZyRows {
-  int z0, y0, ty, NT, X;
-  __device__ __forceinline__ long long operator()(int m) const {
-    const int gz = z0 + m / ty, gy = y0 + m % ty;
-    if (gz >= NT || gy >= NT) return -1;
-    return ((long long)gz * NT + gy) * X;
-  }
-};
-
 // v13-v15: one block per (TZ, TY) sub-tile of the output rows, grid (nty,
 // ntz); g.sz = g.sy = size, the input layout's.  tables: (6, npts, 2P+2) [Ky,
 // My, Kz, Mz, Kx, Mx]; xk: (2X, X) [Kx^T; Mx^T] (bf16: its hi part, xk_lo its
@@ -135,7 +147,8 @@ zy_kernel(const typename LabMma<XP>::C* __restrict__ u,
   unsigned char* qq = smem_raw + pl.qq;
   lab_bands<P, XP, zy_xc(XP)>(u, tables, g, z0, y0, 0, kFull, smem_raw, pl,
                               qq, tid, nthr, 0, nu);
-  const ZyRows rows{z0, y0, g.ty, g.sz - 2 * P, g.X};
+  const int NT = g.sz - 2 * P;
+  const LabRows rows{LabOut{0, NT, NT}, g.X, z0, y0, g.ty};
   lab_xstage<XP>(qq, xk, xk_lo, nullptr, two != 0, g, rows,
                  reinterpret_cast<C*>(smem_raw + pl.scr), out, tid / 32,
                  (nthr + 31) / 32, tid % 32, nthr < 32 ? nthr : 32);

@@ -1,16 +1,18 @@
-"""Sweep the design of the ring routine of the K1 lab's v17 and v19.
+"""Sweep the design of the ring routines of the K1 lab's v17, v19 and v20.
 
-``resident_lab.V17Kernel`` runs v17 and v19 on the ring routine of
+``resident_lab.V17Kernel`` runs v17, v19 and v20 on the ring routines of
 ``csrc/lab_resident_ring.cuh`` (TMA-fed z/y bands, a ``wgmma`` x stage over
-x chunks; v19 warp-specialised and persistent) at the sub-tile, ring depths
-and v19 grid that ``resident_lab.choose_ring`` picks.  This script times,
-at the flagship (3D Q4 refine 6, 16,974,593 DoFs), on the card:
+x chunks; v19 warp-specialised and persistent; v20 v19's roles with the
+x stage windowed) at the sub-tile, ring depths and persistent grid that
+``resident_lab.choose_ring`` (v20: ``choose_window``) picks.  This script
+times, at the flagship (3D Q4 refine 6, 16,974,593 DoFs), on the card:
 
 1. the sub-tiles of ``RING_TILES`` at p = 4 in each precision (3xTF32,
-   1xTF32, bf16x3, f64), v17 and v19;
-2. v17's and v19's ring depths (u slots, B stages), v19's qq stages and
-   its grid, in 3xTF32 and in the ablations, each output held bit for bit
-   to the chooser's first.
+   1xTF32, bf16x3, f64), v17, v19 and v20;
+2. v17's and v19's ring depths (u slots, B stages), v19's qq stages, v20's
+   u slots and qq window stages (``WINDOW_DEPTHS``), and the persistent
+   grid, in 3xTF32 and in the ablations, each output held bit for bit to
+   the chooser's first.
 
 It prints the card's name and power limit and the ring instances'
 registers and spills from the build's ptxas log; one JSON line per timing
@@ -68,7 +70,8 @@ def main() -> None:
                          text=True, check=True, timeout=60).stdout.strip()
     print(smi.splitlines()[0], flush=True)
     log = load_kernels()["lab_resident"].compiler_log
-    for line in ptxas_lines(log, "lab_ring") or [
+    for line in ptxas_lines(log, "lab_ring") + ptxas_lines(
+            log, "lab_window") or [
             "no log: the library was built by an earlier process"]:
         print("ptxas", line, flush=True)
     OUT.mkdir(exist_ok=True)
@@ -97,24 +100,28 @@ def main() -> None:
         # the chooser's rings and grid overridden (the launcher sizes its
         # shared memory from them)
         for kern, mode in (("v17", "f32"), ("v17", "mm"), ("v19", "f32"),
-                           ("v19", "mm"), ("v19", "copy"), ("v19", "bands")):
+                           ("v19", "mm"), ("v19", "copy"), ("v19", "bands"),
+                           ("v20", "f32"), ("v20", "mm"), ("v20", "copy"),
+                           ("v20", "bands")):
             k = kernel(kern, mode)
             gp = k.pad(u.to(k.dt))
             y0 = k.raw(gp)
             grids = [k.grid] if kern == "v17" else \
                 [132, 264, 528, (-(-(N * P + 1) // 8))**2]
-            for nu, nb in rl.RING_DEPTHS:
-                for nq in (1,) if kern == "v17" else (1, 2):
-                    for grid in grids:
-                        k.ring = (nu, nb, nq) + k.ring[3:]
-                        k.grid = grid
-                        if not torch.equal(k.raw(gp), y0):
-                            raise RuntimeError(f"{kern} {mode} rings "
-                                               f"{k.ring} grid {grid}: not "
-                                               "the chooser's output")
-                        record({"what": "rings", "kern": kern, "mode": mode,
-                                "ring": k.ring, "grid": grid,
-                                "ms": ms(k, gp)})
+            depths = ([(nu, rl.WIN_B, nq) for nu, nq in rl.WINDOW_DEPTHS]
+                      if kern == "v20" else
+                      [(nu, nb, nq) for nu, nb in rl.RING_DEPTHS
+                       for nq in ((1,) if kern == "v17" else (1, 2))])
+            for ring in depths:
+                for grid in grids:
+                    k.ring = ring + k.ring[3:]
+                    k.grid = grid
+                    if not torch.equal(k.raw(gp), y0):
+                        raise RuntimeError(f"{kern} {mode} rings {k.ring} "
+                                           f"grid {grid}: not the chooser's "
+                                           "output")
+                    record({"what": "rings", "kern": kern, "mode": mode,
+                            "ring": k.ring, "grid": grid, "ms": ms(k, gp)})
 
 
 if __name__ == "__main__":

@@ -15,11 +15,13 @@ per-row tables in difference form (``kernel_separable.band_tables``), so
 the TPU's periodic tables and deficit corrections (``_periodic_band``,
 ``corr_z``/``corr_y``) are not ported.
 
-v17 and v19 run the ring routine (``csrc/lab_resident_ring.cuh``: the
-z/y bands fed by a TMA ring, the x stage on wgmma over x chunks, v19
-warp-specialised and persistent); the tile routine (``lab_tile_kernel``,
-``lab_pipe_kernel``) stays as their earlier schedule, taken with
-``routine="tile"``, and is what v18 and v20 run.
+v17, v19 and v20 run the ring routines (``csrc/lab_resident_ring.cuh``:
+the z/y bands fed by a TMA ring; v17 and v19 the x stage on wgmma over x
+chunks, v19 warp-specialised and persistent; v20 v19's roles with the
+x stage windowed, each 32-column block's products over the 48 rows a half
+of ``[Kx^T; Mx^T]`` its band needs, from a window of qq stages); the tile
+routine (``lab_tile_kernel``, ``lab_pipe_kernel``) stays as their earlier
+schedule, taken with ``routine="tile"``, and is what v18 runs.
 
 ``V17Kernel.raw`` on a CUDA tensor launches the kernel (or raises); on a
 CPU tensor it runs ``plain``, the dense separable contraction of
@@ -41,8 +43,8 @@ from tpufem_torch.utils.timer import roofline_ms
 KERNELS = ("v17", "v18", "v19", "v20")
 MODES = {"f32": 0, "bf16": 0, "copy": 1, "bands": 2, "mm": 3}
 # x-stage precision codes of the CUDA routine (LabXPrec): 3xTF32, 1xTF32,
-# bf16x3, f64 (DMMA)
-X3TF32, X1TF32, XBF16X3, XF64 = 0, 1, 2, 3
+# bf16x3, f64 (DMMA); one bf16 product (L2's "default", on the ring for v15)
+X3TF32, X1TF32, XBF16X3, XF64, XBF16 = 0, 1, 2, 3, 4
 # MMA tile (M, N, K) of each x-stage precision
 MMA = {X3TF32: (16, 16, 8), X1TF32: (16, 16, 8), XBF16X3: (16, 16, 16),
        XF64: (8, 8, 4)}
@@ -52,19 +54,26 @@ MAX_DEGREE = 8
 # (TZ, TY) output tiles tried in order; M = TZ*TY must be a multiple of
 # the MMA tile's M
 TILES = ((2, 16), (4, 8), (2, 8), (1, 16), (1, 8))
-# the ring routine (v17, v19): sub-tiles of one wgmma M (64 rows), the least
-# halo first; ring depths (u slots, B stages) tried in order, deepest first
-RING_KERNELS = ("v17", "v19")
+# the ring routines (v17, v19; v20 windowed): sub-tiles of one wgmma M (64
+# rows), the least halo first; ring depths (u slots, B stages) tried in
+# order, deepest first
+RING_KERNELS = ("v17", "v19", "v20")
 RING_M = 64
 RING_TILES = ((8, 8), (4, 16), (16, 4))
 RING_DEPTHS = ((3, 2), (2, 2), (3, 1), (2, 1))
 RING_BUDGET = 227 * 1024  # a block's shared memory on an H100
 # per precision: x columns of a chunk, B parts, B element bytes, columns a
 # block multiplies at most (lr_xc, lr_parts, lr_belem, lr_max_cols)
-RING_XC = {X3TF32: 16, X1TF32: 16, XBF16X3: 16, XF64: 8}
-RING_PARTS = {X3TF32: 2, X1TF32: 1, XBF16X3: 2, XF64: 1}
-RING_MAX_COLS = {X3TF32: 320, X1TF32: 320, XBF16X3: 320, XF64: 160}
+RING_XC = {X3TF32: 16, X1TF32: 16, XBF16X3: 16, XF64: 8, XBF16: 16}
+RING_PARTS = {X3TF32: 2, X1TF32: 1, XBF16X3: 2, XF64: 1, XBF16: 1}
+RING_MAX_COLS = {X3TF32: 320, X1TF32: 320, XBF16X3: 320, XF64: 160,
+                 XBF16: 320}
 NO_XSTAGE = ("copy", "bands")  # the ablations that run no x product
+# v20's windowed x stage (lab_window_kernel): a 32-column block's window of
+# 48 rows a half, [32 j - 8, 32 j + 40) (kLwLead, kLwRows: P <= 8), two B
+# stages (kLwB), and (u slots, qq stages) tried in order, deepest first
+WIN_N, WIN_LEAD, WIN_ROWS, WIN_B = 32, 8, 48, 2
+WINDOW_DEPTHS = ((3, 8), (2, 8), (2, 7), (2, 6), (1, 6))
 
 
 def x_operator(Kx: np.ndarray, Mx: np.ndarray, X: int) -> np.ndarray:
@@ -128,42 +137,94 @@ def choose_ring(p: int, xp: int, X: int, nq: int, smem_bytes,
                      f"memory at p={p}, X={X}")
 
 
+def choose_window(p: int, xp: int, smem_bytes, tiles=RING_TILES):
+    """(tile, nu, nq) of v20's windowed routine: the first of ``tiles``
+    and the deepest (u slots, qq stages) of ``WINDOW_DEPTHS`` whose block
+    fits RING_BUDGET by the routine's own count ``smem_bytes(p, xp, tz, ty,
+    nu, nq)`` (``tpufem_lab_window_smem_bytes``).  Its shared memory does
+    not grow with X: every block holds one column block's window."""
+    for tz, ty in tiles:
+        if tz * ty != RING_M or max(tz, ty) + 2 * p > 256:
+            continue
+        for nu, nq in WINDOW_DEPTHS:
+            if smem_bytes(p, xp, tz, ty, nu, nq) <= RING_BUDGET:
+                return (tz, ty), nu, nq
+    raise ValueError(f"no windowed ring block fits {RING_BUDGET} bytes of "
+                     f"shared memory at p={p}")
+
+
+def _operand_parts(xkm: torch.Tensor, xp: int) -> list:
+    """The x operator split with the kernel's rounding: 3xTF32 big and
+    small (``tf32``), 1xTF32 one rounding, bf16x3 hi and lo, one bf16
+    product hi, f64 itself."""
+    if xp in (XBF16X3, XBF16):
+        hi = xkm.to(torch.bfloat16)
+        return [hi] if xp == XBF16 else \
+            [hi, (xkm - hi.to(xkm.dtype)).to(torch.bfloat16)]
+    if xp == X3TF32:
+        big = tf32(xkm)
+        return [big, tf32(xkm - big)]
+    return [tf32(xkm)] if xp == X1TF32 else [xkm]
+
+
+def _b_layout(b: torch.Tensor, xp: int) -> torch.Tensor:
+    """(..., n, K) B operands -> the kernel's layout, flat per operand:
+    wgmma's K-major B (``hopper.cuh::hop_b_offset``: core matrices of 8
+    columns by 16 bytes of k), f64 as WMMA's column-major B (each column's K
+    values in turn)."""
+    if xp != XF64:  # (n / 8, 8, k / E, E) -> (n / 8, k / E, 8, E)
+        n, K = b.shape[-2:]
+        e = 16 // b.element_size()
+        b = b.reshape(*b.shape[:-2], n // 8, 8, K // e, e).transpose(-3, -2)
+    return b.reshape(*b.shape[:-2] if xp == XF64 else b.shape[:-4], -1)
+
+
+def window_operand(xkm: torch.Tensor, xp: int, X: int,
+                   p: int) -> torch.Tensor:
+    """The x operator ``[Kx^T; Mx^T]`` (2X, X) as v20's B stages, flat:
+    (X / 32 column blocks, parts, stage) where block j's stage holds the 48
+    rows x in [32 j - 8, 32 j + 40) of the Kx^T half, then of the Mx^T half
+    (K = 96), for its 32 columns: the operator's rows inside the block's
+    window ``x_windows(X, p, 32, 8)`` (clipped to [0, X)), zeros elsewhere
+    and beyond X; split and laid out as ``ring_operand``'s."""
+    nbl = -(-X // WIN_N)
+    win = torch.as_tensor(x_windows(X, p, WIN_N, 8), dtype=torch.int64)
+    kk = torch.arange(2 * WIN_ROWS)
+    x = (torch.arange(nbl)[:, None] * WIN_N - WIN_LEAD
+         + kk[None, :] % WIN_ROWS)  # (nbl, K)
+    inside = (x >= win[:, :1]) & (x < win[:, 1:])
+    rows = (x.clamp(0, X - 1) + kk[None, :] // WIN_ROWS * X).to(xkm.device)
+    cols = torch.arange(nbl)[:, None] * WIN_N + torch.arange(WIN_N)[None, :]
+    keep = (inside[:, :, None] & (cols < X)[:, None, :]).to(xkm.device)
+    cols = cols.clamp(max=X - 1).to(xkm.device)
+    out = []
+    for part in _operand_parts(xkm, xp):
+        b = part[rows[:, :, None], cols[:, None, :]]  # (nbl, K, n)
+        b = torch.where(keep, b, torch.zeros((), dtype=b.dtype,
+                                             device=b.device))
+        out.append(_b_layout(b.transpose(1, 2).contiguous(), xp)[:, None])
+    return torch.cat(out, 1).contiguous().reshape(-1)
+
+
 def ring_operand(xkm: torch.Tensor, xp: int, X: int, ncols: int,
                  nsplit: int) -> torch.Tensor:
     """The x operator ``[Kx^T; Mx^T]`` (2X, X) as the ring routine's B
     stages, flat: (nsplit, X / XC chunks, parts, stage) where chunk c's
     stage holds rows [c XC, (c+1) XC) of the Kx^T half, then the same rows
     of the Mx^T half (K = 2 XC), for the split's ncols columns (zeros
-    beyond X).  Parts: 3xTF32 big and small (``tf32``, the kernel's
-    rounding), 1xTF32 one rounding, bf16x3 hi and lo, f64 itself.  Laid
-    out as wgmma's K-major B operand (``hopper.cuh::hop_b_offset``: core
-    matrices of 8 columns by 16 bytes of k), f64 as WMMA's column-major B
-    (each column's K values in turn)."""
+    beyond X), split by ``_operand_parts`` and laid out by
+    ``_b_layout``."""
     xc = RING_XC[xp]
     K, nchunk = 2 * xc, X // xc
-    if xp == XBF16X3:
-        hi = xkm.to(torch.bfloat16)
-        parts = [hi, (xkm - hi.to(xkm.dtype)).to(torch.bfloat16)]
-    elif xp == X3TF32:
-        big = tf32(xkm)
-        parts = [big, tf32(xkm - big)]
-    elif xp == X1TF32:
-        parts = [tf32(xkm)]
-    else:
-        parts = [xkm]
     rows = (torch.arange(nchunk)[:, None] * xc + torch.arange(xc)[None, :])
     rows = torch.cat([rows, rows + X], 1).to(xkm.device)  # (nchunk, K)
     out = []
-    for part in parts:
+    for part in _operand_parts(xkm, xp):
         b = torch.zeros((2 * X, ncols * nsplit), dtype=part.dtype,
                         device=part.device)
         b[:, :X] = part
         b = b[rows].reshape(nchunk, K, nsplit, ncols).permute(2, 0, 3, 1)
-        if xp != XF64:  # (n / 8, 8, k / E, E) -> (n / 8, k / E, 8, E)
-            e = 16 // part.element_size()
-            b = b.reshape(nsplit, nchunk, ncols // 8, 8, K // e, e) \
-                .permute(0, 1, 2, 4, 3, 5)
-        out.append(b.reshape(nsplit, nchunk, 1, -1))
+        out.append(_b_layout(b.contiguous(), xp)[:, :, None])
     return torch.cat(out, 2).contiguous().reshape(-1)
 
 
@@ -206,10 +267,11 @@ class V17Kernel:
       layout alone, the band stages alone, the x product alone); each
       still computes a defined function, which ``plain`` gives.
 
-    routine: "ring" (v17 and v19's default: ``lab_resident_ring.cuh``) or
-    "tile" (the first version: v18 and v20's, and the earlier schedule of v17
-    and v19).  tile: the output tile (the ring's: a sub-tile of 64 rows);
-    the chooser's by default (``choose_ring``, ``choose_tile``).
+    routine: "ring" (v17, v19 and v20's default: ``lab_resident_ring.cuh``;
+    v20's is windowed, ``lab_window_kernel``) or "tile" (the first version:
+    v18's, and the earlier schedule of v17, v19 and v20).  tile: the output
+    tile (the ring's: a sub-tile of 64 rows); the chooser's by default
+    (``choose_ring``, ``choose_window``, ``choose_tile``).
     """
 
     launches = {name: 0 for name in KERNELS}  # per kernel; plain excluded
@@ -264,11 +326,27 @@ class V17Kernel:
         self.device = device
         self.nbuf = 2 if kern_name == "v19" else 1
         self.tile = self.grid = self.smem = self.ring = None
-        if self.lib is not None and routine == "ring":
+        tiles = (tuple(tile),) if tile is not None else RING_TILES
+        if self.lib is not None and routine == "ring" and kern_name == "v20":
+            lib = self.lib.lib
+            self.tile, nu, nq = choose_window(
+                p, self.xp, lib.tpufem_lab_window_smem_bytes, tiles)
+            self.ring = (nu, WIN_B, nq, WIN_N, 1)
+            self.smem = lib.tpufem_lab_window_smem_bytes(p, self.xp,
+                                                         *self.tile, nu, nq)
+            bps = lib.tpufem_lab_ring_blocks_per_sm(
+                20, self.xp, p, *self.tile, *self.ring[:4])
+            if bps < 1:
+                raise ValueError(f"the windowed ring's v20 block does not "
+                                 f"fit an SM at p={p}")
+            units = (-(-npts // self.tile[0])) * (-(-npts // self.tile[1]))
+            props = torch.cuda.get_device_properties(device)
+            self.grid = min(units, props.multi_processor_count * bps)
+        elif self.lib is not None and routine == "ring":
             lib = self.lib.lib
             (self.tile, nu, nb, ncols, nsplit) = choose_ring(
                 p, self.xp, self.X, self.nbuf, lib.tpufem_lab_ring_smem_bytes,
-                (tuple(tile),) if tile is not None else RING_TILES, mode)
+                tiles, mode)
             self.ring = (nu, nb, self.nbuf, ncols, nsplit)
             self.smem = lib.tpufem_lab_ring_smem_bytes(
                 p, self.xp, *self.tile, *self.ring[:4])
@@ -309,7 +387,9 @@ class V17Kernel:
             self.xk, self.xk_lo = xkm, None
         self.xb = None
         if self.ring is not None and mode not in NO_XSTAGE:
-            self.xb = ring_operand(xkm, self.xp, self.X, *self.ring[3:])
+            self.xb = (window_operand(xkm, self.xp, self.X, p)
+                       if kern_name == "v20" else
+                       ring_operand(xkm, self.xp, self.X, *self.ring[3:]))
         n_mma, k_mma = MMA[self.xp][1], MMA[self.xp][2]
         self.windows = torch.as_tensor(x_windows(self.X, p, n_mma, k_mma),
                                        device=device)
@@ -355,7 +435,8 @@ class V17Kernel:
                              f"{gp.dtype} {tuple(gp.shape)}")
         y = torch.empty_like(gp)
         if self.routine == "ring":
-            # v19's ticket counter, the launcher sets it to 0 on the stream
+            # v19 and v20's ticket counter, the launcher sets it to 0 on the
+            # stream
             tickets = torch.empty(1, dtype=torch.int64, device=self.device)
             with torch.cuda.device(self.device):
                 rc = self.lib.lib.tpufem_lab_ring_apply(
@@ -464,49 +545,76 @@ class V17Kernel:
 
 
     def _ring_plan(self):
-        """(tile, ncols, nsplit) of the ring routine: the instance's, or on
-        the CPU (no chooser) the first sub-tile and the columns of X."""
+        """(tile, nsplit, kn) of the ring routine: the instance's sub-tile,
+        or on the CPU (no chooser) the first; its column splits; the K x N
+        of the x product a sub-tile and split multiplies, over all its
+        column blocks (dense: 2X by the split's columns; v20: 96 by 32 a
+        32-column block)."""
+        tile = self.tile or RING_TILES[0]
+        if self.kern_name == "v20":
+            return tile, 1, 2 * WIN_ROWS * WIN_N * -(-self.X // WIN_N)
         ncols, nsplit = ring_columns(self.xp, self.X, self.mode)
-        return self.tile or RING_TILES[0], ncols, nsplit
+        return tile, nsplit, 2 * self.X * ncols
 
     def _ring_design_bound(self, item) -> tuple[float, str]:
-        """The ring routine's design bound: the padded layout read and
-        written, the tables and the split x operator (copy and bands: not
-        read) read once from device memory; 5 band stages over the
-        sub-tiles' halo'd boxes, once a column split, on CUDA cores; the x
-        product over every sub-tile's 64 rows (overhang rows too) and the
-        padded columns, K = 2X, each pass of its split.  B's
-        traffic from L2 (``l2_bytes``) is not in it: the card's L2 rate is
-        not in the bound's table."""
-        n, X, p = self.npts, self.X, self.p
-        (tz, ty), ncols, nsplit = self._ring_plan()
-        units = nsplit * (-(-n // tz)) * (-(-n // ty))
-        xb = 0 if self.mode in NO_XSTAGE else 2 * X * ncols * nsplit * \
-            RING_PARTS[self.xp] * (2 if self.xp == XBF16X3 else item)
-        nbytes = (2 * self.sz * self.sy * X * item
-                  + self.tables.numel() * item + xb)
-        bands = (0 if self.mode in ("copy", "mm") else 2 * units * (
-            2 * tz * (ty + 2 * p) + 3 * tz * ty) * X * (2 * p + 1))
-        rows = 0 if self.mode in NO_XSTAGE else units * RING_M
-        passes = {X3TF32: 3, X1TF32: 1, XBF16X3: 3, XF64: 1}[self.xp]
-        mma = {X3TF32: "tf32", X1TF32: "tf32", XBF16X3: "bf16",
-               XF64: "fp64_tensor"}[self.xp]
-        return roofline_ms(nbytes, {
-            "fp64" if self.xp == XF64 else "fp32": bands,
-            mma: passes * 2.0 * rows * 2 * X * ncols})
+        """The ring routine's design bound (``ring_design_bound``) on the
+        resident layout (copy and bands read no x operator)."""
+        (tz, ty), nsplit, kn = self._ring_plan()
+        units = nsplit * (-(-self.npts // tz)) * (-(-self.npts // ty))
+        return ring_design_bound(
+            2 * self.sz * self.sy * self.X * item + self.tables.numel() * item,
+            units, (tz, ty), self.p, self.X, kn, nsplit, self.xp, item,
+            bands=self.mode not in ("copy", "mm"),
+            xstage=self.mode not in NO_XSTAGE)
 
     def l2_bytes(self) -> int:
-        """Bytes the ring routine moves from L2 into shared memory an apply:
-        every block's halo'd u boxes and its B stages (all of the split x
-        operator, once a block)."""
-        n, X, p = self.npts, self.X, self.p
-        (tz, ty), ncols, nsplit = self._ring_plan()
-        units = nsplit * (-(-n // tz)) * (-(-n // ty))
-        item = torch.empty((), dtype=self.dt).element_size()
-        belem = 2 if self.xp == XBF16X3 else item
-        u = (tz + 2 * p) * (ty + 2 * p) * X * item
-        b = 2 * X * ncols * RING_PARTS[self.xp] * belem
-        return units * (u + (b if self.mode in ("f32", "bf16", "mm") else 0))
+        """Bytes the ring routine moves from L2 into shared memory an apply
+        (``ring_l2_bytes``): v20's B is every column block's window."""
+        (tz, ty), nsplit, kn = self._ring_plan()
+        units = nsplit * (-(-self.npts // tz)) * (-(-self.npts // ty))
+        return ring_l2_bytes(units, (tz, ty), self.p, self.X, kn, self.xp,
+                             self.dt, self.mode not in NO_XSTAGE)
+
+
+def _b_elem(xp: int, item: int) -> int:
+    """Bytes of an element of the split x operator: bf16 parts, or the
+    storage's."""
+    return 2 if xp in (XBF16X3, XBF16) else item
+
+
+def ring_design_bound(nbytes, units, tile, p, X, kn, nsplit, xp, item,
+                      bands=True, xstage=True) -> tuple[float, str]:
+    """(ms, "bytes" or "operations") of a ring routine's design on an
+    H100: ``nbytes`` (its layouts and tables) and the split x operator (kn:
+    K x N of a unit's column blocks, over nsplit splits) read once from
+    device memory; 5 band stages over every unit's halo'd box (units: sub-tiles
+    times splits), on CUDA cores; the x product over every unit's 64 rows
+    (overhang rows too) by its K x N (dense: K = 2X by the split's padded
+    columns; v20: 96 rows by 32 a column block), each pass of its split.
+    B's traffic from L2 (``ring_l2_bytes``) is not in it: the card's L2
+    rate is not in the bound's table."""
+    tz, ty = tile
+    if xstage:
+        nbytes += kn * nsplit * RING_PARTS[xp] * _b_elem(xp, item)
+    band = (2 * units * (2 * tz * (ty + 2 * p) + 3 * tz * ty) * X
+            * (2 * p + 1) if bands else 0)
+    passes = {X3TF32: 3, X1TF32: 1, XBF16X3: 3, XF64: 1, XBF16: 1}[xp]
+    mma = {X3TF32: "tf32", X1TF32: "tf32", XBF16X3: "bf16", XBF16: "bf16",
+           XF64: "fp64_tensor"}[xp]
+    return roofline_ms(nbytes, {
+        "fp64" if xp == XF64 else "fp32": band,
+        mma: passes * 2.0 * RING_M * units * kn if xstage else 0.0})
+
+
+def ring_l2_bytes(units, tile, p, X, kn, xp, dtype, xstage=True) -> int:
+    """Bytes a ring routine moves from L2 into shared memory an apply: every
+    unit's halo'd u boxes over X and, with an x stage, its B stages (kn
+    elements of K x N a unit, every part)."""
+    tz, ty = tile
+    item = torch.empty((), dtype=dtype).element_size()
+    u = (tz + 2 * p) * (ty + 2 * p) * X * item
+    b = kn * RING_PARTS[xp] * _b_elem(xp, item) if xstage else 0
+    return units * (u + b)
 
 
 def band_fma(tab: torch.Tensor, v: torch.Tensor, dim: int) -> torch.Tensor:

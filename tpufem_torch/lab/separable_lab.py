@@ -16,11 +16,17 @@ in two CUDA routines:
   flight), one K-stacked product (v15) or a band (v16); vcopy and vband are
   the all-band schedule's loads and stores, and its band stages, alone.  A
   block owns a (TZ, TY) sub-tile of the output rows (``tile``; b sets the
-  layouts only).  ``tpufem_torch/csrc/lab_zyfirst.cuh``: v13-v15 keep qq =
-  [q1 | q23] over all of x in shared memory for the tensor-core product;
-  v16, vcopy and vband run one routine (a mode argument) that moves its
-  halo'd boxes by TMA through an ``mbarrier`` ring and keeps only a window
-  of q1 and q23, so its sub-tile is (8, 8) where v15's is (2, 8).
+  layouts only).  ``tpufem_torch/csrc/lab_zyfirst.cuh``: v13 and v14 (and
+  v15's earlier schedule, ``routine="tile"``) keep qq = [q1 | q23] over all
+  of x in shared memory for the tensor-core product; v16, vcopy and vband
+  run one routine (a mode argument) that moves its halo'd boxes by TMA
+  through an ``mbarrier`` ring and keeps only a window of q1 and q23, so
+  its sub-tile is (8, 8) where v13's is (2, 8).  v15 runs L1's ring
+  routines (``csrc/lab_resident_ring.cuh``, built into the same library) on
+  L2's layouts: "pipe", v19's persistent, warp-specialised routine (the
+  default in f32 storage), or "ring", v17's (the default in f64), each a
+  (8, 8) sub-tile of 64 rows fed by a TMA ring, its x stage on wgmma over x
+  chunks.
 
 Layout in: ``(size, size, X)``, ``size = nt b + 2p``, data at ``[p:p+npts,
 p:p+npts, :npts]``, zeros elsewhere, ``X`` = npts rounded up to 16 (the
@@ -44,9 +50,15 @@ import torch
 
 from tpufem_torch.lab.resident_lab import (
     MMA,
+    RING_TILES,
     X_ALIGN,
     band_fma,
+    choose_ring,
     operator_bound,
+    ring_columns,
+    ring_design_bound,
+    ring_l2_bytes,
+    ring_operand,
     tf32,
     x_operator,
 )
@@ -102,6 +114,23 @@ ZY_TILES = ((2, 8), (1, 16), (1, 8))
 ZY_RING_TILES = ((8, 8), (4, 16), (4, 8), (2, 8), (1, 16))
 ZY_TWO_BLOCKS = 113 * 1024  # (228 KB - 2 x 1 KB reserved) / 2
 MAX_DEGREE = 8
+# the routines of each L2b variant with a tensor-core stage: v15's on L1's
+# ring (pipe: the persistent lab_ring_pipe_kernel; ring: lab_ring_kernel),
+# "tile" its earlier schedule (zy_kernel)
+ZY_ROUTINES = {"v13": ("tile",), "v14": ("tile",),
+               "v15": ("pipe", "ring", "tile")}
+
+
+def zy_routine(variant: str, dtype) -> str | None:
+    """The routine a variant runs unless one is asked for: v15 the
+    persistent ring ("pipe"), but in float64 lab_ring_kernel ("ring"),
+    whose DMMA x stage is not held to the persistent x stage's 160
+    registers (there it spills, and v15 ran 4.62 ms against 3.39 on an
+    H100 80GB HBM3 at 700 W, chip_smoke.py phase 6); v13 and v14 the tile
+    routine; the other variants have no choice (None)."""
+    if variant == "v15" and dtype == torch.float64:
+        return "ring"
+    return ZY_ROUTINES.get(variant, (None,))[0]
 
 
 def tile_slices(M1: np.ndarray, b: int, n_tiles: int, p: int) -> np.ndarray:
@@ -228,17 +257,26 @@ class LabKernel:
     variant's (TZ, TY) sub-tile (None: ``choose_zy_tile``).  v16, vcopy and
     vband have no tensor-core stage and take "highest" whatever ``prec``
     says.  x_jobs: run the dense x stage of an L2a variant as the first
-    version did (an ablation, timed beside the ring).
+    version did (an ablation, timed beside the ring).  routine: v15's
+    (``ZY_ROUTINES``: "pipe", "ring" or "tile"; None: ``zy_routine``'s,
+    by the storage dtype); v13 and v14 take "tile" only, the other
+    variants None.
     """
 
     launches = {v: 0 for v in VARIANTS}  # per variant; plain excluded
 
     def __init__(self, variant, npts, p, K1, M1, h, b=None, prec="highest",
                  dtype=torch.float32, device="cuda", tile=None,
-                 x_jobs=False):
+                 x_jobs=False, routine=None):
         if variant not in VARIANTS:
             raise ValueError(f"variant must be one of {VARIANTS}, got "
                              f"{variant!r}")
+        routines = ZY_ROUTINES.get(variant, (None,))
+        if routine is None:
+            routine = zy_routine(variant, dtype)
+        if routine not in routines:
+            raise ValueError(f"{variant} takes routine {routines}, got "
+                             f"{routine!r}")
         if prec not in PRECS:
             raise ValueError(f"prec must be one of {tuple(PRECS)}, got "
                              f"{prec!r}")
@@ -256,6 +294,7 @@ class LabKernel:
                              "'highest', not v9)")
         self.variant, self.npts, self.p, self.prec, self.dt = (
             variant, npts, p, prec, dtype)
+        self.routine = routine
         self.xp = XF64 if dtype == torch.float64 else PRECS[prec]
         self.zy = variant in ZYFIRST
         self.flags = None if self.zy else FLAGS[variant] | (
@@ -273,13 +312,18 @@ class LabKernel:
             if device.index is None:
                 device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
-        self.smem = self.tile = None
+        self.smem = self.tile = self.ring = self.grid = None
         self.X = X_ALIGN * -(-npts // X_ALIGN)
         if b is None:
             b = TILES[0] if self.zy else choose_b(
                 p, self.xp, self.lib and self.lib.lib.tpufem_l2_smem_bytes,
                 self.flags)
-        if self.zy:
+        NT = -(-npts // b) * b
+        if routine in ("pipe", "ring"):
+            self.tile = None if tile is None else tuple(tile)
+            if self.lib is not None:
+                self._plan_ring(NT)
+        elif self.zy:
             self.tile = None if tile is None else tuple(tile)
             if self.lib is not None:
                 count = self.lib.lib.tpufem_zy_smem_bytes
@@ -316,8 +360,12 @@ class LabKernel:
             return torch.stack([hi, lo]).contiguous(), t.numel()
 
         if self.zy:  # [Kx^T; Mx^T] (2X, X); tables Ky, My, Kz, Mz, Kx, Mx
-            self.xk, self.xk_lo = put(x_operator(self.Ks[0], self.Ms[0],
-                                                 self.X))
+            xkm = x_operator(self.Ks[0], self.Ms[0], self.X)
+            self.xk, self.xk_lo = put(xkm)
+            if self.ring is not None:  # the ring's B stages, split
+                self.xb = ring_operand(torch.as_tensor(
+                    xkm, dtype=dtype, device=device), self.xp, self.X,
+                    *self.ring[3:])
             order = [self.Ks[1], self.Ms[1], self.Ks[2], self.Ms[2],
                      self.Ks[0], self.Ms[0]]
         else:
@@ -346,6 +394,32 @@ class LabKernel:
         pk, pm = self._operators()
         self._plain_K = [torch.tensor(K, device=device) for K in pk]  # f64
         self._plain_M = [torch.tensor(M, device=device) for M in pm]
+
+    def _plan_ring(self, NT: int) -> None:
+        """v15's ring plan on the card: the sub-tile and rings
+        (``choose_ring``, by the routine's own shared-memory count), the
+        columns and splits, and the grid: one block a sub-tile and split
+        (ring), or the persistent blocks the card holds (pipe)."""
+        lib = self.lib.lib
+        pipe = self.routine == "pipe"
+        nq = 2 if pipe else 1
+        tiles = RING_TILES if self.tile is None else (self.tile,)
+        self.tile, nu, nb, ncols, nsplit = choose_ring(
+            self.p, self.xp, self.X, nq, lib.tpufem_zy_lr_smem_bytes, tiles)
+        self.ring = (nu, nb, nq, ncols, nsplit)
+        self.smem = lib.tpufem_zy_lr_smem_bytes(self.p, self.xp, *self.tile,
+                                                nu, nb, nq, ncols)
+        units = nsplit * -(-NT // self.tile[0]) * -(-NT // self.tile[1])
+        self.grid = units
+        if pipe:
+            bps = lib.tpufem_zy_lr_blocks_per_sm(1, self.xp, self.p,
+                                                 *self.tile, nu, nb, nq,
+                                                 ncols)
+            if bps < 1:
+                raise ValueError(f"v15's persistent ring block does not fit "
+                                 f"an SM at p={self.p}, X={self.X}")
+            props = torch.cuda.get_device_properties(self.device)
+            self.grid = min(units, props.multi_processor_count * bps)
 
     def _operators(self):
         """Per-axis (Ks, Ms) whose ``laplace_apply_separable`` is this
@@ -430,7 +504,17 @@ class LabKernel:
                              f"{(NT, NT, self.X)} on {self.device}")
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream().cuda_stream
-            if self.zy:
+            if self.ring is not None:
+                # the persistent routine's ticket counter, set to 0 on the
+                # stream by the launcher
+                tickets = torch.empty(1, dtype=torch.int64,
+                                      device=self.device)
+                rc = self.lib.lib.tpufem_zy_lr_apply(
+                    int(self.routine == "pipe"), self.xp, self.p, self.npts,
+                    self.size, self.X, *self.tile, *self.ring, self.grid,
+                    gp.data_ptr(), y.data_ptr(), self.tables.data_ptr(),
+                    self.xb.data_ptr(), tickets.data_ptr(), stream)
+            elif self.zy:
                 lo = self.xk.data_ptr() + self.xk_lo * self.xk.element_size()
                 rc = self.lib.lib.tpufem_zy_apply(
                     *ZY_ARGS[self.variant], self.xp, self.p, self.npts,
@@ -513,16 +597,23 @@ class LabKernel:
 
     def l2_bytes(self) -> int:
         """Bytes one apply of a redesigned routine moves from L2 into shared
-        memory, from its tile: the all-band routine's halo'd boxes ((TZ +
-        2p)(TY + 2p) rows over X columns per sub-tile); the dense x stage's
+        memory, from its tile: v15's ring (``ring_l2_bytes``: its sub-tiles'
+        halo'd boxes and each one's B, all of the split x operator); the
+        all-band routine's halo'd boxes ((TZ + 2p)(TY + 2p) rows over X
+        columns per sub-tile); the dense x stage's
         ring (per block and pass of ZC z rows: the tile's L halo'd rows over
         X columns and, for each of the block's x blocks of XC columns (vx:
         two; else one), the B operand's 2 XC rows over X, every part)."""
         item = torch.empty((), dtype=self.dt).element_size()
         p, X, NT = self.p, self.X, self.nt * self.b
+        if self.routine in ("pipe", "ring"):
+            tile, nsplit, kn = self._ring_plan()
+            units = nsplit * -(-NT // tile[0]) * -(-NT // tile[1])
+            return ring_l2_bytes(units, tile, p, X, kn, self.xp, self.dt)
         if self.zy:
             if self.variant not in NO_MMA or self.tile is None:
-                raise ValueError("l2_bytes: vcopy, vband, v16 with a sub-tile")
+                raise ValueError("l2_bytes: vcopy, vband, v16 with a sub-tile,"
+                                 " or v15 on the ring")
             tz, ty = self.tile
             return (-(-NT // tz) * -(-NT // ty) * (tz + 2 * p) * (ty + 2 * p)
                     * X * item)
@@ -536,12 +627,19 @@ class LabKernel:
         return (-(-(X // XC) // nxb) * self.nt**2 * -(-zend // ZC)
                 * per_pass)
 
+    def _ring_plan(self):
+        """(tile, nsplit, kn) of v15's ring: the instance's sub-tile, or on
+        the CPU (no chooser) the first; its column splits; the K x N of a
+        unit's x product (2X by the split's columns)."""
+        ncols, nsplit = ring_columns(self.xp, self.X)
+        return self.tile or RING_TILES[0], nsplit, 2 * self.X * ncols
+
     def design_bound(self) -> tuple[float, str]:
         """(ms, "bytes" or "operations"): the least time an H100 could take
-        for what this design does: the input layout read and the output
-        layout written once; every dense stage's products over its padded
-        rows (LP, MB), every pass of its split, on tensor cores; band stages
-        on CUDA cores."""
+        for what this design does (v15 on the ring: ``ring_design_bound``):
+        the input layout read and the output layout written once; every
+        dense stage's products over its padded rows (LP, MB), every pass of
+        its split, on tensor cores; band stages on CUDA cores."""
         nt, b, X, p = self.nt, self.b, self.X, self.p
         L, LP, MB = self.L, round16(self.L), round16(b)
         item = torch.empty((), dtype=self.dt).element_size()
@@ -550,6 +648,14 @@ class LabKernel:
         mma = {X3TF32: "tf32", X1TF32: "tf32", XBF16X3: "bf16",
                XBF16: "bf16", XF64: "fp64_tensor"}[self.xp]
         cuda_cores = "fp64" if self.xp == XF64 else "fp32"
+        if self.routine in ("pipe", "ring"):
+            # L1's ring design on L2's layouts: its sub-tiles over the
+            # (nt b)^2 output rows
+            tile, nsplit, kn = self._ring_plan()
+            units = nsplit * -(-(nt * b) // tile[0]) * -(-(nt * b) // tile[1])
+            return ring_design_bound(
+                nbytes + self.tables[:4].numel() * item, units, tile, p, X,
+                kn, nsplit, self.xp, item)
         if self.zy:
             # 5 z/y band stages (v16: 2 x bands more) and the x product over
             # the (nt b)^2 rows of the output layout, K = 2X

@@ -41,7 +41,8 @@ SOURCES = {
     "resident_ring": ("resident_ring.cu",
                       ("band_ring.cuh", "common.cuh", "hopper.cuh",
                        "resident_ring.cuh")),
-    # the K1 kernel lab (L1: v17-v20; v17 and v19 also on the ring routine)
+    # the K1 kernel lab (L1: v17-v20; v17, v19 and v20 also on the ring
+    # routines)
     "lab_resident": ("lab_resident.cu",
                      ("common.cuh", "hopper.cuh", "lab_mma.cuh",
                       "lab_resident.cuh", "lab_resident_ring.cuh")),
@@ -51,10 +52,11 @@ SOURCES = {
                       ("common.cuh", "hopper.cuh", "lab_mma.cuh",
                        "lab_separable.cuh")),
     # its z/y-first half (L2b: v13, v14, v15, v16, vcopy, vband), on L1's
-    # device functions
+    # device functions and ring routines
     "lab_zyfirst": ("lab_zyfirst.cu",
                     ("band_ring.cuh", "common.cuh", "hopper.cuh",
-                     "lab_mma.cuh", "lab_resident.cuh", "lab_zyfirst.cuh")),
+                     "lab_mma.cuh", "lab_resident.cuh",
+                     "lab_resident_ring.cuh", "lab_zyfirst.cuh")),
     # the toolchain probes (P1, P2)
     "toolchain_probe": ("toolchain_probe.cu",
                         ("lab_mma.cuh", "toolchain_probe.cuh")),
@@ -85,7 +87,8 @@ _ENTRIES = {
         "tpufem_lab_smem_bytes": ([_I] * 6, _LL),
         "tpufem_lab_ring_apply": ([_I] * 16 + [_P] * 6, _I),
         "tpufem_lab_ring_blocks_per_sm": ([_I] * 9, _I),
-        "tpufem_lab_ring_smem_bytes": ([_I] * 8, _LL)},
+        "tpufem_lab_ring_smem_bytes": ([_I] * 8, _LL),
+        "tpufem_lab_window_smem_bytes": ([_I] * 6, _LL)},
     "lab_separable": {
         "tpufem_l2_apply": ([_I] * 8 + [_P] * 3 + [_LL, _P, _LL, _P, _LL, _P,
                                                    _P], _I),
@@ -93,7 +96,10 @@ _ENTRIES = {
     "lab_zyfirst": {
         "tpufem_zy_apply": ([_I] * 10 + [_P] * 6, _I),
         "tpufem_zy_smem_bytes": ([_I] * 7, _LL),
-        "tpufem_zy_ring_takes": ([_I] * 3, _I)},
+        "tpufem_zy_ring_takes": ([_I] * 3, _I),
+        "tpufem_zy_lr_apply": ([_I] * 14 + [_P] * 6, _I),
+        "tpufem_zy_lr_blocks_per_sm": ([_I] * 9, _I),
+        "tpufem_zy_lr_smem_bytes": ([_I] * 8, _LL)},
     "toolchain_probe": {
         "tpufem_probe_matmul": ([_I] * 2 + [_P] * 4, _I),
         "tpufem_probe_chain": ([_I] * 5 + [_F] * 2 + [_P] * 2 + [_LL]
