@@ -76,10 +76,11 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 their plain versions (vcopy exactly, vband 1e-6), and again
                 at every sub-tile their routine's chooser can pick and two
                 larger ones, on a ragged output layout and at the flagship;
-                v15 runs L1's persistent ring routine on L2's layouts, and
-                its earlier schedule (zy_kernel) and L1's other ring routine
-                are checked the same way, one input a degree and the
-                flagship.  Every L2 output starts filled with NaN
+                v15 runs L1's persistent ring routine on L2's layouts and
+                v13 lab_ring_kernel; their earlier schedule (zy_kernel) and
+                v15's other ring routine are checked the same way, one
+                input a degree and the flagship.  Every L2 output starts
+                filled with NaN
   6 throughput  ms per apply over chains of 30 applies (CUDA events),
                 kernel and plain in turns: K1 at 17M DoFs, K2 at 3D Q4
                 refine 5 (2.1M) and 6 (17M) and 2D refine 10, K4 on the
@@ -112,7 +113,9 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 their earlier schedule (the tile routine) in each precision,
                 beside their design bound, the bytes they move from L2, and
                 v20 beside K1 and v16; v15 in turns with its earlier
-                schedule (zy_kernel) and with L1's other ring routine;
+                schedule (zy_kernel) and with L1's other ring routine; v13
+                in turns with its earlier schedule and with v15 on
+                lab_ring_kernel;
                 torch.matmul of (256, 256) f32, P1's
   7 probes      the toolchain probes (tpufem_torch/lab/toolchain_probe.py):
                 P1's product kernel in each arithmetic against the f64
@@ -123,9 +126,12 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 product chain alone and beside the multiply-adds on a
                 seeded dense input at 8 and 256 products against the plain
                 version in the same arithmetic and the f64 chain
-                (``P2_DENSE_TOL``); then
-                the probes' entry point ``toolchain_probe.main``, whose
-                launch counts are the ones reported
+                (``P2_DENSE_TOL``), each on the cluster chain (where the
+                arithmetic takes it) and on the earlier routine; the two
+                routines in turns in each arithmetic the cluster chain
+                takes, with its plan and design bound; then the probes'
+                entry point ``toolchain_probe.main``, whose launch counts
+                are the ones reported
   8 cell loop   the cell-loop tiers (plain PyTorch, no kernel of the
                 kernels line; ``cell_loop_phase``): solve_poisson 3D Q4
                 refine 5 f32 on its default tier (auto: structured) on the
@@ -335,7 +341,8 @@ L2_KERNELS = {"v2": ("dense x, y, z", "scripts/kernel_lab.py:47"),
               "vxy": ("x and y stages", "scripts/kernel_lab.py:177")}
 # the L2b kernels
 L2_KERNELS.update({
-    "v13": ("z/y bands, two x products", "scripts/kernel_lab.py:302"),
+    "v13": ("z/y bands, two x products; L1's ring",
+            "scripts/kernel_lab.py:302"),
     "v14": ("v13, next load in flight", "scripts/kernel_lab.py:359"),
     "v15": ("v14, one K-stacked product; L1's persistent ring",
             "scripts/kernel_lab.py:431"),
@@ -373,7 +380,11 @@ P2_FMA_TOL = 1e-4
 # what an H100 reads (3xTF32 5.4e-5 / 1.6e-3, 1xTF32 9.7e-4 / 4.2e-3, bf16x3
 # 1.9e-5 / 3.5e-4, one bf16 pass 6.6e-3 / 3.7e-2: the tensor cores' f32
 # accumulators truncate, a steady loss of ~6e-6 a product that the split
-# arithmetics show; a chain without its products reads 1.3-1.6)
+# arithmetics show; a chain without its products reads 1.3-1.6).  The same
+# checks at the cluster chain's smaller m (64, 128, 256, a seeded input
+# each) read at most 3xTF32 1.2e-5 / 3.9e-4, 1xTF32 9.2e-4 / 7.9e-3, bf16x3
+# 1.8e-5 / 2.1e-4, one bf16 pass 7.4e-3 / 7.1e-2 (m = 64, as its plain
+# version reads against f64) on an H100
 P2_DENSE_ITERS = (8, 256)
 P2_DENSE_TOL = {"highest": (2e-4, 5e-3), "high": (3e-3, 1.2e-2),
                 "bf16x3": (6e-5, 1e-3), "default": (2e-2, 1e-1)}
@@ -686,6 +697,34 @@ def ring_ptxas_summary(log: str) -> str:
     return "; ".join(
         f"{k} {xp[x]}: {r0}-{r1} registers, {ns} of {n} spill (max {s1} B)"
         for (k, x), (r0, r1, s1, ns, n) in sorted(per.items())) + \
+        f"; {warn} wgmma serialisation warnings"
+
+
+def cluster_ptxas_summary(log: str) -> str:
+    """P2's cluster chain (probe_cluster_kernel<XP, MODE, NT>): per
+    arithmetic and column tiles a block, the registers and spill stores of
+    its three modes' instances, and the count of ptxas's wgmma
+    serialisation warnings, from a build's ptxas log (none where the
+    library came from an earlier build)."""
+    from tpufem_torch.utils.build import ptxas_lines
+
+    if not log.strip():
+        return "no ptxas log (cached build)"
+    per, warn = {}, 0
+    for line in ptxas_lines(log, "probe_cluster"):
+        m = re.search(r"probe_cluster_kernelILi(\d)ELi(\d)ELi(\d)E.*: "
+                      r"(\d+) registers, (\d+) bytes", line)
+        if m:
+            key = (int(m.group(1)), int(m.group(3)))
+            per.setdefault(key, []).append((int(m.group(4)),
+                                            int(m.group(5))))
+        elif "wgmma" in line:
+            warn += 1
+    xp = {0: "3xTF32", 1: "1xTF32", 2: "bf16x3", 4: "bf16"}
+    return "; ".join(
+        f"{xp[x]} NT={nt}: {min(r for r, _ in v)}-{max(r for r, _ in v)} "
+        f"registers, max spill {max(sp for _, sp in v)} B"
+        for (x, nt), v in sorted(per.items())) + \
         f"; {warn} wgmma serialisation warnings"
 
 
@@ -2848,9 +2887,12 @@ def main() -> int:
         "registers at launch; setmaxnreg gives their x stage 160 and their "
         "band and producer warps 96): "
         + ring_ptxas_summary(libs["lab_resident"].compiler_log))
-    say("2 build", "lab_resident_ring in lab_zyfirst (v15 on L2's layouts: "
-        "lab_ring_pipe_kernel, and lab_ring_kernel): "
+    say("2 build", "lab_resident_ring in lab_zyfirst (v15 and v13 on L2's "
+        "layouts: lab_ring_pipe_kernel, and lab_ring_kernel): "
         + ring_ptxas_summary(libs["lab_zyfirst"].compiler_log))
+    say("2 build", "P2's cluster chain in toolchain_probe "
+        "(probe_cluster_kernel, three modes an instance): "
+        + cluster_ptxas_summary(libs["toolchain_probe"].compiler_log))
 
     marks.append(("3", time.perf_counter()))
     # ---- 3 kernel vs plain on the card --------------------------------
@@ -3351,28 +3393,30 @@ def main() -> int:
                  for v in NO_MMA]
         say("5 lab", f"sub-tile {tile}, ragged rows: max rel err "
             + ", ".join(rels))
-    # v15's earlier schedule (zy_kernel, routine="tile") and its other ring
-    # routine (f32 storage: lab_ring_kernel; f64: the persistent one) in
-    # every precision, one input a degree and the flagship
+    # v15's and v13's earlier schedule (zy_kernel, routine="tile") and v15's
+    # other ring routine (f32 storage: lab_ring_kernel; f64: the persistent
+    # one) in every precision, one input a degree and the flagship (v13's
+    # default, lab_ring_kernel, is checked above with every variant)
     from tpufem_torch.lab.separable_lab import zy_routine
 
-    def v15_other(p, n, h, u):
+    def zy_other(v, p, n, h, u):
         rels = []
         for mode, (dt, _) in L2_MODES.items():
-            other = "pipe" if zy_routine("v15", dt) == "ring" else "ring"
-            rels += [f"{r} " + l2_case("v15", mode, p, n, h, u,
-                                       routine=r)[2]
-                     for r in ("tile", other)]
+            other = ("pipe" if zy_routine(v, dt) == "ring" else "ring",) \
+                if v == "v15" else ()
+            rels += [f"{r} " + l2_case(v, mode, p, n, h, u, routine=r)[2]
+                     for r in ("tile",) + other]
         return rels
 
-    for p in (1, 2, 4, 7, 8):
-        n = max(2, 24 // p)
-        u = torch.tensor(rng.standard_normal((n * p + 1)**3), device=dev)
-        say("5 lab", f"v15's other routines p={p} npts={n * p + 1}: max rel "
-            "err " + ", ".join(v15_other(p, n, [1.0 / n, 1.3 / n, 0.7 / n],
-                                         u)))
-    say("5 lab", "v15's other routines flagship: max rel err "
-        + ", ".join(v15_other(4, 64, [1.0 / 64] * 3, u257)))
+    for v in ("v15", "v13"):
+        for p in (1, 2, 4, 7, 8):
+            n = max(2, 24 // p)
+            u = torch.tensor(rng.standard_normal((n * p + 1)**3), device=dev)
+            say("5 lab", f"{v}'s other routines p={p} npts={n * p + 1}: max "
+                "rel err " + ", ".join(zy_other(
+                    v, p, n, [1.0 / n, 1.3 / n, 0.7 / n], u)))
+        say("5 lab", f"{v}'s other routines flagship: max rel err "
+            + ", ".join(zy_other(v, 4, 64, [1.0 / 64] * 3, u257)))
     say("5 lab", "L2a and L2b all within their classes, every point finite; "
         "worst "
         "max rel err " + ", ".join(
@@ -3755,6 +3799,33 @@ def main() -> int:
             f"{k.tile}, rings {k.ring}, grid {k.grid}, {k.smem} B a block; "
             f"ring: grid {ks['ring'].grid}, {ks['ring'].smem} B)")
         del gp, ks
+    # v13 on lab_ring_kernel (its default in every precision), in turns
+    # with its earlier schedule (zy_kernel: earlier, ring, ring, earlier)
+    # and with v15 on the same routine (v15, v13, v13, v15)
+    for mode, (dt, prec) in L2_MODES.items():
+        ks = {(v, r): LabKernel(v, 257, 4, K1l, M1l, [1.0 / 64] * 3,
+                                prec=prec, dtype=dt, device="cuda",
+                                routine=r)
+              for v, r in (("v13", "tile"), ("v13", "ring"), ("v15", "ring"))}
+        k = ks["v13", "ring"]
+        gp = k.pad(u257.to(dt))
+        t = [raw_ms(ks[key], gp) for key in (
+            ("v13", "tile"), ("v13", "ring"), ("v13", "ring"),
+            ("v13", "tile"))]
+        t2 = [raw_ms(ks[key], gp) for key in (
+            ("v15", "ring"), ("v13", "ring"), ("v13", "ring"),
+            ("v15", "ring"))]
+        say("6 throughput", f"v13 {mode} at the flagship, ms per raw apply "
+            f"in turns: earlier {t[0]:.4f}, ring {t[1]:.4f}, ring "
+            f"{t[2]:.4f}, earlier {t[3]:.4f} (ring / earlier "
+            f"{(t[1] + t[2]) / (t[0] + t[3]):.3f}); v15 on the ring "
+            f"{t2[0]:.4f}, v13 {t2[1]:.4f}, v13 {t2[2]:.4f}, v15 "
+            f"{t2[3]:.4f} (v13 / v15 {(t2[1] + t2[2]) / (t2[0] + t2[3]):.3f})"
+            f"; the ring's design bound {k.design_bound()[0]:.4f} ms "
+            f"({k.design_bound()[1]}), {k.l2_bytes() / 1e9:.3f} GB from L2 "
+            f"an apply (sub-tile {k.tile}, rings {k.ring}, grid {k.grid}, "
+            f"{k.smem} B a block)")
+        del gp, ks
     # the ring's mm ablation (qq = [u | u]: out = [u | u] @ [Kx^T; Mx^T])
     # beside one strict-f32 torch.matmul of the layout's data rows, timed
     # only: the port never calls it
@@ -3921,7 +3992,48 @@ def main() -> int:
     dense64 = {n_it: tprobe.chain_plain("both", ra.double(), rw.double(),
                                         rv.double(), n_it)
                for n_it in P2_DENSE_ITERS}
-    for arithmetic in tprobe.ARITHMETICS:
+    # every check on each routine the arithmetic takes at m = 512: the
+    # cluster chain (the default where the table gives it) and the earlier
+    # routine
+    def p2_routines(arithmetic):
+        return tuple(dict.fromkeys((tprobe.chain_routine(arithmetic, PROBE_M),
+                                    "earlier")))
+
+    # the seeded dense input (a, w, v), the product chain alone and beside
+    # the multiply-adds, at 8 products and at the probe's 256: against the
+    # plain version in the same arithmetic and against the exact f64 chain
+    # (a kernel that skipped its products would read above 1)
+    def p2_dense(arithmetic, routine, dense, dense64):
+        ra, rw, rv = dense
+        m = ra.shape[0]
+        for n_it, tol, fma_tol in zip(P2_DENSE_ITERS,
+                                      P2_DENSE_TOL[arithmetic],
+                                      P2_DENSE_FMA_TOL):
+            o64, vo64 = dense64[n_it]
+            oe, _ = tprobe.chain_plain("mma", ra, rw, rv, n_it,
+                                       arithmetic=arithmetic)
+            for mode in ("mma", "both"):
+                o, vo = tprobe.chain(mode, ra, rw, rv, n_it,
+                                     arithmetic=arithmetic, routine=routine)
+                torch.cuda.synchronize()
+                apart, o_err = rel_max(o, oe), rel_max(o, o64)
+                vo_err = (rel_max(vo, vo64) if mode == "both"
+                          else 0.0 if torch.equal(vo, rv) else float("inf"))
+                say("7 probes", f"P2 {routine} {mode} {arithmetic} ({n_it}, "
+                    f"{m}) "
+                    f"on a seeded dense input: o off its plain version in "
+                    f"the same arithmetic by {apart:.3e}, off the f64 chain "
+                    f"by {o_err:.3e} (tol {tol:.1e} each; the plain version "
+                    f"itself {rel_max(oe, o64):.3e}), vo {vo_err:.3e} (tol "
+                    f"{fma_tol})")
+                if not (apart <= tol and o_err <= tol
+                        and vo_err <= fma_tol):
+                    raise RuntimeError(f"P2 {routine} {mode} {arithmetic} "
+                                       f"on the seeded dense input at "
+                                       f"({n_it}, {m}) failed its checks")
+
+    for arithmetic, routine in ((x, r) for x in tprobe.ARITHMETICS
+                                for r in p2_routines(x)):
         o_ref, _ = tprobe.chain_plain("mma", ca, cw, cv, PROBE_N_ITER,
                                       arithmetic=arithmetic)
         _, vo_ref = tprobe.chain_plain("fma", ca.double(), cw.double(),
@@ -3930,17 +4042,19 @@ def main() -> int:
         for mode in tprobe.MODES:
             before = tprobe.launches[f"P2 {mode}"]
             o, vo = tprobe.chain(mode, ca, cw, cv, PROBE_N_ITER,
-                                 arithmetic=arithmetic)
+                                 arithmetic=arithmetic, routine=routine)
             rose = tprobe.launches[f"P2 {mode}"] == before + 1
             torch.cuda.synchronize()
             o_err = 0.0 if mode == "fma" else rel_max(o, o_ref)
             vo_err = 0.0 if mode == "mma" else rel_max(vo, vo_ref)
             through = (torch.equal(o, ca) if mode == "fma" else
                        torch.equal(vo, cv) if mode == "mma" else True)
-            if arithmetic == "default" and mode == "both":
+            if arithmetic == "default" and mode == "both" and \
+                    routine == "cluster":
                 abs_err["P2"] = max(float((o - o_ref).abs().max()), float(
                     (vo.double() - vo_ref).abs().max()))
-            say("7 probes", f"P2 {mode} {arithmetic} ({PROBE_N_ITER}, "
+            say("7 probes", f"P2 {routine} {mode} {arithmetic} "
+                f"({PROBE_N_ITER}, "
                 f"{PROBE_M}): o off its plain version by {o_err:.3e} (tol "
                 f"{P2_TOL[arithmetic]})"
                 + ("" if mode == "fma" else f", o[0, 0] / (1e-3 0.999^n_iter)"
@@ -3950,36 +4064,64 @@ def main() -> int:
                 f"through: {through}")
             if not (rose and through and o_err <= P2_TOL[arithmetic]
                     and vo_err <= P2_FMA_TOL):
-                raise RuntimeError(f"P2 {mode} {arithmetic} failed its "
-                                   f"checks")
-        # the seeded dense input, the product chain alone and beside the
-        # multiply-adds, at 8 products and at the probe's 256: against the
-        # plain version in the same arithmetic and against the exact f64
-        # chain (a kernel that skipped its products would read above 1)
-        for n_it, tol, fma_tol in zip(P2_DENSE_ITERS,
-                                      P2_DENSE_TOL[arithmetic],
-                                      P2_DENSE_FMA_TOL):
-            o64, vo64 = dense64[n_it]
-            oe, _ = tprobe.chain_plain("mma", ra, rw, rv, n_it,
-                                       arithmetic=arithmetic)
-            for mode in ("mma", "both"):
-                o, vo = tprobe.chain(mode, ra, rw, rv, n_it,
-                                     arithmetic=arithmetic)
-                torch.cuda.synchronize()
-                apart, o_err = rel_max(o, oe), rel_max(o, o64)
-                vo_err = (rel_max(vo, vo64) if mode == "both"
-                          else 0.0 if torch.equal(vo, rv) else float("inf"))
-                say("7 probes", f"P2 {mode} {arithmetic} ({n_it}, {PROBE_M}) "
-                    f"on a seeded dense input: o off its plain version in "
-                    f"the same arithmetic by {apart:.3e}, off the f64 chain "
-                    f"by {o_err:.3e} (tol {tol:.1e} each; the plain version "
-                    f"itself {rel_max(oe, o64):.3e}), vo {vo_err:.3e} (tol "
-                    f"{fma_tol})")
-                if not (apart <= tol and o_err <= tol
-                        and vo_err <= fma_tol):
-                    raise RuntimeError(f"P2 {mode} {arithmetic} on the "
-                                       f"seeded dense input at {n_it} "
-                                       f"products failed its checks")
+                raise RuntimeError(f"P2 {routine} {mode} {arithmetic} "
+                                   f"failed its checks")
+        p2_dense(arithmetic, routine, (ra, rw, rv), dense64)
+    # the cluster chain's plans at the smaller m that the table sends to it
+    # (C = 2 and 4, one and two stripe buffers, one and two n32 tiles a
+    # block; 3xTF32 up to m = 256): the seeded dense checks at each
+    for m in (m for m in tprobe.CLUSTER_MS if m < PROBE_M):
+        gen_c.manual_seed(22 + m)
+        dense = [torch.randn((m, m), generator=gen_c) for _ in range(3)]
+        dense[1] = torch.linalg.qr(dense[1].double())[0].float()
+        dense = [t.contiguous().to(dev) for t in dense]
+        m64 = {n_it: tprobe.chain_plain("both", *(t.double() for t in dense),
+                                        n_it)
+               for n_it in P2_DENSE_ITERS}
+        for arithmetic in tprobe.ARITHMETICS:
+            if tprobe.chain_routine(arithmetic, m) != "cluster":
+                continue
+            plan = tprobe.chain_plan(arithmetic, m, "cluster",
+                                     dense[0].device.index)
+            say("7 probes", f"P2 cluster {arithmetic} at m = {m}: C "
+                f"{plan['cluster']}, {plan['nbuf']} stripe buffers, "
+                f"{m // (32 * plan['cluster'])} n32 tiles a block, "
+                f"{plan['active_clusters']} clusters active, {plan['smem']} "
+                "B a block")
+            p2_dense(arithmetic, "cluster", dense, m64)
+    # P2's function (both): a, w, v read, o and vo written; n_iter products
+    # in each pass of the arithmetic on the whole card and 4 n_iter
+    # multiply-adds a value
+    bound_p2 = {x: roofline_ms(5 * 4 * PROBE_M**2, {
+        "tf32" if x in ("highest", "high") else "bf16":
+        (3 if x in ("highest", "bf16x3") else 1) * 2.0 * PROBE_N_ITER
+        * PROBE_M**3, "fp32": 2.0 * 4 * PROBE_N_ITER * PROBE_M**2})
+        for x in tprobe.ARITHMETICS}
+    # the two routines in turns (earlier, cluster, cluster, earlier) in
+    # each arithmetic the cluster chain takes at (256, 512), each probe
+    # timing its three modes, beside its plan and design bound
+    def p2_line(rec):
+        return (f"{rec['routine']} mma {rec['t_mxu_ms']:.4f} fma "
+                f"{rec['t_vpu_ms']:.4f} both {rec['t_both_ms']:.4f} ms "
+                f"(overlap {rec['overlap_fraction']:.3f}, "
+                f"{rec['us_per_product']:.3f} us a product; C "
+                f"{rec['cluster']}, {rec['nbuf']} stripe buffers, "
+                f"{rec['blocks']} blocks on {rec['sms']} SMs in "
+                f"{rec['waves']} waves, {rec['active_clusters']} clusters "
+                f"active, {rec['smem']} B a block; design bound "
+                f"{rec['design_bound_ms']:.4f} ms "
+                f"({rec['design_bound_by']}))")
+
+    for arithmetic in tprobe.ARITHMETICS:
+        if tprobe.chain_routine(arithmetic, PROBE_M) != "cluster":
+            continue
+        recs = [tprobe.probe_co_scheduling(arithmetic=arithmetic, routine=r,
+                                           device=dev)
+                for r in ("earlier", "cluster", "cluster", "earlier")]
+        say("7 probes", f"P2 {arithmetic} at ({PROBE_N_ITER}, {PROBE_M}) "
+            f"in turns: " + "; ".join(p2_line(r) for r in recs)
+            + f"; the function's bound {bound_p2[arithmetic][0]:.4f} ms "
+            f"({bound_p2[arithmetic][1]})")
     for key in tprobe.launches:
         tprobe.launches[key] = 0
     probe_out = tprobe.main()
@@ -3999,8 +4141,12 @@ def main() -> int:
         f"{bal['fma_per_product']} FMAs a product: mma "
         f"{bal['t_mxu_ms']:.4f}, fma {bal['t_vpu_ms']:.4f},"
         f" both {bal['t_both_ms']:.4f} ms, overlap "
-        f"{bal['overlap_fraction']:.3f} ({co['blocks']} blocks of "
-        f"one 16-row stripe: a per-SM probe)")
+        f"{bal['overlap_fraction']:.3f} ({co['routine']} routine: C "
+        f"{co['cluster']}, {co['blocks']} blocks on {co['sms']} SMs in "
+        f"{co['waves']} waves, {co['active_clusters']} clusters active, "
+        f"{co['smem']} B a block, "
+        f"{co['us_per_product']:.3f} us a product, design bound "
+        f"{co['design_bound_ms']:.4f} ms)")
     plain_ms["P2"] = 1e3 * time_fn(
         lambda _: tprobe.chain_plain("both", ca, cw, cv, PROBE_N_ITER)[0], ca,
         reps=3, warmup=1)
@@ -4011,12 +4157,9 @@ def main() -> int:
     p1_library_ms = 1e3 * time_fn(lambda _: torch.matmul(pa, pb), pa,
                                   reps=N_CHAIN)
     # P1: two (256, 256) f32 operands read, one written; three bf16 passes.
-    # P2 (both): a, w, v read, o and vo written; n_iter products in one
-    # bf16 pass and 4 n_iter multiply-adds a value
+    # P2: its function in one bf16 pass (bound_p2)
     bound["P1"] = roofline_ms(3 * 4 * 256**2, {"bf16": 3 * 2.0 * 256**3})
-    bound["P2"] = roofline_ms(5 * 4 * PROBE_M**2, {
-        "bf16": 2.0 * PROBE_N_ITER * PROBE_M**3,
-        "fp32": 2.0 * 4 * PROBE_N_ITER * PROBE_M**2})
+    bound["P2"] = bound_p2["default"]
     say("7 probes", f"P1 (256, 256) bf16x3 {ms['P1']:.4f} ms, plain "
         f"{plain_ms['P1']:.4f}, torch.matmul {p1_library_ms:.4f}, bound "
         f"{bound['P1'][0]:.6f} ({bound['P1'][1]}); P2 both {ms['P2']:.4f} ms, "
@@ -4112,15 +4255,16 @@ def main() -> int:
         (f"L2 {v}", f"{v} {'lab_zyfirst' if v in ZYFIRST else 'lab_separable'}"
          f" ({L2_KERNELS[v][0]}, "
          f"{'bf16x3' if v == 'v9' else 'f32' if v in NO_MMA else '3xTF32'})",
-         "tpufem_torch/csrc/lab_resident_ring.cuh" if v == "v15"
+         "tpufem_torch/csrc/lab_resident_ring.cuh" if v in ("v13", "v15")
          else "tpufem_torch/csrc/lab_zyfirst.cuh" if v in ZYFIRST
          else "tpufem_torch/csrc/lab_separable.cuh", L2_KERNELS[v][1],
          l2_abs[v], l2_library_ms.get(v)) for v in L2V] + [
         ("P1", "P1 toolchain_probe (bf16x3 product)",
          "tpufem_torch/csrc/toolchain_probe.cuh",
          "scripts/toolchain_probe.py:36", abs_err["P1"], p1_library_ms),
-        ("P2", "P2 toolchain_probe (products and multiply-adds in one "
-         "kernel, one bf16 pass)", "tpufem_torch/csrc/toolchain_probe.cuh",
+        ("P2", "P2 toolchain_probe (cluster chain: products and "
+         "multiply-adds in one kernel, one bf16 pass)",
+         "tpufem_torch/csrc/toolchain_probe.cuh",
          "scripts/toolchain_probe.py:88", abs_err["P2"], None)]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": rep,

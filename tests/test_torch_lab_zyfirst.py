@@ -187,11 +187,11 @@ TOL, EMU_TOL = separable_lab.TOL, separable_lab.EMU_TOL
 MMA_VARIANTS = [v for v in ZYFIRST if v not in NO_MMA]  # v13, v14, v15
 
 
-def _kernel(v, p, n, mode, b=None, h=(1.0, 1.3, 0.7)):
+def _kernel(v, p, n, mode, b=None, h=(1.0, 1.3, 0.7), routine=None):
     K1, M1 = global_1d_matrices(p, n, p + 1)
     dtype, prec = MODES[mode]
     return LabKernel(v, n * p + 1, p, K1, M1, [x / n for x in h], b=b,
-                     prec=prec, dtype=dtype, device="cpu")
+                     prec=prec, dtype=dtype, device="cpu", routine=routine)
 
 
 def _pallas(klab, v, npts, p, K1, M1, h, b, u):  # noqa: F811
@@ -436,15 +436,13 @@ LR_CASES = (
        ("pipe", 2, "f32", 6, None, 5)])
 
 
-@pytest.mark.parametrize("routine,p,mode,b,tile,grid", LR_CASES)
-def test_lr_host_build_matches_plain(zy_lib, routine, p, mode, b, tile, grid):
-    """v15 on L1's ring routines (its default "pipe", and "ring") on L2's
-    layouts against the plain version in f64 and, in a split arithmetic,
-    against ``emulate``: every point of the NaN-filled output written, zero
-    past npts in each axis (NT > npts, sub-tiles ragged against it)."""
+def _check_lr(zy_lib, v, routine, p, mode, b, tile, grid):
+    """v13 or v15 on a ring routine's host build against the plain version
+    and, in a split arithmetic, ``emulate`` (``test_lr_host_build_matches_
+    plain``'s checks)."""
     n = {1: 9, 2: 6 if mode == "f32" else 4}.get(p, 2) if b is None else \
         {2: 6 if b == 4 else 10, 4: 3 if b == 8 else 5}[p]
-    k = _kernel("v15", p, n, mode, b)
+    k = _kernel(v, p, n, mode, b)
     npts, NT = k.npts, k.nt * k.b
     u = torch.as_tensor(np.random.default_rng(npts + p).standard_normal(
         npts**3))
@@ -460,9 +458,54 @@ def test_lr_host_build_matches_plain(zy_lib, routine, p, mode, b, tile, grid):
         ye = k.emulate(gp).to(torch.float64)
         apart = float((y.to(torch.float64) - ye).abs().max()
                       / ref.abs().max())
-        print(f"v15 {routine} {mode} p={p} npts={npts} NT={NT}: host "
+        print(f"{v} {routine} {mode} p={p} npts={npts} NT={NT}: host "
               f"{err:.3e}, apart from the emulation {apart:.3e}")
         assert apart <= EMU_TOL[k.xp], (apart, err)
+
+
+@pytest.mark.parametrize("routine,p,mode,b,tile,grid", LR_CASES)
+def test_lr_host_build_matches_plain(zy_lib, routine, p, mode, b, tile, grid):
+    """v15 on L1's ring routines (its default "pipe", and "ring") on L2's
+    layouts against the plain version in f64 and, in a split arithmetic,
+    against ``emulate``: every point of the NaN-filled output written, zero
+    past npts in each axis (NT > npts, sub-tiles ragged against it)."""
+    _check_lr(zy_lib, "v15", routine, p, mode, b, tile, grid)
+
+
+V13_LR_CASES = (
+    [("ring", p, "f64", None, None, None) for p in (1, 2, 4, 7, 8)]
+    + [("ring", p, m, None, None, None) for p in (4, 7)
+       for m in ("f32", "f32h", "bf16")]
+    # ragged layouts: npts 9 on b = 4 (NT = 12) in f64, npts 13 on b = 8
+    # (NT = 16) against a (4, 16) sub-tile in 3xTF32
+    + [("ring", 2, "f64", 4, None, None), ("ring", 4, "f32", 8, (4, 16),
+                                            None)])
+
+
+@pytest.mark.parametrize("routine,p,mode,b,tile,grid", V13_LR_CASES)
+def test_v13_ring_host_build_matches_plain(zy_lib, routine, p, mode, b, tile,
+                                           grid):
+    """v13 on lab_ring_kernel, its default routine in every storage dtype,
+    held as v15 is on the ring (``test_lr_host_build_matches_plain``): f64
+    at p = 1, 2, 4, 7, 8, f32/f32h/bf16 at p = 4, 7 against the plain
+    version (TOL) and the emulation (EMU_TOL), ragged layouts."""
+    assert _kernel("v13", p, 2, mode).routine == routine
+    _check_lr(zy_lib, "v13", routine, p, mode, b, tile, grid)
+
+
+@pytest.mark.parametrize("mode", ["f64", "f32", "bf16"])
+def test_v13_and_v15_on_the_ring_are_one_stream(zy_lib, mode):
+    """On lab_ring_kernel v13 and v15 are one instruction stream: the same
+    tables and B stages (the chunks' Kx^T rows, then their Mx^T rows), so
+    the host build gives the same bits for both."""
+    k13, k15 = (_kernel(v, 4, 2, mode, routine="ring") for v in ("v13",
+                                                                 "v15"))
+    assert torch.equal(k13.tables, k15.tables)
+    gp = k13.pad(torch.as_tensor(np.random.default_rng(4).standard_normal(
+        9**3)))
+    y13, y15 = (_lr_host(zy_lib, k, gp, "ring") for k in (k13, k15))
+    assert torch.isfinite(y13).all()
+    assert torch.equal(y13, y15)
 
 
 def test_lr_rings_fit(zy_lib):
@@ -484,8 +527,9 @@ def test_lr_rings_fit(zy_lib):
 def test_routines():
     """v15 runs its persistent ring routine ("pipe"), in float64 the other
     ring routine ("ring"), unless a routine or its earlier schedule ("tile")
-    is asked for; v13 and v14 have the tile routine only, the other
-    variants no choice."""
+    is asked for; v13 runs lab_ring_kernel ("ring") in every storage dtype
+    unless its earlier schedule ("tile") is asked for; v14 has the tile
+    routine only, the other variants no choice."""
     K1, M1 = global_1d_matrices(2, 4, 3)
     mk = lambda v, r=None, dt=torch.float32: LabKernel(
         v, 9, 2, K1, M1, [0.25] * 3, dtype=dt, device="cpu", routine=r)
@@ -494,9 +538,11 @@ def test_routines():
     assert mk("v15", "pipe", torch.float64).routine == "pipe"
     assert [mk("v15", r).routine for r in ("ring", "tile")] == ["ring",
                                                                 "tile"]
-    assert mk("v13").routine == mk("v14").routine == "tile"
+    assert mk("v13").routine == mk("v13", dt=torch.float64).routine == "ring"
+    assert mk("v13", "tile").routine == mk("v14").routine == "tile"
     assert mk("v16").routine is None and mk("v2").routine is None
-    for v, r in (("v13", "pipe"), ("v16", "tile"), ("v15", "dense")):
+    for v, r in (("v13", "pipe"), ("v14", "ring"), ("v16", "tile"),
+                 ("v15", "dense")):
         with pytest.raises(ValueError, match="routine"):
             mk(v, r)
 
@@ -559,10 +605,11 @@ def test_ring_takes_and_window(zy_lib):
 
 
 def test_two_products_and_one_stacked_sum_in_other_orders(zy_lib):
-    """v13/v14 (a k step of q1 @ Kx^T, then one of q23 @ Mx^T, in turn) and
-    v15 (K = 2X in one sweep) agree to their class, not bitwise; v13 and
-    v14 differ only in how the u chunk travels, so they agree bitwise."""
-    k = {v: _kernel(v, 4, 2, "f32") for v in MMA_VARIANTS}
+    """On the tile routine (``routine="tile"``, zy_kernel), v13/v14 (a k
+    step of q1 @ Kx^T, then one of q23 @ Mx^T, in turn) and v15 (K = 2X in
+    one sweep) agree to their class, not bitwise; v13 and v14 differ only
+    in how the u chunk travels, so they agree bitwise."""
+    k = {v: _kernel(v, 4, 2, "f32", routine="tile") for v in MMA_VARIANTS}
     gp = k["v13"].pad(torch.as_tensor(
         np.random.default_rng(1).standard_normal(9**3)))
     y = {v: _host(zy_lib, k[v], gp) for v in MMA_VARIANTS}
@@ -656,12 +703,12 @@ def test_emulated_classes():
 def test_bounds_at_the_flagship():
     """At 3D Q4 refine 6 (npts 257, b = 24, X = 272, f32): v13-v16 have K2's
     bound, 0.0405 ms (bytes); vcopy the same bytes; vband 4 band outputs a
-    DoF, bytes-bound too.  The design bound of v13, v14 and v15's earlier
-    schedule is the x product over the 264^2 rows of the output layout,
-    20.6 GFLOP a pass, three passes in 3xTF32; v15's on the ring the same
-    rows in 33 x 33 sub-tiles of 64 by the 288 padded columns, 21.8 GFLOP a
-    pass (one pass: the layouts', tables' and B's bytes); v16's and the
-    ablations' are the layouts' bytes."""
+    DoF, bytes-bound too.  The design bound of v14 and of v13's and v15's
+    earlier schedule is the x product over the 264^2 rows of the output
+    layout, 20.6 GFLOP a pass, three passes in 3xTF32; v13's and v15's on
+    the ring the same rows in 33 x 33 sub-tiles of 64 by the 288 padded
+    columns, 21.8 GFLOP a pass (one pass: the layouts', tables' and B's
+    bytes); v16's and the ablations' are the layouts' bytes."""
     from tpufem_torch.lab.resident_lab import operator_bound
 
     K1, M1 = global_1d_matrices(4, 64, 5)
@@ -680,11 +727,13 @@ def test_bounds_at_the_flagship():
     layouts_ms = (272**2 + 264**2) * 272 * 4 / 3.35e9
     v15 = {r: LabKernel("v15", 257, 4, K1, M1, [1 / 64] * 3, device="cpu",
                         routine=r) for r in ("tile", "ring")}
-    for k in (ks["v13"], ks["v14"], v15["tile"]):
+    v13_tile = LabKernel("v13", 257, 4, K1, M1, [1 / 64] * 3, device="cpu",
+                         routine="tile")
+    for k in (v13_tile, ks["v14"], v15["tile"]):
         assert k.design_bound() == (3 * flop / 495e12 * 1e3, "operations")
     ring_flop = 2 * 33**2 * 64 * 544 * 288
     assert 33**2 * 64 == 264**2 and abs(ring_flop - 21.8e9) < 0.05e9
-    for k in (ks["v15"], v15["ring"]):
+    for k in (ks["v15"], v15["ring"], ks["v13"]):
         ms, by = k.design_bound()
         assert by == "operations"
         assert abs(ms - 3 * ring_flop / 495e12 * 1e3) < 1e-12

@@ -1,8 +1,10 @@
 """The two toolchain probes (P1, P2) on the CPU: the port's plain versions
 against the Pallas kernels of ``scripts/toolchain_probe.py`` in interpret
-mode, a g++ build of the CUDA kernels (tpufem_torch/csrc/toolchain_probe.cuh)
-against the plain versions, the closed form of the probe's own inputs, and
-the entry points' refusal without a card.
+mode, a g++ build of the CUDA kernels (tpufem_torch/csrc/toolchain_probe.cuh:
+P1, P2's earlier routine one host thread a block, P2's cluster chain one
+host thread a cluster) against the plain versions, the closed form of the
+probe's own inputs, P2's routine table, and the entry points' refusal
+without a card.
 
 ``scripts/toolchain_probe.py`` is imported by path (nothing in ``scripts/``
 changes) and given its own ``pl`` whose ``pallas_call`` records ``(kernel,
@@ -33,6 +35,8 @@ from tpufem_torch.lab import toolchain_probe as tp
 from tpufem_torch.lab.separable_lab import EMU_TOL, PRECS, TOL
 
 PROBE_SHIM = STUBS + WMMA_STUBS + r"""
+#include <vector>
+
 #include "toolchain_probe.cuh"
 
 template <int XP>
@@ -72,6 +76,103 @@ static int ch_mode(int mode, int m, int n_iter, int fpp, float c1, float c2,
     case 2: return ch<XP, 2>(m, n_iter, fpp, c1, c2, a, w, w_lo, v, o, vo);
   }
   return 2;
+}
+
+// P2's cluster chain: each cluster's ranks in one host thread, each with its
+// own shared-memory array (checked for overrun), hopper.cuh's host forms
+// mapping a peer's address to the same offset in its array; each product's
+// multiplications for every rank, then its sends (or last, its stores)
+template <int XP, int MODE, int NT>
+static int cl(int m, int C, int nbuf, int n_iter, int fpp, float c1, float c2,
+              const float* a, const unsigned char* w, const float* v,
+              float* o, float* vo) {
+  using namespace tpufem;
+  const PcSmem s = pc_smem(XP, m, C, nbuf);
+  std::vector<std::vector<unsigned char>> sm(C);
+  std::vector<PcMma<XP, NT>> mm(C);
+  for (int k = 0; k < m / kPcRows; ++k) {
+    for (int r = 0; r < C; ++r) {
+      sm[r].assign(s.total + 4096, 0xAB);
+      hop_host_cluster[r] = sm[r].data();
+    }
+    auto geo = [&](int r) {
+      hop_host_rank = r;
+      blockIdx = Dim3{k * C + r, 0, 0};
+      return PcGeo{m, C, nbuf, k, r};
+    };
+    if (MODE == kProbeFma) {
+      for (int r = 0; r < C; ++r)
+        pc_fma<NT, false>(a, o, geo(r), 0, c1, c2, 0, 1);
+    } else {
+      for (int r = 0; r < C; ++r)
+        pc_start<XP, NT>(sm[r].data(), geo(r), a, w, 0, 1);
+      for (int it = 0; it < n_iter; ++it) {
+        for (int r = 0; r < C; ++r) {
+          const PcGeo g = geo(r);
+          pc_multiply(mm[r], sm[r].data(), s, g, it, 0, 0, 0);
+        }
+        for (int r = 0; r < C; ++r) {
+          const PcGeo g = geo(r);
+          if (it == n_iter - 1)
+            pc_store(mm[r], g, o, 0, 0);
+          else
+            pc_send(mm[r], sm[r].data(), s, g, it, 0, 0, 0);
+        }
+      }
+    }
+    for (int r = 0; r < C; ++r)
+      pc_fma<NT, MODE != kProbeMma>(v, vo, geo(r), n_iter * fpp, c1, c2, 0,
+                                    1);
+    for (int r = 0; r < C; ++r)
+      for (long long i = s.total; i < s.total + 4096; ++i)
+        if (sm[r][i] != 0xAB) return 1;  // beyond its smem
+  }
+  return 0;
+}
+
+template <int XP, int MODE>
+static int cl_tiles(int m, int C, int nbuf, int n_iter, int fpp, float c1,
+                    float c2, const float* a, const unsigned char* w,
+                    const float* v, float* o, float* vo) {
+  switch (m / (32 * C)) {
+    case 1: return cl<XP, MODE, 1>(m, C, nbuf, n_iter, fpp, c1, c2, a, w, v, o, vo);
+    case 2: return cl<XP, MODE, 2>(m, C, nbuf, n_iter, fpp, c1, c2, a, w, v, o, vo);
+  }
+  return 2;
+}
+
+template <int XP>
+static int cl_mode(int mode, int m, int C, int nbuf, int n_iter, int fpp,
+                   float c1, float c2, const float* a,
+                   const unsigned char* w, const float* v, float* o,
+                   float* vo) {
+  switch (mode) {
+    case 0: return cl_tiles<XP, 0>(m, C, nbuf, n_iter, fpp, c1, c2, a, w, v, o, vo);
+    case 1: return cl_tiles<XP, 1>(m, C, nbuf, n_iter, fpp, c1, c2, a, w, v, o, vo);
+    case 2: return cl_tiles<XP, 2>(m, C, nbuf, n_iter, fpp, c1, c2, a, w, v, o, vo);
+  }
+  return 2;
+}
+
+// as tpufem_probe_cluster_chain: 3 where the routine does not take the plan
+extern "C" int host_probe_cluster_chain(int mode, int xp, int m, int C,
+                                        int nbuf, int n_iter, int fpp,
+                                        float c1, float c2, const float* a,
+                                        const unsigned char* w,
+                                        const float* v, float* o, float* vo) {
+  if (!tpufem::pc_takes(xp, m, C, nbuf)) return 3;
+  switch (xp) {
+    case 0: return cl_mode<0>(mode, m, C, nbuf, n_iter, fpp, c1, c2, a, w, v, o, vo);
+    case 1: return cl_mode<1>(mode, m, C, nbuf, n_iter, fpp, c1, c2, a, w, v, o, vo);
+    case 2: return cl_mode<2>(mode, m, C, nbuf, n_iter, fpp, c1, c2, a, w, v, o, vo);
+    case 4: return cl_mode<4>(mode, m, C, nbuf, n_iter, fpp, c1, c2, a, w, v, o, vo);
+  }
+  return 2;
+}
+
+extern "C" long long host_probe_cluster_smem(int xp, int m, int C, int nbuf) {
+  if (!tpufem::pc_geometry(xp, m, C, nbuf)) return -1;
+  return tpufem::pc_smem(xp, m, C, nbuf).total;
 }
 
 extern "C" int host_probe_matmul(int xp, int n, const float* a,
@@ -288,6 +389,11 @@ def probe_lib(tmp_path_factory):
         [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2
         + [ctypes.c_longlong] + [ctypes.c_void_p] * 3)
     lib.host_probe_chain.restype = ctypes.c_int
+    lib.host_probe_cluster_chain.argtypes = (
+        [ctypes.c_int] * 7 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 5)
+    lib.host_probe_cluster_chain.restype = ctypes.c_int
+    lib.host_probe_cluster_smem.argtypes = [ctypes.c_int] * 4
+    lib.host_probe_cluster_smem.restype = ctypes.c_longlong
     return lib
 
 
@@ -358,3 +464,195 @@ def test_host_build_closed_form(probe_lib):
     steps = 4 * n_iter
     exact = tp.C1**steps + tp.C2 * (tp.C1**steps - 1) / (tp.C1 - 1)
     assert _rel(vo.numpy(), np.full((m, m), exact)) <= 1e-4
+
+
+CLUSTER_CASES = [(m, C, nbuf, n_iter) for m, C in ((64, 2), (128, 4))
+                 for nbuf in (2, 1) for n_iter in (1, 3)]
+
+
+def _cluster_host(lib, mode, arithmetic, a, w, v, n_iter, C, nbuf, fpp=5):
+    """P2's cluster chain in the host build into NaN-filled outputs; the
+    kernel's rc (1: a rank wrote beyond its shared memory)."""
+    m = a.shape[0]
+    w_op, _ = tp.w_operand(w, arithmetic, C)
+    o, vo = (torch.full((m, m), float("nan")) for _ in range(2))
+    rc = lib.host_probe_cluster_chain(
+        tp.MODES[mode], PRECS[arithmetic], m, C, nbuf, n_iter, fpp, tp.C1,
+        tp.C2, a.data_ptr(), w_op.data_ptr(), v.data_ptr(), o.data_ptr(),
+        vo.data_ptr())
+    return rc, o, vo
+
+
+@pytest.mark.parametrize("arithmetic", tp.ARITHMETICS)
+@pytest.mark.parametrize("mode", list(tp.MODES))
+@pytest.mark.parametrize("m,C,nbuf,n_iter", CLUSTER_CASES)
+def test_host_build_of_the_cluster_chain_matches_plain(probe_lib, m, C, nbuf,
+                                                      n_iter, mode,
+                                                      arithmetic):
+    """P2's cluster chain (g++ build: a cluster's ranks in one host thread,
+    each product's multiplications for every rank before its sends, a
+    remote write a copy into the peer's array) at m = 64 on clusters of 2
+    and m = 128 on clusters of 4, with two stripe buffers and with one,
+    after 1 and 3 products, in each arithmetic: as the earlier routine's
+    host test holds it (the product chain against the f64 chain and the
+    plain version in its arithmetic, n_iter times their classes; the
+    multiply-adds against f64; the other stream copied through exactly),
+    every output point written, no rank beyond its shared memory."""
+    fpp, xp = 5, PRECS[arithmetic]
+    a, w, v = (torch.as_tensor(t) for t in _seeded(m, 5))
+    rc, o, vo = _cluster_host(probe_lib, mode, arithmetic, a, w, v, n_iter,
+                              C, nbuf, fpp)
+    assert rc == 0, "a rank wrote beyond its shared memory"
+    o64, vo64 = tp.chain_plain(mode, a.double(), w.double(), v.double(),
+                               n_iter, fpp)
+    if mode == "fma":
+        assert torch.equal(o, a)
+    else:
+        assert _rel(o.numpy(), o64.numpy()) <= n_iter * TOL[xp]
+        oe, _ = tp.chain_plain("mma", a, w, v, n_iter, arithmetic=arithmetic)
+        assert float((o - oe).abs().max() / o64.abs().max()) <= \
+            n_iter * EMU_TOL[xp]
+    if mode == "mma":
+        assert torch.equal(vo, v)
+    else:
+        assert _rel(vo.numpy(), vo64.numpy()) <= n_iter * fpp * 2.0**-23
+
+
+@pytest.mark.parametrize("m,C", [(64, 2), (128, 4)])
+def test_host_build_cluster_closed_form(probe_lib, m, C):
+    """The probe's own inputs through the cluster chain's host build in
+    3xTF32 (one stripe buffer: the plan at m = 512 in the split
+    arithmetics): o = 1e-3 0.999^n_iter to 1e-4 over 64 products, vo its
+    closed form; mma copies v through and fma a, bit for bit; no rank beyond
+    its shared memory."""
+    n_iter = 64
+    a = torch.full((m, m), 1e-3)
+    w = torch.eye(m) * 0.999
+    v = torch.ones((m, m))
+    out = {mode: _cluster_host(probe_lib, mode, "highest", a, w, v, n_iter,
+                               C, 1, 4) for mode in tp.MODES}
+    assert all(rc == 0 for rc, _, _ in out.values())
+    _, o, vo = out["both"]
+    assert _rel(o.numpy(), np.full((m, m), 1e-3 * 0.999**n_iter)) <= 1e-4
+    steps = 4 * n_iter
+    exact = tp.C1**steps + tp.C2 * (tp.C1**steps - 1) / (tp.C1 - 1)
+    assert _rel(vo.numpy(), np.full((m, m), exact)) <= 1e-4
+    assert torch.equal(out["mma"][2], v) and torch.equal(out["fma"][1], a)
+    assert torch.equal(out["mma"][1], o) and torch.equal(out["fma"][2], vo)
+
+
+def test_routine_table(probe_lib):
+    """Which (arithmetic, m) runs which routine: ``chain_routine``'s table
+    against the plans the cluster chain's own count allows at every m from
+    16 to 1040; at m = 512 one bf16 pass on clusters of 8 with two stripe
+    buffers, 1xTF32 and bf16x3 on clusters of 16 with one, every one of
+    them 196,736 bytes a block, and 3xTF32 on the earlier routine (262,272
+    bytes at C = 16); the card's active clusters move a plan to the next C
+    only where the first leaves a cluster for a second wave."""
+    count = probe_lib.host_probe_cluster_smem
+    for arithmetic in tp.ARITHMETICS:
+        for m in range(16, 1041, 16):
+            plan = tp.cluster_plan(arithmetic, m, count)
+            assert tp.chain_routine(arithmetic, m) == (
+                "earlier" if plan is None else "cluster"), (arithmetic, m)
+    plans = {x: tp.cluster_plan(x, 512, count) for x in tp.ARITHMETICS}
+    assert plans == {"default": (8, 2), "high": (16, 1), "bf16x3": (16, 1),
+                     "highest": None}
+    for x, plan in plans.items():
+        if plan is not None:
+            assert count(PRECS[x], 512, *plan) == 196736 <= tp.SMEM_LIMIT
+    assert count(PRECS["highest"], 512, 16, 1) == 262272 > tp.SMEM_LIMIT
+    assert [tp.chain_routine("highest", m) for m in (256, 512)] == \
+        ["cluster", "earlier"]
+    assert tp.chain_routine("default", 96) == "earlier"
+    assert tp.chain_routine("default", 1024) == "earlier"
+    assert count(PRECS["default"], 96, 2, 2) == -1  # no geometry
+    assert count(PRECS["default"], 64, 1, 2) == -1  # clusters of 2 and up
+    few = lambda C, nbuf: 7 if C == 8 else 8
+    assert tp.cluster_plan("default", 512, count, few) == (16, 2)
+    assert tp.cluster_plan("bf16x3", 512, count, few) == (16, 1)
+    assert tp.cluster_plan("high", 512, count, lambda C, nbuf: 6) == (16, 1)
+
+
+def test_routines_on_the_cpu(monkeypatch):
+    """``chain`` takes routine "cluster" or "earlier" (None: the table's),
+    refuses any other, and on CPU tensors runs the plain version whichever
+    is named, its launch counters untouched; the cluster layout of w holds
+    each block's columns in wgmma's K-major B operand."""
+    a, w, v = (torch.as_tensor(t) for t in _seeded(64, 7))
+    before = dict(tp.launches)
+    ref = tp.chain_plain("both", a, w, v, 2)
+    for routine in (None, "cluster", "earlier"):
+        o, vo = tp.chain("both", a, w, v, 2, routine=routine)
+        assert torch.equal(o, ref[0]) and torch.equal(vo, ref[1])
+    assert tp.launches == before
+    with pytest.raises(ValueError, match="routine"):
+        tp.chain("mma", a, w, v, 1, routine="tile")
+    # the design bound: the products on the grid's blocks, 68.7 GFLOP at
+    # (256, 512) in one bf16 pass, 0.143 ms on 64 SMs and 0.072 on 128; a
+    # grid of 128 blocks in two waves (7 clusters of 16 at once) takes as
+    # long as 64 blocks in one
+    flop = 2.0 * 256 * 512**3
+    assert abs(flop - 68.7e9) < 0.05e9
+    for sms in (64, 128):
+        ms, by = tp.design_bound(256, 512, 4, "default", sms)
+        assert by == "operations"
+        assert abs(ms - flop * 132 / sms / 989e12 * 1e3) < 1e-12
+    assert abs(tp.design_bound(256, 512, 4, "bf16x3", 128)[0]
+               - 3 * flop * 132 / 128 / 989e12 * 1e3) < 1e-12
+    assert abs(tp.design_bound(256, 512, 4, "bf16x3", 128, 2)[0]
+               - 3 * flop * 132 / 64 / 989e12 * 1e3) < 1e-12
+    # w in the cluster layout: block r's columns r m/C .., K-major core
+    # matrices of 8 columns by 16 bytes of k (hopper.cuh's hop_b_offset)
+    m, C = 64, 2
+    for arithmetic, esize in (("default", 2), ("high", 4)):
+        op, lo = tp.w_operand(w, arithmetic, C)
+        assert lo == 0 and op.numel() == m * m
+        raw = op.view(torch.uint8).numpy()
+        kbytes, ncb = m * esize, m // C
+        ref = w.to(torch.bfloat16) if esize == 2 else tp.w_operand(
+            w, "high")[0]
+        for r, n, k in ((0, 0, 0), (1, 5, 17), (1, 31, 63), (0, 9, 40)):
+            kb = k * esize
+            off = (r * ncb * kbytes + ((n >> 3) * (kbytes >> 4) + (kb >> 4))
+                   * 128 + (n & 7) * 16 + (kb & 15))
+            got = torch.from_numpy(raw[off:off + esize].copy()).view(
+                ref.dtype)
+            want = ref[k, r * ncb + n]
+            if esize == 4:  # 1xTF32: w rounded to TF32 on the host
+                from tpufem_torch.lab.resident_lab import tf32
+                want = tf32(want.reshape(1))[0]
+            assert got.item() == want.item()
+
+
+def test_probe_sweep_edits_and_refusal(monkeypatch):
+    """The probe sweep's ablations still find their text in the sources,
+    once each (``build.edited_csrc`` raises otherwise), change only
+    toolchain_probe.cuh, and the sweep raises without a card."""
+    from tpufem_torch.lab import probe_sweep
+    from tpufem_torch.utils.build import CSRC, edited_csrc
+
+    for name, edits in probe_sweep.VARIANTS.items():
+        src = edited_csrc(edits, name)
+        for fname, text in src.items():
+            same = text == (CSRC / fname).read_text()
+            assert same == (fname not in edits), (name, fname)
+    with pytest.raises(RuntimeError, match="once"):
+        edited_csrc({"toolchain_probe.cuh": [("no such text", "")]}, "gone")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        probe_sweep.main()
+
+
+@pytest.mark.parametrize("m, C, active, sms, waves", [
+    (512, 8, 16, 64, 1),    # one bf16 pass: all 8 stripes at once
+    (512, 16, 7, 112, 2),   # 1xTF32, bf16x3 on an H100: 7 of 8 at once
+    (256, 4, 33, 16, 1),
+    (512, 16, 3, 48, 3),
+])
+def test_cluster_waves(m, C, active, sms, waves):
+    """The cluster chain's SMs at once and waves from the clusters the card
+    holds; a card that holds none is refused."""
+    assert tp.cluster_waves(m, C, active) == (sms, waves)
+    with pytest.raises(ValueError, match="no cluster"):
+        tp.cluster_waves(m, C, 0)

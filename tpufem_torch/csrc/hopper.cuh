@@ -1,13 +1,15 @@
 // Hopper's asynchronous machinery for the kernel-lab routines, beside the
 // cp.async helpers of lab_mma.cuh: mbarriers, the Tensor Memory Accelerator
-// (TMA) and the warpgroup matrix multiply (wgmma).
+// (TMA), thread-block clusters and the warpgroup matrix multiply (wgmma).
 //
 // Used by band_ring.cuh (the all-band ring under K1, K3 and K4 in
 // resident_ring.cuh and under the lab's vcopy, vband, v16 of
 // scripts/kernel_lab.py, _kernel_vcopy :500, _kernel_vband :525, _kernel_v16
 // :1347, in lab_zyfirst.cuh), lab_separable.cuh (the dense x stage of
-// _kernel_vx :164 and the x-first kernels around it) and
-// lab_resident_ring.cuh (the ring routine of the K1 lab's v17 and v19).
+// _kernel_vx :164 and the x-first kernels around it),
+// lab_resident_ring.cuh (the ring routines of the K1 lab's v17, v19 and v20,
+// and of the K2 lab's v13 and v15) and toolchain_probe.cuh (P2's cluster
+// chain).
 // What each piece is for:
 //   mbarrier  a barrier in shared memory that counts thread arrivals and the
 //             bytes of asynchronous copies; a ring of `full`/`empty` pairs
@@ -21,6 +23,9 @@
 //             any thread.  The tensor is described by a tensor map the host
 //             encodes (hop_map_3d) and passes as a __grid_constant__ kernel
 //             argument.
+//   cluster   blocks on neighbouring SMs that reach each other's shared
+//             memory (hop_mapa, bulk copies between shared memories, remote
+//             mbarrier arrivals), started and ended by a cluster barrier
 //   wgmma     four warps multiply a 64-row tile, A from registers (so a
 //             3xTF32 or bf16x3 split of A stays in registers), B from shared
 //             memory through a descriptor, the sum in registers; the only
@@ -262,6 +267,95 @@ __device__ __forceinline__ void hop_fence_async() {
 #endif
 }
 
+// ---- thread-block clusters ---------------------------------------------------
+// A launch with a cluster dimension C (cudaLaunchKernelEx) puts C blocks on C
+// SMs of one GPC at the same time; each can reach the others' shared memory
+// (distributed shared memory) through addresses hop_mapa makes, by bulk
+// copies and remote mbarrier arrivals.  A block's mbarriers are initialised
+// and fenced (hop_mbar_init_fence: release at cluster scope) before a cluster
+// barrier (hop_cluster_sync) lets any peer use them, and a block leaves only
+// after a last cluster barrier, when no peer can still write into it.  The
+// host form runs a whole cluster in one host thread: the calling code sets
+// hop_host_cluster[r] to rank r's shared-memory array and hop_host_rank to
+// the rank whose code runs, a remote address is the same offset in the
+// peer's array, a bulk copy to it a memcpy, and the barriers do nothing.
+
+#ifdef __CUDA_ARCH__
+using HopDsmem = unsigned;  // a shared::cluster address
+#else
+using HopDsmem = unsigned char*;
+#endif
+#ifndef __CUDACC__
+inline unsigned char* hop_host_cluster[16];
+inline int hop_host_rank = 0;
+#endif
+
+// The address of `p` (in this block's shared memory) in block `rank` of the
+// cluster.
+__device__ __forceinline__ HopDsmem hop_mapa(const void* p, int rank) {
+#ifdef __CUDA_ARCH__
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r)
+               : "r"(hop_smem(p)), "r"(rank));
+  return r;
+#elif !defined(__CUDACC__)
+  return hop_host_cluster[rank] +
+         (static_cast<const unsigned char*>(p) - hop_host_cluster[hop_host_rank]);
+#else
+  return nullptr;
+#endif
+}
+// Every thread of every block of the cluster arrives (release) and waits
+// (acquire) for all the others.
+__device__ __forceinline__ void hop_cluster_sync() {
+#ifdef __CUDA_ARCH__
+  asm volatile("barrier.cluster.arrive;\n\tbarrier.cluster.wait;" ::: "memory");
+#endif
+}
+// Copy `bytes` (a multiple of 16, both addresses 16-byte aligned) of this
+// block's shared memory at `src` to `dst` in a peer's (hop_mapa), completing
+// its bytes on the peer's mbarrier `bar` (hop_mapa of the peer's barrier).
+// The writers of `src` call hop_fence_async and synchronise first.
+__device__ __forceinline__ void hop_bulk_s2s(HopDsmem dst, const void* src,
+                                             unsigned bytes, HopDsmem bar) {
+#ifdef __CUDA_ARCH__
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "r"(hop_smem(src)), "r"(bytes), "r"(bar)
+      : "memory");
+#elif !defined(__CUDACC__)
+  std::memcpy(dst, src, bytes);
+#endif
+}
+// One arrival (release at cluster scope) on a peer's mbarrier (hop_mapa).
+__device__ __forceinline__ void hop_mbar_arrive_remote(HopDsmem bar) {
+#ifdef __CUDA_ARCH__
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::
+                   "r"(bar)
+               : "memory");
+#endif
+}
+// hop_mbar_wait with acquire at cluster scope: the peers' arrivals order
+// their earlier accesses before this thread's later ones.
+__device__ __forceinline__ void hop_mbar_wait_cluster(uint64_t* bar,
+                                                      unsigned parity) {
+#ifdef __CUDA_ARCH__
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(hop_smem(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+#endif
+}
+
 // ---- warp roles --------------------------------------------------------------
 
 // The next ticket of a counter in device memory that the blocks of a launch
@@ -301,9 +395,10 @@ __device__ __forceinline__ void hop_reg_dealloc() {
 }
 
 // ---- wgmma -----------------------------------------------------------------
-// acc (64 x 32, f32) += A (64 x K, registers) @ B (K x 32, shared memory),
-// K = 8 TF32 values or 16 bf16 values (32 bytes).  B is K-major: for each of
-// the 32 columns n its K values are contiguous, in the layout without swizzle:
+// acc (64 x N, f32) += A (64 x K, registers) @ B (K x N, shared memory), N =
+// 32 (or 64), K = 8 TF32 values or 16 bf16 values (32 bytes).  B is K-major:
+// for each of the N columns n its K values are contiguous, in the layout
+// without swizzle:
 // core matrices of 8 columns n by 16 bytes of k, 128 bytes each, those of one
 // 8-column group side by side along k (hop_b_offset).  The four warps of a
 // warpgroup call every function below together.
@@ -333,16 +428,19 @@ struct HopA {
   float v[kHopM * 16];
 #endif
 };
-// The 64 x 32 accumulator: this thread's 16 values, or the whole tile.
-struct HopAcc {
+// The 64 x N accumulator: this thread's N / 2 values, or the whole tile.
+template <int N>
+struct HopAccN {
 #ifdef __CUDA_ARCH__
-  float d[16];
+  float d[N / 2];
 #else
-  float d[kHopM * kHopN];
+  float d[kHopM * N];
 #endif
 };
+using HopAcc = HopAccN<kHopN>;
 
-__device__ __forceinline__ void hop_acc_zero(HopAcc& acc) {
+template <int N>
+__device__ __forceinline__ void hop_acc_zero(HopAccN<N>& acc) {
 #pragma unroll
   for (int i = 0; i < (int)(sizeof(acc.d) / sizeof(float)); ++i) acc.d[i] = 0.f;
 }
@@ -350,20 +448,20 @@ __device__ __forceinline__ void hop_acc_zero(HopAcc& acc) {
 // f(row, column, value) for each accumulator element this thread holds
 // (warp w of the warpgroup, lane): rows 16w + lane/4 and 8 below, columns
 // 8j + 2(lane%4) and the next.
-template <typename F>
-__device__ __forceinline__ void hop_acc_each(const HopAcc& acc, int w,
+template <int N, typename F>
+__device__ __forceinline__ void hop_acc_each(const HopAccN<N>& acc, int w,
                                              int lane, F f) {
 #ifdef __CUDA_ARCH__
   const int r = 16 * w + (lane >> 2), c = 2 * (lane & 3);
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < N / 8; ++j) {
     f(r, 8 * j + c, acc.d[4 * j]);
     f(r, 8 * j + c + 1, acc.d[4 * j + 1]);
     f(r + 8, 8 * j + c, acc.d[4 * j + 2]);
     f(r + 8, 8 * j + c + 1, acc.d[4 * j + 3]);
   }
 #else
-  for (int i = 0; i < kHopM * kHopN; ++i) f(i / kHopN, i % kHopN, acc.d[i]);
+  for (int i = 0; i < kHopM * N; ++i) f(i / N, i % N, acc.d[i]);
 #endif
 }
 
@@ -434,6 +532,50 @@ __device__ __forceinline__ void hop_load_a(HopA& big, HopA& small, bool split,
 #endif
 }
 
+// hop_load_a for an A operand already stored as bf16: element (row, k) of
+// its hi part at hi[at(row, k)] (k even: the pair k, k + 1 adjacent), of its
+// lo part `lo` elements further on (read when `split`).
+template <typename At>
+__device__ __forceinline__ void hop_load_a_bf16(HopA& big, HopA& small,
+                                                bool split,
+                                                const __nv_bfloat16* hi,
+                                                long long lo, At at, int ks,
+                                                int w, int lane) {
+#ifdef __CUDA_ARCH__
+  const int r0 = 16 * w + (lane >> 2), t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int e = at(r0 + (i & 1) * 8, 16 * ks + 2 * t + (i >> 1) * 8);
+    big.r[i] = *reinterpret_cast<const uint32_t*>(hi + e);
+    if (split) small.r[i] = *reinterpret_cast<const uint32_t*>(hi + lo + e);
+  }
+#else
+  for (int row = 0; row < kHopM; ++row)
+    for (int k = 0; k < 16; ++k) {
+      const int e = at(row, 16 * ks + k);
+      big.v[row * 16 + k] = __bfloat162float(hi[e]);
+      if (split) small.v[row * 16 + k] = __bfloat162float(hi[lo + e]);
+    }
+#endif
+}
+
+// f(row, column, value, next value) for each pair of adjacent accumulator
+// columns (column even) this thread holds, as hop_acc_each.
+template <int N, typename F>
+__device__ __forceinline__ void hop_acc_pairs(const HopAccN<N>& acc, int w,
+                                              int lane, F f) {
+#ifdef __CUDA_ARCH__
+  const int r = 16 * w + (lane >> 2), c = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    f(r, 8 * j + c, acc.d[4 * j], acc.d[4 * j + 1]);
+    f(r + 8, 8 * j + c, acc.d[4 * j + 2], acc.d[4 * j + 3]);
+  }
+#else
+  for (int i = 0; i < kHopM * N; i += 2) f(i / N, i % N, acc.d[i], acc.d[i + 1]);
+#endif
+}
+
 // Keep an operand's registers the compiler's until here: a wgmma reads them
 // until it has been waited for, long after the statement that launched it.
 __device__ __forceinline__ void hop_keep(HopA& a) {
@@ -464,9 +606,10 @@ __device__ __forceinline__ void hop_wgmma_wait() {
 // acc += a @ B for k step `ks` of the B operand at `b` (hop_b_offset layout,
 // `kbytes` bytes of k a column).  Asynchronous on the card: a and acc are not
 // to be touched until hop_wgmma_wait has waited for its group.
-template <bool BF16>
-__device__ __forceinline__ void hop_wgmma(HopAcc& acc, const HopA& a,
+template <bool BF16, int N>
+__device__ __forceinline__ void hop_wgmma(HopAccN<N>& acc, const HopA& a,
                                           const void* b, int ks, int kbytes) {
+  static_assert(N == 32 || N == 64, "wgmma n32 or n64");
 #ifdef __CUDA_ARCH__
   // descriptor: address, leading (k) and stride (n) byte offsets of the core
   // matrices, all in units of 16 bytes; no swizzle
@@ -474,7 +617,38 @@ __device__ __forceinline__ void hop_wgmma(HopAcc& acc, const HopA& a,
       (uint64_t)(((hop_smem(b) + ks * 256) & 0x3FFFF) >> 4) |
       ((uint64_t)(128 >> 4) << 16) | ((uint64_t)((kbytes >> 4) * 128 >> 4) << 32);
   float* d = acc.d;
-  if constexpr (BF16) {
+  if constexpr (N == 64) {
+#define TPUFEM_HOP_D64                                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),     \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),            \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),        \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),        \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),        \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
+      "+f"(d[31])
+#define TPUFEM_HOP_DREGS64                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "    \
+  "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1"
+    if constexpr (BF16)
+      asm volatile(
+          "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+          " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+          TPUFEM_HOP_DREGS64 ", 0;\n}"
+          : TPUFEM_HOP_D64
+          : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "l"(desc),
+            "r"(1));
+    else
+      asm volatile(
+          "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+          " wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+          TPUFEM_HOP_DREGS64 ";\n}"
+          : TPUFEM_HOP_D64
+          : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "l"(desc),
+            "r"(1));
+#undef TPUFEM_HOP_DREGS64
+#undef TPUFEM_HOP_D64
+  } else if constexpr (BF16) {
     asm volatile(
         "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
         " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
@@ -502,7 +676,7 @@ __device__ __forceinline__ void hop_wgmma(HopAcc& acc, const HopA& a,
 #else
   constexpr int K = BF16 ? 16 : 8, E = BF16 ? 2 : 4;
   const unsigned char* bb = static_cast<const unsigned char*>(b);
-  for (int n = 0; n < kHopN; ++n)
+  for (int n = 0; n < N; ++n)
     for (int k = 0; k < K; ++k) {
       const unsigned char* p = bb + hop_b_offset(n, (K * ks + k) * E, kbytes);
       float bv;
@@ -513,8 +687,7 @@ __device__ __forceinline__ void hop_wgmma(HopAcc& acc, const HopA& a,
       } else {
         std::memcpy(&bv, p, 4);
       }
-      for (int m = 0; m < kHopM; ++m)
-        acc.d[m * kHopN + n] += a.v[m * 16 + k] * bv;
+      for (int m = 0; m < kHopM; ++m) acc.d[m * N + n] += a.v[m * 16 + k] * bv;
     }
 #endif
 }

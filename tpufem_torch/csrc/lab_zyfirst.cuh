@@ -30,28 +30,36 @@
 // difference form (common.cuh) take the place of the TPU kernels' periodic
 // tables and deficit corrections, so any b is taken.
 //
-// The routines of v13-v15: v13 and v14 run zy_kernel (below); v15 runs L1's
+// The routines of v13-v15: v14 runs zy_kernel (below); v15 and v13 run L1's
 // ring routines of lab_resident_ring.cuh, built into this library by
 // lab_zyfirst.cu: lab_ring_pipe_kernel (v19's schedule: a producer warp,
 // seven band warps, two x-stage warpgroups, persistent blocks on a ticket
-// counter; the default in f32 storage) or lab_ring_kernel (v17's; the
+// counter; v15's default in f32 storage) or lab_ring_kernel (v17's; v15's
 // default in f64, where the persistent x stage's DMMA tiles spill at its
-// 160 registers: 4.62 ms against 3.39).  Its function is theirs
-// on other layouts: the input layout's data row g sits at row g + P as in
+// 160 registers: 4.62 ms against 3.39, and v13's in every storage: its
+// Pallas schedule loads a tile, then computes it, with no load of the next
+// in flight).  v13's two products, a k step of q1 @ Kx^T then one of q23 @
+// Mx^T into one accumulator, are on the ring a chunk's Kx^T rows then its
+// Mx^T rows of each B stage, multiplied into the one accumulator chunk by
+// chunk: v15's product taken in turns at a chunk's granularity, so v13 and
+// v15 on lab_ring_kernel are one instruction stream, bit for bit (the g++
+// build holds it).  Their function is L1's on other layouts: the input layout's data row g sits at row g + P as in
 // L1's, so the TMA boxes are L1's; the sub-tiles of 64 rows cover the
 // (nt b)^2 output rows, and the store's row map (LabOut) is {org 0, stride
 // nt b, rows nt b}: rows past npts come out of the bands as exact zeros
 // (their table rows are zero), columns past npts out of the x product (B's
-// columns are zero there).  zy_kernel stays as v15's earlier schedule.  On
+// columns are zero there).  zy_kernel stays as v13's and v15's earlier
+// schedule (routine "tile").  On
 // an H100 80GB HBM3 at 700 W at the flagship in 3xTF32, in turns by
 // chip_smoke.py phase 6: zy_kernel 2.19 ms, lab_ring_pipe_kernel 0.62,
 // lab_ring_kernel 0.69; the design bound 0.132 ms (65.5 GFLOP of 3xTF32
 // products over the 288 padded columns) and B streamed from L2 into every
 // sub-tile (1.67 GB an apply with the u boxes) hold it at ~5x.
 //
-// zy_kernel (v13, v14, v15's earlier schedule): the tensor-core x product
-// needs qq = [q1 | q23] (M, 2X), M = TZ TY, over all of x in shared memory,
-// which keeps the sub-tile small ((2, 8): a 10x halo re-read at P = 4).  It is
+// zy_kernel (v14, and v13's and v15's earlier schedule): the tensor-core x
+// product needs qq = [q1 | q23] (M, 2X), M = TZ TY, over all of x in shared
+// memory, which keeps the sub-tile small ((2, 8): a 10x halo re-read at P =
+// 4).  It is
 // L1's tile routine (lab_resident.cuh, whose device functions it calls) on
 // L2's layouts:
 //   z, y   lab_bands: per chunk of XC x columns, the halo'd u chunk (TZ+2P,

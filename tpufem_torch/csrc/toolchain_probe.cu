@@ -6,6 +6,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 #include "toolchain_probe.cuh"
 
 namespace {
@@ -57,6 +59,87 @@ cudaError_t chain_mode(int mode, int m, int n_iter, int fpp, float c1,
   return cudaErrorInvalidValue;
 }
 
+// P2 on the cluster chain: one launch, or (active non-null) the clusters of
+// that launch the card holds at once (cudaOccupancyMaxActiveClusters).
+struct ClusterArgs {
+  int m, C, nbuf, n_iter, fpp;
+  float c1, c2;
+  const float* a;
+  const unsigned char* w;
+  const float* v;
+  float *o, *vo;
+  cudaStream_t s;
+};
+
+template <int XP, int MODE, int NT>
+cudaError_t cluster_chain(const ClusterArgs& c, int* active) {
+  auto kern = tpufem::probe_cluster_kernel<XP, MODE, NT>;
+  const int smem = (int)tpufem::pc_smem(XP, c.m, c.C, c.nbuf).total;
+  static std::atomic<int> granted[tpufem::kLabMaxDevices];
+  cudaError_t e = tpufem::lab_opt_in(kern, smem, granted);
+  if (e != cudaSuccess) return e;
+  if (c.C > 8) {  // 16 is beyond the portable cluster size
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(c.m / tpufem::kPcRows * c.C);
+  cfg.blockDim = dim3(tpufem::kPcThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = c.s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (active) return cudaOccupancyMaxActiveClusters(active, kern, &cfg);
+  e = cudaLaunchKernelEx(&cfg, kern, c.a, c.w, c.v, c.o, c.vo, c.m, c.C,
+                         c.nbuf, c.n_iter, c.fpp, c.c1, c.c2);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <int XP, int MODE>
+cudaError_t cluster_tiles(const ClusterArgs& c, int* active) {
+  switch (c.m / (32 * c.C)) {
+    case 1: return cluster_chain<XP, MODE, 1>(c, active);
+    case 2: return cluster_chain<XP, MODE, 2>(c, active);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int XP>
+cudaError_t cluster_mode(int mode, const ClusterArgs& c, int* active) {
+  switch (mode) {
+    case tpufem::kProbeMma:
+      return cluster_tiles<XP, tpufem::kProbeMma>(c, active);
+    case tpufem::kProbeFma:
+      return cluster_tiles<XP, tpufem::kProbeFma>(c, active);
+    case tpufem::kProbeBoth:
+      return cluster_tiles<XP, tpufem::kProbeBoth>(c, active);
+  }
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t cluster_dispatch(int mode, int xp, const ClusterArgs& c,
+                             int* active) {
+  if (!tpufem::pc_takes(xp, c.m, c.C, c.nbuf) || c.n_iter < 1 || c.fpp < 0)
+    return cudaErrorInvalidValue;
+  switch (xp) {
+    case tpufem::kX3TF32:
+      return cluster_mode<tpufem::kX3TF32>(mode, c, active);
+    case tpufem::kX1TF32:
+      return cluster_mode<tpufem::kX1TF32>(mode, c, active);
+    case tpufem::kXBF16x3:
+      return cluster_mode<tpufem::kXBF16x3>(mode, c, active);
+    case tpufem::kXBF16:
+      return cluster_mode<tpufem::kXBF16>(mode, c, active);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -81,8 +164,9 @@ int tpufem_probe_matmul(int xp, int n, const void* a, const void* b, void* c,
   return (int)cudaErrorInvalidValue;
 }
 
-// P2: mode (ProbeMode) mma: o = a w^n_iter, vo = v; fma: vo = v after fpp
-// n_iter steps v <- v c1 + c2, o = a; both: both chains.  a, v, o, vo: (m,
+// P2's earlier routine (probe_chain_kernel): mode (ProbeMode) mma: o = a
+// w^n_iter, vo = v; fma: vo = v after fpp n_iter steps v <- v c1 + c2, o =
+// a; both: both chains.  a, v, o, vo: (m,
 // m) f32; w: (m, m) f32, or in the bf16 arithmetics its bf16 hi part with
 // the lo part w_lo elements on; m a multiple of 16, n_iter >= 1.  Returns
 // the cudaError_t of the launch.
@@ -105,6 +189,53 @@ int tpufem_probe_chain(int mode, int xp, int m, int n_iter, int fpp, float c1,
 #undef TPUFEM_XP
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// P2 on the cluster chain (probe_cluster_kernel): the chains of
+// tpufem_probe_chain on m / 64 clusters of C blocks with nbuf stripe
+// buffers, a plan tpufem_probe_cluster_smem counts within 227 KB; w: the
+// blocks' column slices of w as toolchain_probe.w_operand(w, arithmetic, C)
+// lays them out.  Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for a plan the routine does not take).
+int tpufem_probe_cluster_chain(int mode, int xp, int m, int C, int nbuf,
+                               int n_iter, int fpp, float c1, float c2,
+                               const void* a, const void* w, const void* v,
+                               void* o, void* vo, void* stream) {
+  const ClusterArgs c{m,
+                      C,
+                      nbuf,
+                      n_iter,
+                      fpp,
+                      c1,
+                      c2,
+                      static_cast<const float*>(a),
+                      static_cast<const unsigned char*>(w),
+                      static_cast<const float*>(v),
+                      static_cast<float*>(o),
+                      static_cast<float*>(vo),
+                      static_cast<cudaStream_t>(stream)};
+  return (int)cluster_dispatch(mode, xp, c, nullptr);
+}
+
+// Shared-memory bytes of a block of the cluster chain (pc_smem), or -1 for a
+// geometry it is not built for (whatever the bytes); the plan chooser in
+// tpufem_torch/lab/toolchain_probe.py takes the first that fits 227 KB.
+long long tpufem_probe_cluster_smem(int xp, int m, int C, int nbuf) {
+  if (!tpufem::pc_geometry(xp, m, C, nbuf)) return -1;
+  return tpufem::pc_smem(xp, m, C, nbuf).total;
+}
+
+// Clusters of a cluster-chain launch the current device holds at once, or
+// -1 where the plan is refused or the query fails.
+int tpufem_probe_cluster_active(int mode, int xp, int m, int C, int nbuf) {
+  ClusterArgs c{};
+  c.m = m;
+  c.C = C;
+  c.nbuf = nbuf;
+  c.n_iter = 1;
+  int n = -1;
+  if (cluster_dispatch(mode, xp, c, &n) != cudaSuccess) return -1;
+  return n;
 }
 
 const char* tpufem_cuda_error_string(int code) {

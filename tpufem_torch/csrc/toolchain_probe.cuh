@@ -19,28 +19,77 @@
 // arithmetic builds and is right; at n = 256 it is 33.6 MFLOP and 0.8 MB,
 // far below anything the card can be timed on (bound 0.23 us, bytes).
 //
-// P2 (probe_chain_kernel<XP, MODE>): row stripes of acc @ w are independent,
-// so a block owns a 16-row stripe of acc and of v for the whole chain and no
-// grid-wide barrier is needed; m / 16 blocks (32 at m = 512) fill that many
-// of the 132 SMs, so it is a per-SM co-scheduling probe, not a card-wide one.
-// Separate warps of one block run the two streams: warps 0-7 the products
-// (the stripe in shared memory in the operand format, ping-pong between two
-// buffers, one named barrier of those 8 warps per product, w read from
-// device memory, L2-resident), warps 8-11 the multiply-adds (16 values a
-// thread in registers, fpp n_iter dependent FMAs each).  A warp scheduler
-// dispatches one instruction a cycle from any ready warp, so two streams in
-// separate warps overlap whenever one stalls (the product warps wait on
-// their operand loads and the tensor pipe); interleaved in the same warps
-// they would share each warp's dispatch slots and one stream's barrier.  mma:
-// the FMA warps copy v through; fma: the product warps copy a through; both:
-// each team runs its stream.  The multiply-add constants are kernel
-// arguments so the chain cannot be folded.  Bound at (n_iter, m) = (256,
-// 512): 68.7 GFLOP of products, 0.069 ms in one bf16 pass on the whole card
-// (operations), 0.29 ms on the 32 SMs it runs on; 0.54 GFLOP of FMAs.
+// P2 on a cluster chain (probe_cluster_kernel<XP, MODE, NT>, the default):
+// the chain's 64-row stripes are independent, so a thread-block cluster of C
+// blocks owns one stripe for the whole chain and needs no grid-wide barrier:
+// m / 64 clusters (8 at m = 512), C blocks each (8 in one bf16 pass, 64 SMs;
+// 16 in 1xTF32 and bf16x3, 128 SMs, of which an H100 80GB HBM3 holds 7
+// clusters at once: two waves).  Block r of a cluster owns columns
+// [r m/C, (r+1) m/C) of w and of every product (NT n32 column tiles):
+//   w       its column slice, split on the host with the kernel's rounding
+//           and laid out as wgmma's K-major B operand (hop_b_offset, K = m),
+//           arrives once by one bulk copy and stays in shared memory, so a
+//           product reads nothing from L2
+//   stripe  the (64, m) stripe in the operand format (bf16 hi and, in bf16x3,
+//           lo; f32 in the TF32 arithmetics, split as A is loaded), blocked
+//           by owner (C, parts, 64, m/C) so that a block's slice is one piece,
+//           16-byte chunks XOR-swizzled by the row (conflict-free A loads and
+//           accumulator stores)
+//   product one warpgroup loads A by k step into registers (hop_load_a
+//           splits it where the arithmetic does) and issues the block's
+//           wgmmas (one n32 or n64 a k step and part: the block's m/C
+//           columns) over K = m, one owner's slice a batch, two register sets
+//           in turn so that one batch's A loads while the other's products
+//           run; then writes its (64, m/C) slice in the operand format into
+//           its own slot of the next stripe buffer and sends it to every
+//           peer by bulk copies between shared memories (cp.async.bulk.
+//           shared::cluster), each completing its bytes on the peer's
+//           `full` mbarrier of that buffer, which the peer armed with the
+//           C - 1 slices' bytes as soon as it had waited for the buffer's
+//           last fill (so an expect always comes before the copies it
+//           counts).  With two stripe buffers that is the only wait (a peer
+//           sends product i only after it received product i - 1 from every
+//           block, sent after each had read the buffer i reuses); with one
+//           buffer an `empty` mbarrier, arrived on remotely by every block
+//           once it has read the stripe, comes before a block writes its
+//           slot (then every peer has also received the copy whose source
+//           that slot was).  The last product stores its f32 accumulators
+//           straight to o
+//   FMAs    a second warpgroup runs the multiply-add chain on the block's own
+//           (64, m/C) share of v, 16 NT values a thread held in registers for
+//           the whole chain; in `both` the two warpgroups share nothing but
+//           the SM
+// mma: the multiply-add warpgroup copies v through; fma: the product
+// warpgroup copies a through.  The launcher takes the smallest C (and two
+// stripe buffers where they fit) whose block fits 227 KB by pc_smem: one bf16
+// pass at m = 512 C = 8 (w 64 KB, two stripes 128 KB); 1xTF32 and bf16x3 C =
+// 16 (w 64 KB, one stripe 128 KB); 3xTF32 does not fit at m = 512 (w 128 KB
+// and the stripe 128 KB) and runs the earlier routine there, as does an m
+// that is not a multiple of 64 and of 32 C (toolchain_probe.py's table).
+// Bound at (n_iter, m) = (256, 512): 68.7 GFLOP of products, 0.069 ms in one
+// bf16 pass on the whole card (operations), 0.143 ms on the 64 SMs of the
+// grid at C = 8 and 0.072 on 128; the 255 dependent exchanges between
+// products are the design's latency floor.  On an H100 80GB HBM3 at 700 W
+// the products and the exchange add (0.37 + 0.45 ms of a 0.83 ms chain at
+// C = 8; 1.4 + 4.4 of 5.9 at C = 16: tpufem_torch/lab/probe_sweep.py).
+//
+// P2's earlier routine (probe_chain_kernel<XP, MODE>, routine "earlier"): a
+// block owns a 16-row stripe, m / 16 blocks (32 of 132 SMs at m = 512);
+// warps 0-7 the products by WMMA (the stripe in shared memory in the operand
+// format, ping-pong between two buffers, one named barrier of those 8 warps
+// per product, every fragment of w read from device memory, L2-resident, at
+// every k step), warps 8-11 the multiply-adds (16 values a thread in
+// registers).  The multiply-add constants are kernel arguments so the chain
+// cannot be folded.
+//
+// One host thread (blockDim 1, the g++ build of the tests) plays a block's
+// warps in turn; a cluster's blocks run in one host thread, each product's
+// multiplications for every rank before its sends (hopper.cuh's host forms).
 #pragma once
 
 #include <cmath>
 
+#include "hopper.cuh"
 #include "lab_mma.cuh"
 
 namespace tpufem {
@@ -201,6 +250,400 @@ probe_chain_kernel(const float* __restrict__ a,
       }
     }
   }
+}
+
+// ---- P2 on a cluster chain -----------------------------------------------
+
+constexpr int kPcRows = kHopM;     // rows of a cluster's stripe: one wgmma M
+constexpr int kPcTeam = 128;       // threads of a warpgroup
+constexpr int kPcThreads = 2 * kPcTeam;  // products, then multiply-adds
+constexpr int kPcMaxCluster = 16;  // blocks of a cluster (16: non-portable)
+constexpr int kPcMaxTiles = 2;     // n32 column tiles of a block (NT)
+constexpr long long kPcSmemMax = 227 * 1024;
+
+// bytes of a stored stripe element (bf16 in the bf16 arithmetics, else f32);
+// parts of the stored stripe (bf16x3: hi and lo; the TF32 arithmetics split
+// A as they load it); parts of w (the three-product arithmetics: two)
+__host__ __device__ constexpr bool pc_bf16(int xp) {
+  return xp == kXBF16x3 || xp == kXBF16;
+}
+__host__ __device__ constexpr int pc_elem(int xp) { return pc_bf16(xp) ? 2 : 4; }
+__host__ __device__ constexpr int pc_a_parts(int xp) {
+  return xp == kXBF16x3 ? 2 : 1;
+}
+__host__ __device__ constexpr int pc_b_parts(int xp) {
+  return xp == kXBF16x3 || xp == kX3TF32 ? 2 : 1;
+}
+
+// Byte offsets of a block's shared memory, each 128-byte aligned:
+//   bar     four mbarriers: w's bulk copy, empty (one buffer: every block
+//           has read the stripe), full[2] (a stripe buffer's slices from
+//           the peers have arrived)
+//   w       the block's w slice, its parts one after the other (w_part
+//           bytes each: exactly the host's, so one bulk copy fills it)
+//   stripe  nbuf stripe buffers of stripe_bytes, C owners' slices of slice
+//           bytes each
+struct PcSmem {
+  long long bar, w, w_part, stripe, slice, stripe_bytes, total;
+};
+__host__ __device__ inline PcSmem pc_smem(int xp, int m, int C, int nbuf) {
+  const long long ncb = m / C, e = pc_elem(xp);
+  PcSmem s;
+  s.bar = 0;
+  s.w = 128;
+  s.w_part = ncb * m * e;
+  s.stripe = s.w + lab_align(pc_b_parts(xp) * s.w_part);
+  s.slice = pc_a_parts(xp) * kPcRows * ncb * e;
+  s.stripe_bytes = lab_align(C * s.slice);
+  s.total = s.stripe + nbuf * s.stripe_bytes;
+  return s;
+}
+// The cluster geometries the routine is built for (its shared memory aside):
+// C a power of two from 2 to 16, m a multiple of the stripe and of 32 C, at
+// most kPcMaxTiles n32 tiles a block, one or two stripe buffers.
+__host__ __device__ inline bool pc_geometry(int xp, int m, int C, int nbuf) {
+  return xp != kXF64 && xp >= kX3TF32 && xp <= kXBF16 && C >= 2 &&
+         C <= kPcMaxCluster && (C & (C - 1)) == 0 && m >= kPcRows &&
+         m % kPcRows == 0 && m % (32 * C) == 0 &&
+         m / (32 * C) <= kPcMaxTiles && (nbuf == 1 || nbuf == 2);
+}
+__host__ __device__ inline bool pc_takes(int xp, int m, int C, int nbuf) {
+  return pc_geometry(xp, m, C, nbuf) &&
+         pc_smem(xp, m, C, nbuf).total <= kPcSmemMax;
+}
+
+// A block's place: the stripe of `cluster`, the columns of `rank`.
+struct PcGeo {
+  int m, C, nbuf, cluster, rank;
+};
+
+// Element offset of (row, k) in a stripe buffer (of its hi part: the lo part
+// of an owner's slice is kPcRows * ncb elements on): the owner's slice,
+// then the row, then the column with its 16-byte chunk XOR-swizzled by the
+// row, so the eight rows of an A load or an accumulator store fall in eight
+// bank groups.
+template <int XP, int NT>
+struct PcAt {
+  static constexpr int ncb = 32 * NT, epc = 16 / pc_elem(XP);
+  static constexpr int nch = ncb / epc;  // chunks of a row: 4, 8 or 16
+  static constexpr int slice = pc_a_parts(XP) * kPcRows * ncb;
+  __host__ __device__ static int col(int row, int c) {
+    const int f = nch >= 8 ? (row & 7) : ((row / (8 / nch)) & (nch - 1));
+    return ((c / epc) ^ f) * epc + c % epc;
+  }
+  __host__ __device__ int operator()(int row, int k) const {
+    return k / ncb * slice + row * ncb + col(row, k % ncb);
+  }
+};
+
+// Store the pair (v0, v1) at element e (and e + 1) of a stripe in the
+// operand format: bf16 hi (and lo, lo_el on), or f32.
+template <int XP>
+__device__ __forceinline__ void pc_put2(unsigned char* buf, long long lo_el,
+                                        int e, float v0, float v1) {
+  if constexpr (pc_bf16(XP)) {
+    __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(buf);
+#ifdef __CUDA_ARCH__
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v0, v1);
+    *reinterpret_cast<__nv_bfloat162*>(h + e) = hi;
+    if constexpr (pc_a_parts(XP) == 2)
+      *reinterpret_cast<__nv_bfloat162*>(h + lo_el + e) =
+          __floats2bfloat162_rn(v0 - __bfloat162float(hi.x),
+                                v1 - __bfloat162float(hi.y));
+#else
+    const float v[2] = {v0, v1};
+    for (int i = 0; i < 2; ++i) {
+      const __nv_bfloat16 hi = __float2bfloat16(v[i]);
+      h[e + i] = hi;
+      if constexpr (pc_a_parts(XP) == 2)
+        h[lo_el + e + i] = __float2bfloat16(v[i] - __bfloat162float(hi));
+    }
+#endif
+  } else {
+    float* f = reinterpret_cast<float*>(buf);
+#ifdef __CUDA_ARCH__
+    *reinterpret_cast<float2*>(f + e) = make_float2(v0, v1);
+#else
+    f[e] = v0;
+    f[e + 1] = v1;
+#endif
+  }
+}
+
+// The product warpgroup of a block: its accumulator (64 x 32 NT: one n32 or
+// n64 wgmma a k step and part) and two register sets of A, each a batch of
+// one owner's slice (KS k steps).  One host thread stands for the
+// warpgroup.
+template <int XP, int NT>
+struct PcMma {
+  static constexpr bool BF = pc_bf16(XP);
+  static constexpr bool kSplit = pc_b_parts(XP) == 2;  // three products
+  static constexpr int ncb = 32 * NT;
+  static constexpr int KS = ncb / (BF ? 16 : 8);
+  HopAccN<ncb> acc;
+  HopA big[2][KS], small[2][KS];
+
+  // A of the batch whose first k step is k0 into set S, then its wgmmas
+  // against the block's w (kbytes of k a column; part 1, the small or lo
+  // part, w_part bytes on); the 3xTF32 and bf16x3 products in l2_xring's
+  // order (small*big, big*small, big*big)
+  template <int S>
+  __device__ __forceinline__ void batch(const unsigned char* stripe,
+                                        const unsigned char* wsm,
+                                        long long w_part, int kbytes, int k0,
+                                        int w, int lane) {
+    const PcAt<XP, NT> at;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      if constexpr (BF)
+        hop_load_a_bf16(big[S][ks], small[S][ks], kSplit,
+                        reinterpret_cast<const __nv_bfloat16*>(stripe),
+                        (long long)kPcRows * ncb, at, k0 + ks, w, lane);
+      else
+        hop_load_a<false>(big[S][ks], small[S][ks], kSplit,
+                          reinterpret_cast<const float*>(stripe), at, k0 + ks,
+                          w, lane);
+    }
+    hop_wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int part = kSplit ? 0 : 2; part < 3; ++part)
+        hop_wgmma<BF>(acc, part == 0 ? small[S][ks] : big[S][ks],
+                      wsm + (part == 1 ? w_part : 0), k0 + ks, kbytes);
+    hop_wgmma_commit();
+  }
+  template <int S>
+  __device__ __forceinline__ void keep() {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      hop_keep(big[S][ks]);
+      if constexpr (kSplit) hop_keep(small[S][ks]);
+    }
+  }
+  // acc = stripe @ w over K = m: the owners' slices in pairs of batches,
+  // each set reloaded only once its products are done (C batches, an even
+  // count)
+  __device__ __forceinline__ void multiply(const unsigned char* stripe,
+                                           const unsigned char* wsm,
+                                           long long w_part, int m, int w,
+                                           int lane) {
+    const int kbytes = m * (BF ? 2 : 4);
+    hop_acc_zero(acc);
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) big[1][ks] = small[1][ks] = HopA{};
+    for (int b = 0; b < m / ncb; b += 2) {
+      batch<0>(stripe, wsm, w_part, kbytes, b * KS, w, lane);
+      hop_wgmma_wait<1>();
+      keep<1>();
+      batch<1>(stripe, wsm, w_part, kbytes, (b + 1) * KS, w, lane);
+      hop_wgmma_wait<1>();
+      keep<0>();
+    }
+    hop_wgmma_wait<0>();
+    keep<1>();
+  }
+};
+
+// The block's mbarriers.
+struct PcBars {
+  uint64_t* b;
+  __device__ __forceinline__ uint64_t* wb() const { return b; }
+  __device__ __forceinline__ uint64_t* empty() const { return b + 1; }
+  __device__ __forceinline__ uint64_t* full(int buf) const {
+    return b + 2 + buf;
+  }
+};
+
+// The product warpgroup's start (thread t of nthr): thread 0 initialises the
+// barriers, arms each stripe buffer's `full` for its first fill and asks for
+// the block's w slice (`w`: every block's slices, one after the other); all
+// load the cluster's stripe of a into stripe buffer 0.  A cluster barrier
+// follows before any peer uses the barriers.
+template <int XP, int NT>
+__device__ void pc_start(unsigned char* smem, const PcGeo& g,
+                         const float* __restrict__ a,
+                         const unsigned char* __restrict__ w, int t,
+                         int nthr) {
+  const PcSmem s = pc_smem(XP, g.m, g.C, g.nbuf);
+  const PcBars br{reinterpret_cast<uint64_t*>(smem + s.bar)};
+  if (t == 0) {
+    hop_mbar_init(br.wb(), 1);
+    hop_mbar_init(br.empty(), g.C);
+    hop_mbar_init(br.full(0), 1);
+    hop_mbar_init(br.full(1), 1);
+    hop_mbar_init_fence();
+    // this block's arrival with the peers' bytes, for each fill before the
+    // copies it counts (pc_multiply arms the next fill as soon as a buffer
+    // has been waited for)
+    for (int b = 0; b < g.nbuf; ++b)
+      hop_mbar_expect(br.full(b), (unsigned)((g.C - 1) * s.slice));
+    const long long wbytes = pc_b_parts(XP) * s.w_part;
+    hop_mbar_expect(br.wb(), (unsigned)wbytes);
+    hop_bulk_load(smem + s.w, w + g.rank * wbytes, (unsigned)wbytes, br.wb());
+  }
+  const PcAt<XP, NT> at;
+  const float* a_s = a + (long long)g.cluster * kPcRows * g.m;
+  const long long lo = (long long)kPcRows * at.ncb;
+  for (int i = t; i < kPcRows * g.m; i += nthr) {
+    const int row = i / g.m, k = i % g.m;
+    const float v = a_s[i];
+    if constexpr (pc_bf16(XP)) {
+      __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(smem + s.stripe);
+      const __nv_bfloat16 hi = __float2bfloat16(v);
+      h[at(row, k)] = hi;
+      if constexpr (pc_a_parts(XP) == 2)
+        h[lo + at(row, k)] = __float2bfloat16(v - __bfloat162float(hi));
+    } else {
+      reinterpret_cast<float*>(smem + s.stripe)[at(row, k)] = v;
+    }
+  }
+}
+
+// Product it: its input waited for (w at it = 0, where the stripe of a is
+// the block's own; else every peer's slice of product it - 1, its buffer's
+// next fill then armed by thread 0), then its multiplications.
+template <int XP, int NT>
+__device__ __forceinline__ void pc_multiply(PcMma<XP, NT>& mm,
+                                            unsigned char* smem,
+                                            const PcSmem& s, const PcGeo& g,
+                                            int it, int t, int w, int lane) {
+  const PcBars br{reinterpret_cast<uint64_t*>(smem + s.bar)};
+  const int buf = it % g.nbuf;
+  if (it == 0) {
+    hop_mbar_wait(br.wb(), 0);
+  } else {
+    hop_mbar_wait(br.full(buf), (unsigned)(((it - 1) / g.nbuf) & 1));
+    if (t == 0)
+      hop_mbar_expect(br.full(buf), (unsigned)((g.C - 1) * s.slice));
+  }
+  mm.multiply(smem + s.stripe + buf * s.stripe_bytes, smem + s.w, s.w_part,
+              g.m, w, lane);
+}
+
+// Product it's slice (not the last product) into the next stripe buffer,
+// the block's own slot and every peer's (thread t of the warpgroup).
+template <int XP, int NT>
+__device__ void pc_send(PcMma<XP, NT>& mm, unsigned char* smem,
+                        const PcSmem& s, const PcGeo& g, int it, int t,
+                        int w, int lane) {
+  const PcBars br{reinterpret_cast<uint64_t*>(smem + s.bar)};
+  const int nb = (it + 1) % g.nbuf;
+  unsigned char* own = smem + s.stripe + nb * s.stripe_bytes +
+                       (long long)g.rank * s.slice;
+  if (g.nbuf == 1) {
+    // this block's warps have read the stripe: say so to every block, and
+    // wait until every block has read it, and with it the slice this block
+    // sent last (the source of that copy is the slot written next)
+    lab_sync(1, kPcTeam);
+    if (t == 0)
+      for (int r = 0; r < g.C; ++r)
+        hop_mbar_arrive_remote(hop_mapa(br.empty(), r));
+    hop_mbar_wait_cluster(br.empty(), (unsigned)(it & 1));
+  }
+  using At = PcAt<XP, NT>;
+  hop_acc_pairs(mm.acc, w, lane, [&](int r, int c, float v0, float v1) {
+    pc_put2<XP>(own, (long long)kPcRows * At::ncb,
+                r * At::ncb + At::col(r, c), v0, v1);
+  });
+  hop_fence_async();
+  lab_sync(1, kPcTeam);
+  if (t == 0)
+    for (int r = 0; r < g.C; ++r)
+      if (r != g.rank)
+        hop_bulk_s2s(hop_mapa(own, r), own, (unsigned)s.slice,
+                     hop_mapa(br.full(nb), r));
+}
+
+// The last product's f32 sums to o.
+template <int XP, int NT>
+__device__ void pc_store(const PcMma<XP, NT>& mm, const PcGeo& g,
+                         float* __restrict__ o, int w, int lane) {
+  float* o_s = o + (long long)g.cluster * kPcRows * g.m +
+               (long long)g.rank * (32 * NT);
+  hop_acc_pairs(mm.acc, w, lane, [&](int r, int c, float v0, float v1) {
+    float* d = o_s + (long long)r * g.m + c;
+#ifdef __CUDA_ARCH__
+    *reinterpret_cast<float2*>(d) = make_float2(v0, v1);
+#else
+    d[0] = v0;
+    d[1] = v1;
+#endif
+  });
+}
+
+// A block's own (64, 32 NT) share of an (m, m) array: element i (row-major in
+// the share) at its place in the array.
+template <int NT>
+__device__ __forceinline__ long long pc_share(const PcGeo& g, int i) {
+  return ((long long)g.cluster * kPcRows + i / (32 * NT)) * g.m +
+         (long long)g.rank * (32 * NT) + i % (32 * NT);
+}
+
+// The multiply-add warpgroup (thread t of nthr): steps v <- v c1 + c2 on the
+// block's share of v (16 NT values a thread of 128, in registers), or (mma)
+// v copied through; the product warpgroup's copy of a (fma) likewise.
+template <int NT, bool RUN>
+__device__ void pc_fma(const float* __restrict__ v, float* __restrict__ vo,
+                       const PcGeo& g, int steps, float c1, float c2, int t,
+                       int nthr) {
+  constexpr int R = 16 * NT, n_el = kPcRows * 32 * NT;
+  for (int base = 0; base < n_el; base += nthr * R) {
+    float r[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int i = base + j * nthr + t;
+      r[j] = i < n_el ? v[pc_share<NT>(g, i)] : 0.0f;
+    }
+    if (RUN)
+      for (int s = 0; s < steps; ++s)
+#pragma unroll
+        for (int j = 0; j < R; ++j) r[j] = probe_fma(r[j], c1, c2);
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int i = base + j * nthr + t;
+      if (i < n_el) vo[pc_share<NT>(g, i)] = r[j];
+    }
+  }
+}
+
+// The chains of one (64, m) stripe on a cluster of C blocks (grid m / 64 *
+// C, kPcThreads threads, cluster dimension C).  a, v, o, vo: (m, m) f32;
+// w_op: the blocks' slices of w as toolchain_probe.w_operand lays them out;
+// (m, C, nbuf) a plan pc_takes takes; n_iter >= 1.
+template <int XP, int MODE, int NT>
+__global__ void __launch_bounds__(kPcThreads, 1)
+probe_cluster_kernel(const float* __restrict__ a,
+                     const unsigned char* __restrict__ w_op,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ vo, int m, int C, int nbuf,
+                     int n_iter, int fpp, float c1, float c2) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const PcGeo g{m, C, nbuf, (int)blockIdx.x / C, (int)blockIdx.x % C};
+  const PcSmem s = pc_smem(XP, m, C, nbuf);
+  const int tid = threadIdx.x, role = hop_uniform(tid / kPcTeam);
+  const int t = tid % kPcTeam, w = t / 32, lane = tid % 32;
+  if (role == 0 && MODE != kProbeFma)
+    pc_start<XP, NT>(smem_raw, g, a, w_op, t, kPcTeam);
+  hop_cluster_sync();
+  if (role == 0) {
+    if constexpr (MODE == kProbeFma) {
+      pc_fma<NT, false>(a, o, g, 0, c1, c2, t, kPcTeam);
+    } else {
+      PcMma<XP, NT> mm;
+      for (int it = 0; it < n_iter; ++it) {
+        pc_multiply(mm, smem_raw, s, g, it, t, w, lane);
+        if (it == n_iter - 1)
+          pc_store(mm, g, o, w, lane);
+        else
+          pc_send(mm, smem_raw, s, g, it, t, w, lane);
+      }
+    }
+  } else {
+    pc_fma<NT, MODE != kProbeMma>(v, vo, g, n_iter * fpp, c1, c2, t,
+                                  kPcTeam);
+  }
+  hop_cluster_sync();
 }
 
 }  // namespace tpufem

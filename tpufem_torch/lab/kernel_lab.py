@@ -25,8 +25,9 @@ against the plain version in f64 before it is timed.  Variants:
                           -default (one bf16 product)
     v13 v14 v15 v16       the L2b kernels, z/y first (the same ``LabKernel``):
     vcopy vband           band z, band y, then x as two tensor-core products
-                          (v13; v14 with the next load in flight), one
-                          K-stacked product (v15, same suffixes) or a band
+                          (v13, on L1's ring routine; v14 with the next
+                          load in flight), one K-stacked product (v15, on
+                          L1's persistent ring; same suffixes) or a band
                           (v16); vcopy, vband the all-band schedule's loads
                           and stores, and its band stages, alone (their own
                           functions; v16's routine: TMA boxes, an mbarrier

@@ -22,9 +22,7 @@ or an edit whose text the sources no longer hold, raises.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import re
-import shutil
 import subprocess
 import time
 
@@ -71,18 +69,9 @@ L2_TIMED = (("vx", "highest"), ("vx", "high"), ("vx", "bf16x3"),
 def edited_sources(name: str):
     """{file: text} of the csrc copy of variant ``name``: its edits applied
     (each text must occur exactly once) and the two launchers cut to p = 4."""
-    _, edits, _ = VARIANTS[name]
-    out = {}
-    for path in build.CSRC.iterdir():
-        text = path.read_text()
-        for old, new in edits.get(path.name, []):
-            if text.count(old) != 1:
-                raise RuntimeError(f"{name}: {path.name} holds {old!r} "
-                                   f"{text.count(old)} times, not once")
-            text = text.replace(old, new)
-        if path.name in ("lab_zyfirst.cu", "lab_separable.cu"):
-            text = re.sub(r" +TPUFEM_CASE\([1-35-8]\)\n", "", text)
-        out[path.name] = text
+    out = build.edited_csrc(VARIANTS[name][1], name)
+    for fname in ("lab_zyfirst.cu", "lab_separable.cu"):
+        out[fname] = re.sub(r" +TPUFEM_CASE\([1-35-8]\)\n", "", out[fname])
     return out
 
 
@@ -90,29 +79,9 @@ def build_variant(name: str) -> dict:
     """Build the lab libraries of variant ``name`` (both for "committed",
     else the one it edits); returns {library name: KernelLibrary}."""
     lib_name = VARIANTS[name][0]
-    d = SWEEP_DIR / name
-    shutil.rmtree(d, ignore_errors=True)
-    d.mkdir(parents=True)
-    for fname, text in edited_sources(name).items():
-        (d / fname).write_text(text)
     names = [lib_name] if lib_name else ["lab_zyfirst", "lab_separable"]
-    procs = {n: subprocess.Popen(
-        [build._nvcc(), *build.NVCC_FLAGS, "-o", str(d / f"{n}.so"),
-         str(d / f"{n}.cu")], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for n in names}
-    libs = {}
-    for n, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc {name}/{n}.cu failed:\n{log}")
-        lib = ctypes.CDLL(str(d / f"{n}.so"))
-        for entry, (argtypes, restype) in build._ENTRIES[n].items():
-            fn = getattr(lib, entry)
-            fn.argtypes, fn.restype = argtypes, restype
-        lib.tpufem_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.tpufem_cuda_error_string.restype = ctypes.c_char_p
-        libs[n] = build.KernelLibrary(lib, d / f"{n}.so", 0.0, log)
-    return libs
+    d = SWEEP_DIR / name
+    return build.build_copies({d: (edited_sources(name), names)})[d]
 
 
 def time_variant(libs, variant, prec, u, K1, M1, reps, timed_only):

@@ -16,17 +16,17 @@ in two CUDA routines:
   flight), one K-stacked product (v15) or a band (v16); vcopy and vband are
   the all-band schedule's loads and stores, and its band stages, alone.  A
   block owns a (TZ, TY) sub-tile of the output rows (``tile``; b sets the
-  layouts only).  ``tpufem_torch/csrc/lab_zyfirst.cuh``: v13 and v14 (and
-  v15's earlier schedule, ``routine="tile"``) keep qq = [q1 | q23] over all
-  of x in shared memory for the tensor-core product; v16, vcopy and vband
-  run one routine (a mode argument) that moves its halo'd boxes by TMA
-  through an ``mbarrier`` ring and keeps only a window of q1 and q23, so
-  its sub-tile is (8, 8) where v13's is (2, 8).  v15 runs L1's ring
-  routines (``csrc/lab_resident_ring.cuh``, built into the same library) on
-  L2's layouts: "pipe", v19's persistent, warp-specialised routine (the
-  default in f32 storage), or "ring", v17's (the default in f64), each a
-  (8, 8) sub-tile of 64 rows fed by a TMA ring, its x stage on wgmma over x
-  chunks.
+  layouts only).  ``tpufem_torch/csrc/lab_zyfirst.cuh``: v14 (and v13's
+  and v15's earlier schedule, ``routine="tile"``) keep qq = [q1 | q23] over
+  all of x in shared memory for the tensor-core product; v16, vcopy and
+  vband run one routine (a mode argument) that moves its halo'd boxes by
+  TMA through an ``mbarrier`` ring and keeps only a window of q1 and q23,
+  so its sub-tile is (8, 8) where v14's is (2, 8).  v15 and v13 run L1's
+  ring routines (``csrc/lab_resident_ring.cuh``, built into the same
+  library) on L2's layouts: "pipe", v19's persistent, warp-specialised
+  routine (v15's default in f32 storage), or "ring", v17's (v13's default,
+  and v15's in f64), each a (8, 8) sub-tile of 64 rows fed by a TMA ring,
+  its x stage on wgmma over x chunks.
 
 Layout in: ``(size, size, X)``, ``size = nt b + 2p``, data at ``[p:p+npts,
 p:p+npts, :npts]``, zeros elsewhere, ``X`` = npts rounded up to 16 (the
@@ -114,10 +114,10 @@ ZY_TILES = ((2, 8), (1, 16), (1, 8))
 ZY_RING_TILES = ((8, 8), (4, 16), (4, 8), (2, 8), (1, 16))
 ZY_TWO_BLOCKS = 113 * 1024  # (228 KB - 2 x 1 KB reserved) / 2
 MAX_DEGREE = 8
-# the routines of each L2b variant with a tensor-core stage: v15's on L1's
-# ring (pipe: the persistent lab_ring_pipe_kernel; ring: lab_ring_kernel),
-# "tile" its earlier schedule (zy_kernel)
-ZY_ROUTINES = {"v13": ("tile",), "v14": ("tile",),
+# the routines of each L2b variant with a tensor-core stage: v15's and
+# v13's on L1's ring (pipe: the persistent lab_ring_pipe_kernel; ring:
+# lab_ring_kernel), "tile" their earlier schedule (zy_kernel)
+ZY_ROUTINES = {"v13": ("ring", "tile"), "v14": ("tile",),
                "v15": ("pipe", "ring", "tile")}
 
 
@@ -126,8 +126,12 @@ def zy_routine(variant: str, dtype) -> str | None:
     persistent ring ("pipe"), but in float64 lab_ring_kernel ("ring"),
     whose DMMA x stage is not held to the persistent x stage's 160
     registers (there it spills, and v15 ran 4.62 ms against 3.39 on an
-    H100 80GB HBM3 at 700 W, chip_smoke.py phase 6); v13 and v14 the tile
-    routine; the other variants have no choice (None)."""
+    H100 80GB HBM3 at 700 W, chip_smoke.py phase 6); v13 lab_ring_kernel
+    in every storage dtype (its Pallas schedule loads a tile, then computes
+    it: one block a sub-tile, no load of the next in flight; the ring's
+    chunks take its two products, q1 @ Kx^T and q23 @ Mx^T, in turn, so
+    on the ring it is v15's instruction stream); v14 the tile routine; the
+    other variants have no choice (None)."""
     if variant == "v15" and dtype == torch.float64:
         return "ring"
     return ZY_ROUTINES.get(variant, (None,))[0]
@@ -258,9 +262,9 @@ class LabKernel:
     vband have no tensor-core stage and take "highest" whatever ``prec``
     says.  x_jobs: run the dense x stage of an L2a variant as the first
     version did (an ablation, timed beside the ring).  routine: v15's
-    (``ZY_ROUTINES``: "pipe", "ring" or "tile"; None: ``zy_routine``'s,
-    by the storage dtype); v13 and v14 take "tile" only, the other
-    variants None.
+    and v13's (``ZY_ROUTINES``: v15 "pipe", "ring" or "tile", v13 "ring"
+    or "tile"; None: ``zy_routine``'s, by the storage dtype); v14 takes
+    "tile" only, the other variants None.
     """
 
     launches = {v: 0 for v in VARIANTS}  # per variant; plain excluded
@@ -396,7 +400,7 @@ class LabKernel:
         self._plain_M = [torch.tensor(M, device=device) for M in pm]
 
     def _plan_ring(self, NT: int) -> None:
-        """v15's ring plan on the card: the sub-tile and rings
+        """v13's and v15's ring plan on the card: the sub-tile and rings
         (``choose_ring``, by the routine's own shared-memory count), the
         columns and splits, and the grid: one block a sub-tile and split
         (ring), or the persistent blocks the card holds (pipe)."""
@@ -416,7 +420,7 @@ class LabKernel:
                                                  *self.tile, nu, nb, nq,
                                                  ncols)
             if bps < 1:
-                raise ValueError(f"v15's persistent ring block does not fit "
+                raise ValueError(f"the persistent ring block does not fit "
                                  f"an SM at p={self.p}, X={self.X}")
             props = torch.cuda.get_device_properties(self.device)
             self.grid = min(units, props.multi_processor_count * bps)
@@ -597,10 +601,10 @@ class LabKernel:
 
     def l2_bytes(self) -> int:
         """Bytes one apply of a redesigned routine moves from L2 into shared
-        memory, from its tile: v15's ring (``ring_l2_bytes``: its sub-tiles'
-        halo'd boxes and each one's B, all of the split x operator); the
-        all-band routine's halo'd boxes ((TZ + 2p)(TY + 2p) rows over X
-        columns per sub-tile); the dense x stage's
+        memory, from its tile: v13's and v15's ring (``ring_l2_bytes``: its
+        sub-tiles' halo'd boxes and each one's B, all of the split x
+        operator); the all-band routine's halo'd boxes ((TZ + 2p)(TY + 2p)
+        rows over X columns per sub-tile); the dense x stage's
         ring (per block and pass of ZC z rows: the tile's L halo'd rows over
         X columns and, for each of the block's x blocks of XC columns (vx:
         two; else one), the B operand's 2 XC rows over X, every part)."""
@@ -613,7 +617,7 @@ class LabKernel:
         if self.zy:
             if self.variant not in NO_MMA or self.tile is None:
                 raise ValueError("l2_bytes: vcopy, vband, v16 with a sub-tile,"
-                                 " or v15 on the ring")
+                                 " or v13 and v15 on the ring")
             tz, ty = self.tile
             return (-(-NT // tz) * -(-NT // ty) * (tz + 2 * p) * (ty + 2 * p)
                     * X * item)
@@ -628,18 +632,19 @@ class LabKernel:
                 * per_pass)
 
     def _ring_plan(self):
-        """(tile, nsplit, kn) of v15's ring: the instance's sub-tile, or on
-        the CPU (no chooser) the first; its column splits; the K x N of a
-        unit's x product (2X by the split's columns)."""
+        """(tile, nsplit, kn) of v13's and v15's ring: the instance's
+        sub-tile, or on the CPU (no chooser) the first; its column splits;
+        the K x N of a unit's x product (2X by the split's columns)."""
         ncols, nsplit = ring_columns(self.xp, self.X)
         return self.tile or RING_TILES[0], nsplit, 2 * self.X * ncols
 
     def design_bound(self) -> tuple[float, str]:
         """(ms, "bytes" or "operations"): the least time an H100 could take
-        for what this design does (v15 on the ring: ``ring_design_bound``):
-        the input layout read and the output layout written once; every
-        dense stage's products over its padded rows (LP, MB), every pass of
-        its split, on tensor cores; band stages on CUDA cores."""
+        for what this design does (v13 and v15 on the ring:
+        ``ring_design_bound``): the input layout read and the output layout
+        written once; every dense stage's products over its padded rows
+        (LP, MB), every pass of its split, on tensor cores; band stages on
+        CUDA cores."""
         nt, b, X, p = self.nt, self.b, self.X, self.p
         L, LP, MB = self.L, round16(self.L), round16(b)
         item = torch.empty((), dtype=self.dt).element_size()

@@ -24,6 +24,7 @@ import functools
 import hashlib
 import os
 import re
+import shutil
 import subprocess
 import time
 from pathlib import Path
@@ -57,9 +58,10 @@ SOURCES = {
                     ("band_ring.cuh", "common.cuh", "hopper.cuh",
                      "lab_mma.cuh", "lab_resident.cuh",
                      "lab_resident_ring.cuh", "lab_zyfirst.cuh")),
-    # the toolchain probes (P1, P2)
+    # the toolchain probes (P1, P2: the cluster chain and its earlier
+    # routine)
     "toolchain_probe": ("toolchain_probe.cu",
-                        ("lab_mma.cuh", "toolchain_probe.cuh")),
+                        ("hopper.cuh", "lab_mma.cuh", "toolchain_probe.cuh")),
 }
 # --split-compile=0 spreads nvcc's optimisation passes over every core of
 # the host (the lab libraries' instances are the longest builds)
@@ -103,7 +105,10 @@ _ENTRIES = {
     "toolchain_probe": {
         "tpufem_probe_matmul": ([_I] * 2 + [_P] * 4, _I),
         "tpufem_probe_chain": ([_I] * 5 + [_F] * 2 + [_P] * 2 + [_LL]
-                               + [_P] * 4, _I)},
+                               + [_P] * 4, _I),
+        "tpufem_probe_cluster_active": ([_I] * 5, _I),
+        "tpufem_probe_cluster_chain": ([_I] * 7 + [_F] * 2 + [_P] * 6, _I),
+        "tpufem_probe_cluster_smem": ([_I] * 4, _LL)},
 }
 
 
@@ -161,6 +166,47 @@ def _digest(source: str, headers: tuple[str, ...]) -> str:
     return h.hexdigest()[:16]
 
 
+def _compile(jobs: dict) -> dict[object, tuple[str, float]]:
+    """Run one ``nvcc`` for each ``{key: (source .cu, output .so)}``, all
+    at the same time; {key: (compiler log, seconds)}.  Raises if one fails,
+    and leaves no compiler running when a build or a wait fails."""
+    if not jobs:
+        return {}
+    nvcc = _nvcc()
+    procs, done = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for key, (src, out) in jobs.items():
+            Path(out).parent.mkdir(parents=True, exist_ok=True)
+            procs[key] = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(out), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for key, proc in procs.items():
+            done[key] = (proc.communicate()[0], time.perf_counter() - t0)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for key, proc in procs.items():
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc {jobs[key][0]} failed "
+                               f"({proc.returncode}):\n{done[key][0]}")
+    return done
+
+
+def _bind(name: str, path: Path, seconds: float, log: str) -> KernelLibrary:
+    """Load the library ``path`` built from ``SOURCES[name]``'s source and
+    give its C entries their ctypes signatures."""
+    lib = ctypes.CDLL(str(path))
+    for entry, (argtypes, restype) in _ENTRIES[name].items():
+        fn = getattr(lib, entry)
+        fn.argtypes, fn.restype = argtypes, restype
+    lib.tpufem_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.tpufem_cuda_error_string.restype = ctypes.c_char_p
+    return KernelLibrary(lib, path, seconds, log)
+
+
 @functools.cache
 def load_kernels() -> dict[str, KernelLibrary]:
     """Build (if needed) and load every kernel library, by name of
@@ -170,41 +216,51 @@ def load_kernels() -> dict[str, KernelLibrary]:
         raise RuntimeError("the tpufem_torch kernels need a CUDA device")
     outs = {name: BUILD_DIR / f"tpufem_torch_{name}_{_digest(*src)}.so"
             for name, src in SOURCES.items()}
-    todo = [name for name, out in outs.items() if not out.exists()]
-    nvcc = _nvcc() if todo else None
-    builds, logs, seconds = {}, {}, {}
-    t0 = time.perf_counter()
-    try:
-        for name in todo:
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = outs[name].with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                   str(CSRC / SOURCES[name][0])]
-            builds[name] = (tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True))
-        for name, (tmp, proc) in builds.items():
-            logs[name] = proc.communicate()[0]
-            seconds[name] = time.perf_counter() - t0
-    finally:  # leave no compiler running when a build or a wait fails
-        for _, proc in builds.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    for name, (tmp, proc) in builds.items():
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc {SOURCES[name][0]} failed "
-                               f"({proc.returncode}):\n{logs[name]}")
-        # atomic: concurrent builders never see half a library
+    # built under a name of this process's, then moved into place
+    # atomically: concurrent builders never see half a library
+    tmps = {name: out.with_suffix(f".{os.getpid()}.tmp")
+            for name, out in outs.items() if not out.exists()}
+    done = _compile({name: (CSRC / SOURCES[name][0], tmp)
+                     for name, tmp in tmps.items()})
+    for name, tmp in tmps.items():
         os.replace(tmp, outs[name])
     libs = {}
     for name, out in outs.items():
-        lib = ctypes.CDLL(str(out))
-        for entry, (argtypes, restype) in _ENTRIES[name].items():
-            fn = getattr(lib, entry)
-            fn.argtypes, fn.restype = argtypes, restype
-        lib.tpufem_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.tpufem_cuda_error_string.restype = ctypes.c_char_p
-        libs[name] = KernelLibrary(lib, out, seconds.get(name, 0.0),
-                                   logs.get(name, ""))
+        log, seconds = done.get(name, ("", 0.0))
+        libs[name] = _bind(name, out, seconds, log)
     return libs
+
+
+def edited_csrc(edits: dict, what: str) -> dict[str, str]:
+    """{file: text} of every source under ``CSRC`` with ``edits`` ({file:
+    [(text, replacement), ...]}) applied; each text must occur exactly
+    once in its file, else it raises, naming ``what``."""
+    out = {}
+    for path in CSRC.iterdir():
+        text = path.read_text()
+        for old, new in edits.get(path.name, []):
+            if text.count(old) != 1:
+                raise RuntimeError(f"{what}: {path.name} holds {old!r} "
+                                   f"{text.count(old)} times, not once")
+            text = text.replace(old, new)
+        out[path.name] = text
+    return out
+
+
+def build_copies(copies: dict) -> dict[Path, dict[str, KernelLibrary]]:
+    """Build edited copies of the sources, a sweep's variants, all at the
+    same time: ``{directory (Path): ({file: text}, library names)}`` writes
+    each directory afresh and builds its libraries (names of ``SOURCES``) there;
+    returns {directory: {name: KernelLibrary}}."""
+    jobs = {}
+    for d, (sources, names) in copies.items():
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+        for fname, text in sources.items():
+            (d / fname).write_text(text)
+        for name in names:
+            jobs[d, name] = (d / SOURCES[name][0], d / f"{name}.so")
+    done = _compile(jobs)
+    return {d: {name: _bind(name, d / f"{name}.so", 0.0, done[d, name][0])
+                for name in names}
+            for d, (_, names) in copies.items()}
