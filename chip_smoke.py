@@ -322,8 +322,9 @@ LAB_DRAWS = 3
 LAB_KERNELS = {"v17": ("dense x stage on the TMA ring, wgmma",
                        "scripts/kernel_lab.py:581",
                        "tpufem_torch/csrc/lab_resident_ring.cuh"),
-               "v18": ("fused bands", "scripts/kernel_lab.py:1090",
-                       "tpufem_torch/csrc/lab_resident.cuh"),
+               "v18": ("fused bands: v17's ring routine",
+                       "scripts/kernel_lab.py:1090",
+                       "tpufem_torch/csrc/lab_resident_ring.cuh"),
                "v19": ("warp-specialised, persistent",
                        "scripts/kernel_lab.py:922",
                        "tpufem_torch/csrc/lab_resident_ring.cuh"),
@@ -332,7 +333,8 @@ LAB_KERNELS = {"v17": ("dense x stage on the TMA ring, wgmma",
                        "tpufem_torch/csrc/lab_resident_ring.cuh")}
 # the L2a kernels: (what the variant is, the Pallas kernel it replaces)
 L2_KERNELS = {"v2": ("dense x, y, z", "scripts/kernel_lab.py:47"),
-              "v3": ("band x, dense y/z", "scripts/kernel_lab.py:78"),
+              "v3": ("band x on a TMA ring, wgmma y/z",
+                     "scripts/kernel_lab.py:78"),
               "v6": ("v2's kernel", "scripts/kernel_lab.py:106"),
               "v8": ("transposed staging", "scripts/kernel_lab.py:132"),
               "v9": ("bf16x3", "scripts/kernel_lab.py:212"),
@@ -349,6 +351,10 @@ L2_KERNELS.update({
     "v16": ("all bands", "scripts/kernel_lab.py:1347"),
     "vcopy": ("loads and stores alone", "scripts/kernel_lab.py:500"),
     "vband": ("band stages alone", "scripts/kernel_lab.py:525")})
+# the library and the source of each L2 kernel's default routine
+L2_SOURCES = {"v3": ("lab_separable_ring", "lab_separable_ring.cuh"),
+              "v13": ("lab_zyfirst", "lab_resident_ring.cuh"),
+              "v15": ("lab_zyfirst", "lab_resident_ring.cuh")}
 # storage and precision of each L2 mode
 L2_MODES = {"f64": (torch.float64, "highest"),
             "f32": (torch.float32, "highest"),
@@ -671,26 +677,28 @@ def check_terms(terms, p, mode, rng, dirichlet=False, passes=False,
     return tag, rel, abs_err
 
 
-def ring_ptxas_summary(log: str) -> str:
-    """Per ring kernel of the lab (lab_ring_kernel, lab_ring_pipe_kernel,
-    lab_window_kernel) and x-stage precision: the registers and the spill
-    stores of its instances, and the count of ptxas's wgmma serialisation
-    warnings, from a build's ptxas log (none where the library came from an
-    earlier build)."""
+def ring_ptxas_summary(log: str, key: str = "lab_",
+                       kernels: str = r"lab_(?:ring|window)\w*kernel") -> str:
+    """Per ring kernel of the lab (names matching ``kernels``, in mangled
+    names holding ``key``: lab_ring_kernel, lab_ring_pipe_kernel,
+    lab_window_kernel by default; L2's v3: l2_bx_kernel) and precision:
+    the registers and the spill stores of its instances, and the count of
+    ptxas's wgmma serialisation warnings, from a build's ptxas log (none
+    where the library came from an earlier build)."""
     from tpufem_torch.utils.build import ptxas_lines
 
     if not log.strip():
         return "no ptxas log (cached build)"
     per, warn = {}, 0
-    for line in ptxas_lines(log, "lab_"):
-        m = re.search(r"(lab_(?:ring|window)\w*kernel)ILi(\d)ELi(\d)E.*: "
+    for line in ptxas_lines(log, key):
+        m = re.search(rf"({kernels})ILi(\d)ELi(\d)E.*: "
                       r"(\d+) registers, (\d+) bytes", line)
         if m:
-            key = (m.group(1), int(m.group(3)))
+            inst = (m.group(1), int(m.group(3)))  # kernel, precision
             regs, spill = int(m.group(4)), int(m.group(5))
-            r0, r1, s1, ns, n = per.get(key, (regs, regs, 0, 0, 0))
-            per[key] = (min(r0, regs), max(r1, regs), max(s1, spill),
-                        ns + (spill > 0), n + 1)
+            r0, r1, s1, ns, n = per.get(inst, (regs, regs, 0, 0, 0))
+            per[inst] = (min(r0, regs), max(r1, regs), max(s1, spill),
+                         ns + (spill > 0), n + 1)
         elif "wgmma" in line:
             warn += 1
     xp = {0: "3xTF32", 1: "1xTF32", 2: "bf16x3", 3: "f64", 4: "bf16"}
@@ -2890,6 +2898,9 @@ def main() -> int:
     say("2 build", "lab_resident_ring in lab_zyfirst (v15 and v13 on L2's "
         "layouts: lab_ring_pipe_kernel, and lab_ring_kernel): "
         + ring_ptxas_summary(libs["lab_zyfirst"].compiler_log))
+    say("2 build", "v3's ring in lab_separable_ring (l2_bx_kernel, one "
+        "block an SM, 288 threads): " + ring_ptxas_summary(
+            libs["lab_separable_ring"].compiler_log, "l2_bx", "l2_bx_kernel"))
     say("2 build", "P2's cluster chain in toolchain_probe "
         "(probe_cluster_kernel, three modes an instance): "
         + cluster_ptxas_summary(libs["toolchain_probe"].compiler_log))
@@ -3309,8 +3320,29 @@ def main() -> int:
             rels.append(line)
         say("5 lab", f"flagship {tag.split(' ', 2)[2]}: {kern} max rel err "
             + ", ".join(rels) + f"; f32 max abs err {lab_abs[kern]:.3e}")
-    # v17 and v19's earlier schedule (the tile routine, routine="tile") in
-    # every mode, one input a degree and the flagship
+    # v18 on the ring is v17's launch: bit for bit v17 there in every mode,
+    # one input a degree and the flagship
+    def v18_is_v17(p, n, h, u):
+        for mode in LAB_TOL:
+            ks = [lab_kernel(kern, mode, n * p + 1, p, n, h)
+                  for kern in ("v17", "v18")]
+            gp = ks[0].pad(u.to(ks[0].dt))
+            if ks[1].routine != "ring" or not same_bits(ks[0].raw(gp),
+                                                        ks[1].raw(gp)):
+                raise RuntimeError(f"v18 {mode} p={p} npts={n * p + 1} "
+                                   f"({ks[1].routine}): not v17's ring bit "
+                                   f"for bit")
+
+    for p in (1, 2, 4, 7, 8):
+        n = max(2, 24 // p)
+        v18_is_v17(p, n, [1.0 / n, 1.3 / n, 0.7 / n],
+                   torch.tensor(rng.standard_normal((n * p + 1)**3),
+                                device=dev))
+    v18_is_v17(4, 64, [1.0 / 64] * 3, u257)
+    say("5 lab", "v18 on the ring (lab_ring_kernel) bit for bit v17 there "
+        f"in {', '.join(LAB_TOL)} at p = 1, 2, 4, 7, 8 and the flagship")
+    # the earlier schedule of v17-v20 (the tile routine, routine="tile"; v18's
+    # with fused bands) in every mode, one input a degree and the flagship
     from tpufem_torch.lab.resident_lab import RING_KERNELS
 
     for p in (1, 2, 4, 7, 8):
@@ -3393,22 +3425,23 @@ def main() -> int:
                  for v in NO_MMA]
         say("5 lab", f"sub-tile {tile}, ragged rows: max rel err "
             + ", ".join(rels))
-    # v15's and v13's earlier schedule (zy_kernel, routine="tile") and v15's
-    # other ring routine (f32 storage: lab_ring_kernel; f64: the persistent
-    # one) in every precision, one input a degree and the flagship (v13's
-    # default, lab_ring_kernel, is checked above with every variant)
-    from tpufem_torch.lab.separable_lab import zy_routine
+    # v15's and v13's earlier schedule (zy_kernel, routine="tile"), v3's
+    # (l2_kernel, routine="tile") and v15's other ring routine (f32
+    # storage: lab_ring_kernel; f64: the persistent one) in every
+    # precision, one input a degree and the flagship (v13's and v3's
+    # defaults are checked above with every variant)
+    from tpufem_torch.lab.separable_lab import default_routine
 
     def zy_other(v, p, n, h, u):
         rels = []
         for mode, (dt, _) in L2_MODES.items():
-            other = ("pipe" if zy_routine(v, dt) == "ring" else "ring",) \
+            other = ("pipe" if default_routine(v, dt) == "ring" else "ring",) \
                 if v == "v15" else ()
             rels += [f"{r} " + l2_case(v, mode, p, n, h, u, routine=r)[2]
                      for r in ("tile",) + other]
         return rels
 
-    for v in ("v15", "v13"):
+    for v in ("v15", "v13", "v3"):
         for p in (1, 2, 4, 7, 8):
             n = max(2, 24 // p)
             u = torch.tensor(rng.standard_normal((n * p + 1)**3), device=dev)
@@ -3826,6 +3859,27 @@ def main() -> int:
             f"an apply (sub-tile {k.tile}, rings {k.ring}, grid {k.grid}, "
             f"{k.smem} B a block)")
         del gp, ks
+    # v3 on its ring (l2_bx_kernel, its default), in turns with its earlier
+    # schedule (l2_kernel: earlier, ring, ring, earlier) in each precision,
+    # each on its own layout (b = 16 and the tile chooser's b) of the same
+    # input, beside the ring's design bound and what it moves from L2
+    for mode, (dt, prec) in L2_MODES.items():
+        kr, kt = (LabKernel("v3", 257, 4, K1l, M1l, [1.0 / 64] * 3,
+                            prec=prec, dtype=dt, device="cuda", routine=r)
+                  for r in ("ring", "tile"))
+        gr, gt = kr.pad(u257.to(dt)), kt.pad(u257.to(dt))
+        t = [raw_ms(k, g) for k, g in ((kt, gt), (kr, gr), (kr, gr),
+                                       (kt, gt))]
+        say("6 throughput", f"v3 {mode} at the flagship, ms per raw apply in "
+            f"turns: earlier {t[0]:.4f}, ring {t[1]:.4f}, ring {t[2]:.4f}, "
+            f"earlier {t[3]:.4f} (ring / earlier "
+            f"{(t[1] + t[2]) / (t[0] + t[3]):.3f}); the ring's design bound "
+            f"{kr.design_bound()[0]:.4f} ms ({kr.design_bound()[1]}), "
+            f"{kr.l2_bytes() / 1e9:.3f} GB from L2 an apply (b={kr.b}, u "
+            f"slots {kr.ring[0]}, {kr.grid} blocks, {kr.smem} B a block); "
+            f"earlier: b={kt.b}, design bound {kt.design_bound()[0]:.4f} ms "
+            f"({kt.design_bound()[1]}), {kt.l2_bytes() / 1e9:.3f} GB")
+        del gr, gt, kr, kt
     # the ring's mm ablation (qq = [u | u]: out = [u | u] @ [Kx^T; Mx^T])
     # beside one strict-f32 torch.matmul of the layout's data rows, timed
     # only: the port never calls it
@@ -4236,6 +4290,10 @@ def main() -> int:
         f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.1f}"
         f" GiB")
     say("done", f"{time.perf_counter() - t_start:.1f} s; {smi}")
+    l2_src = {v: L2_SOURCES.get(v, ("lab_zyfirst", "lab_zyfirst.cuh")
+                                if v in ZYFIRST else ("lab_separable",
+                                                      "lab_separable.cuh"))
+              for v in L2V}
     records = [
         ("K2", "K2 separable_apply (flat vmult, z-march)",
          "tpufem_torch/csrc/separable_apply.cuh",
@@ -4252,13 +4310,10 @@ def main() -> int:
     ] + [(kern, f"{kern} {Path(LAB_KERNELS[kern][2]).stem} "
           f"({LAB_KERNELS[kern][0]}, 3xTF32)", LAB_KERNELS[kern][2],
           LAB_KERNELS[kern][1], lab_abs[kern], None) for kern in KERNELS] + [
-        (f"L2 {v}", f"{v} {'lab_zyfirst' if v in ZYFIRST else 'lab_separable'}"
-         f" ({L2_KERNELS[v][0]}, "
+        (f"L2 {v}", f"{v} {l2_src[v][0]} ({L2_KERNELS[v][0]}, "
          f"{'bf16x3' if v == 'v9' else 'f32' if v in NO_MMA else '3xTF32'})",
-         "tpufem_torch/csrc/lab_resident_ring.cuh" if v in ("v13", "v15")
-         else "tpufem_torch/csrc/lab_zyfirst.cuh" if v in ZYFIRST
-         else "tpufem_torch/csrc/lab_separable.cuh", L2_KERNELS[v][1],
-         l2_abs[v], l2_library_ms.get(v)) for v in L2V] + [
+         f"tpufem_torch/csrc/{l2_src[v][1]}", L2_KERNELS[v][1], l2_abs[v],
+         l2_library_ms.get(v)) for v in L2V] + [
         ("P1", "P1 toolchain_probe (bf16x3 product)",
          "tpufem_torch/csrc/toolchain_probe.cuh",
          "scripts/toolchain_probe.py:36", abs_err["P1"], p1_library_ms),

@@ -37,6 +37,7 @@ from tpufem_torch.ops import kernel_separable as tks
 from tpufem_torch.ops import kernel_terms as tkt
 from tpufem_torch.ops.matrix_free import MatrixFree
 from tpufem_torch.utils.config import FemConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 TIMINGS = {"s_per_apply", "gdofs_per_s", "ts", "tiers_gdofs"}

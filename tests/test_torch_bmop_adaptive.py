@@ -27,6 +27,7 @@ import torch
 from tpufem.apps import bmop as j_bmop
 from tpufem_torch.apps import bmop
 from tpufem_torch.solvers import chebyshev as t_cheb
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 SHAPE = (3, 2, 2, 1)  # dim, p, refine, steps

@@ -34,6 +34,7 @@ from tpufem_torch.ops.boxes import BoxLaplaceOperator
 from tpufem_torch.solvers import box_multigrid as t_bmg
 from tpufem_torch.solvers import chebyshev as t_cheb
 from tpufem_torch.solvers.box_multigrid import BoxMultigrid
+from torch_threads import one_torch_thread  # noqa: F401
 
 _JNP = {torch.float64: jnp.float64, torch.float32: jnp.float32,
         torch.bfloat16: jnp.bfloat16}

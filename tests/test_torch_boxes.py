@@ -34,6 +34,7 @@ from tpufem_torch.ops.boxes import BoxLaplaceOperator
 from tpufem_torch.ops.matrix_free import MatrixFree
 from tpufem_torch.solvers.cg import cg_solve
 from tpufem_torch.utils.config import FemConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 COEF = lambda x: 1.0 + 10.0 * np.sum(x**2, axis=1)  # test_boxes.py's
 

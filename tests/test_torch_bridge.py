@@ -15,6 +15,7 @@ from tpufem.utils.config import FemConfig
 from tpufem_torch.bridge import matrix_free_from_arrays
 from tpufem_torch.operators.laplace import LaplaceOperator
 from tpufem_torch.solvers.cg import cg_solve
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("dim,p,r", [(2, 3, 3), (3, 2, 2)])

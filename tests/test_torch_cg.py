@@ -12,6 +12,7 @@ from tpufem.fem.mesh import Mesh
 from tpufem.solvers.cg import cg_solve as j_cg_solve
 from tpufem.solvers.cg import make_jacobi as j_make_jacobi
 from tpufem_torch.solvers.cg import cg_solve, make_jacobi
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _system(dim=2, p=2, r=3, seed=4):

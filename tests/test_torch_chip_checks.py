@@ -25,6 +25,7 @@ from tpufem_torch.apps import (
     plot_benchmarks,
     run_sweep,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 TPU_GOLDEN = REPO / "tests" / "goldens" / "chip_checks_golden.json"

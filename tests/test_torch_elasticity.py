@@ -36,6 +36,7 @@ from tpufem_torch.ops.matrix_free import MatrixFree
 from tpufem_torch.solvers import chebyshev as t_cheb
 from tpufem_torch.solvers.vector_multigrid import VectorMultigrid
 from tpufem_torch.utils.config import FemConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 RNG = np.random.default_rng(31)
 MU, LAM = 0.8, 1.7

@@ -21,6 +21,7 @@ from tpufem_torch.fem import mesh as t_mesh
 from tpufem_torch.fem import quadrature as t_quad
 from tpufem_torch.fem import shapes as t_shapes
 from tpufem_torch.utils import config as t_config
+from torch_threads import one_torch_thread  # noqa: F401
 
 MESHES = {
     "cube2d": lambda M, r: M.hyper_cube(2, r),

@@ -33,6 +33,7 @@ from tpufem_torch.fem.mesh import Mesh
 from tpufem_torch.operators import generic as tg
 from tpufem_torch.ops.matrix_free import MatrixFree
 from tpufem_torch.utils.config import FemConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 RNG = np.random.default_rng(9)
 

@@ -27,6 +27,7 @@ from tpufem_torch.operators.laplace import LaplaceOperator
 from tpufem_torch.ops.diagonal import diagonal_device, diagonal_device_hanging
 from tpufem_torch.ops.matrix_free import MatrixFree, transpose_table
 from tpufem_torch.utils.config import FemConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def rel_err(a, b):

@@ -10,6 +10,7 @@ import pytest
 
 from tpufem.apps.heat import run_heat as j_run_heat
 from tpufem_torch.apps import heat as theat
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def run_heat(**kw):

@@ -12,6 +12,7 @@ import torch
 
 import tpufem_torch
 from tpufem_torch.apps import poisson as tpoisson
+from torch_threads import one_torch_thread  # noqa: F401
 
 PKG = Path(tpufem_torch.__file__).resolve().parent
 REPO = PKG.parent

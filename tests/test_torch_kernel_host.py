@@ -39,6 +39,7 @@ from tpufem_torch.ops.separable import (
 )
 from tpufem_torch.utils import build
 from tpufem_torch.utils.build import CSRC
+from torch_threads import one_torch_thread  # noqa: F401
 
 STUBS = r"""
 #include <cstdint>

@@ -34,6 +34,7 @@ from tpufem_torch.solvers.bicgstab import bicgstab_solve
 from tpufem_torch.solvers.cg import cg_solve, make_jacobi
 from tpufem_torch.solvers.gmres import gmres_solve
 from tpufem_torch.utils.config import FemConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 RNG = np.random.default_rng(37)
 

@@ -1,9 +1,10 @@
 """The K1 kernel lab (L1: v17-v20) on the CPU: its plain version against
 tpufem's separable apply, its layout and tables, its entry point's refusal
 without a card, and g++ builds of the CUDA routines against the plain
-version: the tile routine's (tpufem_torch/csrc/lab_resident.cuh; v18 and the
-earlier schedule of v17, v19 and v20) and the ring routines of v17, v19 and
-v20 (lab_resident_ring.cuh; v20's x stage windowed).
+version: the tile routine's (tpufem_torch/csrc/lab_resident.cuh; the
+earlier schedule of v17-v20) and the ring routines of v17, v19 and v20
+(lab_resident_ring.cuh; v20's x stage windowed), with v18 on the ring bit
+for bit v17's launch.
 
 The host builds run one thread per block, as in test_torch_kernel_host.py,
 with a stub of the WMMA calls the routines use: a fragment holds its whole
@@ -28,6 +29,7 @@ from tpufem.ops import separable as jsep
 from tpufem_torch.lab import kernel_lab, resident_lab
 from tpufem_torch.lab.resident_lab import V17Kernel
 from tpufem_torch.ops.separable import global_1d_matrices
+from torch_threads import one_torch_thread  # noqa: F401
 
 WMMA_STUBS = r"""
 #include <type_traits>
@@ -675,31 +677,34 @@ def _ring_host(lib, k, tile=None, grid=None, ncols=None):
         xb = resident_lab.ring_operand(xkm, k.xp, k.X, nc, nsplit) \
             if xstage else None
     units = nsplit * (-(-k.npts // tz)) * (-(-k.npts // ty))
+    variant = resident_lab.RING_VARIANT[k.kern_name]
 
     def host(gp):
         y = torch.full_like(gp, float("nan"))  # every point must be written
         tickets = torch.zeros(1, dtype=torch.int64)
         rc = lib.host_lab_ring_apply(
-            int(k.kern_name[1:]), k.xp, k.p, resident_lab.MODES[k.mode],
+            variant, k.xp, k.p, resident_lab.MODES[k.mode],
             k.npts, k.sz, k.sy, k.X, tz, ty, nu, nb, nq, nc, nsplit,
             grid or units, gp.data_ptr(), y.data_ptr(), k.tables.data_ptr(),
             None if xb is None else xb.data_ptr(), tickets.data_ptr())
         assert rc == 0, "kernel wrote beyond its shared memory"
-        if k.kern_name != "v17":  # each block took one ticket past the end
+        if variant != 17:  # each block took one ticket past the end
             assert int(tickets) == units + (grid or units)
         return y
 
     return host
 
 
+# the three ring routines (v18 runs v17's: test_v18_ring_is_v17_bitwise)
+RING_ROUTINES = ("v17", "v19", "v20")
 RING_CASES = (
-    [(kern, p, "f64", None, None, None) for kern in resident_lab.RING_KERNELS
+    [(kern, p, "f64", None, None, None) for kern in RING_ROUTINES
      for p in (1, 2, 4, 7, 8)]
     + [(kern, p, mode, None, None, None)
-       for kern in resident_lab.RING_KERNELS for p in (4, 7)
+       for kern in RING_ROUTINES for p in (4, 7)
        for mode in ("f32", "f32h", "bf16")]
     + [(kern, 2, mode, None, None, None)
-       for kern in resident_lab.RING_KERNELS
+       for kern in RING_ROUTINES
        for mode in ("copy", "bands", "mm")]
     # ragged sub-tiles in z and in y; v19 with fewer persistent blocks than
     # units and with more (blocks with none); X = 48 in two column splits,
@@ -902,18 +907,39 @@ def test_ring_columns_by_mode():
 
 
 def test_ring_routine_selection():
-    """v17, v19 and v20 run the ring routines unless the tile routine is
-    asked for; v18 has only the tile routine."""
+    """Every L1 kernel runs a ring routine unless the tile routine is asked
+    for (v18 v17's launch, its fused bands being the ring's own); another
+    routine name is refused."""
     K1, M1 = global_1d_matrices(2, 2, 3)
+    assert resident_lab.RING_KERNELS == resident_lab.KERNELS
+    assert resident_lab.RING_VARIANT == {"v17": 17, "v18": 17, "v19": 19,
+                                         "v20": 20}
     for kern in resident_lab.KERNELS:
         k = V17Kernel(5, 2, K1, M1, [0.5] * 3, kern_name=kern, device="cpu")
-        assert k.routine == ("ring" if kern in ("v17", "v19", "v20")
-                             else "tile")
+        assert k.routine == "ring"
         assert V17Kernel(5, 2, K1, M1, [0.5] * 3, kern_name=kern,
                          device="cpu", routine="tile").routine == "tile"
     with pytest.raises(ValueError, match="routine"):
         V17Kernel(5, 2, K1, M1, [0.5] * 3, kern_name="v18", device="cpu",
-                  routine="ring")
+                  routine="pipe")
+
+
+@pytest.mark.parametrize("mode,p", [("f64", 2), ("f32", 4), ("f32h", 4),
+                                    ("bf16", 4), ("f64", 7)])
+def test_v18_ring_is_v17_bitwise(ring_lib, mode, p):
+    """v18 on the ring (its default) is v17 on the ring bit for bit, in each
+    x-stage arithmetic, on the same input: the same launch with the same
+    plan, on a ragged layout (npts 9 and 15 against sub-tiles of 8)."""
+    n = 2
+    npts = n * p + 1
+    ks = {kern: _kernel(npts, p, mode, kern, n) for kern in ("v17", "v18")}
+    assert ks["v18"].routine == ks["v17"].routine == "ring"
+    gp = ks["v17"].pad(torch.as_tensor(np.random.default_rng(9 + p)
+                                       .standard_normal(npts**3)))
+    y = {kern: _ring_host(ring_lib, k)(gp) for kern, k in ks.items()}
+    bits = torch.int32 if gp.dtype == torch.float32 else torch.int64
+    assert torch.equal(y["v18"].view(bits), y["v17"].view(bits))
+    assert torch.isfinite(y["v18"]).all() and y["v18"].abs().max() > 0
 
 
 @pytest.mark.parametrize("xp", [resident_lab.X3TF32, resident_lab.XF64])

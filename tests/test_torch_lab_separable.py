@@ -1,9 +1,13 @@
 """The K2 kernel lab's x-first half (L2a: v2, v3, v6, v8, v9, v12, vx, vxy)
 on the CPU: the port's plain version against the Pallas kernels of
 ``scripts/kernel_lab.py`` in interpret mode, the copied tile slices, the
-entry point's refusal without a card, the routine's shared-memory count,
-and a g++ build of the CUDA routine (tpufem_torch/csrc/lab_separable.cuh)
-against the plain version.
+entry point's refusal without a card, the routines' shared-memory counts,
+and g++ builds of the CUDA routines (tpufem_torch/csrc/lab_separable.cuh;
+v3's ring, lab_separable_ring.cuh, through hopper.cuh's host forms: a TMA
+box a loop copy with zero fill, a bulk copy a memcpy, an mbarrier call
+nothing, a wgmma operand or accumulator its whole tile, one thread each
+pass's load, band x and both warpgroups' products in turn) against the
+plain version.
 
 ``scripts/kernel_lab.py`` is imported by path and its module's
 ``pl.pallas_call`` replaced by ``partial(pl.pallas_call, interpret=True)``;
@@ -30,9 +34,12 @@ from test_torch_lab import WMMA_STUBS
 from tpufem_torch.lab import kernel_lab, separable_lab
 from tpufem_torch.lab.separable_lab import LabKernel
 from tpufem_torch.ops.separable import global_1d_matrices
+from torch_threads import one_torch_thread  # noqa: F401
 
 L2_SHIM = STUBS + WMMA_STUBS + r"""
+#define __grid_constant__
 #include "lab_separable.cuh"
+#include "lab_separable_ring.cuh"
 
 template <int P, int XP>
 static int run(int flags, tpufem::L2Geo g, const void* u, void* y,
@@ -108,6 +115,70 @@ extern "C" int host_l2_apply(int flags, int xp, int p, int npts, int b,
 extern "C" long long host_l2_smem_bytes(int p, int xp, int b, int flags) {
   return tpufem::l2_smem(p, xp, b, flags).total;
 }
+
+// v3's ring routine, one host thread a block, as its launcher: the input
+// layout's tensor map in the pass's boxes, grid (ceil(X / XC), nt, nt)
+template <int P, int XP>
+static int ring(tpufem::BxGeo g, int nu, const void* u, void* y,
+                const void* tab, const void* bop) {
+  using C = typename tpufem::LabMma<XP>::C;
+  constexpr int XC = tpufem::bx_xc(XP);
+  const long long bytes = tpufem::bx_smem(P, XP, nu).total;
+  tpufem::HopMap in_map;
+  const long long dim[3] = {g.X, g.size, g.size};
+  const int box[3] = {XC + 2 * tpufem::bx_ph(P, XP), tpufem::bx_lp(P, XP),
+                      tpufem::kBxZC};
+  tpufem::hop_map_3d(&in_map, (void*)u, sizeof(C), dim, box);
+  for (int bz = 0; bz < g.nt; ++bz)
+    for (int by = 0; by < g.nt; ++by)
+      for (int bx = 0; bx < (g.X + XC - 1) / XC; ++bx) {
+        std::memset(tpufem::smem_raw, 0xAB, bytes + 4096);
+        blockIdx = Dim3{bx, by, bz};
+        tpufem::l2_bx_kernel<P, XP>(in_map, (C*)y, (const C*)tab,
+                                    (const unsigned char*)bop, g, nu);
+        for (long long i = bytes; i < bytes + 4096; ++i)
+          if (tpufem::smem_raw[i] != 0xAB) return 1;  // beyond its smem
+      }
+  return 0;
+}
+
+// the instances the cases use: f64 at p = 1, 2, 4, 7, 8; the split and
+// single products at p = 4 (3xTF32 also at 2 and 7)
+extern "C" int host_l2_ring_apply(int xp, int p, int npts, int b, int nt,
+                                  int size, int X, int nu, const void* u,
+                                  void* y, const void* t, const void* bop) {
+  const tpufem::BxGeo g{npts, b, nt, size, X};
+  if (xp == 3) {
+    switch (p) {
+      case 1: return ring<1, 3>(g, nu, u, y, t, bop);
+      case 2: return ring<2, 3>(g, nu, u, y, t, bop);
+      case 4: return ring<4, 3>(g, nu, u, y, t, bop);
+      case 7: return ring<7, 3>(g, nu, u, y, t, bop);
+      case 8: return ring<8, 3>(g, nu, u, y, t, bop);
+    }
+  } else if (xp == 0) {
+    switch (p) {
+      case 2: return ring<2, 0>(g, nu, u, y, t, bop);
+      case 4: return ring<4, 0>(g, nu, u, y, t, bop);
+      case 7: return ring<7, 0>(g, nu, u, y, t, bop);
+    }
+  } else if (p == 4) {
+    switch (xp) {
+      case 1: return ring<4, 1>(g, nu, u, y, t, bop);
+      case 2: return ring<4, 2>(g, nu, u, y, t, bop);
+      case 4: return ring<4, 4>(g, nu, u, y, t, bop);
+    }
+  }
+  return 2;
+}
+
+extern "C" long long host_l2_ring_smem_bytes(int p, int xp, int nu) {
+  return tpufem::bx_smem(p, xp, nu).total;
+}
+extern "C" int host_l2_ring_k(int p, int xp) { return tpufem::bx_lp(p, xp); }
+extern "C" long long host_l2_ring_side_bytes(int p, int xp, int z) {
+  return tpufem::bx_side_bytes(p, xp, z);
+}
 """
 
 # storage dtype and precision of each mode; the classes are
@@ -121,11 +192,11 @@ MODE_VARIANTS = {m: [v for v in separable_lab.XFIRST
                      if m == "bf16" or v != "v9"] for m in MODES}
 
 
-def _kernel(v, p, n, mode, b=None, h=(1.0, 1.3, 0.7)):
+def _kernel(v, p, n, mode, b=None, h=(1.0, 1.3, 0.7), routine=None):
     K1, M1 = global_1d_matrices(p, n, p + 1)
     dtype, prec = MODES[mode]
     return LabKernel(v, n * p + 1, p, K1, M1, [x / n for x in h], b=b,
-                     prec=prec, dtype=dtype, device="cpu")
+                     prec=prec, dtype=dtype, device="cpu", routine=routine)
 
 
 @pytest.fixture(scope="module")
@@ -227,17 +298,35 @@ def l2_lib(tmp_path_factory):
     lib.host_l2_apply.restype = ctypes.c_int
     lib.host_l2_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.host_l2_smem_bytes.restype = ctypes.c_longlong
+    lib.host_l2_ring_apply.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 4
+    lib.host_l2_ring_apply.restype = ctypes.c_int
+    lib.host_l2_ring_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.host_l2_ring_smem_bytes.restype = ctypes.c_longlong
+    lib.host_l2_ring_k.argtypes = [ctypes.c_int] * 2
+    lib.host_l2_ring_k.restype = ctypes.c_int
+    lib.host_l2_ring_side_bytes.argtypes = [ctypes.c_int] * 3
+    lib.host_l2_ring_side_bytes.restype = ctypes.c_longlong
     return lib
 
 
 def _host(lib, k, gp):
+    """The routine k runs (v3: its ring by default, or l2_kernel), its host
+    build on the layout gp; the ring's u slots by its chooser on the build's
+    own count."""
     NT = k.nt * k.b
     y = torch.full((NT, NT, k.X), float("nan"), dtype=k.dt)  # all written
-    rc = lib.host_l2_apply(k.flags, k.xp, k.p, k.npts, k.b, k.nt, k.size,
-                           k.X, gp.data_ptr(), y.data_ptr(),
-                           k.xk.data_ptr(), k.xk_lo, k.xb.data_ptr(),
-                           k.xb_part, k.slices.data_ptr(), k.sl_lo,
-                           k.tables.data_ptr())
+    if k.bx:
+        nu = separable_lab.choose_ring_u(k.p, k.xp,
+                                         lib.host_l2_ring_smem_bytes)
+        rc = lib.host_l2_ring_apply(k.xp, k.p, k.npts, k.b, k.nt, k.size,
+                                    k.X, nu, gp.data_ptr(), y.data_ptr(),
+                                    k.tables.data_ptr(), k.bop.data_ptr())
+    else:
+        rc = lib.host_l2_apply(k.flags, k.xp, k.p, k.npts, k.b, k.nt,
+                               k.size, k.X, gp.data_ptr(), y.data_ptr(),
+                               k.xk.data_ptr(), k.xk_lo, k.xb.data_ptr(),
+                               k.xb_part, k.slices.data_ptr(), k.sl_lo,
+                               k.tables.data_ptr())
     assert rc == 0, "kernel wrote beyond its shared memory"
     return y
 
@@ -258,12 +347,13 @@ HOST_CASES = (
 
 
 @pytest.mark.parametrize("v,p,mode,b", HOST_CASES)
-def test_host_build_matches_plain(l2_lib, v, p, mode, b):
-    """Each L2a kernel in each precision against the plain version in f64
-    on the same (storage-rounded) input, every output point written; the
-    split precisions also against ``emulate``."""
-    n = 2 if p > 2 else 9 // p
-    k = _kernel(v, p, n, mode, b)
+def test_host_build_matches_plain(l2_lib, v, p, mode, b, routine=None, n=None):
+    """Each L2a kernel in each precision (v3: its ring) against the plain
+    version in f64 on the same (storage-rounded) input, every output point
+    written; the split precisions also against ``emulate``."""
+    n = n or (2 if p > 2 else 9 // p)
+    k = _kernel(v, p, n, mode, b, routine=routine)
+    assert k.routine == (routine or ("ring" if v == "v3" else None))
     u = torch.as_tensor(np.random.default_rng(n * p + 3).standard_normal(
         (n * p + 1)**3))
     gp = k.pad(u)
@@ -279,6 +369,28 @@ def test_host_build_matches_plain(l2_lib, v, p, mode, b):
         print(f"{v} {mode} p={p} b={k.b}: host stub {err:.3e}, emulation "
               f"{emu:.3e}, apart {apart:.3e}")
         assert apart <= EMU_TOL[k.xp], (apart, err, emu)
+
+
+# v3's two routines beyond HOST_CASES (whose v3 cases run the ring): the
+# ring at p = 8, in 3xTF32 at p = 2 and 7, on X = 48 (two blocks of 32
+# columns, the second ragged) and at a tile of 5; its earlier schedule,
+# l2_kernel, at each degree and precision HOST_CASES held it to before
+V3_CASES = (
+    [("ring", 8, "f64", None, None), ("ring", 7, "f32", None, None),
+     ("ring", 2, "f32", 5, None), ("ring", 4, "f32", None, 9),
+     ("ring", 4, "f64", None, 9)]
+    + [("tile", p, "f64", None, None) for p in (1, 2, 4, 7)]
+    + [("tile", 4, m, None, None) for m in ("f32", "f32h", "bf16", "bf16d")]
+    + [("tile", 1, "f64", 5, None)])
+
+
+@pytest.mark.parametrize("routine,p,mode,b,n", V3_CASES)
+def test_v3_host_build_by_routine(l2_lib, routine, p, mode, b, n):
+    """v3's ring and its earlier schedule (``routine="tile"``), each as
+    ``test_host_build_matches_plain`` holds a kernel: against the f64
+    plain version (f64 1e-12) with a NaN-filled output, and a split
+    precision against ``emulate`` within EMU_TOL."""
+    test_host_build_matches_plain(l2_lib, "v3", p, mode, b, routine, n)
 
 
 @pytest.mark.parametrize("v,p,mode,b", [
@@ -368,6 +480,48 @@ def test_host_build_matches_pallas(klab, l2_lib, v):
     assert np.linalg.norm(y_h - y_j) <= tol * np.linalg.norm(y_j)
 
 
+def test_ring_counts_agree(l2_lib):
+    """v3's ring: the host's K and B side bytes are the routine's own
+    (``ring_k``, ``bx_side_bytes`` against ``bx_lp``, ``bx_side_bytes`` of
+    the header), its chooser's u slots fit a block at every degree and
+    precision (3 at the flagship, 213,632 bytes in 3xTF32), the B operand
+    holds nt y sides then nt z sides, and a tile above RING_B is
+    refused."""
+    count = l2_lib.host_l2_ring_smem_bytes
+    for p in range(1, separable_lab.MAX_DEGREE + 1):
+        for xp in separable_lab.TOL:
+            assert l2_lib.host_l2_ring_k(p, xp) == separable_lab.ring_k(p, xp)
+            for z in (0, 1):
+                assert l2_lib.host_l2_ring_side_bytes(p, xp, z) == \
+                    separable_lab.bx_side_bytes(p, xp, z)
+            nu = separable_lab.choose_ring_u(p, xp, count)
+            assert count(p, xp, nu) <= separable_lab.RING_BUDGET
+    assert separable_lab.choose_ring_u(4, separable_lab.X3TF32, count) == 3
+    assert count(4, separable_lab.X3TF32, 3) == 213632
+    for mode in MODES:
+        k = _kernel("v3", 2, 4, mode)
+        xp = k.xp
+        assert k.bop.numel() == k.nt * sum(
+            separable_lab.bx_side_bytes(2, xp, z) for z in (0, 1))
+    with pytest.raises(ValueError, match="b <= 16"):
+        _kernel("v3", 2, 4, "f32", b=24)
+    assert _kernel("v3", 2, 4, "f32", b=24, routine="tile").b == 24
+    # the card's plan at the flagship, the host build's counts standing in
+    # for the library's: 9 blocks of 32 x columns (f64: 34 of 8) on each of
+    # the 17^2 tiles
+    K1, M1 = global_1d_matrices(4, 64, 5)
+    fake = types.SimpleNamespace(lib=types.SimpleNamespace(
+        tpufem_l2_ring_k=l2_lib.host_l2_ring_k,
+        tpufem_l2_ring_smem_bytes=count))
+    for dtype, nu, grid in ((torch.float32, 3, 9 * 17**2),
+                            (torch.float64, 3, 34 * 17**2)):
+        k = LabKernel("v3", 257, 4, K1, M1, [1 / 64] * 3, dtype=dtype,
+                      device="cpu")
+        k.lib = fake
+        k._plan_bx()
+        assert (k.ring, k.grid, k.smem) == ((nu,), grid, count(4, k.xp, nu))
+
+
 def test_smem_fits(l2_lib):
     """The default tile of every degree and precision fits a block's
     shared memory by the routine's own count, whatever the variant's
@@ -426,29 +580,45 @@ def test_l2_bytes_from_the_tile():
     k2 = LabKernel("v2", 257, 4, K1, M1, [1 / 64] * 3, device="cpu")
     assert k2.l2_bytes() == 17 * 11 * 11 * 4 * (8 * 32 * 272 * 4
                                                 + 2 * 32 * 272 * 4)
-    with pytest.raises(ValueError, match="ring"):
-        LabKernel("v3", 257, 4, K1, M1, [1 / 64] * 3,
-                  device="cpu").l2_bytes()
+    # v3's ring (b = 16, 17 tiles a side, 9 blocks of 32 x columns): each
+    # of its 3 passes a box of 8 z rows, K = 24 y rows, 32 + 2 x 4 columns;
+    # the tile's y and z B sides, two slices of two parts of 16 x 24 f32
+    # each (3xTF32)
+    k3 = LabKernel("v3", 257, 4, K1, M1, [1 / 64] * 3, device="cpu")
+    assert (k3.routine, k3.b) == ("ring", 16)
+    assert k3.l2_bytes() == 9 * 17 * 17 * (3 * 8 * 24 * 40 * 4
+                                           + 2 * 2 * 2 * 16 * 24 * 4)
+    # its earlier schedule (b = 24, blocks of 16 x columns, no ring): the
+    # tile's (32, 32) halo'd rows over 16 + 8 columns and four (32, 32)
+    # slices, each once a block
+    kt = LabKernel("v3", 257, 4, K1, M1, [1 / 64] * 3, device="cpu",
+                   routine="tile")
+    assert kt.b == 24
+    assert kt.l2_bytes() == 17 * 11 * 11 * (32 * 32 * 24 * 4
+                                            + 4 * 32 * 32 * 4)
 
 
 def test_ring_sweep_edits_apply(monkeypatch):
-    """``python -m tpufem_torch.lab.ring_sweep`` builds copies of the two
-    lab libraries with one constant changed each: every edit's text occurs
-    once in today's sources, the copies keep p = 4 only, the committed copy
-    is the sources themselves, and the entry point raises without a card."""
+    """``python -m tpufem_torch.lab.ring_sweep`` builds copies of the three
+    L2 lab libraries with one constant changed each: every edit's text
+    occurs once in today's sources, the copies keep p = 4 only, the
+    committed copy is the sources themselves, and the entry point raises
+    without a card."""
     from tpufem_torch.lab import ring_sweep
     from tpufem_torch.utils.build import CSRC
 
+    cus = tuple(ring_sweep.LIBRARIES.values())
+    assert cus == ("lab_zyfirst.cu", "lab_separable.cu",
+                   "lab_separable_ring.cu")
     for name, (lib, edits, _) in ring_sweep.VARIANTS.items():
         src = ring_sweep.edited_sources(name)
-        for cu in ("lab_zyfirst.cu", "lab_separable.cu"):
+        for cu in cus:
             assert "    TPUFEM_CASE(4)\n" in src[cu]
             assert "    TPUFEM_CASE(5)\n" not in src[cu]
             assert "#define TPUFEM_CASE(PP)" in src[cu]
         for fname, text in src.items():
             same = text == (CSRC / fname).read_text()
-            assert same == (fname not in edits and not fname.endswith(
-                ("lab_zyfirst.cu", "lab_separable.cu")))
+            assert same == (fname not in edits and fname not in cus)
         assert (lib is None) == (name == "committed")
     with pytest.raises(RuntimeError, match="once"):
         monkeypatch.setitem(ring_sweep.VARIANTS, "gone", (
@@ -492,3 +662,17 @@ def test_bounds():
         bands = {"vx": 1, "vxy": 4}.get(v, 7)
         assert k.bound() == operator_bound(7, 2, bands)
         assert k.design_bound()[0] >= k.bound()[0]
+    # v3's two routines at the flagship in 3xTF32: the ring's design
+    # (products over its passes' rows, band x over its boxes, its layouts
+    # and B sides) and the earlier schedule's are each at least the
+    # function's bound; the ring's products are 19.9 GFLOP
+    K1, M1 = global_1d_matrices(4, 64, 5)
+    for routine in ("ring", "tile"):
+        k = LabKernel("v3", 257, 4, K1, M1, [1 / 64] * 3, device="cpu",
+                      routine=routine)
+        assert k.design_bound()[0] >= k.bound()[0] == ms
+    nblk, npass, K, xc, ph = k3 = LabKernel(
+        "v3", 257, 4, K1, M1, [1 / 64] * 3, device="cpu")._bx_plan()
+    assert k3 == (9 * 17 * 17, 3, 24, 32, 4)
+    flops = 3 * nblk * npass * 2 * 16 * xc * (3 * 8 * K + 2 * 16 * 8)
+    assert abs(flops / 1e9 - 19.94) < 0.01

@@ -26,6 +26,7 @@ from test_torch_lab_separable import MODES, _max_rel, klab  # noqa: F401
 from tpufem_torch.lab import kernel_lab, resident_lab, separable_lab
 from tpufem_torch.lab.separable_lab import NO_MMA, ZY_ARGS, ZYFIRST, LabKernel
 from tpufem_torch.ops.separable import global_1d_matrices
+from torch_threads import one_torch_thread  # noqa: F401
 
 ZY_SHIM = STUBS + WMMA_STUBS + r"""
 #define __grid_constant__

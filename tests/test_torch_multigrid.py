@@ -37,6 +37,7 @@ from tpufem_torch.solvers import multigrid as t_mg
 from tpufem_torch.solvers.cg import cg_solve, make_jacobi
 from tpufem_torch.solvers.resident import resident_gmg_cg
 from tpufem_torch.utils.config import FemConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the separable coefficient of tests/test_multigrid.py
 COEF_AXES = [lambda x: 1.0 + 0.5 * np.sin(2.1 * np.pi * x),

@@ -35,6 +35,7 @@ from tpufem_torch.ops.matrix_free import MatrixFree
 from tpufem_torch.solvers.cg import cg_solve
 from tpufem_torch.solvers.newton import newton_solve
 from tpufem_torch.utils.config import FemConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def build(dim, p, refine):

@@ -13,6 +13,7 @@ from tpufem.apps.poisson import solve_poisson as j_solve_poisson
 from tpufem_torch.apps import bmop as tbmop
 from tpufem_torch.apps import poisson as tpoisson
 from tpufem_torch.ops.matrix_free import MatrixFree
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _rough(x):

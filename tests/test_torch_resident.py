@@ -20,6 +20,7 @@ from tpufem_torch.operators.laplace import LaplaceOperator
 from tpufem_torch.ops import kernel_separable as tks
 from tpufem_torch.ops.matrix_free import MatrixFree
 from tpufem_torch.solvers.resident import resident_jacobi_cg
+from torch_threads import one_torch_thread  # noqa: F401
 
 H_AXES = (1.0 / 4, 1.0 / 3, 1.0 / 5)
 

@@ -20,6 +20,7 @@ from test_torch_kernel_host import (
 )
 from tpufem_torch.ops import kernel_separable as tks
 from tpufem_torch.ops.separable import laplace_apply_separable_terms
+from torch_threads import one_torch_thread  # noqa: F401
 
 SEGMENTS = (1, 2, 3, 4)
 

@@ -13,6 +13,7 @@ from tpufem.ops import pallas_separable as jps
 from tpufem.ops import separable as jsep
 from tpufem_torch.ops import kernel_separable as tks
 from tpufem_torch.ops import separable as tsep
+from torch_threads import one_torch_thread  # noqa: F401
 
 # a distinct cell width per axis: an axis swap or a transposed operator in
 # the port shows as a mismatch (identical axes would hide it)

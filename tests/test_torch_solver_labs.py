@@ -44,6 +44,7 @@ from tpufem_torch.solvers import chebyshev as t_cheb
 from tpufem_torch.solvers.box_multigrid import BoxMultigrid
 from tpufem_torch.solvers.cg import cg_solve
 from tpufem_torch.solvers.resident import _dot3
+from torch_threads import one_torch_thread  # noqa: F401
 
 SHAPE = (3, 2, 2, 1)  # dim, p, refine, steps
 BOX_BF16_TOL = 5e-3  # chip_smoke.BOX_BF16_TOL

@@ -30,6 +30,7 @@ from tpufem.ops import sparse as j_sparse
 from tpufem_torch.apps import bmop, bmspmv
 from tpufem_torch.ops import sparse as t_sparse
 from tpufem_torch.utils import debug, metrics
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 TIMINGS = {"s_per_apply", "gdofs_per_s", "spmv_s_per_apply",

@@ -28,6 +28,7 @@ from tpufem_torch.ops import structured as tst
 from tpufem_torch.ops import tensor_ops as ttops
 from tpufem_torch.ops.matrix_free import MatrixFree
 from tpufem_torch.utils.config import FemConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def rel_err(a, b):

@@ -23,6 +23,7 @@ from tpufem_torch.ops.kernel_terms import ResidentTerms, ResidentTerms2D
 from tpufem_torch.ops.matrix_free import MatrixFree
 from tpufem_torch.solvers.resident import resident_jacobi_cg
 from tpufem_torch.utils.config import FemConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def pair(dim, degree, refine, use_pallas=False, scatter="incidence"):

@@ -24,6 +24,7 @@ from tpufem_torch.ops import kernel_terms as tkt
 from tpufem_torch.ops import separable as tsep
 from tpufem_torch.ops.matrix_free import MatrixFree
 from tpufem_torch.solvers.resident import resident_jacobi_cg
+from torch_threads import one_torch_thread  # noqa: F401
 
 # distinct smooth 1D weights per (term, axis), as tests/test_pallas.py's
 # _weighted_terms: no matrix is shared between terms or axes

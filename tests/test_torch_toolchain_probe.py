@@ -33,6 +33,7 @@ from test_torch_lab import WMMA_STUBS
 
 from tpufem_torch.lab import toolchain_probe as tp
 from tpufem_torch.lab.separable_lab import EMU_TOL, PRECS, TOL
+from torch_threads import one_torch_thread  # noqa: F401
 
 PROBE_SHIM = STUBS + WMMA_STUBS + r"""
 #include <vector>

@@ -59,4 +59,25 @@ __device__ __forceinline__ C band(const C* __restrict__ w, const C* v,
   return acc + w[NB] * vc;
 }
 
+// Both outputs of two band stages sharing their input reads (the L1 lab's
+// v18 fuses its stages so; the ring routines band every chunk so): band()
+// for the tables wa and wb, one (v - vc) per tap, each accumulator's
+// operations those of band() tap by tap.
+template <int P, typename C>
+__device__ __forceinline__ void band2(const C* __restrict__ wa,
+                                      const C* __restrict__ wb, const C* v,
+                                      long long stride, C& a, C& b) {
+  constexpr int NB = 2 * P + 1;
+  const C vc = v[P * stride];
+  C sa = C(0), sb = C(0);
+#pragma unroll
+  for (int o = 0; o < NB; ++o) {
+    const C d = v[o * stride] - vc;
+    sa += wa[o] * d;
+    sb += wb[o] * d;
+  }
+  a = sa + wa[NB] * vc;
+  b = sb + wb[NB] * vc;
+}
+
 }  // namespace tpufem

@@ -7,6 +7,7 @@
 // scripts/kernel_lab.py, _kernel_vcopy :500, _kernel_vband :525, _kernel_v16
 // :1347, in lab_zyfirst.cuh), lab_separable.cuh (the dense x stage of
 // _kernel_vx :164 and the x-first kernels around it),
+// lab_separable_ring.cuh (_kernel_v3 :78: band x, y and z on wgmma),
 // lab_resident_ring.cuh (the ring routines of the K1 lab's v17, v19 and v20,
 // and of the K2 lab's v13 and v15) and toolchain_probe.cuh (P2's cluster
 // chain).
@@ -396,7 +397,7 @@ __device__ __forceinline__ void hop_reg_dealloc() {
 
 // ---- wgmma -----------------------------------------------------------------
 // acc (64 x N, f32) += A (64 x K, registers) @ B (K x N, shared memory), N =
-// 32 (or 64), K = 8 TF32 values or 16 bf16 values (32 bytes).  B is K-major:
+// 32 (or 16, 64), K = 8 TF32 values or 16 bf16 values (32 bytes).  B is K-major:
 // for each of the N columns n its K values are contiguous, in the layout
 // without swizzle:
 // core matrices of 8 columns n by 16 bytes of k, 128 bytes each, those of one
@@ -604,12 +605,15 @@ __device__ __forceinline__ void hop_wgmma_wait() {
 }
 
 // acc += a @ B for k step `ks` of the B operand at `b` (hop_b_offset layout,
-// `kbytes` bytes of k a column).  Asynchronous on the card: a and acc are not
-// to be touched until hop_wgmma_wait has waited for its group.
+// `kbytes` bytes of k a column); acc = a @ B where acc_in is false (the
+// accumulator's first product: no instruction of the thread need define its
+// registers first).  Asynchronous on the card: a and acc are not to be
+// touched until hop_wgmma_wait has waited for its group.
 template <bool BF16, int N>
 __device__ __forceinline__ void hop_wgmma(HopAccN<N>& acc, const HopA& a,
-                                          const void* b, int ks, int kbytes) {
-  static_assert(N == 32 || N == 64, "wgmma n32 or n64");
+                                          const void* b, int ks, int kbytes,
+                                          bool acc_in = true) {
+  static_assert(N == 16 || N == 32 || N == 64, "wgmma n16, n32 or n64");
 #ifdef __CUDA_ARCH__
   // descriptor: address, leading (k) and stride (n) byte offsets of the core
   // matrices, all in units of 16 bytes; no swizzle
@@ -637,7 +641,7 @@ __device__ __forceinline__ void hop_wgmma(HopAccN<N>& acc, const HopA& a,
           TPUFEM_HOP_DREGS64 ", 0;\n}"
           : TPUFEM_HOP_D64
           : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "l"(desc),
-            "r"(1));
+            "r"((int)acc_in));
     else
       asm volatile(
           "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
@@ -645,9 +649,30 @@ __device__ __forceinline__ void hop_wgmma(HopAccN<N>& acc, const HopA& a,
           TPUFEM_HOP_DREGS64 ";\n}"
           : TPUFEM_HOP_D64
           : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "l"(desc),
-            "r"(1));
+            "r"((int)acc_in));
 #undef TPUFEM_HOP_DREGS64
 #undef TPUFEM_HOP_D64
+  } else if constexpr (N == 16) {
+    if constexpr (BF16)
+      asm volatile(
+          "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+          " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+          "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, "
+          "1, 0;\n}"
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+            "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+          : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "l"(desc),
+            "r"((int)acc_in));
+    else
+      asm volatile(
+          "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+          " wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+          "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, "
+          "1;\n}"
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+            "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+          : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "l"(desc),
+            "r"((int)acc_in));
   } else if constexpr (BF16) {
     asm volatile(
         "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
@@ -659,7 +684,7 @@ __device__ __forceinline__ void hop_wgmma(HopAccN<N>& acc, const HopA& a,
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
           "+f"(d[15])
         : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "l"(desc),
-          "r"(1));
+          "r"((int)acc_in));
   } else {
     asm volatile(
         "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
@@ -671,10 +696,11 @@ __device__ __forceinline__ void hop_wgmma(HopAccN<N>& acc, const HopA& a,
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
           "+f"(d[15])
         : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "l"(desc),
-          "r"(1));
+          "r"((int)acc_in));
   }
 #else
   constexpr int K = BF16 ? 16 : 8, E = BF16 ? 2 : 4;
+  if (!acc_in) hop_acc_zero(acc);
   const unsigned char* bb = static_cast<const unsigned char*>(b);
   for (int n = 0; n < N; ++n)
     for (int k = 0; k < K; ++k) {

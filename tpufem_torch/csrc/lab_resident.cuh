@@ -18,7 +18,7 @@
 // layout, halo and padding zeros included, so raw(raw(u)) chains.
 //
 // The two kinds:
-//   ring  v17, v19 and v20 (lab_resident_ring.cuh: lab_ring_kernel,
+//   ring  v17-v20 (lab_resident_ring.cuh: lab_ring_kernel for v17 and v18,
 //         lab_ring_pipe_kernel, lab_window_kernel): a producer warp feeds the
 //         halo'd u boxes by TMA and the host-split rows of [Kx^T; Mx^T] by
 //         bulk copies through mbarrier rings; the bands of a 64-row sub-tile
@@ -35,7 +35,7 @@
 //         as it retires; its products are small beside its bands, which
 //         bound it (PERF.md has the split).
 //   tile  the first version (lab_tile_kernel, lab_pipe_kernel, below):
-//         v18's, and the earlier schedule of v17, v19 and v20.  One (TZ, TY)
+//         the earlier schedule of v17-v20 (v18's with fused=1).  One (TZ, TY)
 //         output tile over all of x (M = TZ*TY rows):
 //   z, y   s = Bz(u; Mz), t = Bz(u; Kz); q1 = By(s; My), q23 = By(s; Ky) +
 //          By(t; My) on CUDA cores, x streamed in chunks of kXC columns (the
@@ -49,7 +49,8 @@
 //          zeros of the rows they own
 // v18 fuses the band stages: each z-slice value feeds both the Mz and Kz
 // accumulators, each s value both My and Ky (the z stage already covers
-// exactly the TY + 2P rows the y stage reads, the TPU's trim).  v19 runs
+// exactly the TY + 2P rows the y stage reads, the TPU's trim).  The ring's
+// bands do so on every chunk (band2), so there v18 is v17's launch.  v19 runs
 // persistent blocks over the tiles: warps 0-3 run the bands of tile t into
 // one qq buffer while warps 4-7 run the tensor-core product of tile t-1
 // from the other; one __syncthreads per pipeline step, a named barrier
@@ -128,25 +129,6 @@ __host__ __device__ inline LabSmem lab_smem(int p, int xp, int nbuf, int tz,
   s.scr = s.qq + nbuf * s.qq_bytes;
   s.total = s.scr + lab_align((kLabThreads / 32) * mm * mm * c);
   return s;
-}
-
-// Both accumulators of two band outputs sharing their input reads (v18):
-// the difference form of band() in common.cuh, one (v - vc) per tap.
-template <int P, typename C>
-__device__ __forceinline__ void band2(const C* __restrict__ wa,
-                                      const C* __restrict__ wb, const C* v,
-                                      long long stride, C& a, C& b) {
-  constexpr int NB = 2 * P + 1;
-  const C vc = v[P * stride];
-  C sa = C(0), sb = C(0);
-#pragma unroll
-  for (int o = 0; o < NB; ++o) {
-    const C d = v[o * stride] - vc;
-    sa += wa[o] * d;
-    sb += wb[o] * d;
-  }
-  a = sa + wa[NB] * vc;
-  b = sb + wb[NB] * vc;
 }
 
 // The u chunk of x columns [cx0, cx0 + XC) for the tile at (z0, y0): layout

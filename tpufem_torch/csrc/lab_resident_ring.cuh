@@ -1,4 +1,5 @@
-// The K1 kernel lab's v17, v19 and v20 on Hopper's asynchronous machinery:
+// The K1 kernel lab's v17-v20 on Hopper's asynchronous machinery (v18, v17
+// with fused band stages, is v17's launch: these bands are fused already):
 // the z/y bands of a sub-tile fed by a TMA ring, the x stage on wgmma over x
 // chunks (v20: over each column block's window).  Device code; the host
 // launches are lr_launch (below), called by lab_resident.cu and, for the K2

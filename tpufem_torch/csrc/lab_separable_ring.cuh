@@ -1,0 +1,589 @@
+// The K2 kernel lab's v3 (band x, dense y and z) on Hopper's asynchronous
+// machinery: a TMA ring feeds the band x stage, and the y and z stages are
+// wgmma products.  Device code; the host launcher with its plain C interface
+// is lab_separable_ring.cu.  v3's first routine (l2_kernel, lab_separable.cuh)
+// stays as its earlier schedule.
+//
+// Replaces the Pallas kernel _kernel_v3 (scripts/kernel_lab.py:78): on the
+// lab's layouts, input (size, size, X), size = nt b + 2P, data at [P:P+npts,
+// P:P+npts, 0:npts], zeros elsewhere, and output (nt b, nt b, X), every point
+// written, it computes K2's operator with the x axis by bands and y, z by the
+// tile's dense slices (the same host tables as l2_kernel: the per-row x band
+// tables in difference form, the (b, L) slices of My, Ky, Mz, Kz, L = b + 2P):
+//   x   ax, gx = Bx(u; Mx), Bx(u; Kx) over the tile's halo'd (L, L) rows
+//   y   t1 = My ax, t2 = Ky ax + My gx    (the tile's y slices, K = L rows)
+//   z   out = Kz t1 + Mz t2               (its z slices, K = L rows)
+//
+// What held the first routine back (1.405 ms at the flagship in 3xTF32 on an
+// H100, PERF.md) and what this design does about it:
+//   loads  every thread read its 2P+1 x taps from device memory by scalar
+//          loads, nothing in flight.  Here a producer warp asks for each
+//          pass's halo'd u box, (kBxZC z rows, LP y rows, XC + 2 PH x
+//          columns), by TMA into a ring of nu slots (an mbarrier pair a slot),
+//          zero-filled beyond the layout, so no thread computes an address or
+//          tests a bound on the way in, and the next pass's box is in flight
+//          while this one is computed.  The tile's y and z slices reach
+//          shared memory once a block, by two bulk copies.
+//   x      a block owned 16 x columns and read (16 + 2P) / 16 of them.  Here
+//          XC = 32 (f64: 8; 128 and 64 bytes of a row), the halo rounded to
+//          16 bytes a side (PH): 1.25x at P <= 4.  The band runs on CUDA
+//          cores from the slot, K2's difference form with l2_kernel's tables
+//          and tap order (band2: band's operations for Mx and Kx on one read
+//          of the taps), and writes ax and gx straight into the y product's
+//          A layout: rows (z, x), K = y, rows padded to AS words so a
+//          fragment's loads fall in distinct banks.
+//   y, z   per-warp WMMA jobs from shared memory, each stored through a
+//          scratch tile.  Here the two warpgroups run wgmma with A from
+//          registers (hop_load_a splits it: 3xTF32 big/small, bf16x3 hi/lo)
+//          and B, the slices, from shared memory, K-major as the host lays
+//          them out (hop_b_offset) and split there with the kernel's own
+//          rounding.  y: rows (zr, x) of the pass in 64-row tiles, N = 16 (b
+//          <= 16 output rows), K = LP; [t1 | ax Ky^T] = ax [My | Ky]^T one
+//          n32 product, gx My^T an n16 one added to ax Ky^T for t2 as it is
+//          stored (a wgmma a k step fewer than three n16 products; no faster
+//          on an H100); they land in shared memory as the z
+//          product's A, rows (y, x), K = the pass's z rows.  z: rows (y, x)
+//          of the tile, N = 16, accumulated in registers over the passes (a
+//          split K over z: pass j is k step j; bf16's k step of 16 holds the
+//          pass's 8 rows and 8 zero rows of B), out += t1 Kz^T + t2 Mz^T into
+//          one accumulator, issued asynchronously so they run while the next
+//          pass's band x does.  The three 3xTF32 (bf16x3) products keep
+//          lab_mma.cuh's order: small*big, big*small, big*big.  f64 has no
+//          wgmma: DMMA m8n8k4 (WMMA) from the same buffers, each warp its
+//          8-row tiles.
+//   store  each output point once, from the z accumulators to device memory
+//          (rows beyond the tile's b and columns beyond X masked): a warp's
+//          store writes whole 32-byte sectors.
+// The tile is b <= 16 rows a side, so the products' N is 16 with no padding
+// at b = 16 (the chooser's: at b = 24, N would be 24 and the products' work
+// a point 1.6x); their K is L = b + 2P rounded up to the k step (LP, for b
+// = 16 at compile time; a smaller b leaves zero columns).
+//
+// What bounds it on an H100: the function is K2's, 0.0405 ms at 16,974,593
+// DoFs in f32 (bytes).  The design adds the products over the tiles' halo'd
+// rows (3xTF32 at the flagship, b = 16, nt = 17, X = 272 in 9 blocks of 32
+// columns, 3 passes of 8 z rows, K = 24: y 3 x 2 x 17^2 9 x 3 x 256 x 24 x
+// 16 = 4.60 GFLOP, z 2 x 2 x 17^2 9 x 3 x 512 x 8 x 16 = 2.05 GFLOP, 19.9
+// GFLOP with the three passes of the split, 0.040 ms at 495 TFLOP/s) and
+// the band x over each pass's (8, 24, 32) box rows, two tables (1.73 GFLOP
+// on CUDA cores, 0.026 ms at 67 TFLOP/s): LabKernel.design_bound.  It runs
+// 0.43 ms there, 8.7x that (PERF.md): the copy without the band takes
+// 0.35, its products at ~11% of the TF32 peak (N = 16 and 32, A from
+// registers, one wait a y tile, two block barriers a pass); neither the
+// ring's depth nor both y tiles of a warpgroup in flight moved it.
+//
+// One host thread (blockDim 1, the g++ build of the tests) runs a block: the
+// mbarrier calls do nothing, the thread loads each pass's box itself before
+// it waits, then runs both warpgroups' (f64: the eight warps') products in
+// turn; a wgmma operand or accumulator holds its whole tile (hopper.cuh).
+#pragma once
+
+#include "common.cuh"
+#include "hopper.cuh"
+#include "lab_mma.cuh"
+
+namespace tpufem {
+
+constexpr int kBxWarps = 8;  // two warpgroups; one more warp produces
+constexpr int kBxThreads = 32 * (kBxWarps + 1);
+constexpr int kBxN = 16;    // a tile's output rows at most: the products' N
+constexpr int kBxZC = 8;    // halo'd z rows a pass (an item of the ring)
+constexpr int kBxZS = 12;   // words a row of t (kBxZC, padded)
+constexpr int kBxMaxU = 3;  // the deepest u ring
+
+__host__ __device__ constexpr bool bx_bf(int xp) {
+  return xp == kXBF16x3 || xp == kXBF16;
+}
+// x columns a block owns: 128 bytes of a row (f64: 64)
+__host__ __device__ constexpr int bx_xc(int xp) {
+  return xp == kXF64 ? 8 : 32;
+}
+// parts of the B operand (split products) and the bytes of its elements
+__host__ __device__ constexpr int bx_parts(int xp) {
+  return xp == kX3TF32 || xp == kXBF16x3 ? 2 : 1;
+}
+__host__ __device__ constexpr int bx_belem(int xp) {
+  return xp == kXF64 ? 8 : bx_bf(xp) ? 2 : 4;
+}
+// the x halo each side: P rounded up to 16 bytes
+__host__ __device__ constexpr int bx_ph(int p, int xp) {
+  return xp == kXF64 ? (p + 1) / 2 * 2 : (p + 3) / 4 * 4;
+}
+// the products' K: L = kBxN + 2P rounded up to the k step (16 bf16 values,
+// else 8)
+__host__ __device__ constexpr int bx_lp(int p, int xp) {
+  return bx_bf(xp) ? (kBxN + 2 * p + 15) / 16 * 16
+                   : (kBxN + 2 * p + 7) / 8 * 8;
+}
+// words a row of ax and gx: LP padded so a fragment's rows fall in
+// distinct banks
+__host__ __device__ constexpr int bx_as(int p, int xp) {
+  return bx_lp(p, xp) + (bx_bf(xp) ? 8 : 4);
+}
+// bytes of k a column of the y and the z products' B (bf16's z: each pass's
+// 8 rows, then 8 zero rows, a k step of 16)
+__host__ __device__ constexpr int bx_ykb(int p, int xp) {
+  return bx_lp(p, xp) * bx_belem(xp);
+}
+__host__ __device__ constexpr int bx_zkb(int p, int xp) {
+  return bx_lp(p, xp) * (xp == kXF64 ? 8 : 4);
+}
+// bytes of a tile's y (z) side of the host's B operand: [M, K] slices, each
+// its parts, each kBxN columns of K-major k (f64: WMMA's column-major B)
+__host__ __device__ constexpr long long bx_side_bytes(int p, int xp, int z) {
+  return 2LL * bx_parts(xp) * kBxN * (z ? bx_zkb(p, xp) : bx_ykb(p, xp));
+}
+
+struct BxGeo {
+  int npts, b, nt, size, X;
+};
+
+// Byte offsets of a block's shared-memory regions, each 128-byte aligned:
+//   bar  the u ring's full and empty mbarriers (kBxMaxU each), B's
+//   tab  the Mx, Kx table rows of the block's XC columns
+//   b    the tile's y side, then its z side (bx_side_bytes)
+//   u    nu slots of the pass's halo'd box (kBxZC, LP, XC + 2 PH)
+//   ax   ax, then gx: (kBxZC XC rows, AS words)
+//   t    t1, then t2: (kBxN XC rows, kBxZS words)
+//   scr  f64: one 8 x 8 accumulator tile a warp
+struct BxSmem {
+  long long bar, tab, b, u, u_bytes, ax, t, scr, total;
+};
+__host__ __device__ inline BxSmem bx_smem(int p, int xp, int nu) {
+  const long long c = xp == kXF64 ? 8 : 4, xc = bx_xc(xp);
+  BxSmem s;
+  s.bar = 0;
+  s.tab = lab_align((2 * kBxMaxU + 1) * 8);
+  s.b = s.tab + lab_align(2 * xc * (2 * p + 2) * c);
+  s.u = s.b + lab_align(bx_side_bytes(p, xp, 0) + bx_side_bytes(p, xp, 1));
+  s.u_bytes =
+      lab_align(kBxZC * bx_lp(p, xp) * (xc + 2 * bx_ph(p, xp)) * c);
+  s.ax = s.u + nu * s.u_bytes;
+  s.t = s.ax + lab_align(2 * kBxZC * xc * bx_as(p, xp) * c);
+  s.scr = s.t + lab_align(2LL * kBxN * xc * kBxZS * c);
+  s.total = s.scr + (xp == kXF64 ? lab_align(kBxWarps * 64 * 8) : 0);
+  return s;
+}
+
+// The y and z products on wgmma (3xTF32, 1xTF32, bf16x3, one bf16 product).
+// Warpgroup wg multiplies the y tiles wg, wg + 2, ... of a pass, and holds
+// the z accumulators of the tile's rows [wg ZT 64, (wg + 1) ZT 64).  One
+// host thread stands for both warpgroups.
+template <int P, int XP>
+struct BxWgmma {
+  static constexpr bool BF = bx_bf(XP);
+  static constexpr bool kSplit = bx_parts(XP) == 2;
+  static constexpr int XC = bx_xc(XP), AS = bx_as(P, XP);
+  static constexpr int YKB = bx_ykb(P, XP), ZKB = bx_zkb(P, XP);
+  static constexpr int KSY = YKB / 32;  // k steps of a y product
+  static constexpr int YT = kBxZC * XC / kHopM;  // y tiles a pass
+  static constexpr int ZT = kBxN * XC / kHopM / 2;  // z tiles a warpgroup
+  static constexpr int NG = kHopHost ? 2 : 1;
+  // Each accumulator's first product overwrites it (hop_wgmma's acc_in
+  // false): no instruction defines an accumulator register while a wgmma
+  // group is in flight, which would make ptxas serialise the wgmmas.
+  using Acc = HopAccN<kBxN>;
+  Acc z[NG * ZT];
+  HopA zbig[ZT][2], zsmall[ZT][2];  // the z k step's A of t1, t2
+  static constexpr int kFirst = kSplit ? 0 : 2;  // the first part's index
+  // B of slice s (0: M, 1: K) part q of a side: a part's two slices side
+  // by side, so the y side's [My | Ky] is one n32 B operand
+  static __device__ __forceinline__ const unsigned char* bpart(
+      const unsigned char* side, int s, int q, int kb) {
+    return side + (long long)(q * 2 + s) * kBxN * kb;
+  }
+  // the y products of a pass: t1, t2 into T1, T2 (row y XC + x, column
+  // zr): ax [My | Ky]^T, one n32 product, into [t1 | Ky ax], gx My^T into
+  // a second accumulator, added to Ky ax as it is stored
+  __device__ __forceinline__ void y(const float* AX, const float* GX,
+                                    const unsigned char* By, float* T1,
+                                    float* T2, int wg, int w, int lane) {
+    auto at = [](int r, int k) { return r * AS + k; };
+    for (int mt = wg; mt < YT; mt += 2) {
+      HopAccN<2 * kBxN> a1;
+      Acc a2;
+      HopA ab[KSY], as[KSY], gb[KSY], gs[KSY];
+#pragma unroll
+      for (int ks = 0; ks < KSY; ++ks) {
+        hop_load_a<BF>(ab[ks], as[ks], kSplit, AX + mt * kHopM * AS, at, ks,
+                       w, lane);
+        hop_load_a<BF>(gb[ks], gs[ks], kSplit, GX + mt * kHopM * AS, at, ks,
+                       w, lane);
+      }
+      hop_wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < KSY; ++ks)
+#pragma unroll
+        for (int part = kFirst; part < 3; ++part) {
+          const int q = part == 1;
+          const bool acc_in = ks > 0 || part > kFirst;
+          const HopA& a = part == 0 ? as[ks] : ab[ks];
+          const HopA& g = part == 0 ? gs[ks] : gb[ks];
+          hop_wgmma<BF>(a1, a, bpart(By, 0, q, YKB), ks, YKB, acc_in);
+          hop_wgmma<BF>(a2, g, bpart(By, 0, q, YKB), ks, YKB, acc_in);
+        }
+      hop_wgmma_commit();
+      hop_wgmma_wait<0>();
+#pragma unroll
+      for (int ks = 0; ks < KSY; ++ks) {
+        hop_keep(ab[ks]);
+        hop_keep(gb[ks]);
+        if constexpr (kSplit) {
+          hop_keep(as[ks]);
+          hop_keep(gs[ks]);
+        }
+      }
+      // a thread holds a2's (r, c) beside a1's (r, c + 16): the sum needs no
+      // barrier
+      auto at_t = [&](int r, int c) {
+        const int m = mt * kHopM + r;
+        return (c % kBxN * XC + m % XC) * kBxZS + m / XC;
+      };
+      hop_acc_each(a1, w, lane, [&](int r, int c, float v) {
+        (c < kBxN ? T1 : T2)[at_t(r, c)] = v;
+      });
+      hop_acc_each(a2, w, lane,
+                   [&](int r, int c, float v) { T2[at_t(r, c)] += v; });
+    }
+  }
+  // the z products of pass j (its k step), asynchronous on the card: A from
+  // T1, T2 (bf16: the k step's second 8 values repeat the first, against
+  // B's zero rows)
+  __device__ __forceinline__ void z_issue(const float* T1, const float* T2,
+                                          const unsigned char* Bz, int j,
+                                          int wg, int w, int lane) {
+    auto at = [](int r, int k) { return r * kBxZS + (BF ? (k & 7) : k); };
+    Acc* d = z + (kHopHost ? wg * ZT : 0);
+#pragma unroll
+    for (int i = 0; i < ZT; ++i) {
+      const int mt = wg * ZT + i;
+      hop_load_a<BF>(zbig[i][0], zsmall[i][0], kSplit,
+                     T1 + mt * kHopM * kBxZS, at, 0, w, lane);
+      hop_load_a<BF>(zbig[i][1], zsmall[i][1], kSplit,
+                     T2 + mt * kHopM * kBxZS, at, 0, w, lane);
+    }
+    hop_wgmma_fence();
+#pragma unroll
+    for (int part = kFirst; part < 3; ++part)
+#pragma unroll
+      for (int i = 0; i < ZT; ++i) {
+        const int q = part == 1;
+        hop_wgmma<BF>(d[i], part == 0 ? zsmall[i][0] : zbig[i][0],
+                      bpart(Bz, 1, q, ZKB), j, ZKB, j > 0 || part > kFirst);
+        hop_wgmma<BF>(d[i], part == 0 ? zsmall[i][1] : zbig[i][1],
+                      bpart(Bz, 0, q, ZKB), j, ZKB);
+      }
+    hop_wgmma_commit();
+  }
+  // the z products issued so far are done: their operands are free
+  __device__ __forceinline__ void retire() {
+    hop_wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < ZT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        hop_keep(zbig[i][h]);
+        if constexpr (kSplit) hop_keep(zsmall[i][h]);
+      }
+  }
+  // st(by, x, bz, v) for each output of warpgroup wg's rows
+  template <typename St>
+  __device__ __forceinline__ void store(int wg, int w, int lane, St st) {
+    const Acc* d = z + (kHopHost ? wg * ZT : 0);
+#pragma unroll
+    for (int i = 0; i < ZT; ++i) {
+      const int mt = wg * ZT + i;
+      hop_acc_each(d[i], w, lane, [&](int r, int c, float v) {
+        const int m = mt * kHopM + r;
+        st(m / XC, m % XC, c, v);
+      });
+    }
+  }
+};
+
+// The same in f64: DMMA m8n8k4 (WMMA), A row-major from ax/gx and t, B
+// column-major from the slices.  A pass's y rows are 64 (8 x columns): warp
+// w multiplies the 8-row tile w; the tile's z rows are 128: warp w holds
+// the tiles w and w + 8.  One host thread stands for the eight warps.
+template <int P>
+struct BxDmma {
+  using T = LabMma<kXF64>;
+  using FA = typename LabFrag<kXF64>::FA;
+  using FC = typename LabFrag<kXF64>::FC;
+  using FB = wmma::fragment<wmma::matrix_b, T::M, T::N, T::K, double,
+                            wmma::col_major>;
+  static constexpr int XC = bx_xc(kXF64), LP = bx_lp(P, kXF64);
+  static constexpr int AS = bx_as(P, kXF64);
+  static constexpr int NB = kBxN / T::N;  // 8-column tiles of N
+  static constexpr int ZT = kBxN * XC / T::M / kBxWarps;  // z tiles a warp
+  static constexpr int NG = kHopHost ? kBxWarps : 1;
+  FC z[NG * ZT * NB];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < NG * ZT * NB; ++i) wmma::fill_fragment(z[i], 0.0);
+  }
+  // the accumulator tile through the warp's scratch: f(row, column, v)
+  template <typename F>
+  static __device__ __forceinline__ void each(const FC& acc, double* sw,
+                                              int lane, int nlanes, F f) {
+    wmma::store_matrix_sync(sw, acc, T::N, wmma::mem_row_major);
+    __syncwarp();
+    for (int e = lane; e < T::M * T::N; e += nlanes)
+      f(e / T::N, e % T::N, sw[e]);
+    __syncwarp();
+  }
+  __device__ __forceinline__ void y(const double* AX, const double* GX,
+                                    const double* By, double* T1, double* T2,
+                                    double* scr, int warp, int lane,
+                                    int nlanes) {
+    const double* My = By;
+    const double* Ky = By + kBxN * LP;
+    for (int w = kHopHost ? 0 : warp; w < (kHopHost ? kBxWarps : warp + 1);
+         ++w) {
+      FC a1[NB], a2[NB];
+#pragma unroll
+      for (int jn = 0; jn < NB; ++jn) {
+        wmma::fill_fragment(a1[jn], 0.0);
+        wmma::fill_fragment(a2[jn], 0.0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < LP; kk += T::K) {
+        FA fa, fg;
+        wmma::load_matrix_sync(fa, AX + w * T::M * AS + kk, AS);
+        wmma::load_matrix_sync(fg, GX + w * T::M * AS + kk, AS);
+#pragma unroll
+        for (int jn = 0; jn < NB; ++jn) {
+          FB fm, fk;
+          wmma::load_matrix_sync(fm, My + jn * T::N * LP + kk, LP);
+          wmma::load_matrix_sync(fk, Ky + jn * T::N * LP + kk, LP);
+          wmma::mma_sync(a1[jn], fa, fm, a1[jn]);
+          wmma::mma_sync(a2[jn], fa, fk, a2[jn]);
+          wmma::mma_sync(a2[jn], fg, fm, a2[jn]);
+        }
+      }
+      double* sw = scr + (kHopHost ? 0 : w * T::M * T::N);
+#pragma unroll
+      for (int jn = 0; jn < NB; ++jn)
+        for (int h = 0; h < 2; ++h)
+          each(h ? a2[jn] : a1[jn], sw, lane, nlanes,
+               [&](int r, int c, double v) {
+                 const int m = w * T::M + r;
+                 (h ? T2 : T1)[((jn * T::N + c) * XC + m % XC) * kBxZS +
+                               m / XC] = v;
+               });
+    }
+  }
+  __device__ __forceinline__ void z_issue(const double* T1, const double* T2,
+                                          const double* Bz, int j, int warp) {
+    const double* Mz = Bz;
+    const double* Kz = Bz + kBxN * LP;
+    for (int w = kHopHost ? 0 : warp; w < (kHopHost ? kBxWarps : warp + 1);
+         ++w) {
+      FC* d = z + (kHopHost ? w * ZT * NB : 0);
+#pragma unroll
+      for (int i = 0; i < ZT; ++i) {
+        const int m0 = (w + i * kBxWarps) * T::M;
+#pragma unroll
+        for (int kk = 0; kk < kBxZC; kk += T::K) {
+          FA f1, f2;
+          wmma::load_matrix_sync(f1, T1 + m0 * kBxZS + kk, kBxZS);
+          wmma::load_matrix_sync(f2, T2 + m0 * kBxZS + kk, kBxZS);
+#pragma unroll
+          for (int jn = 0; jn < NB; ++jn) {
+            FB fk, fm;
+            const long long o = jn * T::N * LP + j * kBxZC + kk;
+            wmma::load_matrix_sync(fk, Kz + o, LP);
+            wmma::load_matrix_sync(fm, Mz + o, LP);
+            wmma::mma_sync(d[i * NB + jn], f1, fk, d[i * NB + jn]);
+            wmma::mma_sync(d[i * NB + jn], f2, fm, d[i * NB + jn]);
+          }
+        }
+      }
+    }
+  }
+  __device__ __forceinline__ void retire() {}
+  template <typename St>
+  __device__ __forceinline__ void store(double* scr, int warp, int lane,
+                                        int nlanes, St st) {
+    for (int w = kHopHost ? 0 : warp; w < (kHopHost ? kBxWarps : warp + 1);
+         ++w) {
+      const FC* d = z + (kHopHost ? w * ZT * NB : 0);
+      double* sw = scr + (kHopHost ? 0 : w * T::M * T::N);
+#pragma unroll
+      for (int i = 0; i < ZT; ++i)
+#pragma unroll
+        for (int jn = 0; jn < NB; ++jn)
+          each(d[i * NB + jn], sw, lane, nlanes,
+               [&](int r, int c, double v) {
+                 const int m = (w + i * kBxWarps) * T::M + r;
+                 st(m / XC, m % XC, jn * T::N + c, v);
+               });
+    }
+  }
+};
+
+// v3 on the ring: one block per tile (iz, iy) and x block of XC columns,
+// grid (ceil(X / XC), nt, nt), kBxThreads threads: eight warps run each
+// pass's band x, y products and z products; a producer warp loads the
+// tile's B sides once and each pass's u box into the ring of nu slots.
+// in_map: the input layout (X, size, size) in boxes (XC + 2 PH, LP, kBxZC);
+// bop: the host's B operand, the y sides of the nt tiles, then their z
+// sides.
+template <int P, int XP>
+__global__ void __launch_bounds__(kBxThreads, 1)
+l2_bx_kernel(const __grid_constant__ HopMap in_map,
+             typename LabMma<XP>::C* __restrict__ out,
+             const typename LabMma<XP>::C* __restrict__ tables,
+             const unsigned char* __restrict__ bop, BxGeo g, int nu) {
+  using C = typename LabMma<XP>::C;
+  constexpr bool F64 = XP == kXF64;
+  constexpr int XC = bx_xc(XP), PH = bx_ph(P, XP), NW = 2 * P + 2;
+  constexpr int LP = bx_lp(P, XP), BXW = XC + 2 * PH, AS = bx_as(P, XP);
+  constexpr int ZC = kBxZC;
+  // the x band's table rows in registers, not read from shared memory for
+  // each output: 3xTF32 0.478 -> 0.422 ms, 1xTF32 0.411 -> 0.364 at the
+  // flagship on an H100; bf16x3, whose split operands leave no registers
+  // for them, spills with them there: 0.520 in shared memory, 0.582 in
+  // registers (ring_sweep, bx_rows_other)
+  constexpr bool kRowsInRegs = XP != kXBF16x3;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const bool solo = blockDim.x < 64;
+  const int cn = solo ? 1 : 32 * kBxWarps;
+  const BxSmem pl = bx_smem(P, XP, nu);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw + pl.bar);
+  uint64_t* empty = full + kBxMaxU;
+  uint64_t* bfull = full + 2 * kBxMaxU;
+  const int iy = blockIdx.y, iz = blockIdx.z, x0 = blockIdx.x * XC;
+  const int b = g.b, npass = (b + 2 * P + ZC - 1) / ZC;
+  const long long ybytes = bx_side_bytes(P, XP, 0);
+  const long long zbytes = bx_side_bytes(P, XP, 1);
+  unsigned char* B = smem_raw + pl.b;
+  auto produce_b = [&] {
+    hop_mbar_expect(bfull, (unsigned)(ybytes + zbytes));
+    hop_bulk_load(B, bop + iy * ybytes, (unsigned)ybytes, bfull);
+    hop_bulk_load(B + ybytes, bop + g.nt * ybytes + iz * zbytes,
+                  (unsigned)zbytes, bfull);
+  };
+  auto produce = [&](int j) {  // pass j's box into slot j % nu
+    const int s = j % nu;
+    if (j >= nu) hop_mbar_wait(empty + s, (unsigned)((j / nu - 1) & 1));
+    hop_mbar_expect(full + s, (unsigned)(ZC * LP * BXW * sizeof(C)));
+    hop_tma_load(smem_raw + pl.u + s * pl.u_bytes, &in_map, full + s,
+                 x0 - PH, iy * b, iz * b + j * ZC);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < kBxMaxU; ++s) {
+      hop_mbar_init(full + s, 1);
+      hop_mbar_init(empty + s, 1);
+    }
+    hop_mbar_init(bfull, 1);
+    hop_mbar_init_fence();
+  }
+  __syncthreads();
+  if (!solo && warp == kBxWarps) {  // the producer warp
+    if (lane == 0) {
+      produce_b();
+      for (int j = 0; j < npass; ++j) produce(j);
+    }
+    return;
+  }
+  if (solo) produce_b();
+  // the Mx and Kx rows of the block's columns (zeros beyond npts)
+  C* tab = reinterpret_cast<C*>(smem_raw + pl.tab);
+  for (int i = tid; i < 2 * XC * NW; i += cn) {
+    const int k = i / (XC * NW), r = i / NW % XC, xg = x0 + r;
+    tab[i] = xg < g.npts
+                 ? tables[((long long)k * g.npts + xg) * NW + i % NW]
+                 : C(0);
+  }
+  C* AX = reinterpret_cast<C*>(smem_raw + pl.ax);
+  C* GX = AX + ZC * XC * AS;
+  C* T1 = reinterpret_cast<C*>(smem_raw + pl.t);
+  C* T2 = T1 + kBxN * XC * kBxZS;
+  // the x band's split of the threads: column pairs (xo, yl mod 4), then
+  // rows (zr, yl / 4); one host thread takes them all
+  constexpr int kCols = XC * 4;
+  const bool split = cn >= kCols;
+  const int c0 = split ? tid % kCols : tid, cstep = split ? kCols : cn;
+  const int r0 = split ? tid / kCols : 0, rstep = split ? cn / kCols : 1;
+  lab_sync(1, cn);
+  hop_mbar_wait(bfull, 0);
+  std::conditional_t<F64, BxDmma<P>, BxWgmma<P, XP>> x;
+  if constexpr (F64) x.zero();
+  // f(wg) for this thread's warpgroup (the host thread: both), its index
+  // warp-uniform as ptxas can see (a wgmma on a path it cannot prove so is
+  // serialised)
+  auto each_wg = [&](auto f) {
+    if constexpr (kHopHost) {
+      for (int wg = 0; wg < 2; ++wg) f(wg);
+    } else {
+      f(hop_uniform(tid / 128));
+    }
+  };
+  for (int j = 0; j < npass; ++j) {
+    if (solo) produce(j);
+    const int s = j % nu;
+    hop_mbar_wait(full + s, (unsigned)((j / nu) & 1));
+    // x band: output (zr, yl, xo) of the pass.  A thread keeps one column
+    // pair (xo, yl mod 4) over the pass's rows, and its Mx, Kx table rows
+    // in registers where kRowsInRegs; a warp's lanes take eight x columns
+    // by four y rows (distinct banks on both sides)
+    const C* U = reinterpret_cast<const C*>(smem_raw + pl.u + s * pl.u_bytes);
+    for (int c = c0; c < kCols; c += cstep) {
+      const int xo = (c & 7) + (c >> 5) * 8, ylo = (c >> 3) & 3;
+      C wm[NW], wk[NW];
+      if constexpr (kRowsInRegs) {
+#pragma unroll
+        for (int o = 0; o < NW; ++o) {
+          wm[o] = tab[xo * NW + o];
+          wk[o] = tab[(XC + xo) * NW + o];
+        }
+      }
+      const C* wa = kRowsInRegs ? wm : tab + xo * NW;
+      const C* wb = kRowsInRegs ? wk : tab + (XC + xo) * NW;
+      for (int r = r0; r < ZC * (LP / 4); r += rstep) {
+        const int zr = r / (LP / 4), yl = r % (LP / 4) * 4 + ylo;
+        C am, ak;
+        band2<P>(wa, wb, U + (zr * LP + yl) * BXW + xo + PH - P, 1, am, ak);
+        AX[(zr * XC + xo) * AS + yl] = am;
+        GX[(zr * XC + xo) * AS + yl] = ak;
+      }
+    }
+    lab_sync(1, cn);  // ax, gx whole; the slot read
+    if (tid == 0) hop_mbar_arrive(empty + s);
+    x.retire();  // pass j - 1's z products: their registers are free
+    if constexpr (F64) {
+      x.y(AX, GX, reinterpret_cast<const double*>(B), T1, T2,
+          reinterpret_cast<double*>(smem_raw + pl.scr), warp, lane,
+          solo ? 1 : 32);
+    } else {
+      each_wg([&](int wg) { x.y(AX, GX, B, T1, T2, wg, warp % 4, lane); });
+    }
+    lab_sync(1, cn);  // t1, t2 whole
+    if constexpr (F64) {
+      x.z_issue(T1, T2, reinterpret_cast<const double*>(B + ybytes), j, warp);
+    } else {
+      each_wg([&](int wg) {
+        x.z_issue(T1, T2, B + ybytes, j, wg, warp % 4, lane);
+      });
+    }
+  }
+  x.retire();
+  const long long NT = (long long)g.nt * b;
+  auto st = [&](int by, int xo, int bz, C v) {
+    if (by < b && bz < b && x0 + xo < g.X)
+      out[(((long long)iz * b + bz) * NT + (long long)iy * b + by) * g.X +
+          x0 + xo] = v;
+  };
+  if constexpr (F64) {
+    x.store(reinterpret_cast<double*>(smem_raw + pl.scr), warp, lane,
+            solo ? 1 : 32, st);
+  } else {
+    each_wg([&](int wg) { x.store(wg, warp % 4, lane, st); });
+  }
+}
+
+}  // namespace tpufem

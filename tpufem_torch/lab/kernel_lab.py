@@ -10,8 +10,8 @@ against the plain version in f64 before it is timed.  Variants:
     v5-copy               K1's routine with its copy ablation (timing only)
     v4                    the plain banded version (torch.roll taps; a
                           plain tier, not a kernel)
-    v17 v18 v19 v20       the L1 kernels (``resident_lab.V17Kernel``; v17
-                          and v19 on the ring routine); a
+    v17 v18 v19 v20       the L1 kernels (``resident_lab.V17Kernel``, on
+                          the ring routines; v18 on v17's); a
                           suffix picks the x stage or an ablation:
                           -bf (bf16x3), -h (1xTF32), -f64 (f64 storage),
                           -copy, -bands, -mm (timing only)

@@ -15,13 +15,17 @@ per-row tables in difference form (``kernel_separable.band_tables``), so
 the TPU's periodic tables and deficit corrections (``_periodic_band``,
 ``corr_z``/``corr_y``) are not ported.
 
-v17, v19 and v20 run the ring routines (``csrc/lab_resident_ring.cuh``:
-the z/y bands fed by a TMA ring; v17 and v19 the x stage on wgmma over x
-chunks, v19 warp-specialised and persistent; v20 v19's roles with the
-x stage windowed, each 32-column block's products over the 48 rows a half
-of ``[Kx^T; Mx^T]`` its band needs, from a window of qq stages); the tile
-routine (``lab_tile_kernel``, ``lab_pipe_kernel``) stays as their earlier
-schedule, taken with ``routine="tile"``, and is what v18 runs.
+v17-v20 run the ring routines (``csrc/lab_resident_ring.cuh``: the z/y
+bands fed by a TMA ring; v17 and v19 the x stage on wgmma over x chunks,
+v19 warp-specialised and persistent; v20 v19's roles with the x stage
+windowed, each 32-column block's products over the 48 rows a half of
+``[Kx^T; Mx^T]`` its band needs, from a window of qq stages).  v18 is v17
+with fused band stages; the ring's bands run ``band2`` (the fused
+stages' two tables on one read of the input, ``band``'s arithmetic tap by
+tap) on every chunk, so on the ring v18 is v17's launch
+(``lab_ring_kernel``) and bit for bit its output.  The tile routine
+(``lab_tile_kernel``, ``lab_pipe_kernel``) stays as their earlier
+schedule, taken with ``routine="tile"`` (v18's with ``fused=1``).
 
 ``V17Kernel.raw`` on a CUDA tensor launches the kernel (or raises); on a
 CPU tensor it runs ``plain``, the dense separable contraction of
@@ -54,10 +58,12 @@ MAX_DEGREE = 8
 # (TZ, TY) output tiles tried in order; M = TZ*TY must be a multiple of
 # the MMA tile's M
 TILES = ((2, 16), (4, 8), (2, 8), (1, 16), (1, 8))
-# the ring routines (v17, v19; v20 windowed): sub-tiles of one wgmma M (64
-# rows), the least halo first; ring depths (u slots, B stages) tried in
-# order, deepest first
-RING_KERNELS = ("v17", "v19", "v20")
+# the ring routines (v17 and v18, v19; v20 windowed): sub-tiles of one
+# wgmma M (64 rows), the least halo first; ring depths (u slots, B stages)
+# tried in order, deepest first
+RING_KERNELS = ("v17", "v18", "v19", "v20")
+# the ring routine's variant number each kernel launches: v18 runs v17's
+RING_VARIANT = {"v17": 17, "v18": 17, "v19": 19, "v20": 20}
 RING_M = 64
 RING_TILES = ((8, 8), (4, 16), (16, 4))
 RING_DEPTHS = ((3, 2), (2, 2), (3, 1), (2, 1))
@@ -267,9 +273,9 @@ class V17Kernel:
       layout alone, the band stages alone, the x product alone); each
       still computes a defined function, which ``plain`` gives.
 
-    routine: "ring" (v17, v19 and v20's default: ``lab_resident_ring.cuh``;
-    v20's is windowed, ``lab_window_kernel``) or "tile" (the first version:
-    v18's, and the earlier schedule of v17, v19 and v20).  tile: the output
+    routine: "ring" (the default: ``lab_resident_ring.cuh``; v18 runs
+    v17's ``lab_ring_kernel``, v20's is windowed, ``lab_window_kernel``) or
+    "tile" (the first version, their earlier schedule).  tile: the output
     tile (the ring's: a sub-tile of 64 rows); the chooser's by default
     (``choose_ring``, ``choose_window``, ``choose_tile``).
     """
@@ -440,7 +446,7 @@ class V17Kernel:
             tickets = torch.empty(1, dtype=torch.int64, device=self.device)
             with torch.cuda.device(self.device):
                 rc = self.lib.lib.tpufem_lab_ring_apply(
-                    int(self.kern_name[1:]), self.xp, self.p,
+                    RING_VARIANT[self.kern_name], self.xp, self.p,
                     MODES[self.mode], self.npts, self.sz, self.sy, self.X,
                     *self.tile, *self.ring, self.grid, gp.data_ptr(),
                     y.data_ptr(), self.tables.data_ptr(),

@@ -1,4 +1,4 @@
-"""Sweep the compile-time constants of the two redesigned lab routines.
+"""Sweep the compile-time constants of the redesigned L2 lab routines.
 
 The all-band tile mover (``csrc/lab_zyfirst.cuh``: vcopy, vband, v16, on the
 ring of ``csrc/band_ring.cuh``) and the dense x stage's ring
@@ -11,7 +11,12 @@ constants, each held to its plain version first.  Two more copies are
 ablations of the x ring, timed only (their output is wrong by design): its
 loads and barriers without the products, and its products on whatever the
 first chunks left in shared memory, without the loads; their sum against the
-whole says how far the two overlap.
+whole says how far the two overlap.  v3's ring (``csrc/lab_separable_ring.cuh``)
+runs at each depth of its u ring (a run-time argument) beside the chooser's,
+and in three copies timed only: its band x with the table rows held where
+the committed kernel does not hold them (shared memory, and registers in
+bf16x3), its loads, band x and stores without the y and z products, and its
+products with the band x replaced by a copy of each output's centre tap.
 
     python -m tpufem_torch.lab.ring_sweep [--reps 20] [--only l2_nxb1 ...]
 
@@ -36,6 +41,10 @@ from tpufem_torch.utils import build
 from tpufem_torch.utils.timer import time_fn
 
 SWEEP_DIR = build.BUILD_DIR / "sweep"
+# the libraries a copy rebuilds, by name: their launchers, cut to p = 4
+LIBRARIES = {"lab_zyfirst": "lab_zyfirst.cu",
+             "lab_separable": "lab_separable.cu",
+             "lab_separable_ring": "lab_separable_ring.cu"}
 # name -> (library, {file: [(text, replacement), ...]}, timed only)
 VARIANTS = {
     "committed": (None, {}, False),
@@ -60,8 +69,21 @@ VARIANTS = {
     "l2_products_only": ("lab_separable", {"lab_separable.cuh": [
         ("      load(kc + S - 2);     // the slot chunk kc - 2 was multiplied "
          "from\n", "      lab_cp_commit();\n")]}, True),
+    "bx_rows_other": ("lab_separable_ring", {"lab_separable_ring.cuh": [
+        ("kRowsInRegs = XP != kXBF16x3;", "kRowsInRegs = XP == kXBF16x3;")
+    ]}, True),
+    "bx_no_products": ("lab_separable_ring", {"lab_separable_ring.cuh": [
+        ("      each_wg([&](int wg) { x.y(AX, GX, B, T1, T2, wg, warp % 4, "
+         "lane); });", "      (void)0;"),
+        ("        x.z_issue(T1, T2, B + ybytes, j, wg, warp % 4, lane);",
+         "        (void)wg;")]}, True),
+    "bx_no_band": ("lab_separable_ring", {"lab_separable_ring.cuh": [
+        ("        band2<P>(wa, wb, U + (zr * LP + yl) * BXW + xo + PH - P, 1, "
+         "am, ak);", "        am = ak = U[(zr * LP + yl) * BXW + xo + PH];")
+    ]}, True),
 }
 ZY_TIMED = ("vcopy", "vband", "v16")
+BX_TIMED = ("highest", "high", "bf16x3")  # v3's ring
 L2_TIMED = (("vx", "highest"), ("vx", "high"), ("vx", "bf16x3"),
             ("v2", "highest"), ("v12", "highest"), ("vxy", "highest"))
 
@@ -70,23 +92,26 @@ def edited_sources(name: str):
     """{file: text} of the csrc copy of variant ``name``: its edits applied
     (each text must occur exactly once) and the two launchers cut to p = 4."""
     out = build.edited_csrc(VARIANTS[name][1], name)
-    for fname in ("lab_zyfirst.cu", "lab_separable.cu"):
+    for fname in LIBRARIES.values():
         out[fname] = re.sub(r" +TPUFEM_CASE\([1-35-8]\)\n", "", out[fname])
     return out
 
 
 def build_variant(name: str) -> dict:
-    """Build the lab libraries of variant ``name`` (both for "committed",
-    else the one it edits); returns {library name: KernelLibrary}."""
+    """Build the lab libraries of variant ``name`` (all three for
+    "committed", else the one it edits); returns {library name:
+    KernelLibrary}."""
     lib_name = VARIANTS[name][0]
-    names = [lib_name] if lib_name else ["lab_zyfirst", "lab_separable"]
+    names = [lib_name] if lib_name else list(LIBRARIES)
     d = SWEEP_DIR / name
     return build.build_copies({d: (edited_sources(name), names)})[d]
 
 
-def time_variant(libs, variant, prec, u, K1, M1, reps, timed_only):
-    """One line: the kernel of ``variant`` from ``libs`` at the flagship,
-    held to its plain version (unless an ablation), ms of two timings."""
+def time_variant(libs, variant, prec, u, K1, M1, reps, timed_only,
+                 nu=None):
+    """One line: the kernel of ``variant`` from ``libs`` at the flagship
+    (v3's ring: with nu u slots, or its chooser's), held to its plain
+    version (unless an ablation), ms of two timings."""
     real = separable_lab.load_kernels
     separable_lab.load_kernels = lambda: libs
     try:
@@ -94,6 +119,9 @@ def time_variant(libs, variant, prec, u, K1, M1, reps, timed_only):
                       device="cuda")
     finally:
         separable_lab.load_kernels = real
+    if nu is not None:  # the launcher sizes its shared memory from nu
+        k.ring = (nu,)
+        k.smem = k.lib.lib.tpufem_l2_ring_smem_bytes(4, k.xp, nu)
     gp = k.pad(u)
     err = float("nan")
     if not timed_only:
@@ -106,6 +134,7 @@ def time_variant(libs, variant, prec, u, K1, M1, reps, timed_only):
     ms = [1e3 * time_fn(lambda _: k.raw(gp), gp, reps=reps) for _ in range(2)]
     return (f"  {variant}-{prec} b={k.b}"
             + (f" sub-tile={k.tile}" if k.tile else "")
+            + (f" u slots={k.ring[0]}" if k.bx else "")
             + f" smem={k.smem} max rel err {err:.2e}  {ms[0]:.4f} "
             f"{ms[1]:.4f} ms")
 
@@ -144,6 +173,17 @@ def main(argv=None) -> None:
             for v, prec in L2_TIMED:
                 print(time_variant(libs, v, prec, u, K1, M1, args.reps,
                                    timed_only), flush=True)
+        if "lab_separable_ring" in own:
+            for prec in BX_TIMED:
+                print(time_variant(libs, "v3", prec, u, K1, M1, args.reps,
+                                   timed_only), flush=True)
+            if name == "committed":  # each u ring that fits, 3xTF32
+                count = own["lab_separable_ring"].lib.tpufem_l2_ring_smem_bytes
+                for nu in range(1, separable_lab.RING_MAX_U + 1):
+                    if count(4, separable_lab.X3TF32, nu) <= \
+                            separable_lab.RING_BUDGET:
+                        print(time_variant(libs, "v3", "highest", u, K1, M1,
+                                           args.reps, False, nu), flush=True)
 
 
 if __name__ == "__main__":

@@ -8,7 +8,12 @@ in two CUDA routines:
   ``_kernel_v6`` (:106), ``_kernel_v8`` (:132), ``_kernel_vx`` (:164),
   ``_kernel_vxy`` (:177), ``_kernel_v9`` (:212) and ``_kernel_v12`` (:237):
   x first, then y, then z; each axis stage dense (a tensor-core product) or
-  band (CUDA cores).  ``tpufem_torch/csrc/lab_separable.cuh``.
+  band (CUDA cores).  ``tpufem_torch/csrc/lab_separable.cuh``; v3 runs its
+  own ring routine by default (``routine="ring"``,
+  ``csrc/lab_separable_ring.cuh``: the halo'd u boxes by TMA through an
+  ``mbarrier`` ring, the band x on CUDA cores, the y and z products on
+  wgmma, f64 on DMMA; a tile of b <= 16 rows a side, ``RING_B``), and the
+  first routine as its earlier schedule (``routine="tile"``).
 - the z/y-first half (L2b), ``_kernel_v13`` (:302), ``_kernel_v14`` (:359),
   ``_kernel_v15`` (:431), ``_kernel_vcopy`` (:500), ``_kernel_vband`` (:525)
   and ``_kernel_v16`` (:1347): band z, band y on the halo'd tile, then the x
@@ -50,8 +55,11 @@ import torch
 
 from tpufem_torch.lab.resident_lab import (
     MMA,
+    RING_BUDGET,
     RING_TILES,
     X_ALIGN,
+    _b_layout,
+    _operand_parts,
     band_fma,
     choose_ring,
     operator_bound,
@@ -114,14 +122,20 @@ ZY_TILES = ((2, 8), (1, 16), (1, 8))
 ZY_RING_TILES = ((8, 8), (4, 16), (4, 8), (2, 8), (1, 16))
 ZY_TWO_BLOCKS = 113 * 1024  # (228 KB - 2 x 1 KB reserved) / 2
 MAX_DEGREE = 8
-# the routines of each L2b variant with a tensor-core stage: v15's and
-# v13's on L1's ring (pipe: the persistent lab_ring_pipe_kernel; ring:
-# lab_ring_kernel), "tile" their earlier schedule (zy_kernel)
-ZY_ROUTINES = {"v13": ("ring", "tile"), "v14": ("tile",),
-               "v15": ("pipe", "ring", "tile")}
+# the routines of the variants that have a choice: v15's and v13's on L1's
+# ring (pipe: the persistent lab_ring_pipe_kernel; ring: lab_ring_kernel),
+# "tile" their earlier schedule (zy_kernel); v3's ring (l2_bx_kernel),
+# "tile" its earlier schedule (l2_kernel)
+ROUTINES = {"v3": ("ring", "tile"), "v13": ("ring", "tile"),
+            "v14": ("tile",), "v15": ("pipe", "ring", "tile")}
+# v3's ring: a tile of at most RING_B rows a side (the products' N), its
+# default; halo'd z rows a pass; x columns a block (f32 storage, f64)
+RING_B, RING_ZC = 16, 8
+RING_X_COLS = {False: 32, True: 8}
+RING_MAX_U = 3  # the deepest ring of u slots
 
 
-def zy_routine(variant: str, dtype) -> str | None:
+def default_routine(variant: str, dtype) -> str | None:
     """The routine a variant runs unless one is asked for: v15 the
     persistent ring ("pipe"), but in float64 lab_ring_kernel ("ring"),
     whose DMMA x stage is not held to the persistent x stage's 160
@@ -130,11 +144,12 @@ def zy_routine(variant: str, dtype) -> str | None:
     in every storage dtype (its Pallas schedule loads a tile, then computes
     it: one block a sub-tile, no load of the next in flight; the ring's
     chunks take its two products, q1 @ Kx^T and q23 @ Mx^T, in turn, so
-    on the ring it is v15's instruction stream); v14 the tile routine; the
-    other variants have no choice (None)."""
+    on the ring it is v15's instruction stream); v14 the tile routine; v3
+    its ring (``l2_bx_kernel``); the other variants have no choice
+    (None)."""
     if variant == "v15" and dtype == torch.float64:
         return "ring"
-    return ZY_ROUTINES.get(variant, (None,))[0]
+    return ROUTINES.get(variant, (None,))[0]
 
 
 def tile_slices(M1: np.ndarray, b: int, n_tiles: int, p: int) -> np.ndarray:
@@ -212,6 +227,66 @@ def choose_zy_tile(p: int, xp: int, nu: int, X: int, smem_bytes, mode=0):
                      f"memory at p={p}, X={X}")
 
 
+def ring_k(p: int, xp: int) -> int:
+    """K of v3's ring products: the halo'd rows RING_B + 2p of its largest
+    tile, rounded up to the k step (16 bf16 values, else 8;
+    ``tpufem_l2_ring_k``)."""
+    step = 16 if xp in (XBF16X3, XBF16) else 8
+    return -(-(RING_B + 2 * p) // step) * step
+
+
+def ring_slices(mats_y, mats_z, b: int, nt: int, p: int, xp: int, dtype,
+                device) -> torch.Tensor:
+    """v3's ring B operand, flat bytes: the y sides of the nt tiles, then
+    their z sides.  A tile's side holds its (b, L) slices (``tile_slices``)
+    of [My, Ky] (y) or [Mz, Kz] (z), zero-padded to (RING_B, K) (``ring_k``),
+    split with the kernel's rounding (``resident_lab._operand_parts``),
+    each part's two slices side by side (the y side's [My | Ky] one n32 B
+    operand), laid out as wgmma's K-major B (``_b_layout``; f64: WMMA's
+    column-major B).  bf16's z slices take a k step of 16 a pass: each
+    pass's 8 rows, then 8 zero rows."""
+    K, L = ring_k(p, xp), b + 2 * p
+    bf = xp in (XBF16X3, XBF16)
+
+    def side(mats, z):
+        m = np.zeros((nt, 2, RING_B, K))
+        for a, M in enumerate(mats):
+            m[:, a, :b, :L] = tile_slices(M, b, nt, p).reshape(nt, b, L)
+        t = torch.as_tensor(m, dtype=dtype, device=device)
+        if z and bf:
+            t2 = torch.zeros((nt, 2, RING_B, K // RING_ZC, 2 * RING_ZC),
+                             dtype=dtype, device=device)
+            t2[..., :RING_ZC] = t.reshape(nt, 2, RING_B, K // RING_ZC,
+                                          RING_ZC)
+            t = t2.reshape(nt, 2, RING_B, 2 * K)
+        parts = [_b_layout(q, xp) for q in _operand_parts(t, xp)]
+        return torch.stack(parts, 1).contiguous().view(torch.uint8).reshape(
+            nt, -1)
+
+    return torch.cat([side(mats_y, False).reshape(-1),
+                      side(mats_z, True).reshape(-1)]).contiguous()
+
+
+def bx_side_bytes(p: int, xp: int, z: int) -> int:
+    """Bytes of one tile's y (z = 0) or z (z = 1) side of v3's ring B
+    operand (``ring_slices``; the header's ``bx_side_bytes``)."""
+    parts = 2 if xp in (X3TF32, XBF16X3) else 1
+    e = 8 if xp == XF64 else 2 if xp in (XBF16X3, XBF16) else 4
+    k_bytes = ring_k(p, xp) * (e if not z or xp == XF64 else 4)
+    return 2 * parts * RING_B * k_bytes
+
+
+def choose_ring_u(p: int, xp: int, smem_bytes) -> int:
+    """The u slots of v3's ring: the deepest of RING_MAX_U .. 1 whose block
+    fits RING_BUDGET by the routine's own count ``smem_bytes(p, xp, nu)``
+    (``tpufem_l2_ring_smem_bytes``)."""
+    for nu in range(RING_MAX_U, 0, -1):
+        if smem_bytes(p, xp, nu) <= RING_BUDGET:
+            return nu
+    raise ValueError(f"no v3 ring block fits {RING_BUDGET} bytes of shared "
+                     f"memory at p={p}")
+
+
 def _split_bf16(a: torch.Tensor):
     """f32 -> (hi, lo) bf16 parts, hi + lo ~ a to 2^-16, as lab_put."""
     hi = a.to(torch.bfloat16)
@@ -261,10 +336,11 @@ class LabKernel:
     variant's (TZ, TY) sub-tile (None: ``choose_zy_tile``).  v16, vcopy and
     vband have no tensor-core stage and take "highest" whatever ``prec``
     says.  x_jobs: run the dense x stage of an L2a variant as the first
-    version did (an ablation, timed beside the ring).  routine: v15's
-    and v13's (``ZY_ROUTINES``: v15 "pipe", "ring" or "tile", v13 "ring"
-    or "tile"; None: ``zy_routine``'s, by the storage dtype); v14 takes
-    "tile" only, the other variants None.
+    version did (an ablation, timed beside the ring).  routine: v15's,
+    v13's and v3's (``ROUTINES``: v15 "pipe", "ring" or "tile", v13 and v3
+    "ring" or "tile"; None: ``default_routine``'s, by the storage dtype);
+    v14 takes "tile" only, the other variants None.  v3's ring takes b <=
+    RING_B (its default).
     """
 
     launches = {v: 0 for v in VARIANTS}  # per variant; plain excluded
@@ -275,9 +351,9 @@ class LabKernel:
         if variant not in VARIANTS:
             raise ValueError(f"variant must be one of {VARIANTS}, got "
                              f"{variant!r}")
-        routines = ZY_ROUTINES.get(variant, (None,))
+        routines = ROUTINES.get(variant, (None,))
         if routine is None:
-            routine = zy_routine(variant, dtype)
+            routine = default_routine(variant, dtype)
         if routine not in routines:
             raise ValueError(f"{variant} takes routine {routines}, got "
                              f"{routine!r}")
@@ -301,6 +377,10 @@ class LabKernel:
         self.routine = routine
         self.xp = XF64 if dtype == torch.float64 else PRECS[prec]
         self.zy = variant in ZYFIRST
+        self.bx = variant == "v3" and routine == "ring"  # v3's ring
+        if self.bx and b is not None and not 1 <= b <= RING_B:
+            raise ValueError(f"v3's ring takes a tile b <= {RING_B}, got "
+                             f"b={b}")
         self.flags = None if self.zy else FLAGS[variant] | (
             XJOBS if x_jobs and not FLAGS[variant] & XBAND else 0)
         h = np.broadcast_to(np.asarray(h, np.float64), (3,))
@@ -311,19 +391,24 @@ class LabKernel:
         device = torch.device(device)
         self.lib = None
         if device.type == "cuda":
-            self.lib = load_kernels()["lab_zyfirst" if self.zy
-                                      else "lab_separable"]
+            self.lib = load_kernels()[
+                "lab_zyfirst" if self.zy else "lab_separable_ring"
+                if self.bx else "lab_separable"]
             if device.index is None:
                 device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
         self.smem = self.tile = self.ring = self.grid = None
         self.X = X_ALIGN * -(-npts // X_ALIGN)
         if b is None:
-            b = TILES[0] if self.zy else choose_b(
+            b = TILES[0] if self.zy else RING_B if self.bx else choose_b(
                 p, self.xp, self.lib and self.lib.lib.tpufem_l2_smem_bytes,
                 self.flags)
         NT = -(-npts // b) * b
-        if routine in ("pipe", "ring"):
+        self.b, self.nt = b, NT // b
+        if self.bx:
+            if self.lib is not None:
+                self._plan_bx()
+        elif routine in ("pipe", "ring"):
             self.tile = None if tile is None else tuple(tile)
             if self.lib is not None:
                 self._plan_ring(NT)
@@ -352,7 +437,6 @@ class LabKernel:
         if self.smem is not None and not 0 < self.smem <= 227 * 1024:
             raise ValueError(f"lab tile b={b}, sub-tile {self.tile} needs "
                              f"{self.smem} bytes of shared memory")
-        self.b, self.nt = b, -(-npts // b)
         self.size, self.L = self.nt * b + 2 * p, b + 2 * p
 
         def put(a):  # kernel operand: C, or bf16 hi then lo (lo offset)
@@ -372,6 +456,10 @@ class LabKernel:
                     *self.ring[3:])
             order = [self.Ks[1], self.Ms[1], self.Ks[2], self.Ms[2],
                      self.Ks[0], self.Ms[0]]
+        elif self.bx:  # v3's ring: the tile's y and z slices, split
+            self.bop = ring_slices([self.Ms[1], self.Ks[1]],
+                                   [self.Ms[2], self.Ks[2]], b, self.nt, p,
+                                   self.xp, dtype, device)
         else:
             xk = np.zeros((self.X, 2 * self.X))
             xk[:npts, :npts] = self.Ms[0].T
@@ -391,6 +479,7 @@ class LabKernel:
             self.slices, self.sl_lo = put(dense_slices(
                 [self.Ms[1], self.Ks[1], self.Ms[2], self.Ks[2]], b, self.nt,
                 p, bool(self.flags & TRANS)))
+        if not self.zy:
             order = [self.Ms[0], self.Ks[0], self.Ms[1], self.Ks[1],
                      self.Ms[2], self.Ks[2]]
         self.tables = torch.as_tensor(band_tables(order, p), dtype=dtype,
@@ -424,6 +513,18 @@ class LabKernel:
                                  f"an SM at p={self.p}, X={self.X}")
             props = torch.cuda.get_device_properties(self.device)
             self.grid = min(units, props.multi_processor_count * bps)
+
+    def _plan_bx(self) -> None:
+        """v3's ring plan on the card: its u slots (``choose_ring_u``, by
+        the routine's own shared-memory count) and grid (``_bx_plan``'s
+        blocks); the routine's K must be ``ring_k``'s."""
+        lib = self.lib.lib
+        if lib.tpufem_l2_ring_k(self.p, self.xp) != ring_k(self.p, self.xp):
+            raise RuntimeError("v3's ring routine and ring_k disagree on K")
+        nu = choose_ring_u(self.p, self.xp, lib.tpufem_l2_ring_smem_bytes)
+        self.ring = (nu,)
+        self.smem = lib.tpufem_l2_ring_smem_bytes(self.p, self.xp, nu)
+        self.grid = self._bx_plan()[0]
 
     def _operators(self):
         """Per-axis (Ks, Ms) whose ``laplace_apply_separable`` is this
@@ -508,7 +609,12 @@ class LabKernel:
                              f"{(NT, NT, self.X)} on {self.device}")
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream().cuda_stream
-            if self.ring is not None:
+            if self.bx:
+                rc = self.lib.lib.tpufem_l2_ring_apply(
+                    self.xp, self.p, self.npts, self.b, self.nt, self.size,
+                    self.X, self.ring[0], gp.data_ptr(), y.data_ptr(),
+                    self.tables.data_ptr(), self.bop.data_ptr(), stream)
+            elif self.ring is not None:
                 # the persistent routine's ticket counter, set to 0 on the
                 # stream by the launcher
                 tickets = torch.empty(1, dtype=torch.int64,
@@ -607,9 +713,24 @@ class LabKernel:
         rows over X columns per sub-tile); the dense x stage's
         ring (per block and pass of ZC z rows: the tile's L halo'd rows over
         X columns and, for each of the block's x blocks of XC columns (vx:
-        two; else one), the B operand's 2 XC rows over X, every part)."""
+        two; else one), the B operand's 2 XC rows over X, every part); v3's
+        ring (per block: each pass's box of RING_ZC z rows, K y rows and its
+        columns with their halo, PH each side, and the tile's y and z B
+        sides); v3's earlier schedule, which reads its taps and slices from
+        device memory with no ring (per block of XC columns: the (L, L)
+        halo'd rows over its XC + 2p columns and its four slices, each
+        once, as if L1 held what the block reads again)."""
         item = torch.empty((), dtype=self.dt).element_size()
         p, X, NT = self.p, self.X, self.nt * self.b
+        if self.bx:
+            nblk, npass, K, xc, ph = self._bx_plan()
+            side = sum(bx_side_bytes(p, self.xp, z) for z in (0, 1))
+            return nblk * (npass * RING_ZC * K * (xc + 2 * ph) * item + side)
+        if self.variant == "v3":
+            e = {XBF16X3: 4, XBF16: 2}.get(self.xp, item)  # hi (and lo)
+            return (X // XC) * self.nt**2 * (
+                self.L**2 * (XC + 2 * p) * item
+                + 4 * round16(self.b) * round16(self.L) * e)
         if self.routine in ("pipe", "ring"):
             tile, nsplit, kn = self._ring_plan()
             units = nsplit * -(-NT // tile[0]) * -(-NT // tile[1])
@@ -630,6 +751,17 @@ class LabKernel:
         per_pass = ZC * self.L * X * item + nxb * parts * 2 * XC * X * e
         return (-(-(X // XC) // nxb) * self.nt**2 * -(-zend // ZC)
                 * per_pass)
+
+    def _bx_plan(self):
+        """(blocks, passes, K, x columns a block, x halo a side) of v3's
+        ring: a block per tile and xc x columns, a pass per RING_ZC of the
+        tile's L halo'd z rows."""
+        xc = RING_X_COLS[self.xp == XF64]
+        ph = -(-self.p // (2 if self.xp == XF64 else 4)) * (
+            2 if self.xp == XF64 else 4)
+        return (-(-self.X // xc) * self.nt**2,
+                -(-(self.b + 2 * self.p) // RING_ZC),
+                ring_k(self.p, self.xp), xc, ph)
 
     def _ring_plan(self):
         """(tile, nsplit, kn) of v13's and v15's ring: the instance's
@@ -653,6 +785,20 @@ class LabKernel:
         mma = {X3TF32: "tf32", X1TF32: "tf32", XBF16X3: "bf16",
                XBF16: "bf16", XF64: "fp64_tensor"}[self.xp]
         cuda_cores = "fp64" if self.xp == XF64 else "fp32"
+        if self.bx:
+            # v3's ring: the band x over each pass's (RING_ZC, K, XC)
+            # outputs, two tables; y: three products (RING_ZC XC, K) x (K,
+            # RING_B) a pass; z: two (RING_B XC, kz) x (kz, RING_B) a pass,
+            # kz its k step (bf16: 16, half of it zero rows)
+            nblk, npass, K, xc, _ = self._bx_plan()
+            kz = 16 if self.xp in (XBF16X3, XBF16) else RING_ZC
+            band = nblk * npass * RING_ZC * K * xc * 2 * 2 * (2 * p + 1)
+            dense = nblk * npass * 2.0 * RING_B * xc * (
+                3 * RING_ZC * K + 2 * RING_B * kz)
+            return roofline_ms(nbytes + self.tables.numel() * item
+                               + nt * sum(bx_side_bytes(p, self.xp, z)
+                                          for z in (0, 1)),
+                               {cuda_cores: band, mma: passes * dense})
         if self.routine in ("pipe", "ring"):
             # L1's ring design on L2's layouts: its sub-tiles over the
             # (nt b)^2 output rows

@@ -42,16 +42,20 @@ SOURCES = {
     "resident_ring": ("resident_ring.cu",
                       ("band_ring.cuh", "common.cuh", "hopper.cuh",
                        "resident_ring.cuh")),
-    # the K1 kernel lab (L1: v17-v20; v17, v19 and v20 also on the ring
-    # routines)
+    # the K1 kernel lab (L1: v17-v20, on the ring routines and the tile
+    # routine)
     "lab_resident": ("lab_resident.cu",
                      ("common.cuh", "hopper.cuh", "lab_mma.cuh",
                       "lab_resident.cuh", "lab_resident_ring.cuh")),
     # the K2 kernel lab's x-first half (L2a: v2, v3, v6, v8, v9, v12, vx,
-    # vxy)
+    # vxy; v3's earlier schedule)
     "lab_separable": ("lab_separable.cu",
                       ("common.cuh", "hopper.cuh", "lab_mma.cuh",
                        "lab_separable.cuh")),
+    # its v3 on the TMA ring with wgmma y/z products (v3's default routine)
+    "lab_separable_ring": ("lab_separable_ring.cu",
+                           ("common.cuh", "hopper.cuh", "lab_mma.cuh",
+                            "lab_separable_ring.cuh")),
     # its z/y-first half (L2b: v13, v14, v15, v16, vcopy, vband), on L1's
     # device functions and ring routines
     "lab_zyfirst": ("lab_zyfirst.cu",
@@ -95,6 +99,10 @@ _ENTRIES = {
         "tpufem_l2_apply": ([_I] * 8 + [_P] * 3 + [_LL, _P, _LL, _P, _LL, _P,
                                                    _P], _I),
         "tpufem_l2_smem_bytes": ([_I] * 4, _LL)},
+    "lab_separable_ring": {
+        "tpufem_l2_ring_apply": ([_I] * 8 + [_P] * 5, _I),
+        "tpufem_l2_ring_smem_bytes": ([_I] * 3, _LL),
+        "tpufem_l2_ring_k": ([_I] * 2, _I)},
     "lab_zyfirst": {
         "tpufem_zy_apply": ([_I] * 10 + [_P] * 6, _I),
         "tpufem_zy_smem_bytes": ([_I] * 7, _LL),
