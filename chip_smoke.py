@@ -76,11 +76,14 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 their plain versions (vcopy exactly, vband 1e-6), and again
                 at every sub-tile their routine's chooser can pick and two
                 larger ones, on a ragged output layout and at the flagship;
-                v15 runs L1's persistent ring routine on L2's layouts and
-                v13 lab_ring_kernel; their earlier schedule (zy_kernel) and
-                v15's other ring routine are checked the same way, one
-                input a degree and the flagship.  Every L2 output starts
-                filled with NaN
+                v15 and v14 run L1's persistent ring routine on L2's
+                layouts and v13 lab_ring_kernel; their earlier schedule
+                (zy_kernel) and v15's and v14's other ring routine are
+                checked the same way, one input a degree and the flagship,
+                and v14 is held to v15 bit for bit on both ring routines;
+                v3 and vxy run their own rings (lab_separable_ring.cuh),
+                their earlier schedule (l2_kernel) checked the same way.
+                Every L2 output starts filled with NaN
   6 throughput  ms per apply over chains of 30 applies (CUDA events),
                 kernel and plain in turns: K1 at 17M DoFs, K2 at 3D Q4
                 refine 5 (2.1M) and 6 (17M) and 2D refine 10, K4 on the
@@ -115,7 +118,10 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 v20 beside K1 and v16; v15 in turns with its earlier
                 schedule (zy_kernel) and with L1's other ring routine; v13
                 in turns with its earlier schedule and with v15 on
-                lab_ring_kernel;
+                lab_ring_kernel; v14 in turns with its earlier schedule and
+                with v15 on its default ring routine; v3 and vxy in turns
+                with their earlier schedule (l2_kernel), and vxy with vx
+                (the x stage alone);
                 torch.matmul of (256, 256) f32, P1's
   7 probes      the toolchain probes (tpufem_torch/lab/toolchain_probe.py):
                 P1's product kernel in each arithmetic against the f64
@@ -131,7 +137,8 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 routines in turns in each arithmetic the cluster chain
                 takes, with its plan and design bound; then the probes'
                 entry point ``toolchain_probe.main``, whose launch counts
-                are the ones reported
+                are the ones reported; P1's device time (torch.profiler)
+                beside its chained time
   8 cell loop   the cell-loop tiers (plain PyTorch, no kernel of the
                 kernels line; ``cell_loop_phase``): solve_poisson 3D Q4
                 refine 5 f32 on its default tier (auto: structured) on the
@@ -340,12 +347,14 @@ L2_KERNELS = {"v2": ("dense x, y, z", "scripts/kernel_lab.py:47"),
               "v9": ("bf16x3", "scripts/kernel_lab.py:212"),
               "v12": ("dense x, band y/z", "scripts/kernel_lab.py:237"),
               "vx": ("x stage alone", "scripts/kernel_lab.py:164"),
-              "vxy": ("x and y stages", "scripts/kernel_lab.py:177")}
+              "vxy": ("dense x ring, wgmma y stored from its accumulators",
+                      "scripts/kernel_lab.py:177")}
 # the L2b kernels
 L2_KERNELS.update({
     "v13": ("z/y bands, two x products; L1's ring",
             "scripts/kernel_lab.py:302"),
-    "v14": ("v13, next load in flight", "scripts/kernel_lab.py:359"),
+    "v14": ("v13, next load in flight; L1's persistent ring",
+            "scripts/kernel_lab.py:359"),
     "v15": ("v14, one K-stacked product; L1's persistent ring",
             "scripts/kernel_lab.py:431"),
     "v16": ("all bands", "scripts/kernel_lab.py:1347"),
@@ -353,7 +362,9 @@ L2_KERNELS.update({
     "vband": ("band stages alone", "scripts/kernel_lab.py:525")})
 # the library and the source of each L2 kernel's default routine
 L2_SOURCES = {"v3": ("lab_separable_ring", "lab_separable_ring.cuh"),
+              "vxy": ("lab_separable_ring", "lab_separable_ring.cuh"),
               "v13": ("lab_zyfirst", "lab_resident_ring.cuh"),
+              "v14": ("lab_zyfirst", "lab_resident_ring.cuh"),
               "v15": ("lab_zyfirst", "lab_resident_ring.cuh")}
 # storage and precision of each L2 mode
 L2_MODES = {"f64": (torch.float64, "highest"),
@@ -361,8 +372,11 @@ L2_MODES = {"f64": (torch.float64, "highest"),
             "f32h": (torch.float32, "high"),
             "bf16": (torch.float32, "bf16x3"),
             "bf16d": (torch.float32, "default")}
-# the lab run whose raw apply is each L2a row's time: 3xTF32 (v9: bf16x3)
-L2_TIMED = {"v2": "v2-highest", "v3": "v3-highest", "v13": "v13-highest"}
+# the lab run whose raw apply is each L2 row's time: 3xTF32 (v9: bf16x3), on
+# the variant's default routine (v3, vxy: their rings; v13: lab_ring_kernel;
+# v14, v15: the persistent ring)
+L2_TIMED = {"v2": "v2-highest", "v3": "v3-highest", "v13": "v13-highest",
+            "v14": "v14", "vxy": "vxy"}
 # the lab's main path: its entry point at the flagship, every L1 and L2
 # kernel
 LAB_ARGS = ["--refine", "6", "--p", "4", "--reps", "20", "--variants",
@@ -681,10 +695,11 @@ def ring_ptxas_summary(log: str, key: str = "lab_",
                        kernels: str = r"lab_(?:ring|window)\w*kernel") -> str:
     """Per ring kernel of the lab (names matching ``kernels``, in mangled
     names holding ``key``: lab_ring_kernel, lab_ring_pipe_kernel,
-    lab_window_kernel by default; L2's v3: l2_bx_kernel) and precision:
-    the registers and the spill stores of its instances, and the count of
-    ptxas's wgmma serialisation warnings, from a build's ptxas log (none
-    where the library came from an earlier build)."""
+    lab_window_kernel by default; L2's v3: l2_bx_kernel, vxy:
+    l2_bxy_kernel) and precision: the registers and the spill stores of its
+    instances, and the count of ptxas's wgmma serialisation warnings that
+    name one of those kernels (or no kernel), from a build's ptxas log
+    (none where the library came from an earlier build)."""
     from tpufem_torch.utils.build import ptxas_lines
 
     if not log.strip():
@@ -699,7 +714,8 @@ def ring_ptxas_summary(log: str, key: str = "lab_",
             r0, r1, s1, ns, n = per.get(inst, (regs, regs, 0, 0, 0))
             per[inst] = (min(r0, regs), max(r1, regs), max(s1, spill),
                          ns + (spill > 0), n + 1)
-        elif "wgmma" in line:
+        elif "wgmma" in line and (re.search(kernels, line)
+                                  or "function '" not in line):
             warn += 1
     xp = {0: "3xTF32", 1: "1xTF32", 2: "bf16x3", 3: "f64", 4: "bf16"}
     return "; ".join(
@@ -2900,7 +2916,12 @@ def main() -> int:
         + ring_ptxas_summary(libs["lab_zyfirst"].compiler_log))
     say("2 build", "v3's ring in lab_separable_ring (l2_bx_kernel, one "
         "block an SM, 288 threads): " + ring_ptxas_summary(
-            libs["lab_separable_ring"].compiler_log, "l2_bx", "l2_bx_kernel"))
+            libs["lab_separable_ring"].compiler_log, "l2_bx_kernel",
+            "l2_bx_kernel"))
+    say("2 build", "vxy's ring in lab_separable_ring (l2_bxy_kernel, two "
+        "blocks an SM, 256 threads, 128 registers): " + ring_ptxas_summary(
+            libs["lab_separable_ring"].compiler_log, "l2_bxy_kernel",
+            "l2_bxy_kernel"))
     say("2 build", "P2's cluster chain in toolchain_probe "
         "(probe_cluster_kernel, three modes an instance): "
         + cluster_ptxas_summary(libs["toolchain_probe"].compiler_log))
@@ -3425,10 +3446,10 @@ def main() -> int:
                  for v in NO_MMA]
         say("5 lab", f"sub-tile {tile}, ragged rows: max rel err "
             + ", ".join(rels))
-    # v15's and v13's earlier schedule (zy_kernel, routine="tile"), v3's
-    # (l2_kernel, routine="tile") and v15's other ring routine (f32
-    # storage: lab_ring_kernel; f64: the persistent one) in every
-    # precision, one input a degree and the flagship (v13's and v3's
+    # v15's, v14's and v13's earlier schedule (zy_kernel, routine="tile"),
+    # v3's and vxy's (l2_kernel, routine="tile") and v15's and v14's other
+    # ring routine (f32 storage: lab_ring_kernel; f64: the persistent one)
+    # in every precision, one input a degree and the flagship (the
     # defaults are checked above with every variant)
     from tpufem_torch.lab.separable_lab import default_routine
 
@@ -3436,12 +3457,37 @@ def main() -> int:
         rels = []
         for mode, (dt, _) in L2_MODES.items():
             other = ("pipe" if default_routine(v, dt) == "ring" else "ring",) \
-                if v == "v15" else ()
+                if v in ("v15", "v14") else ()
             rels += [f"{r} " + l2_case(v, mode, p, n, h, u, routine=r)[2]
                      for r in ("tile",) + other]
         return rels
 
-    for v in ("v15", "v13", "v3"):
+    # v14 on each of v15's ring routines: v15's instruction stream, so its
+    # output is v15's bit for bit, in every mode
+    from tpufem_torch.ops.separable import global_1d_matrices
+
+    def v14_is_v15(p, n, h, u):
+        K1, M1 = global_1d_matrices(p, n, p + 1)
+        for mode, (dt, prec) in L2_MODES.items():
+            for r in ("pipe", "ring"):
+                ks = [LabKernel(v, n * p + 1, p, K1, M1, h, prec=prec,
+                                dtype=dt, device="cuda", routine=r)
+                      for v in ("v15", "v14")]
+                gp = ks[0].pad(u.to(dt))
+                if not same_bits(ks[0].raw(gp), ks[1].raw(gp)):
+                    raise RuntimeError(f"v14 {mode} p={p} npts={n * p + 1} "
+                                       f"({r}): not v15's bit for bit")
+
+    for p in (1, 2, 4, 7, 8):
+        n = max(2, 24 // p)
+        v14_is_v15(p, n, [1.0 / n, 1.3 / n, 0.7 / n],
+                   torch.tensor(rng.standard_normal((n * p + 1)**3),
+                                device=dev))
+    v14_is_v15(4, 64, [1.0 / 64] * 3, u257)
+    say("5 lab", "v14 on v15's ring routines (pipe, ring) bit for bit v15 "
+        f"there in {', '.join(L2_MODES)} at p = 1, 2, 4, 7, 8 and the "
+        "flagship")
+    for v in ("v15", "v14", "v13", "v3", "vxy"):
         for p in (1, 2, 4, 7, 8):
             n = max(2, 24 // p)
             u = torch.tensor(rng.standard_normal((n * p + 1)**3), device=dev)
@@ -3880,6 +3926,62 @@ def main() -> int:
             f"earlier: b={kt.b}, design bound {kt.design_bound()[0]:.4f} ms "
             f"({kt.design_bound()[1]}), {kt.l2_bytes() / 1e9:.3f} GB")
         del gr, gt, kr, kt
+    # vxy on its ring (l2_bxy_kernel, its default), in turns with its
+    # earlier schedule (l2_kernel: earlier, ring, ring, earlier; b = 16 and
+    # the tile chooser's b) and with vx, the x stage alone (vx, ring, ring,
+    # vx; l2_x_kernel at its own b), in each precision, beside the ring's
+    # design bound and what it moves from L2
+    for mode, (dt, prec) in L2_MODES.items():
+        kr, kt, kx = (LabKernel(v, 257, 4, K1l, M1l, [1.0 / 64] * 3,
+                                prec=prec, dtype=dt, device="cuda",
+                                routine=r)
+                      for v, r in (("vxy", "ring"), ("vxy", "tile"),
+                                   ("vx", None)))
+        gr, gt, gx = (k.pad(u257.to(dt)) for k in (kr, kt, kx))
+        t = [raw_ms(k, g) for k, g in ((kt, gt), (kr, gr), (kr, gr),
+                                       (kt, gt))]
+        tx = [raw_ms(k, g) for k, g in ((kx, gx), (kr, gr), (kr, gr),
+                                        (kx, gx))]
+        say("6 throughput", f"vxy {mode} at the flagship, ms per raw apply "
+            f"in turns: earlier {t[0]:.4f}, ring {t[1]:.4f}, ring "
+            f"{t[2]:.4f}, earlier {t[3]:.4f} (ring / earlier "
+            f"{(t[1] + t[2]) / (t[0] + t[3]):.3f}); vx {tx[0]:.4f}, ring "
+            f"{tx[1]:.4f}, ring {tx[2]:.4f}, vx {tx[3]:.4f} (ring / vx "
+            f"{(tx[1] + tx[2]) / (tx[0] + tx[3]):.3f}); the ring's design "
+            f"bound {kr.design_bound()[0]:.4f} ms ({kr.design_bound()[1]}),"
+            f" {kr.l2_bytes() / 1e9:.3f} GB from L2 an apply (b={kr.b}, "
+            f"{kr.grid} blocks, {kr.smem} B a block); earlier: b={kt.b}, "
+            f"design bound {kt.design_bound()[0]:.4f} ms "
+            f"({kt.design_bound()[1]}), {kt.l2_bytes() / 1e9:.3f} GB; vx: "
+            f"b={kx.b}, {kx.l2_bytes() / 1e9:.3f} GB")
+        del gr, gt, gx, kr, kt, kx
+    # v14 on its default ring routine (the persistent one; f64:
+    # lab_ring_kernel), in turns with its earlier schedule (zy_kernel:
+    # earlier, ring, ring, earlier) and with v15 on the same routine (v15,
+    # v14, v14, v15) in each precision
+    for mode, (dt, prec) in L2_MODES.items():
+        r = default_routine("v14", dt)
+        ks = {(v, rr): LabKernel(v, 257, 4, K1l, M1l, [1.0 / 64] * 3,
+                                 prec=prec, dtype=dt, device="cuda",
+                                 routine=rr)
+              for v, rr in (("v14", "tile"), ("v14", r), ("v15", r))}
+        k = ks["v14", r]
+        gp = k.pad(u257.to(dt))
+        t = [raw_ms(ks[key], gp) for key in (
+            ("v14", "tile"), ("v14", r), ("v14", r), ("v14", "tile"))]
+        t2 = [raw_ms(ks[key], gp) for key in (
+            ("v15", r), ("v14", r), ("v14", r), ("v15", r))]
+        say("6 throughput", f"v14 {mode} at the flagship, ms per raw apply "
+            f"in turns: earlier {t[0]:.4f}, {r} {t[1]:.4f}, {r} "
+            f"{t[2]:.4f}, earlier {t[3]:.4f} ({r} / earlier "
+            f"{(t[1] + t[2]) / (t[0] + t[3]):.3f}); v15 on the {r} "
+            f"{t2[0]:.4f}, v14 {t2[1]:.4f}, v14 {t2[2]:.4f}, v15 "
+            f"{t2[3]:.4f} (v14 / v15 {(t2[1] + t2[2]) / (t2[0] + t2[3]):.3f})"
+            f"; the {r}'s design bound {k.design_bound()[0]:.4f} ms "
+            f"({k.design_bound()[1]}), {k.l2_bytes() / 1e9:.3f} GB from L2 "
+            f"an apply (sub-tile {k.tile}, rings {k.ring}, grid {k.grid}, "
+            f"{k.smem} B a block)")
+        del gp, ks
     # the ring's mm ablation (qq = [u | u]: out = [u | u] @ [Kx^T; Mx^T])
     # beside one strict-f32 torch.matmul of the layout's data rows, timed
     # only: the port never calls it
@@ -4210,11 +4312,14 @@ def main() -> int:
                                    reps=N_CHAIN)
     p1_library_ms = 1e3 * time_fn(lambda _: torch.matmul(pa, pb), pa,
                                   reps=N_CHAIN)
+    # its device time: the chain above is paced by the host's launches
+    p1_device_ms = device_ms(lambda _: tprobe.matmul(pa, pb), pa)
     # P1: two (256, 256) f32 operands read, one written; three bf16 passes.
     # P2: its function in one bf16 pass (bound_p2)
     bound["P1"] = roofline_ms(3 * 4 * 256**2, {"bf16": 3 * 2.0 * 256**3})
     bound["P2"] = bound_p2["default"]
-    say("7 probes", f"P1 (256, 256) bf16x3 {ms['P1']:.4f} ms, plain "
+    say("7 probes", f"P1 (256, 256) bf16x3 {ms['P1']:.4f} ms (device time "
+        f"{p1_device_ms:.4f}), plain "
         f"{plain_ms['P1']:.4f}, torch.matmul {p1_library_ms:.4f}, bound "
         f"{bound['P1'][0]:.6f} ({bound['P1'][1]}); P2 both {ms['P2']:.4f} ms, "
         f"plain {plain_ms['P2']:.4f}, bound {bound['P2'][0]:.4f} "

@@ -176,6 +176,50 @@ extern "C" long long host_l2_ring_smem_bytes(int p, int xp, int nu) {
   return tpufem::bx_smem(p, xp, nu).total;
 }
 extern "C" int host_l2_ring_k(int p, int xp) { return tpufem::bx_lp(p, xp); }
+
+// vxy's ring routine, one host thread a block, as its launcher: grid
+// (ceil(X / XC), nt, nt)
+template <int P, int XP>
+static int ring_xy(tpufem::BxGeo g, const void* u, void* y, const void* xb,
+                   long long xb_part, const void* bop) {
+  using C = typename tpufem::LabMma<XP>::C;
+  using E = typename tpufem::LabMma<XP>::E;
+  constexpr int XC = tpufem::bx_xc(XP);
+  const long long bytes = tpufem::bxy_smem(P, XP).total;
+  for (int bz = 0; bz < g.nt; ++bz)
+    for (int by = 0; by < g.nt; ++by)
+      for (int bx = 0; bx < (g.X + XC - 1) / XC; ++bx) {
+        std::memset(tpufem::smem_raw, 0xAB, bytes + 4096);
+        blockIdx = Dim3{bx, by, bz};
+        tpufem::l2_bxy_kernel<P, XP>((const C*)u, (C*)y, (const E*)xb,
+                                     xb_part, (const unsigned char*)bop, g);
+        for (long long i = bytes; i < bytes + 4096; ++i)
+          if (tpufem::smem_raw[i] != 0xAB) return 1;  // beyond its smem
+      }
+  return 0;
+}
+
+// the instances the cases use: f64 at p = 1, 2, 4, 7, 8; 3xTF32 at p = 1,
+// 2, 4, 7; 1xTF32 and bf16x3 at p = 4; one bf16 product at p = 1 and 4
+extern "C" int host_l2_ring_xy_apply(int xp, int p, int npts, int b, int nt,
+                                     int size, int X, const void* u, void* y,
+                                     const void* xb, long long xb_part,
+                                     const void* bop) {
+  const tpufem::BxGeo g{npts, b, nt, size, X};
+#define TPUFEM_XY(XP, PP)                                          \
+  if (xp == XP && p == PP)                                         \
+    return ring_xy<PP, XP>(g, u, y, xb, xb_part, bop);
+  TPUFEM_XY(3, 1) TPUFEM_XY(3, 2) TPUFEM_XY(3, 4) TPUFEM_XY(3, 7)
+  TPUFEM_XY(3, 8) TPUFEM_XY(0, 1) TPUFEM_XY(0, 2) TPUFEM_XY(0, 4)
+  TPUFEM_XY(0, 7) TPUFEM_XY(1, 4) TPUFEM_XY(2, 4) TPUFEM_XY(4, 1)
+  TPUFEM_XY(4, 4)
+#undef TPUFEM_XY
+  return 2;
+}
+
+extern "C" long long host_l2_ring_xy_smem_bytes(int p, int xp) {
+  return tpufem::bxy_smem(p, xp).total;
+}
 extern "C" long long host_l2_ring_side_bytes(int p, int xp, int z) {
   return tpufem::bx_side_bytes(p, xp, z);
 }
@@ -306,16 +350,29 @@ def l2_lib(tmp_path_factory):
     lib.host_l2_ring_k.restype = ctypes.c_int
     lib.host_l2_ring_side_bytes.argtypes = [ctypes.c_int] * 3
     lib.host_l2_ring_side_bytes.restype = ctypes.c_longlong
+    lib.host_l2_ring_xy_apply.argtypes = ([ctypes.c_int] * 7
+                                          + [ctypes.c_void_p] * 3
+                                          + [ctypes.c_longlong,
+                                             ctypes.c_void_p])
+    lib.host_l2_ring_xy_apply.restype = ctypes.c_int
+    lib.host_l2_ring_xy_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.host_l2_ring_xy_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
 def _host(lib, k, gp):
-    """The routine k runs (v3: its ring by default, or l2_kernel), its host
-    build on the layout gp; the ring's u slots by its chooser on the build's
-    own count."""
+    """The routine k runs (v3 and vxy: their rings by default, or
+    l2_kernel), its host build on the layout gp; v3's u slots by its
+    chooser on the build's own count."""
     NT = k.nt * k.b
     y = torch.full((NT, NT, k.X), float("nan"), dtype=k.dt)  # all written
-    if k.bx:
+    if k.bx and k.variant == "vxy":
+        rc = lib.host_l2_ring_xy_apply(k.xp, k.p, k.npts, k.b, k.nt, k.size,
+                                       k.X, gp.data_ptr(), y.data_ptr(),
+                                       k.xb.data_ptr(), k.xb_part,
+                                       k.bop.data_ptr())
+        assert rc != 2, "no host instance of vxy's ring at this p and xp"
+    elif k.bx:
         nu = separable_lab.choose_ring_u(k.p, k.xp,
                                          lib.host_l2_ring_smem_bytes)
         rc = lib.host_l2_ring_apply(k.xp, k.p, k.npts, k.b, k.nt, k.size,
@@ -353,7 +410,8 @@ def test_host_build_matches_plain(l2_lib, v, p, mode, b, routine=None, n=None):
     written; the split precisions also against ``emulate``."""
     n = n or (2 if p > 2 else 9 // p)
     k = _kernel(v, p, n, mode, b, routine=routine)
-    assert k.routine == (routine or ("ring" if v == "v3" else None))
+    assert k.routine == (routine or ("ring" if v in ("v3", "vxy") else
+                                     None))
     u = torch.as_tensor(np.random.default_rng(n * p + 3).standard_normal(
         (n * p + 1)**3))
     gp = k.pad(u)
@@ -391,6 +449,29 @@ def test_v3_host_build_by_routine(l2_lib, routine, p, mode, b, n):
     plain version (f64 1e-12) with a NaN-filled output, and a split
     precision against ``emulate`` within EMU_TOL."""
     test_host_build_matches_plain(l2_lib, "v3", p, mode, b, routine, n)
+
+
+# vxy's two routines beyond HOST_CASES (whose vxy cases run the ring): the
+# ring at p = 8 in f64 and p = 7 in 3xTF32, on layouts whose tile b does not
+# divide npts (a ragged last tile) and on X = 48 (two blocks of 32 columns,
+# the second ragged); its earlier schedule, l2_kernel, at each degree and
+# precision HOST_CASES held it to before
+VXY_CASES = (
+    [("ring", 8, "f64", None, None), ("ring", 7, "f32", None, None),
+     ("ring", 2, "f32", 6, None), ("ring", 1, "f64", 5, None),
+     ("ring", 4, "f32", None, 9), ("ring", 4, "f64", None, 9)]
+    + [("tile", p, "f64", None, None) for p in (1, 2, 4, 7)]
+    + [("tile", 4, m, None, None) for m in ("f32", "f32h", "bf16", "bf16d")]
+    + [("tile", 2, m, 4, None) for m in ("f64", "f32")])
+
+
+@pytest.mark.parametrize("routine,p,mode,b,n", VXY_CASES)
+def test_vxy_host_build_by_routine(l2_lib, routine, p, mode, b, n):
+    """vxy's ring and its earlier schedule (``routine="tile"``), each as
+    ``test_host_build_matches_plain`` holds a kernel: against the f64
+    plain version (f64 1e-12) with a NaN-filled output, and a split
+    precision against ``emulate`` within EMU_TOL."""
+    test_host_build_matches_plain(l2_lib, "vxy", p, mode, b, routine, n)
 
 
 @pytest.mark.parametrize("v,p,mode,b", [
@@ -486,7 +567,9 @@ def test_ring_counts_agree(l2_lib):
     the header), its chooser's u slots fit a block at every degree and
     precision (3 at the flagship, 213,632 bytes in 3xTF32), the B operand
     holds nt y sides then nt z sides, and a tile above RING_B is
-    refused."""
+    refused.  vxy's ring takes the same K and B operand (its y sides read)
+    and the dense x stage's split B, and its plan is one block a tile and
+    32 x columns (f64: 8), within two blocks an SM's shared memory."""
     count = l2_lib.host_l2_ring_smem_bytes
     for p in range(1, separable_lab.MAX_DEGREE + 1):
         for xp in separable_lab.TOL:
@@ -520,12 +603,46 @@ def test_ring_counts_agree(l2_lib):
         k.lib = fake
         k._plan_bx()
         assert (k.ring, k.grid, k.smem) == ((nu,), grid, count(4, k.xp, nu))
+    fake.lib.tpufem_l2_ring_xy_smem_bytes = l2_lib.host_l2_ring_xy_smem_bytes
+    for mode in MODES:
+        dtype, prec = MODES[mode]
+        k = LabKernel("vxy", 257, 4, K1, M1, [1 / 64] * 3, prec=prec,
+                      dtype=dtype, device="cpu")
+        assert (k.routine, k.b, k.bx) == ("ring", 16, True)
+        assert k.bop.numel() == k.nt * sum(
+            separable_lab.bx_side_bytes(4, k.xp, z) for z in (0, 1))
+        assert k.xb.shape[-3:] == (272 // 16, 32, 272) and \
+            k.xb_part == (k.xb[0].numel() if k.xb.dim() == 4 else 0)
+        k.lib = fake
+        k._plan_bx()
+        assert (k.ring, k.grid) == ((), (34 if mode == "f64" else 9) * 17**2)
+        assert k.smem == l2_lib.host_l2_ring_xy_smem_bytes(4, k.xp) <= \
+            separable_lab.ZY_TWO_BLOCKS
+    with pytest.raises(ValueError, match="b <= 16"):
+        _kernel("vxy", 2, 4, "f32", b=24)
+    with pytest.raises(ValueError, match="by jobs"):
+        LabKernel("vxy", 9, 2, *global_1d_matrices(2, 4, 3), [0.25] * 3,
+                  device="cpu", routine="ring", x_jobs=True)
 
 
 def test_smem_fits(l2_lib):
     """The default tile of every degree and precision fits a block's
     shared memory by the routine's own count, whatever the variant's
-    flags."""
+    flags; vxy's ring, at every degree and precision, fits two blocks an
+    SM (at p = 4 in 3xTF32: the y side, 6,144 bytes, then four stages of
+    an (8, 24, 16) f32 chunk of u and two x blocks' split B, 32 columns by
+    16 each, with ax and gx, (256, 28) f32 each, over them)."""
+    xy = l2_lib.host_l2_ring_xy_smem_bytes
+    for p in range(1, separable_lab.MAX_DEGREE + 1):
+        for xp in separable_lab.TOL:
+            assert 0 < xy(p, xp) <= separable_lab.ZY_TWO_BLOCKS
+            assert xy(p, xp) >= separable_lab.bx_side_bytes(p, xp, 0) + \
+                2 * 8 * (8 if xp == separable_lab.XF64 else 32) * (
+                    separable_lab.ring_k(p, xp) + 4) * (
+                    8 if xp == separable_lab.XF64 else 4)
+    stage = 8 * 24 * 16 * 4 + 2 * 2 * 32 * 16 * 4
+    assert 4 * stage >= 2 * 256 * 28 * 4
+    assert xy(4, separable_lab.X3TF32) == 6144 + 4 * stage == 88064
     count = l2_lib.host_l2_smem_bytes
     for p in range(1, separable_lab.MAX_DEGREE + 1):
         for xp in separable_lab.TOL:
@@ -596,6 +713,15 @@ def test_l2_bytes_from_the_tile():
     assert kt.b == 24
     assert kt.l2_bytes() == 17 * 11 * 11 * (32 * 32 * 24 * 4
                                             + 4 * 32 * 32 * 4)
+    # vxy's ring (b = 16, 17 tiles a side, 9 blocks of 32 x columns): each
+    # of its 2 passes 8 z rows of the tile's 24 halo'd y rows over X = 272
+    # and its two x blocks' [Mx | Kx] rows (64) over X, two parts; the
+    # tile's y side
+    kxy = LabKernel("vxy", 257, 4, K1, M1, [1 / 64] * 3, device="cpu")
+    assert (kxy.routine, kxy.b) == ("ring", 16)
+    assert kxy.l2_bytes() == 9 * 17 * 17 * (
+        2 * 8 * 24 * 272 * 4 + 2 * 2 * 64 * 272 * 4 + 2 * 2 * 16 * 24 * 4)
+    assert abs(kxy.l2_bytes() / 1e9 - 1.827) < 1e-3
 
 
 def test_ring_sweep_edits_apply(monkeypatch):
@@ -676,3 +802,14 @@ def test_bounds():
     assert k3 == (9 * 17 * 17, 3, 24, 32, 4)
     flops = 3 * nblk * npass * 2 * 16 * xc * (3 * 8 * K + 2 * 16 * 8)
     assert abs(flops / 1e9 - 19.94) < 0.01
+    # vxy's ring: its x products (2 passes of 4 tiles of 64 rows by [Mx |
+    # Kx] of 32 columns, K = 272) are 139.1 GFLOP in 3xTF32, its y products
+    # (256 rows by N = 48, K = 24) 9.2, both at 495 TFLOP/s
+    kxy = LabKernel("vxy", 257, 4, K1, M1, [1 / 64] * 3, device="cpu")
+    assert kxy._bx_plan() == (9 * 17 * 17, 2, 24, 32, 0)
+    xf = 3 * 9 * 17 * 17 * 2 * 2 * 256 * 64 * 272
+    yf = 3 * 9 * 17 * 17 * 2 * 2 * 256 * 48 * 24
+    assert abs(xf / 1e9 - 139.1) < 0.05 and abs(yf / 1e9 - 9.2) < 0.05
+    ms, by = kxy.design_bound()
+    assert by == "operations" and abs(ms - (xf + yf) / 495e12 * 1e3) < 1e-12
+    assert kxy.design_bound()[0] >= kxy.bound()[0]

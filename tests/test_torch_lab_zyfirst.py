@@ -509,6 +509,25 @@ def test_v13_and_v15_on_the_ring_are_one_stream(zy_lib, mode):
     assert torch.equal(y13, y15)
 
 
+@pytest.mark.parametrize("routine", ["ring", "pipe"])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_v14_and_v15_on_the_ring_are_one_stream(zy_lib, mode, routine):
+    """v14 runs v15's ring routines: the same tables and B stages, so the
+    host build of each routine (lab_ring_kernel, and the persistent
+    lab_ring_pipe_kernel) gives the same bits for both, in every mode."""
+    k14, k15 = (_kernel(v, 4, 2, mode, routine=routine)
+                for v in ("v14", "v15"))
+    assert k14.routine == k15.routine == routine
+    assert torch.equal(k14.tables, k15.tables)
+    gp = k14.pad(torch.as_tensor(np.random.default_rng(6).standard_normal(
+        9**3)))
+    y14, y15 = (_lr_host(zy_lib, k, gp, routine) for k in (k14, k15))
+    assert torch.isfinite(y14).all()
+    assert torch.equal(y14, y15)
+    ref = k14.plain(gp.to(torch.float64))
+    assert _max_rel(y14, ref) <= TOL[k14.xp]
+
+
 def test_lr_rings_fit(zy_lib):
     """v15's ring plan fits a block's 227 KB by the routine's own count at
     every degree and arithmetic (one bf16 product too), at the flagship's
@@ -526,11 +545,11 @@ def test_lr_rings_fit(zy_lib):
 
 
 def test_routines():
-    """v15 runs its persistent ring routine ("pipe"), in float64 the other
-    ring routine ("ring"), unless a routine or its earlier schedule ("tile")
-    is asked for; v13 runs lab_ring_kernel ("ring") in every storage dtype
-    unless its earlier schedule ("tile") is asked for; v14 has the tile
-    routine only, the other variants no choice."""
+    """v15 and v14 run the persistent ring routine ("pipe"), in float64 the
+    other ring routine ("ring"), unless a routine or their earlier schedule
+    ("tile") is asked for; v13 runs lab_ring_kernel ("ring") in every
+    storage dtype unless its earlier schedule ("tile") is asked for; the
+    other L2b variants have no choice."""
     K1, M1 = global_1d_matrices(2, 4, 3)
     mk = lambda v, r=None, dt=torch.float32: LabKernel(
         v, 9, 2, K1, M1, [0.25] * 3, dtype=dt, device="cpu", routine=r)
@@ -540,9 +559,18 @@ def test_routines():
     assert [mk("v15", r).routine for r in ("ring", "tile")] == ["ring",
                                                                 "tile"]
     assert mk("v13").routine == mk("v13", dt=torch.float64).routine == "ring"
-    assert mk("v13", "tile").routine == mk("v14").routine == "tile"
+    assert mk("v13", "tile").routine == mk("v14", "tile").routine == "tile"
+    assert separable_lab.ROUTINES["v14"] == separable_lab.ROUTINES["v15"] \
+        == ("pipe", "ring", "tile")
+    for dt in (torch.float32, torch.float64):
+        assert mk("v14", dt=dt).routine == mk("v15", dt=dt).routine == \
+            separable_lab.default_routine("v14", dt)
+    assert mk("v14").routine == "pipe"
+    assert mk("v14", dt=torch.float64).routine == "ring"
+    assert [mk("v14", r, torch.float64).routine for r in ("pipe", "tile")] \
+        == ["pipe", "tile"]
     assert mk("v16").routine is None and mk("v2").routine is None
-    for v, r in (("v13", "pipe"), ("v14", "ring"), ("v16", "tile"),
+    for v, r in (("v13", "pipe"), ("v14", "dense"), ("v16", "tile"),
                  ("v15", "dense")):
         with pytest.raises(ValueError, match="routine"):
             mk(v, r)
@@ -704,12 +732,12 @@ def test_emulated_classes():
 def test_bounds_at_the_flagship():
     """At 3D Q4 refine 6 (npts 257, b = 24, X = 272, f32): v13-v16 have K2's
     bound, 0.0405 ms (bytes); vcopy the same bytes; vband 4 band outputs a
-    DoF, bytes-bound too.  The design bound of v14 and of v13's and v15's
+    DoF, bytes-bound too.  The design bound of v13's, v14's and v15's
     earlier schedule is the x product over the 264^2 rows of the output
-    layout, 20.6 GFLOP a pass, three passes in 3xTF32; v13's and v15's on
-    the ring the same rows in 33 x 33 sub-tiles of 64 by the 288 padded
-    columns, 21.8 GFLOP a pass (one pass: the layouts', tables' and B's
-    bytes); v16's and the ablations' are the layouts' bytes."""
+    layout, 20.6 GFLOP a pass, three passes in 3xTF32; v13's, v14's and
+    v15's on the ring the same rows in 33 x 33 sub-tiles of 64 by the 288
+    padded columns, 21.8 GFLOP a pass (one pass: the layouts', tables' and
+    B's bytes); v16's and the ablations' are the layouts' bytes."""
     from tpufem_torch.lab.resident_lab import operator_bound
 
     K1, M1 = global_1d_matrices(4, 64, 5)
@@ -730,11 +758,13 @@ def test_bounds_at_the_flagship():
                         routine=r) for r in ("tile", "ring")}
     v13_tile = LabKernel("v13", 257, 4, K1, M1, [1 / 64] * 3, device="cpu",
                          routine="tile")
-    for k in (v13_tile, ks["v14"], v15["tile"]):
+    v14_tile = LabKernel("v14", 257, 4, K1, M1, [1 / 64] * 3, device="cpu",
+                         routine="tile")
+    for k in (v13_tile, v14_tile, v15["tile"]):
         assert k.design_bound() == (3 * flop / 495e12 * 1e3, "operations")
     ring_flop = 2 * 33**2 * 64 * 544 * 288
     assert 33**2 * 64 == 264**2 and abs(ring_flop - 21.8e9) < 0.05e9
-    for k in (ks["v15"], v15["ring"], ks["v13"]):
+    for k in (ks["v15"], v15["ring"], ks["v13"], ks["v14"]):
         ms, by = k.design_bound()
         assert by == "operations"
         assert abs(ms - 3 * ring_flop / 495e12 * 1e3) < 1e-12

@@ -1,10 +1,11 @@
-// Host launcher of the K2 kernel lab's v3 on the ring (device code and the
-// design note in lab_separable_ring.cuh), with a plain C interface for
-// ctypes.  Built by tpufem_torch/utils/build.py:
+// Host launchers of the K2 kernel lab's v3 and vxy on the ring (device code
+// and the design notes in lab_separable_ring.cuh), with a plain C interface
+// for ctypes.  Built by tpufem_torch/utils/build.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -ldl -o <lib>.so lab_separable_ring.cu
 #include <atomic>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -37,13 +38,35 @@ cudaError_t launch(const tpufem::BxGeo& g, int nu, const void* u, void* y,
   return cudaGetLastError();
 }
 
-template <int XP>
-cudaError_t by_p(int p, const tpufem::BxGeo& g, int nu, const void* u,
-                 void* y, const void* tab, const void* bop,
-                 cudaStream_t stream) {
-#define TPUFEM_CASE(PP) \
-  case PP:              \
-    return launch<PP, XP>(g, nu, u, y, tab, bop, stream);
+// vxy's: the shared-memory opt-in and the launch, grid (ceil(X / XC), nt,
+// nt)
+template <int P, int XP>
+cudaError_t launch_xy(const tpufem::BxGeo& g, const void* u, void* y,
+                      const void* xb, long long xb_part, const void* bop,
+                      cudaStream_t stream) {
+  using C = typename tpufem::LabMma<XP>::C;
+  using E = typename tpufem::LabMma<XP>::E;
+  const int smem = (int)tpufem::bxy_smem(P, XP).total;
+  auto kern = tpufem::l2_bxy_kernel<P, XP>;
+  static std::atomic<int> granted[tpufem::kLabMaxDevices];
+  cudaError_t e = tpufem::lab_opt_in(kern, smem, granted);
+  if (e != cudaSuccess) return e;
+  constexpr int XC = tpufem::bx_xc(XP);
+  kern<<<dim3((g.X + XC - 1) / XC, g.nt, g.nt), tpufem::kBxyThreads, smem,
+         stream>>>(static_cast<const C*>(u), static_cast<C*>(y),
+                   static_cast<const E*>(xb), xb_part,
+                   static_cast<const unsigned char*>(bop), g);
+  return cudaGetLastError();
+}
+
+// f(precision, degree), each an integral_constant, for the instance of (xp,
+// p)
+template <int XP, typename F>
+cudaError_t by_p(int p, F f) {
+#define TPUFEM_CASE(PP)                       \
+  case PP:                                    \
+    return f(std::integral_constant<int, XP>{}, \
+             std::integral_constant<int, PP>{});
   switch (p) {
     TPUFEM_CASE(1)
     TPUFEM_CASE(2)
@@ -58,13 +81,12 @@ cudaError_t by_p(int p, const tpufem::BxGeo& g, int nu, const void* u,
   return cudaErrorInvalidValue;
 }
 
-cudaError_t dispatch(int xp, int p, const tpufem::BxGeo& g, int nu,
-                     const void* u, void* y, const void* tab, const void* bop,
-                     cudaStream_t stream) {
+template <typename F>
+cudaError_t dispatch(int xp, int p, F f) {
   switch (xp) {
 #define TPUFEM_XP(XP) \
   case XP:            \
-    return by_p<XP>(p, g, nu, u, y, tab, bop, stream);
+    return by_p<XP>(p, f);
     TPUFEM_XP(tpufem::kX3TF32)
     TPUFEM_XP(tpufem::kX1TF32)
     TPUFEM_XP(tpufem::kXBF16x3)
@@ -95,8 +117,42 @@ int tpufem_l2_ring_apply(int xp, int p, int npts, int b, int nt, int size,
       reinterpret_cast<uintptr_t>(bop) % 16)
     return (int)cudaErrorInvalidValue;
   const tpufem::BxGeo g{npts, b, nt, size, X};
-  return (int)dispatch(xp, p, g, nu, u, y, tab, bop,
-                       static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)dispatch(xp, p, [&](auto x, auto pp) {
+    return launch<decltype(pp)::value, decltype(x)::value>(g, nu, u, y, tab,
+                                                           bop, s);
+  });
+}
+
+// out = vxy's function of u (layout (size, size, X), out (nt b, nt b, X))
+// by its ring routine with product precision xp (LabXPrec), a tile of b <=
+// 16 rows a side.  xb: the dense x stage's B operand, (parts, X / 16, 32, X)
+// as separable_lab.x_blocks lays it out (3xTF32 big then small, bf16x3 and
+// bf16 hi then lo, else one part), part q xb_part elements on; bop: the y
+// sides of the nt tiles as separable_lab.ring_slices lays them out (bx_side_
+// bytes(p, xp, 0) each, then the z sides, which are not read).  u, xb and
+// bop 16-byte aligned.  Returns the cudaError_t of the launch.
+int tpufem_l2_ring_xy_apply(int xp, int p, int npts, int b, int nt, int size,
+                            int X, const void* u, void* y, const void* xb,
+                            long long xb_part, const void* bop,
+                            void* stream) {
+  if (b < 1 || b > tpufem::kBxN || nt < 1 || (long long)nt * b < npts ||
+      size != nt * b + 2 * p || X < npts || X % 16 ||
+      reinterpret_cast<uintptr_t>(u) % 16 ||
+      reinterpret_cast<uintptr_t>(xb) % 16 ||
+      reinterpret_cast<uintptr_t>(bop) % 16)
+    return (int)cudaErrorInvalidValue;
+  const tpufem::BxGeo g{npts, b, nt, size, X};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)dispatch(xp, p, [&](auto x, auto pp) {
+    return launch_xy<decltype(pp)::value, decltype(x)::value>(
+        g, u, y, xb, xb_part, bop, s);
+  });
+}
+
+// Shared-memory bytes of one block of vxy's ring.
+long long tpufem_l2_ring_xy_smem_bytes(int p, int xp) {
+  return tpufem::bxy_smem(p, xp).total;
 }
 
 // Shared-memory bytes of one block; the chooser in

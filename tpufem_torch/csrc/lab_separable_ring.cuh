@@ -1,8 +1,9 @@
 // The K2 kernel lab's v3 (band x, dense y and z) on Hopper's asynchronous
 // machinery: a TMA ring feeds the band x stage, and the y and z stages are
-// wgmma products.  Device code; the host launcher with its plain C interface
-// is lab_separable_ring.cu.  v3's first routine (l2_kernel, lab_separable.cuh)
-// stays as its earlier schedule.
+// wgmma products.  Its vxy (dense x, dense y) at the end of the file, on the
+// same y products.  Device code; the host launchers with their plain C
+// interface are in lab_separable_ring.cu.  The first routine of both
+// (l2_kernel, lab_separable.cuh) stays as their earlier schedule.
 //
 // Replaces the Pallas kernel _kernel_v3 (scripts/kernel_lab.py:78): on the
 // lab's layouts, input (size, size, X), size = nt b + 2P, data at [P:P+npts,
@@ -192,12 +193,14 @@ struct BxWgmma {
       const unsigned char* side, int s, int q, int kb) {
     return side + (long long)(q * 2 + s) * kBxN * kb;
   }
-  // the y products of a pass: t1, t2 into T1, T2 (row y XC + x, column
-  // zr): ax [My | Ky]^T, one n32 product, into [t1 | Ky ax], gx My^T into
-  // a second accumulator, added to Ky ax as it is stored
-  __device__ __forceinline__ void y(const float* AX, const float* GX,
-                                    const unsigned char* By, float* T1,
-                                    float* T2, int wg, int w, int lane) {
+  // the y products of a pass, tile by tile: warpgroup wg's y tiles mt (rows
+  // (zr, x) of the pass), ax [My | Ky]^T, one n32 product, into a1 = [t1 |
+  // Ky ax], gx My^T into a2; st(mt, a1, a2) once the tile's products are
+  // done (a thread holds a2's (r, c) beside a1's (r, c + 16))
+  template <typename St>
+  static __device__ __forceinline__ void y_products(
+      const float* AX, const float* GX, const unsigned char* By, int wg,
+      int w, int lane, St st) {
     auto at = [](int r, int k) { return r * AS + k; };
     for (int mt = wg; mt < YT; mt += 2) {
       HopAccN<2 * kBxN> a1;
@@ -233,18 +236,27 @@ struct BxWgmma {
           hop_keep(gs[ks]);
         }
       }
-      // a thread holds a2's (r, c) beside a1's (r, c + 16): the sum needs no
-      // barrier
-      auto at_t = [&](int r, int c) {
-        const int m = mt * kHopM + r;
-        return (c % kBxN * XC + m % XC) * kBxZS + m / XC;
-      };
-      hop_acc_each(a1, w, lane, [&](int r, int c, float v) {
-        (c < kBxN ? T1 : T2)[at_t(r, c)] = v;
-      });
-      hop_acc_each(a2, w, lane,
-                   [&](int r, int c, float v) { T2[at_t(r, c)] += v; });
+      st(mt, a1, a2);
     }
+  }
+  // v3: t1, t2 into T1, T2 (row y XC + x, column zr), Ky ax added to gx My^T
+  // as it is stored
+  __device__ __forceinline__ void y(const float* AX, const float* GX,
+                                    const unsigned char* By, float* T1,
+                                    float* T2, int wg, int w, int lane) {
+    y_products(AX, GX, By, wg, w, lane,
+               [&](int mt, const HopAccN<2 * kBxN>& a1, const Acc& a2) {
+                 auto at_t = [&](int r, int c) {
+                   const int m = mt * kHopM + r;
+                   return (c % kBxN * XC + m % XC) * kBxZS + m / XC;
+                 };
+                 hop_acc_each(a1, w, lane, [&](int r, int c, float v) {
+                   (c < kBxN ? T1 : T2)[at_t(r, c)] = v;
+                 });
+                 hop_acc_each(a2, w, lane, [&](int r, int c, float v) {
+                   T2[at_t(r, c)] += v;
+                 });
+               });
   }
   // the z products of pass j (its k step), asynchronous on the card: A from
   // T1, T2 (bf16: the k step's second 8 values repeat the first, against
@@ -333,10 +345,14 @@ struct BxDmma {
       f(e / T::N, e % T::N, sw[e]);
     __syncwarp();
   }
-  __device__ __forceinline__ void y(const double* AX, const double* GX,
-                                    const double* By, double* T1, double* T2,
-                                    double* scr, int warp, int lane,
-                                    int nlanes) {
+  // the y products of a pass, warp by warp: warp w's 8-row tile (rows (zr,
+  // x) of the pass) by the NB column tiles, a1 = ax My^T, a2 = ax Ky^T +
+  // gx My^T; st(w, a1, a2) once they are done
+  template <typename St>
+  static __device__ __forceinline__ void y_products(const double* AX,
+                                                    const double* GX,
+                                                    const double* By,
+                                                    int warp, St st) {
     const double* My = By;
     const double* Ky = By + kBxN * LP;
     for (int w = kHopHost ? 0 : warp; w < (kHopHost ? kBxWarps : warp + 1);
@@ -362,6 +378,15 @@ struct BxDmma {
           wmma::mma_sync(a2[jn], fg, fm, a2[jn]);
         }
       }
+      st(w, a1, a2);
+    }
+  }
+  // v3: t1, t2 into T1, T2 through the warp's scratch tile
+  __device__ __forceinline__ void y(const double* AX, const double* GX,
+                                    const double* By, double* T1, double* T2,
+                                    double* scr, int warp, int lane,
+                                    int nlanes) {
+    y_products(AX, GX, By, warp, [&](int w, const FC* a1, const FC* a2) {
       double* sw = scr + (kHopHost ? 0 : w * T::M * T::N);
 #pragma unroll
       for (int jn = 0; jn < NB; ++jn)
@@ -372,7 +397,7 @@ struct BxDmma {
                  (h ? T2 : T1)[((jn * T::N + c) * XC + m % XC) * kBxZS +
                                m / XC] = v;
                });
-    }
+    });
   }
   __device__ __forceinline__ void z_issue(const double* T1, const double* T2,
                                           const double* Bz, int j, int warp) {
@@ -583,6 +608,382 @@ l2_bx_kernel(const __grid_constant__ HopMap in_map,
             solo ? 1 : 32, st);
   } else {
     each_wg([&](int wg) { x.store(wg, warp % 4, lane, st); });
+  }
+}
+
+// ---- vxy on the ring -------------------------------------------------------
+// The K2 lab's vxy (_kernel_vxy, scripts/kernel_lab.py:177: the x stage, then
+// the y products, the output the halo'd tile's first b z rows, so its
+// function is ((My + Ky)(x)Mx + My(x)Kx) u shifted by P rows in z) on the
+// same layouts and tile as v3's ring: one block per tile (iz, iy) and x
+// block of XC columns (32, f64 8), b <= 16, a pass per 8 halo'd z rows of
+// the first b.
+//   x   ax, gx = u Mx^T, u Kx^T over the pass's (8, LP) halo'd rows, K = all
+//       X columns, dense on wgmma as vx's x stage (l2_xring) runs it: a ring
+//       of kBxyStages stages, each a chunk of KC columns of the pass's u rows
+//       (the A operand, its 16-byte pieces permuted by the row so a
+//       fragment's loads fall in distinct banks) and of the host's split B
+//       (the rows of Mx, then of Kx, of the block's two x blocks of 16
+//       columns, K-major: separable_lab.x_blocks), cp.async 16 bytes a
+//       thread, the loads of two chunks in flight while one is multiplied;
+//       warpgroup wg multiplies the 64-row tiles wg, wg + 2 (a pass has 3 at
+//       LP = 24, 4 at 32: a tile it lacks repeats the last and is not
+//       stored, so no wgmma waits on a run-time condition), one n32 product
+//       an x block, 3xTF32 and bf16x3 in lab_mma.cuh's order (small*big,
+//       big*small, big*big).  The accumulators, rows (zr, yl), are stored
+//       transposed straight into the y product's A layout (rows (zr, x), K =
+//       yl, AS words a row: bx_as), which lies over the ring once the pass's
+//       last chunk is multiplied.  Its own copy of l2_xring's loop, with
+//       the rows a pass at compile time and each accumulator's first product
+//       overwriting it: vxy calling l2_xring itself ran 1.11 ms at the
+//       flagship in 3xTF32 against this copy's 0.98 (PERF.md, vxy).
+//   y   BxWgmma::y_products, v3's: [t1 | Ky ax] = ax [My | Ky]^T one n32
+//       product, gx My^T one n16, A from registers, B the tile's y side as v3
+//       lays it out (bulk-free: cp.async with the first chunk).  A thread
+//       holds a2's (r, c) beside a1's (r, c) and (r, c + 16), so t1 + t2 is
+//       summed in registers and stored from there to device memory, masked
+//       to the tile's b rows and to X: no T1/T2, no scratch tile, no second
+//       trip through shared memory.
+//   f64 DMMA m8n8k4 (WMMA) for both, 8 x columns a block: the x stage's
+//       jobs are 8-row tiles by the 8 columns of Mx, then of Kx; an
+//       accumulator's elements are found by a fragment of their indices
+//       (WMMA leaves the mapping unspecified), loaded once from a 64-entry
+//       table.
+// What bounds it on an H100: the function is 4 band outputs a DoF, bytes:
+// 0.0405 ms at 16,974,593 DoFs in f32.  The design is the dense x stage's:
+// at the flagship (b = 16, nt = 17, X = 272, 9 blocks of 32 columns, 2
+// passes, 4 tiles of 64 rows a pass issued, N = 32 a part, K = 272) 2 x 17^2
+// 9 x 2 x 256 x 64 x 272 x 3 = 139.1 GFLOP in 3xTF32, 0.28 ms at 495 TFLOP/s;
+// the y products 9.2 (N = 48 a k step, K = 24): LabKernel.design_bound.
+// The shared memory (the y side, the ring with ax and gx over it: 88 KB at
+// p = 4 in 3xTF32, 106 KB at p = 8) lets two blocks share an SM, so one
+// block's y products and stores run beside the other's x stage.
+
+constexpr int kBxyThreads = 256;  // two warpgroups (f64: eight warps)
+constexpr int kBxyStages = 4;     // stages of the x stage's ring
+// K columns of the x stage a chunk: 64 bytes of a u row
+__host__ __device__ constexpr int bxy_kc(int xp) {
+  return xp == kXF64 ? 8 : 16;
+}
+
+// Byte offsets of a block's shared-memory regions, each 128-byte aligned:
+//   idx   f64: the 64 indices the accumulators' elements are found by
+//   b     the tile's y side of the B operand (bx_side_bytes)
+//   ring  kBxyStages stages of `stage` bytes: the chunk's A operand (8 LP
+//         rows of KC values), then for each x block each part of B (its
+//         [Mx | Kx] columns by KC); ax, then gx ((8 XC rows, AS words)) lie
+//         over it
+struct BxySmem {
+  long long idx, b, ring, a, b_part, stage, ax, total;
+};
+__host__ __device__ inline BxySmem bxy_smem(int p, int xp) {
+  const bool f64 = xp == kXF64;
+  const long long c = f64 ? 8 : 4, xc = bx_xc(xp), kc = bxy_kc(xp);
+  const long long nxb = f64 ? 1 : 2, ncol = f64 ? 2 * xc : kHopN;
+  BxySmem s;
+  s.idx = 0;
+  s.b = f64 ? lab_align(64 * 8) : 0;
+  s.ring = s.b + lab_align(bx_side_bytes(p, xp, 0));
+  s.a = lab_align(kBxZC * bx_lp(p, xp) * kc * c);
+  s.b_part = lab_align(ncol * kc * bx_belem(xp));
+  s.stage = s.a + nxb * bx_parts(xp) * s.b_part;
+  s.ax = s.ring;
+  const long long ax = lab_align(2LL * kBxZC * xc * bx_as(p, xp) * c);
+  s.total = s.ring + (kBxyStages * s.stage > ax ? kBxyStages * s.stage : ax);
+  return s;
+}
+
+// f(r, c, t1 + t2) for each element (r, c < N) of a y tile this thread holds:
+// a1 = [t1 | Ky ax] (n 2N), a2 = gx My^T (n N), t2 = Ky ax + gx My^T
+template <int N, typename F>
+__device__ __forceinline__ void bxy_sum_each(const HopAccN<2 * N>& a1,
+                                             const HopAccN<N>& a2, int w,
+                                             int lane, F f) {
+#ifdef __CUDA_ARCH__
+  const int r = 16 * w + (lane >> 2), c = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      f(r + 8 * (e >> 1), 8 * j + c + (e & 1),
+        a1.d[4 * j + e] + (a1.d[4 * (j + N / 8) + e] + a2.d[4 * j + e]));
+#else
+  for (int r = 0; r < kHopM; ++r)
+    for (int c = 0; c < N; ++c)
+      f(r, c,
+        a1.d[r * 2 * N + c] + (a1.d[r * 2 * N + N + c] + a2.d[r * N + c]));
+#endif
+}
+
+// vxy on the ring: grid (ceil(X / XC), nt, nt), kBxyThreads threads.  u: the
+// input layout (size, size, X); xb: the dense x stage's B operand, (parts, X
+// / 16, 32, X) (separable_lab.x_blocks, split), part q xb_part elements on;
+// bop: the y sides of the nt tiles (separable_lab.ring_slices; its z sides
+// are not read).  One host thread (blockDim 1) runs a block: each chunk's
+// loads at once, both warpgroups' (f64: the eight warps') products in turn.
+template <int P, int XP>
+__global__ void __launch_bounds__(kBxyThreads, 2)
+l2_bxy_kernel(const typename LabMma<XP>::C* __restrict__ u,
+              typename LabMma<XP>::C* __restrict__ out,
+              const typename LabMma<XP>::E* __restrict__ xb, long long xb_part,
+              const unsigned char* __restrict__ bop, BxGeo g) {
+  using T = LabMma<XP>;
+  using C = typename T::C;
+  using E = typename T::E;
+  constexpr bool F64 = XP == kXF64, BF = bx_bf(XP);
+  constexpr bool kSplit = bx_parts(XP) == 2;
+  constexpr int XC = bx_xc(XP), LP = bx_lp(P, XP), AS = bx_as(P, XP);
+  constexpr int ZC = kBxZC, KC = bxy_kc(XP), S = kBxyStages;
+  constexpr int NP = bx_parts(XP), NXB = F64 ? 1 : 2;
+  constexpr int NCOL = F64 ? 2 * XC : kHopN;  // B columns of an x block
+  constexpr int CV = 16 / (int)sizeof(C), EV = 16 / (int)sizeof(E);
+  constexpr int ACH = KC / CV, BCH = KC / EV;  // 16-byte pieces of a row
+  constexpr int kbytes = KC * (int)sizeof(E);
+  constexpr int ROWS = ZC * LP;  // the x product's rows a pass: (zr, yl)
+  static_assert(ROWS % kHopM == 0 && ROWS <= 4 * kHopM, "LP <= 32");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const bool solo = nthr < 64;
+  const BxySmem pl = bxy_smem(P, XP);
+  const int iy = blockIdx.y, iz = blockIdx.z, x0 = blockIdx.x * XC;
+  const int b = g.b, L = b + 2 * P, nkc = g.X / KC, nxblk = g.X / 16;
+  const long long NT = (long long)g.nt * b;
+  const long long ybytes = bx_side_bytes(P, XP, 0);
+  unsigned char* B = smem_raw + pl.b;
+  unsigned char* ring = smem_raw + pl.ring;
+  C* AX = reinterpret_cast<C*>(smem_raw + pl.ax);
+  C* GX = AX + ZC * XC * AS;
+  // word offset of column k of row `row` of a chunk's A operand: f32 rows of
+  // 64 bytes with their 16-byte pieces permuted by the row (l2_xring's)
+  auto a_at = [](int row, int k) -> int {
+    if constexpr (F64) return row * KC + k;
+    else return row * KC + ((((k >> 2) ^ (row >> 1)) & 3) << 2) + (k & 3);
+  };
+  // chunk kc of the pass whose first halo'd z row is zc into its stage:
+  // u rows beyond the tile's L halo'd y rows or its b z rows are zeros
+  auto load = [&](int zc, int kc) {
+    if (kc < nkc) {
+      unsigned char* st = ring + (kc % S) * pl.stage;
+      C* A = reinterpret_cast<C*>(st);
+      const C* src = u + ((long long)iz * b * g.size + (long long)iy * b) *
+                             g.X + kc * KC;
+      for (int i = tid; i < ROWS * ACH; i += nthr) {
+        const int row = i / ACH, ch = i % ACH;
+        const int zl = zc + row / LP, yl = row % LP;
+        C* dst = A + a_at(row, ch * CV);
+        if (yl < L && zl < b) {
+          lab_cp16(dst, src + ((long long)zl * g.size + yl) * g.X + ch * CV);
+        } else {
+#pragma unroll
+          for (int e = 0; e < CV; ++e) dst[e] = C(0);
+        }
+      }
+      for (int i = tid; i < NXB * NP * NCOL * BCH; i += nthr) {
+        const int ch = i % BCH, n = i / BCH % NCOL, jq = i / (BCH * NCOL);
+        const int q = jq % NP, j = jq / NP;
+        long long row;  // of xb's part: Mx row x, or Kx row x
+        if constexpr (F64) {
+          row = (long long)(x0 / 16) * kHopN + (n < XC ? 0 : 16) + x0 % 16 +
+                n % XC;
+        } else {
+          const int xblk = blockIdx.x * NXB + j < nxblk
+                               ? blockIdx.x * NXB + j : nxblk - 1;
+          row = (long long)xblk * kHopN + n;
+        }
+        const int off = F64 ? (n * KC + ch * EV) * (int)sizeof(E)
+                            : hop_b_offset(n, ch * 16, kbytes);
+        lab_cp16(st + pl.a + jq * pl.b_part + off,
+                 xb + q * xb_part + row * g.X + kc * KC + ch * EV);
+      }
+    }
+    lab_cp_commit();  // an empty group past the end keeps the count
+  };
+  // the tile's y side, with the first pass's first chunk
+  for (int i = tid; i < (int)(ybytes / 16); i += nthr)
+    lab_cp16(B + 16 * i, bop + iy * ybytes + 16 * i);
+  auto out_at = [&](int zl, int by, int x) {
+    return (((long long)iz * b + zl) * NT + (long long)iy * b + by) * g.X +
+           x0 + x;
+  };
+  const int npass = (b + ZC - 1) / ZC;
+  if constexpr (F64) {
+    using FA = typename LabFrag<XP>::FA;
+    using FC = typename LabFrag<XP>::FC;
+    using FB = wmma::fragment<wmma::matrix_b, T::M, T::N, T::K, double,
+                              wmma::col_major>;
+    constexpr int NJOB = ROWS / T::M * 2;  // 8-row tiles by [Mx | Kx]
+    constexpr int NJ = kHopHost ? NJOB : (NJOB + kBxWarps - 1) / kBxWarps;
+    const int nwarps = solo ? 1 : nthr / 32;
+    double* tab = reinterpret_cast<double*>(smem_raw + pl.idx);
+    for (int i = tid; i < T::M * T::N; i += nthr) tab[i] = i;
+    __syncthreads();
+    FC idx;  // each element's index r 8 + c
+#ifdef __CUDA_ARCH__
+    wmma::load_matrix_sync(idx, tab, T::N, wmma::mem_row_major);
+#else
+    for (int e = 0; e < idx.num_elements; ++e) idx.x[e] = e;
+#endif
+    auto each = [&](const FC& acc, auto f) {
+#pragma unroll
+      for (int e = 0; e < acc.num_elements; ++e) {
+        const int rc = (int)idx.x[e];
+        f(rc / T::N, rc % T::N, e);
+      }
+    };
+    for (int j = 0; j < npass; ++j) {
+      const int zc = j * ZC;
+      FC acc[NJ];
+      for (int kc = 0; kc < S - 1; ++kc) load(zc, kc);
+      for (int kc = 0; kc < nkc; ++kc) {
+        lab_cp_wait_but<S - 2>();
+        __syncthreads();
+        load(zc, kc + S - 1);  // the slot chunk kc - 1 was multiplied from
+        const unsigned char* st = ring + (kc % S) * pl.stage;
+        const double* A = reinterpret_cast<const double*>(st);
+        const double* Bx = reinterpret_cast<const double*>(st + pl.a);
+#pragma unroll
+        for (int i = 0; i < NJ; ++i) {
+          const int job = warp + i * nwarps, mt = job / 2, nt = job % 2;
+          if (job >= NJOB) continue;
+          if (kc == 0) wmma::fill_fragment(acc[i], 0.0);
+#pragma unroll
+          for (int kk = 0; kk < KC; kk += T::K) {
+            FA fa;
+            FB fb;
+            wmma::load_matrix_sync(fa, A + mt * T::M * KC + kk, KC);
+            wmma::load_matrix_sync(fb, Bx + nt * T::N * KC + kk, KC);
+            wmma::mma_sync(acc[i], fa, fb, acc[i]);
+          }
+        }
+      }
+      __syncthreads();  // the ring is free: ax, gx lie over it
+#pragma unroll
+      for (int i = 0; i < NJ; ++i) {
+        const int job = warp + i * nwarps, mt = job / 2, nt = job % 2;
+        if (job >= NJOB) continue;
+        each(acc[i], [&](int r, int c, int e) {
+          const int m = mt * T::M + r;
+          (nt ? GX : AX)[(m / LP * XC + c) * AS + m % LP] = acc[i].x[e];
+        });
+      }
+      __syncthreads();  // ax, gx whole
+      BxDmma<P>::y_products(
+          AX, GX, reinterpret_cast<const double*>(B), warp,
+          [&](int w, const FC* a1, const FC* a2) {
+#pragma unroll
+            for (int jn = 0; jn < BxDmma<P>::NB; ++jn)
+              each(a1[jn], [&](int r, int c, int e) {
+                const int m = w * T::M + r, zl = zc + m / XC, x = m % XC;
+                const int by = jn * T::N + c;
+                if (zl < b && by < b && x0 + x < g.X)
+                  out[out_at(zl, by, x)] = a1[jn].x[e] + a2[jn].x[e];
+              });
+          });
+      __syncthreads();  // ax, gx read: the ring's next loads may land
+    }
+  } else {
+    constexpr int NMT = ROWS / kHopM, MAXT = 2, NWG = 2;
+    constexpr int KS = KC / (BF ? 16 : 8);  // k steps a chunk
+    constexpr int kFirst = kSplit ? 0 : 2;  // the first part's index
+    constexpr int NA = NXB * MAXT;          // accumulators of a warpgroup
+    static_assert(NMT <= NWG * MAXT, "two tiles a warpgroup");
+    const int w = warp % 4;
+    HopAcc acc[kHopHost ? NWG * NA : NA];
+    HopA big[MAXT][KS], small[MAXT][KS];
+    // chunk `st`'s products of warpgroup wg (the first chunk's overwrite
+    // the accumulators)
+    auto mma = [&](int wg, const unsigned char* st, HopAcc* d, bool first) {
+      const float* A = reinterpret_cast<const float*>(st);
+#pragma unroll
+      for (int i = 0; i < MAXT; ++i) {
+        const int mt = wg + i * NWG < NMT ? wg + i * NWG : NMT - 1;
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks)
+          hop_load_a<BF>(big[i][ks], small[i][ks], kSplit,
+                         A + mt * kHopM * KC, a_at, ks, w, lane);
+      }
+      hop_wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+        for (int part = kFirst; part < 3; ++part)
+#pragma unroll
+          for (int jx = 0; jx < NXB; ++jx)
+#pragma unroll
+            for (int i = 0; i < MAXT; ++i)
+              hop_wgmma<BF>(d[jx * MAXT + i],
+                            part == 0 ? small[i][ks] : big[i][ks],
+                            st + pl.a + (jx * NP + (part == 1)) * pl.b_part,
+                            ks, kbytes, !first || ks > 0 || part > kFirst);
+      hop_wgmma_commit();
+    };
+    auto keep = [&] {
+#pragma unroll
+      for (int i = 0; i < MAXT; ++i)
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          hop_keep(big[i][ks]);
+          if constexpr (kSplit) hop_keep(small[i][ks]);
+        }
+    };
+    // f(wg) for this thread's warpgroup (the host thread: both), its index
+    // warp-uniform as ptxas can see
+    auto each_wg = [&](auto f) {
+      if constexpr (kHopHost) {
+        for (int wg = 0; wg < NWG; ++wg) f(wg);
+      } else {
+        f(hop_uniform(tid / 128));
+      }
+    };
+    for (int j = 0; j < npass; ++j) {
+      const int zc = j * ZC;
+      for (int kc = 0; kc < S - 2; ++kc) load(zc, kc);
+      for (int kc = 0; kc < nkc; ++kc) {
+        lab_cp_wait_but<S - 3>();
+        hop_fence_async();  // the copies are read by wgmma's async proxy
+        __syncthreads();
+        load(zc, kc + S - 2);  // the slot chunk kc - 2 was multiplied from
+        hop_wgmma_wait<0>();   // chunk kc - 1: its operand registers free
+        keep();
+        const unsigned char* st = ring + (kc % S) * pl.stage;
+        each_wg([&](int wg) {
+          mma(wg, st, acc + (kHopHost ? wg * NA : 0), kc == 0);
+        });
+      }
+      hop_wgmma_wait<0>();
+      keep();
+      __syncthreads();  // the ring is free: ax, gx lie over it
+      each_wg([&](int wg) {
+#pragma unroll
+        for (int ji = 0; ji < NA; ++ji) {
+          const int jx = ji / MAXT, mt = wg + ji % MAXT * NWG;
+          if (mt >= NMT) continue;
+          hop_acc_each(acc[(kHopHost ? wg * NA : 0) + ji], w, lane,
+                       [&](int r, int c, float v) {
+                         const int m = mt * kHopM + r;
+                         const int x = jx * 16 + c % 16;
+                         (c < 16 ? AX : GX)[(m / LP * XC + x) * AS + m % LP] =
+                             v;
+                       });
+        }
+      });
+      __syncthreads();  // ax, gx whole
+      each_wg([&](int wg) {
+        BxWgmma<P, XP>::y_products(
+            AX, GX, B, wg, w, lane,
+            [&](int mt, const HopAccN<2 * kBxN>& a1,
+                const HopAccN<kBxN>& a2) {
+              bxy_sum_each<kBxN>(a1, a2, w, lane, [&](int r, int c,
+                                                      float v) {
+                const int m = mt * kHopM + r, zl = zc + m / XC, x = m % XC;
+                if (zl < b && c < b && x0 + x < g.X)
+                  out[out_at(zl, c, x)] = v;
+              });
+            });
+      });
+      __syncthreads();  // ax, gx read: the ring's next loads may land
+    }
   }
 }
 

@@ -17,6 +17,11 @@ and in three copies timed only: its band x with the table rows held where
 the committed kernel does not hold them (shared memory, and registers in
 bf16x3), its loads, band x and stores without the y and z products, and its
 products with the band x replaced by a copy of each output's centre tap.
+vxy's ring (the same file) runs beside v3's, in a copy whose launch bound
+holds one block an SM (255 registers a thread, where the committed two
+blocks an SM hold it to 128 and ptxas serialises its wgmmas), and in a copy
+timed only without its y products and stores: its x stage, with ax and gx
+stored into the y operand, alone.
 
     python -m tpufem_torch.lab.ring_sweep [--reps 20] [--only l2_nxb1 ...]
 
@@ -72,6 +77,13 @@ VARIANTS = {
     "bx_rows_other": ("lab_separable_ring", {"lab_separable_ring.cuh": [
         ("kRowsInRegs = XP != kXBF16x3;", "kRowsInRegs = XP == kXBF16x3;")
     ]}, True),
+    "bxy_one_block": ("lab_separable_ring", {"lab_separable_ring.cuh": [
+        ("__global__ void __launch_bounds__(kBxyThreads, 2)",
+         "__global__ void __launch_bounds__(kBxyThreads, 1)")]}, False),
+    "bxy_no_y": ("lab_separable_ring", {"lab_separable_ring.cuh": [
+        ("      each_wg([&](int wg) {\n        BxWgmma<P, XP>::y_products(",
+         "      auto no_y = ([&](int wg) {\n        BxWgmma<P, XP>::y_products(")
+    ]}, True),
     "bx_no_products": ("lab_separable_ring", {"lab_separable_ring.cuh": [
         ("      each_wg([&](int wg) { x.y(AX, GX, B, T1, T2, wg, warp % 4, "
          "lane); });", "      (void)0;"),
@@ -83,7 +95,7 @@ VARIANTS = {
     ]}, True),
 }
 ZY_TIMED = ("vcopy", "vband", "v16")
-BX_TIMED = ("highest", "high", "bf16x3")  # v3's ring
+BX_TIMED = ("highest", "high", "bf16x3")  # v3's and vxy's rings
 L2_TIMED = (("vx", "highest"), ("vx", "high"), ("vx", "bf16x3"),
             ("v2", "highest"), ("v12", "highest"), ("vxy", "highest"))
 
@@ -108,15 +120,16 @@ def build_variant(name: str) -> dict:
 
 
 def time_variant(libs, variant, prec, u, K1, M1, reps, timed_only,
-                 nu=None):
+                 nu=None, routine=None):
     """One line: the kernel of ``variant`` from ``libs`` at the flagship
-    (v3's ring: with nu u slots, or its chooser's), held to its plain
-    version (unless an ablation), ms of two timings."""
+    (v3's ring: with nu u slots, or its chooser's; routine: None, the
+    variant's default), held to its plain version (unless an ablation), ms
+    of two timings."""
     real = separable_lab.load_kernels
     separable_lab.load_kernels = lambda: libs
     try:
         k = LabKernel(variant, 257, 4, K1, M1, [1.0 / 64] * 3, prec=prec,
-                      device="cuda")
+                      device="cuda", routine=routine)
     finally:
         separable_lab.load_kernels = real
     if nu is not None:  # the launcher sizes its shared memory from nu
@@ -133,8 +146,9 @@ def time_variant(libs, variant, prec, u, K1, M1, reps, timed_only,
             raise RuntimeError(f"{variant}: max rel err {err:.3e} > {tol}")
     ms = [1e3 * time_fn(lambda _: k.raw(gp), gp, reps=reps) for _ in range(2)]
     return (f"  {variant}-{prec} b={k.b}"
+            + (f" {k.routine}" if k.routine else "")
             + (f" sub-tile={k.tile}" if k.tile else "")
-            + (f" u slots={k.ring[0]}" if k.bx else "")
+            + (f" u slots={k.ring[0]}" if k.bx and k.ring else "")
             + f" smem={k.smem} max rel err {err:.2e}  {ms[0]:.4f} "
             f"{ms[1]:.4f} ms")
 
@@ -170,13 +184,15 @@ def main(argv=None) -> None:
                 print(time_variant(libs, v, "highest", u, K1, M1, args.reps,
                                    timed_only), flush=True)
         if "lab_separable" in own:
-            for v, prec in L2_TIMED:
+            for v, prec in L2_TIMED:  # vxy: its schedule on this routine
                 print(time_variant(libs, v, prec, u, K1, M1, args.reps,
-                                   timed_only), flush=True)
+                                   timed_only, routine="tile"
+                                   if v == "vxy" else None), flush=True)
         if "lab_separable_ring" in own:
-            for prec in BX_TIMED:
-                print(time_variant(libs, "v3", prec, u, K1, M1, args.reps,
-                                   timed_only), flush=True)
+            for v in ("v3", "vxy"):
+                for prec in BX_TIMED:
+                    print(time_variant(libs, v, prec, u, K1, M1, args.reps,
+                                       timed_only), flush=True)
             if name == "committed":  # each u ring that fits, 3xTF32
                 count = own["lab_separable_ring"].lib.tpufem_l2_ring_smem_bytes
                 for nu in range(1, separable_lab.RING_MAX_U + 1):

@@ -8,12 +8,16 @@ in two CUDA routines:
   ``_kernel_v6`` (:106), ``_kernel_v8`` (:132), ``_kernel_vx`` (:164),
   ``_kernel_vxy`` (:177), ``_kernel_v9`` (:212) and ``_kernel_v12`` (:237):
   x first, then y, then z; each axis stage dense (a tensor-core product) or
-  band (CUDA cores).  ``tpufem_torch/csrc/lab_separable.cuh``; v3 runs its
-  own ring routine by default (``routine="ring"``,
-  ``csrc/lab_separable_ring.cuh``: the halo'd u boxes by TMA through an
-  ``mbarrier`` ring, the band x on CUDA cores, the y and z products on
-  wgmma, f64 on DMMA; a tile of b <= 16 rows a side, ``RING_B``), and the
-  first routine as its earlier schedule (``routine="tile"``).
+  band (CUDA cores).  ``tpufem_torch/csrc/lab_separable.cuh``; v3 and vxy
+  run ring routines of their own by default (``routine="ring"``,
+  ``csrc/lab_separable_ring.cuh``, a tile of b <= 16 rows a side,
+  ``RING_B``: v3 the halo'd u boxes by TMA through an ``mbarrier`` ring,
+  the band x on CUDA cores, the y and z products on wgmma; vxy a dense x
+  stage on wgmma over a ``cp.async`` ring of u and [Mx | Kx] chunks (vx's
+  ring, its own copy), stored into the y products' operand, and v3's y
+  products
+  summed and stored from their accumulators; f64 on DMMA), and the first
+  routine as their earlier schedule (``routine="tile"``).
 - the z/y-first half (L2b), ``_kernel_v13`` (:302), ``_kernel_v14`` (:359),
   ``_kernel_v15`` (:431), ``_kernel_vcopy`` (:500), ``_kernel_vband`` (:525)
   and ``_kernel_v16`` (:1347): band z, band y on the halo'd tile, then the x
@@ -31,7 +35,9 @@ in two CUDA routines:
   library) on L2's layouts: "pipe", v19's persistent, warp-specialised
   routine (v15's default in f32 storage), or "ring", v17's (v13's default,
   and v15's in f64), each a (8, 8) sub-tile of 64 rows fed by a TMA ring,
-  its x stage on wgmma over x chunks.
+  its x stage on wgmma over x chunks.  v14 (v13 with the next load in
+  flight, which the persistent routine keeps) runs them as v15 does, its
+  output v15's bit for bit; the tile routine is its earlier schedule.
 
 Layout in: ``(size, size, X)``, ``size = nt b + 2p``, data at ``[p:p+npts,
 p:p+npts, :npts]``, zeros elsewhere, ``X`` = npts rounded up to 16 (the
@@ -122,32 +128,37 @@ ZY_TILES = ((2, 8), (1, 16), (1, 8))
 ZY_RING_TILES = ((8, 8), (4, 16), (4, 8), (2, 8), (1, 16))
 ZY_TWO_BLOCKS = 113 * 1024  # (228 KB - 2 x 1 KB reserved) / 2
 MAX_DEGREE = 8
-# the routines of the variants that have a choice: v15's and v13's on L1's
-# ring (pipe: the persistent lab_ring_pipe_kernel; ring: lab_ring_kernel),
-# "tile" their earlier schedule (zy_kernel); v3's ring (l2_bx_kernel),
-# "tile" its earlier schedule (l2_kernel)
-ROUTINES = {"v3": ("ring", "tile"), "v13": ("ring", "tile"),
-            "v14": ("tile",), "v15": ("pipe", "ring", "tile")}
-# v3's ring: a tile of at most RING_B rows a side (the products' N), its
-# default; halo'd z rows a pass; x columns a block (f32 storage, f64)
+# the routines of the variants that have a choice: v15's, v14's and v13's
+# on L1's ring (pipe: the persistent lab_ring_pipe_kernel; ring:
+# lab_ring_kernel), "tile" their earlier schedule (zy_kernel); v3's and
+# vxy's rings (l2_bx_kernel, l2_bxy_kernel), "tile" their earlier schedule
+# (l2_kernel)
+ROUTINES = {"v3": ("ring", "tile"), "vxy": ("ring", "tile"),
+            "v13": ("ring", "tile"), "v14": ("pipe", "ring", "tile"),
+            "v15": ("pipe", "ring", "tile")}
+RING_L2A = ("v3", "vxy")  # the L2a variants with a ring routine
+# v3's and vxy's rings: a tile of at most RING_B rows a side (the products'
+# N), their default; halo'd z rows a pass; x columns a block (f32 storage,
+# f64)
 RING_B, RING_ZC = 16, 8
 RING_X_COLS = {False: 32, True: 8}
 RING_MAX_U = 3  # the deepest ring of u slots
 
 
 def default_routine(variant: str, dtype) -> str | None:
-    """The routine a variant runs unless one is asked for: v15 the
-    persistent ring ("pipe"), but in float64 lab_ring_kernel ("ring"),
+    """The routine a variant runs unless one is asked for: v15 and v14
+    the persistent ring ("pipe"), but in float64 lab_ring_kernel ("ring"),
     whose DMMA x stage is not held to the persistent x stage's 160
     registers (there it spills, and v15 ran 4.62 ms against 3.39 on an
     H100 80GB HBM3 at 700 W, chip_smoke.py phase 6); v13 lab_ring_kernel
     in every storage dtype (its Pallas schedule loads a tile, then computes
     it: one block a sub-tile, no load of the next in flight; the ring's
     chunks take its two products, q1 @ Kx^T and q23 @ Mx^T, in turn, so
-    on the ring it is v15's instruction stream); v14 the tile routine; v3
-    its ring (``l2_bx_kernel``); the other variants have no choice
-    (None)."""
-    if variant == "v15" and dtype == torch.float64:
+    on the ring it is v15's instruction stream, and so is v14, whose one
+    addition to v13, the next load in flight, the persistent ring keeps);
+    v3 and vxy their rings (``l2_bx_kernel``, ``l2_bxy_kernel``); the
+    other variants have no choice (None)."""
+    if variant in ("v15", "v14") and dtype == torch.float64:
         return "ring"
     return ROUTINES.get(variant, (None,))[0]
 
@@ -336,11 +347,12 @@ class LabKernel:
     variant's (TZ, TY) sub-tile (None: ``choose_zy_tile``).  v16, vcopy and
     vband have no tensor-core stage and take "highest" whatever ``prec``
     says.  x_jobs: run the dense x stage of an L2a variant as the first
-    version did (an ablation, timed beside the ring).  routine: v15's,
-    v13's and v3's (``ROUTINES``: v15 "pipe", "ring" or "tile", v13 and v3
-    "ring" or "tile"; None: ``default_routine``'s, by the storage dtype);
-    v14 takes "tile" only, the other variants None.  v3's ring takes b <=
-    RING_B (its default).
+    version did (an ablation of l2_kernel's x stage, timed beside the
+    ring; vxy then runs its earlier schedule unless a routine is asked
+    for).  routine: v15's, v14's, v13's, v3's and vxy's (``ROUTINES``: v15
+    and v14 "pipe", "ring" or "tile", v13, v3 and vxy "ring" or "tile";
+    None: ``default_routine``'s, by the storage dtype); the other variants
+    None.  v3's and vxy's rings take b <= RING_B (their default).
     """
 
     launches = {v: 0 for v in VARIANTS}  # per variant; plain excluded
@@ -353,7 +365,8 @@ class LabKernel:
                              f"{variant!r}")
         routines = ROUTINES.get(variant, (None,))
         if routine is None:
-            routine = default_routine(variant, dtype)
+            routine = "tile" if x_jobs and variant == "vxy" else \
+                default_routine(variant, dtype)
         if routine not in routines:
             raise ValueError(f"{variant} takes routine {routines}, got "
                              f"{routine!r}")
@@ -377,10 +390,13 @@ class LabKernel:
         self.routine = routine
         self.xp = XF64 if dtype == torch.float64 else PRECS[prec]
         self.zy = variant in ZYFIRST
-        self.bx = variant == "v3" and routine == "ring"  # v3's ring
+        # v3's or vxy's ring (lab_separable_ring)
+        self.bx = variant in RING_L2A and routine == "ring"
         if self.bx and b is not None and not 1 <= b <= RING_B:
-            raise ValueError(f"v3's ring takes a tile b <= {RING_B}, got "
-                             f"b={b}")
+            raise ValueError(f"{variant}'s ring takes a tile b <= {RING_B}, "
+                             f"got b={b}")
+        if self.bx and x_jobs and variant == "vxy":
+            raise ValueError("vxy's ring has no x stage by jobs")
         self.flags = None if self.zy else FLAGS[variant] | (
             XJOBS if x_jobs and not FLAGS[variant] & XBAND else 0)
         h = np.broadcast_to(np.asarray(h, np.float64), (3,))
@@ -456,16 +472,13 @@ class LabKernel:
                     *self.ring[3:])
             order = [self.Ks[1], self.Ms[1], self.Ks[2], self.Ms[2],
                      self.Ks[0], self.Ms[0]]
-        elif self.bx:  # v3's ring: the tile's y and z slices, split
+        elif self.bx:  # v3's and vxy's rings: the tile's y and z slices
             self.bop = ring_slices([self.Ms[1], self.Ks[1]],
                                    [self.Ms[2], self.Ks[2]], b, self.nt, p,
                                    self.xp, dtype, device)
-        else:
-            xk = np.zeros((self.X, 2 * self.X))
-            xk[:npts, :npts] = self.Ms[0].T
-            xk[:npts, self.X:self.X + npts] = self.Ks[0].T
-            self.xk, self.xk_lo = put(xk)
-            # the ring's B operand, split here with the kernel's roundings
+        if not self.zy and not (self.bx and variant == "v3"):
+            # the dense x stage's B operand, split here with the kernel's
+            # roundings
             xb = torch.as_tensor(x_blocks(self.Ms[0], self.Ks[0], self.X),
                                  dtype=dtype, device=device)
             if self.xp in (XBF16X3, XBF16):
@@ -476,6 +489,11 @@ class LabKernel:
                 xb = tf32(xb)
             self.xb = xb.contiguous()
             self.xb_part = xb[0].numel() if xb.dim() == 4 else 0
+        if not self.zy and not self.bx:
+            xk = np.zeros((self.X, 2 * self.X))  # the jobs ablation's
+            xk[:npts, :npts] = self.Ms[0].T
+            xk[:npts, self.X:self.X + npts] = self.Ks[0].T
+            self.xk, self.xk_lo = put(xk)
             self.slices, self.sl_lo = put(dense_slices(
                 [self.Ms[1], self.Ks[1], self.Ms[2], self.Ks[2]], b, self.nt,
                 p, bool(self.flags & TRANS)))
@@ -515,15 +533,21 @@ class LabKernel:
             self.grid = min(units, props.multi_processor_count * bps)
 
     def _plan_bx(self) -> None:
-        """v3's ring plan on the card: its u slots (``choose_ring_u``, by
-        the routine's own shared-memory count) and grid (``_bx_plan``'s
-        blocks); the routine's K must be ``ring_k``'s."""
+        """v3's or vxy's ring plan on the card: v3's u slots
+        (``choose_ring_u``, by the routine's own shared-memory count), the
+        shared memory and the grid (``_bx_plan``'s blocks); the routines' K
+        must be ``ring_k``'s."""
         lib = self.lib.lib
         if lib.tpufem_l2_ring_k(self.p, self.xp) != ring_k(self.p, self.xp):
-            raise RuntimeError("v3's ring routine and ring_k disagree on K")
-        nu = choose_ring_u(self.p, self.xp, lib.tpufem_l2_ring_smem_bytes)
-        self.ring = (nu,)
-        self.smem = lib.tpufem_l2_ring_smem_bytes(self.p, self.xp, nu)
+            raise RuntimeError("the L2 ring routines and ring_k disagree on "
+                               "K")
+        if self.variant == "vxy":
+            self.ring = ()
+            self.smem = lib.tpufem_l2_ring_xy_smem_bytes(self.p, self.xp)
+        else:
+            nu = choose_ring_u(self.p, self.xp, lib.tpufem_l2_ring_smem_bytes)
+            self.ring = (nu,)
+            self.smem = lib.tpufem_l2_ring_smem_bytes(self.p, self.xp, nu)
         self.grid = self._bx_plan()[0]
 
     def _operators(self):
@@ -609,7 +633,12 @@ class LabKernel:
                              f"{(NT, NT, self.X)} on {self.device}")
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream().cuda_stream
-            if self.bx:
+            if self.bx and self.variant == "vxy":
+                rc = self.lib.lib.tpufem_l2_ring_xy_apply(
+                    self.xp, self.p, self.npts, self.b, self.nt, self.size,
+                    self.X, gp.data_ptr(), y.data_ptr(), self.xb.data_ptr(),
+                    self.xb_part, self.bop.data_ptr(), stream)
+            elif self.bx:
                 rc = self.lib.lib.tpufem_l2_ring_apply(
                     self.xp, self.p, self.npts, self.b, self.nt, self.size,
                     self.X, self.ring[0], gp.data_ptr(), y.data_ptr(),
@@ -716,12 +745,22 @@ class LabKernel:
         two; else one), the B operand's 2 XC rows over X, every part); v3's
         ring (per block: each pass's box of RING_ZC z rows, K y rows and its
         columns with their halo, PH each side, and the tile's y and z B
-        sides); v3's earlier schedule, which reads its taps and slices from
-        device memory with no ring (per block of XC columns: the (L, L)
-        halo'd rows over its XC + 2p columns and its four slices, each
-        once, as if L1 held what the block reads again)."""
+        sides); vxy's ring (per block and pass: the pass's z rows of its
+        first b by the tile's L halo'd y rows over X columns, and the B
+        operand's rows of its x blocks over X, every part; per block the
+        tile's y side); v3's earlier schedule, which reads its taps and
+        slices from device memory with no ring (per block of XC columns: the
+        (L, L) halo'd rows over its XC + 2p columns and its four slices,
+        each once, as if L1 held what the block reads again)."""
         item = torch.empty((), dtype=self.dt).element_size()
         p, X, NT = self.p, self.X, self.nt * self.b
+        if self.bx and self.variant == "vxy":
+            nblk, npass, _, xc, _ = self._bx_plan()
+            zrows = sum(min(RING_ZC, self.b - RING_ZC * j)
+                        for j in range(npass))
+            return nblk * (zrows * self.L * X * item
+                           + npass * self._bxy_b_bytes()
+                           + bx_side_bytes(p, self.xp, 0))
         if self.bx:
             nblk, npass, K, xc, ph = self._bx_plan()
             side = sum(bx_side_bytes(p, self.xp, z) for z in (0, 1))
@@ -753,15 +792,26 @@ class LabKernel:
                 * per_pass)
 
     def _bx_plan(self):
-        """(blocks, passes, K, x columns a block, x halo a side) of v3's
-        ring: a block per tile and xc x columns, a pass per RING_ZC of the
-        tile's L halo'd z rows."""
+        """(blocks, passes, K, x columns a block, x halo a side) of v3's or
+        vxy's ring: a block per tile and xc x columns, a pass per RING_ZC
+        of the tile's L halo'd z rows (vxy: of its first b; no x halo, its
+        x stage takes every column)."""
         xc = RING_X_COLS[self.xp == XF64]
+        if self.variant == "vxy":
+            return (-(-self.X // xc) * self.nt**2, -(-self.b // RING_ZC),
+                    ring_k(self.p, self.xp), xc, 0)
         ph = -(-self.p // (2 if self.xp == XF64 else 4)) * (
             2 if self.xp == XF64 else 4)
         return (-(-self.X // xc) * self.nt**2,
                 -(-(self.b + 2 * self.p) // RING_ZC),
                 ring_k(self.p, self.xp), xc, ph)
+
+    def _bxy_b_bytes(self) -> int:
+        """Bytes of the dense x stage's B operand a block of vxy's ring
+        reads a pass: its [Mx | Kx] columns (2 xc) over X, every part."""
+        e = {XBF16X3: 2, XBF16: 2, XF64: 8}.get(self.xp, 4)
+        parts = 2 if self.xp in (X3TF32, XBF16X3) else 1
+        return parts * 2 * RING_X_COLS[self.xp == XF64] * self.X * e
 
     def _ring_plan(self):
         """(tile, nsplit, kn) of v13's and v15's ring: the instance's
@@ -776,7 +826,10 @@ class LabKernel:
         ``ring_design_bound``): the input layout read and the output layout
         written once; every dense stage's products over its padded rows
         (LP, MB), every pass of its split, on tensor cores; band stages on
-        CUDA cores."""
+        CUDA cores.  vxy's ring: the x products its warpgroups issue (4
+        tiles of 64 rows a pass, f64 the pass's 8 K rows) by [Mx | Kx] (2
+        xc columns) over K = X, the y products ((RING_ZC xc) rows by N = 48
+        over K), and the B operands' bytes beside the layouts'."""
         nt, b, X, p = self.nt, self.b, self.X, self.p
         L, LP, MB = self.L, round16(self.L), round16(b)
         item = torch.empty((), dtype=self.dt).element_size()
@@ -785,6 +838,15 @@ class LabKernel:
         mma = {X3TF32: "tf32", X1TF32: "tf32", XBF16X3: "bf16",
                XBF16: "bf16", XF64: "fp64_tensor"}[self.xp]
         cuda_cores = "fp64" if self.xp == XF64 else "fp32"
+        if self.bx and self.variant == "vxy":
+            nblk, npass, K, xc, _ = self._bx_plan()
+            rows = RING_ZC * K if self.xp == XF64 else 4 * 64
+            dense = nblk * npass * 2.0 * (rows * 2 * xc * X
+                                          + RING_ZC * xc * 48 * K)
+            return roofline_ms(nbytes + self.xb.numel()
+                               * self.xb.element_size()
+                               + nt * bx_side_bytes(p, self.xp, 0),
+                               {mma: passes * dense})
         if self.bx:
             # v3's ring: the band x over each pass's (RING_ZC, K, XC)
             # outputs, two tables; y: three products (RING_ZC XC, K) x (K,

@@ -52,7 +52,8 @@ SOURCES = {
     "lab_separable": ("lab_separable.cu",
                       ("common.cuh", "hopper.cuh", "lab_mma.cuh",
                        "lab_separable.cuh")),
-    # its v3 on the TMA ring with wgmma y/z products (v3's default routine)
+    # its v3 on the TMA ring with wgmma y/z products and vxy's dense x
+    # ring feeding wgmma y products (their default routines)
     "lab_separable_ring": ("lab_separable_ring.cu",
                            ("common.cuh", "hopper.cuh", "lab_mma.cuh",
                             "lab_separable_ring.cuh")),
@@ -102,7 +103,10 @@ _ENTRIES = {
     "lab_separable_ring": {
         "tpufem_l2_ring_apply": ([_I] * 8 + [_P] * 5, _I),
         "tpufem_l2_ring_smem_bytes": ([_I] * 3, _LL),
-        "tpufem_l2_ring_k": ([_I] * 2, _I)},
+        "tpufem_l2_ring_k": ([_I] * 2, _I),
+        "tpufem_l2_ring_xy_apply": ([_I] * 7 + [_P] * 3 + [_LL] + [_P] * 2,
+                                    _I),
+        "tpufem_l2_ring_xy_smem_bytes": ([_I] * 2, _LL)},
     "lab_zyfirst": {
         "tpufem_zy_apply": ([_I] * 10 + [_P] * 6, _I),
         "tpufem_zy_smem_bytes": ([_I] * 7, _LL),
