@@ -81,8 +81,11 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 (zy_kernel) and v15's and v14's other ring routine are
                 checked the same way, one input a degree and the flagship,
                 and v14 is held to v15 bit for bit on both ring routines;
-                v3 and vxy run their own rings (lab_separable_ring.cuh),
-                their earlier schedule (l2_kernel) checked the same way.
+                v3, vxy and v2 (v6 and v8 with it) run their own rings
+                (lab_separable_ring.cuh), their earlier schedule
+                (l2_kernel) checked the same way; v8 and v6 are held to v2
+                bit for bit on the ring, and v2 at the flagship to itself
+                at two z segments a block.
                 Every L2 output starts filled with NaN
   6 throughput  ms per apply over chains of 30 applies (CUDA events),
                 kernel and plain in turns: K1 at 17M DoFs, K2 at 3D Q4
@@ -339,11 +342,13 @@ LAB_KERNELS = {"v17": ("dense x stage on the TMA ring, wgmma",
                        "scripts/kernel_lab.py:747",
                        "tpufem_torch/csrc/lab_resident_ring.cuh")}
 # the L2a kernels: (what the variant is, the Pallas kernel it replaces)
-L2_KERNELS = {"v2": ("dense x, y, z", "scripts/kernel_lab.py:47"),
+L2_KERNELS = {"v2": ("dense x ring feeding wgmma y and z, a z segment a "
+                     "block", "scripts/kernel_lab.py:47"),
               "v3": ("band x on a TMA ring, wgmma y/z",
                      "scripts/kernel_lab.py:78"),
-              "v6": ("v2's kernel", "scripts/kernel_lab.py:106"),
-              "v8": ("transposed staging", "scripts/kernel_lab.py:132"),
+              "v6": ("v2's ring", "scripts/kernel_lab.py:106"),
+              "v8": ("v2's ring: its transposes are the ring's operand "
+                     "layouts", "scripts/kernel_lab.py:132"),
               "v9": ("bf16x3", "scripts/kernel_lab.py:212"),
               "v12": ("dense x, band y/z", "scripts/kernel_lab.py:237"),
               "vx": ("x stage alone", "scripts/kernel_lab.py:164"),
@@ -363,6 +368,9 @@ L2_KERNELS.update({
 # the library and the source of each L2 kernel's default routine
 L2_SOURCES = {"v3": ("lab_separable_ring", "lab_separable_ring.cuh"),
               "vxy": ("lab_separable_ring", "lab_separable_ring.cuh"),
+              "v2": ("lab_separable_ring", "lab_separable_ring.cuh"),
+              "v6": ("lab_separable_ring", "lab_separable_ring.cuh"),
+              "v8": ("lab_separable_ring", "lab_separable_ring.cuh"),
               "v13": ("lab_zyfirst", "lab_resident_ring.cuh"),
               "v14": ("lab_zyfirst", "lab_resident_ring.cuh"),
               "v15": ("lab_zyfirst", "lab_resident_ring.cuh")}
@@ -373,8 +381,8 @@ L2_MODES = {"f64": (torch.float64, "highest"),
             "bf16": (torch.float32, "bf16x3"),
             "bf16d": (torch.float32, "default")}
 # the lab run whose raw apply is each L2 row's time: 3xTF32 (v9: bf16x3), on
-# the variant's default routine (v3, vxy: their rings; v13: lab_ring_kernel;
-# v14, v15: the persistent ring)
+# the variant's default routine (v3, vxy, v2, v6, v8: their rings; v13:
+# lab_ring_kernel; v14, v15: the persistent ring)
 L2_TIMED = {"v2": "v2-highest", "v3": "v3-highest", "v13": "v13-highest",
             "v14": "v14", "vxy": "vxy"}
 # the lab's main path: its entry point at the flagship, every L1 and L2
@@ -696,10 +704,11 @@ def ring_ptxas_summary(log: str, key: str = "lab_",
     """Per ring kernel of the lab (names matching ``kernels``, in mangled
     names holding ``key``: lab_ring_kernel, lab_ring_pipe_kernel,
     lab_window_kernel by default; L2's v3: l2_bx_kernel, vxy:
-    l2_bxy_kernel) and precision: the registers and the spill stores of its
-    instances, and the count of ptxas's wgmma serialisation warnings that
-    name one of those kernels (or no kernel), from a build's ptxas log
-    (none where the library came from an earlier build)."""
+    l2_bxy_kernel, v2: l2_bxyz_kernel) and precision: the registers and the
+    spill stores of its instances, and the count of ptxas's wgmma
+    serialisation warnings that name one of those kernels (or no kernel),
+    from a build's ptxas log (none where the library came from an earlier
+    build)."""
     from tpufem_torch.utils.build import ptxas_lines
 
     if not log.strip():
@@ -863,6 +872,7 @@ def check_l2(v, mode, p, n, h, u, b=None, tile=None, routine=None):
            + (f" {k.routine}" if k.routine else "")
            + (f" sub-tile={k.tile}" if k.tile else "")
            + (f" rings={k.ring} grid={k.grid}" if k.ring else "")
+           + (f" seg={k.seg} grid={k.grid}" if k.seg else "")
            + f" smem={k.smem}")
     if not rose:
         raise RuntimeError(f"{tag}: launch counter did not rise")
@@ -2922,6 +2932,10 @@ def main() -> int:
         "blocks an SM, 256 threads, 128 registers): " + ring_ptxas_summary(
             libs["lab_separable_ring"].compiler_log, "l2_bxy_kernel",
             "l2_bxy_kernel"))
+    say("2 build", "v2's ring in lab_separable_ring (l2_bxyz_kernel, one "
+        "block an SM, 256 threads): " + ring_ptxas_summary(
+            libs["lab_separable_ring"].compiler_log, "l2_bxyz_kernel",
+            "l2_bxyz_kernel"))
     say("2 build", "P2's cluster chain in toolchain_probe "
         "(probe_cluster_kernel, three modes an instance): "
         + cluster_ptxas_summary(libs["toolchain_probe"].compiler_log))
@@ -3447,10 +3461,10 @@ def main() -> int:
         say("5 lab", f"sub-tile {tile}, ragged rows: max rel err "
             + ", ".join(rels))
     # v15's, v14's and v13's earlier schedule (zy_kernel, routine="tile"),
-    # v3's and vxy's (l2_kernel, routine="tile") and v15's and v14's other
-    # ring routine (f32 storage: lab_ring_kernel; f64: the persistent one)
-    # in every precision, one input a degree and the flagship (the
-    # defaults are checked above with every variant)
+    # v3's, vxy's, v2's, v6's and v8's (l2_kernel, routine="tile") and
+    # v15's and v14's other ring routine (f32 storage: lab_ring_kernel;
+    # f64: the persistent one) in every precision, one input a degree and
+    # the flagship (the defaults are checked above with every variant)
     from tpufem_torch.lab.separable_lab import default_routine
 
     def zy_other(v, p, n, h, u):
@@ -3487,7 +3501,36 @@ def main() -> int:
     say("5 lab", "v14 on v15's ring routines (pipe, ring) bit for bit v15 "
         f"there in {', '.join(L2_MODES)} at p = 1, 2, 4, 7, 8 and the "
         "flagship")
-    for v in ("v15", "v14", "v13", "v3", "vxy"):
+
+    # v8 and v6 on the ring: v2's instruction stream (v8's transposes are
+    # the ring's operand layouts), so their output is v2's bit for bit, in
+    # every mode; v2 at two z segments a block computes the same bits
+    def v2_family_is_v2(p, n, h, u, segs=()):
+        K1, M1 = global_1d_matrices(p, n, p + 1)
+        for mode, (dt, prec) in L2_MODES.items():
+            ks = [LabKernel(v, n * p + 1, p, K1, M1, h, prec=prec, dtype=dt,
+                            device="cuda", routine="ring", seg=s)
+                  for v, s in [("v2", None), ("v6", None), ("v8", None)]
+                  + [("v2", s) for s in segs]]
+            gp = ks[0].pad(u.to(dt))
+            y2 = ks[0].raw(gp)
+            for k in ks[1:]:
+                if not same_bits(y2, k.raw(gp)):
+                    raise RuntimeError(
+                        f"{k.variant} {mode} p={p} npts={n * p + 1} seg="
+                        f"{k.seg}: not v2's (seg={ks[0].seg}) bit for bit")
+
+    for p in (1, 2, 4, 7, 8):
+        n = max(2, 24 // p)
+        v2_family_is_v2(p, n, [1.0 / n, 1.3 / n, 0.7 / n],
+                        torch.tensor(rng.standard_normal((n * p + 1)**3),
+                                     device=dev))
+    v2_family_is_v2(4, 64, [1.0 / 64] * 3, u257, segs=(1,))
+    say("5 lab", "v8 and v6 on v2's ring bit for bit v2 in "
+        f"{', '.join(L2_MODES)} at p = 1, 2, 4, 7, 8 and the flagship; v2 "
+        "at the flagship bit for bit at 1 z tile a block and at its "
+        "chooser's segment")
+    for v in ("v15", "v14", "v13", "v3", "vxy", "v2", "v6", "v8"):
         for p in (1, 2, 4, 7, 8):
             n = max(2, 24 // p)
             u = torch.tensor(rng.standard_normal((n * p + 1)**3), device=dev)
@@ -3955,6 +3998,30 @@ def main() -> int:
             f"({kt.design_bound()[1]}), {kt.l2_bytes() / 1e9:.3f} GB; vx: "
             f"b={kx.b}, {kx.l2_bytes() / 1e9:.3f} GB")
         del gr, gt, gx, kr, kt, kx
+    # v2 and v8 on v2's ring (l2_bxyz_kernel, their default), in turns with
+    # their earlier schedule (l2_kernel: earlier, ring, ring, earlier; b =
+    # 16 and the tile chooser's b, v8's with its transposed staging) in each
+    # precision, beside the ring's z segment, grid, shared memory, design
+    # bound and what it moves from L2
+    for v in ("v2", "v8"):
+        for mode, (dt, prec) in L2_MODES.items():
+            kr, kt = (LabKernel(v, 257, 4, K1l, M1l, [1.0 / 64] * 3,
+                                prec=prec, dtype=dt, device="cuda",
+                                routine=r) for r in ("ring", "tile"))
+            gr, gt = kr.pad(u257.to(dt)), kt.pad(u257.to(dt))
+            t = [raw_ms(k, g) for k, g in ((kt, gt), (kr, gr), (kr, gr),
+                                           (kt, gt))]
+            say("6 throughput", f"{v} {mode} at the flagship, ms per raw "
+                f"apply in turns: earlier {t[0]:.4f}, ring {t[1]:.4f}, ring "
+                f"{t[2]:.4f}, earlier {t[3]:.4f} (ring / earlier "
+                f"{(t[1] + t[2]) / (t[0] + t[3]):.3f}); the ring's design "
+                f"bound {kr.design_bound()[0]:.4f} ms "
+                f"({kr.design_bound()[1]}), {kr.l2_bytes() / 1e9:.3f} GB "
+                f"from L2 an apply (b={kr.b}, seg={kr.seg}, {kr.grid} "
+                f"blocks, {kr.smem} B a block); earlier: b={kt.b}, design "
+                f"bound {kt.design_bound()[0]:.4f} ms "
+                f"({kt.design_bound()[1]}), {kt.l2_bytes() / 1e9:.3f} GB")
+            del gr, gt, kr, kt
     # v14 on its default ring routine (the persistent one; f64:
     # lab_ring_kernel), in turns with its earlier schedule (zy_kernel:
     # earlier, ring, ring, earlier) and with v15 on the same routine (v15,

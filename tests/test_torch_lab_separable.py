@@ -3,11 +3,12 @@ on the CPU: the port's plain version against the Pallas kernels of
 ``scripts/kernel_lab.py`` in interpret mode, the copied tile slices, the
 entry point's refusal without a card, the routines' shared-memory counts,
 and g++ builds of the CUDA routines (tpufem_torch/csrc/lab_separable.cuh;
-v3's ring, lab_separable_ring.cuh, through hopper.cuh's host forms: a TMA
-box a loop copy with zero fill, a bulk copy a memcpy, an mbarrier call
-nothing, a wgmma operand or accumulator its whole tile, one thread each
-pass's load, band x and both warpgroups' products in turn) against the
-plain version.
+the rings of v3, vxy and v2 (v6, v8), lab_separable_ring.cuh, through
+hopper.cuh's host forms: a TMA box a loop copy with zero fill, a bulk copy
+a memcpy, an mbarrier call nothing, a wgmma operand or accumulator its
+whole tile, one thread each pass's load, x stage and both warpgroups'
+products in turn) against the plain version; v2's ring bit for bit across
+its z segments, and v6 and v8 bit for bit v2 there.
 
 ``scripts/kernel_lab.py`` is imported by path and its module's
 ``pl.pallas_call`` replaced by ``partial(pl.pallas_call, interpret=True)``;
@@ -223,6 +224,51 @@ extern "C" long long host_l2_ring_xy_smem_bytes(int p, int xp) {
 extern "C" long long host_l2_ring_side_bytes(int p, int xp, int z) {
   return tpufem::bx_side_bytes(p, xp, z);
 }
+
+// v2's ring routine (v6's, v8's), one host thread a block, as its
+// launcher: grid (ceil(X / XC), nt, ceil(nt / seg))
+template <int P, int XP>
+static int ring_xyz(tpufem::BxGeo g, int seg, const void* u, void* y,
+                    const void* xb, long long xb_part, const void* bop) {
+  using C = typename tpufem::LabMma<XP>::C;
+  using E = typename tpufem::LabMma<XP>::E;
+  constexpr int XC = tpufem::bx_xc(XP);
+  const long long bytes = tpufem::bxy_smem(P, XP, true).total;
+  for (int bz = 0; bz < (g.nt + seg - 1) / seg; ++bz)
+    for (int by = 0; by < g.nt; ++by)
+      for (int bx = 0; bx < (g.X + XC - 1) / XC; ++bx) {
+        std::memset(tpufem::smem_raw, 0xAB, bytes + 4096);
+        blockIdx = Dim3{bx, by, bz};
+        tpufem::l2_bxyz_kernel<P, XP>((const C*)u, (C*)y, (const E*)xb,
+                                      xb_part, (const unsigned char*)bop, g,
+                                      seg);
+        for (long long i = bytes; i < bytes + 4096; ++i)
+          if (tpufem::smem_raw[i] != 0xAB) return 1;  // beyond its smem
+      }
+  return 0;
+}
+
+// the instances the cases use: f64 at p = 1, 2, 4, 7, 8; 3xTF32 at p = 2,
+// 4, 7; 1xTF32 and one bf16 product at p = 2 and 4; bf16x3 at p = 2 and 4
+extern "C" int host_l2_ring_xyz_apply(int xp, int p, int npts, int b, int nt,
+                                      int size, int X, int seg, const void* u,
+                                      void* y, const void* xb,
+                                      long long xb_part, const void* bop) {
+  const tpufem::BxGeo g{npts, b, nt, size, X};
+#define TPUFEM_XYZ(XP, PP)                                          \
+  if (xp == XP && p == PP)                                          \
+    return ring_xyz<PP, XP>(g, seg, u, y, xb, xb_part, bop);
+  TPUFEM_XYZ(3, 1) TPUFEM_XYZ(3, 2) TPUFEM_XYZ(3, 4) TPUFEM_XYZ(3, 7)
+  TPUFEM_XYZ(3, 8) TPUFEM_XYZ(0, 2) TPUFEM_XYZ(0, 4) TPUFEM_XYZ(0, 7)
+  TPUFEM_XYZ(1, 2) TPUFEM_XYZ(1, 4) TPUFEM_XYZ(2, 2) TPUFEM_XYZ(2, 4)
+  TPUFEM_XYZ(4, 2) TPUFEM_XYZ(4, 4)
+#undef TPUFEM_XYZ
+  return 2;
+}
+
+extern "C" long long host_l2_ring_xyz_smem_bytes(int p, int xp) {
+  return tpufem::bxy_smem(p, xp, true).total;
+}
 """
 
 # storage dtype and precision of each mode; the classes are
@@ -236,11 +282,13 @@ MODE_VARIANTS = {m: [v for v in separable_lab.XFIRST
                      if m == "bf16" or v != "v9"] for m in MODES}
 
 
-def _kernel(v, p, n, mode, b=None, h=(1.0, 1.3, 0.7), routine=None):
+def _kernel(v, p, n, mode, b=None, h=(1.0, 1.3, 0.7), routine=None,
+            seg=None):
     K1, M1 = global_1d_matrices(p, n, p + 1)
     dtype, prec = MODES[mode]
     return LabKernel(v, n * p + 1, p, K1, M1, [x / n for x in h], b=b,
-                     prec=prec, dtype=dtype, device="cpu", routine=routine)
+                     prec=prec, dtype=dtype, device="cpu", routine=routine,
+                     seg=seg)
 
 
 @pytest.fixture(scope="module")
@@ -357,16 +405,29 @@ def l2_lib(tmp_path_factory):
     lib.host_l2_ring_xy_apply.restype = ctypes.c_int
     lib.host_l2_ring_xy_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.host_l2_ring_xy_smem_bytes.restype = ctypes.c_longlong
+    lib.host_l2_ring_xyz_apply.argtypes = ([ctypes.c_int] * 8
+                                           + [ctypes.c_void_p] * 3
+                                           + [ctypes.c_longlong,
+                                              ctypes.c_void_p])
+    lib.host_l2_ring_xyz_apply.restype = ctypes.c_int
+    lib.host_l2_ring_xyz_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.host_l2_ring_xyz_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
 def _host(lib, k, gp):
-    """The routine k runs (v3 and vxy: their rings by default, or
-    l2_kernel), its host build on the layout gp; v3's u slots by its
-    chooser on the build's own count."""
+    """The routine k runs (v3, vxy and v2, v6, v8: their rings by default,
+    or l2_kernel), its host build on the layout gp; v3's u slots by its
+    chooser on the build's own count, v2's segment k.seg."""
     NT = k.nt * k.b
     y = torch.full((NT, NT, k.X), float("nan"), dtype=k.dt)  # all written
-    if k.bx and k.variant == "vxy":
+    if k.xyz:
+        rc = lib.host_l2_ring_xyz_apply(k.xp, k.p, k.npts, k.b, k.nt, k.size,
+                                        k.X, k.seg, gp.data_ptr(),
+                                        y.data_ptr(), k.xb.data_ptr(),
+                                        k.xb_part, k.bop.data_ptr())
+        assert rc != 2, "no host instance of v2's ring at this p and xp"
+    elif k.bx and k.variant == "vxy":
         rc = lib.host_l2_ring_xy_apply(k.xp, k.p, k.npts, k.b, k.nt, k.size,
                                        k.X, gp.data_ptr(), y.data_ptr(),
                                        k.xb.data_ptr(), k.xb_part,
@@ -410,8 +471,8 @@ def test_host_build_matches_plain(l2_lib, v, p, mode, b, routine=None, n=None):
     written; the split precisions also against ``emulate``."""
     n = n or (2 if p > 2 else 9 // p)
     k = _kernel(v, p, n, mode, b, routine=routine)
-    assert k.routine == (routine or ("ring" if v in ("v3", "vxy") else
-                                     None))
+    assert k.routine == (routine or ("ring" if v in separable_lab.RING_L2A
+                                     else None))
     u = torch.as_tensor(np.random.default_rng(n * p + 3).standard_normal(
         (n * p + 1)**3))
     gp = k.pad(u)
@@ -474,6 +535,72 @@ def test_vxy_host_build_by_routine(l2_lib, routine, p, mode, b, n):
     test_host_build_matches_plain(l2_lib, "vxy", p, mode, b, routine, n)
 
 
+# v2's two routines beyond HOST_CASES (whose v2, v6 and v8 cases run the
+# ring): the ring at p = 8 in f64 and p = 7 in 3xTF32, on layouts whose tile
+# b does not divide npts (a ragged last tile) and on X = 48 (two blocks of
+# 32 columns, the second ragged); its earlier schedule, l2_kernel, at each
+# degree and precision HOST_CASES held it to before
+V2_CASES = (
+    [("ring", 8, "f64", None, None), ("ring", 7, "f32", None, None),
+     ("ring", 2, "f32", 6, None), ("ring", 1, "f64", 5, None),
+     ("ring", 4, "f32", None, 9), ("ring", 4, "f64", None, 9)]
+    + [("tile", p, "f64", None, None) for p in (1, 2, 4, 7)]
+    + [("tile", 4, m, None, None) for m in ("f32", "f32h", "bf16", "bf16d")])
+
+
+@pytest.mark.parametrize("routine,p,mode,b,n", V2_CASES)
+def test_v2_host_build_by_routine(l2_lib, routine, p, mode, b, n):
+    """v2's ring and its earlier schedule (``routine="tile"``), each as
+    ``test_host_build_matches_plain`` holds a kernel: against the f64
+    plain version (f64 1e-12) with a NaN-filled output, and a split
+    precision against ``emulate`` within EMU_TOL."""
+    test_host_build_matches_plain(l2_lib, "v2", p, mode, b, routine, n)
+
+
+@pytest.mark.parametrize("mode", ["f64", "f32", "bf16"])
+@pytest.mark.parametrize("p,b,n", [(2, 16, 16), (4, 16, 8), (4, 8, 9)])
+def test_v2_march_is_bitwise(l2_lib, p, b, n, mode):
+    """v2's ring down z segments of 1, 2, 3 and all nt tiles (a ragged last
+    segment where seg does not divide nt) gives the same output, bit for
+    bit: a shared pass's x and y stages read the same rows and slices in
+    any segment, and each tile's z sums keep their order.  The per-tile
+    output is held to the f64 plain version in its class."""
+    ks = {s: _kernel("v2", p, n, mode, b, seg=s) for s in (1, 2, 3, None)}
+    k1 = ks[1]
+    nt = k1.nt
+    assert nt >= 3 and separable_lab.march_shares(b, p)
+    ks[nt] = _kernel("v2", p, n, mode, b, seg=nt)
+    assert ks[None].seg == min(separable_lab.RING_SEG, nt)
+    u = torch.as_tensor(np.random.default_rng(p + b).standard_normal(
+        (n * p + 1)**3))
+    gp = k1.pad(u)
+    y1 = _host(l2_lib, k1, gp)
+    assert _max_rel(y1, k1.plain(gp.to(torch.float64))) <= TOL[k1.xp]
+    for s, k in ks.items():
+        assert torch.equal(_host(l2_lib, k, gp), y1), s
+    with pytest.raises(ValueError, match="segment"):
+        _kernel("v2", p, n, mode, b, seg=nt + 1)
+    with pytest.raises(ValueError, match="segment"):
+        _kernel("v2", 7, 2, mode, 8, seg=2)  # 2p > 8: no shared pass
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_v8_v6_are_v2_on_the_ring(l2_lib, mode):
+    """v8 and v6 on the ring run v2's instruction stream (v8's transposes
+    are the operand layouts the ring's y and z products read already):
+    their outputs equal v2's bit for bit, in every mode, at a ragged tile
+    and at the march's segments."""
+    for p, n, b in ((2, 5, None), (4, 8, 16), (2, 5, 6)):
+        ks = [_kernel(v, p, n, mode, b) for v in ("v2", "v6", "v8")]
+        assert all(k.xyz and k.seg == ks[0].seg for k in ks)
+        gp = ks[0].pad(torch.as_tensor(np.random.default_rng(n).standard_normal(
+            (n * p + 1)**3)))
+        y2 = _host(l2_lib, ks[0], gp)
+        assert torch.isfinite(y2).all()
+        for k in ks[1:]:
+            assert torch.equal(_host(l2_lib, k, gp), y2), (k.variant, p)
+
+
 @pytest.mark.parametrize("v,p,mode,b", [
     ("vx", 4, "f32", None), ("vx", 2, "f64", 6), ("vx", 4, "bf16", None),
     ("v2", 4, "f32", None), ("v12", 2, "f32h", 4), ("vxy", 1, "bf16d", 5)])
@@ -491,12 +618,15 @@ def test_host_build_x_stage_by_jobs(l2_lib, v, p, mode, b):
                                 x_jobs=jobs)
     kj, kr = mk(True), mk(False)
     assert kj.flags == kr.flags | separable_lab.XJOBS
-    gp = kj.pad(torch.as_tensor(np.random.default_rng(5).standard_normal(
-        (n * p + 1)**3)))
-    yj, yr = _host(l2_lib, kj, gp), _host(l2_lib, kr, gp)
+    assert kj.routine in (None, "tile")  # the jobs run on l2_kernel only
+    u = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (n * p + 1)**3))
+    gp = kj.pad(u)
+    yj = _host(l2_lib, kj, gp)
+    yr = kr.unpad(_host(l2_lib, kr, kr.pad(u)))  # its own layout (ring: b)
     ref = kj.plain(gp.to(torch.float64))
     assert _max_rel(yj, ref) <= TOL[kj.xp]
-    assert _max_rel(yj, yr.to(torch.float64)) <= 2 * TOL[kj.xp]
+    assert _max_rel(kj.unpad(yj), yr.to(torch.float64)) <= 2 * TOL[kj.xp]
     # band x (v3) has no dense x stage: the flag is not set
     assert LabKernel("v3", n * p + 1, p, K1, M1, [1.0 / n] * 3, device="cpu",
                      x_jobs=True).flags == separable_lab.XBAND
@@ -623,6 +753,36 @@ def test_ring_counts_agree(l2_lib):
     with pytest.raises(ValueError, match="by jobs"):
         LabKernel("vxy", 9, 2, *global_1d_matrices(2, 4, 3), [0.25] * 3,
                   device="cpu", routine="ring", x_jobs=True)
+    # v2's ring (v6's, v8's): vxy's operands with the z sides read, a block
+    # per segment of 3 z tiles (6 segments of the 17), one block an SM
+    fake.lib.tpufem_l2_ring_xyz_smem_bytes = \
+        l2_lib.host_l2_ring_xyz_smem_bytes
+    for v in separable_lab.RING_XYZ:
+        for mode in MODES:
+            dtype, prec = MODES[mode]
+            k = LabKernel(v, 257, 4, K1, M1, [1 / 64] * 3, prec=prec,
+                          dtype=dtype, device="cpu")
+            assert (k.routine, k.b, k.xyz, k.seg) == ("ring", 16, True, 3)
+            assert k.bop.numel() == k.nt * sum(
+                separable_lab.bx_side_bytes(4, k.xp, z) for z in (0, 1))
+            k.lib = fake
+            k._plan_bx()
+            assert (k.ring, k.grid) == ((), (34 if mode == "f64" else 9)
+                                        * 17 * 6)
+            assert k.smem == l2_lib.host_l2_ring_xyz_smem_bytes(4, k.xp)
+        with pytest.raises(ValueError, match="b <= 16"):
+            _kernel(v, 2, 4, "f32", b=24)
+        with pytest.raises(ValueError, match="by jobs"):
+            LabKernel(v, 9, 2, *global_1d_matrices(2, 4, 3), [0.25] * 3,
+                      device="cpu", routine="ring", x_jobs=True)
+        assert _kernel(v, 2, 4, "f32", b=24, routine="tile").b == 24
+    assert separable_lab.march_segment(16, 4, 17) == 3
+    assert separable_lab.march_segment(16, 4, 2) == 2
+    assert separable_lab.march_segment(16, 5, 17) == 1  # 2p > 8
+    assert separable_lab.march_segment(12, 2, 17) == 1  # b % 8
+    assert separable_lab.march_passes(16, 4, 17, 4) == [9, 9, 9, 9, 3]
+    assert separable_lab.march_passes(16, 4, 17, 3) == [7] * 5 + [5]
+    assert separable_lab.march_passes(16, 4, 17, 1) == [3] * 17
 
 
 def test_smem_fits(l2_lib):
@@ -643,6 +803,18 @@ def test_smem_fits(l2_lib):
     stage = 8 * 24 * 16 * 4 + 2 * 2 * 32 * 16 * 4
     assert 4 * stage >= 2 * 256 * 28 * 4
     assert xy(4, separable_lab.X3TF32) == 6144 + 4 * stage == 88064
+    # v2's ring adds two slots of a tile's z side and t1, t2 ((512, 12) f32
+    # each): one block an SM, within 227 KB at every degree and precision
+    xyz = l2_lib.host_l2_ring_xyz_smem_bytes
+    for p in range(1, separable_lab.MAX_DEGREE + 1):
+        for xp in separable_lab.TOL:
+            assert xy(p, xp) < xyz(p, xp) <= 227 * 1024
+            assert xyz(p, xp) >= xy(p, xp) + 2 * \
+                separable_lab.bx_side_bytes(p, xp, 1) + 2 * 16 * (
+                    8 if xp == separable_lab.XF64 else 32) * 12 * (
+                    8 if xp == separable_lab.XF64 else 4)
+    assert xyz(4, separable_lab.X3TF32) == 88064 + 2 * 6144 + 2 * 512 * 12 * 4 \
+        == 149504 > separable_lab.ZY_TWO_BLOCKS
     count = l2_lib.host_l2_smem_bytes
     for p in range(1, separable_lab.MAX_DEGREE + 1):
         for xp in separable_lab.TOL:
@@ -694,9 +866,29 @@ def test_l2_bytes_from_the_tile():
     per_pass = 8 * 32 * 272 * 4 + 2 * 2 * 32 * 272 * 4
     assert kx.l2_bytes() == 9 * 11 * 11 * 3 * per_pass
     assert abs(kx.l2_bytes() / 1e9 - 1.365) < 1e-3
-    k2 = LabKernel("v2", 257, 4, K1, M1, [1 / 64] * 3, device="cpu")
+    # v2's earlier schedule (l2_kernel, b = 24): 4 passes of 8 z rows of its
+    # 32 halo'd rows a tile and block of 16 x columns
+    k2 = LabKernel("v2", 257, 4, K1, M1, [1 / 64] * 3, device="cpu",
+                   routine="tile")
     assert k2.l2_bytes() == 17 * 11 * 11 * 4 * (8 * 32 * 272 * 4
                                                 + 2 * 32 * 272 * 4)
+    # v2's ring (b = 16, 17 tiles a side, 9 blocks of 32 x columns): a block
+    # per segment of seg z tiles reads, each pass, 8 z rows of its tiles'
+    # halo'd rows by 24 y rows over X and its two x blocks' [Mx | Kx] rows
+    # over X, two parts; once, the y side and each tile's z side.  seg = 1:
+    # 3 passes a tile; seg = 4: 9 passes for 4 tiles (their 72 halo'd z
+    # rows), the last segment 1 tile
+    bx = 2 * 64 * 272 * 4
+    side = 2 * 2 * 16 * 24 * 4
+    rows = 24 * 272 * 4
+    tile1 = 24 * rows + 3 * bx + 2 * side
+    for seg, per_column in ((1, 17 * tile1),
+                            (4, 4 * (72 * rows + 9 * bx + 5 * side) + tile1)):
+        kv2 = LabKernel("v2", 257, 4, K1, M1, [1 / 64] * 3, device="cpu",
+                        seg=seg)
+        assert (kv2.routine, kv2.b, kv2.seg) == ("ring", 16, seg)
+        assert kv2.l2_bytes() == 9 * 17 * per_column
+    assert abs(kv2.l2_bytes() / 1e9 - 2.098) < 1e-3
     # v3's ring (b = 16, 17 tiles a side, 9 blocks of 32 x columns): each
     # of its 3 passes a box of 8 z rows, K = 24 y rows, 32 + 2 x 4 columns;
     # the tile's y and z B sides, two slices of two parts of 16 x 24 f32
@@ -802,14 +994,31 @@ def test_bounds():
     assert k3 == (9 * 17 * 17, 3, 24, 32, 4)
     flops = 3 * nblk * npass * 2 * 16 * xc * (3 * 8 * K + 2 * 16 * 8)
     assert abs(flops / 1e9 - 19.94) < 0.01
-    # vxy's ring: its x products (2 passes of 4 tiles of 64 rows by [Mx |
-    # Kx] of 32 columns, K = 272) are 139.1 GFLOP in 3xTF32, its y products
+    # vxy's ring: its x products (2 passes of 3 tiles of 64 rows by [Mx |
+    # Kx] of 32 columns, K = 272) are 104.3 GFLOP in 3xTF32, its y products
     # (256 rows by N = 48, K = 24) 9.2, both at 495 TFLOP/s
     kxy = LabKernel("vxy", 257, 4, K1, M1, [1 / 64] * 3, device="cpu")
     assert kxy._bx_plan() == (9 * 17 * 17, 2, 24, 32, 0)
-    xf = 3 * 9 * 17 * 17 * 2 * 2 * 256 * 64 * 272
+    xf = 3 * 9 * 17 * 17 * 2 * 2 * 192 * 64 * 272
     yf = 3 * 9 * 17 * 17 * 2 * 2 * 256 * 48 * 24
-    assert abs(xf / 1e9 - 139.1) < 0.05 and abs(yf / 1e9 - 9.2) < 0.05
+    assert abs(xf / 1e9 - 104.3) < 0.05 and abs(yf / 1e9 - 9.2) < 0.05
     ms, by = kxy.design_bound()
     assert by == "operations" and abs(ms - (xf + yf) / 495e12 * 1e3) < 1e-12
     assert kxy.design_bound()[0] >= kxy.bound()[0]
+    # v2's ring: vxy's x and y products over its passes (seg = 1: 3 a tile,
+    # x 156.5 GFLOP, y 13.8; seg = 4: 39 for a column's 17 tiles) and v3's z
+    # products, 3 k steps a tile (6.1 GFLOP): 0.36 and 0.28 ms
+    zf = 3 * 9 * 17 * 17 * 3 * 2 * 512 * 32 * 8
+    for seg, passes, ms_ in ((1, 51, 0.3565), (4, 39, 0.2754)):
+        kv = LabKernel("v2", 257, 4, K1, M1, [1 / 64] * 3, device="cpu",
+                       seg=seg)
+        assert kv._bx_plan()[1] == 9 * 17 * passes
+        xf = 3 * 9 * 17 * passes * 2 * 192 * 64 * 272
+        yf = 3 * 9 * 17 * passes * 2 * 256 * 48 * 24
+        assert seg > 1 or (abs(xf / 1e9 - 156.5) < 0.05
+                           and abs(yf / 1e9 - 13.8) < 0.05)
+        assert abs(zf / 1e9 - 6.14) < 0.01
+        ms, by = kv.design_bound()
+        assert by == "operations" and abs(
+            ms - (xf + yf + zf) / 495e12 * 1e3) < 1e-12
+        assert abs(ms - ms_) < 1e-4 and ms >= kv.bound()[0]

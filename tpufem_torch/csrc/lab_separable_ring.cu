@@ -1,4 +1,4 @@
-// Host launchers of the K2 kernel lab's v3 and vxy on the ring (device code
+// Host launchers of the K2 kernel lab's v3, vxy and v2 on the ring (device code
 // and the design notes in lab_separable_ring.cuh), with a plain C interface
 // for ctypes.  Built by tpufem_torch/utils/build.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -56,6 +56,28 @@ cudaError_t launch_xy(const tpufem::BxGeo& g, const void* u, void* y,
          stream>>>(static_cast<const C*>(u), static_cast<C*>(y),
                    static_cast<const E*>(xb), xb_part,
                    static_cast<const unsigned char*>(bop), g);
+  return cudaGetLastError();
+}
+
+// v2's: the shared-memory opt-in and the launch, grid (ceil(X / XC), nt,
+// ceil(nt / seg))
+template <int P, int XP>
+cudaError_t launch_xyz(const tpufem::BxGeo& g, int seg, const void* u,
+                       void* y, const void* xb, long long xb_part,
+                       const void* bop, cudaStream_t stream) {
+  using C = typename tpufem::LabMma<XP>::C;
+  using E = typename tpufem::LabMma<XP>::E;
+  const int smem = (int)tpufem::bxy_smem(P, XP, true).total;
+  auto kern = tpufem::l2_bxyz_kernel<P, XP>;
+  static std::atomic<int> granted[tpufem::kLabMaxDevices];
+  cudaError_t e = tpufem::lab_opt_in(kern, smem, granted);
+  if (e != cudaSuccess) return e;
+  constexpr int XC = tpufem::bx_xc(XP);
+  kern<<<dim3((g.X + XC - 1) / XC, g.nt, (g.nt + seg - 1) / seg),
+         tpufem::kBxyThreads, smem, stream>>>(
+      static_cast<const C*>(u), static_cast<C*>(y),
+      static_cast<const E*>(xb), xb_part,
+      static_cast<const unsigned char*>(bop), g, seg);
   return cudaGetLastError();
 }
 
@@ -148,6 +170,36 @@ int tpufem_l2_ring_xy_apply(int xp, int p, int npts, int b, int nt, int size,
     return launch_xy<decltype(pp)::value, decltype(x)::value>(
         g, u, y, xb, xb_part, bop, s);
   });
+}
+
+// out = v2's function of u (K2's operator; v6's and v8's too) on the same
+// layouts and operands as tpufem_l2_ring_xy_apply (bop's z sides read too)
+// by its ring routine, a segment of seg consecutive z tiles a block: seg > 1
+// only where a pass ends one tile and starts the next (b % 8 == 0 and 2p <=
+// 8), else 1.  Every seg computes the same output.  Returns the cudaError_t
+// of the launch.
+int tpufem_l2_ring_xyz_apply(int xp, int p, int npts, int b, int nt,
+                             int size, int X, int seg, const void* u,
+                             void* y, const void* xb, long long xb_part,
+                             const void* bop, void* stream) {
+  if (b < 1 || b > tpufem::kBxN || nt < 1 || (long long)nt * b < npts ||
+      size != nt * b + 2 * p || X < npts || X % 16 || seg < 1 ||
+      seg > nt || (seg > 1 && (b % tpufem::kBxZC || 2 * p > tpufem::kBxZC)) ||
+      reinterpret_cast<uintptr_t>(u) % 16 ||
+      reinterpret_cast<uintptr_t>(xb) % 16 ||
+      reinterpret_cast<uintptr_t>(bop) % 16)
+    return (int)cudaErrorInvalidValue;
+  const tpufem::BxGeo g{npts, b, nt, size, X};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)dispatch(xp, p, [&](auto x, auto pp) {
+    return launch_xyz<decltype(pp)::value, decltype(x)::value>(
+        g, seg, u, y, xb, xb_part, bop, s);
+  });
+}
+
+// Shared-memory bytes of one block of v2's ring.
+long long tpufem_l2_ring_xyz_smem_bytes(int p, int xp) {
+  return tpufem::bxy_smem(p, xp, true).total;
 }
 
 // Shared-memory bytes of one block of vxy's ring.

@@ -1,9 +1,10 @@
 // The K2 kernel lab's v3 (band x, dense y and z) on Hopper's asynchronous
 // machinery: a TMA ring feeds the band x stage, and the y and z stages are
-// wgmma products.  Its vxy (dense x, dense y) at the end of the file, on the
-// same y products.  Device code; the host launchers with their plain C
-// interface are in lab_separable_ring.cu.  The first routine of both
-// (l2_kernel, lab_separable.cuh) stays as their earlier schedule.
+// wgmma products.  Its vxy (dense x, dense y) and v2 (dense x, y and z; v6
+// and v8 run it) at the end of the file, on the same y and z products.
+// Device code; the host launchers with their plain C interface are in
+// lab_separable_ring.cu.  The first routine of them all (l2_kernel,
+// lab_separable.cuh) stays as their earlier schedule.
 //
 // Replaces the Pallas kernel _kernel_v3 (scripts/kernel_lab.py:78): on the
 // lab's layouts, input (size, size, X), size = nt b + 2P, data at [P:P+npts,
@@ -611,7 +612,7 @@ l2_bx_kernel(const __grid_constant__ HopMap in_map,
   }
 }
 
-// ---- vxy on the ring -------------------------------------------------------
+// ---- vxy and v2 on the ring ------------------------------------------------
 // The K2 lab's vxy (_kernel_vxy, scripts/kernel_lab.py:177: the x stage, then
 // the y products, the output the halo'd tile's first b z rows, so its
 // function is ((My + Ky)(x)Mx + My(x)Kx) u shifted by P rows in z) on the
@@ -627,9 +628,12 @@ l2_bx_kernel(const __grid_constant__ HopMap in_map,
 //       columns, K-major: separable_lab.x_blocks), cp.async 16 bytes a
 //       thread, the loads of two chunks in flight while one is multiplied;
 //       warpgroup wg multiplies the 64-row tiles wg, wg + 2 (a pass has 3 at
-//       LP = 24, 4 at 32: a tile it lacks repeats the last and is not
-//       stored, so no wgmma waits on a run-time condition), one n32 product
-//       an x block, 3xTF32 and bf16x3 in lab_mma.cuh's order (small*big,
+//       LP = 24, 4 at 32; at 24 each warpgroup runs code of its own, its
+//       tile count known at compile time, so no wgmma waits on a run-time
+//       condition and none multiplies a tile twice, where a copy of the
+//       third tile, not stored, cost vxy and v2 5-9% at the flagship in
+//       1xTF32 and 3xTF32: ring_sweep bxy_tile_repeat, PERF.md), one n32
+//       product an x block, 3xTF32 and bf16x3 in lab_mma.cuh's order (small*big,
 //       big*small, big*big).  The accumulators, rows (zr, yl), are stored
 //       transposed straight into the y product's A layout (rows (zr, x), K =
 //       yl, AS words a row: bx_as), which lies over the ring once the pass's
@@ -652,15 +656,55 @@ l2_bx_kernel(const __grid_constant__ HopMap in_map,
 // What bounds it on an H100: the function is 4 band outputs a DoF, bytes:
 // 0.0405 ms at 16,974,593 DoFs in f32.  The design is the dense x stage's:
 // at the flagship (b = 16, nt = 17, X = 272, 9 blocks of 32 columns, 2
-// passes, 4 tiles of 64 rows a pass issued, N = 32 a part, K = 272) 2 x 17^2
-// 9 x 2 x 256 x 64 x 272 x 3 = 139.1 GFLOP in 3xTF32, 0.28 ms at 495 TFLOP/s;
-// the y products 9.2 (N = 48 a k step, K = 24): LabKernel.design_bound.
+// passes, 3 tiles of 64 rows a pass, N = 32 a part, K = 272) 2 x 17^2 9 x 2
+// x 192 x 64 x 272 x 3 = 104.3 GFLOP in 3xTF32, 0.21 ms at 495 TFLOP/s; the
+// y products 9.2 (N = 48 a k step, K = 24): LabKernel.design_bound.
 // The shared memory (the y side, the ring with ax and gx over it: 88 KB at
 // p = 4 in 3xTF32, 106 KB at p = 8) lets two blocks share an SM, so one
 // block's y products and stores run beside the other's x stage.
+//
+// v2 (_kernel_v2, scripts/kernel_lab.py:47: K2's operator, x, y and z dense;
+// _kernel_v6 :106 and _kernel_v8 :132 compute the same function, their
+// differences Mosaic's layouts of the same contractions, and run this
+// routine, bit for bit v2's) is vxy's x stage and v3's y and z stages on the
+// same tile, l2_bxyz_kernel:
+//   x   vxy's loop over every pass of the tile's L halo'd z rows (ceil(L /
+//       8) passes, not only its first b); rows past the block's last tile
+//       load as zeros, rows past a tile's L within the block as real data:
+//       the z slices' zero columns multiply both.
+//   y   BxWgmma::y, v3's products, t1 and t2 into T1/T2 in the z product's
+//       A layout (rows (y, x), K = the pass's z rows).
+//   z   BxWgmma::z_issue after each pass, pass j of a tile its k step j,
+//       accumulated in registers, and the output stored from the
+//       accumulators (masked to the tile's b rows and to X; no scratch tile,
+//       no staging).  f64: BxDmma's products, the accumulators' elements
+//       found by vxy's index fragment for T1/T2 and for the store.
+//   march  a block owns a segment of `seg` consecutive z tiles of one y
+//       tile and x block and walks its passes in order.  Where b is a
+//       multiple of 8 and 2P <= 8 (the flagship's b = 16, P = 4), the pass
+//       that ends tile t is the first of tile t + 1: its x and y stages run
+//       once, tile t's last k step is issued from T1/T2, retired and
+//       stored, and tile t + 1's accumulators start from the same T1/T2 as
+//       its k step 0, with the tile's z side, loaded into the other of two
+//       slots while tile t ran.  Segments of 3 at the flagship (the
+//       chooser's, separable_lab.RING_SEG) run 40 passes for a column's 17
+//       tiles where one tile a block runs 51.  A pass's x and y stages read
+//       the same rows and slices in any segment and each tile's z sums keep
+//       their order, so every seg computes the same bits; seg = 1 is the
+//       per-tile routine (the host sends seg > 1 only where a pass is
+//       shared).
+// What bounds it: K2's operator, 0.0405 ms at the flagship in f32 (bytes).
+// The design: 3 passes a tile at seg = 1 (x 156.5 GFLOP, y 13.8, z 6.1 in
+// 3xTF32: 0.36 ms at 495 TFLOP/s), 40 for 17 tiles at seg = 3, the
+// chooser's (0.28 ms): LabKernel.design_bound.  Shared memory: vxy's, two
+// z side slots and T1/T2 (146 KB at p = 4 in 3xTF32): one block an SM, 255
+// registers a thread (two blocks an SM at 128 ran 1.92 against 1.19 ms,
+// ring_sweep bxyz_two_blocks).
 
 constexpr int kBxyThreads = 256;  // two warpgroups (f64: eight warps)
 constexpr int kBxyStages = 4;     // stages of the x stage's ring
+constexpr int kBxyzStages = 4;    // v2's: 5 or 6 gained nothing (ring_sweep)
+constexpr int kBxyzBlocks = 1;    // v2's blocks an SM at launch (registers)
 // K columns of the x stage a chunk: 64 bytes of a u row
 __host__ __device__ constexpr int bxy_kc(int xp) {
   return xp == kXF64 ? 8 : 16;
@@ -669,28 +713,56 @@ __host__ __device__ constexpr int bxy_kc(int xp) {
 // Byte offsets of a block's shared-memory regions, each 128-byte aligned:
 //   idx   f64: the 64 indices the accumulators' elements are found by
 //   b     the tile's y side of the B operand (bx_side_bytes)
-//   ring  kBxyStages stages of `stage` bytes: the chunk's A operand (8 LP
-//         rows of KC values), then for each x block each part of B (its
-//         [Mx | Kx] columns by KC); ax, then gx ((8 XC rows, AS words)) lie
-//         over it
+//   bz    v2 (z): two slots of a tile's z side, bz_slot bytes each
+//   ring  kBxyStages (v2: kBxyzStages) stages of `stage` bytes: the
+//         chunk's A operand (8 LP rows of KC values), then for each x
+//         block each part of B (its [Mx | Kx] columns by KC); ax, then gx
+//         ((8 XC rows, AS words)) lie over it
+//   t     v2: t1, then t2 ((kBxN XC rows, kBxZS words)), v3's layout
 struct BxySmem {
-  long long idx, b, ring, a, b_part, stage, ax, total;
+  long long idx, b, bz, bz_slot, ring, a, b_part, stage, ax, t, total;
 };
-__host__ __device__ inline BxySmem bxy_smem(int p, int xp) {
+__host__ __device__ inline BxySmem bxy_smem(int p, int xp, bool z = false) {
   const bool f64 = xp == kXF64;
   const long long c = f64 ? 8 : 4, xc = bx_xc(xp), kc = bxy_kc(xp);
   const long long nxb = f64 ? 1 : 2, ncol = f64 ? 2 * xc : kHopN;
   BxySmem s;
   s.idx = 0;
   s.b = f64 ? lab_align(64 * 8) : 0;
-  s.ring = s.b + lab_align(bx_side_bytes(p, xp, 0));
+  s.bz = s.b + lab_align(bx_side_bytes(p, xp, 0));
+  s.bz_slot = z ? lab_align(bx_side_bytes(p, xp, 1)) : 0;
+  s.ring = s.bz + 2 * s.bz_slot;
   s.a = lab_align(kBxZC * bx_lp(p, xp) * kc * c);
   s.b_part = lab_align(ncol * kc * bx_belem(xp));
   s.stage = s.a + nxb * bx_parts(xp) * s.b_part;
   s.ax = s.ring;
   const long long ax = lab_align(2LL * kBxZC * xc * bx_as(p, xp) * c);
-  s.total = s.ring + (kBxyStages * s.stage > ax ? kBxyStages * s.stage : ax);
+  const long long ring = (z ? kBxyzStages : kBxyStages) * s.stage;
+  s.t = s.ring + (ring > ax ? ring : ax);
+  s.total = s.t + (z ? lab_align(2LL * kBxN * xc * kBxZS * c) : 0);
   return s;
+}
+
+// The 64-row tiles of a pass of NMT that warpgroup W (of NWG) multiplies:
+// W an integral_constant, its own count; a run-time int, NMT / NWG (NMT a
+// multiple of NWG)
+template <int NMT, int NWG, typename W>
+__host__ __device__ constexpr int bxy_tiles() {
+  if constexpr (std::is_integral_v<W>) {
+    static_assert(NMT % NWG == 0, "a run-time warpgroup: equal shares");
+    return NMT / NWG;
+  } else {
+    return (NMT - W::value + NWG - 1) / NWG;
+  }
+}
+// the warpgroup's index, a run-time int or an integral_constant's value
+template <typename W>
+__host__ __device__ constexpr int bxy_wg(W wg) {
+  if constexpr (std::is_integral_v<W>) {
+    return wg;
+  } else {
+    return W::value;
+  }
 }
 
 // f(r, c, t1 + t2) for each element (r, c < N) of a y tile this thread holds:
@@ -715,25 +787,29 @@ __device__ __forceinline__ void bxy_sum_each(const HopAccN<2 * N>& a1,
 #endif
 }
 
-// vxy on the ring: grid (ceil(X / XC), nt, nt), kBxyThreads threads.  u: the
-// input layout (size, size, X); xb: the dense x stage's B operand, (parts, X
-// / 16, 32, X) (separable_lab.x_blocks, split), part q xb_part elements on;
-// bop: the y sides of the nt tiles (separable_lab.ring_slices; its z sides
-// are not read).  One host thread (blockDim 1) runs a block: each chunk's
-// loads at once, both warpgroups' (f64: the eight warps') products in turn.
-template <int P, int XP>
-__global__ void __launch_bounds__(kBxyThreads, 2)
-l2_bxy_kernel(const typename LabMma<XP>::C* __restrict__ u,
-              typename LabMma<XP>::C* __restrict__ out,
-              const typename LabMma<XP>::E* __restrict__ xb, long long xb_part,
-              const unsigned char* __restrict__ bop, BxGeo g) {
+// The block of vxy (Z false: one tile, blockIdx.z) or of v2 (Z: the tiles
+// [blockIdx.z seg, + seg) of the column), grid (ceil(X / XC), nt, nt or
+// ceil(nt / seg)), kBxyThreads threads.  u: the input layout (size, size,
+// X); xb: the dense x stage's B operand, (parts, X / 16, 32, X)
+// (separable_lab.x_blocks, split), part q xb_part elements on; bop: the y
+// sides of the nt tiles, then their z sides (separable_lab.ring_slices;
+// vxy reads no z side).  One host thread (blockDim 1) runs a block: each
+// chunk's loads at once, both warpgroups' (f64: the eight warps') products
+// in turn.
+template <int P, int XP, bool Z>
+__device__ __forceinline__ void l2_bxy_body(
+    const typename LabMma<XP>::C* __restrict__ u,
+    typename LabMma<XP>::C* __restrict__ out,
+    const typename LabMma<XP>::E* __restrict__ xb, long long xb_part,
+    const unsigned char* __restrict__ bop, const BxGeo& g, int seg) {
   using T = LabMma<XP>;
   using C = typename T::C;
   using E = typename T::E;
   constexpr bool F64 = XP == kXF64, BF = bx_bf(XP);
   constexpr bool kSplit = bx_parts(XP) == 2;
   constexpr int XC = bx_xc(XP), LP = bx_lp(P, XP), AS = bx_as(P, XP);
-  constexpr int ZC = kBxZC, KC = bxy_kc(XP), S = kBxyStages;
+  constexpr int ZC = kBxZC, KC = bxy_kc(XP);
+  constexpr int S = Z ? kBxyzStages : kBxyStages;
   constexpr int NP = bx_parts(XP), NXB = F64 ? 1 : 2;
   constexpr int NCOL = F64 ? 2 * XC : kHopN;  // B columns of an x block
   constexpr int CV = 16 / (int)sizeof(C), EV = 16 / (int)sizeof(E);
@@ -745,35 +821,43 @@ l2_bxy_kernel(const typename LabMma<XP>::C* __restrict__ u,
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int warp = tid / 32, lane = tid % 32;
   const bool solo = nthr < 64;
-  const BxySmem pl = bxy_smem(P, XP);
-  const int iy = blockIdx.y, iz = blockIdx.z, x0 = blockIdx.x * XC;
+  const BxySmem pl = bxy_smem(P, XP, Z);
+  const int iy = blockIdx.y, x0 = blockIdx.x * XC;
   const int b = g.b, L = b + 2 * P, nkc = g.X / KC, nxblk = g.X / 16;
+  // the block's z tiles [t0, tn)
+  const int t0 = blockIdx.z * seg;
+  const int tn = t0 + seg < g.nt ? t0 + seg : g.nt;
+  // u rows at or past zlim load as zeros: vxy's tile's first b z rows; v2's
+  // tiles' halo'd rows
+  const int zlim = Z ? (tn - 1) * b + L : t0 * b + b;
   const long long NT = (long long)g.nt * b;
   const long long ybytes = bx_side_bytes(P, XP, 0);
+  const long long zbytes = bx_side_bytes(P, XP, 1);
   unsigned char* B = smem_raw + pl.b;
   unsigned char* ring = smem_raw + pl.ring;
   C* AX = reinterpret_cast<C*>(smem_raw + pl.ax);
   C* GX = AX + ZC * XC * AS;
+  C* T1 = reinterpret_cast<C*>(smem_raw + pl.t);
+  C* T2 = T1 + kBxN * XC * kBxZS;
   // word offset of column k of row `row` of a chunk's A operand: f32 rows of
   // 64 bytes with their 16-byte pieces permuted by the row (l2_xring's)
   auto a_at = [](int row, int k) -> int {
     if constexpr (F64) return row * KC + k;
     else return row * KC + ((((k >> 2) ^ (row >> 1)) & 3) << 2) + (k & 3);
   };
-  // chunk kc of the pass whose first halo'd z row is zc into its stage:
-  // u rows beyond the tile's L halo'd y rows or its b z rows are zeros
-  auto load = [&](int zc, int kc) {
+  // chunk kc of the pass whose first halo'd z row is z0 into its stage: u
+  // rows beyond the tile's L halo'd y rows or at or past zlim are zeros
+  auto load = [&](int z0, int kc) {
     if (kc < nkc) {
       unsigned char* st = ring + (kc % S) * pl.stage;
       C* A = reinterpret_cast<C*>(st);
-      const C* src = u + ((long long)iz * b * g.size + (long long)iy * b) *
-                             g.X + kc * KC;
+      const C* src = u + (long long)iy * b * g.X + kc * KC;
       for (int i = tid; i < ROWS * ACH; i += nthr) {
         const int row = i / ACH, ch = i % ACH;
-        const int zl = zc + row / LP, yl = row % LP;
+        const int z = z0 + row / LP, yl = row % LP;
         C* dst = A + a_at(row, ch * CV);
-        if (yl < L && zl < b) {
-          lab_cp16(dst, src + ((long long)zl * g.size + yl) * g.X + ch * CV);
+        if (yl < L && z < zlim) {
+          lab_cp16(dst, src + ((long long)z * g.size + yl) * g.X + ch * CV);
         } else {
 #pragma unroll
           for (int e = 0; e < CV; ++e) dst[e] = C(0);
@@ -799,14 +883,37 @@ l2_bxy_kernel(const typename LabMma<XP>::C* __restrict__ u,
     }
     lab_cp_commit();  // an empty group past the end keeps the count
   };
+  // bytes of device memory into shared memory, cp.async: they land with
+  // the next chunk's group
+  auto load_side = [&](unsigned char* dst, const unsigned char* src,
+                       long long bytes) {
+    for (int i = tid; i < (int)(bytes / 16); i += nthr)
+      lab_cp16(dst + 16 * i, src + 16 * i);
+  };
   // the tile's y side, with the first pass's first chunk
-  for (int i = tid; i < (int)(ybytes / 16); i += nthr)
-    lab_cp16(B + 16 * i, bop + iy * ybytes + 16 * i);
-  auto out_at = [&](int zl, int by, int x) {
-    return (((long long)iz * b + zl) * NT + (long long)iy * b + by) * g.X +
+  load_side(B, bop + iy * ybytes, ybytes);
+  // v2: tile t's z side into its slot
+  auto z_side = [&](int t) {
+    return smem_raw + pl.bz + ((t - t0) & 1) * pl.bz_slot;
+  };
+  auto load_z = [&](int t) {
+    load_side(z_side(t), bop + g.nt * ybytes + t * zbytes, zbytes);
+  };
+  // v2: before the tile's first pass that runs its x stage, the z sides
+  // the tile needs next (the first tile's own too); the slot is the one
+  // tile t - 1 read, which every warp has retired once the block is past
+  // a barrier
+  auto next_z = [&](int t) {
+    if (t > t0) __syncthreads();
+    if (t == t0) load_z(t);
+    if (t + 1 < tn) load_z(t + 1);
+  };
+  const int npass = Z ? (L + ZC - 1) / ZC : (b + ZC - 1) / ZC;
+  // v2: the output of tile t, by (by, x, bz)
+  auto out_at = [&](int t, int bz, int by, int x) {
+    return (((long long)t * b + bz) * NT + (long long)iy * b + by) * g.X +
            x0 + x;
   };
-  const int npass = (b + ZC - 1) / ZC;
   if constexpr (F64) {
     using FA = typename LabFrag<XP>::FA;
     using FC = typename LabFrag<XP>::FC;
@@ -831,14 +938,15 @@ l2_bxy_kernel(const typename LabMma<XP>::C* __restrict__ u,
         f(rc / T::N, rc % T::N, e);
       }
     };
-    for (int j = 0; j < npass; ++j) {
-      const int zc = j * ZC;
+    // the x stage of the pass whose first halo'd z row is z0: ax and gx
+    // whole in AX, GX
+    auto x_stage = [&](int z0) {
       FC acc[NJ];
-      for (int kc = 0; kc < S - 1; ++kc) load(zc, kc);
+      for (int kc = 0; kc < S - 1; ++kc) load(z0, kc);
       for (int kc = 0; kc < nkc; ++kc) {
         lab_cp_wait_but<S - 2>();
         __syncthreads();
-        load(zc, kc + S - 1);  // the slot chunk kc - 1 was multiplied from
+        load(z0, kc + S - 1);  // the slot chunk kc - 1 was multiplied from
         const unsigned char* st = ring + (kc % S) * pl.stage;
         const double* A = reinterpret_cast<const double*>(st);
         const double* Bx = reinterpret_cast<const double*>(st + pl.a);
@@ -868,19 +976,70 @@ l2_bxy_kernel(const typename LabMma<XP>::C* __restrict__ u,
         });
       }
       __syncthreads();  // ax, gx whole
-      BxDmma<P>::y_products(
-          AX, GX, reinterpret_cast<const double*>(B), warp,
-          [&](int w, const FC* a1, const FC* a2) {
+    };
+    const double* By = reinterpret_cast<const double*>(B);
+    if constexpr (!Z) {
+      for (int j = 0; j < npass; ++j) {
+        const int zc = j * ZC;
+        x_stage(t0 * b + zc);
+        BxDmma<P>::y_products(
+            AX, GX, By, warp, [&](int w, const FC* a1, const FC* a2) {
 #pragma unroll
-            for (int jn = 0; jn < BxDmma<P>::NB; ++jn)
-              each(a1[jn], [&](int r, int c, int e) {
-                const int m = w * T::M + r, zl = zc + m / XC, x = m % XC;
-                const int by = jn * T::N + c;
-                if (zl < b && by < b && x0 + x < g.X)
-                  out[out_at(zl, by, x)] = a1[jn].x[e] + a2[jn].x[e];
-              });
-          });
-      __syncthreads();  // ax, gx read: the ring's next loads may land
+              for (int jn = 0; jn < BxDmma<P>::NB; ++jn)
+                each(a1[jn], [&](int r, int c, int e) {
+                  const int m = w * T::M + r, zl = zc + m / XC, x = m % XC;
+                  const int by = jn * T::N + c;
+                  if (zl < b && by < b && x0 + x < g.X)
+                    out[out_at(t0, zl, by, x)] = a1[jn].x[e] + a2[jn].x[e];
+                });
+            });
+        __syncthreads();  // ax, gx read: the ring's next loads may land
+      }
+    } else {
+      using D = BxDmma<P>;
+      D zd;
+      for (int t = t0; t < tn; ++t) {
+        const double* Bz = reinterpret_cast<const double*>(z_side(t));
+        for (int j = 0; j < npass; ++j) {
+          if (t == t0 || j > 0) {  // else T1/T2 hold it: tile t - 1's last
+            if (j == (t > t0)) next_z(t);
+            x_stage(t * b + j * ZC);
+            D::y_products(AX, GX, By, warp,
+                          [&](int w, const FC* a1, const FC* a2) {
+#pragma unroll
+                            for (int jn = 0; jn < D::NB; ++jn)
+                              for (int h = 0; h < 2; ++h)
+                                each(h ? a2[jn] : a1[jn],
+                                     [&](int r, int c, int e) {
+                                       const int m = w * T::M + r;
+                                       (h ? T2 : T1)[((jn * T::N + c) * XC +
+                                                      m % XC) * kBxZS +
+                                                     m / XC] =
+                                           (h ? a2[jn] : a1[jn]).x[e];
+                                     });
+                          });
+            __syncthreads();  // t1, t2 whole; ax, gx read
+          }
+          if (j == 0) zd.zero();
+          zd.z_issue(T1, T2, Bz, j, warp);
+          if (j == npass - 1) {
+            for (int w = kHopHost ? 0 : warp;
+                 w < (kHopHost ? kBxWarps : warp + 1); ++w) {
+              const FC* d = zd.z + (kHopHost ? w * D::ZT * D::NB : 0);
+#pragma unroll
+              for (int i = 0; i < D::ZT; ++i)
+#pragma unroll
+                for (int jn = 0; jn < D::NB; ++jn)
+                  each(d[i * D::NB + jn], [&](int r, int c, int e) {
+                    const int m = (w + i * kBxWarps) * T::M + r;
+                    const int by = m / XC, x = m % XC, bz = jn * T::N + c;
+                    if (by < b && bz < b && x0 + x < g.X)
+                      out[out_at(t, bz, by, x)] = d[i * D::NB + jn].x[e];
+                  });
+            }
+          }
+        }
+      }
     }
   } else {
     constexpr int NMT = ROWS / kHopM, MAXT = 2, NWG = 2;
@@ -892,17 +1051,20 @@ l2_bxy_kernel(const typename LabMma<XP>::C* __restrict__ u,
     HopAcc acc[kHopHost ? NWG * NA : NA];
     HopA big[MAXT][KS], small[MAXT][KS];
     // chunk `st`'s products of warpgroup wg (the first chunk's overwrite
-    // the accumulators)
-    auto mma = [&](int wg, const unsigned char* st, HopAcc* d, bool first) {
+    // the accumulators): its 64-row tiles of the pass, wg, wg + 2, ..., a
+    // count known at compile time (bxy_tiles), so no wgmma waits on a
+    // run-time condition
+    auto mma = [&](auto wg, const unsigned char* st, HopAcc* d,
+                   bool first) {
+      constexpr int NTW = bxy_tiles<NMT, NWG, decltype(wg)>();
       const float* A = reinterpret_cast<const float*>(st);
 #pragma unroll
-      for (int i = 0; i < MAXT; ++i) {
-        const int mt = wg + i * NWG < NMT ? wg + i * NWG : NMT - 1;
+      for (int i = 0; i < NTW; ++i)
 #pragma unroll
         for (int ks = 0; ks < KS; ++ks)
           hop_load_a<BF>(big[i][ks], small[i][ks], kSplit,
-                         A + mt * kHopM * KC, a_at, ks, w, lane);
-      }
+                         A + (bxy_wg(wg) + i * NWG) * kHopM * KC, a_at, ks,
+                         w, lane);
       hop_wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks)
@@ -911,16 +1073,18 @@ l2_bxy_kernel(const typename LabMma<XP>::C* __restrict__ u,
 #pragma unroll
           for (int jx = 0; jx < NXB; ++jx)
 #pragma unroll
-            for (int i = 0; i < MAXT; ++i)
+            for (int i = 0; i < NTW; ++i)
               hop_wgmma<BF>(d[jx * MAXT + i],
                             part == 0 ? small[i][ks] : big[i][ks],
                             st + pl.a + (jx * NP + (part == 1)) * pl.b_part,
                             ks, kbytes, !first || ks > 0 || part > kFirst);
       hop_wgmma_commit();
     };
-    auto keep = [&] {
+    // warpgroup wg's operand registers stay the compiler's until here
+    auto keep = [&](auto wg) {
+      constexpr int NTW = bxy_tiles<NMT, NWG, decltype(wg)>();
 #pragma unroll
-      for (int i = 0; i < MAXT; ++i)
+      for (int i = 0; i < NTW; ++i)
 #pragma unroll
         for (int ks = 0; ks < KS; ++ks) {
           hop_keep(big[i][ks]);
@@ -936,23 +1100,43 @@ l2_bxy_kernel(const typename LabMma<XP>::C* __restrict__ u,
         f(hop_uniform(tid / 128));
       }
     };
-    for (int j = 0; j < npass; ++j) {
-      const int zc = j * ZC;
-      for (int kc = 0; kc < S - 2; ++kc) load(zc, kc);
+    // the x stage's: where the warpgroups' tile counts differ (a pass of
+    // 3 tiles, LP = 24) the index an integral_constant, each warpgroup its
+    // own code (at LP = 32 one code for both, as two copies spill in
+    // bf16x3)
+    auto each_wgx = [&](auto f) {
+      using W0 = std::integral_constant<int, 0>;
+      using W1 = std::integral_constant<int, 1>;
+      if constexpr (NMT % NWG == 0) {
+        each_wg(f);
+      } else if constexpr (kHopHost) {
+        f(W0{});
+        f(W1{});
+      } else if (hop_uniform(tid / 128) == 0) {
+        f(W0{});
+      } else {
+        f(W1{});
+      }
+    };
+    // the x stage of the pass whose first halo'd z row is z0: ax and gx
+    // whole in AX, GX
+    auto x_stage = [&](int z0) {
+      for (int kc = 0; kc < S - 2; ++kc) load(z0, kc);
       for (int kc = 0; kc < nkc; ++kc) {
         lab_cp_wait_but<S - 3>();
         hop_fence_async();  // the copies are read by wgmma's async proxy
         __syncthreads();
-        load(zc, kc + S - 2);  // the slot chunk kc - 2 was multiplied from
+        load(z0, kc + S - 2);  // the slot chunk kc - 2 was multiplied from
         hop_wgmma_wait<0>();   // chunk kc - 1: its operand registers free
-        keep();
+        if constexpr (NMT % NWG == 0) keep(0);
         const unsigned char* st = ring + (kc % S) * pl.stage;
-        each_wg([&](int wg) {
-          mma(wg, st, acc + (kHopHost ? wg * NA : 0), kc == 0);
+        each_wgx([&](auto wg) {
+          if constexpr (NMT % NWG != 0) keep(wg);
+          mma(wg, st, acc + (kHopHost ? bxy_wg(wg) * NA : 0), kc == 0);
         });
       }
       hop_wgmma_wait<0>();
-      keep();
+      each_wgx([&](auto wg) { keep(wg); });
       __syncthreads();  // the ring is free: ax, gx lie over it
       each_wg([&](int wg) {
 #pragma unroll
@@ -969,22 +1153,74 @@ l2_bxy_kernel(const typename LabMma<XP>::C* __restrict__ u,
         }
       });
       __syncthreads();  // ax, gx whole
-      each_wg([&](int wg) {
-        BxWgmma<P, XP>::y_products(
-            AX, GX, B, wg, w, lane,
-            [&](int mt, const HopAccN<2 * kBxN>& a1,
-                const HopAccN<kBxN>& a2) {
-              bxy_sum_each<kBxN>(a1, a2, w, lane, [&](int r, int c,
-                                                      float v) {
-                const int m = mt * kHopM + r, zl = zc + m / XC, x = m % XC;
-                if (zl < b && c < b && x0 + x < g.X)
-                  out[out_at(zl, c, x)] = v;
+    };
+    if constexpr (!Z) {
+      for (int j = 0; j < npass; ++j) {
+        const int zc = j * ZC;
+        x_stage(t0 * b + zc);
+        each_wg([&](int wg) {
+          BxWgmma<P, XP>::y_products(
+              AX, GX, B, wg, w, lane,
+              [&](int mt, const HopAccN<2 * kBxN>& a1,
+                  const HopAccN<kBxN>& a2) {
+                bxy_sum_each<kBxN>(a1, a2, w, lane, [&](int r, int c,
+                                                        float v) {
+                  const int m = mt * kHopM + r, zl = zc + m / XC, x = m % XC;
+                  if (zl < b && c < b && x0 + x < g.X)
+                    out[out_at(t0, zl, c, x)] = v;
+                });
+              });
+        });
+        __syncthreads();  // ax, gx read: the ring's next loads may land
+      }
+    } else {
+      BxWgmma<P, XP> zw;
+      for (int t = t0; t < tn; ++t) {
+        const unsigned char* Bz = z_side(t);
+        for (int j = 0; j < npass; ++j) {
+          if (t == t0 || j > 0) {  // else T1/T2 hold it: tile t - 1's last
+            if (j == (t > t0)) next_z(t);
+            zw.retire();  // the last pass's z products: T1/T2 may be written
+            x_stage(t * b + j * ZC);
+            each_wg([&](int wg) { zw.y(AX, GX, B, T1, T2, wg, w, lane); });
+            __syncthreads();  // t1, t2 whole; ax, gx read
+          }
+          each_wg([&](int wg) { zw.z_issue(T1, T2, Bz, j, wg, w, lane); });
+          if (j == npass - 1) {
+            zw.retire();
+            each_wg([&](int wg) {
+              zw.store(wg, w, lane, [&](int by, int x, int bz, float v) {
+                if (by < b && bz < b && x0 + x < g.X)
+                  out[out_at(t, bz, by, x)] = v;
               });
             });
-      });
-      __syncthreads();  // ax, gx read: the ring's next loads may land
+          }
+        }
+      }
     }
   }
+}
+
+// vxy on the ring: grid (ceil(X / XC), nt, nt), two blocks an SM.
+template <int P, int XP>
+__global__ void __launch_bounds__(kBxyThreads, 2)
+l2_bxy_kernel(const typename LabMma<XP>::C* __restrict__ u,
+              typename LabMma<XP>::C* __restrict__ out,
+              const typename LabMma<XP>::E* __restrict__ xb, long long xb_part,
+              const unsigned char* __restrict__ bop, BxGeo g) {
+  l2_bxy_body<P, XP, false>(u, out, xb, xb_part, bop, g, 1);
+}
+
+// v2 on the ring: grid (ceil(X / XC), nt, ceil(nt / seg)), a segment of seg
+// z tiles a block (seg > 1 only where b % 8 == 0 and 2P <= 8).
+template <int P, int XP>
+__global__ void __launch_bounds__(kBxyThreads, kBxyzBlocks)
+l2_bxyz_kernel(const typename LabMma<XP>::C* __restrict__ u,
+               typename LabMma<XP>::C* __restrict__ out,
+               const typename LabMma<XP>::E* __restrict__ xb,
+               long long xb_part, const unsigned char* __restrict__ bop,
+               BxGeo g, int seg) {
+  l2_bxy_body<P, XP, true>(u, out, xb, xb_part, bop, g, seg);
 }
 
 }  // namespace tpufem

@@ -21,7 +21,16 @@ vxy's ring (the same file) runs beside v3's, in a copy whose launch bound
 holds one block an SM (255 registers a thread, where the committed two
 blocks an SM hold it to 128 and ptxas serialises its wgmmas), and in a copy
 timed only without its y products and stores: its x stage, with ax and gx
-stored into the y operand, alone.
+stored into the y operand, alone.  v2's ring (the same file) runs at z
+segments of 1, 2, 3, 4 and all 17 tiles a block (a run-time argument;
+3xTF32 also 5, 6 and 8) beside its chooser's, in a copy whose launch bound
+asks for two blocks an SM (128 registers; its shared memory holds one block
+an SM either way), in copies timed only without its z products (its x and
+y stages, with t1 and t2 stored, and the stores) and without its y and z
+products (its x stage, with ax and gx stored, and the stores), and with its
+ring of 5 and 6 stages in place of 4.  Both dense x rings run in a copy
+whose second warpgroup multiplies a copy of a pass's third 64-row tile at
+LP = 24, as vxy's ring did before v2's.
 
     python -m tpufem_torch.lab.ring_sweep [--reps 20] [--only l2_nxb1 ...]
 
@@ -81,9 +90,37 @@ VARIANTS = {
         ("__global__ void __launch_bounds__(kBxyThreads, 2)",
          "__global__ void __launch_bounds__(kBxyThreads, 1)")]}, False),
     "bxy_no_y": ("lab_separable_ring", {"lab_separable_ring.cuh": [
-        ("      each_wg([&](int wg) {\n        BxWgmma<P, XP>::y_products(",
-         "      auto no_y = ([&](int wg) {\n        BxWgmma<P, XP>::y_products(")
+        ("        each_wg([&](int wg) {\n"
+         "          BxWgmma<P, XP>::y_products(",
+         "        auto no_y = ([&](int wg) {\n          BxWgmma<P, XP>::"
+         "y_products(")
     ]}, True),
+    "bxyz_stages5": ("lab_separable_ring", {"lab_separable_ring.cuh": [
+        ("kBxyzStages = 4;", "kBxyzStages = 5;")]}, False),
+    "bxyz_stages6": ("lab_separable_ring", {"lab_separable_ring.cuh": [
+        ("kBxyzStages = 4;", "kBxyzStages = 6;")]}, False),
+    # vxy's and v2's x stage with both warpgroups on one code at LP = 24:
+    # the second multiplies a copy of the third tile, not stored
+    "bxy_tile_repeat": ("lab_separable_ring", {"lab_separable_ring.cuh": [
+        ("      if constexpr (NMT % NWG == 0) {\n        each_wg(f);",
+         "      if constexpr (true) {\n        each_wg(f);"),
+        ("    static_assert(NMT % NWG == 0, \"a run-time warpgroup: equal "
+         "shares\");\n    return NMT / NWG;",
+         "    return (NMT + NWG - 1) / NWG;"),
+        ("                         A + (bxy_wg(wg) + i * NWG) * kHopM * KC, "
+         "a_at, ks,",
+         "                         A + (bxy_wg(wg) + i * NWG < NMT ? "
+         "bxy_wg(wg) + i * NWG : NMT - 1) * kHopM * KC, a_at, ks,")]}, False),
+    "bxyz_two_blocks": ("lab_separable_ring", {"lab_separable_ring.cuh": [
+        ("kBxyzBlocks = 1;", "kBxyzBlocks = 2;")]}, False),
+    "bxyz_no_z": ("lab_separable_ring", {"lab_separable_ring.cuh": [
+        ("          each_wg([&](int wg) { zw.z_issue(T1, T2, Bz, j, wg, w, "
+         "lane); });", "          (void)Bz;")]}, True),
+    "bxyz_x_only": ("lab_separable_ring", {"lab_separable_ring.cuh": [
+        ("          each_wg([&](int wg) { zw.z_issue(T1, T2, Bz, j, wg, w, "
+         "lane); });", "          (void)Bz;"),
+        ("            each_wg([&](int wg) { zw.y(AX, GX, B, T1, T2, wg, w, "
+         "lane); });", "            (void)0;")]}, True),
     "bx_no_products": ("lab_separable_ring", {"lab_separable_ring.cuh": [
         ("      each_wg([&](int wg) { x.y(AX, GX, B, T1, T2, wg, warp % 4, "
          "lane); });", "      (void)0;"),
@@ -120,16 +157,16 @@ def build_variant(name: str) -> dict:
 
 
 def time_variant(libs, variant, prec, u, K1, M1, reps, timed_only,
-                 nu=None, routine=None):
+                 nu=None, routine=None, seg=None):
     """One line: the kernel of ``variant`` from ``libs`` at the flagship
-    (v3's ring: with nu u slots, or its chooser's; routine: None, the
-    variant's default), held to its plain version (unless an ablation), ms
-    of two timings."""
+    (v3's ring: with nu u slots, or its chooser's; v2's: a z segment of seg
+    tiles, or its chooser's; routine: None, the variant's default), held to
+    its plain version (unless an ablation), ms of two timings."""
     real = separable_lab.load_kernels
     separable_lab.load_kernels = lambda: libs
     try:
         k = LabKernel(variant, 257, 4, K1, M1, [1.0 / 64] * 3, prec=prec,
-                      device="cuda", routine=routine)
+                      device="cuda", routine=routine, seg=seg)
     finally:
         separable_lab.load_kernels = real
     if nu is not None:  # the launcher sizes its shared memory from nu
@@ -149,6 +186,7 @@ def time_variant(libs, variant, prec, u, K1, M1, reps, timed_only,
             + (f" {k.routine}" if k.routine else "")
             + (f" sub-tile={k.tile}" if k.tile else "")
             + (f" u slots={k.ring[0]}" if k.bx and k.ring else "")
+            + (f" seg={k.seg} grid={k.grid}" if k.seg else "")
             + f" smem={k.smem} max rel err {err:.2e}  {ms[0]:.4f} "
             f"{ms[1]:.4f} ms")
 
@@ -189,7 +227,7 @@ def main(argv=None) -> None:
                                    timed_only, routine="tile"
                                    if v == "vxy" else None), flush=True)
         if "lab_separable_ring" in own:
-            for v in ("v3", "vxy"):
+            for v in ("v3", "vxy", "v2"):
                 for prec in BX_TIMED:
                     print(time_variant(libs, v, prec, u, K1, M1, args.reps,
                                        timed_only), flush=True)
@@ -200,6 +238,12 @@ def main(argv=None) -> None:
                             separable_lab.RING_BUDGET:
                         print(time_variant(libs, "v3", "highest", u, K1, M1,
                                            args.reps, False, nu), flush=True)
+                for prec in BX_TIMED:  # v2's z segments
+                    for seg in ((1, 2, 3, 4, 5, 6, 8, 17) if prec ==
+                                "highest" else (1, 2, 3, 4, 17)):
+                        print(time_variant(libs, "v2", prec, u, K1, M1,
+                                           args.reps, False, seg=seg),
+                              flush=True)
 
 
 if __name__ == "__main__":

@@ -8,15 +8,18 @@ in two CUDA routines:
   ``_kernel_v6`` (:106), ``_kernel_v8`` (:132), ``_kernel_vx`` (:164),
   ``_kernel_vxy`` (:177), ``_kernel_v9`` (:212) and ``_kernel_v12`` (:237):
   x first, then y, then z; each axis stage dense (a tensor-core product) or
-  band (CUDA cores).  ``tpufem_torch/csrc/lab_separable.cuh``; v3 and vxy
-  run ring routines of their own by default (``routine="ring"``,
+  band (CUDA cores).  ``tpufem_torch/csrc/lab_separable.cuh``; v3, vxy and
+  v2 (with v6 and v8, which compute v2's function) run ring routines of
+  their own by default (``routine="ring"``,
   ``csrc/lab_separable_ring.cuh``, a tile of b <= 16 rows a side,
   ``RING_B``: v3 the halo'd u boxes by TMA through an ``mbarrier`` ring,
   the band x on CUDA cores, the y and z products on wgmma; vxy a dense x
   stage on wgmma over a ``cp.async`` ring of u and [Mx | Kx] chunks (vx's
   ring, its own copy), stored into the y products' operand, and v3's y
   products
-  summed and stored from their accumulators; f64 on DMMA), and the first
+  summed and stored from their accumulators; v2 vxy's x stage over every
+  halo'd z row feeding v3's y and z products, a block marching down a
+  segment of z tiles (``march_segment``); f64 on DMMA), and the first
   routine as their earlier schedule (``routine="tile"``).
 - the z/y-first half (L2b), ``_kernel_v13`` (:302), ``_kernel_v14`` (:359),
   ``_kernel_v15`` (:431), ``_kernel_vcopy`` (:500), ``_kernel_vband`` (:525)
@@ -130,19 +133,33 @@ ZY_TWO_BLOCKS = 113 * 1024  # (228 KB - 2 x 1 KB reserved) / 2
 MAX_DEGREE = 8
 # the routines of the variants that have a choice: v15's, v14's and v13's
 # on L1's ring (pipe: the persistent lab_ring_pipe_kernel; ring:
-# lab_ring_kernel), "tile" their earlier schedule (zy_kernel); v3's and
-# vxy's rings (l2_bx_kernel, l2_bxy_kernel), "tile" their earlier schedule
-# (l2_kernel)
+# lab_ring_kernel), "tile" their earlier schedule (zy_kernel); v3's,
+# vxy's and v2's (v6's, v8's) rings (l2_bx_kernel, l2_bxy_kernel,
+# l2_bxyz_kernel), "tile" their earlier schedule (l2_kernel)
 ROUTINES = {"v3": ("ring", "tile"), "vxy": ("ring", "tile"),
+            "v2": ("ring", "tile"), "v6": ("ring", "tile"),
+            "v8": ("ring", "tile"),
             "v13": ("ring", "tile"), "v14": ("pipe", "ring", "tile"),
             "v15": ("pipe", "ring", "tile")}
-RING_L2A = ("v3", "vxy")  # the L2a variants with a ring routine
+# the L2a variants with a ring routine; those on v2's (dense x, y and z: v6
+# is v2's kernel, and v8's transposes are v2's operand layouts on the ring,
+# so both run v2's instruction stream); those whose dense x stage the first
+# version's jobs (x_jobs) run on l2_kernel only
+RING_L2A = ("v3", "vxy", "v2", "v6", "v8")
+RING_XYZ = ("v2", "v6", "v8")
+DENSE_X_RING = ("vxy",) + RING_XYZ
 # v3's and vxy's rings: a tile of at most RING_B rows a side (the products'
 # N), their default; halo'd z rows a pass; x columns a block (f32 storage,
 # f64)
 RING_B, RING_ZC = 16, 8
 RING_X_COLS = {False: 32, True: 8}
 RING_MAX_U = 3  # the deepest ring of u slots
+# the longest segment of z tiles a block of v2's ring marches down: at the
+# flagship (b = 16, nt = 17: 6 segments, 918 blocks, 40 passes a column)
+# segments of 3 ran fastest of 1, 2, 3, 4, 5, 6, 8 and 17 in 3xTF32
+# (ring_sweep), and 2.0-2.5% faster than 4 in turns in every precision (an
+# H100, PERF.md)
+RING_SEG = 3
 
 
 def default_routine(variant: str, dtype) -> str | None:
@@ -156,11 +173,34 @@ def default_routine(variant: str, dtype) -> str | None:
     chunks take its two products, q1 @ Kx^T and q23 @ Mx^T, in turn, so
     on the ring it is v15's instruction stream, and so is v14, whose one
     addition to v13, the next load in flight, the persistent ring keeps);
-    v3 and vxy their rings (``l2_bx_kernel``, ``l2_bxy_kernel``); the
-    other variants have no choice (None)."""
+    v3, vxy and v2 (v6, v8) their rings (``l2_bx_kernel``,
+    ``l2_bxy_kernel``, ``l2_bxyz_kernel``); the other variants have no
+    choice (None)."""
     if variant in ("v15", "v14") and dtype == torch.float64:
         return "ring"
     return ROUTINES.get(variant, (None,))[0]
+
+
+def march_shares(b: int, p: int) -> bool:
+    """Whether the pass that ends a tile of v2's ring starts the next (b a
+    multiple of RING_ZC and 2p <= RING_ZC), so a segment runs its x and y
+    stages once for both."""
+    return b % RING_ZC == 0 and 2 * p <= RING_ZC
+
+
+def march_segment(b: int, p: int, nt: int) -> int:
+    """The z tiles a block of v2's ring owns: RING_SEG (at most nt) where a
+    pass is shared (``march_shares``), else 1."""
+    return min(RING_SEG, nt) if march_shares(b, p) else 1
+
+
+def march_passes(b: int, p: int, nt: int, seg: int) -> list[int]:
+    """The passes each segment of v2's ring runs, in grid order: ceil(L /
+    RING_ZC) a tile, L = b + 2p, less the one a tile shares with the tile
+    before it in the segment."""
+    npass = -(-(b + 2 * p) // RING_ZC)
+    return [npass + (min(seg, nt - t0) - 1) * (npass - 1)
+            for t0 in range(0, nt, seg)]
 
 
 def tile_slices(M1: np.ndarray, b: int, n_tiles: int, p: int) -> np.ndarray:
@@ -348,24 +388,26 @@ class LabKernel:
     vband have no tensor-core stage and take "highest" whatever ``prec``
     says.  x_jobs: run the dense x stage of an L2a variant as the first
     version did (an ablation of l2_kernel's x stage, timed beside the
-    ring; vxy then runs its earlier schedule unless a routine is asked
-    for).  routine: v15's, v14's, v13's, v3's and vxy's (``ROUTINES``: v15
-    and v14 "pipe", "ring" or "tile", v13, v3 and vxy "ring" or "tile";
-    None: ``default_routine``'s, by the storage dtype); the other variants
-    None.  v3's and vxy's rings take b <= RING_B (their default).
+    ring; vxy, v2, v6 and v8 then run their earlier schedule unless a
+    routine is asked for).  routine: v15's, v14's, v13's, v3's, vxy's and
+    v2's, v6's, v8's (``ROUTINES``: v15 and v14 "pipe", "ring" or "tile",
+    the others "ring" or "tile"; None: ``default_routine``'s, by the
+    storage dtype); the other variants None.  The L2a rings take b <=
+    RING_B (their default).  seg: the z tiles a block of v2's ring owns
+    (None: ``march_segment``'s; more than 1 only where a pass is shared).
     """
 
     launches = {v: 0 for v in VARIANTS}  # per variant; plain excluded
 
     def __init__(self, variant, npts, p, K1, M1, h, b=None, prec="highest",
                  dtype=torch.float32, device="cuda", tile=None,
-                 x_jobs=False, routine=None):
+                 x_jobs=False, routine=None, seg=None):
         if variant not in VARIANTS:
             raise ValueError(f"variant must be one of {VARIANTS}, got "
                              f"{variant!r}")
         routines = ROUTINES.get(variant, (None,))
         if routine is None:
-            routine = "tile" if x_jobs and variant == "vxy" else \
+            routine = "tile" if x_jobs and variant in DENSE_X_RING else \
                 default_routine(variant, dtype)
         if routine not in routines:
             raise ValueError(f"{variant} takes routine {routines}, got "
@@ -390,13 +432,16 @@ class LabKernel:
         self.routine = routine
         self.xp = XF64 if dtype == torch.float64 else PRECS[prec]
         self.zy = variant in ZYFIRST
-        # v3's or vxy's ring (lab_separable_ring)
+        # v3's, vxy's or v2's ring (lab_separable_ring)
         self.bx = variant in RING_L2A and routine == "ring"
+        self.xyz = self.bx and variant in RING_XYZ
         if self.bx and b is not None and not 1 <= b <= RING_B:
             raise ValueError(f"{variant}'s ring takes a tile b <= {RING_B}, "
                              f"got b={b}")
-        if self.bx and x_jobs and variant == "vxy":
-            raise ValueError("vxy's ring has no x stage by jobs")
+        if self.bx and x_jobs and variant in DENSE_X_RING:
+            raise ValueError(f"{variant}'s ring has no x stage by jobs")
+        if seg is not None and not self.xyz:
+            raise ValueError("seg: the z segment of v2's ring only")
         self.flags = None if self.zy else FLAGS[variant] | (
             XJOBS if x_jobs and not FLAGS[variant] & XBAND else 0)
         h = np.broadcast_to(np.asarray(h, np.float64), (3,))
@@ -421,6 +466,16 @@ class LabKernel:
                 self.flags)
         NT = -(-npts // b) * b
         self.b, self.nt = b, NT // b
+        self.seg = None
+        if self.xyz:
+            self.seg = march_segment(b, p, self.nt) if seg is None else seg
+            if not 1 <= self.seg <= self.nt or (
+                    self.seg > 1 and not march_shares(b, p)):
+                raise ValueError(f"v2's ring takes a segment of 1 to nt = "
+                                 f"{self.nt} z tiles, more than 1 where b "
+                                 f"is a multiple of {RING_ZC} and 2p <= "
+                                 f"{RING_ZC}; got seg={self.seg}, b={b}, "
+                                 f"p={p}")
         if self.bx:
             if self.lib is not None:
                 self._plan_bx()
@@ -533,7 +588,7 @@ class LabKernel:
             self.grid = min(units, props.multi_processor_count * bps)
 
     def _plan_bx(self) -> None:
-        """v3's or vxy's ring plan on the card: v3's u slots
+        """v3's, vxy's or v2's ring plan on the card: v3's u slots
         (``choose_ring_u``, by the routine's own shared-memory count), the
         shared memory and the grid (``_bx_plan``'s blocks); the routines' K
         must be ``ring_k``'s."""
@@ -541,7 +596,10 @@ class LabKernel:
         if lib.tpufem_l2_ring_k(self.p, self.xp) != ring_k(self.p, self.xp):
             raise RuntimeError("the L2 ring routines and ring_k disagree on "
                                "K")
-        if self.variant == "vxy":
+        if self.xyz:
+            self.ring = ()
+            self.smem = lib.tpufem_l2_ring_xyz_smem_bytes(self.p, self.xp)
+        elif self.variant == "vxy":
             self.ring = ()
             self.smem = lib.tpufem_l2_ring_xy_smem_bytes(self.p, self.xp)
         else:
@@ -633,7 +691,13 @@ class LabKernel:
                              f"{(NT, NT, self.X)} on {self.device}")
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream().cuda_stream
-            if self.bx and self.variant == "vxy":
+            if self.xyz:
+                rc = self.lib.lib.tpufem_l2_ring_xyz_apply(
+                    self.xp, self.p, self.npts, self.b, self.nt, self.size,
+                    self.X, self.seg, gp.data_ptr(), y.data_ptr(),
+                    self.xb.data_ptr(), self.xb_part, self.bop.data_ptr(),
+                    stream)
+            elif self.bx and self.variant == "vxy":
                 rc = self.lib.lib.tpufem_l2_ring_xy_apply(
                     self.xp, self.p, self.npts, self.b, self.nt, self.size,
                     self.X, gp.data_ptr(), y.data_ptr(), self.xb.data_ptr(),
@@ -748,12 +812,33 @@ class LabKernel:
         sides); vxy's ring (per block and pass: the pass's z rows of its
         first b by the tile's L halo'd y rows over X columns, and the B
         operand's rows of its x blocks over X, every part; per block the
-        tile's y side); v3's earlier schedule, which reads its taps and
-        slices from device memory with no ring (per block of XC columns: the
-        (L, L) halo'd rows over its XC + 2p columns and its four slices,
-        each once, as if L1 held what the block reads again)."""
+        tile's y side); v2's ring (vxy's per pass, a pass's z rows those
+        short of its block's last tile's halo'd end, and per block the y
+        side and each of its tiles' z sides); v3's earlier schedule, which
+        reads its taps and slices from device memory with no ring (per
+        block of XC columns: the (L, L) halo'd rows over its XC + 2p
+        columns and its four slices, each once, as if L1 held what the
+        block reads again)."""
         item = torch.empty((), dtype=self.dt).element_size()
         p, X, NT = self.p, self.X, self.nt * self.b
+        if self.xyz:
+            # per block and pass: the pass's z rows short of the block's
+            # last tile's halo'd end by the tile's L halo'd y rows over X,
+            # and the B operand's rows of its x blocks; per block: the y
+            # side and each of its tiles' z sides
+            b, seg, nxc = self.b, self.seg, -(-X // self._bx_plan()[3])
+            total = 0
+            for s0, n in zip(range(0, self.nt, seg),
+                             march_passes(b, p, self.nt, seg)):
+                zlim = (min(s0 + seg, self.nt) - 1) * b + self.L - s0 * b
+                tiles = min(seg, self.nt - s0)
+                zrows = sum(max(0, min(RING_ZC, zlim - RING_ZC * j))
+                            for j in range(n))
+                total += (zrows * self.L * X * item
+                          + n * self._bxy_b_bytes()
+                          + bx_side_bytes(p, self.xp, 0)
+                          + tiles * bx_side_bytes(p, self.xp, 1))
+            return nxc * self.nt * total
         if self.bx and self.variant == "vxy":
             nblk, npass, _, xc, _ = self._bx_plan()
             zrows = sum(min(RING_ZC, self.b - RING_ZC * j)
@@ -761,7 +846,7 @@ class LabKernel:
             return nblk * (zrows * self.L * X * item
                            + npass * self._bxy_b_bytes()
                            + bx_side_bytes(p, self.xp, 0))
-        if self.bx:
+        if self.bx and self.variant == "v3":
             nblk, npass, K, xc, ph = self._bx_plan()
             side = sum(bx_side_bytes(p, self.xp, z) for z in (0, 1))
             return nblk * (npass * RING_ZC * K * (xc + 2 * ph) * item + side)
@@ -792,11 +877,17 @@ class LabKernel:
                 * per_pass)
 
     def _bx_plan(self):
-        """(blocks, passes, K, x columns a block, x halo a side) of v3's or
-        vxy's ring: a block per tile and xc x columns, a pass per RING_ZC
-        of the tile's L halo'd z rows (vxy: of its first b; no x halo, its
-        x stage takes every column)."""
+        """(blocks, passes, K, x columns a block, x halo a side) of v3's,
+        vxy's or v2's ring: a block per tile (v2: per segment of seg z
+        tiles) and xc x columns, a pass per RING_ZC of the tile's L halo'd
+        z rows (vxy: of its first b; v2: the passes of all its blocks, one
+        a shared pass; no x halo, their x stage takes every column)."""
         xc = RING_X_COLS[self.xp == XF64]
+        if self.xyz:
+            nxc = -(-self.X // xc)
+            passes = march_passes(self.b, self.p, self.nt, self.seg)
+            return (nxc * self.nt * len(passes), nxc * self.nt * sum(passes),
+                    ring_k(self.p, self.xp), xc, 0)
         if self.variant == "vxy":
             return (-(-self.X // xc) * self.nt**2, -(-self.b // RING_ZC),
                     ring_k(self.p, self.xp), xc, 0)
@@ -826,10 +917,13 @@ class LabKernel:
         ``ring_design_bound``): the input layout read and the output layout
         written once; every dense stage's products over its padded rows
         (LP, MB), every pass of its split, on tensor cores; band stages on
-        CUDA cores.  vxy's ring: the x products its warpgroups issue (4
-        tiles of 64 rows a pass, f64 the pass's 8 K rows) by [Mx | Kx] (2
-        xc columns) over K = X, the y products ((RING_ZC xc) rows by N = 48
-        over K), and the B operands' bytes beside the layouts'."""
+        CUDA cores.  vxy's ring: the x products its warpgroups issue (the
+        pass's 8 K rows, 3 or 4 tiles of 64) by [Mx | Kx] (2 xc columns)
+        over K = X, the y products ((RING_ZC xc) rows by N = 48 over K),
+        and the B operands' bytes beside the layouts'; v2's ring
+        (v6's, v8's) vxy's products over its passes (``_bx_plan``: a shared
+        pass once) and v3's z products, ceil(L / RING_ZC) k steps a tile,
+        with the z sides' bytes."""
         nt, b, X, p = self.nt, self.b, self.X, self.p
         L, LP, MB = self.L, round16(self.L), round16(b)
         item = torch.empty((), dtype=self.dt).element_size()
@@ -838,14 +932,24 @@ class LabKernel:
         mma = {X3TF32: "tf32", X1TF32: "tf32", XBF16X3: "bf16",
                XBF16: "bf16", XF64: "fp64_tensor"}[self.xp]
         cuda_cores = "fp64" if self.xp == XF64 else "fp32"
-        if self.bx and self.variant == "vxy":
+        if self.bx and self.variant != "v3":
+            # vxy: nblk * npass pass-blocks; v2: _bx_plan's second entry,
+            # and the z products, each tile's passes k steps of (RING_B
+            # xc, kz) x (kz, 2 RING_B), kz its k step (bf16: 16, half of it
+            # zero rows)
             nblk, npass, K, xc, _ = self._bx_plan()
-            rows = RING_ZC * K if self.xp == XF64 else 4 * 64
-            dense = nblk * npass * 2.0 * (rows * 2 * xc * X
-                                          + RING_ZC * xc * 48 * K)
+            pb = npass if self.xyz else nblk * npass
+            rows = RING_ZC * K  # a pass's (z, y) rows, 64-row tiles
+            dense = pb * 2.0 * (rows * 2 * xc * X + RING_ZC * xc * 48 * K)
+            sides = bx_side_bytes(p, self.xp, 0)
+            if self.xyz:
+                kz = 16 if self.xp in (XBF16X3, XBF16) else RING_ZC
+                tile_passes = -(-self.L // RING_ZC)
+                dense += (-(-X // xc) * nt * nt * tile_passes * 2.0
+                          * RING_B * xc * 2 * RING_B * kz)
+                sides += bx_side_bytes(p, self.xp, 1)
             return roofline_ms(nbytes + self.xb.numel()
-                               * self.xb.element_size()
-                               + nt * bx_side_bytes(p, self.xp, 0),
+                               * self.xb.element_size() + nt * sides,
                                {mma: passes * dense})
         if self.bx:
             # v3's ring: the band x over each pass's (RING_ZC, K, XC)

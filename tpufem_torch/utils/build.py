@@ -52,8 +52,9 @@ SOURCES = {
     "lab_separable": ("lab_separable.cu",
                       ("common.cuh", "hopper.cuh", "lab_mma.cuh",
                        "lab_separable.cuh")),
-    # its v3 on the TMA ring with wgmma y/z products and vxy's dense x
-    # ring feeding wgmma y products (their default routines)
+    # its v3 on the TMA ring with wgmma y/z products, vxy's dense x ring
+    # feeding wgmma y products and v2's (v6's, v8's) feeding v3's y and z
+    # products down a z segment (their default routines)
     "lab_separable_ring": ("lab_separable_ring.cu",
                            ("common.cuh", "hopper.cuh", "lab_mma.cuh",
                             "lab_separable_ring.cuh")),
@@ -106,7 +107,10 @@ _ENTRIES = {
         "tpufem_l2_ring_k": ([_I] * 2, _I),
         "tpufem_l2_ring_xy_apply": ([_I] * 7 + [_P] * 3 + [_LL] + [_P] * 2,
                                     _I),
-        "tpufem_l2_ring_xy_smem_bytes": ([_I] * 2, _LL)},
+        "tpufem_l2_ring_xy_smem_bytes": ([_I] * 2, _LL),
+        "tpufem_l2_ring_xyz_apply": ([_I] * 8 + [_P] * 3 + [_LL] + [_P] * 2,
+                                     _I),
+        "tpufem_l2_ring_xyz_smem_bytes": ([_I] * 2, _LL)},
     "lab_zyfirst": {
         "tpufem_zy_apply": ([_I] * 10 + [_P] * 6, _I),
         "tpufem_zy_smem_bytes": ([_I] * 7, _LL),
