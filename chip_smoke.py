@@ -81,11 +81,13 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 (zy_kernel) and v15's and v14's other ring routine are
                 checked the same way, one input a degree and the flagship,
                 and v14 is held to v15 bit for bit on both ring routines;
-                v3, vxy and v2 (v6 and v8 with it) run their own rings
-                (lab_separable_ring.cuh), their earlier schedule
-                (l2_kernel) checked the same way; v8 and v6 are held to v2
-                bit for bit on the ring, and v2 at the flagship to itself
-                at two z segments a block.
+                v3, vxy, v2 (v6, v8 and v9 with it) and v12 run their own
+                rings (lab_separable_ring.cuh; v12's launcher in
+                lab_separable_band.cu), their earlier schedule (l2_kernel)
+                checked the same way; v8, v6 and v9 (bf16x3) are held to v2
+                bit for bit on the ring, v2 at the flagship to itself at
+                two z segments a block, and v12 at the flagship to itself
+                at one z tile a block and its chooser's segment.
                 Every L2 output starts filled with NaN
   6 throughput  ms per apply over chains of 30 applies (CUDA events),
                 kernel and plain in turns: K1 at 17M DoFs, K2 at 3D Q4
@@ -124,7 +126,9 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 lab_ring_kernel; v14 in turns with its earlier schedule and
                 with v15 on its default ring routine; v3 and vxy in turns
                 with their earlier schedule (l2_kernel), and vxy with vx
-                (the x stage alone);
+                (the x stage alone); v2, v8 and v12 in each precision and v9
+                in bf16x3 in turns with l2_kernel, beside their ring's
+                segment, grid, shared memory, design bound and L2 bytes;
                 torch.matmul of (256, 256) f32, P1's
   7 probes      the toolchain probes (tpufem_torch/lab/toolchain_probe.py):
                 P1's product kernel in each arithmetic against the f64
@@ -349,8 +353,9 @@ L2_KERNELS = {"v2": ("dense x ring feeding wgmma y and z, a z segment a "
               "v6": ("v2's ring", "scripts/kernel_lab.py:106"),
               "v8": ("v2's ring: its transposes are the ring's operand "
                      "layouts", "scripts/kernel_lab.py:132"),
-              "v9": ("bf16x3", "scripts/kernel_lab.py:212"),
-              "v12": ("dense x, band y/z", "scripts/kernel_lab.py:237"),
+              "v9": ("v2's ring in bf16x3", "scripts/kernel_lab.py:212"),
+              "v12": ("dense x ring feeding band y and z, the z taps in a "
+                      "window down a z segment", "scripts/kernel_lab.py:237"),
               "vx": ("x stage alone", "scripts/kernel_lab.py:164"),
               "vxy": ("dense x ring, wgmma y stored from its accumulators",
                       "scripts/kernel_lab.py:177")}
@@ -371,6 +376,8 @@ L2_SOURCES = {"v3": ("lab_separable_ring", "lab_separable_ring.cuh"),
               "v2": ("lab_separable_ring", "lab_separable_ring.cuh"),
               "v6": ("lab_separable_ring", "lab_separable_ring.cuh"),
               "v8": ("lab_separable_ring", "lab_separable_ring.cuh"),
+              "v9": ("lab_separable_ring", "lab_separable_ring.cuh"),
+              "v12": ("lab_separable_band", "lab_separable_ring.cuh"),
               "v13": ("lab_zyfirst", "lab_resident_ring.cuh"),
               "v14": ("lab_zyfirst", "lab_resident_ring.cuh"),
               "v15": ("lab_zyfirst", "lab_resident_ring.cuh")}
@@ -381,8 +388,8 @@ L2_MODES = {"f64": (torch.float64, "highest"),
             "bf16": (torch.float32, "bf16x3"),
             "bf16d": (torch.float32, "default")}
 # the lab run whose raw apply is each L2 row's time: 3xTF32 (v9: bf16x3), on
-# the variant's default routine (v3, vxy, v2, v6, v8: their rings; v13:
-# lab_ring_kernel; v14, v15: the persistent ring)
+# the variant's default routine (v3, vxy, v2, v6, v8, v9, v12: their rings;
+# v13: lab_ring_kernel; v14, v15: the persistent ring)
 L2_TIMED = {"v2": "v2-highest", "v3": "v3-highest", "v13": "v13-highest",
             "v14": "v14", "vxy": "vxy"}
 # the lab's main path: its entry point at the flagship, every L1 and L2
@@ -704,9 +711,10 @@ def ring_ptxas_summary(log: str, key: str = "lab_",
     """Per ring kernel of the lab (names matching ``kernels``, in mangled
     names holding ``key``: lab_ring_kernel, lab_ring_pipe_kernel,
     lab_window_kernel by default; L2's v3: l2_bx_kernel, vxy:
-    l2_bxy_kernel, v2: l2_bxyz_kernel) and precision: the registers and the
-    spill stores of its instances, and the count of ptxas's wgmma
-    serialisation warnings that name one of those kernels (or no kernel),
+    l2_bxy_kernel, v2: l2_bxyz_kernel, v12: l2_bxyzb_kernel) and
+    precision: the registers and the spill stores of its instances, and
+    the count of ptxas's wgmma serialisation warnings that name one of
+    those kernels (or no kernel),
     from a build's ptxas log (none where the library came from an earlier
     build)."""
     from tpufem_torch.utils.build import ptxas_lines
@@ -2936,6 +2944,11 @@ def main() -> int:
         "block an SM, 256 threads): " + ring_ptxas_summary(
             libs["lab_separable_ring"].compiler_log, "l2_bxyz_kernel",
             "l2_bxyz_kernel"))
+    say("2 build", "v12's ring in lab_separable_band (l2_bxyzb_kernel, one "
+        "block an SM, 256 threads; its z window in registers in f32 storage "
+        "at p <= 6, else a shared ring): " + ring_ptxas_summary(
+            libs["lab_separable_band"].compiler_log, "l2_bxyzb_kernel",
+            "l2_bxyzb_kernel"))
     say("2 build", "P2's cluster chain in toolchain_probe "
         "(probe_cluster_kernel, three modes an instance): "
         + cluster_ptxas_summary(libs["toolchain_probe"].compiler_log))
@@ -3470,6 +3483,8 @@ def main() -> int:
     def zy_other(v, p, n, h, u):
         rels = []
         for mode, (dt, _) in L2_MODES.items():
+            if mode not in l2_modes(v):
+                continue
             other = ("pipe" if default_routine(v, dt) == "ring" else "ring",) \
                 if v in ("v15", "v14") else ()
             rels += [f"{r} " + l2_case(v, mode, p, n, h, u, routine=r)[2]
@@ -3504,13 +3519,15 @@ def main() -> int:
 
     # v8 and v6 on the ring: v2's instruction stream (v8's transposes are
     # the ring's operand layouts), so their output is v2's bit for bit, in
-    # every mode; v2 at two z segments a block computes the same bits
+    # every mode, and v9's in bf16x3; v2 at two z segments a block computes
+    # the same bits
     def v2_family_is_v2(p, n, h, u, segs=()):
         K1, M1 = global_1d_matrices(p, n, p + 1)
         for mode, (dt, prec) in L2_MODES.items():
             ks = [LabKernel(v, n * p + 1, p, K1, M1, h, prec=prec, dtype=dt,
                             device="cuda", routine="ring", seg=s)
                   for v, s in [("v2", None), ("v6", None), ("v8", None)]
+                  + [("v9", None)] * (mode == "bf16")
                   + [("v2", s) for s in segs]]
             gp = ks[0].pad(u.to(dt))
             y2 = ks[0].raw(gp)
@@ -3527,10 +3544,25 @@ def main() -> int:
                                      device=dev))
     v2_family_is_v2(4, 64, [1.0 / 64] * 3, u257, segs=(1,))
     say("5 lab", "v8 and v6 on v2's ring bit for bit v2 in "
-        f"{', '.join(L2_MODES)} at p = 1, 2, 4, 7, 8 and the flagship; v2 "
-        "at the flagship bit for bit at 1 z tile a block and at its "
-        "chooser's segment")
-    for v in ("v15", "v14", "v13", "v3", "vxy", "v2", "v6", "v8"):
+        f"{', '.join(L2_MODES)} and v9 in bf16x3 at p = 1, 2, 4, 7, 8 and "
+        "the flagship; v2 at the flagship bit for bit at 1 z tile a block "
+        "and at its chooser's segment")
+    # v12's ring at the flagship: one z tile a block computes its chooser's
+    # segment's bits (the z window carries across tile edges in one tap
+    # order), in every mode
+    K1f, M1f = global_1d_matrices(4, 64, 5)
+    for mode, (dt, prec) in L2_MODES.items():
+        ks = [LabKernel("v12", 257, 4, K1f, M1f, [1.0 / 64] * 3, prec=prec,
+                        dtype=dt, device="cuda", seg=s) for s in (None, 1)]
+        gp = ks[0].pad(u257.to(dt))
+        if not same_bits(ks[0].raw(gp), ks[1].raw(gp)):
+            raise RuntimeError(f"v12 {mode} at the flagship: seg 1 is not "
+                               f"seg {ks[0].seg}'s bit for bit")
+        del gp, ks
+    say("5 lab", f"v12's ring at the flagship bit for bit at 1 z tile a "
+        f"block and at its chooser's segment in {', '.join(L2_MODES)}")
+    for v in ("v15", "v14", "v13", "v3", "vxy", "v2", "v6", "v8", "v9",
+              "v12"):
         for p in (1, 2, 4, 7, 8):
             n = max(2, 24 // p)
             u = torch.tensor(rng.standard_normal((n * p + 1)**3), device=dev)
@@ -3998,13 +4030,16 @@ def main() -> int:
             f"({kt.design_bound()[1]}), {kt.l2_bytes() / 1e9:.3f} GB; vx: "
             f"b={kx.b}, {kx.l2_bytes() / 1e9:.3f} GB")
         del gr, gt, gx, kr, kt, kx
-    # v2 and v8 on v2's ring (l2_bxyz_kernel, their default), in turns with
-    # their earlier schedule (l2_kernel: earlier, ring, ring, earlier; b =
-    # 16 and the tile chooser's b, v8's with its transposed staging) in each
-    # precision, beside the ring's z segment, grid, shared memory, design
-    # bound and what it moves from L2
-    for v in ("v2", "v8"):
+    # v2, v8 and v9 (bf16x3) on v2's ring (l2_bxyz_kernel, their default)
+    # and v12 on its own (l2_bxyzb_kernel), in turns with their earlier
+    # schedule (l2_kernel: earlier, ring, ring, earlier; b = 16 and the
+    # tile chooser's b, v8's with its transposed staging) in each
+    # precision, beside the ring's z segment, grid, shared memory (v12: its
+    # z window's place), design bound and what it moves from L2
+    for v in ("v2", "v8", "v12", "v9"):
         for mode, (dt, prec) in L2_MODES.items():
+            if mode not in l2_modes(v):
+                continue
             kr, kt = (LabKernel(v, 257, 4, K1l, M1l, [1.0 / 64] * 3,
                                 prec=prec, dtype=dt, device="cuda",
                                 routine=r) for r in ("ring", "tile"))
@@ -4018,7 +4053,9 @@ def main() -> int:
                 f"bound {kr.design_bound()[0]:.4f} ms "
                 f"({kr.design_bound()[1]}), {kr.l2_bytes() / 1e9:.3f} GB "
                 f"from L2 an apply (b={kr.b}, seg={kr.seg}, {kr.grid} "
-                f"blocks, {kr.smem} B a block); earlier: b={kt.b}, design "
+                f"blocks, {kr.smem} B a block"
+                + (f", window in {kr.window}" if kr.window else "")
+                + f"); earlier: b={kt.b}, design "
                 f"bound {kt.design_bound()[0]:.4f} ms "
                 f"({kt.design_bound()[1]}), {kt.l2_bytes() / 1e9:.3f} GB")
             del gr, gt, kr, kt

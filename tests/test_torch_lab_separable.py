@@ -3,12 +3,13 @@ on the CPU: the port's plain version against the Pallas kernels of
 ``scripts/kernel_lab.py`` in interpret mode, the copied tile slices, the
 entry point's refusal without a card, the routines' shared-memory counts,
 and g++ builds of the CUDA routines (tpufem_torch/csrc/lab_separable.cuh;
-the rings of v3, vxy and v2 (v6, v8), lab_separable_ring.cuh, through
-hopper.cuh's host forms: a TMA box a loop copy with zero fill, a bulk copy
-a memcpy, an mbarrier call nothing, a wgmma operand or accumulator its
-whole tile, one thread each pass's load, x stage and both warpgroups'
-products in turn) against the plain version; v2's ring bit for bit across
-its z segments, and v6 and v8 bit for bit v2 there.
+the rings of v3, vxy, v2 (v6, v8, v9) and v12, lab_separable_ring.cuh,
+through hopper.cuh's host forms: a TMA box a loop copy with zero fill, a
+bulk copy a memcpy, an mbarrier call nothing, a wgmma operand or
+accumulator its whole tile, one thread each pass's load, x stage and both
+warpgroups' products in turn, then every column's bands) against the plain
+version; v2's and v12's rings bit for bit across their z segments, and v6,
+v8 and v9 bit for bit v2 there.
 
 ``scripts/kernel_lab.py`` is imported by path and its module's
 ``pl.pallas_call`` replaced by ``partial(pl.pallas_call, interpret=True)``;
@@ -267,7 +268,57 @@ extern "C" int host_l2_ring_xyz_apply(int xp, int p, int npts, int b, int nt,
 }
 
 extern "C" long long host_l2_ring_xyz_smem_bytes(int p, int xp) {
-  return tpufem::bxy_smem(p, xp, true).total;
+  return tpufem::bxy_smem(p, xp, tpufem::kBxyV2).total;
+}
+
+// v12's ring routine, one host thread a block, as its launcher: grid
+// (ceil(X / XC), nt, ceil(nt / seg))
+template <int P, int XP>
+static int ring_xyzb(tpufem::BxGeo g, int seg, const void* u, void* y,
+                     const void* xb, long long xb_part, const void* tab) {
+  using C = typename tpufem::LabMma<XP>::C;
+  using E = typename tpufem::LabMma<XP>::E;
+  constexpr int XC = tpufem::bx_xc(XP);
+  const long long bytes = tpufem::bxy_smem(P, XP, tpufem::kBxyV12).total;
+  for (int bz = 0; bz < (g.nt + seg - 1) / seg; ++bz)
+    for (int by = 0; by < g.nt; ++by)
+      for (int bx = 0; bx < (g.X + XC - 1) / XC; ++bx) {
+        std::memset(tpufem::smem_raw, 0xAB, bytes + 4096);
+        blockIdx = Dim3{bx, by, bz};
+        tpufem::l2_bxyzb_kernel<P, XP>((const C*)u, (C*)y, (const E*)xb,
+                                       xb_part, (const C*)tab, g, seg);
+        for (long long i = bytes; i < bytes + 4096; ++i)
+          if (tpufem::smem_raw[i] != 0xAB) return 1;  // beyond its smem
+      }
+  return 0;
+}
+
+// the instances the cases use: f64 and 3xTF32 at p = 1, 2, 4, 7, 8 (the
+// window in shared memory, and in 3xTF32 at p <= 6 in registers); 1xTF32
+// and one bf16 product at p = 2 and 4; bf16x3 at p = 2, 4 and 7
+extern "C" int host_l2_ring_xyzb_apply(int xp, int p, int npts, int b,
+                                       int nt, int size, int X, int seg,
+                                       const void* u, void* y, const void* xb,
+                                       long long xb_part, const void* tab) {
+  const tpufem::BxGeo g{npts, b, nt, size, X};
+#define TPUFEM_XYZB(XP, PP)                                          \
+  if (xp == XP && p == PP)                                           \
+    return ring_xyzb<PP, XP>(g, seg, u, y, xb, xb_part, tab);
+  TPUFEM_XYZB(3, 1) TPUFEM_XYZB(3, 2) TPUFEM_XYZB(3, 4) TPUFEM_XYZB(3, 7)
+  TPUFEM_XYZB(3, 8) TPUFEM_XYZB(0, 1) TPUFEM_XYZB(0, 2) TPUFEM_XYZB(0, 4)
+  TPUFEM_XYZB(0, 7) TPUFEM_XYZB(0, 8) TPUFEM_XYZB(1, 2) TPUFEM_XYZB(1, 4)
+  TPUFEM_XYZB(2, 2) TPUFEM_XYZB(2, 4) TPUFEM_XYZB(2, 7) TPUFEM_XYZB(4, 2)
+  TPUFEM_XYZB(4, 4)
+#undef TPUFEM_XYZB
+  return 2;
+}
+
+extern "C" long long host_l2_ring_xyzb_smem_bytes(int p, int xp) {
+  return tpufem::bxy_smem(p, xp, tpufem::kBxyV12).total;
+}
+extern "C" int host_l2_ring_xyzb_k(int p) { return tpufem::bzb_lp(p); }
+extern "C" int host_l2_ring_xyzb_window_regs(int p, int xp) {
+  return tpufem::bzb_regs(p, xp);
 }
 """
 
@@ -412,16 +463,34 @@ def l2_lib(tmp_path_factory):
     lib.host_l2_ring_xyz_apply.restype = ctypes.c_int
     lib.host_l2_ring_xyz_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.host_l2_ring_xyz_smem_bytes.restype = ctypes.c_longlong
+    lib.host_l2_ring_xyzb_apply.argtypes = ([ctypes.c_int] * 8
+                                            + [ctypes.c_void_p] * 3
+                                            + [ctypes.c_longlong,
+                                               ctypes.c_void_p])
+    lib.host_l2_ring_xyzb_apply.restype = ctypes.c_int
+    lib.host_l2_ring_xyzb_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.host_l2_ring_xyzb_smem_bytes.restype = ctypes.c_longlong
+    lib.host_l2_ring_xyzb_k.argtypes = [ctypes.c_int]
+    lib.host_l2_ring_xyzb_k.restype = ctypes.c_int
+    lib.host_l2_ring_xyzb_window_regs.argtypes = [ctypes.c_int] * 2
+    lib.host_l2_ring_xyzb_window_regs.restype = ctypes.c_int
     return lib
 
 
 def _host(lib, k, gp):
-    """The routine k runs (v3, vxy and v2, v6, v8: their rings by default,
-    or l2_kernel), its host build on the layout gp; v3's u slots by its
-    chooser on the build's own count, v2's segment k.seg."""
+    """The routine k runs (v3, vxy, v2 (v6, v8, v9) and v12: their rings
+    by default, or l2_kernel), its host build on the layout gp; v3's u
+    slots by its chooser on the build's own count, v2's and v12's segment
+    k.seg."""
     NT = k.nt * k.b
     y = torch.full((NT, NT, k.X), float("nan"), dtype=k.dt)  # all written
-    if k.xyz:
+    if k.band:
+        rc = lib.host_l2_ring_xyzb_apply(k.xp, k.p, k.npts, k.b, k.nt,
+                                         k.size, k.X, k.seg, gp.data_ptr(),
+                                         y.data_ptr(), k.xb.data_ptr(),
+                                         k.xb_part, k.tables.data_ptr())
+        assert rc != 2, "no host instance of v12's ring at this p and xp"
+    elif k.xyz:
         rc = lib.host_l2_ring_xyz_apply(k.xp, k.p, k.npts, k.b, k.nt, k.size,
                                         k.X, k.seg, gp.data_ptr(),
                                         y.data_ptr(), k.xb.data_ptr(),
@@ -587,11 +656,13 @@ def test_v2_march_is_bitwise(l2_lib, p, b, n, mode):
 @pytest.mark.parametrize("mode", list(MODES))
 def test_v8_v6_are_v2_on_the_ring(l2_lib, mode):
     """v8 and v6 on the ring run v2's instruction stream (v8's transposes
-    are the operand layouts the ring's y and z products read already):
-    their outputs equal v2's bit for bit, in every mode, at a ragged tile
-    and at the march's segments."""
+    are the operand layouts the ring's y and z products read already), and
+    so does v9 in bf16x3: their outputs equal v2's bit for bit, in every
+    mode (v9: bf16x3), at a ragged tile and at the march's segments."""
     for p, n, b in ((2, 5, None), (4, 8, 16), (2, 5, 6)):
-        ks = [_kernel(v, p, n, mode, b) for v in ("v2", "v6", "v8")]
+        ks = [_kernel(v, p, n, mode, b) for v in MODE_VARIANTS[mode]
+              if v in separable_lab.RING_XYZ]
+        assert [k.variant for k in ks][:3] == ["v2", "v6", "v8"]
         assert all(k.xyz and k.seg == ks[0].seg for k in ks)
         gp = ks[0].pad(torch.as_tensor(np.random.default_rng(n).standard_normal(
             (n * p + 1)**3)))
@@ -599,6 +670,162 @@ def test_v8_v6_are_v2_on_the_ring(l2_lib, mode):
         assert torch.isfinite(y2).all()
         for k in ks[1:]:
             assert torch.equal(_host(l2_lib, k, gp), y2), (k.variant, p)
+
+
+@pytest.mark.parametrize("p,n,b,seg", [(2, 5, None, None), (4, 8, 16, None),
+                                       (2, 5, 6, None), (4, 8, 16, 1),
+                                       (4, 3, 5, None)])
+def test_v9_is_v2_on_the_ring(l2_lib, p, n, b, seg):
+    """v9 (v2's function in bf16x3) on v2's ring: its plan is v2's in
+    bf16x3 (segment, layouts, operands), its output v2's bit for bit at
+    each degree, on a ragged tile and at one tile a block, every point
+    written, in the bf16x3 class of the f64 plain version; its routine
+    "tile" is still l2_kernel, and its launches count under v9."""
+    k9 = _kernel("v9", p, n, "f32", b, seg=seg)  # v9 takes bf16x3 anyway
+    k2 = _kernel("v2", p, n, "bf16", b, seg=seg)
+    assert (k9.routine, k9.xyz, k9.xp, k9.seg, k9.b) == \
+        ("ring", True, separable_lab.XBF16X3, k2.seg, k2.b)
+    assert torch.equal(k9.xb, k2.xb) and torch.equal(k9.bop, k2.bop)
+    gp = k2.pad(torch.as_tensor(np.random.default_rng(p + n).standard_normal(
+        (n * p + 1)**3)))
+    y9 = _host(l2_lib, k9, gp)
+    assert torch.isfinite(y9).all()
+    assert torch.equal(y9, _host(l2_lib, k2, gp))
+    assert _max_rel(y9, k9.plain(gp.to(torch.float64))) <= \
+        TOL[separable_lab.XBF16X3]
+    kt = _kernel("v9", p, n, "bf16", b, routine="tile")
+    assert not kt.bx and kt.flags == separable_lab.FLAGS["v9"]
+    before = dict(LabKernel.launches)
+    k9.raw(gp)  # a CPU tensor: the plain version, not a launch
+    assert LabKernel.launches == before
+
+
+# v12's two routines: the ring (l2_bxyzb_kernel) at p = 1, 2, 4, 7, 8 in
+# f64 and 3xTF32 (the z window in shared memory in f64 and at p = 7, 8, in
+# registers in f32 at p <= 6), 1xTF32, bf16x3 (p = 2, 4, 7) and one bf16
+# product, on layouts whose tile b does not divide npts (ragged last tiles
+# of 5 and 6) and on X = 48 (two blocks of 32 columns, the second ragged);
+# its earlier schedule, l2_kernel, at each degree and precision HOST_CASES
+# held it to before
+V12_CASES = (
+    [("ring", p, m, None, None) for p in (1, 2, 4, 7, 8)
+     for m in ("f64", "f32")]
+    + [("ring", 2, m, None, None) for m in ("f32h", "bf16", "bf16d")]
+    + [("ring", 7, "bf16", None, None)]
+    + [("ring", 2, "f32", 5, None), ("ring", 1, "f64", 5, None),
+       ("ring", 2, "f64", 6, None), ("ring", 7, "f32", 6, None),
+       ("ring", 4, "f32", None, 9), ("ring", 4, "f64", None, 9),
+       ("ring", 4, "bf16", 5, 9)]
+    + [("tile", p, "f64", None, None) for p in (1, 2, 4, 7)]
+    + [("tile", 4, m, None, None) for m in ("f32", "f32h", "bf16", "bf16d")]
+    + [("tile", 2, m, 4, None) for m in ("f64", "f32")])
+
+
+@pytest.mark.parametrize("routine,p,mode,b,n", V12_CASES)
+def test_v12_host_build_by_routine(l2_lib, routine, p, mode, b, n):
+    """v12's ring and its earlier schedule (``routine="tile"``), each as
+    ``test_host_build_matches_plain`` holds a kernel: against the f64
+    plain version (f64 1e-12) with a NaN-filled output, and a split
+    precision against ``emulate`` within EMU_TOL."""
+    k = _kernel("v12", p, n or (2 if p > 2 else 9 // p), mode, b,
+                routine=routine)
+    assert k.band == (routine == "ring")
+    if n == 9:
+        assert k.X == 48  # two x blocks of 32 columns, the second ragged
+    test_host_build_matches_plain(l2_lib, "v12", p, mode, b, routine, n)
+
+
+@pytest.mark.parametrize("mode", ["f64", "f32", "bf16"])
+@pytest.mark.parametrize("p,b,n", [(2, 16, 24), (4, 8, 9), (2, 5, 9),
+                                   (7, 8, 4)])
+def test_v12_march_is_bitwise(l2_lib, p, b, n, mode):
+    """v12's ring down z segments of 1, 2, 3 and all nt tiles (a ragged
+    last segment where seg does not divide nt) gives the same output, bit
+    for bit, for any b and p (a tile of 5, and p = 7, where v2's ring
+    cannot march): its z window carries across tile edges, and each output
+    keeps its x products' rows and its taps' order in any segment.  The
+    per-tile output is held to the f64 plain version in its class; a
+    segment outside 1 .. nt is refused."""
+    ks = {s: _kernel("v12", p, n, mode, b, seg=s) for s in (1, 2, 3, None)}
+    k1 = ks[1]
+    nt = k1.nt
+    assert nt >= 4 and k1.band
+    ks[nt] = _kernel("v12", p, n, mode, b, seg=nt)
+    assert ks[None].seg == min(separable_lab.BAND_SEG, nt)
+    u = torch.as_tensor(np.random.default_rng(p + b).standard_normal(
+        (n * p + 1)**3))
+    gp = k1.pad(u)
+    y1 = _host(l2_lib, k1, gp)
+    assert _max_rel(y1, k1.plain(gp.to(torch.float64))) <= TOL[k1.xp]
+    for s, k in ks.items():
+        assert torch.equal(_host(l2_lib, k, gp), y1), s
+    for bad in (0, nt + 1):
+        with pytest.raises(ValueError, match="segment"):
+            _kernel("v12", p, n, mode, b, seg=bad)
+    with pytest.raises(ValueError, match="segment"):
+        _kernel("v12", p, n, mode, b, seg=2, routine="tile")
+
+
+def test_v12_plan_with_host_counts(l2_lib):
+    """v12's ring: the host's K and window are the routine's own
+    (``band_k`` against ``bzb_lp``; registers in f32 storage at p <= 6,
+    else a shared ring), its block fits 227 KB at every degree and
+    precision (at p = 4 in 3xTF32: the band tables' rows, 2,304 bytes,
+    then four stages of an (8, 24, 16) f32 chunk of u and two x blocks'
+    split B, with ax and gx, (192, 40) f32 each, over them; no slices, no
+    T1/T2); no B sides are made for it.  The card's plan at the flagship, the host build's counts
+    standing in for the library's: a block per segment of 3 z tiles (6 of
+    the 17) and 32 x columns (f64: 8); a segment's passes its halo'd rows
+    over 8 (7 for 3 tiles of 16 at p = 4, 40 a column); bf16's x product
+    over 24 halo'd y rows, not v2's 32."""
+    count = l2_lib.host_l2_ring_xyzb_smem_bytes
+    for p in range(1, separable_lab.MAX_DEGREE + 1):
+        assert l2_lib.host_l2_ring_xyzb_k(p) == separable_lab.band_k(p)
+        for xp in separable_lab.TOL:
+            regs = bool(l2_lib.host_l2_ring_xyzb_window_regs(p, xp))
+            assert regs == (xp != separable_lab.XF64 and p <= 6)
+            assert 0 < count(p, xp) <= 227 * 1024
+            if not regs:
+                c = 8 if xp == separable_lab.XF64 else 4
+                assert count(p, xp) >= 2 * (2 * p + 1) * 16 * (
+                    8 if xp == separable_lab.XF64 else 32) * c
+    stage = 8 * 24 * 16 * 4 + 2 * 2 * 32 * 16 * 4
+    assert 4 * stage >= 2 * 8 * 24 * 40 * 4
+    assert count(4, separable_lab.X3TF32) == 2304 + 4 * stage == 84224
+    assert separable_lab.band_k(4) == 24 < separable_lab.ring_k(
+        4, separable_lab.XBF16X3) == 32
+    assert separable_lab.band_passes(16, 4, 17, 3) == [7] * 5 + [5]
+    assert separable_lab.band_passes(16, 4, 17, 1) == [3] * 17
+    assert separable_lab.band_passes(5, 7, 4, 3) == [4, 3]
+    assert separable_lab.band_segment(17) == 3
+    assert separable_lab.band_segment(2) == 2
+    K1, M1 = global_1d_matrices(4, 64, 5)
+    fake = types.SimpleNamespace(lib=types.SimpleNamespace(
+        tpufem_l2_ring_xyzb_k=l2_lib.host_l2_ring_xyzb_k,
+        tpufem_l2_ring_xyzb_smem_bytes=count,
+        tpufem_l2_ring_xyzb_window_regs=l2_lib.host_l2_ring_xyzb_window_regs))
+    for mode in MODES:
+        dtype, prec = MODES[mode]
+        k = LabKernel("v12", 257, 4, K1, M1, [1 / 64] * 3, prec=prec,
+                      dtype=dtype, device="cpu")
+        assert (k.routine, k.b, k.band, k.xyz, k.seg) == \
+            ("ring", 16, True, False, 3)
+        assert not hasattr(k, "bop")
+        assert k.xb.shape[-3:] == (272 // 16, 32, 272)
+        k.lib = fake
+        k._plan_bx()
+        nxc = 34 if mode == "f64" else 9
+        assert (k.ring, k.grid) == ((), nxc * 17 * 6)
+        assert k.smem == count(4, k.xp)
+        assert k.window == ("shared" if mode == "f64" else "registers")
+        assert k._bx_plan() == (nxc * 17 * 6, nxc * 17 * 40, 24,
+                                32 if mode != "f64" else 8, 0)
+    with pytest.raises(ValueError, match="b <= 16"):
+        _kernel("v12", 2, 4, "f32", b=24)
+    with pytest.raises(ValueError, match="by jobs"):
+        LabKernel("v12", 9, 2, *global_1d_matrices(2, 4, 3), [0.25] * 3,
+                  device="cpu", routine="ring", x_jobs=True)
+    assert _kernel("v12", 2, 4, "f32", b=24, routine="tile").b == 24
 
 
 @pytest.mark.parametrize("v,p,mode,b", [
@@ -753,12 +980,13 @@ def test_ring_counts_agree(l2_lib):
     with pytest.raises(ValueError, match="by jobs"):
         LabKernel("vxy", 9, 2, *global_1d_matrices(2, 4, 3), [0.25] * 3,
                   device="cpu", routine="ring", x_jobs=True)
-    # v2's ring (v6's, v8's): vxy's operands with the z sides read, a block
-    # per segment of 3 z tiles (6 segments of the 17), one block an SM
+    # v2's ring (v6's, v8's, v9's): vxy's operands with the z sides read, a
+    # block per segment of 3 z tiles (6 segments of the 17), one block an
+    # SM; v9 has no f64 form
     fake.lib.tpufem_l2_ring_xyz_smem_bytes = \
         l2_lib.host_l2_ring_xyz_smem_bytes
     for v in separable_lab.RING_XYZ:
-        for mode in MODES:
+        for mode in (m for m in MODES if m != "f64" or v != "v9"):
             dtype, prec = MODES[mode]
             k = LabKernel(v, 257, 4, K1, M1, [1 / 64] * 3, prec=prec,
                           dtype=dtype, device="cpu")
@@ -917,7 +1145,7 @@ def test_l2_bytes_from_the_tile():
 
 
 def test_ring_sweep_edits_apply(monkeypatch):
-    """``python -m tpufem_torch.lab.ring_sweep`` builds copies of the three
+    """``python -m tpufem_torch.lab.ring_sweep`` builds copies of the four
     L2 lab libraries with one constant changed each: every edit's text
     occurs once in today's sources, the copies keep p = 4 only, the
     committed copy is the sources themselves, and the entry point raises
@@ -927,7 +1155,7 @@ def test_ring_sweep_edits_apply(monkeypatch):
 
     cus = tuple(ring_sweep.LIBRARIES.values())
     assert cus == ("lab_zyfirst.cu", "lab_separable.cu",
-                   "lab_separable_ring.cu")
+                   "lab_separable_ring.cu", "lab_separable_band.cu")
     for name, (lib, edits, _) in ring_sweep.VARIANTS.items():
         src = ring_sweep.edited_sources(name)
         for cu in cus:

@@ -549,8 +549,8 @@ def test_routines():
     other ring routine ("ring"), unless a routine or their earlier schedule
     ("tile") is asked for; v13 runs lab_ring_kernel ("ring") in every
     storage dtype unless its earlier schedule ("tile") is asked for; the
-    other L2b variants have no choice (nor has L2a's v12; v2 runs its own
-    ring)."""
+    other L2b variants have no choice (L2a's v2 and v9 run v2's ring, v12
+    its own)."""
     K1, M1 = global_1d_matrices(2, 4, 3)
     mk = lambda v, r=None, dt=torch.float32: LabKernel(
         v, 9, 2, K1, M1, [0.25] * 3, dtype=dt, device="cpu", routine=r)
@@ -570,8 +570,10 @@ def test_routines():
     assert mk("v14", dt=torch.float64).routine == "ring"
     assert [mk("v14", r, torch.float64).routine for r in ("pipe", "tile")] \
         == ["pipe", "tile"]
-    assert mk("v16").routine is None and mk("v12").routine is None
-    assert mk("v2").routine == "ring"  # v2's own ring, an L2a routine
+    assert mk("v16").routine is None
+    # v2's ring and v12's, L2a routines
+    assert mk("v2").routine == mk("v9").routine == mk("v12").routine == "ring"
+    assert mk("v12", "tile").routine == mk("v9", "tile").routine == "tile"
     for v, r in (("v13", "pipe"), ("v14", "dense"), ("v16", "tile"),
                  ("v15", "dense")):
         with pytest.raises(ValueError, match="routine"):

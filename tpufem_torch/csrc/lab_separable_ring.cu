@@ -67,7 +67,7 @@ cudaError_t launch_xyz(const tpufem::BxGeo& g, int seg, const void* u,
                        const void* bop, cudaStream_t stream) {
   using C = typename tpufem::LabMma<XP>::C;
   using E = typename tpufem::LabMma<XP>::E;
-  const int smem = (int)tpufem::bxy_smem(P, XP, true).total;
+  const int smem = (int)tpufem::bxy_smem(P, XP, tpufem::kBxyV2).total;
   auto kern = tpufem::l2_bxyz_kernel<P, XP>;
   static std::atomic<int> granted[tpufem::kLabMaxDevices];
   cudaError_t e = tpufem::lab_opt_in(kern, smem, granted);
@@ -172,9 +172,9 @@ int tpufem_l2_ring_xy_apply(int xp, int p, int npts, int b, int nt, int size,
   });
 }
 
-// out = v2's function of u (K2's operator; v6's and v8's too) on the same
-// layouts and operands as tpufem_l2_ring_xy_apply (bop's z sides read too)
-// by its ring routine, a segment of seg consecutive z tiles a block: seg > 1
+// out = v2's function of u (K2's operator; v6's, v8's and v9's too) on the
+// same layouts and operands as tpufem_l2_ring_xy_apply (bop's z sides read
+// too) by its ring routine, a segment of seg consecutive z tiles a block: seg > 1
 // only where a pass ends one tile and starts the next (b % 8 == 0 and 2p <=
 // 8), else 1.  Every seg computes the same output.  Returns the cudaError_t
 // of the launch.
@@ -199,7 +199,7 @@ int tpufem_l2_ring_xyz_apply(int xp, int p, int npts, int b, int nt,
 
 // Shared-memory bytes of one block of v2's ring.
 long long tpufem_l2_ring_xyz_smem_bytes(int p, int xp) {
-  return tpufem::bxy_smem(p, xp, true).total;
+  return tpufem::bxy_smem(p, xp, tpufem::kBxyV2).total;
 }
 
 // Shared-memory bytes of one block of vxy's ring.

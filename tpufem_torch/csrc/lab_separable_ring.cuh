@@ -1,10 +1,11 @@
 // The K2 kernel lab's v3 (band x, dense y and z) on Hopper's asynchronous
 // machinery: a TMA ring feeds the band x stage, and the y and z stages are
-// wgmma products.  Its vxy (dense x, dense y) and v2 (dense x, y and z; v6
-// and v8 run it) at the end of the file, on the same y and z products.
-// Device code; the host launchers with their plain C interface are in
-// lab_separable_ring.cu.  The first routine of them all (l2_kernel,
-// lab_separable.cuh) stays as their earlier schedule.
+// wgmma products.  Its vxy (dense x, dense y) and v2 (dense x, y and z; v6,
+// v8 and v9 run it) at the end of the file, on the same y and z products,
+// and v12 (dense x, band y and z) on v2's x stage.  Device code; the host
+// launchers with their plain C interface are in lab_separable_ring.cu and
+// (v12's) lab_separable_band.cu.  The first routine of them all
+// (l2_kernel, lab_separable.cuh) stays as their earlier schedule.
 //
 // Replaces the Pallas kernel _kernel_v3 (scripts/kernel_lab.py:78): on the
 // lab's layouts, input (size, size, X), size = nt b + 2P, data at [P:P+npts,
@@ -665,9 +666,9 @@ l2_bx_kernel(const __grid_constant__ HopMap in_map,
 //
 // v2 (_kernel_v2, scripts/kernel_lab.py:47: K2's operator, x, y and z dense;
 // _kernel_v6 :106 and _kernel_v8 :132 compute the same function, their
-// differences Mosaic's layouts of the same contractions, and run this
-// routine, bit for bit v2's) is vxy's x stage and v3's y and z stages on the
-// same tile, l2_bxyz_kernel:
+// differences Mosaic's layouts of the same contractions, and _kernel_v9
+// :212 is v2 in bf16x3: they run this routine, bit for bit v2's) is vxy's x
+// stage and v3's y and z stages on the same tile, l2_bxyz_kernel:
 //   x   vxy's loop over every pass of the tile's L halo'd z rows (ceil(L /
 //       8) passes, not only its first b); rows past the block's last tile
 //       load as zeros, rows past a tile's L within the block as real data:
@@ -700,46 +701,177 @@ l2_bx_kernel(const __grid_constant__ HopMap in_map,
 // z side slots and T1/T2 (146 KB at p = 4 in 3xTF32): one block an SM, 255
 // registers a thread (two blocks an SM at 128 ran 1.92 against 1.19 ms,
 // ring_sweep bxyz_two_blocks).
+//
+// v12 (_kernel_v12, scripts/kernel_lab.py:237: K2's operator, x dense, y and
+// z by bands; the port's exact per-row band tables, l2_kernel's, in place of
+// the periodic ones and their corrections) is v2's x stage feeding band y
+// and z stages on CUDA cores, l2_bxyzb_kernel (the body's third mode):
+//   x   v2's, over every pass of the segment's halo'd z rows, 8 a pass, rows
+//       past the segment's last tile's halo'd end zeros; its rows a pass 8
+//       LP, LP = 16 + 2P rounded up to 8 in every precision (no y product
+//       asks for bf16's k step of 16: bzb_lp).  The accumulators are stored
+//       in rows (zr, yl) with x contiguous, as the band reads them, XS words
+//       a row (bzb_xs; f32 XC + 8, so a fragment's two-value stores fall in
+//       distinct banks).
+//   y   t1 = My ax, t2 = Ky ax + My gx in K2's difference form (band2: My
+//       and Ky on one read of ax's taps; l2_kernel's operations, tap by tap),
+//       each thread for its columns (by, x) of the tile: two consecutive y
+//       rows at one x (f64: one column, on the first 128 threads), whose
+//       2P + 2 taps it reads once, a warp's lanes consecutive x; the My and
+//       Ky rows of its columns in registers for the pass, loaded 16 bytes
+//       at a time from shared memory (a first version, which read every
+//       table value and tap of each output from shared memory a word at a
+//       time, spent a third of its time in the bands).
+//   z   as K2's z-march (separable_apply.cuh): a thread keeps t1 and t2 of
+//       the last 2P + 1 halo'd z rows of its columns in a window (registers,
+//       shifted a row at a time with compile-time indices, or a ring of 2P
+//       + 1 rows in shared memory: bzb_regs), and once halo'd row g + 2P has
+//       arrived emits output row g, Kz t1 + Mz t2 (l2_kernel's order) with
+//       the Kz and Mz rows of g from shared memory (loaded with each pass;
+//       16 bytes a load, the same for every thread), straight to device
+//       memory, masked to the tile's b rows, to X and to the segment; zeros
+//       where g >= npts.
+//   after  each pass's bands run after its x stage, a row at a time, the My,
+//       Ky rows of a thread's columns in registers for the pass; the Mz, Kz
+//       rows of a pass reach shared memory by cp.async with its first
+//       chunk.  Bands of pass j - 1 run inside pass j's x stage, a row or
+//       more after each chunk's products were issued (the CUDA cores
+//       banding while the tensor cores multiply, ax and gx beside the
+//       ring), ran slower in an exploratory build, and were not kept.
+//   march  the window carries across tile edges, so a segment of seg z
+//       tiles runs ceil((seg b + 2P) / 8) passes whatever b and P (v2 shares
+//       one pass between two tiles only where b % 8 == 0 and 2P <= 8).  An
+//       output's sums keep one order in any segment (its x products' rows,
+//       its taps), so every seg computes the same bits; seg = 1 is the
+//       per-tile routine.
+// No y or z slices, no T1/T2, no z accumulators: the shared memory is the x
+// stage's ring with ax and gx over it, the band tables' rows and, where the
+// window is not in registers, the window (82 KB at p = 4 in 3xTF32).  One
+// block an SM, by its registers, as v2: at two, 128 registers a thread,
+// ptxas serialises every wgmma and the ring ran slower (ring_sweep
+// bzb_two_blocks).  What bounds it: K2's operator, 0.0405 ms at the
+// flagship in f32 (bytes); the design, v2's x products over its passes and
+// the bands on CUDA cores: LabKernel.design_bound.
 
 constexpr int kBxyThreads = 256;  // two warpgroups (f64: eight warps)
 constexpr int kBxyStages = 4;     // stages of the x stage's ring
-constexpr int kBxyzStages = 4;    // v2's: 5 or 6 gained nothing (ring_sweep)
+constexpr int kBxyzStages = 4;    // v2's and v12's: 5 or 6 gained nothing
+                                  // for v2 (ring_sweep)
 constexpr int kBxyzBlocks = 1;    // v2's blocks an SM at launch (registers)
+constexpr int kBxyzbBlocks = 1;   // v12's
+// the body's stage modes: vxy (x, y products), v2 (x, y and z products),
+// v12 (x, band y and z)
+enum BxyMode { kBxyVxy = 0, kBxyV2 = 1, kBxyV12 = 2 };
 // K columns of the x stage a chunk: 64 bytes of a u row
 __host__ __device__ constexpr int bxy_kc(int xp) {
   return xp == kXF64 ? 8 : 16;
+}
+// v12's halo'd y rows of the x product: kBxN + 2P rounded up to 8
+__host__ __device__ constexpr int bzb_lp(int p) {
+  return (kBxN + 2 * p + 7) / 8 * 8;
+}
+// v12's words a row of ax and gx, x contiguous
+__host__ __device__ constexpr int bzb_xs(int xp) {
+  return xp == kXF64 ? bx_xc(xp) : bx_xc(xp) + 8;
+}
+// values a band table row of v12's takes in shared memory: 2P + 2 padded
+// to 16 bytes, so a row reaches registers by 16-byte loads
+__host__ __device__ constexpr int bzb_nwp(int p, int xp) {
+  return xp == kXF64 ? (2 * p + 3) / 2 * 2 : (2 * p + 5) / 4 * 4;
+}
+// the row of a band table at src (16-byte aligned) into dst: 16 bytes a
+// load on the card
+template <int N, typename C>
+__device__ __forceinline__ void bzb_row(C (&dst)[N], const C* src) {
+#ifdef __CUDA_ARCH__
+  if constexpr (sizeof(C) == 4) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const float4 v = reinterpret_cast<const float4*>(src)[i];
+      dst[4 * i] = v.x;
+      dst[4 * i + 1] = v.y;
+      dst[4 * i + 2] = v.z;
+      dst[4 * i + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const double2 v = reinterpret_cast<const double2*>(src)[i];
+      dst[2 * i] = v.x;
+      dst[2 * i + 1] = v.y;
+    }
+  }
+#else
+  for (int i = 0; i < N; ++i) dst[i] = src[i];
+#endif
+}
+// cp.async of one table value (4 or 8 bytes, aligned so) into shared
+// memory, landing with the thread's next cp.async group; a host build copies
+// at once
+template <typename C>
+__device__ __forceinline__ void bzb_cp(C* smem, const C* gmem) {
+#ifdef __CUDA_ARCH__
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(s),
+               "l"(gmem), "n"((int)sizeof(C))
+               : "memory");
+#else
+  *smem = *gmem;
+#endif
+}
+// whether v12's z window lies in registers (else a ring in shared memory):
+// not in f64, and not at p = 7, 8, where the register window spills and
+// the shared ring ran faster (ring_sweep bzb_window_shared: the shared ring
+// at p = 4)
+__host__ __device__ constexpr bool bzb_regs(int p, int xp) {
+  return xp != kXF64 && p <= 6;
 }
 
 // Byte offsets of a block's shared-memory regions, each 128-byte aligned:
 //   idx   f64: the 64 indices the accumulators' elements are found by
 //   b     the tile's y side of the B operand (bx_side_bytes)
 //   bz    v2 (z): two slots of a tile's z side, bz_slot bytes each
-//   ring  kBxyStages (v2: kBxyzStages) stages of `stage` bytes: the
+//   b     v12: the band tables' rows instead: My, then Ky, of the tile's
+//         kBxN rows, then Mz, then Kz, of a pass's 8 output rows ((2 (kBxN
+//         + 8), bzb_nwp) values)
+//   bz    v2 (z): two slots of a tile's z side, bz_slot bytes each
+//   ring  kBxyStages (v2, v12: kBxyzStages) stages of `stage` bytes: the
 //         chunk's A operand (8 LP rows of KC values), then for each x
 //         block each part of B (its [Mx | Kx] columns by KC); ax, then gx
-//         ((8 XC rows, AS words)) lie over it
-//   t     v2: t1, then t2 ((kBxN XC rows, kBxZS words)), v3's layout
+//         ((8 XC rows, AS words); v12: (8 LP rows, bzb_xs words)) lie over
+//         it
+//   t     v2: t1, then t2 ((kBxN XC rows, kBxZS words)), v3's layout; v12,
+//         its window outside registers: t1, then t2, of 2P + 1 rows of the
+//         tile's kBxN XC columns
 struct BxySmem {
   long long idx, b, bz, bz_slot, ring, a, b_part, stage, ax, t, total;
 };
-__host__ __device__ inline BxySmem bxy_smem(int p, int xp, bool z = false) {
-  const bool f64 = xp == kXF64;
+__host__ __device__ inline BxySmem bxy_smem(int p, int xp,
+                                            int mode = kBxyVxy) {
+  const bool f64 = xp == kXF64, z = mode == kBxyV2, zb = mode == kBxyV12;
   const long long c = f64 ? 8 : 4, xc = bx_xc(xp), kc = bxy_kc(xp);
   const long long nxb = f64 ? 1 : 2, ncol = f64 ? 2 * xc : kHopN;
+  const long long lp = zb ? bzb_lp(p) : bx_lp(p, xp);
   BxySmem s;
   s.idx = 0;
   s.b = f64 ? lab_align(64 * 8) : 0;
-  s.bz = s.b + lab_align(bx_side_bytes(p, xp, 0));
+  s.bz = s.b + lab_align(zb ? 2LL * (kBxN + kBxZC) * bzb_nwp(p, xp) * c
+                            : bx_side_bytes(p, xp, 0));
   s.bz_slot = z ? lab_align(bx_side_bytes(p, xp, 1)) : 0;
   s.ring = s.bz + 2 * s.bz_slot;
-  s.a = lab_align(kBxZC * bx_lp(p, xp) * kc * c);
+  s.a = lab_align(kBxZC * lp * kc * c);
   s.b_part = lab_align(ncol * kc * bx_belem(xp));
   s.stage = s.a + nxb * bx_parts(xp) * s.b_part;
+  const long long ax = lab_align(
+      2LL * kBxZC * (zb ? lp * bzb_xs(xp) : xc * bx_as(p, xp)) * c);
+  const long long ring = (mode == kBxyVxy ? kBxyStages : kBxyzStages) *
+                         s.stage;
   s.ax = s.ring;
-  const long long ax = lab_align(2LL * kBxZC * xc * bx_as(p, xp) * c);
-  const long long ring = (z ? kBxyzStages : kBxyStages) * s.stage;
   s.t = s.ring + (ring > ax ? ring : ax);
-  s.total = s.t + (z ? lab_align(2LL * kBxN * xc * kBxZS * c) : 0);
+  s.total = s.t + (z ? lab_align(2LL * kBxN * xc * kBxZS * c)
+                   : zb && !bzb_regs(p, xp)
+                       ? lab_align(2LL * (2 * p + 1) * kBxN * xc * c)
+                       : 0);
   return s;
 }
 
@@ -787,29 +919,45 @@ __device__ __forceinline__ void bxy_sum_each(const HopAccN<2 * N>& a1,
 #endif
 }
 
-// The block of vxy (Z false: one tile, blockIdx.z) or of v2 (Z: the tiles
-// [blockIdx.z seg, + seg) of the column), grid (ceil(X / XC), nt, nt or
-// ceil(nt / seg)), kBxyThreads threads.  u: the input layout (size, size,
-// X); xb: the dense x stage's B operand, (parts, X / 16, 32, X)
-// (separable_lab.x_blocks, split), part q xb_part elements on; bop: the y
-// sides of the nt tiles, then their z sides (separable_lab.ring_slices;
-// vxy reads no z side).  One host thread (blockDim 1) runs a block: each
-// chunk's loads at once, both warpgroups' (f64: the eight warps') products
-// in turn.
-template <int P, int XP, bool Z>
+// two values to d, d[0] and d[1] (d 8-byte aligned): one store on the card
+__device__ __forceinline__ void bzb_put2(float* d, float a, float b) {
+#ifdef __CUDA_ARCH__
+  *reinterpret_cast<float2*>(d) = make_float2(a, b);
+#else
+  d[0] = a;
+  d[1] = b;
+#endif
+}
+
+// The block of vxy (M kBxyVxy: one tile, blockIdx.z), of v2 (kBxyV2) or of
+// v12 (kBxyV12; v2 and v12: the tiles [blockIdx.z seg, + seg) of the
+// column), grid (ceil(X / XC), nt, nt or ceil(nt / seg)), kBxyThreads
+// threads.  u: the input layout (size, size, X); xb: the dense x stage's B
+// operand, (parts, X / 16, 32, X) (separable_lab.x_blocks, split), part q
+// xb_part elements on; bop: the y sides of the nt tiles, then their z sides
+// (separable_lab.ring_slices; vxy reads no z side, v12 none);
+// tables: v12's (6, npts, 2P + 2) band tables of Mx, Kx, My, Ky, Mz, Kz
+// (My to Kz read).  One host thread (blockDim 1) runs a block: each chunk's
+// loads at once, both warpgroups' (f64: the eight warps') products in turn,
+// every column's bands.
+template <int P, int XP, int M>
 __device__ __forceinline__ void l2_bxy_body(
     const typename LabMma<XP>::C* __restrict__ u,
     typename LabMma<XP>::C* __restrict__ out,
     const typename LabMma<XP>::E* __restrict__ xb, long long xb_part,
-    const unsigned char* __restrict__ bop, const BxGeo& g, int seg) {
+    const unsigned char* __restrict__ bop,
+    const typename LabMma<XP>::C* __restrict__ tables, const BxGeo& g,
+    int seg) {
   using T = LabMma<XP>;
   using C = typename T::C;
   using E = typename T::E;
   constexpr bool F64 = XP == kXF64, BF = bx_bf(XP);
+  constexpr bool Z = M == kBxyV2, ZB = M == kBxyV12;
   constexpr bool kSplit = bx_parts(XP) == 2;
-  constexpr int XC = bx_xc(XP), LP = bx_lp(P, XP), AS = bx_as(P, XP);
+  constexpr int XC = bx_xc(XP), AS = bx_as(P, XP);
+  constexpr int LP = ZB ? bzb_lp(P) : bx_lp(P, XP);
   constexpr int ZC = kBxZC, KC = bxy_kc(XP);
-  constexpr int S = Z ? kBxyzStages : kBxyStages;
+  constexpr int S = M == kBxyVxy ? kBxyStages : kBxyzStages;
   constexpr int NP = bx_parts(XP), NXB = F64 ? 1 : 2;
   constexpr int NCOL = F64 ? 2 * XC : kHopN;  // B columns of an x block
   constexpr int CV = 16 / (int)sizeof(C), EV = 16 / (int)sizeof(E);
@@ -821,22 +969,23 @@ __device__ __forceinline__ void l2_bxy_body(
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int warp = tid / 32, lane = tid % 32;
   const bool solo = nthr < 64;
-  const BxySmem pl = bxy_smem(P, XP, Z);
+  const BxySmem pl = bxy_smem(P, XP, M);
   const int iy = blockIdx.y, x0 = blockIdx.x * XC;
   const int b = g.b, L = b + 2 * P, nkc = g.X / KC, nxblk = g.X / 16;
   // the block's z tiles [t0, tn)
   const int t0 = blockIdx.z * seg;
   const int tn = t0 + seg < g.nt ? t0 + seg : g.nt;
   // u rows at or past zlim load as zeros: vxy's tile's first b z rows; v2's
-  // tiles' halo'd rows
-  const int zlim = Z ? (tn - 1) * b + L : t0 * b + b;
+  // and v12's tiles' halo'd rows
+  const int zlim = M != kBxyVxy ? (tn - 1) * b + L : t0 * b + b;
   const long long NT = (long long)g.nt * b;
   const long long ybytes = bx_side_bytes(P, XP, 0);
   const long long zbytes = bx_side_bytes(P, XP, 1);
   unsigned char* B = smem_raw + pl.b;
   unsigned char* ring = smem_raw + pl.ring;
+  constexpr int XS = bzb_xs(XP);  // v12: words a row of ax and gx
   C* AX = reinterpret_cast<C*>(smem_raw + pl.ax);
-  C* GX = AX + ZC * XC * AS;
+  C* GX = AX + (ZB ? ZC * LP * XS : ZC * XC * AS);
   C* T1 = reinterpret_cast<C*>(smem_raw + pl.t);
   C* T2 = T1 + kBxN * XC * kBxZS;
   // word offset of column k of row `row` of a chunk's A operand: f32 rows of
@@ -891,7 +1040,7 @@ __device__ __forceinline__ void l2_bxy_body(
       lab_cp16(dst + 16 * i, src + 16 * i);
   };
   // the tile's y side, with the first pass's first chunk
-  load_side(B, bop + iy * ybytes, ybytes);
+  if constexpr (!ZB) load_side(B, bop + iy * ybytes, ybytes);
   // v2: tile t's z side into its slot
   auto z_side = [&](int t) {
     return smem_raw + pl.bz + ((t - t0) & 1) * pl.bz_slot;
@@ -913,6 +1062,152 @@ __device__ __forceinline__ void l2_bxy_body(
   auto out_at = [&](int t, int bz, int by, int x) {
     return (((long long)t * b + bz) * NT + (long long)iy * b + by) * g.X +
            x0 + x;
+  };
+  // ---- v12's band stages ----
+  // the segment's first halo'd z row, the end of its output rows
+  const int zs = t0 * b, zend = tn * b;
+  constexpr int NW = 2 * P + 2, NR = 2 * P + 1;  // a table row; the window
+  constexpr int NWP = bzb_nwp(P, XP);  // a table row in shared memory
+  // a group: CPT consecutive y rows by0 .. by0 + CPT - 1 at one x, whose
+  // y taps are read once; a thread's groups (the host thread: all of them)
+  constexpr int CPT = F64 ? 1 : 2, NG = kBxN * XC / CPT;
+  constexpr int GPT = kHopHost ? NG : (NG + kBxyThreads - 1) / kBxyThreads;
+  constexpr int NTAP = CPT + 2 * P;
+  constexpr bool WREG = ZB && bzb_regs(P, XP);
+  // My, Ky rows of the tile's rows; Mz, Kz rows of a pass's output rows
+  C* ytab = reinterpret_cast<C*>(smem_raw + pl.b);
+  C* ztab = ytab + 2 * kBxN * NWP;
+  // the window: in registers, t1 and t2 of the last NR halo'd rows of
+  // each of this thread's columns, oldest first; else in shared memory,
+  // (2, NR, kBxN XC), row r in slot r % NR, column (by, x) at by XC + x
+  C win[WREG ? GPT : 1][WREG ? CPT : 1][2][WREG ? NR : 1];
+  C* wsh = reinterpret_cast<C*>(smem_raw + pl.t);
+  if constexpr (ZB) {
+    for (int i = tid; i < 2 * kBxN * NWP; i += nthr) {
+      const int by = i / NWP % kBxN, gy = iy * b + by, o = i % NWP;
+      ytab[i] = by < b && gy < g.npts && o < NW
+                    ? tables[((2LL + i / (kBxN * NWP)) * g.npts + gy) * NW +
+                             o]
+                    : C(0);
+    }
+    if constexpr (WREG) {
+#pragma unroll
+      for (int i = 0; i < GPT; ++i)
+#pragma unroll
+        for (int c = 0; c < CPT; ++c)
+#pragma unroll
+          for (int o = 0; o < NR; ++o) win[i][c][0][o] = win[i][c][1][o] = 0;
+    }
+  }
+  // the Mz, Kz rows of pass j's output rows, zs + 8 j - 2P .. + 7 (zeros
+  // outside [0, npts)), by cp.async: they land with the pass's first chunk,
+  // and no thread waits on their loads before the pass's own; read after
+  // the pass's x stage
+  auto load_ztab = [&](int j) {
+    for (int i = tid; i < 2 * ZC * NWP; i += nthr) {
+      const int gz = zs + j * ZC + i / NWP % ZC - 2 * P, o = i % NWP;
+      if (gz >= 0 && gz < g.npts && o < NW) {
+        bzb_cp(ztab + i,
+               tables + ((4LL + i / (ZC * NWP)) * g.npts + gz) * NW + o);
+      } else {
+        ztab[i] = C(0);
+      }
+    }
+  };
+  // the My, Ky rows of each of this thread's columns into registers, 16
+  // bytes a load
+  using YRows = C[GPT][CPT][NWP];
+  auto load_yrows = [&](YRows& wmy, YRows& wky) {
+#pragma unroll
+    for (int i = 0; i < GPT; ++i) {
+      const int by0 = (tid + i * nthr) / XC * CPT;
+      if (NG % kBxyThreads != 0 && by0 >= kBxN) continue;
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        bzb_row<NWP>(wmy[i][c], ytab + (by0 + c) * NWP);
+        bzb_row<NWP>(wky[i][c], ytab + (kBxN + by0 + c) * NWP);
+      }
+    }
+  };
+  // the band y (from AX, GX) and band z of halo'd row r = 8 j + zr of the
+  // segment, pass j's: r goes into each column's window, and output row zs
+  // + r - 2P, once it lies in the segment, is emitted from it; the row's Mz
+  // and Kz rows (one for the whole block) reach registers 16 bytes a load
+  auto band_row = [&](int j, int zr, const YRows& wmy, const YRows& wky) {
+    const int r = j * ZC + zr, gz = zs + r - 2 * P;
+    const bool emit = r >= 2 * P && gz < zend;
+    C wkz[NWP], wmz[NWP];
+    bzb_row<NWP>(wkz, ztab + (ZC + zr) * NWP);
+    bzb_row<NWP>(wmz, ztab + zr * NWP);
+#pragma unroll
+    for (int i = 0; i < GPT; ++i) {
+      const int gi = tid + i * nthr, x = gi % XC, by0 = gi / XC * CPT;
+      if (NG % kBxyThreads != 0 && by0 >= kBxN) continue;
+      // the taps of the group's rows: halo'd y rows by0 .. by0 + CPT - 1 +
+      // 2P of ax and gx at x
+      C ta[NTAP], tg[NTAP];
+#pragma unroll
+      for (int o = 0; o < NTAP; ++o) {
+        ta[o] = AX[(zr * LP + by0 + o) * XS + x];
+        tg[o] = GX[(zr * LP + by0 + o) * XS + x];
+      }
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const int by = by0 + c, col = by * XC + x;
+        C t1, t2;
+        band2<P>(wmy[i][c], wky[i][c], ta + c, 1, t1, t2);
+        t2 += band<P>(wmy[i][c], tg + c, 1);
+        if constexpr (WREG) {
+#pragma unroll
+          for (int o = 0; o + 1 < NR; ++o) {
+            win[i][c][0][o] = win[i][c][0][o + 1];
+            win[i][c][1][o] = win[i][c][1][o + 1];
+          }
+          win[i][c][0][NR - 1] = t1;
+          win[i][c][1][NR - 1] = t2;
+        } else {
+          wsh[(r % NR) * kBxN * XC + col] = t1;
+          wsh[(NR + r % NR) * kBxN * XC + col] = t2;
+        }
+        if (emit && by < b && x0 + x < g.X) {
+          C v = C(0);
+          if (gz < g.npts) {
+            if constexpr (WREG) {
+              v = band<P>(wkz, win[i][c][0], 1) +
+                  band<P>(wmz, win[i][c][1], 1);
+            } else {
+              C w1[NR], w2[NR];  // rows r - 2P .. r: slots (r + 1 + o) % NR
+#pragma unroll
+              for (int o = 0; o < NR; ++o) {
+                const int sl = (r + 1 + o) % NR;
+                w1[o] = wsh[sl * kBxN * XC + col];
+                w2[o] = wsh[(NR + sl) * kBxN * XC + col];
+              }
+              v = band<P>(wkz, w1, 1) + band<P>(wmz, w2, 1);
+            }
+          }
+          out[((long long)gz * NT + (long long)iy * b + by) * g.X + x0 + x] =
+              v;
+        }
+      }
+    }
+  };
+  // v12's passes: the segment's halo'd rows, 8 a pass, each pass's bands
+  // after its x stage (x_stage(z0): the pass whose first halo'd z row is
+  // z0), before the next pass's loads land on ax, gx
+  auto band_passes = [&](auto x_stage) {
+    for (int j = 0; j * ZC < zend - zs + 2 * P; ++j) {
+      load_ztab(j);
+      x_stage(zs + j * ZC);
+      YRows wmy, wky;
+      load_yrows(wmy, wky);
+      // a row at a time: the eight rows' code unrolled beside the x stage's
+      // pressed it into spills (ring_sweep bzb_rows_unrolled)
+#pragma unroll 1
+      for (int zr = 0; zr < ZC; ++zr) band_row(j, zr, wmy, wky);
+      __syncthreads();  // ax, gx and the z rows read: the next pass's loads
+                        // may land
+    }
   };
   if constexpr (F64) {
     using FA = typename LabFrag<XP>::FA;
@@ -972,13 +1267,16 @@ __device__ __forceinline__ void l2_bxy_body(
         if (job >= NJOB) continue;
         each(acc[i], [&](int r, int c, int e) {
           const int m = mt * T::M + r;
-          (nt ? GX : AX)[(m / LP * XC + c) * AS + m % LP] = acc[i].x[e];
+          (nt ? GX : AX)[ZB ? m * XS + c : (m / LP * XC + c) * AS + m % LP] =
+              acc[i].x[e];
         });
       }
       __syncthreads();  // ax, gx whole
     };
     const double* By = reinterpret_cast<const double*>(B);
-    if constexpr (!Z) {
+    if constexpr (ZB) {
+      band_passes(x_stage);
+    } else if constexpr (!Z) {
       for (int j = 0; j < npass; ++j) {
         const int zc = j * ZC;
         x_stage(t0 * b + zc);
@@ -1143,18 +1441,30 @@ __device__ __forceinline__ void l2_bxy_body(
         for (int ji = 0; ji < NA; ++ji) {
           const int jx = ji / MAXT, mt = wg + ji % MAXT * NWG;
           if (mt >= NMT) continue;
-          hop_acc_each(acc[(kHopHost ? wg * NA : 0) + ji], w, lane,
-                       [&](int r, int c, float v) {
-                         const int m = mt * kHopM + r;
-                         const int x = jx * 16 + c % 16;
-                         (c < 16 ? AX : GX)[(m / LP * XC + x) * AS + m % LP] =
-                             v;
-                       });
+          if constexpr (ZB) {
+            hop_acc_pairs(acc[(kHopHost ? wg * NA : 0) + ji], w, lane,
+                          [&](int r, int c, float v0, float v1) {
+                            bzb_put2((c < 16 ? AX : GX) +
+                                         (mt * kHopM + r) * XS + jx * 16 +
+                                         c % 16,
+                                     v0, v1);
+                          });
+          } else {
+            hop_acc_each(acc[(kHopHost ? wg * NA : 0) + ji], w, lane,
+                         [&](int r, int c, float v) {
+                           const int m = mt * kHopM + r;
+                           const int x = jx * 16 + c % 16;
+                           (c < 16 ? AX : GX)[(m / LP * XC + x) * AS +
+                                              m % LP] = v;
+                         });
+          }
         }
       });
       __syncthreads();  // ax, gx whole
     };
-    if constexpr (!Z) {
+    if constexpr (ZB) {
+      band_passes(x_stage);
+    } else if constexpr (!Z) {
       for (int j = 0; j < npass; ++j) {
         const int zc = j * ZC;
         x_stage(t0 * b + zc);
@@ -1208,7 +1518,7 @@ l2_bxy_kernel(const typename LabMma<XP>::C* __restrict__ u,
               typename LabMma<XP>::C* __restrict__ out,
               const typename LabMma<XP>::E* __restrict__ xb, long long xb_part,
               const unsigned char* __restrict__ bop, BxGeo g) {
-  l2_bxy_body<P, XP, false>(u, out, xb, xb_part, bop, g, 1);
+  l2_bxy_body<P, XP, kBxyVxy>(u, out, xb, xb_part, bop, nullptr, g, 1);
 }
 
 // v2 on the ring: grid (ceil(X / XC), nt, ceil(nt / seg)), a segment of seg
@@ -1220,7 +1530,20 @@ l2_bxyz_kernel(const typename LabMma<XP>::C* __restrict__ u,
                const typename LabMma<XP>::E* __restrict__ xb,
                long long xb_part, const unsigned char* __restrict__ bop,
                BxGeo g, int seg) {
-  l2_bxy_body<P, XP, true>(u, out, xb, xb_part, bop, g, seg);
+  l2_bxy_body<P, XP, kBxyV2>(u, out, xb, xb_part, bop, nullptr, g, seg);
+}
+
+// v12 on the ring: grid (ceil(X / XC), nt, ceil(nt / seg)), a segment of
+// seg z tiles a block (any seg).
+template <int P, int XP>
+__global__ void __launch_bounds__(kBxyThreads, kBxyzbBlocks)
+l2_bxyzb_kernel(const typename LabMma<XP>::C* __restrict__ u,
+                typename LabMma<XP>::C* __restrict__ out,
+                const typename LabMma<XP>::E* __restrict__ xb,
+                long long xb_part,
+                const typename LabMma<XP>::C* __restrict__ tables, BxGeo g,
+                int seg) {
+  l2_bxy_body<P, XP, kBxyV12>(u, out, xb, xb_part, nullptr, tables, g, seg);
 }
 
 }  // namespace tpufem

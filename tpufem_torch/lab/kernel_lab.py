@@ -17,9 +17,10 @@ against the plain version in f64 before it is timed.  Variants:
                           -copy, -bands, -mm (timing only)
     v2 v3 v6 v8 v9 v12    the L2a kernels, x first (``separable_lab.
     vx vxy                LabKernel``): v2/v6 dense x, y, z; v8 the same
-                          with transposed staging (the three on v2's
-                          ring, one instruction stream); v9 v2 in bf16x3;
-                          v3 band x; v12 band y/z; vx, vxy the x and x+y
+                          with transposed staging; v9 v2 in bf16x3 (the
+                          four on v2's ring, one instruction stream); v3
+                          band x; v12 band y/z (on its ring: v2's x stage,
+                          a z window); vx, vxy the x and x+y
                           ablations (their own functions).  A suffix
                           picks every dense stage's arithmetic, as JAX's:
                           -highest (3xTF32, the default), -high (1xTF32),

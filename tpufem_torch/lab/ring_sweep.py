@@ -30,7 +30,16 @@ y stages, with t1 and t2 stored, and the stores) and without its y and z
 products (its x stage, with ax and gx stored, and the stores), and with its
 ring of 5 and 6 stages in place of 4.  Both dense x rings run in a copy
 whose second warpgroup multiplies a copy of a pass's third 64-row tile at
-LP = 24, as vxy's ring did before v2's.
+LP = 24, as vxy's ring did before v2's.  v12's ring
+(``csrc/lab_separable_band.cu`` on the same header) runs at z segments of 1,
+2, 3, 4 and all 17 tiles (3xTF32 also 5, 6 and 8) beside its chooser's, in
+a copy whose z window lies in shared memory where the committed one holds
+it in registers, in a copy whose eight band rows a pass are unrolled (the
+committed loop takes one row at a time), in a copy whose launch bound asks
+for two blocks an SM (128 registers), and in copies timed only without its
+band z (t1 + t2 of each row stored in its place) and without either band
+(its x stage, with ax and gx stored, alone); each copy's ptxas registers
+and spills of v12's instances first.
 
     python -m tpufem_torch.lab.ring_sweep [--reps 20] [--only l2_nxb1 ...]
 
@@ -58,7 +67,8 @@ SWEEP_DIR = build.BUILD_DIR / "sweep"
 # the libraries a copy rebuilds, by name: their launchers, cut to p = 4
 LIBRARIES = {"lab_zyfirst": "lab_zyfirst.cu",
              "lab_separable": "lab_separable.cu",
-             "lab_separable_ring": "lab_separable_ring.cu"}
+             "lab_separable_ring": "lab_separable_ring.cu",
+             "lab_separable_band": "lab_separable_band.cu"}
 # name -> (library, {file: [(text, replacement), ...]}, timed only)
 VARIANTS = {
     "committed": (None, {}, False),
@@ -130,6 +140,26 @@ VARIANTS = {
         ("        band2<P>(wa, wb, U + (zr * LP + yl) * BXW + xo + PH - P, 1, "
          "am, ak);", "        am = ak = U[(zr * LP + yl) * BXW + xo + PH];")
     ]}, True),
+    # v12's z window in a shared ring of 2p + 1 rows at every degree
+    "bzb_window_shared": ("lab_separable_band", {"lab_separable_ring.cuh": [
+        ("bzb_regs(int p, int xp) {\n  return xp != kXF64 && p <= 6;",
+         "bzb_regs(int p, int xp) {\n  return false;")]}, False),
+    # v12's eight band rows a pass unrolled, beside the x stage's code
+    "bzb_rows_unrolled": ("lab_separable_band", {"lab_separable_ring.cuh": [
+        ("#pragma unroll 1\n      for (int zr = 0; zr < ZC; ++zr) "
+         "band_row(j, zr, wmy, wky);",
+         "#pragma unroll\n      for (int zr = 0; zr < ZC; ++zr) "
+         "band_row(j, zr, wmy, wky);")]}, False),
+    "bzb_two_blocks": ("lab_separable_band", {"lab_separable_ring.cuh": [
+        ("kBxyzbBlocks = 1;", "kBxyzbBlocks = 2;")]}, False),
+    "bzb_no_z": ("lab_separable_band", {"lab_separable_ring.cuh": [
+        ("              v = band<P>(wkz, win[i][c][0], 1) +\n"
+         "                  band<P>(wmz, win[i][c][1], 1);",
+         "              v = t1 + t2;")]}, True),
+    "bzb_x_only": ("lab_separable_band", {"lab_separable_ring.cuh": [
+        ("const YRows& wmy, const YRows& wky) {\n",
+         "const YRows& wmy, const YRows& wky) {\n    if (j >= 0) return;\n")
+    ]}, True),
 }
 ZY_TIMED = ("vcopy", "vband", "v16")
 BX_TIMED = ("highest", "high", "bf16x3")  # v3's and vxy's rings
@@ -139,7 +169,7 @@ L2_TIMED = (("vx", "highest"), ("vx", "high"), ("vx", "bf16x3"),
 
 def edited_sources(name: str):
     """{file: text} of the csrc copy of variant ``name``: its edits applied
-    (each text must occur exactly once) and the two launchers cut to p = 4."""
+    (each text must occur exactly once) and the launchers cut to p = 4."""
     out = build.edited_csrc(VARIANTS[name][1], name)
     for fname in LIBRARIES.values():
         out[fname] = re.sub(r" +TPUFEM_CASE\([1-35-8]\)\n", "", out[fname])
@@ -147,7 +177,7 @@ def edited_sources(name: str):
 
 
 def build_variant(name: str) -> dict:
-    """Build the lab libraries of variant ``name`` (all three for
+    """Build the lab libraries of variant ``name`` (all four for
     "committed", else the one it edits); returns {library name:
     KernelLibrary}."""
     lib_name = VARIANTS[name][0]
@@ -159,8 +189,8 @@ def build_variant(name: str) -> dict:
 def time_variant(libs, variant, prec, u, K1, M1, reps, timed_only,
                  nu=None, routine=None, seg=None):
     """One line: the kernel of ``variant`` from ``libs`` at the flagship
-    (v3's ring: with nu u slots, or its chooser's; v2's: a z segment of seg
-    tiles, or its chooser's; routine: None, the variant's default), held to
+    (v3's ring: with nu u slots, or its chooser's; v2's and v12's: a z
+    segment of seg tiles, or its chooser's; routine: None, the variant's default), held to
     its plain version (unless an ablation), ms of two timings."""
     real = separable_lab.load_kernels
     separable_lab.load_kernels = lambda: libs
@@ -187,6 +217,7 @@ def time_variant(libs, variant, prec, u, K1, M1, reps, timed_only,
             + (f" sub-tile={k.tile}" if k.tile else "")
             + (f" u slots={k.ring[0]}" if k.bx and k.ring else "")
             + (f" seg={k.seg} grid={k.grid}" if k.seg else "")
+            + (f" window={k.window}" if k.window else "")
             + f" smem={k.smem} max rel err {err:.2e}  {ms[0]:.4f} "
             f"{ms[1]:.4f} ms")
 
@@ -222,10 +253,12 @@ def main(argv=None) -> None:
                 print(time_variant(libs, v, "highest", u, K1, M1, args.reps,
                                    timed_only), flush=True)
         if "lab_separable" in own:
-            for v, prec in L2_TIMED:  # vxy: its schedule on this routine
+            for v, prec in L2_TIMED:  # vxy, v12: their schedule on this
+                # routine
                 print(time_variant(libs, v, prec, u, K1, M1, args.reps,
                                    timed_only, routine="tile"
-                                   if v == "vxy" else None), flush=True)
+                                   if v in ("vxy", "v12") else None),
+                      flush=True)
         if "lab_separable_ring" in own:
             for v in ("v3", "vxy", "v2"):
                 for prec in BX_TIMED:
@@ -242,6 +275,21 @@ def main(argv=None) -> None:
                     for seg in ((1, 2, 3, 4, 5, 6, 8, 17) if prec ==
                                 "highest" else (1, 2, 3, 4, 17)):
                         print(time_variant(libs, "v2", prec, u, K1, M1,
+                                           args.reps, False, seg=seg),
+                              flush=True)
+        if "lab_separable_band" in own:
+            for line in build.ptxas_lines(
+                    own["lab_separable_band"].compiler_log,
+                    "l2_bxyzb_kernel"):
+                print(f"  ptxas {line}", flush=True)
+            for prec in BX_TIMED:
+                print(time_variant(libs, "v12", prec, u, K1, M1, args.reps,
+                                   timed_only), flush=True)
+            if name == "committed":  # v12's z segments
+                for prec in BX_TIMED:
+                    for seg in ((1, 2, 3, 4, 5, 6, 8, 17) if prec ==
+                                "highest" else (1, 2, 3, 4, 17)):
+                        print(time_variant(libs, "v12", prec, u, K1, M1,
                                            args.reps, False, seg=seg),
                               flush=True)
 

@@ -8,19 +8,21 @@ in two CUDA routines:
   ``_kernel_v6`` (:106), ``_kernel_v8`` (:132), ``_kernel_vx`` (:164),
   ``_kernel_vxy`` (:177), ``_kernel_v9`` (:212) and ``_kernel_v12`` (:237):
   x first, then y, then z; each axis stage dense (a tensor-core product) or
-  band (CUDA cores).  ``tpufem_torch/csrc/lab_separable.cuh``; v3, vxy and
-  v2 (with v6 and v8, which compute v2's function) run ring routines of
-  their own by default (``routine="ring"``,
+  band (CUDA cores).  ``tpufem_torch/csrc/lab_separable.cuh``; v3, vxy, v2
+  (with v6, v8 and v9, which compute v2's function) and v12 run ring
+  routines of their own by default (``routine="ring"``,
   ``csrc/lab_separable_ring.cuh``, a tile of b <= 16 rows a side,
   ``RING_B``: v3 the halo'd u boxes by TMA through an ``mbarrier`` ring,
   the band x on CUDA cores, the y and z products on wgmma; vxy a dense x
   stage on wgmma over a ``cp.async`` ring of u and [Mx | Kx] chunks (vx's
   ring, its own copy), stored into the y products' operand, and v3's y
-  products
-  summed and stored from their accumulators; v2 vxy's x stage over every
-  halo'd z row feeding v3's y and z products, a block marching down a
-  segment of z tiles (``march_segment``); f64 on DMMA), and the first
-  routine as their earlier schedule (``routine="tile"``).
+  products summed and stored from their accumulators; v2 vxy's x stage
+  over every halo'd z row feeding v3's y and z products, a block marching
+  down a segment of z tiles (``march_segment``); v12 v2's x stage feeding
+  band y and z stages on CUDA cores, the z taps in a window that marches
+  down a segment of z tiles (``band_segment``; library
+  ``lab_separable_band``); f64 on DMMA), and the first routine as their
+  earlier schedule (``routine="tile"``).
 - the z/y-first half (L2b), ``_kernel_v13`` (:302), ``_kernel_v14`` (:359),
   ``_kernel_v15`` (:431), ``_kernel_vcopy`` (:500), ``_kernel_vband`` (:525)
   and ``_kernel_v16`` (:1347): band z, band y on the halo'd tile, then the x
@@ -134,20 +136,22 @@ MAX_DEGREE = 8
 # the routines of the variants that have a choice: v15's, v14's and v13's
 # on L1's ring (pipe: the persistent lab_ring_pipe_kernel; ring:
 # lab_ring_kernel), "tile" their earlier schedule (zy_kernel); v3's,
-# vxy's and v2's (v6's, v8's) rings (l2_bx_kernel, l2_bxy_kernel,
-# l2_bxyz_kernel), "tile" their earlier schedule (l2_kernel)
+# vxy's, v2's (v6's, v8's, v9's) and v12's rings (l2_bx_kernel,
+# l2_bxy_kernel, l2_bxyz_kernel, l2_bxyzb_kernel), "tile" their earlier
+# schedule (l2_kernel)
 ROUTINES = {"v3": ("ring", "tile"), "vxy": ("ring", "tile"),
             "v2": ("ring", "tile"), "v6": ("ring", "tile"),
-            "v8": ("ring", "tile"),
+            "v8": ("ring", "tile"), "v9": ("ring", "tile"),
+            "v12": ("ring", "tile"),
             "v13": ("ring", "tile"), "v14": ("pipe", "ring", "tile"),
             "v15": ("pipe", "ring", "tile")}
 # the L2a variants with a ring routine; those on v2's (dense x, y and z: v6
-# is v2's kernel, and v8's transposes are v2's operand layouts on the ring,
-# so both run v2's instruction stream); those whose dense x stage the first
-# version's jobs (x_jobs) run on l2_kernel only
-RING_L2A = ("v3", "vxy", "v2", "v6", "v8")
-RING_XYZ = ("v2", "v6", "v8")
-DENSE_X_RING = ("vxy",) + RING_XYZ
+# is v2's kernel, v8's transposes are v2's operand layouts on the ring and
+# v9 is v2 in bf16x3, so all three run v2's instruction stream); those whose
+# dense x stage the first version's jobs (x_jobs) run on l2_kernel only
+RING_L2A = ("v3", "vxy", "v2", "v6", "v8", "v9", "v12")
+RING_XYZ = ("v2", "v6", "v8", "v9")
+DENSE_X_RING = ("vxy", "v12") + RING_XYZ
 # v3's and vxy's rings: a tile of at most RING_B rows a side (the products'
 # N), their default; halo'd z rows a pass; x columns a block (f32 storage,
 # f64)
@@ -160,6 +164,9 @@ RING_MAX_U = 3  # the deepest ring of u slots
 # (ring_sweep), and 2.0-2.5% faster than 4 in turns in every precision (an
 # H100, PERF.md)
 RING_SEG = 3
+# the longest segment of z tiles a block of v12's ring marches down (its
+# window carries across tile edges, so every b and p march)
+BAND_SEG = 3
 
 
 def default_routine(variant: str, dtype) -> str | None:
@@ -173,9 +180,9 @@ def default_routine(variant: str, dtype) -> str | None:
     chunks take its two products, q1 @ Kx^T and q23 @ Mx^T, in turn, so
     on the ring it is v15's instruction stream, and so is v14, whose one
     addition to v13, the next load in flight, the persistent ring keeps);
-    v3, vxy and v2 (v6, v8) their rings (``l2_bx_kernel``,
-    ``l2_bxy_kernel``, ``l2_bxyz_kernel``); the other variants have no
-    choice (None)."""
+    v3, vxy, v2 (v6, v8, v9) and v12 their rings (``l2_bx_kernel``,
+    ``l2_bxy_kernel``, ``l2_bxyz_kernel``, ``l2_bxyzb_kernel``); the other
+    variants have no choice (None)."""
     if variant in ("v15", "v14") and dtype == torch.float64:
         return "ring"
     return ROUTINES.get(variant, (None,))[0]
@@ -201,6 +208,26 @@ def march_passes(b: int, p: int, nt: int, seg: int) -> list[int]:
     npass = -(-(b + 2 * p) // RING_ZC)
     return [npass + (min(seg, nt - t0) - 1) * (npass - 1)
             for t0 in range(0, nt, seg)]
+
+
+def band_segment(nt: int) -> int:
+    """The z tiles a block of v12's ring owns: BAND_SEG (at most nt), for
+    every b and p (its z window carries across tile edges, where v2's ring
+    shares a pass only under ``march_shares``)."""
+    return min(BAND_SEG, nt)
+
+
+def band_passes(b: int, p: int, nt: int, seg: int) -> list[int]:
+    """The passes each segment of v12's ring runs, in grid order: its
+    tiles' halo'd z rows, tiles b + 2p, in passes of RING_ZC."""
+    return [-(-(min(seg, nt - t0) * b + 2 * p) // RING_ZC)
+            for t0 in range(0, nt, seg)]
+
+
+def band_k(p: int) -> int:
+    """The halo'd y rows of v12's x product: RING_B + 2p rounded up to
+    RING_ZC, in every precision (``tpufem_l2_ring_xyzb_k``)."""
+    return -(-(RING_B + 2 * p) // RING_ZC) * RING_ZC
 
 
 def tile_slices(M1: np.ndarray, b: int, n_tiles: int, p: int) -> np.ndarray:
@@ -388,13 +415,14 @@ class LabKernel:
     vband have no tensor-core stage and take "highest" whatever ``prec``
     says.  x_jobs: run the dense x stage of an L2a variant as the first
     version did (an ablation of l2_kernel's x stage, timed beside the
-    ring; vxy, v2, v6 and v8 then run their earlier schedule unless a
-    routine is asked for).  routine: v15's, v14's, v13's, v3's, vxy's and
-    v2's, v6's, v8's (``ROUTINES``: v15 and v14 "pipe", "ring" or "tile",
-    the others "ring" or "tile"; None: ``default_routine``'s, by the
-    storage dtype); the other variants None.  The L2a rings take b <=
-    RING_B (their default).  seg: the z tiles a block of v2's ring owns
-    (None: ``march_segment``'s; more than 1 only where a pass is shared).
+    ring; vxy, v2, v6, v8, v9 and v12 then run their earlier schedule
+    unless a routine is asked for).  routine: v15's, v14's, v13's, v3's,
+    vxy's, v2's, v6's, v8's, v9's and v12's (``ROUTINES``: v15 and v14
+    "pipe", "ring" or "tile", the others "ring" or "tile"; None:
+    ``default_routine``'s, by the storage dtype); the other variants None.
+    The L2a rings take b <= RING_B (their default).  seg: the z tiles a
+    block of v2's ring owns (None: ``march_segment``'s; more than 1 only
+    where a pass is shared) or of v12's (None: ``band_segment``'s; any).
     """
 
     launches = {v: 0 for v in VARIANTS}  # per variant; plain excluded
@@ -432,16 +460,19 @@ class LabKernel:
         self.routine = routine
         self.xp = XF64 if dtype == torch.float64 else PRECS[prec]
         self.zy = variant in ZYFIRST
-        # v3's, vxy's or v2's ring (lab_separable_ring)
+        # v3's, vxy's or v2's ring (lab_separable_ring); v12's
+        # (lab_separable_band)
         self.bx = variant in RING_L2A and routine == "ring"
         self.xyz = self.bx and variant in RING_XYZ
+        self.band = self.bx and variant == "v12"
         if self.bx and b is not None and not 1 <= b <= RING_B:
             raise ValueError(f"{variant}'s ring takes a tile b <= {RING_B}, "
                              f"got b={b}")
         if self.bx and x_jobs and variant in DENSE_X_RING:
             raise ValueError(f"{variant}'s ring has no x stage by jobs")
-        if seg is not None and not self.xyz:
-            raise ValueError("seg: the z segment of v2's ring only")
+        if seg is not None and not (self.xyz or self.band):
+            raise ValueError("seg: the z segment of v2's and v12's rings "
+                             "only")
         self.flags = None if self.zy else FLAGS[variant] | (
             XJOBS if x_jobs and not FLAGS[variant] & XBAND else 0)
         h = np.broadcast_to(np.asarray(h, np.float64), (3,))
@@ -453,12 +484,13 @@ class LabKernel:
         self.lib = None
         if device.type == "cuda":
             self.lib = load_kernels()[
-                "lab_zyfirst" if self.zy else "lab_separable_ring"
-                if self.bx else "lab_separable"]
+                "lab_zyfirst" if self.zy else "lab_separable_band"
+                if self.band else "lab_separable_ring" if self.bx
+                else "lab_separable"]
             if device.index is None:
                 device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
-        self.smem = self.tile = self.ring = self.grid = None
+        self.smem = self.tile = self.ring = self.grid = self.window = None
         self.X = X_ALIGN * -(-npts // X_ALIGN)
         if b is None:
             b = TILES[0] if self.zy else RING_B if self.bx else choose_b(
@@ -476,6 +508,11 @@ class LabKernel:
                                  f"is a multiple of {RING_ZC} and 2p <= "
                                  f"{RING_ZC}; got seg={self.seg}, b={b}, "
                                  f"p={p}")
+        if self.band:
+            self.seg = band_segment(self.nt) if seg is None else seg
+            if not 1 <= self.seg <= self.nt:
+                raise ValueError(f"v12's ring takes a segment of 1 to nt = "
+                                 f"{self.nt} z tiles, got seg={self.seg}")
         if self.bx:
             if self.lib is not None:
                 self._plan_bx()
@@ -527,7 +564,8 @@ class LabKernel:
                     *self.ring[3:])
             order = [self.Ks[1], self.Ms[1], self.Ks[2], self.Ms[2],
                      self.Ks[0], self.Ms[0]]
-        elif self.bx:  # v3's and vxy's rings: the tile's y and z slices
+        elif self.bx and not self.band:  # v3's, vxy's and v2's rings: the
+            # tile's y and z slices
             self.bop = ring_slices([self.Ms[1], self.Ks[1]],
                                    [self.Ms[2], self.Ks[2]], b, self.nt, p,
                                    self.xp, dtype, device)
@@ -588,11 +626,23 @@ class LabKernel:
             self.grid = min(units, props.multi_processor_count * bps)
 
     def _plan_bx(self) -> None:
-        """v3's, vxy's or v2's ring plan on the card: v3's u slots
+        """v3's, vxy's, v2's or v12's ring plan on the card: v3's u slots
         (``choose_ring_u``, by the routine's own shared-memory count), the
         shared memory and the grid (``_bx_plan``'s blocks); the routines' K
-        must be ``ring_k``'s."""
+        must be ``ring_k``'s (v12's ``band_k``'s); v12's z window
+        ("registers" or "shared", the routine's choice by degree and
+        precision)."""
         lib = self.lib.lib
+        if self.band:
+            if lib.tpufem_l2_ring_xyzb_k(self.p) != band_k(self.p):
+                raise RuntimeError("v12's ring routine and band_k disagree "
+                                   "on K")
+            self.ring = ()
+            self.smem = lib.tpufem_l2_ring_xyzb_smem_bytes(self.p, self.xp)
+            self.window = ("registers" if lib.tpufem_l2_ring_xyzb_window_regs(
+                self.p, self.xp) else "shared")
+            self.grid = self._bx_plan()[0]
+            return
         if lib.tpufem_l2_ring_k(self.p, self.xp) != ring_k(self.p, self.xp):
             raise RuntimeError("the L2 ring routines and ring_k disagree on "
                                "K")
@@ -691,7 +741,13 @@ class LabKernel:
                              f"{(NT, NT, self.X)} on {self.device}")
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream().cuda_stream
-            if self.xyz:
+            if self.band:
+                rc = self.lib.lib.tpufem_l2_ring_xyzb_apply(
+                    self.xp, self.p, self.npts, self.b, self.nt, self.size,
+                    self.X, self.seg, gp.data_ptr(), y.data_ptr(),
+                    self.xb.data_ptr(), self.xb_part,
+                    self.tables.data_ptr(), stream)
+            elif self.xyz:
                 rc = self.lib.lib.tpufem_l2_ring_xyz_apply(
                     self.xp, self.p, self.npts, self.b, self.nt, self.size,
                     self.X, self.seg, gp.data_ptr(), y.data_ptr(),
@@ -814,13 +870,29 @@ class LabKernel:
         operand's rows of its x blocks over X, every part; per block the
         tile's y side); v2's ring (vxy's per pass, a pass's z rows those
         short of its block's last tile's halo'd end, and per block the y
-        side and each of its tiles' z sides); v3's earlier schedule, which
-        reads its taps and slices from device memory with no ring (per
-        block of XC columns: the (L, L) halo'd rows over its XC + 2p
-        columns and its four slices, each once, as if L1 held what the
-        block reads again)."""
+        side and each of its tiles' z sides); v12's ring (per block and
+        pass: v2's rows and B operand, and the Mz, Kz rows of the pass's 8
+        output rows; per block the My, Ky rows of its tile's b rows); v3's
+        earlier schedule, which reads its taps and slices from device
+        memory with no ring (per block of XC columns: the (L, L) halo'd
+        rows over its XC + 2p columns and its four slices, each once, as if
+        L1 held what the block reads again)."""
         item = torch.empty((), dtype=self.dt).element_size()
         p, X, NT = self.p, self.X, self.nt * self.b
+        if self.band:
+            # per segment: its halo'd z rows (the passes load no row past
+            # them) by the tile's L halo'd y rows over X; per pass the B
+            # operand's rows of the block's x blocks and 2 RING_ZC z table
+            # rows; the block's 2 b y table rows
+            b, nw = self.b, 2 * p + 2
+            total = 0
+            for s0, n in zip(range(0, self.nt, self.seg),
+                             band_passes(b, p, self.nt, self.seg)):
+                zrows = min(self.seg, self.nt - s0) * b + 2 * p
+                total += (zrows * self.L * X * item
+                          + n * (self._bxy_b_bytes() + 2 * RING_ZC * nw * item)
+                          + 2 * b * nw * item)
+            return -(-X // self._bx_plan()[3]) * self.nt * total
         if self.xyz:
             # per block and pass: the pass's z rows short of the block's
             # last tile's halo'd end by the tile's L halo'd y rows over X,
@@ -878,11 +950,17 @@ class LabKernel:
 
     def _bx_plan(self):
         """(blocks, passes, K, x columns a block, x halo a side) of v3's,
-        vxy's or v2's ring: a block per tile (v2: per segment of seg z
-        tiles) and xc x columns, a pass per RING_ZC of the tile's L halo'd
-        z rows (vxy: of its first b; v2: the passes of all its blocks, one
-        a shared pass; no x halo, their x stage takes every column)."""
+        vxy's, v2's or v12's ring: a block per tile (v2, v12: per segment
+        of seg z tiles) and xc x columns, a pass per RING_ZC of the tile's
+        L halo'd z rows (vxy: of its first b; v2: the passes of all its
+        blocks, one a shared pass; v12: of all its blocks, a segment's
+        halo'd rows; no x halo, their x stage takes every column)."""
         xc = RING_X_COLS[self.xp == XF64]
+        if self.band:
+            nxc = -(-self.X // xc)
+            passes = band_passes(self.b, self.p, self.nt, self.seg)
+            return (nxc * self.nt * len(passes), nxc * self.nt * sum(passes),
+                    band_k(self.p), xc, 0)
         if self.xyz:
             nxc = -(-self.X // xc)
             passes = march_passes(self.b, self.p, self.nt, self.seg)
@@ -923,7 +1001,10 @@ class LabKernel:
         and the B operands' bytes beside the layouts'; v2's ring
         (v6's, v8's) vxy's products over its passes (``_bx_plan``: a shared
         pass once) and v3's z products, ceil(L / RING_ZC) k steps a tile,
-        with the z sides' bytes."""
+        with the z sides' bytes; v12's ring v2's x products over its
+        passes (K = ``band_k``) and its bands on CUDA cores (y: three a
+        halo'd row of each pass's RING_ZC by the tile's RING_B xc columns;
+        z: two an output point), with the tables' bytes."""
         nt, b, X, p = self.nt, self.b, self.X, self.p
         L, LP, MB = self.L, round16(self.L), round16(b)
         item = torch.empty((), dtype=self.dt).element_size()
@@ -932,6 +1013,16 @@ class LabKernel:
         mma = {X3TF32: "tf32", X1TF32: "tf32", XBF16X3: "bf16",
                XBF16: "bf16", XF64: "fp64_tensor"}[self.xp]
         cuda_cores = "fp64" if self.xp == XF64 else "fp32"
+        nb = 2 * (2 * p + 1)  # flops of one band output
+        if self.band:
+            _, npass, K, xc, _ = self._bx_plan()
+            dense = npass * 2.0 * (RING_ZC * K) * 2 * xc * X
+            band = (npass * RING_ZC * RING_B * xc * 3 * nb
+                    + (nt * b)**2 * X * 2 * nb)
+            return roofline_ms(nbytes + self.xb.numel()
+                               * self.xb.element_size()
+                               + self.tables.numel() * item,
+                               {mma: passes * dense, cuda_cores: band})
         if self.bx and self.variant != "v3":
             # vxy: nblk * npass pass-blocks; v2: _bx_plan's second entry,
             # and the z products, each tile's passes k steps of (RING_B
@@ -986,7 +1077,6 @@ class LabKernel:
             min(L, -(-b // ZC) * ZC)
         tiles = nt * nt
         dense = band = 0.0
-        nb = 2 * (2 * p + 1)  # flops of one band output
         if self.flags & XBAND:
             band += 2 * tiles * zrows * LP * X * nb
         else:

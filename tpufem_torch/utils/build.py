@@ -58,6 +58,11 @@ SOURCES = {
     "lab_separable_ring": ("lab_separable_ring.cu",
                            ("common.cuh", "hopper.cuh", "lab_mma.cuh",
                             "lab_separable_ring.cuh")),
+    # its v12 on v2's dense x ring feeding band y and z stages (its default
+    # routine): a library of its own, built beside lab_separable_ring's
+    "lab_separable_band": ("lab_separable_band.cu",
+                           ("common.cuh", "hopper.cuh", "lab_mma.cuh",
+                            "lab_separable_ring.cuh")),
     # its z/y-first half (L2b: v13, v14, v15, v16, vcopy, vband), on L1's
     # device functions and ring routines
     "lab_zyfirst": ("lab_zyfirst.cu",
@@ -111,6 +116,12 @@ _ENTRIES = {
         "tpufem_l2_ring_xyz_apply": ([_I] * 8 + [_P] * 3 + [_LL] + [_P] * 2,
                                      _I),
         "tpufem_l2_ring_xyz_smem_bytes": ([_I] * 2, _LL)},
+    "lab_separable_band": {
+        "tpufem_l2_ring_xyzb_apply": ([_I] * 8 + [_P] * 3 + [_LL] + [_P] * 2,
+                                      _I),
+        "tpufem_l2_ring_xyzb_smem_bytes": ([_I] * 2, _LL),
+        "tpufem_l2_ring_xyzb_k": ([_I], _I),
+        "tpufem_l2_ring_xyzb_window_regs": ([_I] * 2, _I)},
     "lab_zyfirst": {
         "tpufem_zy_apply": ([_I] * 10 + [_P] * 6, _I),
         "tpufem_zy_smem_bytes": ([_I] * 7, _LL),
