@@ -131,9 +131,15 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 segment, grid, shared memory, design bound and L2 bytes;
                 torch.matmul of (256, 256) f32, P1's
   7 probes      the toolchain probes (tpufem_torch/lab/toolchain_probe.py):
-                P1's product kernel in each arithmetic against the f64
-                product on a seeded (256, 256) pair (``P1_TOL``) and on
-                ones (exactly 256); P2's three kernels at (n_iter, m) =
+                P1's product on each routine (the wgmma tile, the earlier
+                WMMA kernel) in each arithmetic at n = 256 and at the
+                partial-tile ``P1_PARTIAL``, the wgmma tile also at
+                ``P1_LARGE`` (a ring that reuses its stages), on seeded
+                pairs against the f64 product (``P1_TOL``) and, the wgmma
+                tile, the plain version in its arithmetic (the smaller of
+                ``EMU_TOL`` and ``P1_PLAIN_TOL``), on ones (exactly n),
+                one launch a call; the wgmma tile's largest difference
+                from the earlier routine; P2's three kernels at (n_iter, m) =
                 (256, 512) on the probe's inputs against their plain
                 versions in the same arithmetic (``P2_TOL``), and its
                 product chain alone and beside the multiply-adds on a
@@ -144,8 +150,11 @@ Phases, one line each (any failure raises and the script exits non-zero):
                 routines in turns in each arithmetic the cluster chain
                 takes, with its plan and design bound; then the probes'
                 entry point ``toolchain_probe.main``, whose launch counts
-                are the ones reported; P1's device time (torch.profiler)
-                beside its chained time
+                are the ones reported; P1's device times (torch.profiler)
+                in every arithmetic, the routines in turns, with the wgmma
+                tile's plan and design bound, beside the plain
+                version's and torch.matmul's (strict f32) device time and
+                its chained time
   8 cell loop   the cell-loop tiers (plain PyTorch, no kernel of the
                 kernels line; ``cell_loop_phase``): solve_poisson 3D Q4
                 refine 5 f32 on its default tier (auto: structured) on the
@@ -427,6 +436,12 @@ P2_DENSE_TOL = {"highest": (2e-4, 5e-3), "high": (3e-3, 1.2e-2),
 # read: the f32 constant 1.000001 is 4.6e-8 off, 4 n_iter times over)
 P2_DENSE_FMA_TOL = (1e-5, 3e-4)
 PROBE_N_ITER, PROBE_M = 256, 512
+# P1's partial-tile size: 3 full 64-row tiles and a partial one of 16
+# rows, four chunks of k the last a quarter full
+P1_PARTIAL = 208
+# P1's large size, the wgmma tile only: 17 chunks of k, more than any
+# arithmetic's ring holds at once, and 16 full tiles and 16 rows
+P1_LARGE = 1040
 STORAGE = {"f64": torch.float64, "f32": torch.float32,
            "bf16s": torch.bfloat16}
 N_CHAIN = 30
@@ -759,13 +774,39 @@ def cluster_ptxas_summary(log: str) -> str:
             key = (int(m.group(1)), int(m.group(3)))
             per.setdefault(key, []).append((int(m.group(4)),
                                             int(m.group(5))))
-        elif "wgmma" in line:
+        elif "wgmma" in line and "probe_wgmma" not in line:
             warn += 1
     xp = {0: "3xTF32", 1: "1xTF32", 2: "bf16x3", 4: "bf16"}
     return "; ".join(
         f"{xp[x]} NT={nt}: {min(r for r, _ in v)}-{max(r for r, _ in v)} "
         f"registers, max spill {max(sp for _, sp in v)} B"
         for (x, nt), v in sorted(per.items())) + \
+        f"; {warn} wgmma serialisation warnings"
+
+
+def p1_ptxas_summary(log: str) -> str:
+    """P1's wgmma tile (probe_wgmma_kernel<XP, NB>): per arithmetic, the
+    registers and spill stores of its instance, and the
+    count of ptxas's wgmma serialisation warnings that name it, from a
+    build's ptxas log (none where the library came from an earlier
+    build)."""
+    from tpufem_torch.utils.build import ptxas_lines
+
+    if not log.strip():
+        return "no ptxas log (cached build)"
+    per, warn = {}, 0
+    for line in ptxas_lines(log, "probe_wgmma"):
+        m = re.search(r"probe_wgmma_kernelILi(\d)ELi(\d+)EE.*: "
+                      r"(\d+) registers, (\d+) bytes", line)
+        if m:
+            per[int(m.group(1)), int(m.group(2))] = (int(m.group(3)),
+                                                     int(m.group(4)))
+        elif "wgmma" in line and "probe_wgmma" in line:
+            warn += 1
+    xp = {0: "3xTF32", 1: "1xTF32", 2: "bf16x3", 4: "bf16"}
+    return "; ".join(
+        f"{xp[x]} NB={nb}: {regs} registers, {spill} B spill"
+        for (x, nb), (regs, spill) in sorted(per.items())) + \
         f"; {warn} wgmma serialisation warnings"
 
 
@@ -2952,6 +2993,9 @@ def main() -> int:
     say("2 build", "P2's cluster chain in toolchain_probe "
         "(probe_cluster_kernel, three modes an instance): "
         + cluster_ptxas_summary(libs["toolchain_probe"].compiler_log))
+    say("2 build", "P1's wgmma tile in toolchain_probe "
+        "(probe_wgmma_kernel, one warpgroup a block): "
+        + p1_ptxas_summary(libs["toolchain_probe"].compiler_log))
 
     marks.append(("3", time.perf_counter()))
     # ---- 3 kernel vs plain on the card --------------------------------
@@ -4209,7 +4253,10 @@ def main() -> int:
     # ---- 7 the toolchain probes: each kernel against its plain version,
     # then the probes' entry point with the counts reset before and read
     # after
+    from tpufem_torch.lab import separable_lab
     from tpufem_torch.lab import toolchain_probe as tprobe
+
+    P1_CASES = tprobe.P1_ROUTINES  # the wgmma tile, the earlier routine
 
     def rel_max(y, ref):
         return float((y.to(torch.float64) - ref.to(torch.float64)).abs().max()
@@ -4218,27 +4265,58 @@ def main() -> int:
     gen_c = torch.Generator().manual_seed(21)
     pa, pb = (torch.randn((256, 256), generator=gen_c).to(dev)
               for _ in range(2))
+    pq, pr = (torch.randn((P1_PARTIAL, P1_PARTIAL), generator=gen_c).to(dev)
+              for _ in range(2))
+    pl, pm = (torch.randn((P1_LARGE, P1_LARGE), generator=gen_c).to(dev)
+              for _ in range(2))
     p_ref = pa.double() @ pb.double()
-    ones = torch.ones((256, 256), device=dev)
-    p1 = {}
+    refs = {256: p_ref, P1_PARTIAL: pq.double() @ pr.double(),
+            P1_LARGE: pl.double() @ pm.double()}
+    # P1 on each routine in every arithmetic, at the probe's n = 256 and at
+    # a partial-tile n (the wgmma tile also at P1_LARGE): within its class
+    # of the f64 product, the wgmma tile within the smaller of EMU_TOL and
+    # P1_PLAIN_TOL of the plain version in its arithmetic (the earlier
+    # routine's distance printed: its one accumulator's truncating f32 sums
+    # put 3xTF32 above EMU_TOL), ones @ ones exactly n, one launch a call
     for arithmetic in tprobe.ARITHMETICS:
-        before = tprobe.launches["P1"]
-        c = tprobe.matmul(pa, pb, arithmetic)
-        rose = tprobe.launches["P1"] == before + 1
-        torch.cuda.synchronize()
-        p1[arithmetic] = rel_max(c, p_ref)
-        apart = float((c - tprobe.matmul_plain(pa, pb, arithmetic)).abs()
-                      .max() / p_ref.abs().max())
-        if arithmetic == "bf16x3":
-            abs_err["P1"] = float((c.double() - p_ref).abs().max())
-        exact = torch.equal(tprobe.matmul(ones, ones, arithmetic),
-                            torch.full_like(ones, 256.0))
-        say("7 probes", f"P1 {arithmetic}: max rel err {p1[arithmetic]:.3e} "
-            f"(class {tprobe.P1_TOL[arithmetic]}), off its arithmetic in "
-            f"plain PyTorch by {apart:.3e}, ones @ ones == 256: {exact}")
-        if not (rose and exact
-                and p1[arithmetic] <= tprobe.P1_TOL[arithmetic]):
-            raise RuntimeError(f"P1 {arithmetic} failed its checks")
+        plain_tol = min(separable_lab.EMU_TOL[separable_lab.PRECS[arithmetic]],
+                        tprobe.P1_PLAIN_TOL)
+        outs = {}
+        for routine in P1_CASES:
+            pairs = ((pa, pb), (pq, pr)) + (
+                ((pl, pm),) if routine == "wgmma" else ())
+            for x, y in pairs:
+                n = x.shape[0]
+                ref = refs[n]
+                before = tprobe.launches["P1"]
+                c = tprobe.matmul(x, y, arithmetic, routine)
+                ones = torch.ones((n, n), device=dev)
+                exact = torch.equal(tprobe.matmul(ones, ones, arithmetic,
+                                                  routine),
+                                    torch.full_like(ones, float(n)))
+                rose = tprobe.launches["P1"] == before + 2
+                torch.cuda.synchronize()
+                rel = rel_max(c, ref)
+                apart = float((c - tprobe.matmul_plain(x, y, arithmetic))
+                              .abs().max() / ref.abs().max())
+                held = routine == "earlier" or apart <= plain_tol
+                say("7 probes", f"P1 {routine} {arithmetic} n={n}: max rel "
+                    f"err {rel:.3e} (class {tprobe.P1_TOL[arithmetic]}), off "
+                    f"its arithmetic in plain PyTorch by {apart:.3e} (bound "
+                    f"{plain_tol}{'' if routine == 'wgmma' else ', printed'}"
+                    f"), ones @ ones == {n}: {exact}, launches +2: {rose}")
+                if not (rose and exact and held
+                        and rel <= tprobe.P1_TOL[arithmetic]):
+                    raise RuntimeError(f"P1 {routine} {arithmetic} n={n} "
+                                       f"failed its checks")
+                if n == 256:
+                    outs[routine] = c
+                    if routine == "wgmma" and arithmetic == "bf16x3":
+                        abs_err["P1"] = float((c.double() - ref).abs().max())
+        say("7 probes", f"P1 {arithmetic} n=256: the wgmma tile against the "
+            "earlier routine, max |difference| / max |c|: " + format(float(
+                (outs["wgmma"] - outs["earlier"]).abs().max()
+                / p_ref.abs().max()), ".3e"))
     ca = torch.full((PROBE_M, PROBE_M), 1e-3, device=dev)
     cw = torch.eye(PROBE_M, device=dev) * 0.999
     cv = torch.ones((PROBE_M, PROBE_M), device=dev)
@@ -4410,22 +4488,46 @@ def main() -> int:
     plain_ms["P2"] = 1e3 * time_fn(
         lambda _: tprobe.chain_plain("both", ca, cw, cv, PROBE_N_ITER)[0], ca,
         reps=3, warmup=1)
-    ms["P1"] = 1e3 * time_fn(lambda _: tprobe.matmul(pa, pb), pa,
-                             reps=N_CHAIN)
-    plain_ms["P1"] = 1e3 * time_fn(lambda _: tprobe.matmul_plain(pa, pb), pa,
-                                   reps=N_CHAIN)
-    p1_library_ms = 1e3 * time_fn(lambda _: torch.matmul(pa, pb), pa,
-                                  reps=N_CHAIN)
-    # its device time: the chain above is paced by the host's launches
-    p1_device_ms = device_ms(lambda _: tprobe.matmul(pa, pb), pa)
+    # P1's times by device time (torch.profiler; a chain of launches is
+    # paced by the host's): in every arithmetic the earlier routine and the
+    # wgmma tile in turns (earlier, wgmma, wgmma, earlier), beside the
+    # wgmma tile's plan and design bound; then the plain version and
+    # torch.matmul in strict f32 (utils/precision.py), the one-call
+    # equivalent
+    turns_p1 = ("earlier", "wgmma", "wgmma", "earlier")
+    p1_dev = {}
+    for arithmetic in tprobe.ARITHMETICS:
+        times = {}
+        for routine in turns_p1:
+            times.setdefault(routine, []).append(device_ms(
+                lambda _, r=routine, x=arithmetic: tprobe.matmul(
+                    pa, pb, x, r), pa))
+        p1_dev[arithmetic] = {k: sum(v) / len(v) for k, v in times.items()}
+        say("7 probes", f"P1 {arithmetic} (256, 256) device ms in turns: "
+            f"earlier {times['earlier'][0]:.5f}, wgmma "
+            f"{times['wgmma'][0]:.5f}, wgmma {times['wgmma'][1]:.5f}, "
+            f"earlier {times['earlier'][1]:.5f}; plan: "
+            + "{columns} columns, {blocks} blocks, {stages} of {chunks} "
+            "chunks in flight, {smem} B a block".format(
+                **tprobe.p1_plan(arithmetic, 256))
+            + f"; design bound {tprobe.p1_design_bound(256, arithmetic):.6f}"
+            " ms")
+    ms["P1"] = p1_dev["bf16x3"]["wgmma"]
+    plain_ms["P1"] = device_ms(lambda _: tprobe.matmul_plain(pa, pb), pa)
+    p1_library_ms = device_ms(lambda _: torch.matmul(pa, pb), pa)
+    p1_chain_ms = 1e3 * time_fn(lambda _: tprobe.matmul(pa, pb), pa,
+                                reps=N_CHAIN)
     # P1: two (256, 256) f32 operands read, one written; three bf16 passes.
     # P2: its function in one bf16 pass (bound_p2)
     bound["P1"] = roofline_ms(3 * 4 * 256**2, {"bf16": 3 * 2.0 * 256**3})
     bound["P2"] = bound_p2["default"]
-    say("7 probes", f"P1 (256, 256) bf16x3 {ms['P1']:.4f} ms (device time "
-        f"{p1_device_ms:.4f}), plain "
-        f"{plain_ms['P1']:.4f}, torch.matmul {p1_library_ms:.4f}, bound "
-        f"{bound['P1'][0]:.6f} ({bound['P1'][1]}); P2 both {ms['P2']:.4f} ms, "
+    say("7 probes", f"P1 (256, 256) bf16x3 on the wgmma tile "
+        f"{ms['P1']:.5f} ms device time (by "
+        f"chains {p1_chain_ms:.4f}; earlier routine "
+        f"{p1_dev['bf16x3']['earlier']:.5f}), plain "
+        f"{plain_ms['P1']:.5f}, torch.matmul (strict f32) "
+        f"{p1_library_ms:.5f}, bound {bound['P1'][0]:.6f} "
+        f"({bound['P1'][1]}); P2 both {ms['P2']:.4f} ms, "
         f"plain {plain_ms['P2']:.4f}, bound {bound['P2'][0]:.4f} "
         f"({bound['P2'][1]})")
 
@@ -4523,7 +4625,7 @@ def main() -> int:
          f"{'bf16x3' if v == 'v9' else 'f32' if v in NO_MMA else '3xTF32'})",
          f"tpufem_torch/csrc/{l2_src[v][1]}", L2_KERNELS[v][1], l2_abs[v],
          l2_library_ms.get(v)) for v in L2V] + [
-        ("P1", "P1 toolchain_probe (bf16x3 product)",
+        ("P1", "P1 toolchain_probe (bf16x3 product, wgmma tile)",
          "tpufem_torch/csrc/toolchain_probe.cuh",
          "scripts/toolchain_probe.py:36", abs_err["P1"], p1_library_ms),
         ("P2", "P2 toolchain_probe (cluster chain: products and "

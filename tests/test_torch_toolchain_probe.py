@@ -1,10 +1,10 @@
 """The two toolchain probes (P1, P2) on the CPU: the port's plain versions
 against the Pallas kernels of ``scripts/toolchain_probe.py`` in interpret
 mode, a g++ build of the CUDA kernels (tpufem_torch/csrc/toolchain_probe.cuh:
-P1, P2's earlier routine one host thread a block, P2's cluster chain one
-host thread a cluster) against the plain versions, the closed form of the
-probe's own inputs, P2's routine table, and the entry points' refusal
-without a card.
+P1 on both routines and P2's earlier routine one host thread a block, P2's
+cluster chain one host thread a cluster) against the plain versions, the
+closed form of the probe's own inputs, P1's ring plan and P2's routine
+table, and the entry points' refusal without a card.
 
 ``scripts/toolchain_probe.py`` is imported by path (nothing in ``scripts/``
 changes) and given its own ``pl`` whose ``pallas_call`` records ``(kernel,
@@ -38,7 +38,57 @@ from torch_threads import one_torch_thread  # noqa: F401
 PROBE_SHIM = STUBS + WMMA_STUBS + r"""
 #include <vector>
 
+#define __grid_constant__
 #include "toolchain_probe.cuh"
+
+// P1 on wgmma: one host thread a block (hopper.cuh's host forms: a TMA box
+// a loop copy with zero fill, in the 128-byte swizzle for A), each block's
+// shared memory NaN-filled first (a read of what no stage wrote shows in the
+// output) and checked for writes beyond it; a ring of `stages` stages (0:
+// the launcher's, p1w_stages)
+template <int XP, int NB>
+static int mw(int n, int stages, const float* a, const float* b, float* c) {
+  using namespace tpufem;
+  if (stages == 0) stages = p1w_stages(XP, NB, n);
+  const long long bytes = p1w_smem(XP, NB, stages).total;
+  HopMap am{}, bm{};
+  if (bytes > kPcSmemMax || p1w_maps(&am, &bm, a, b, n, NB)) return 3;
+  for (int by = 0; by * kHopM < n; ++by)
+    for (int bx = 0; bx * NB < n; ++bx) {
+      std::memset(smem_raw, 0xFF, bytes);
+      std::memset(smem_raw + bytes, 0xAB, 4096);
+      blockIdx = Dim3{bx, by, 0};
+      probe_wgmma_kernel<XP, NB>(am, bm, c, n, stages);
+      for (long long i = bytes; i < bytes + 4096; ++i)
+        if (smem_raw[i] != 0xAB) return 1;  // beyond its smem
+    }
+  return 0;
+}
+
+// the library's width, kP1wColumns
+extern "C" int host_probe_matmul_wgmma(int xp, int n, int stages,
+                                       const float* a, const float* b,
+                                       float* c) {
+  constexpr int NB = tpufem::kP1wColumns;
+  switch (xp) {
+    case 0: return mw<0, NB>(n, stages, a, b, c);
+    case 1: return mw<1, NB>(n, stages, a, b, c);
+    case 2: return mw<2, NB>(n, stages, a, b, c);
+    case 4: return mw<4, NB>(n, stages, a, b, c);
+  }
+  return 2;
+}
+
+extern "C" int host_probe_wgmma_columns() { return tpufem::kP1wColumns; }
+
+extern "C" int host_probe_wgmma_stages(int xp, int n) {
+  return tpufem::p1w_stages(xp, tpufem::kP1wColumns, n);
+}
+
+extern "C" long long host_probe_wgmma_smem(int xp, int n) {
+  constexpr int NB = tpufem::kP1wColumns;
+  return tpufem::p1w_smem(xp, NB, tpufem::p1w_stages(xp, NB, n)).total;
+}
 
 template <int XP>
 static int mm(int n, const float* a, const float* b, float* c) {
@@ -395,27 +445,142 @@ def probe_lib(tmp_path_factory):
     lib.host_probe_cluster_chain.restype = ctypes.c_int
     lib.host_probe_cluster_smem.argtypes = [ctypes.c_int] * 4
     lib.host_probe_cluster_smem.restype = ctypes.c_longlong
+    lib.host_probe_matmul_wgmma.argtypes = ([ctypes.c_int] * 3
+                                            + [ctypes.c_void_p] * 3)
+    lib.host_probe_matmul_wgmma.restype = ctypes.c_int
+    lib.host_probe_wgmma_columns.argtypes = []
+    lib.host_probe_wgmma_columns.restype = ctypes.c_int
+    lib.host_probe_wgmma_stages.argtypes = [ctypes.c_int] * 2
+    lib.host_probe_wgmma_stages.restype = ctypes.c_int
+    lib.host_probe_wgmma_smem.argtypes = [ctypes.c_int] * 2
+    lib.host_probe_wgmma_smem.restype = ctypes.c_longlong
     return lib
 
 
+def _product_host(lib, routine, xp, a, b, stages=0):
+    """P1's product in the host build into a NaN-filled output with two
+    guard rows (the wgmma routine on a ring of ``stages``, 0: its plan's);
+    (the kernel's rc, c, the guard rows)."""
+    n = a.shape[0]
+    buf = torch.full(((n + 2) * n,), float("nan"))
+    if routine == "earlier":
+        rc = lib.host_probe_matmul(xp, n, a.data_ptr(), b.data_ptr(),
+                                   buf.data_ptr())
+    else:
+        rc = lib.host_probe_matmul_wgmma(xp, n, stages, a.data_ptr(),
+                                         b.data_ptr(), buf.data_ptr())
+    return rc, buf[:n * n].view(n, n), buf[n * n:]
+
+
+def _off_plain_tol(routine, xp):
+    """The bound on max |c - plain| / max |c|: the wgmma routine's own
+    (``P1_PLAIN_TOL``, or EMU_TOL where smaller), the earlier routine's
+    EMU_TOL."""
+    if routine == "earlier":
+        return EMU_TOL[xp]
+    return min(EMU_TOL[xp], tp.P1_PLAIN_TOL)
+
+
 @pytest.mark.parametrize("arithmetic", tp.ARITHMETICS)
-def test_host_build_of_the_product_matches_plain(probe_lib, arithmetic):
-    """P1's kernel (g++ build, WMMA stub) in each arithmetic against the
-    f64 product (its class) and the plain version in that arithmetic; ones
-    give n exactly."""
-    n, xp = 48, PRECS[arithmetic]
+@pytest.mark.parametrize("n", [48, 64, 144])
+@pytest.mark.parametrize("routine", tp.P1_ROUTINES)
+def test_host_build_of_the_product_matches_plain(probe_lib, routine, n,
+                                                 arithmetic):
+    """P1's kernel (g++ build) on each routine in each arithmetic: the
+    earlier one (WMMA stub) and the wgmma tile (hopper.cuh's host forms,
+    one host thread a block, its shared memory NaN-filled and checked for
+    overrun) at n = 48 (a partial 64-row tile, one chunk of k with zeros
+    past n), 64 and 144 (three chunks, partial tiles both ways), against
+    the f64 product (its class) and the plain version in that arithmetic
+    (the wgmma tile within ``P1_PLAIN_TOL``); every output point written
+    and none past n; ones give n exactly."""
+    xp = PRECS[arithmetic]
     a, b, _ = (torch.as_tensor(t) for t in _seeded(n, 11))
-    c = torch.full((n, n), float("nan"))
-    assert probe_lib.host_probe_matmul(xp, n, a.data_ptr(), b.data_ptr(),
-                                       c.data_ptr()) == 0
+    rc, c, guard = _product_host(probe_lib, routine, xp, a, b)
+    assert rc == 0, "a block wrote beyond its shared memory"
+    assert torch.isnan(guard).all()
     ref = a.double() @ b.double()
     assert _rel(c.numpy(), ref.numpy()) <= TOL[xp]
     emu = tp.matmul_plain(a, b, arithmetic)
-    assert float((c - emu).abs().max() / ref.abs().max()) <= EMU_TOL[xp]
+    assert float((c - emu).abs().max() / ref.abs().max()) <= \
+        _off_plain_tol(routine, xp)
     ones = torch.ones((n, n))
-    assert probe_lib.host_probe_matmul(xp, n, ones.data_ptr(),
-                                       ones.data_ptr(), c.data_ptr()) == 0
+    rc, c, _ = _product_host(probe_lib, routine, xp, ones, ones)
+    assert rc == 0
     assert torch.equal(c, torch.full((n, n), float(n)))
+
+
+@pytest.mark.parametrize("arithmetic", tp.ARITHMETICS)
+@pytest.mark.parametrize("n,stages", [(144, 2), (208, 2), (208, 3)])
+def test_host_build_of_the_wgmma_ring_reuses_stages(probe_lib, n, stages,
+                                                    arithmetic):
+    """The wgmma routine on a ring of fewer stages than chunks of k (on the
+    card 3xTF32 from n = 576 on, every arithmetic from n = 704): a stage refilled once the
+    products of its chunk are done, against the f64 product and the plain
+    version in that arithmetic, and bit for bit the routine's own ring."""
+    xp = PRECS[arithmetic]
+    a, b, _ = (torch.as_tensor(t) for t in _seeded(n, 17))
+    rc, c, guard = _product_host(probe_lib, "wgmma", xp, a, b, stages)
+    assert rc == 0 and torch.isnan(guard).all()
+    ref = a.double() @ b.double()
+    assert _rel(c.numpy(), ref.numpy()) <= TOL[xp]
+    emu = tp.matmul_plain(a, b, arithmetic)
+    assert float((c - emu).abs().max() / ref.abs().max()) <= \
+        _off_plain_tol("wgmma", xp)
+    _, own, _ = _product_host(probe_lib, "wgmma", xp, a, b)
+    assert torch.equal(c, own)
+
+
+def test_wgmma_product_plan(probe_lib):
+    """The wgmma routine's ring at every n from 16 to 2048 in each
+    arithmetic: a block within 227 KB, every chunk of 64 k in flight at
+    once to n = 512 and at least three stages past it; its width the
+    header's; its design bound at n = 256, one block's bytes at the card's
+    memory rate and its dependent wgmmas at one SM's share of the
+    tensor-core peak."""
+    assert probe_lib.host_probe_wgmma_columns() == tp.P1_COLUMNS
+    stages, smem = probe_lib.host_probe_wgmma_stages, \
+        probe_lib.host_probe_wgmma_smem
+    for arithmetic in tp.ARITHMETICS:
+        xp = PRECS[arithmetic]
+        for n in range(16, 2049, 16):
+            chunks, s = -(-n // 64), stages(xp, n)
+            assert s == chunks or (n > 512 and 3 <= s < chunks), \
+                (arithmetic, n)
+            assert 0 < smem(xp, n) <= tp.SMEM_LIMIT
+    # bf16x3: 24 KB a stage (A 16, B 4, its two bf16 parts 2 each), four
+    # stages and 1 KB each of alignment and barriers
+    assert smem(PRECS["bf16x3"], 256) == 4 * 24576 + 1024 + 128
+    peak = {"bf16": 989e12, "tf32": 495e12}
+    for arithmetic, mma, passes in (("bf16x3", "bf16", 3),
+                                    ("highest", "tf32", 3),
+                                    ("high", "tf32", 1),
+                                    ("default", "bf16", 1)):
+        nbytes = 4 * (64 * 256 + 256 * 16 + 64 * 16)
+        chain = passes * 2.0 * 64 * 16 * 256 * 132 / peak[mma]
+        want = 1e3 * (nbytes / 3.35e12 + chain)
+        assert abs(tp.p1_design_bound(256, arithmetic) - want) < 1e-12
+    assert abs(tp.p1_design_bound(256, "bf16x3") - 0.000236) < 1e-6
+
+
+def test_product_routines_on_the_cpu():
+    """``matmul`` takes routine "wgmma" (the default) or "earlier", refuses
+    any other, and on CPU tensors runs the plain version whichever is
+    named, its launch count untouched."""
+    import inspect
+
+    params = inspect.signature(tp.matmul).parameters
+    assert params["routine"].default == "wgmma" == tp.P1_ROUTINES[0]
+    a, b, _ = (torch.as_tensor(t) for t in _seeded(48, 13))
+    before = dict(tp.launches)
+    ref = tp.matmul_plain(a, b)
+    for routine in tp.P1_ROUTINES:
+        for arithmetic in tp.ARITHMETICS:
+            c = tp.matmul(a, b, arithmetic, routine=routine)
+            assert torch.equal(c, ref)
+    assert tp.launches == before
+    with pytest.raises(ValueError, match="routine"):
+        tp.matmul(a, b, routine="wmma")
 
 
 @pytest.mark.parametrize("arithmetic", tp.ARITHMETICS)

@@ -10,7 +10,7 @@
 // lab_separable_ring.cuh (_kernel_v3 :78: band x, y and z on wgmma),
 // lab_resident_ring.cuh (the ring routines of the K1 lab's v17, v19 and v20,
 // and of the K2 lab's v13 and v15) and toolchain_probe.cuh (P2's cluster
-// chain).
+// chain; P1's wgmma tile, whose A boxes arrive in the 128-byte swizzle).
 // What each piece is for:
 //   mbarrier  a barrier in shared memory that counts thread arrivals and the
 //             bytes of asynchronous copies; a ring of `full`/`empty` pairs
@@ -61,7 +61,8 @@ struct HopMap {
   void* base;
   long long dim[3];
   int box[3];
-  int elem;  // bytes per element
+  int elem;    // bytes per element
+  bool sw128;  // boxes in shared memory in the 128-byte swizzle
 };
 #endif
 
@@ -70,9 +71,13 @@ struct HopMap {
 // aligned, dim[0] * elem a multiple of 16), copied in boxes of box[2] x
 // box[1] x box[0] elements (each at most 256, box[0] * elem a multiple of
 // 16).  Returns 0, or a non-zero code when libcuda's encoder is missing or
-// refuses.
+// refuses.  With sw128 a loaded box lands in shared memory in the 128-byte
+// swizzle (box[0] * elem exactly 128, the box 1024-byte aligned): the
+// 16-byte chunk c of a 128-byte row r sits at chunk c ^ (r % 8), so that
+// eight rows read at one column fall in eight bank groups (the host form of
+// hop_tma_store knows no swizzle).
 inline int hop_map_3d(HopMap* m, void* base, int elem, const long long* dim,
-                      const int* box) {
+                      const int* box, bool sw128 = false) {
 #ifdef __CUDACC__
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                               void*, const cuuint64_t*, const cuuint64_t*,
@@ -97,12 +102,15 @@ inline int hop_map_3d(HopMap* m, void* base, int elem, const long long* dim,
                      : elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                  : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                      3, base, gdim, gstride, gbox, estride,
-                     CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                     CU_TENSOR_MAP_INTERLEAVE_NONE,
+                     sw128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                           : CU_TENSOR_MAP_SWIZZLE_NONE,
                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 #else
   m->base = base;
   m->elem = elem;
+  m->sw128 = sw128;
   for (int a = 0; a < 3; ++a) {
     m->dim[a] = dim[a];
     m->box[a] = box[a];
@@ -180,11 +188,13 @@ __device__ __forceinline__ void hop_tma_load(void* dst, const HopMap* map,
       "r"(c1), "r"(c2)
       : "memory");
 #elif !defined(__CUDACC__)
-  unsigned char* d = static_cast<unsigned char*>(dst);
   const unsigned char* s = static_cast<const unsigned char*>(map->base);
+  long long o = 0;  // the element's byte offset in the dense box
   for (int k = 0; k < map->box[2]; ++k)
     for (int j = 0; j < map->box[1]; ++j)
-      for (int i = 0; i < map->box[0]; ++i, d += map->elem) {
+      for (int i = 0; i < map->box[0]; ++i, o += map->elem) {
+        unsigned char* d = static_cast<unsigned char*>(dst) +
+                           (map->sw128 ? o ^ (((o >> 7) & 7) << 4) : o);
         const long long x = c0 + i, y = c1 + j, z = c2 + k;
         if (x >= 0 && x < map->dim[0] && y >= 0 && y < map->dim[1] && z >= 0 &&
             z < map->dim[2])
@@ -582,6 +592,19 @@ __device__ __forceinline__ void hop_acc_pairs(const HopAccN<N>& acc, int w,
 __device__ __forceinline__ void hop_keep(HopA& a) {
 #ifdef __CUDA_ARCH__
   asm volatile("" : "+r"(a.r[0]), "+r"(a.r[1]), "+r"(a.r[2]), "+r"(a.r[3])::"memory");
+#endif
+}
+
+// Keep the compiler from moving any access to the accumulator's registers
+// across this point (the wgmma wait's asm names no register): before the
+// first wgmma of a pipeline and after each wait, so that no instruction
+// that defines them lands between a wgmma and its wait, where ptxas would
+// serialise every wgmma of the kernel (C7515).
+template <int N>
+__device__ __forceinline__ void hop_acc_fence(HopAccN<N>& acc) {
+#ifdef __CUDA_ARCH__
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) asm volatile("" : "+f"(acc.d[i])::"memory");
 #endif
 }
 

@@ -2,11 +2,12 @@
 // note in toolchain_probe.cuh), with a plain C interface for ctypes.  Built
 // by tpufem_torch/utils/build.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -o <lib>.so toolchain_probe.cu
+//        -Xcompiler -fPIC -ldl -o <lib>.so toolchain_probe.cu
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
+#include <cstdint>
 
 #include "toolchain_probe.cuh"
 
@@ -21,6 +22,26 @@ cudaError_t matmul(int n, const void* a, const void* b, void* c,
          tpufem::kP1Threads, 0, stream>>>(static_cast<const float*>(a),
                                           static_cast<const float*>(b),
                                           static_cast<float*>(c), n);
+  return cudaGetLastError();
+}
+
+// P1 on wgmma: the shared-memory opt-in, the two tensor maps and the
+// launch, grid (ceil(n / NB), ceil(n / 64)), NB = kP1wColumns.
+template <int XP>
+cudaError_t matmul_wgmma(int n, const void* a, const void* b, void* c,
+                         cudaStream_t stream) {
+  constexpr int NB = tpufem::kP1wColumns;
+  const int stages = tpufem::p1w_stages(XP, NB, n);
+  const int smem = (int)tpufem::p1w_smem(XP, NB, stages).total;
+  auto kern = tpufem::probe_wgmma_kernel<XP, NB>;
+  static std::atomic<int> granted[tpufem::kLabMaxDevices];
+  cudaError_t e = tpufem::lab_opt_in(kern, smem, granted);
+  if (e != cudaSuccess) return e;
+  tpufem::HopMap am, bm;
+  if (tpufem::p1w_maps(&am, &bm, a, b, n, NB)) return cudaErrorInvalidValue;
+  kern<<<dim3((n + NB - 1) / NB, (n + tpufem::kHopM - 1) / tpufem::kHopM),
+         tpufem::kP1wThreads, smem, stream>>>(am, bm, static_cast<float*>(c),
+                                              n, stages);
   return cudaGetLastError();
 }
 
@@ -162,6 +183,40 @@ int tpufem_probe_matmul(int xp, int n, const void* a, const void* b, void* c,
       return (int)matmul<tpufem::kXBF16>(n, a, b, c, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// P1 on wgmma (probe_wgmma_kernel): c = a b as tpufem_probe_matmul does, a
+// block a 64-row tile by kP1wColumns columns; a and b 16-byte aligned (the
+// tensor maps' rule).  Returns the cudaError_t of the launch.
+int tpufem_probe_matmul_wgmma(int xp, int n, const void* a, const void* b,
+                              void* c, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n < 16 || n % 16 ||
+      (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) % 16)
+    return (int)cudaErrorInvalidValue;
+  switch (xp) {
+    case tpufem::kX3TF32:
+      return (int)matmul_wgmma<tpufem::kX3TF32>(n, a, b, c, s);
+    case tpufem::kX1TF32:
+      return (int)matmul_wgmma<tpufem::kX1TF32>(n, a, b, c, s);
+    case tpufem::kXBF16x3:
+      return (int)matmul_wgmma<tpufem::kXBF16x3>(n, a, b, c, s);
+    case tpufem::kXBF16:
+      return (int)matmul_wgmma<tpufem::kXBF16>(n, a, b, c, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The columns, ring stages and shared-memory bytes of a P1 wgmma block at n
+// (kP1wColumns, p1w_stages, p1w_smem).
+int tpufem_probe_wgmma_columns() { return tpufem::kP1wColumns; }
+int tpufem_probe_wgmma_stages(int xp, int n) {
+  return tpufem::p1w_stages(xp, tpufem::kP1wColumns, n);
+}
+long long tpufem_probe_wgmma_smem(int xp, int n) {
+  return tpufem::p1w_smem(xp, tpufem::kP1wColumns,
+                          tpufem::p1w_stages(xp, tpufem::kP1wColumns, n))
+      .total;
 }
 
 // P2's earlier routine (probe_chain_kernel): mode (ProbeMode) mma: o = a

@@ -11,13 +11,50 @@
 //       (m, m), and both in one kernel: do the matrix unit and the vector
 //       unit run at the same time?
 //
-// P1 (probe_matmul_kernel): C = A B by WMMA in any of lab_mma.cuh's f32
-// arithmetics, bf16x3 (the counterpart of Precision.HIGH: hi/lo bf16 split
-// of both operands, lo*lo dropped), 3xTF32, 1xTF32 or one bf16 product.  A
-// warp owns a 16 x 16 output tile and stages its A and B tiles 16 x 16 at a
-// time in shared memory in the operand format.  It answers whether the
-// arithmetic builds and is right; at n = 256 it is 33.6 MFLOP and 0.8 MB,
-// far below anything the card can be timed on (bound 0.23 us, bytes).
+// P1 on wgmma (probe_wgmma_kernel<XP, NB>, the default): C = A B in any of
+// lab_mma.cuh's f32 arithmetics, bf16x3 (the counterpart of Precision.HIGH:
+// hi/lo bf16 split of both operands, lo*lo dropped), 3xTF32, 1xTF32 or one
+// bf16 product.  At n = 256 it is 33.6 MFLOP and 0.8 MB (bound 0.23 us,
+// bytes); what bounds the design is one block's chain of dependent wgmmas
+// (bf16x3 at 16 columns: 16 k steps x 3 passes of m64n16k16, 0.21 us at one
+// SM's share of the bf16 peak) behind the latency of its first TMA chunk.
+// A block of one warpgroup owns a 64-row tile by NB = kP1wColumns (16)
+// columns, 64 blocks at n = 256 (lab/probe_sweep.py times copies at 32 and
+// 64 columns, 32 and 16 blocks, in turns with it):
+//   ring    chunks of 64 k, A's (64, 64) by two TMA boxes of 32 k landing in
+//           the 128-byte swizzle (eight rows at one k in eight bank groups:
+//           conflict-free A loads) and B's raw (64, NB) by one, each chunk
+//           on its stage's `full` mbarrier; every chunk's copy is issued at
+//           the start where the stages fit 227 KB (to n = 512 in every
+//           arithmetic), else a stage takes chunk j + stages once chunk j's
+//           products are done
+//   split   B by the block's threads into wgmma's K-major operand
+//           (hop_b_offset; 16 bytes of k of one column a thread, a warp's
+//           threads on adjacent columns), fenced for the async proxy, while the
+//           previous chunk's wgmmas run; A in registers as it loads
+//           (hop_load_a), one register set, reloaded once the previous
+//           chunk's wgmmas are waited for, so no register a wgmma reads is
+//           written while it runs
+//   passes  each k step in lab_mma.cuh's order, small*big and big*small into
+//           a second accumulator, big*big into the first; each chunk's
+//           accumulators are added into totals by CUDA-core adds once its
+//           wgmmas are waited for, and the totals summed at the end.  The
+//           tensor cores' f32 accumulation truncates, so each chain of
+//           wgmmas into one accumulator drifts from the rounded sum with its
+//           length: one accumulator over all of k (the earlier routine's
+//           way; probe_sweep's `one_accumulator` copy) or two over all of k
+//           (its `no_promotion` copy) put 3xTF32 outside EMU_TOL of the
+//           plain version as n grows, a chain of one chunk does not
+//           (PERF.md, section 7)
+//   store   the totals straight to C (hop_acc_pairs), clipped at n; TMA's
+//           zero fill past n makes partial tiles and the last chunk of k
+//           need no bounds test in any load
+//
+// P1's earlier routine (probe_matmul_kernel, routine "earlier"): a warp owns
+// a 16 x 16 output tile and stages its A and B tiles 16 x 16 at a time in
+// shared memory in the operand format by scalar loads, one to three WMMA
+// passes a step, 16 serial steps at n = 256 on 64 blocks of 4 warps: each
+// step pays an L2 round trip (34 us on an H100).
 //
 // P2 on a cluster chain (probe_cluster_kernel<XP, MODE, NT>, the default):
 // the chain's 64-row stripes are independent, so a thread-block cluster of C
@@ -644,6 +681,278 @@ probe_cluster_kernel(const float* __restrict__ a,
                                   kPcTeam);
   }
   hop_cluster_sync();
+}
+
+// ---- P1 on wgmma ------------------------------------------------------------
+
+constexpr int kP1wKC = 64;        // k of a ring stage
+constexpr int kP1wBox = 32;       // k of an A box: 128 bytes, the swizzle's row
+constexpr int kP1wThreads = 128;  // one warpgroup
+constexpr int kP1wMaxStages = 16;
+// a block's columns, NB, in the library (lab/probe_sweep.py builds copies at
+// 32 and 64 and times them in turns with it)
+constexpr int kP1wColumns = 16;
+
+// Byte offsets of a block's shared memory (from its 1024-byte aligned base;
+// `total` counts the alignment's slack):
+//   stage j  A's (64, 64) chunk as two swizzled (64, 32) f32 boxes, B's raw
+//            (64, NB) f32 chunk, then B's chunk in wgmma's K-major operand,
+//            its parts (hi, lo; big, small) op_part bytes apart
+//   bar      one `full` mbarrier a stage
+struct P1wSmem {
+  long long braw, op, op_part, stage_bytes, bar, total;
+};
+__host__ __device__ inline P1wSmem p1w_smem(int xp, int nb, int stages) {
+  P1wSmem s;
+  s.braw = (long long)kHopM * kP1wKC * 4;
+  s.op = s.braw + (long long)kP1wKC * nb * 4;
+  s.op_part = (long long)nb * kP1wKC * pc_elem(xp);
+  s.stage_bytes = s.op + pc_b_parts(xp) * s.op_part;
+  s.bar = stages * s.stage_bytes;
+  s.total = 1024 + s.bar + 8 * kP1wMaxStages;
+  return s;
+}
+// The ring's stages at n: every chunk of k (all of a block's operands in
+// flight at once) where they fit kPcSmemMax, else as many as fit.
+__host__ __device__ inline int p1w_stages(int xp, int nb, int n) {
+  const long long fit = (kPcSmemMax - p1w_smem(xp, nb, 0).total) /
+                        p1w_smem(xp, nb, 1).stage_bytes;
+  const long long nch = (n + kP1wKC - 1) / kP1wKC;
+  const long long s = fit < nch ? fit : nch;
+  return (int)(s < kP1wMaxStages ? s : kP1wMaxStages);
+}
+
+// The two tensor maps of an (n, n) f32 product: A in (64, 32) boxes landing
+// in the 128-byte swizzle, B in (64 k, nb) boxes.
+inline int p1w_maps(HopMap* am, HopMap* bm, const void* a, const void* b,
+                    int n, int nb) {
+  const long long dim[3] = {n, n, 1};
+  const int abox[3] = {kP1wBox, kHopM, 1}, bbox[3] = {nb, kP1wKC, 1};
+  return hop_map_3d(am, const_cast<void*>(a), 4, dim, abox, true) ||
+         hop_map_3d(bm, const_cast<void*>(b), 4, dim, bbox);
+}
+
+// Word offset of A's (row, k) in a stage: the box of k, its 128-byte row,
+// the 16-byte chunk swizzled by the row.
+struct P1wAt {
+  __host__ __device__ int operator()(int row, int k) const {
+    return k / kP1wBox * (kHopM * kP1wBox) + row * kP1wBox +
+           ((((k % kP1wBox) >> 2) ^ (row & 7)) << 2) + (k & 3);
+  }
+};
+
+// Sixteen bytes of B's operand from the values v (8 in bf16, 4 in TF32):
+// hi (big) at `hi`, where the arithmetic splits lo (small) at `lo`, with the
+// kernel's rounding (bf16 to nearest even; TF32 cvt.rna).
+template <int XP>
+__device__ __forceinline__ void p1w_put16(unsigned char* hi, unsigned char* lo,
+                                          const float* v) {
+  constexpr bool kSplit = pc_b_parts(XP) == 2;
+#ifdef __CUDA_ARCH__
+  uint4 h, l;
+  uint32_t* hw = &h.x;
+  uint32_t* lw = &l.x;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if constexpr (pc_bf16(XP)) {
+      const __nv_bfloat162 b = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+      hw[j] = *reinterpret_cast<const uint32_t*>(&b);
+      if constexpr (kSplit) {
+        const __nv_bfloat162 s = __floats2bfloat162_rn(
+            v[2 * j] - __bfloat162float(b.x),
+            v[2 * j + 1] - __bfloat162float(b.y));
+        lw[j] = *reinterpret_cast<const uint32_t*>(&s);
+      }
+    } else {
+      const float b = hop_tf32(v[j]);
+      hw[j] = __float_as_uint(b);
+      if constexpr (kSplit) lw[j] = __float_as_uint(hop_tf32(v[j] - b));
+    }
+  }
+  *reinterpret_cast<uint4*>(hi) = h;
+  if constexpr (kSplit) *reinterpret_cast<uint4*>(lo) = l;
+#else
+  if constexpr (pc_bf16(XP)) {
+    for (int i = 0; i < 8; ++i) {
+      const __nv_bfloat16 b = __float2bfloat16(v[i]);
+      std::memcpy(hi + 2 * i, &b, 2);
+      if constexpr (kSplit) {
+        const __nv_bfloat16 s = __float2bfloat16(v[i] - __bfloat162float(b));
+        std::memcpy(lo + 2 * i, &s, 2);
+      }
+    }
+  } else {
+    for (int i = 0; i < 4; ++i) {
+      const float b = hop_tf32(v[i]), s = hop_tf32(v[i] - b);
+      std::memcpy(hi + 4 * i, &b, 4);
+      if constexpr (kSplit) std::memcpy(lo + 4 * i, &s, 4);
+    }
+  }
+#endif
+}
+
+// B's raw (64 k, NB) chunk into the operand (thread t of nthr): a thread
+// takes 16 bytes of k of one column at a time, so a warp reads 32 adjacent
+// columns of a row and writes whole 128-byte core matrices.
+template <int XP, int NB>
+__device__ __forceinline__ void p1w_split_b(const float* raw,
+                                            unsigned char* op,
+                                            long long op_part, int t,
+                                            int nthr) {
+  constexpr int V = pc_bf16(XP) ? 8 : 4, E = pc_elem(XP);
+  for (int u = t; u < NB * kP1wKC / V; u += nthr) {
+    const int col = u % NB, k0 = u / NB * V;
+    float v[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = raw[(k0 + i) * NB + col];
+    const int off = hop_b_offset(col, k0 * E, kP1wKC * E);
+    p1w_put16<XP>(op + off, op + op_part + off, v);
+  }
+}
+
+// The warpgroup's accumulators (64 x NB: the big*big pass, and in the
+// three-product arithmetics the two small passes apart from it) for one
+// chunk of k, their sums over the chunks done (`tot`, `tot_lo`), and one
+// register set of A, a stage's KS k steps.  One host thread stands for the
+// warpgroup.
+template <int XP, int NB>
+struct P1wMma {
+  static constexpr bool BF = pc_bf16(XP);
+  static constexpr bool kSplit = pc_b_parts(XP) == 2;  // three products
+  static constexpr int KS = kP1wKC / (BF ? 16 : 8);
+  HopAccN<NB> acc, acc_lo, tot, tot_lo;
+  HopA big[KS], small[KS];
+
+  // A of a stage (split as it loads), then its wgmmas against the stage's B
+  // operand, each k step in lab_mma.cuh's order (small*big, big*small into
+  // acc_lo; big*big into acc), the chunk's first step overwriting each
+  __device__ __forceinline__ void batch(const float* a,
+                                        const unsigned char* op,
+                                        long long op_part, int w, int lane) {
+    constexpr int kbytes = kP1wKC * pc_elem(XP);
+    const P1wAt at;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      hop_load_a<BF>(big[ks], small[ks], kSplit, a, at, ks, w, lane);
+    hop_wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      if constexpr (kSplit) {
+        hop_wgmma<BF>(acc_lo, small[ks], op, ks, kbytes, ks > 0);
+        hop_wgmma<BF>(acc_lo, big[ks], op + op_part, ks, kbytes);
+      }
+      hop_wgmma<BF>(acc, big[ks], op, ks, kbytes, ks > 0);
+    }
+    hop_wgmma_commit();
+  }
+  // The chunk's sums into the totals by CUDA-core adds, once its wgmmas are
+  // waited for: the tensor cores' f32 accumulation truncates, so a chain of
+  // wgmmas over all of k drifts from the rounded sum as k grows; here a
+  // chain is one chunk's KS steps
+  __device__ __forceinline__ void promote() {
+#pragma unroll
+    for (int i = 0; i < (int)(sizeof(acc.d) / sizeof(float)); ++i) {
+      tot.d[i] += acc.d[i];
+      if constexpr (kSplit) tot_lo.d[i] += acc_lo.d[i];
+    }
+  }
+  // A's registers the compiler's until here, after the wait for the wgmmas
+  // that read them, and the accumulators' accesses held on this side of it
+  __device__ __forceinline__ void keep() {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      hop_keep(big[ks]);
+      if constexpr (kSplit) hop_keep(small[ks]);
+    }
+    hop_acc_fence(acc);
+    if constexpr (kSplit) hop_acc_fence(acc_lo);
+  }
+};
+
+// C = A B, (n, n) f32 row-major, n a multiple of 16: a block owns the 64-row
+// tile blockIdx.y by NB columns blockIdx.x (grid (ceil(n / NB), ceil(n /
+// 64)), kP1wThreads threads, p1w_smem's bytes).  a_map, b_map: p1w_maps;
+// `stages` p1w_stages'.
+template <int XP, int NB>
+__global__ void __launch_bounds__(kP1wThreads, 1)
+probe_wgmma_kernel(const __grid_constant__ HopMap a_map,
+                   const __grid_constant__ HopMap b_map,
+                   float* __restrict__ c, int n, int stages) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+#ifdef __CUDA_ARCH__
+  unsigned char* sm =
+      smem_raw + ((1024u - (hop_smem(smem_raw) & 1023u)) & 1023u);
+#else
+  unsigned char* sm = smem_raw;
+#endif
+  const P1wSmem s = p1w_smem(XP, NB, stages);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + s.bar);
+  const int tid = threadIdx.x, nthr = blockDim.x, w = tid / 32,
+            lane = tid % 32;
+  const int r0 = blockIdx.y * kHopM, c0 = blockIdx.x * NB;
+  const int nch = (n + kP1wKC - 1) / kP1wKC;
+  // chunk j's A boxes and B box into stage j % stages (zeros past n)
+  auto produce = [&](int j) {
+    unsigned char* st = sm + j % stages * s.stage_bytes;
+    uint64_t* bar = full + j % stages;
+    hop_mbar_expect(bar, (unsigned)s.op);
+    for (int h = 0; h < kP1wKC / kP1wBox; ++h)
+      hop_tma_load(st + h * kHopM * kP1wBox * 4, &a_map, bar,
+                   j * kP1wKC + h * kP1wBox, r0, 0);
+    hop_tma_load(st + s.braw, &b_map, bar, c0, j * kP1wKC, 0);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) hop_mbar_init(full + i, 1);
+    hop_mbar_init_fence();
+    for (int j = 0; j < stages; ++j) produce(j);
+  }
+  __syncthreads();
+  P1wMma<XP, NB> mm;
+  hop_acc_zero(mm.acc);
+  hop_acc_zero(mm.acc_lo);
+  hop_acc_zero(mm.tot);
+  hop_acc_zero(mm.tot_lo);
+#pragma unroll
+  for (int ks = 0; ks < mm.KS; ++ks) mm.big[ks] = mm.small[ks] = HopA{};
+  mm.keep();
+  // chunk j: B's operand written and fenced while chunk j - 1's wgmmas run;
+  // once those are done (and every thread has passed this chunk's barrier)
+  // their sums go into the totals, chunk j - 1's stage takes chunk j - 1 +
+  // stages and A's registers take chunk j
+  for (int j = 0; j < nch; ++j) {
+    unsigned char* st = sm + j % stages * s.stage_bytes;
+    hop_mbar_wait(full + j % stages, (unsigned)((j / stages) & 1));
+    p1w_split_b<XP, NB>(reinterpret_cast<const float*>(st + s.braw),
+                        st + s.op, s.op_part, tid, nthr);
+    hop_fence_async();
+    __syncthreads();
+    hop_wgmma_wait<0>();
+    mm.keep();
+    mm.promote();
+    if (tid == 0 && j >= 1 && j - 1 + stages < nch) produce(j - 1 + stages);
+    mm.batch(reinterpret_cast<const float*>(st), st + s.op, s.op_part, w,
+             lane);
+  }
+  hop_wgmma_wait<0>();
+  mm.keep();
+  mm.promote();
+  if constexpr (P1wMma<XP, NB>::kSplit) {
+#pragma unroll
+    for (int i = 0; i < (int)(sizeof(mm.tot.d) / sizeof(float)); ++i)
+      mm.tot.d[i] += mm.tot_lo.d[i];
+  }
+  hop_acc_pairs(mm.tot, w, lane, [&](int r, int cc, float v0, float v1) {
+    const int row = r0 + r, col = c0 + cc;
+    if (row < n && col < n) {
+      float* d = c + (long long)row * n + col;
+#ifdef __CUDA_ARCH__
+      *reinterpret_cast<float2*>(d) = make_float2(v0, v1);
+#else
+      d[0] = v0;
+      d[1] = v1;
+#endif
+    }
+  });
 }
 
 }  // namespace tpufem

@@ -6,9 +6,17 @@ design note are in ``tpufem_torch/csrc/toolchain_probe.cuh``.
 
 1. ``probe_high_precision`` (P1): does a three-pass bf16 product (JAX's
    ``Precision.HIGH``) exist inside a kernel, and how exact is it?  Here:
-   a hand-written WMMA product of (n, n) f32 in bf16x3, and beside it the
-   other arithmetics the labs use (3xTF32, 1xTF32, one bf16 product), each
-   against the f64 product.
+   a hand-written product of (n, n) f32 in bf16x3, and beside it the other
+   arithmetics the labs use (3xTF32, 1xTF32, one bf16 product), each
+   against the f64 product.  The ``wgmma`` routine (the default) gives a
+   block one 64-row tile by ``P1_COLUMNS`` (16) columns on ``wgmma`` (64
+   blocks at n = 256), its A stripe and B columns arriving by TMA in
+   chunks of 64 k, all of them in flight at once where they fit a block's
+   shared memory; A is split in registers as it loads, B by the block's
+   threads into wgmma's K-major operand, and each chunk's sums are added
+   into f32 totals on CUDA cores.  The ``earlier`` routine is the first
+   port's WMMA kernel, a warp a 16 x 16 tile, kept for the timings in
+   turns.
 2. ``probe_co_scheduling`` (P2): do the matrix unit and the vector unit run
    at the same time in one kernel?  A chain of ``n_iter`` products ``acc <-
    acc @ w`` (tensor cores), a chain of ``fpp * n_iter`` multiply-adds ``v
@@ -66,7 +74,21 @@ C1, C2 = 1.000001, 1e-7
 # (``separable_lab.TOL``): a dense product sums 256 terms of one sign mix
 # in the tensor cores' f32 accumulators, which truncate
 P1_TOL = {"highest": 1e-5, "high": 4e-3, "bf16x3": 5e-5, "default": 3e-2}
+# the wgmma routine against the plain version in its own arithmetic: max |c
+# - plain| / max |c| within the smaller of this and the labs' EMU_TOL (2e-6
+# in 3xTF32).  EMU_TOL's one-pass classes (4e-3, 3e-2) would let a wrong
+# operand type or a dropped or mis-split small pass through; each of those
+# lands above 1e-4
+P1_PLAIN_TOL = 1e-5
 launches = {"P1": 0, "P2 mma": 0, "P2 fma": 0, "P2 both": 0}
+# P1's routines: "wgmma" (probe_wgmma_kernel, a block a 64-row tile by
+# ``P1_COLUMNS`` columns) and "earlier" (probe_matmul_kernel, a warp a 16 x
+# 16 WMMA tile); both take every n that is a multiple of 16
+P1_ROUTINES = ("wgmma", "earlier")
+# a wgmma block's columns (kP1wColumns in csrc/toolchain_probe.cuh): at n =
+# 256, 64 blocks, each a chain of 16 k steps of m64n16 (lab/probe_sweep.py
+# times copies at 32 and 64 columns in turns with it)
+P1_COLUMNS = 16
 # P2's routines: the cluster chain ("cluster", probe_cluster_kernel) and its
 # earlier routine ("earlier", probe_chain_kernel, a 16-row stripe a block).
 # The cluster chain takes m = 64 2^j whose plan fits a block's 227 KB by the
@@ -108,30 +130,75 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor,
         torch.float32)
 
 
-def matmul(a: torch.Tensor, b: torch.Tensor,
-           arithmetic: str = "bf16x3") -> torch.Tensor:
-    """P1: ``a @ b`` for (n, n) f32, n a multiple of 16, by the WMMA kernel
-    in ``arithmetic``; on CPU tensors the plain version (exact f32)."""
+def matmul(a: torch.Tensor, b: torch.Tensor, arithmetic: str = "bf16x3",
+           routine: str = "wgmma") -> torch.Tensor:
+    """P1: ``a @ b`` for (n, n) f32, n a multiple of 16, in ``arithmetic``
+    by the ``routine`` of ``P1_ROUTINES``: "wgmma" (a and b 16-byte
+    aligned, as its tensor maps ask) or "earlier".  On CPU tensors the
+    plain version (exact f32), whichever routine is named."""
     if arithmetic not in PRECS:
         raise ValueError(f"arithmetic must be one of {ARITHMETICS}, got "
                          f"{arithmetic!r}")
+    if routine not in P1_ROUTINES:
+        raise ValueError(f"routine must be one of {P1_ROUTINES}, got "
+                         f"{routine!r}")
     n = a.shape[0]
     _check(a, n, "a")
     _check(b, n, "b")
-    if n < 16 or n % 16:
-        raise ValueError(f"n must be a multiple of 16, got {n}")
+    if n % 16:
+        raise ValueError(f"matmul: n must be a multiple of 16, got {n}")
     if a.device.type == "cpu" and b.device.type == "cpu":
         return matmul_plain(a, b)
     dev = _cuda_inputs((a, b), "matmul")
+    if routine == "wgmma" and (a.data_ptr() | b.data_ptr()) % 16:
+        raise ValueError("matmul: the wgmma routine's tensor maps take "
+                         "16-byte aligned a and b")
     lib = load_kernels()["toolchain_probe"]
     c = torch.empty_like(a)
     with torch.cuda.device(dev):
-        rc = lib.lib.tpufem_probe_matmul(
-            PRECS[arithmetic], n, a.data_ptr(), b.data_ptr(), c.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    lib.check(rc, f"tpufem_probe_matmul {arithmetic} launch")
+        stream = torch.cuda.current_stream().cuda_stream
+        if routine == "wgmma":
+            rc = lib.lib.tpufem_probe_matmul_wgmma(
+                PRECS[arithmetic], n, a.data_ptr(), b.data_ptr(),
+                c.data_ptr(), stream)
+        else:
+            rc = lib.lib.tpufem_probe_matmul(
+                PRECS[arithmetic], n, a.data_ptr(), b.data_ptr(),
+                c.data_ptr(), stream)
+    lib.check(rc, f"P1 {routine} {arithmetic} launch")
     launches["P1"] += 1
     return c
+
+
+def p1_plan(arithmetic: str, n: int) -> dict:
+    """On the card: the wgmma routine's grid at n (blocks, one an SM), the
+    ring's stages (every chunk of 64 k where they fit) and a block's shared
+    memory."""
+    lib = load_kernels()["toolchain_probe"].lib
+    xp = PRECS[arithmetic]
+    columns = lib.tpufem_probe_wgmma_columns()
+    return {"columns": columns,
+            "blocks": -(-n // columns) * -(-n // ROWS),
+            "stages": lib.tpufem_probe_wgmma_stages(xp, n),
+            "chunks": -(-n // 64),
+            "smem": lib.tpufem_probe_wgmma_smem(xp, n)}
+
+
+def p1_design_bound(n: int, arithmetic: str) -> float:
+    """ms: the least time of the wgmma routine's design at n, one block's
+    work in turn: its bytes (its A stripe and B columns read, its tile
+    written) at the card's memory rate (L2's, higher, is not published;
+    the term is 0.04 us at n = 256), then its chain of dependent ``wgmma``s
+    (every k step and pass of the arithmetic, 64 x ``P1_COLUMNS`` each) at
+    one SM's share (1/132) of the card's tensor-core peak."""
+    xp = PRECS[arithmetic]
+    passes = 3 if xp in (X3TF32, XBF16X3) else 1
+    mma = "tf32" if xp in (X3TF32, X1TF32) else "bf16"
+    nbytes = 4 * (ROWS * n + n * P1_COLUMNS + ROWS * P1_COLUMNS)
+    k = 64 * -(-n // 64)  # k of the ring's chunks, zeros past n
+    return (roofline_ms(nbytes, {})[0]
+            + roofline_ms(0, {mma: 132 * passes * 2.0 * ROWS * P1_COLUMNS
+                              * k})[0])
 
 
 def chain_plain(mode: str, a, w, v, n_iter: int, fpp: int = 4,
@@ -321,8 +388,9 @@ def _device(device) -> torch.device:
 
 
 def probe_high_precision(n: int = 256, device="cuda") -> dict:
-    """P1: the WMMA product in bf16x3 (the counterpart of Precision.HIGH)
-    and in the labs' other arithmetics, on a seeded random (n, n) pair
+    """P1: the product (its default routine) in bf16x3 (the counterpart of
+    Precision.HIGH) and in the labs' other arithmetics, on a seeded random
+    (n, n) pair
     against the f64 product (max |error| / max |c|, each within its class
     ``P1_TOL``, else it raises) and on the JAX probe's all-ones input, which
     must give n exactly."""
@@ -346,7 +414,7 @@ def probe_high_precision(n: int = 256, device="cuda") -> dict:
     return {"probe": "mma_precision_high", "supported": True, "n": n,
             "max_rel_err": errs,
             "note": "bf16x3 (Precision.HIGH's arithmetic) by hand-written "
-                    "WMMA; errors against the f64 product"}
+                    "wgmma; errors against the f64 product"}
 
 
 def probe_co_scheduling(n_iter: int = 256, m: int = 512, fpp: int = 4,

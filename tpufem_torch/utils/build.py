@@ -131,6 +131,10 @@ _ENTRIES = {
         "tpufem_zy_lr_smem_bytes": ([_I] * 8, _LL)},
     "toolchain_probe": {
         "tpufem_probe_matmul": ([_I] * 2 + [_P] * 4, _I),
+        "tpufem_probe_matmul_wgmma": ([_I] * 2 + [_P] * 4, _I),
+        "tpufem_probe_wgmma_columns": ([], _I),
+        "tpufem_probe_wgmma_stages": ([_I] * 2, _I),
+        "tpufem_probe_wgmma_smem": ([_I] * 2, _LL),
         "tpufem_probe_chain": ([_I] * 5 + [_F] * 2 + [_P] * 2 + [_LL]
                                + [_P] * 4, _I),
         "tpufem_probe_cluster_active": ([_I] * 5, _I),
